@@ -1,0 +1,5 @@
+"""DLRM configurations (a copy of the reference's, not an import)."""
+from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
+
+__all__ = ["DLRMConfig", "DLRM_CONFIGS", "DLRM_SMOKE"]
