@@ -7,8 +7,9 @@ It imports ``torch`` and numpy only, never ``jax`` and nothing of
 (``kernels/csrc``); on a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead (``kernels/ref.py``).
 
-Entry points (``core.dlrm.init``, ``serving.rec_engine.RecEngine``) run on
-the card unless the caller passes ``device="cpu"``.
+Entry points (``core.dlrm.init``, ``serving.rec_engine.RecEngine``,
+``training.online.OnlineTrainer``, ``python -m repro_torch.launch.train``)
+run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 

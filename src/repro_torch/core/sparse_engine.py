@@ -86,9 +86,9 @@ def ragged_dense_ids(indices: torch.Tensor, offsets: torch.Tensor, *,
                                             device=offsets.device)
     valid = pos < offsets[1:, None]
     safe = torch.clamp(torch.where(valid, pos, 0), max=n - 1)
-    return torch.where(valid, indices[safe],
-                       torch.tensor(fill, dtype=indices.dtype,
-                                    device=indices.device))
+    # a Python scalar, not a device tensor: copying one to the card
+    # would wait for the stream
+    return torch.where(valid, indices[safe], fill)
 
 
 def flatten_ragged_indices(spec: ArenaSpec, indices: torch.Tensor,
@@ -101,6 +101,4 @@ def flatten_ragged_indices(spec: ArenaSpec, indices: torch.Tensor,
     table, valid = ragged_position_tables(offsets, indices.shape[0],
                                           spec.n_tables)
     flat = indices + table.to(indices.dtype) * spec.rows_per_table
-    return torch.where(valid, flat,
-                       torch.tensor(spec.null_row, dtype=indices.dtype,
-                                    device=indices.device))
+    return torch.where(valid, flat, spec.null_row)

@@ -22,6 +22,28 @@ def fused_segment_sum(table: torch.Tensor,
     return table[dense_ids].float().sum(dim=1)
 
 
+def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
+                   offsets: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """VJP of ragged SparseLengthsSum w.r.t. the table: segment scatter-add.
+
+    d_table[r] = sum over valid positions p with indices[p] == r of
+    g[bag(p)]; padded positions (>= offsets[-1]) add nothing. On the CPU
+    ``index_add_`` adds in ascending position order, the order the CUDA
+    kernel keeps, so the two agree bit for bit there.
+    """
+    n = indices.shape[0]
+    n_bags = offsets.shape[0] - 1
+    out = torch.zeros((n_rows, g.shape[-1]), dtype=torch.float32,
+                      device=g.device)
+    if n == 0 or n_bags == 0:
+        return out.to(g.dtype)
+    pos = torch.arange(n, dtype=offsets.dtype, device=offsets.device)
+    seg = torch.searchsorted(offsets[1:], pos, right=True)
+    rows = g.float()[torch.clamp(seg, max=n_bags - 1)]
+    rows = torch.where((pos < offsets[-1])[:, None], rows, 0.0)
+    return out.index_add_(0, indices, rows).to(g.dtype)
+
+
 def interaction(x: torch.Tensor) -> torch.Tensor:
     """Pairwise dot products: x (B, F, D) -> (B, F, F) = X X^T per sample."""
     x32 = x.float()

@@ -309,6 +309,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch, repro_torch.serving, repro_torch.data\n"
             "import repro_torch.core.dlrm, repro_torch.kernels.ops\n"
             "import repro_torch.kernels._build\n"
+            "import repro_torch.optim, repro_torch.training.sparse_optim\n"
+            "import repro_torch.training.online, repro_torch.launch.train\n"
+            "import repro_torch.kernels.embedding_gather\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

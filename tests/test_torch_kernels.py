@@ -23,6 +23,7 @@ from repro.kernels import fused_dispatch as j_fd
 from repro.kernels import gemm as j_gm
 from repro.kernels import ref as j_ref
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import embedding_gather as t_eg
 from repro_torch.kernels import feature_interaction as t_fi
 from repro_torch.kernels import fused_dispatch as t_fd
 from repro_torch.kernels import gemm as t_gm
@@ -147,6 +148,10 @@ _OPS = {
         torch.zeros(2, 3, dtype=torch.int32, device=dev)),
     "interaction": lambda dev: ops.interaction(torch.ones(2, 3, 4,
                                                           device=dev)),
+    "sls_grad_table": lambda dev: ops.sls_grad_table(
+        torch.ones(2, 4, device=dev),
+        torch.zeros(3, dtype=torch.int32, device=dev),
+        torch.tensor([0, 1, 3], dtype=torch.int32, device=dev), n_rows=5),
 }
 
 
@@ -166,6 +171,9 @@ _WRAPPERS = {
         torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32)),
     "gemm": lambda: t_gm.gemm(torch.ones(2, 3), torch.ones(3, 4)),
     "interaction": lambda: t_fi.interaction(torch.ones(2, 3, 4)),
+    "sls_grad_table": lambda: t_eg.sls_grad_table(
+        torch.ones(2, 4), torch.zeros(3, dtype=torch.int32),
+        torch.tensor([0, 1, 3], dtype=torch.int32), n_rows=5),
 }
 
 
@@ -173,10 +181,10 @@ _WRAPPERS = {
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises; it never computes on the
     CPU (and never builds anything to find that out)."""
-    before = {m: m.launches for m in (t_fd, t_gm, t_fi)}
+    before = {m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)}
     with pytest.raises(ValueError, match="CUDA device"):
         _WRAPPERS[name]()
-    assert {m: m.launches for m in (t_fd, t_gm, t_fi)} == before
+    assert {m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)} == before
 
 
 @pytest.mark.parametrize("ids_dtype,msg", [(torch.int64, "int32"),
@@ -185,6 +193,14 @@ def test_fused_wrapper_takes_int32_ids_only(ids_dtype, msg):
     with pytest.raises(ValueError, match=msg):
         t_fd.fused_segment_sum(torch.ones(5, 4),
                                torch.zeros(2, 3, dtype=ids_dtype))
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.float32])
+def test_sls_grad_table_wrapper_takes_int32_ids_only(ids_dtype):
+    with pytest.raises(ValueError, match="int32"):
+        t_eg.sls_grad_table(torch.ones(2, 4), torch.zeros(3, dtype=ids_dtype),
+                            torch.tensor([0, 1, 3], dtype=torch.int32),
+                            n_rows=5)
 
 
 def test_kernel_wrappers_refuse_non_contiguous():
@@ -197,7 +213,7 @@ def test_build_targets_sm90a_with_a_c_interface(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert [p.stem for p in _build.sources()] == [
-        "fused_segment_sum", "gemm", "interaction"]
+        "fused_segment_sum", "gemm", "interaction", "sls_grad_table"]
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -215,4 +231,5 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         _build.build_all()
     assert not list((tmp_path / "build").rglob("*.so*"))
     logs = _build.build_logs()
-    assert set(logs) == {"fused_segment_sum", "gemm", "interaction"}
+    assert set(logs) == {"fused_segment_sum", "gemm", "interaction",
+                         "sls_grad_table"}
