@@ -14,6 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    that computes the same function (``library_ms``, a yardstick the port
    never calls) and the least time the card could take (``bound_ms``),
    at bucket 32 and at 2048 samples, with CUDA events (median).
+   ``fused_cached_segment_sum`` runs over a K = 4,096 hot cache ranked by
+   a warm trace; on a coherent cache it must equal the
+   ``fused_segment_sum`` kernel over the arena bit for bit (the hot/cold
+   law, on the card), and on a stale one its plain version.
 3. Serve: DLRM(1) at full size (5 x 200,000 x 32 fp32 arena, MLPs
    13-512-256-32 and 47-512-256-1) from a seeded generator, served by
    ``RecEngine(max_l=40, max_batch=32)`` for 512 requests. Every serving
@@ -37,7 +41,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    every kernel must launch exactly as often as the step claims, and the
    run must repeat (b)'s card run bit for bit. Then the training
    launcher takes three steps of each mode on the card.
-5. Report: one JSON line of the kernels, then the device line, which is
+5. Serve cached: the same 512 requests through
+   ``RecEngine(source="cached", cache_k=4096)``. Every probability must
+   equal the fp plan's of phase 3 bit for bit and the CPU path's within
+   tolerance, the hit rate must equal a numpy recount of the served ids,
+   and each micro-batch must launch ``fused_cached_segment_sum`` once and
+   ``fused_segment_sum`` never; then host and device time per
+   micro-batch. Then the int8 cold arena (``quantize_cold=True``).
+6. Online refresh: a caching ``OnlineTrainer`` (K = 4,096, a rebuild
+   every 10 steps) takes 30 steps of drifting Zipf traffic at batch 32
+   while one engine serves. After each rebuild the engine adopts the
+   published cache with the params copy and must serve the uncached
+   forward on the trainer's params bit for bit; three steps later,
+   unsynced, it must still serve the forward as of the sync; a stale
+   artifact must be refused; a fresh engine adopting
+   ``publish_source()`` must serve the live forward.
+7. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -71,7 +90,9 @@ from repro_torch.kernels import gemm as gm_k  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import RecEngine, requests_from_ragged_batch  # noqa: E402
-from repro_torch.training import OnlineTrainer, unique_padded  # noqa: E402
+from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
+                                  VersionedHotCache, VersionedSource,
+                                  make_drifting_zipf, unique_padded)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -81,41 +102,79 @@ BUCKET = 32                        # the serving path's micro-batch
 LARGE = 2048                       # samples of the large timing row
 MAX_L = 40                         # 2 x lookups_per_table, as served
 N_REQUESTS = 512
+CACHE_K = 4096                     # hot rows pinned by the cached plan
+WARM = 4096                        # samples of the warm trace that ranks them
+ONLINE_STEPS = 30                  # phase 6: train steps, a rebuild every
+REFRESH = 10                       # REFRESH of them
+UNSYNCED = 3                       # steps after a sync that skip the sync
+DRIFT = 64                         # rows the Zipf head moves per batch
 TRAIN_STEPS = 4                    # steps of each mode, card against CPU
 TIMED_STEPS = 20                   # steps per timing trial
 LR = 1e-3                          # make_train_step_ragged's default
 
-# launches per served forward and per train step (either mode): a step
-# runs the forward (6 gemm), dw of all six layers and dx of five (the
-# bottom MLP's input needs none), and one sls_grad_table -- the table
-# gradient in the dense mode, the row gradients in the sparse mode
+# launches per served forward on the fp plan, per train step (either
+# mode) and per served forward on the cached plan: a step runs the
+# forward (6 gemm), dw of all six layers and dx of five (the bottom MLP's
+# input needs none), and one sls_grad_table -- the table gradient in the
+# dense mode, the row gradients in the sparse mode. "counter" names the
+# wrapper module's launch count.
 KERNELS = {
     "fused_segment_sum": {
-        "module": fd_k,
+        "module": fd_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/fused_segment_sum.cu",
         "replaces": "src/repro/kernels/fused_dispatch.py:61",
-        "per_forward": 1, "per_step": 1},
+        "per_forward": 1, "per_step": 1, "per_cached_forward": 0},
     "gemm": {
-        "module": gm_k,
+        "module": gm_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/gemm.py:39",
-        "per_forward": 6, "per_step": 17},
+        "per_forward": 6, "per_step": 17, "per_cached_forward": 6},
     "interaction": {
-        "module": fi_k,
+        "module": fi_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/interaction.cu",
         "replaces": "src/repro/kernels/feature_interaction.py:30",
-        "per_forward": 1, "per_step": 1},
+        "per_forward": 1, "per_step": 1, "per_cached_forward": 1},
     "sls_grad_table": {
-        "module": eg_k,
+        "module": eg_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/sls_grad_table.cu",
         "replaces": "src/repro/kernels/embedding_gather.py:188",
-        "per_forward": 0, "per_step": 1},
+        "per_forward": 0, "per_step": 1, "per_cached_forward": 0},
+    "fused_cached_segment_sum": {
+        "module": fd_k, "counter": "cached_launches",
+        "source": "src/repro_torch/kernels/csrc/fused_cached_segment_sum.cu",
+        "replaces": "src/repro/kernels/fused_dispatch.py:116",
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 1},
 }
 
+
+def launch_counts() -> dict:
+    return {n: getattr(k["module"], k["counter"]) for n, k in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        setattr(k["module"], k["counter"], 0)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (reference forwards that a main path is held
+    against) do not count towards that path."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        for n, k in KERNELS.items():
+            setattr(k["module"], k["counter"], saved[n])
+
 # Tolerances, kernel against plain version, both fp32 on the card:
-# fused_segment_sum: <= 40 terms of ~1e-2 summed in another order.
+# fused_segment_sum and fused_cached_segment_sum: <= 40 terms of ~1e-2
+# summed in another order.
 # gemm: up to K = 512 products of O(1) values, FMA in order of k against
 # cuBLAS's blocked order; relative error grows ~ sqrt(K) * 6e-8.
+# fused_cached_segment_sum on a stale cache: hot copies moved by 0.5, so
+# up to 40 terms of ~0.5 and sums up to ~20, whose ulp is ~2e-6 (the
+# first chip run saw 1.4e-6 at 1e-6).
 # interaction: D = 32 products of O(1) values.
 # sls_grad_table: g ~ N(0, 1); the plain version on the card adds with
 # float atomics, in an order that changes from run to run. A run of k <=
@@ -125,12 +184,18 @@ KERNELS = {
 # Against the plain version on the CPU, which adds in the kernel's
 # order, the tolerance is 0.
 TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
+       "fused_cached_segment_sum": dict(rtol=0.0, atol=1e-6),
+       "fused_cached_segment_sum_stale": dict(rtol=0.0, atol=1e-5),
        "gemm": dict(rtol=1e-5, atol=1e-5),
        "interaction": dict(rtol=1e-5, atol=1e-5),
        "sls_grad_table": dict(rtol=1e-5, atol=1e-3)}
 # served probabilities, card kernels against the CPU path: fp32 logits
-# of magnitude <= ~10 through sigmoid (slope <= 1/4)
+# of magnitude <= ~10 through sigmoid (slope <= 1/4); the same for the
+# int8 cold arena, whose codes the card and the CPU share. The int8 plan
+# against the fp plan: the reference's stated bound
+# (tests/test_rec_serving.py, int8 tail with fp hot rows).
 PROB_ATOL = 1e-5
+INT8_PROB_ATOL = 0.05
 # train steps, card against the CPU path. Each step starts both from the
 # card's state, so differences do not compound. The two sum in other
 # orders, ~1e-6 of each value, and two things amplify that:
@@ -227,15 +292,16 @@ def bound(n_bytes: float, n_flops: float):
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            what: str) -> float:
+            what: str, tol: dict = None) -> float:
+    tol = TOL[name] if tol is None else tol
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name} {what}: {tuple(got.shape)} {got.dtype} against "
              f"{tuple(want.shape)} {want.dtype}")
     err = (got - want).abs().max().item() if got.numel() else 0.0
-    if not torch.allclose(got, want, **TOL[name]):
-        fail(f"{name} {what}: max |kernel - plain| = {err} over {TOL[name]}")
-    print(f"  {name:18s} {what:34s} max_abs_err {err:.3e}")
+    if not torch.allclose(got, want, **tol):
+        fail(f"{name} {what}: max |kernel - plain| = {err} over {tol}")
+    print(f"  {name:24s} {what:34s} max_abs_err {err:.3e}")
     return err
 
 
@@ -309,6 +375,118 @@ def check_fused(arena, cfg, gen) -> tuple:
     return max(errs), rows
 
 
+def warm_counts(cfg) -> np.ndarray:
+    """The trace that ranks the hot rows, as the reference's serving
+    example takes it: a warm ragged batch of 4,096 samples (its own seed,
+    apart from the served requests)."""
+    warm = DLRMSynthetic(cfg, seed=17).ragged_batch(WARM, dist="poisson",
+                                                    max_l=MAX_L)
+    return se.trace_row_counts(dlrm.arena_spec(cfg), warm["indices"],
+                               warm["offsets"])
+
+
+def cached_split(cache, dense, null_row: int):
+    """(slots, cold ids) of a dense id matrix, as CachedSource makes them."""
+    slots = cache.slot_of[dense]
+    return slots, torch.where(slots < cache.k, null_row, dense)
+
+
+def check_cached(arena, cfg, gen) -> tuple:
+    """The cached kernel at the serving path's shapes over a K = 4,096
+    cache ranked by a warm trace: against its plain version, against the
+    fused_segment_sum kernel bit for bit (coherent cache), against its
+    plain version on a stale cache, and at edge shapes."""
+    name = "fused_cached_segment_sum"
+    spec = dlrm.arena_spec(cfg)
+    cache = se.build_hot_cache(arena, spec, warm_counts(cfg), CACHE_K)
+    hot = cache.hot_rows
+    errs = []
+
+    def law(slots, cold, dense, what):
+        got = fd_k.fused_cached_segment_sum(hot, arena, slots, cold)
+        want = fd_k.fused_segment_sum(arena, dense)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{name} {what}: differs from the fused_segment_sum kernel "
+                 f"by {(got - want).abs().max().item()} on a coherent cache")
+        print(f"  {name:24s} {what:34s} equal to fused_segment_sum "
+              f"(torch.equal)")
+
+    rows = []
+    for samples, seed in ((BUCKET, 11), (LARGE, 12)):
+        dense = serving_dense_ids(cfg, samples, seed=seed)
+        slots, cold = cached_split(cache, dense, spec.null_row)
+        what = f"ids {tuple(dense.shape)}"
+        errs.append(compare(name, fd_k.fused_cached_segment_sum(
+            hot, arena, slots, cold),
+            ref.fused_cached_segment_sum(hot, arena, slots, cold), what))
+        law(slots, cold, dense, what)
+        b, l = dense.shape
+        d = arena.shape[1]
+        hits = int((slots < cache.k).sum())
+        valid = int((dense != spec.null_row).sum())
+        # each row the kernel reads, once: the hot slots hit and, for the
+        # misses, the cold rows (the null row of the fill slots included)
+        read = torch.where(slots < cache.k, slots, cache.k + 1 + cold)
+        touched = torch.unique(read).numel()
+        bound_ms, by = bound(4 * (2 * b * l + touched * d + b * d), b * l * d)
+        rows.append({
+            "samples": samples, "shape": [b, l, d], "k": cache.k,
+            "hit_rate": hits / valid, "rows_read": touched,
+            **measure(lambda: fd_k.fused_cached_segment_sum(hot, arena,
+                                                            slots, cold),
+                      lambda: ref.fused_cached_segment_sum(hot, arena,
+                                                           slots, cold),
+                      lambda: F.embedding_bag(slots, hot, mode="sum")
+                      + F.embedding_bag(cold, arena, mode="sum")),
+            "bound_ms": bound_ms, "bound_by": by,
+            # the same bytes with one row read per position, as if no row
+            # were read twice from the L2
+            "bound_per_position_ms": bound(4 * (2 * b * l + b * l * d
+                                                + b * d), b * l * d)[0]})
+    # a stale cache: the hot copies drift from the arena, the kernel serves
+    # them as they are (the slot K stays zero)
+    dense = serving_dense_ids(cfg, BUCKET, seed=11)
+    slots, cold = cached_split(cache, dense, spec.null_row)
+    stale = hot + 0.5
+    stale[-1] = 0.0
+    got = fd_k.fused_cached_segment_sum(stale, arena, slots, cold)
+    errs.append(compare(name, got, ref.fused_cached_segment_sum(
+        stale, arena, slots, cold), "stale cache",
+        TOL["fused_cached_segment_sum_stale"]))
+    if torch.equal(got, fd_k.fused_segment_sum(arena, dense)):
+        fail(f"{name}: a stale cache served the fresh arena")
+    # edges: max_l 0 and 1, D not a multiple of 32
+    errs.append(compare(name, fd_k.fused_cached_segment_sum(
+        hot, arena, slots[:, :0].contiguous(), cold[:, :0].contiguous()),
+        torch.zeros(slots.shape[0], arena.shape[1], device="cuda"),
+        "max_l = 0"))
+    one = dense[:, :1].contiguous()
+    s1, c1 = cached_split(cache, one, spec.null_row)
+    errs.append(compare(name, fd_k.fused_cached_segment_sum(hot, arena, s1,
+                                                            c1),
+                        ref.fused_cached_segment_sum(hot, arena, s1, c1),
+                        "max_l = 1"))
+    law(s1, c1, one, "max_l = 1")
+    for d in (48, 16):
+        # rows of the arena's scale, so the stated tolerance holds
+        small = 0.01 * torch.randn((300, d), generator=gen, device="cuda")
+        small[-1] = 0.0
+        ids = torch.randint(0, 300, (9, 45), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        c = se.build_hot_cache(small, se.ArenaSpec(1, 299, d),
+                               np.bincount(ids.cpu().numpy().ravel(),
+                                           minlength=300), 20)
+        s2, c2 = cached_split(c, ids, 299)
+        errs.append(compare(name, fd_k.fused_cached_segment_sum(
+            c.hot_rows, small, s2, c2), ref.fused_cached_segment_sum(
+            c.hot_rows, small, s2, c2), f"D = {d}, B = 9, max_l = 45"))
+        got = fd_k.fused_cached_segment_sum(c.hot_rows, small, s2, c2)
+        if not torch.equal(got, fd_k.fused_segment_sum(small, ids)):
+            fail(f"{name} D = {d}: differs from fused_segment_sum")
+    return max(errs), rows
+
+
 def check_gemm(params, gen) -> tuple:
     name = "gemm"
     layers = [w for w, _ in params["bottom"]] + [w for w, _ in params["top"]]
@@ -372,10 +550,17 @@ def phase_kernels(cfg, params, gen) -> dict:
     for name, (err, rows) in (
             ("fused_segment_sum", check_fused(params["arena"], cfg, gen)),
             ("gemm", check_gemm(params, gen)),
-            ("interaction", check_interaction(cfg, gen))):
+            ("interaction", check_interaction(cfg, gen)),
+            ("fused_cached_segment_sum",
+             check_cached(params["arena"], cfg, gen))):
         out[name] = {"max_abs_err": err, "rows": rows}
         for r in rows:
-            print(f"  {name:18s} {r['samples']:5d} samples, ms per call "
+            if "hit_rate" in r:
+                print(f"  {name:24s} {r['samples']:5d} samples: K "
+                      f"{r['k']}, batch hit rate {r['hit_rate']:.4f}, "
+                      f"{r['rows_read']} rows read, bound with one row per "
+                      f"position {r['bound_per_position_ms']:.5f} ms")
+            print(f"  {name:24s} {r['samples']:5d} samples, ms per call "
                   f"(device ms): kernel {r['ms']:.4f} "
                   f"({_fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} "
                   f"({_fmt(r['plain_device_ms'])}), library "
@@ -386,18 +571,23 @@ def phase_kernels(cfg, params, gen) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
-def serve(cfg, params, device: str):
+def served_batch(cfg) -> dict:
+    return DLRMSynthetic(cfg, seed=7).ragged_batch(N_REQUESTS,
+                                                   dist="poisson",
+                                                   max_l=MAX_L)
+
+
+def serve(cfg, params, device: str, **plan):
     """512 requests, sent by the client 32 at a time: each group is
-    stamped when it is sent and served by one engine step."""
+    stamped when it is sent and served by one engine step. ``plan`` goes
+    to the engine (source, cache_k, ...). On the card the launch counts
+    are zeroed just before the requests."""
     engine = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
-                       device=device)
+                       device=device, **plan)
     engine.warmup()
-    rb = DLRMSynthetic(cfg, seed=7).ragged_batch(N_REQUESTS, dist="poisson",
-                                                 max_l=MAX_L)
-    reqs = requests_from_ragged_batch(rb, cfg.n_tables)
+    reqs = requests_from_ragged_batch(served_batch(cfg), cfg.n_tables)
     if device == "cuda":
-        for k in KERNELS.values():
-            k["module"].launches = 0
+        reset_counts()
     for i in range(0, len(reqs), BUCKET):
         sent = time.monotonic()
         for r in reqs[i:i + BUCKET]:
@@ -409,7 +599,9 @@ def serve(cfg, params, device: str):
 
 
 def _kernel_group(name: str) -> str:
-    for group, symbol in (("fused_segment_sum", "fused_segment_sum_kernel"),
+    for group, symbol in (("fused_cached_segment_sum",
+                           "fused_cached_segment_sum_kernel"),
+                          ("fused_segment_sum", "fused_segment_sum_kernel"),
                           ("gemm", "gemm_f32_kernel"),
                           ("interaction", "interaction_kernel"),
                           ("sls_grad_table", "sls_grad_table_kernel")):
@@ -464,11 +656,28 @@ def profile_serve(engine, cfg, n_batches: int = 4) -> dict:
             "device_us_by_kernel": by_name}
 
 
-def phase_serve(cfg, params) -> dict:
+def _cpu(params) -> dict:
+    return {"bottom": [(w.cpu(), b.cpu()) for w, b in params["bottom"]],
+            "top": [(w.cpu(), b.cpu()) for w, b in params["top"]],
+            "arena": params["arena"].cpu()}
+
+
+def _print_profile(prof: dict, what: str) -> None:
+    print(f"  {what}: per micro-batch of {BUCKET}: host "
+          f"{prof['wall_ms_per_batch']:.4f} ms, device "
+          f"{prof['device_busy_ms_per_batch']:.4f} ms "
+          f"{ {k: round(v, 5) for k, v in prof['device_ms_per_batch'].items()} }"
+          f", device idle share {prof['device_idle_share']}")
+    print(f"  {what}: host ms per micro-batch inside each stage (traced, "
+          f"{prof['host_traced_wall_ms_per_batch']:.4f} ms per batch): "
+          f"{ {k: round(v, 4) for k, v in prof['host_stage_ms_per_batch'].items()} }")
+
+
+def phase_serve(cfg, params) -> tuple:
     t0 = time.perf_counter()
     engine, probs = serve(cfg, params, "cuda")
     serve_s = time.perf_counter() - t0
-    launches = {name: k["module"].launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     stats = engine.stats()
     print(f"  served {engine.served} requests in {engine.batches} batches "
           f"({serve_s:.2f} s with warmup); launches {launches}")
@@ -484,26 +693,17 @@ def phase_serve(cfg, params) -> dict:
     if not (np.isfinite(probs).all() and (probs > 0).all()
             and (probs < 1).all()):
         fail("probabilities outside (0, 1) or not finite")
-    cpu_params = {"bottom": [(w.cpu(), b.cpu()) for w, b in params["bottom"]],
-                  "top": [(w.cpu(), b.cpu()) for w, b in params["top"]],
-                  "arena": params["arena"].cpu()}
-    _, cpu_probs = serve(cfg, cpu_params, "cpu")
+    _, cpu_probs = serve(cfg, _cpu(params), "cpu")
     err = float(np.abs(probs - cpu_probs).max())
     print(f"  card vs CPU path: max |prob diff| {err:.3e} (atol {PROB_ATOL})")
     if err > PROB_ATOL:
         fail(f"card probabilities differ from the CPU path by {err}")
     prof = profile_serve(engine, cfg)
-    print(f"  per micro-batch of {BUCKET}: host {prof['wall_ms_per_batch']:.4f}"
-          f" ms, device {prof['device_busy_ms_per_batch']:.4f} ms "
-          f"{ {k: round(v, 5) for k, v in prof['device_ms_per_batch'].items()} }"
-          f", device idle share {prof['device_idle_share']}")
-    print(f"  host ms per micro-batch inside each stage (traced, "
-          f"{prof['host_traced_wall_ms_per_batch']:.4f} ms per batch): "
-          f"{ {k: round(v, 4) for k, v in prof['host_stage_ms_per_batch'].items()} }")
+    _print_profile(prof, "fp plan")
     return {"launches": launches, "stats": stats, "batches": engine.batches,
             "serve_s": serve_s, "prob_max_abs_err": err,
             "prob_range": [float(probs.min()), float(probs.max())],
-            "profile": prof}
+            "profile": prof}, probs
 
 
 # ---------------------------------------------------------------- phase 4
@@ -739,11 +939,11 @@ def profile_train(cfg, params, batch, sparse: bool) -> dict:
     def one():
         _, state[0], _, _ = step(params, state[0], batch)
 
-    before = {n: k["module"].launches for n, k in KERNELS.items()}
+    before = launch_counts()
     ms = time_ms(one, reps=TIMED_STEPS, trials=5)
     calls = 3 + 5 * TIMED_STEPS
-    per_step = {n: (k["module"].launches - before[n]) / calls
-                for n, k in KERNELS.items()}
+    after = launch_counts()
+    per_step = {n: (after[n] - before[n]) / calls for n in KERNELS}
     traces = []
     for activity in (torch.profiler.ProfilerActivity.CUDA,
                      torch.profiler.ProfilerActivity.CPU):
@@ -801,10 +1001,9 @@ def phase_train(cfg, gen) -> dict:
         # the main path: the uncached online trainer on the card
         trainer = OnlineTrainer(cfg, _copy(p0, "cuda"), max_l=MAX_L,
                                 sparse=sparse, device="cuda")
-        for k in KERNELS.values():
-            k["module"].launches = 0
+        reset_counts()
         trainer.train(batches)
-        launches = {n: k["module"].launches for n, k in KERNELS.items()}
+        launches = launch_counts()
         for n, k in KERNELS.items():
             if launches[n] != k["per_step"] * TRAIN_STEPS:
                 fail(f"train {mode}: {n} launched {launches[n]} times in "
@@ -844,6 +1043,257 @@ def phase_train(cfg, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+
+def _check_launches(launches: dict, per: str, n: int, what: str) -> None:
+    for name, k in KERNELS.items():
+        want = k[per] * n
+        if launches[name] != want or (k[per] and not want):
+            fail(f"{what}: {name} launched {launches[name]} times; "
+                 f"{k[per]} per micro-batch x {n} = {want}")
+
+
+def recount_hit_rate(cfg, cache) -> float:
+    """The served ids' hit rate, recounted in numpy from the requests."""
+    rb = served_batch(cfg)
+    spec = dlrm.arena_spec(cfg)
+    off = rb["offsets"]
+    seg = np.searchsorted(off[1:], np.arange(off[-1]), side="right")
+    flat = rb["indices"][:off[-1]] + (seg % spec.n_tables) \
+        * spec.rows_per_table
+    return float((cache.slot_of.cpu().numpy()[flat] < cache.k).sum()
+                 / flat.size)
+
+
+def phase_serve_cached(cfg, params, fp_probs) -> dict:
+    counts = warm_counts(cfg)
+    plan = {"source": "cached", "cache_k": CACHE_K, "cache_trace": counts}
+    t0 = time.perf_counter()
+    engine, probs = serve(cfg, params, "cuda", **plan)
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = engine.stats()
+    print(f"  served {engine.served} requests in {engine.batches} batches "
+          f"({serve_s:.2f} s with warmup); launches {launches}")
+    print(f"  stats {stats}")
+    if engine.served != N_REQUESTS:
+        fail(f"cached: served {engine.served} of {N_REQUESTS} requests")
+    _check_launches(launches, "per_cached_forward", engine.batches,
+                    "cached plan")
+    if not np.array_equal(probs, fp_probs):
+        fail(f"cached plan differs from the fp plan by "
+             f"{np.abs(probs - fp_probs).max()} (must be equal)")
+    print("  cached plan: every probability equal to the fp plan's "
+          "(np.array_equal)")
+    _, cpu_probs = serve(cfg, _cpu(params), "cpu", **plan)
+    err = float(np.abs(probs - cpu_probs).max())
+    print(f"  card vs CPU path: max |prob diff| {err:.3e} (atol {PROB_ATOL})")
+    if err > PROB_ATOL:
+        fail(f"cached: card probabilities differ from the CPU path by {err}")
+    recount = recount_hit_rate(cfg, engine.cache)
+    print(f"  hit rate {stats['cache_hit_rate']} (numpy recount {recount})")
+    if stats["cache_hit_rate"] != recount:
+        fail(f"hit rate {stats['cache_hit_rate']} against a recount of "
+             f"{recount}")
+    prof = profile_serve(engine, cfg)
+    _print_profile(prof, "cached plan")
+    out = {"launches": launches, "stats": stats, "batches": engine.batches,
+           "serve_s": serve_s, "prob_max_abs_err": err,
+           "hit_rate_recount": recount, "profile": prof}
+    # the int8 cold arena: hot rows fp, the tail int8 (torch ops, no kernel
+    # of the port in the embedding stage)
+    plan["quantize_cold"] = True
+    engine, probs = serve(cfg, params, "cuda", **plan)
+    launches = launch_counts()
+    want = {n: (k["per_cached_forward"] if n in ("gemm", "interaction")
+                else 0) * engine.batches for n, k in KERNELS.items()}
+    if launches != want:
+        fail(f"int8 cold: launches {launches}, expected {want}")
+    _, cpu_probs = serve(cfg, _cpu(params), "cpu", **plan)
+    err = float(np.abs(probs - cpu_probs).max())
+    err_fp = float(np.abs(probs - fp_probs).max())
+    print(f"  int8 cold: card vs CPU path max |prob diff| {err:.3e} (atol "
+          f"{PROB_ATOL}); against the fp plan {err_fp:.3e} (bound "
+          f"{INT8_PROB_ATOL}); launches {launches}")
+    if err > PROB_ATOL or err_fp > INT8_PROB_ATOL:
+        fail(f"int8 cold: {err} from the CPU path, {err_fp} from fp")
+    prof8 = profile_serve(engine, cfg)
+    _print_profile(prof8, "int8 cold")
+    out["int8"] = {"launches": launches, "stats": engine.stats(),
+                   "prob_max_abs_err": err, "prob_max_abs_err_vs_fp": err_fp,
+                   "profile": prof8}
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+def _requests(batch: dict, cfg) -> list:
+    return requests_from_ragged_batch(batch, cfg.n_tables)
+
+
+def _served(engine, reqs) -> np.ndarray:
+    for r in reqs:
+        engine.submit(r)
+    engine.drain()
+    return np.array([r.prob for r in reqs], np.float32)
+
+
+def _uncached(cfg, engine, params, reqs) -> np.ndarray:
+    """The uncached forward on ``params`` over the batch the engine pads
+    these requests to; its launches do not count."""
+    with uncounted():
+        batch, _ = engine._assemble(reqs, BUCKET)
+        step = dlrm.make_ragged_serve_step(cfg, max_l=MAX_L)
+        return step(params, batch).cpu().numpy()
+
+
+def phase_online(cfg) -> dict:
+    spec = dlrm.arena_spec(cfg)
+    p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
+                   device="cuda")
+    trainer = OnlineTrainer(cfg, p0, max_l=MAX_L, device="cuda",
+                            cache_cfg=OnlineCacheConfig(k=CACHE_K,
+                                                        refresh_every=REFRESH))
+    engine = RecEngine(cfg, trainer.params, source="cached", cache_k=CACHE_K,
+                       cache_trace=np.ones(spec.total_rows), max_l=MAX_L,
+                       max_batch=BUCKET, device="cuda")
+    engine.warmup()
+    train = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
+                               max_l=MAX_L, drift_per_batch=DRIFT, seed=3)
+    traffic = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
+                                 max_l=MAX_L, drift_per_batch=DRIFT, seed=4)
+    step_ms, checks, first_blob, at_sync = [], [], None, None
+    served_batches = 0
+    reset_counts()
+    for step in range(1, ONLINE_STEPS + 1):
+        batch, live = next(train), next(traffic)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        since = step % REFRESH
+        what = None
+        if since == 0:
+            # a rebuild just ran: the params copy, then the published cache
+            blob = trainer.publish()
+            first_blob = first_blob or blob
+            engine.params = trainer.params
+            if not VersionedHotCache.deserialize(blob,
+                                                 device="cuda").apply(engine):
+                fail(f"online step {step}: version {trainer.version} was "
+                     f"not adopted")
+            with uncounted():
+                at_sync = _copy(trainer.params, "cuda")
+            what = f"v{engine.cache_version} adopted"
+        elif since == UNSYNCED and at_sync is not None:
+            what = f"{UNSYNCED} steps unsynced"
+        elif since == REFRESH // 2 and at_sync is not None:
+            if not trainer.sync_engine(engine):
+                fail(f"online step {step}: sync_engine did not publish")
+            with uncounted():
+                at_sync = _copy(trainer.params, "cuda")
+            what = f"sync_engine at v{engine.cache_version}"
+        if what is None:
+            continue
+        reqs = _requests(live, cfg)
+        got = _served(engine, reqs)
+        served_batches += 1
+        want = _uncached(cfg, engine, at_sync, reqs)
+        if not np.array_equal(got, want):
+            fail(f"online step {step} ({what}): served probabilities differ "
+                 f"from the forward as of the sync by "
+                 f"{np.abs(got - want).max()}")
+        live_diff = float(np.abs(
+            _uncached(cfg, engine, trainer.params, reqs) - got).max())
+        if since == UNSYNCED and live_diff == 0.0:
+            fail(f"online step {step}: the unsynced engine served the live "
+                 f"params")
+        checks.append({"step": step, "what": what,
+                       "version": engine.cache_version,
+                       "hit_rate": engine.stats()["cache_hit_rate"],
+                       "max_abs_diff_vs_live": live_diff})
+        print(f"  online step {step:2d}: {what}; served batch equal to the "
+              f"forward as of the sync (bit for bit); |served - live "
+              f"forward| {live_diff:.3e}; hit rate "
+              f"{checks[-1]['hit_rate']}")
+    launches = launch_counts()
+    n_steps = ONLINE_STEPS
+    for name, k in KERNELS.items():
+        want = k["per_step"] * n_steps \
+            + k["per_cached_forward"] * served_batches
+        if launches[name] != want or not launches[name]:
+            fail(f"online: {name} launched {launches[name]} times; "
+                 f"{k['per_step']} x {n_steps} steps + "
+                 f"{k['per_cached_forward']} x {served_batches} served = "
+                 f"{want}")
+    print(f"  online launches {launches} ({n_steps} steps, {served_batches} "
+          f"served micro-batches)")
+    # a stale artifact is refused
+    old = VersionedHotCache.deserialize(first_blob, device="cuda")
+    if old.apply(engine):
+        fail("online: a stale hot-cache artifact was adopted")
+    try:
+        engine.update_cache(old.cache, version=old.version)
+    except ValueError as e:
+        print(f"  stale artifact v{old.version} absorbed by apply and "
+              f"refused by update_cache: {e}")
+    else:
+        fail("online: update_cache took a stale version")
+    # the whole source, adopted by a fresh engine
+    blob = trainer.publish_source(include_head=True)
+    with uncounted():
+        fresh = RecEngine(cfg, dlrm.init(torch.Generator(device="cuda")
+                                         .manual_seed(99), cfg,
+                                         device="cuda"),
+                          source="cached", cache_k=CACHE_K, max_l=MAX_L,
+                          max_batch=BUCKET, device="cuda")
+        fresh.warmup()
+    if not VersionedSource.deserialize(blob, device="cuda").apply(fresh):
+        fail("online: a fresh engine refused publish_source()")
+    reqs = _requests(next(traffic), cfg)
+    got = _served(fresh, reqs)
+    if not np.array_equal(got, _uncached(cfg, fresh, trainer.params, reqs)):
+        fail("online: the adopted full source differs from the live forward")
+    print(f"  publish_source(include_head=True): {len(blob)} bytes, "
+          f"adopted by a fresh engine at v{fresh.source_version}; served "
+          f"batch equal to the live forward (bit for bit)")
+    # costs: step ms (rebuild steps apart), the rebuild's own work and the
+    # host work of observe (bincount over the arena's rows + decay)
+    rebuild_steps = [m for i, m in enumerate(step_ms, 1) if i % REFRESH == 0]
+    plain_steps = [m for i, m in enumerate(step_ms, 1) if i % REFRESH]
+    b = next(train)
+    obs_ms = []
+    for _ in range(10):
+        hist = trainer.hist.copy()
+        t0 = time.perf_counter()
+        counts = se.trace_row_counts(spec, b["indices"], b["offsets"])
+        hist = trainer.cache_cfg.decay * hist + counts
+        obs_ms.append((time.perf_counter() - t0) * 1e3)
+    rebuild_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        se.build_hot_cache(trainer.params["arena"], spec, trainer.hist,
+                           CACHE_K)
+        torch.cuda.synchronize()
+        rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+    costs = {"step_ms_median": float(np.median(plain_steps)),
+             "rebuild_step_ms": rebuild_steps,
+             "rebuild_ms_median": float(np.median(rebuild_ms)),
+             "observe_host_ms_median": float(np.median(obs_ms)),
+             "publish_bytes": len(trainer.publish()),
+             "publish_source_bytes": len(blob)}
+    print(f"  online costs: step {costs['step_ms_median']:.3f} ms (median "
+          f"of the {len(plain_steps)} steps without a rebuild), rebuild "
+          f"steps {[round(m, 3) for m in rebuild_steps]} ms, build_hot_cache "
+          f"{costs['rebuild_ms_median']:.3f} ms, observe's host work "
+          f"{costs['observe_host_ms_median']:.3f} ms, hot-cache blob "
+          f"{costs['publish_bytes']} bytes")
+    return {"launches": launches, "served_batches": served_batches,
+            "checks": checks, "costs": costs, "losses": trainer.losses}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -860,20 +1310,26 @@ def main() -> None:
     print("== phase 2: kernels against their plain versions")
     kernels = phase_kernels(cfg, params, gen)
     print("== phase 3: serve DLRM(1) at full size")
-    served = phase_serve(cfg, params)
-    del params
+    served, fp_probs = phase_serve(cfg, params)
     print("== phase 4: train DLRM(1) at full size")
     trained = phase_train(cfg, gen)
     kernels["sls_grad_table"] = trained["sls_grad_table"]
     kernels["gemm"]["max_abs_err"] = max(
         kernels["gemm"]["max_abs_err"], trained["gemm_backward_max_abs_err"])
+    print("== phase 5: serve DLRM(1) on the cached plan")
+    cached = phase_serve_cached(cfg, params, fp_probs)
+    del params
+    print("== phase 6: online refresh of the hot cache on the card")
+    online = phase_online(cfg)
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
         at32 = kernels[name]["rows"][0]
         by_path = {"serve": served["launches"][name],
                    "train_sparse": trained["sparse"]["launches"][name],
-                   "train_dense": trained["dense"]["launches"][name]}
+                   "train_dense": trained["dense"]["launches"][name],
+                   "serve_cached": cached["launches"][name],
+                   "online": online["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -884,13 +1340,16 @@ def main() -> None:
             "bound_ms": at32["bound_ms"], "bound_by": at32["bound_by"],
             "library_ms": at32["library_ms"],
             # sls_grad_table: the (V, D) output's zero fill, apart from
-            # the kernel's own bytes
-            **{k: at32[k] for k in ("zero_fill_bound_ms",) if k in at32}})
+            # the kernel's own bytes; fused_cached_segment_sum: the bound
+            # with one row read per position
+            **{k: at32[k] for k in ("zero_fill_bound_ms",
+                                    "bound_per_position_ms") if k in at32}})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
-             "train": trained}, indent=1))
+             "serve_cached": cached, "train": trained, "online": online},
+            indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

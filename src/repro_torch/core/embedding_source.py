@@ -5,21 +5,43 @@ Every way of materialising a reduced embedding bag is an
 ``lookup_bags(source, spec, indices, offsets, *, max_l)``: (N,) flat
 per-table ids + (B*T+1,) offsets -> (B, T, D).
 
-This slice ports the base protocol and the full-precision ``FpArena``.
-The other sources (int8, sharded, hot-cached, table groups) are ROADMAP
-Queue 1, items 8 and 13.
+Ported sources::
+
+    FpArena(arena)                 full-precision row arena
+    QuantizedArena(q, scales)      int8 rows + per-row f32 scale
+    CachedSource(hot, cold)        replicated top-K hot rows + any of
+                                   these as the cold source
+
+with the declarative plan that builds them (``SourceSpec``) and the
+versioned broadcast artifact (``VersionedSource``, the reference's
+``CSA1`` layout, so a blob written by either package decodes in the
+other). The hot/cold law holds bit for bit: a coherent ``CachedSource``
+over an ``FpArena`` reduces to exactly the ``FpArena`` lookup.
+
+Not ported yet, each refused naming its ROADMAP item: sharded sources
+(Queue 1, item 13), table groups and ``TablePlan`` (item 8), tiered
+storage (item 12), the fixed layout (item 4), and the ``reduce_flat``
+forms (Queue 2, item 6, with ``sparse_lengths_sum``).
 """
 from __future__ import annotations
 
+import io
+import json
 from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch import resolve_device
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import ops
 
-__all__ = ["EmbeddingSource", "FpArena", "lookup_bags"]
+__all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
+           "SourceSpec", "VersionedSource", "describe_source", "fmt_bytes",
+           "hot_cache_of", "lookup_bags", "rebind_arena", "source_bytes",
+           "source_structure", "with_hot_cache"]
 
 
 class EmbeddingSource:
@@ -67,6 +89,93 @@ class FpArena(EmbeddingSource):
                                      null_row=spec.null_row)
 
 
+@dataclass(frozen=True)
+class QuantizedArena(EmbeddingSource):
+    """int8 rows + one f32 scale per row, dequantized in the gather. The
+    null row's zero scale keeps every redirect inert. The reference
+    reduces it in XLA, with no Pallas kernel; here it is torch ops."""
+    q: torch.Tensor                      # (rows, D) int8
+    scales: torch.Tensor                 # (rows, 1) f32
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return torch.float32
+
+    @classmethod
+    def from_arena(cls, arena: torch.Tensor) -> "QuantizedArena":
+        q, scales = se.quantize_arena(arena)
+        return cls(q=q, scales=scales)
+
+    def quantize_rows(self, arena: torch.Tensor,
+                      rows: torch.Tensor) -> "QuantizedArena":
+        """A new ``QuantizedArena`` with only ``rows`` re-quantized from
+        ``arena``: the incremental maintenance patch, equal to a full
+        ``from_arena`` rebuild when only ``rows`` changed. This one is
+        left as it was, as the reference's is, so an engine serving it
+        keeps its version. Duplicate rows write equal values, so the
+        order in which their writes land does not matter."""
+        qr, scales = se._rowwise_quantize(arena[rows].float())
+        q, s = self.q.clone(), self.scales.clone()
+        q[rows] = qr
+        s[rows] = scales
+        return QuantizedArena(q=q, scales=s)
+
+    def reduce_dense(self, spec, dense):
+        rows = self.q[dense].float() * self.scales[dense]
+        return rows.sum(dim=1)
+
+
+@dataclass(frozen=True)
+class CachedSource(EmbeddingSource):
+    """Replicated top-K hot rows + a cold source for the tail.
+
+    The hot pass reduces cache slots (misses hit the zero miss slot) and
+    the cold ids redirect cached rows to the arena's null row, so any
+    cold reduction over them is exactly the complement: hot + cold ==
+    uncached, for every cold source.
+
+    ``coherent=True`` declares that the hot copies equal their cold rows
+    at serve time (a plan built from the live arena, a write-through
+    boundary). In the reference it lets XLA serve an fp cold straight
+    from the arena; the port takes the two-table walk either way, so on
+    the port the flag only travels with the source's structure.
+    """
+    hot: se.HotRowCache
+    cold: EmbeddingSource
+    coherent: bool = False
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return self.cold.out_dtype
+
+    @property
+    def k(self) -> int:
+        return self.hot.k
+
+    def reduce_dense(self, spec, dense):
+        # one pass with the hit test folded into the walk: per position
+        # exactly one of hot_rows[slot] and cold[cold_id] is nonzero
+        slots = self.hot.slot_of[dense]
+        # a Python scalar, not a device tensor: copying one to the card
+        # would wait for the stream
+        cold_ids = torch.where(slots < self.k, spec.null_row, dense)
+        cold = self.cold
+        if isinstance(cold, FpArena):
+            return ops.fused_cached_segment_sum(
+                self.hot.hot_rows, cold.arena, slots, cold_ids,
+                dense_ids=dense if self.coherent else None,
+                null_row=spec.null_row)
+        if isinstance(cold, QuantizedArena):
+            rows = self.hot.hot_rows[slots].float() \
+                + cold.q[cold_ids].float() * cold.scales[cold_ids]
+            return rows.sum(dim=1)
+        # any other cold source (a nested cache): the hot pass on the
+        # fused kernel + the cold source's own pass over the redirects
+        hot = ops.fused_segment_sum(self.hot.hot_rows, slots,
+                                    null_row=self.k)
+        return hot + cold.reduce_dense(spec, cold_ids)
+
+
 def lookup_bags(source: EmbeddingSource, spec: se.ArenaSpec,
                 indices: torch.Tensor, offsets: torch.Tensor, *,
                 max_l: int) -> torch.Tensor:
@@ -77,3 +186,370 @@ def lookup_bags(source: EmbeddingSource, spec: se.ArenaSpec,
         out = source.reduce_bags(spec, indices, offsets, max_l=max_l)
         return out.reshape(n_bags // spec.n_tables, spec.n_tables,
                            spec.dim).to(source.out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Construction helpers
+# ---------------------------------------------------------------------------
+
+def hot_cache_of(source) -> Optional[se.HotRowCache]:
+    """The hot cache a source serves from, or None (non-cached source)."""
+    return source.hot if isinstance(source, CachedSource) else None
+
+
+def with_hot_cache(source: CachedSource,
+                   cache: se.HotRowCache) -> CachedSource:
+    """Same cold source, new hot cache: the write-through/rebuild swap."""
+    if not isinstance(source, CachedSource):
+        raise TypeError(f"with_hot_cache needs a CachedSource, got "
+                        f"{type(source).__name__}")
+    return CachedSource(hot=cache, cold=source.cold,
+                        coherent=source.coherent)
+
+
+def rebind_arena(source: EmbeddingSource,
+                 arena: torch.Tensor) -> EmbeddingSource:
+    """``source`` with every fp-arena leaf replaced by ``arena``. A
+    quantized arena is a frozen representation of some arena version and
+    is left alone (rebuild it with ``quantize_rows`` / ``from_arena``)."""
+    if isinstance(source, FpArena):
+        return FpArena(arena)
+    if isinstance(source, CachedSource):
+        return CachedSource(source.hot, rebind_arena(source.cold, arena),
+                            coherent=source.coherent)
+    return source
+
+
+def fmt_bytes(n: int) -> str:
+    """Human byte label for describe/stats lines: 512 B, 4.0 KB, 5.1 MB."""
+    n = float(n)
+    for unit in ("B", "KB", "MB", "GB"):
+        if n < 1024 or unit == "GB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024
+    return f"{n:.1f} GB"
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def source_bytes(source) -> int:
+    """Total device bytes of a source's tensors (slot maps and scales
+    included): the denominator of every capacity claim."""
+    return sum(_nbytes(t) for t in source_structure(source)[1])
+
+
+def describe_source(source, *, multiline: bool = False) -> str:
+    """Stats label: 'fp', 'int8', 'cached(fp)', 'cached(int8)'. With
+    ``multiline=True`` every nested source renders on its own indented
+    line with its dtype and byte size."""
+    if multiline:
+        return "\n".join(_describe_lines(source, 0))
+    if isinstance(source, FpArena):
+        return "fp"
+    if isinstance(source, QuantizedArena):
+        return "int8"
+    if isinstance(source, CachedSource):
+        return f"cached({describe_source(source.cold)})"
+    return type(source).__name__
+
+
+def _describe_lines(source, depth: int) -> List[str]:
+    pad = "  " * depth
+    if isinstance(source, FpArena):
+        r, d = source.arena.shape
+        return [f"{pad}fp arena ({r}x{d}, "
+                f"{str(source.arena.dtype).replace('torch.', '')}, "
+                f"{fmt_bytes(_nbytes(source.arena))})"]
+    if isinstance(source, QuantizedArena):
+        r, d = source.q.shape
+        nb = _nbytes(source.q) + _nbytes(source.scales)
+        return [f"{pad}int8 arena ({r}x{d} + f32 row scales, "
+                f"{fmt_bytes(nb)})"]
+    if isinstance(source, CachedSource):
+        hot = source.hot
+        nb = _nbytes(hot.hot_rows) + _nbytes(hot.slot_of) \
+            + _nbytes(hot.hot_ids)
+        return [f"{pad}cached (k={source.k} hot rows, "
+                f"{str(hot.hot_rows.dtype).replace('torch.', '')}, "
+                f"{fmt_bytes(nb)})"] \
+            + _describe_lines(source.cold, depth + 1)
+    return [f"{pad}{type(source).__name__}"]
+
+
+# ---------------------------------------------------------------------------
+# Structure: the port's form of the reference's pytree treedef
+# ---------------------------------------------------------------------------
+
+# name -> (cls, data_fields, meta_fields): drives the structure check of a
+# source swap and the artifact codec, as the reference's registry does
+_SOURCE_REGISTRY = {
+    "FpArena": (FpArena, ("arena",), ()),
+    "QuantizedArena": (QuantizedArena, ("q", "scales"), ()),
+    "CachedSource": (CachedSource, ("hot", "cold"), ("coherent",)),
+    "HotRowCache": (se.HotRowCache, ("hot_rows", "slot_of", "hot_ids"), ()),
+}
+
+# reference source types the codec refuses, and the ROADMAP item of each
+_UNPORTED_TYPES = {
+    "ShardedArena": "sharded sources (ROADMAP Queue 1, item 13)",
+    "TableGroupSource": "table groups (ROADMAP Queue 1, item 8)",
+    "TieredSource": "tiered storage (ROADMAP Queue 1, item 12)",
+    "Int4Arena": "tiered storage (ROADMAP Queue 1, item 12)",
+    "HostTier": "tiered storage (ROADMAP Queue 1, item 12)",
+}
+
+
+def source_structure(source) -> Tuple[tuple, List[torch.Tensor]]:
+    """(structure, tensors): the nesting of source types with their meta
+    fields, and the tensors in order. Two sources with equal structures
+    and tensors of equal shape, dtype and device can replace each other
+    on a live engine without changing what the serve step is shaped
+    for."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            leaves.append(obj)
+            return "tensor"
+        name = type(obj).__name__
+        if _SOURCE_REGISTRY.get(name, (None,))[0] is not type(obj):
+            raise TypeError(f"{name} is not a source type of the port "
+                            f"({sorted(_SOURCE_REGISTRY)})")
+        _, data, meta = _SOURCE_REGISTRY[name]
+        return (name, tuple(getattr(obj, f) for f in meta),
+                tuple(walk(getattr(obj, f)) for f in data))
+
+    return walk(source), leaves
+
+
+# ---------------------------------------------------------------------------
+# SourceSpec: the declarative serving plan
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SourceSpec:
+    """Declarative serving plan: which source to build, not how. A
+    ``RecEngine`` takes one and calls ``build(arena, spec, counts)``. The
+    path strings map onto plans through ``from_path``."""
+    layout: str = "ragged"               # 'ragged' | 'fixed' batch layout
+    cache_k: int = 0                     # >0: pin top-K rows hot
+    quantize_cold: bool = False          # int8 cold/uncached arena
+    mesh: Optional[object] = None
+    axis: str = "model"
+    require_mesh: bool = False           # 'sharded': no silent fallback
+    tables: Optional[tuple] = None       # heterogeneous group
+    tiers: Optional[object] = None       # tiered storage policy
+
+    PATH_NAMES = ("fixed", "ragged", "cached", "sharded")
+
+    def __post_init__(self):
+        if self.layout not in ("ragged", "fixed"):
+            raise ValueError(f"layout {self.layout!r} is neither 'ragged' "
+                             "nor 'fixed'")
+        if self.layout == "fixed":
+            raise NotImplementedError(
+                "the fixed layout is not ported yet (ROADMAP Queue 1, "
+                "item 4)")
+        if self.mesh is not None or self.require_mesh:
+            raise NotImplementedError(
+                "sharded sources are not ported yet (ROADMAP Queue 1, "
+                "item 13)")
+        if self.tables is not None:
+            raise NotImplementedError(
+                "table-group plans are not ported yet (ROADMAP Queue 1, "
+                "item 8)")
+        if self.tiers is not None:
+            raise NotImplementedError(
+                "tiered storage is not ported yet (ROADMAP Queue 1, "
+                "item 12)")
+
+    @staticmethod
+    def from_path(path: Union[str, "SourceSpec"], *, cache_k: int = 0,
+                  quantize_cold: bool = False, mesh: Optional[object] = None,
+                  axis: str = "model") -> "SourceSpec":
+        """Path string -> plan ('cached' consumes cache_k and
+        quantize_cold)."""
+        if isinstance(path, SourceSpec):
+            return path
+        if path not in SourceSpec.PATH_NAMES:
+            raise ValueError(f"unknown path {path!r}; one of "
+                             f"{SourceSpec.PATH_NAMES}")
+        if path != "cached" and (cache_k or quantize_cold):
+            # an operator who asked for a cache or int8 must pick the
+            # 'cached' path (or pass a SourceSpec) to get them
+            raise ValueError(f"path {path!r} ignores cache_k/quantize_cold;"
+                             " use path 'cached' or a SourceSpec")
+        if path == "fixed":
+            return SourceSpec(layout="fixed", mesh=mesh, axis=axis)
+        if path == "ragged":
+            return SourceSpec(mesh=mesh, axis=axis)
+        if path == "sharded":
+            return SourceSpec(mesh=mesh, axis=axis, require_mesh=True)
+        if cache_k <= 0:
+            raise ValueError("the cached path needs cache_k > 0")
+        return SourceSpec(cache_k=cache_k, quantize_cold=quantize_cold,
+                          mesh=mesh, axis=axis)
+
+    @property
+    def cached(self) -> bool:
+        return self.cache_k > 0
+
+    def path_name(self) -> str:
+        """The nearest path string (for stats labels)."""
+        return "cached" if self.cached else "ragged"
+
+    def build(self, arena: torch.Tensor, spec: se.ArenaSpec,
+              counts=None) -> EmbeddingSource:
+        """Materialise the plan for an arena; ``counts`` is the trace
+        histogram that ranks the hot rows (uniform when omitted)."""
+        cold: EmbeddingSource = (QuantizedArena.from_arena(arena)
+                                 if self.quantize_cold else FpArena(arena))
+        if not self.cached:
+            return cold
+        if counts is None:
+            counts = np.ones(spec.total_rows)
+        hot = se.build_hot_cache(arena, spec, counts, self.cache_k)
+        # built from the live arena right here, so the plan declares
+        # coherence
+        return CachedSource(hot=hot, cold=cold, coherent=True)
+
+
+# ---------------------------------------------------------------------------
+# Versioned broadcast artifact: any source + a monotone version
+# ---------------------------------------------------------------------------
+
+def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
+    if isinstance(obj, torch.Tensor):
+        key = f"a{counter[0]}"
+        counter[0] += 1
+        arrays[key] = obj.detach().cpu().numpy()
+        return {"kind": "array", "key": key}
+    if isinstance(obj, (tuple, list)):
+        # lists keep their list-ness, so a decoded dense head has the
+        # container types of the params it replaces
+        node = {"kind": "seq",
+                "items": [_encode(x, arrays, counter) for x in obj]}
+        if isinstance(obj, list):
+            node["list"] = True
+        return node
+    if isinstance(obj, dict):
+        return {"kind": "dict",
+                "items": {k: _encode(v, arrays, counter)
+                          for k, v in obj.items()}}
+    if obj is None:
+        return {"kind": "none"}
+    name = type(obj).__name__
+    if name not in _SOURCE_REGISTRY:
+        raise TypeError(f"cannot serialize {name}: not a source type of "
+                        f"the port ({sorted(_SOURCE_REGISTRY)})")
+    _, data_fields, meta_fields = _SOURCE_REGISTRY[name]
+    node = {"kind": "node", "type": name, "fields": {}}
+    for f in data_fields:
+        node["fields"][f] = _encode(getattr(obj, f), arrays, counter)
+    for f in meta_fields:
+        node["fields"][f] = {"kind": "meta", "value": getattr(obj, f)}
+    return node
+
+
+def _decode(node, z, device: torch.device):
+    kind = node["kind"]
+    if kind == "array":
+        return torch.from_numpy(np.array(z[node["key"]])).to(device)
+    if kind == "seq":
+        items = [_decode(x, z, device) for x in node["items"]]
+        return items if node.get("list") else tuple(items)
+    if kind == "dict":
+        return {k: _decode(v, z, device) for k, v in node["items"].items()}
+    if kind == "none":
+        return None
+    if kind != "node":
+        raise ValueError(f"unknown node kind {kind!r}")
+    name = node["type"]
+    if name in _UNPORTED_TYPES:
+        raise NotImplementedError(f"{name}: {_UNPORTED_TYPES[name]} "
+                                  "is not ported yet")
+    if name not in _SOURCE_REGISTRY:
+        raise ValueError(f"unknown source type {name!r}")
+    cls, data_fields, meta_fields = _SOURCE_REGISTRY[name]
+    kw = {}
+    for f in data_fields + meta_fields:
+        sub = node["fields"][f]
+        if sub["kind"] in ("mesh", "ephemeral"):
+            raise NotImplementedError(
+                f"{name}.{f} is host state of a sharded or tiered source, "
+                "not ported yet (ROADMAP Queue 1, items 12 and 13)")
+        kw[f] = sub["value"] if sub["kind"] == "meta" \
+            else _decode(sub, z, device)
+    return cls(**kw)
+
+
+@dataclass(frozen=True)
+class VersionedSource:
+    """Any source plus the monotone version that produced it: the fleet
+    broadcast artifact for a whole serving source (hot rows and the cold
+    arena), optionally with the dense MLP head. ``serialize`` and
+    ``deserialize`` round-trip one self-describing blob, in the
+    reference's layout; ``apply`` adopts it into an engine iff it is
+    strictly newer."""
+    source: EmbeddingSource
+    version: int
+    head: Optional[Dict] = None
+
+    MAGIC = b"CSA1"              # Centaur source artifact, format v1
+
+    def serialize(self) -> bytes:
+        arrays, counter = {}, [0]
+        tree = _encode(self.source, arrays, counter)
+        extra = {}
+        if self.head is not None:
+            head_tree = _encode(dict(self.head), arrays, counter)
+            extra["head_structure"] = np.frombuffer(
+                json.dumps(head_tree).encode(), np.uint8)
+        buf = io.BytesIO()
+        np.savez(buf,
+                 magic=np.frombuffer(self.MAGIC, np.uint8),
+                 version=np.asarray(self.version, np.int64),
+                 structure=np.frombuffer(
+                     json.dumps(tree).encode(), np.uint8),
+                 **extra, **arrays)
+        return buf.getvalue()
+
+    @staticmethod
+    def deserialize(blob: bytes, *,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> "VersionedSource":
+        """Rebuild the artifact's tensors on ``device`` (the card unless
+        told otherwise). Sources the port lacks raise
+        ``NotImplementedError`` naming their ROADMAP item."""
+        device = resolve_device(device)
+        try:
+            with np.load(io.BytesIO(blob)) as z:
+                if z["magic"].tobytes() != VersionedSource.MAGIC:
+                    raise ValueError("bad magic")
+                tree = json.loads(z["structure"].tobytes().decode())
+                source = _decode(tree, z, device)
+                head = None
+                if "head_structure" in z:
+                    head = _decode(json.loads(
+                        z["head_structure"].tobytes().decode()), z, device)
+                return VersionedSource(source=source,
+                                       version=int(z["version"]), head=head)
+        except NotImplementedError:
+            raise
+        except Exception as e:
+            raise ValueError(
+                f"not a versioned-source artifact: {e}") from e
+
+    def apply(self, engine) -> bool:
+        """Adopt into a RecEngine iff strictly newer; same-or-older
+        artifacts are absorbed, so a reordered delivery is safe. A carried
+        dense head lands before the source swap, so the pair is one
+        adoption."""
+        if engine.source_version >= self.version:
+            return False
+        if self.head is not None:
+            engine.params = {**engine.params, **self.head}
+        engine.update_source(self.source, version=self.version)
+        return True

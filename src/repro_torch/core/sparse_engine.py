@@ -11,12 +11,17 @@ holds sample k // n_tables, table k % n_tables. ``indices`` is the flat
 stream of per-table row ids of all bags, possibly padded past
 ``offsets[-1]`` (padding is inert); ``offsets`` has B*T+1 entries. Ids
 and offsets are int32 throughout, as in the reference.
+
+Also here: the int8 row-wise quantization rule and the hot-row cache
+(``HotRowCache``, its host-side build from a trace histogram, hit
+accounting) that ``embedding_source`` composes into sources.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -48,6 +53,37 @@ def init_arena(generator: torch.Generator, spec: ArenaSpec,
     arena.mul_(scale)
     arena[spec.null_row] = 0.0
     return arena.to(getattr(torch, spec.dtype))
+
+
+def flatten_indices(spec: ArenaSpec, indices: torch.Tensor) -> torch.Tensor:
+    """(B, T, L) per-table row ids -> (B*T, L) arena row ids (base +
+    offset)."""
+    b, t, l = indices.shape
+    base = torch.arange(t, dtype=indices.dtype,
+                        device=indices.device) * spec.rows_per_table
+    return (indices + base[None, :, None]).reshape(b * t, l)
+
+
+def quantize_arena(arena: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise symmetric int8 quantization of the arena: (q int8 (R, D),
+    scales f32 (R, 1)). A zero row gets a zero scale, which keeps the null
+    row inert."""
+    return _rowwise_quantize(arena.float())
+
+
+def _rowwise_quantize(a32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row-wise int8 rule, shared by the full build and the
+    incremental ``quantize_rows`` patch, so a patch equals a rebuild. Its
+    steps are the reference's: divide (not multiply by a reciprocal) and
+    round half to even, as ``jnp.round`` does, so q and scales match it
+    exactly."""
+    amax = a32.abs().amax(dim=-1, keepdim=True)
+    scales = amax / 127.0
+    q = torch.where(scales > 0,
+                    torch.clamp(torch.round(a32 / torch.clamp(scales,
+                                                              min=1e-30)),
+                                -127, 127), 0.0).to(torch.int8)
+    return q, scales
 
 
 def ragged_segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
@@ -102,3 +138,77 @@ def flatten_ragged_indices(spec: ArenaSpec, indices: torch.Tensor,
                                           spec.n_tables)
     flat = indices + table.to(indices.dtype) * spec.rows_per_table
     return torch.where(valid, flat, spec.null_row)
+
+
+# ---------------------------------------------------------------------------
+# Hot-row cache: the top-K rows by trace frequency pinned in a small
+# replicated arena (K + 1 rows, slot K the zero miss slot). A lookup
+# splits into hot slots (misses -> slot K) and cold ids (hits -> the null
+# row), and the hot plus the cold reduction is exactly the uncached one.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HotRowCache:
+    hot_rows: torch.Tensor   # (K+1, D), slot K always zero
+    slot_of: torch.Tensor    # (arena_rows,) int32: slot, or K when cold
+    hot_ids: torch.Tensor    # (K,) int32 pinned arena rows
+
+    @property
+    def k(self) -> int:
+        return self.hot_rows.shape[0] - 1
+
+
+def trace_row_counts(spec: ArenaSpec, indices, offsets=None,
+                     rows: Optional[int] = None) -> np.ndarray:
+    """Arena-row touch histogram of an access trace, on the host (numpy).
+
+    indices: fixed-shape (B, T, L) per-table ids, or, with ``offsets``,
+    the flat ragged stream (its padded tail ignored).
+    """
+    rows = rows or spec.total_rows
+    idx = np.asarray(indices)
+    if offsets is None:
+        base = np.arange(idx.shape[1], dtype=idx.dtype) * spec.rows_per_table
+        flat = (idx + base[None, :, None]).ravel()
+    else:
+        off = np.asarray(offsets)
+        n_valid = int(off[-1])
+        seg = np.searchsorted(off[1:], np.arange(n_valid), side="right")
+        flat = idx[:n_valid] + (seg % spec.n_tables) * spec.rows_per_table
+    return np.bincount(flat, minlength=rows)
+
+
+def build_hot_cache(arena: torch.Tensor, spec: ArenaSpec, counts,
+                    k: int) -> HotRowCache:
+    """Pin the top-k arena rows by trace frequency. The ranking runs on
+    the host exactly as the reference's (among equal counts the highest
+    row id comes first); the hot copies are gathered on the arena's
+    device."""
+    counts = np.asarray(counts)[:spec.null_row]     # real rows only
+    k = int(min(k, counts.size))
+    hot_ids = np.argsort(counts, kind="stable")[::-1][:k].astype(np.int32)
+    slot_of = np.full((arena.shape[0],), k, np.int32)
+    slot_of[hot_ids] = np.arange(k, dtype=np.int32)
+    ids = torch.from_numpy(hot_ids).to(arena.device)
+    hot_rows = torch.cat([arena[ids],
+                          arena.new_zeros((1, arena.shape[1]))])
+    return HotRowCache(hot_rows=hot_rows,
+                       slot_of=torch.from_numpy(slot_of).to(arena.device),
+                       hot_ids=ids)
+
+
+def cache_hits(cache: HotRowCache, spec: ArenaSpec, indices: torch.Tensor,
+               offsets: torch.Tensor) -> torch.Tensor:
+    """Lookups of a ragged batch served from the hot arena, an int64
+    0-dim tensor on the batch's device (no host sync). The padded tail
+    flattens to the null row, which is never pinned, so it counts as a
+    miss without a mask."""
+    flat = flatten_ragged_indices(spec, indices, offsets)
+    return (cache.slot_of[flat] < cache.k).sum()
+
+
+def cache_hit_rate(cache: HotRowCache, spec: ArenaSpec, indices: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Fraction of the (valid) lookups served from the hot arena."""
+    return cache_hits(cache, spec, indices, offsets) \
+        / torch.clamp(offsets[-1], min=1)

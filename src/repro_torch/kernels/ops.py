@@ -6,13 +6,15 @@ global implementation switch and no fallback: a CUDA tensor never
 reaches a plain version here, and tensors on any other device, or on
 two devices at once, are refused.
 
-``gemm``, ``fused_segment_sum`` and ``interaction`` are
-``torch.autograd.Function``s whose backward passes do what the
-reference's custom VJPs do: the backward of a GEMM is two GEMMs on the
-same kernel, the backward of the fused gather-reduce is the
+``gemm``, ``fused_segment_sum``, ``fused_cached_segment_sum`` and
+``interaction`` are ``torch.autograd.Function``s whose backward passes do
+what the reference's custom VJPs do: the backward of a GEMM is two GEMMs
+on the same kernel, the backward of a fused gather-reduce is the
 ``sls_grad_table`` segment scatter-add with the null row's gradient
-pinned to zero, and the interaction's backward is (G + G^T) X in plain
-torch, as the reference's einsum sits outside any Pallas kernel.
+pinned to zero (twice for the cached one: onto the hot slots with the
+miss slot pinned, and onto the cold ids), and the interaction's backward
+is (G + G^T) X in plain torch, as the reference's einsum sits outside any
+Pallas kernel.
 Serving runs them under ``torch.inference_mode``, which records nothing.
 """
 from __future__ import annotations
@@ -87,6 +89,19 @@ def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
     return d
 
 
+def _dense_grad_table(g: torch.Tensor, dense_ids: torch.Tensor, n_rows: int,
+                      skip_row: Optional[int]) -> torch.Tensor:
+    """Table gradient of a reduce over a dense (B, max_l) id matrix: a
+    dense matrix is a ragged stream with uniform offsets, so it is the
+    same segment scatter-add, with ``skip_row``'s gradient pinned to
+    zero (the sentinel every fill slot points at)."""
+    b, max_l = dense_ids.shape
+    offsets = torch.arange(b + 1, dtype=torch.int32,
+                           device=dense_ids.device) * max_l
+    return sls_grad_table(g.float().contiguous(), dense_ids.reshape(-1),
+                          offsets, n_rows=n_rows, skip_row=skip_row)
+
+
 class _FusedSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, dense_ids, null_row):
@@ -100,16 +115,11 @@ class _FusedSegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # a dense (B, max_l) id matrix is a ragged stream with uniform
-        # offsets, so the backward is the same segment scatter-add; the
-        # relayout points every fill slot at the null row, whose gradient
-        # is pinned to zero as in the reference (kernels/ops.py:172-188)
+        # the relayout points every fill slot at the null row, whose
+        # gradient is pinned to zero as in the reference
+        # (kernels/ops.py:172-188)
         (dense_ids,) = ctx.saved_tensors
-        b, max_l = dense_ids.shape
-        offsets = torch.arange(b + 1, dtype=torch.int32,
-                               device=dense_ids.device) * max_l
-        d = sls_grad_table(g.float().contiguous(), dense_ids.reshape(-1),
-                           offsets, n_rows=ctx.n_rows, skip_row=ctx.null_row)
+        d = _dense_grad_table(g, dense_ids, ctx.n_rows, ctx.null_row)
         return d.to(ctx.table_dtype), None, None
 
 
@@ -125,6 +135,61 @@ def fused_segment_sum(table: torch.Tensor, dense_ids: torch.Tensor, *,
     """
     return _FusedSegmentSum.apply(table, dense_ids,
                                   None if null_row is None else int(null_row))
+
+
+class _FusedCachedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hot_rows, arena, slots, cold_ids, null_row):
+        ctx.save_for_backward(slots, cold_ids)
+        ctx.shapes = (hot_rows.shape[0], arena.shape[0])
+        ctx.dtypes = (hot_rows.dtype, arena.dtype)
+        ctx.null_row = null_row
+        if _on_cuda(hot_rows, arena, slots, cold_ids):
+            return _fd.fused_cached_segment_sum(hot_rows, arena, slots,
+                                                cold_ids)
+        return _ref.fused_cached_segment_sum(hot_rows, arena, slots,
+                                             cold_ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        # as the reference (kernels/ops.py:248-257): the hot gradient over
+        # the slots with the miss slot (the last hot row) pinned, the
+        # arena gradient over the redirected cold ids with the null row
+        # pinned
+        slots, cold_ids = ctx.saved_tensors
+        n_hot, n_arena = ctx.shapes
+        d_hot = d_arena = None
+        if ctx.needs_input_grad[0]:
+            d_hot = _dense_grad_table(g, slots, n_hot,
+                                      n_hot - 1).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            d_arena = _dense_grad_table(g, cold_ids, n_arena,
+                                        ctx.null_row).to(ctx.dtypes[1])
+        return d_hot, d_arena, None, None, None
+
+
+def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
+                             slots: torch.Tensor, cold_ids: torch.Tensor, *,
+                             dense_ids: Optional[torch.Tensor] = None,
+                             null_row: Optional[int] = None) -> torch.Tensor:
+    """One-pass hot/cold segmented reduce with the hit test in the kernel:
+    ``out[b] = sum_j hot_rows[slots[b, j]] + arena[cold_ids[b, j]]``, f32
+    (B, D).
+
+    hot_rows (K+1, D) has the zero miss slot K; slots and cold_ids are
+    (B, max_l) over the same bags, a hit's cold id redirected to the zero
+    ``null_row``. Gradients reach both tables, the miss slot's and
+    ``null_row``'s pinned to zero. ``dense_ids``, the matrix before the
+    split, is the reference's declaration that the cache is coherent: its
+    XLA lowering then reduces the arena alone. The card has no such
+    trade-off, so the port takes the two-table walk with or without it.
+    """
+    if dense_ids is not None and dense_ids.shape != slots.shape:
+        raise ValueError(f"dense_ids {tuple(dense_ids.shape)} and slots "
+                         f"{tuple(slots.shape)} differ")
+    return _FusedCachedSegmentSum.apply(
+        hot_rows, arena, slots, cold_ids,
+        None if null_row is None else int(null_row))
 
 
 class _Interaction(torch.autograd.Function):

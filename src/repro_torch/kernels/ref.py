@@ -22,6 +22,21 @@ def fused_segment_sum(table: torch.Tensor,
     return table[dense_ids].float().sum(dim=1)
 
 
+def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
+                             slots: torch.Tensor,
+                             cold_ids: torch.Tensor) -> torch.Tensor:
+    """One-pass hot/cold reduce: out[b] = sum_j hot_rows[slots[b, j]] +
+    arena[cold_ids[b, j]], f32 (B, D).
+
+    Per position exactly one term is nonzero (a miss reads the zero slot
+    K, a hit the zero null row), so each summed row equals the uncached
+    row elementwise, and the same ``sum`` over it equals
+    ``fused_segment_sum(arena, dense)`` bit for bit on a coherent cache.
+    """
+    rows = hot_rows[slots].float() + arena[cold_ids].float()
+    return rows.sum(dim=1)
+
+
 def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
                    offsets: torch.Tensor, n_rows: int) -> torch.Tensor:
     """VJP of ragged SparseLengthsSum w.r.t. the table: segment scatter-add.

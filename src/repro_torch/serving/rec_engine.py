@@ -7,12 +7,25 @@
 * ``RecEngine``: drains the batcher, pads each micro-batch to a static
   *bucket* shape (batch rounded up to a bucket size with empty-bag dummy
   rows, flat index stream padded to bucket*T*max_l) and serves one ragged
-  forward on the device, under ``torch.inference_mode``.
+  forward on the device, under ``torch.inference_mode``, whose embedding
+  stage is one ``embedding_source.lookup_bags`` over the engine's source.
 
-This slice serves the ``"ragged"`` plan: the full-precision arena in
-``params``. The other plans, ``update_source``, dispatch/settle,
-telemetry, the downgrade path and CUDA-graph capture are later ROADMAP
-items; each unported plan raises ``NotImplementedError`` naming its item.
+Which source serves is a plan: ``source=`` takes a path string
+(``"ragged"``, the fp arena; ``"cached"``, the hot-row cache over an fp
+or int8 cold arena), a ``SourceSpec`` or a built ``EmbeddingSource``.
+``update_source``/``update_cache`` swap it atomically under a monotone
+version, refusing stale versions and any change of structure, shapes or
+dtypes. Hit accounting runs on the device and is read only by
+``stats()``.
+
+The engine never aliases tensors that a trainer updates in place: the
+params it is given, or assigned through ``engine.params = ...``, are
+copied into its own tensors (in place when the shapes match, so their
+addresses stay fixed).
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: the fixed and sharded plans, table groups, telemetry,
+dispatch/settle, the int8 downgrade path and CUDA-graph capture.
 """
 from __future__ import annotations
 
@@ -27,13 +40,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm
-
-# reference plans not served yet, and the ROADMAP item that ports each
-_UNPORTED_PLANS = {
-    "fixed": "ROADMAP Queue 1, item 4 (the fixed layout)",
-    "sharded": "ROADMAP Queue 1, item 13",
-    "cached": "ROADMAP Queue 1, item 8",
-}
+from repro_torch.core import embedding_source as es
+from repro_torch.core import sparse_engine as se
+from repro_torch.core.embedding_source import SourceSpec
+from repro_torch.optim import tree_leaves, tree_map
 
 
 @dataclass
@@ -87,8 +97,26 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def _own_copy(tree: Dict) -> Dict:
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _same_layout(a: Dict, b: Dict) -> bool:
+    """Same tree, and tensors of equal shape, dtype and device."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return (set(a) == set(b) and len(la) == len(lb)
+            and all(x.shape == y.shape and x.dtype == y.dtype
+                    and x.device == y.device for x, y in zip(la, lb)))
+
+
 class RecEngine:
-    """Batcher-fed DLRM inference over the fp arena in ``params``.
+    """Batcher-fed DLRM inference; the embedding stage is one
+    ``lookup_bags`` over a swappable ``EmbeddingSource``.
+
+    ``source`` accepts a path string (``"ragged"`` or ``"cached"``; the
+    latter takes ``cache_k``, ``cache_trace`` and ``quantize_cold``), a
+    ``SourceSpec`` built against the engine's copy of ``params["arena"]``,
+    or a built ``EmbeddingSource``, served as it is.
 
     ``device`` defaults to the card; pass ``device="cpu"`` (with params
     on the CPU) to serve through the plain PyTorch path. Latencies are
@@ -98,27 +126,30 @@ class RecEngine:
     LATENCY_RING = 4096
 
     def __init__(self, cfg: DLRMConfig, params: Dict, *,
-                 source: Union[str, object, None] = "ragged",
+                 source: Union[str, SourceSpec, es.EmbeddingSource,
+                               None] = None,
                  max_l: Optional[int] = None,
                  max_batch: int = 32, max_wait_ms: float = 2.0,
                  buckets: Sequence[int] = (1, 2, 4, 8, 16, 32),
+                 cache_k: int = 0, cache_trace=None,
+                 quantize_cold: bool = False,
+                 mesh: Optional[object] = None,
+                 telemetry: Optional[object] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if isinstance(source, str) and source in _UNPORTED_PLANS:
-            raise NotImplementedError(f"source={source!r} is not ported "
-                                      f"yet ({_UNPORTED_PLANS[source]})")
-        if source not in (None, "ragged"):
+        if telemetry is not None:
             raise NotImplementedError(
-                "only the 'ragged' fp plan is ported; SourceSpec plans and "
-                "pre-built sources come with ROADMAP Queue 1, item 8")
+                "serving telemetry needs the port's copy of repro.obs, not "
+                "ported yet (ROADMAP Queue 1, item 6)")
         self.device = resolve_device(device)
         for name in ("bottom", "top"):
             for w, b in params[name]:
-                self._check_device(w, name)
-                self._check_device(b, name)
-        self._check_device(params["arena"], "arena")
+                self._check_device(w, f"params[{name!r}]")
+                self._check_device(b, f"params[{name!r}]")
+        self._check_device(params["arena"], "params['arena']")
         self.cfg = cfg
+        self.source: Optional[es.EmbeddingSource] = None
+        self._params: Optional[Dict] = None
         self.params = params
-        self.path = "ragged"
         self.spec = dlrm.arena_spec(cfg)
         self.max_l = max_l if max_l is not None else cfg.lookups_per_table
         self.batcher = RecBatcher(max_batch, max_wait_ms)
@@ -126,13 +157,139 @@ class RecEngine:
         self.buckets = tuple(sorted(set(buckets) | {max_batch}))
         self.served = 0
         self.batches = 0
+        self.source_version = 0
         self._lat_ms: deque = deque(maxlen=self.LATENCY_RING)
-        self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
 
-    def _check_device(self, t: torch.Tensor, name: str) -> None:
+        if source is None:
+            source = "ragged"
+        if isinstance(source, (str, SourceSpec)):
+            self.plan: Optional[SourceSpec] = SourceSpec.from_path(
+                source, cache_k=cache_k, quantize_cold=quantize_cold,
+                mesh=mesh)
+            self.path = self.plan.path_name()
+            self.source = self.plan.build(self._params["arena"], self.spec,
+                                          cache_trace)
+        elif isinstance(source, es.EmbeddingSource):
+            if cache_k or cache_trace is not None or quantize_cold \
+                    or mesh is not None:
+                raise ValueError(
+                    "cache_k/cache_trace/quantize_cold/mesh are SourceSpec "
+                    "plan inputs; a built EmbeddingSource is served as it "
+                    "is")
+            for t in es.source_structure(source)[1]:
+                self._check_device(t, "source")
+            self.plan = None
+            self.path = es.describe_source(source)
+            self.source = source
+        else:
+            raise TypeError(f"source must be a path string, a SourceSpec or "
+                            f"an EmbeddingSource, got {type(source)}")
+        self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
+        self._reset_hit_counters()
+
+    def _check_device(self, t: torch.Tensor, what: str) -> None:
         if t.device.type != self.device.type:
-            raise ValueError(f"params[{name!r}] on {t.device}, engine on "
+            raise ValueError(f"{what} on {t.device}, engine on "
                              f"{self.device}")
+
+    # -- the swap boundary --------------------------------------------------
+
+    @property
+    def params(self) -> Dict:
+        return self._params
+
+    @params.setter
+    def params(self, params: Dict) -> None:
+        """Copy ``params`` into the engine's own tensors (in place when
+        the layout matches, so their addresses stay fixed) and rebind the
+        source's fp-arena leaf to the engine's arena. A trainer that then
+        steps in place does not reach what the engine serves until the
+        next assignment."""
+        if self._params is not None and _same_layout(self._params, params):
+            with torch.no_grad():
+                for mine, new in zip(tree_leaves(self._params),
+                                     tree_leaves(params)):
+                    mine.copy_(new)
+        else:
+            self._params = _own_copy(params)
+        if self.source is not None:
+            self.source = es.rebind_arena(self.source, self._params["arena"])
+
+    @property
+    def cache(self) -> Optional[se.HotRowCache]:
+        """The hot cache currently served (None on non-cached sources)."""
+        return es.hot_cache_of(self.source)
+
+    @property
+    def cache_version(self) -> int:
+        """Alias of ``source_version``."""
+        return self.source_version
+
+    def _reset_hit_counters(self) -> None:
+        # hits accumulate on the device and are read only by stats(); the
+        # lookups are counted on the host from the numpy offsets
+        self._hits = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._lookups = 0
+
+    def update_source(self, source: es.EmbeddingSource,
+                      version: Optional[int] = None) -> None:
+        """Swap the served source atomically (hot cache, int8 cold arena,
+        fp arena: any component).
+
+        A version below the served one is refused (a reordered broadcast
+        would roll rows back); an equal one is a republish. The new
+        source must have the old one's structure and tensors of the same
+        shapes, dtypes and devices: the serve step, and later a captured
+        CUDA graph, are shaped for it. A version bump resets the hit
+        counters, so the reported rate is the live cache's.
+        """
+        if version is not None and version < self.source_version:
+            raise ValueError(
+                f"stale source broadcast: version {version} < served "
+                f"version {self.source_version}; refusing to roll the "
+                f"serving source back")
+        old_struct, old_leaves = es.source_structure(self.source)
+        new_struct, new_leaves = es.source_structure(source)
+        if old_struct != new_struct:
+            raise ValueError(f"source swap changed the structure: "
+                             f"{old_struct} -> {new_struct}")
+        for a, b in zip(old_leaves, new_leaves):
+            if (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device):
+                raise ValueError(
+                    f"source swap changed a tensor: {tuple(a.shape)} "
+                    f"{a.dtype} on {a.device} -> {tuple(b.shape)} "
+                    f"{b.dtype} on {b.device}; keep trainer and engine "
+                    f"cache_k and arena shapes equal")
+        new_version = (version if version is not None
+                       else self.source_version + 1)
+        self.source = source
+        if new_version > self.source_version:
+            self._reset_hit_counters()
+        self.source_version = new_version
+
+    def update_cache(self, cache: se.HotRowCache,
+                     version: Optional[int] = None) -> None:
+        """Swap only the hot cache, keeping the cold source (the online
+        refresh; see ``update_source`` for the rules)."""
+        if not isinstance(self.source, es.CachedSource):
+            raise TypeError("update_cache needs a cached source")
+        self.update_source(es.with_hot_cache(self.source, cache),
+                           version=version)
+
+    def enable_downgrade(self):
+        raise NotImplementedError(
+            "the int8 downgrade path is not ported yet (ROADMAP Queue 1, "
+            "item 8)")
+
+    def dispatch(self, reqs, *, downgraded: bool = False):
+        raise NotImplementedError(
+            "dispatch/settle is not ported yet (ROADMAP Queue 1, item 6)")
+
+    def settle(self, inflight):
+        raise NotImplementedError(
+            "dispatch/settle is not ported yet (ROADMAP Queue 1, item 6)")
+
+    # -- request plumbing ---------------------------------------------------
 
     def warmup(self) -> None:
         """Serve one dummy request through every bucket, off the SLA
@@ -141,7 +298,8 @@ class RecEngine:
             rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
             sparse_ids=[np.zeros(0, np.int32)] * self.cfg.n_tables)]
         for bucket in self.buckets:
-            self._serve(self.params, self._assemble(dummy, bucket)).cpu()
+            batch, _ = self._assemble(dummy, bucket)
+            self._serve(self._params, batch, self.source).cpu()
 
     def submit(self, req: RecRequest) -> None:
         if len(req.sparse_ids) != self.cfg.n_tables:
@@ -149,10 +307,11 @@ class RecEngine:
                              f"id lists for {self.cfg.n_tables} tables")
         self.batcher.submit(req)
 
-    def _assemble(self, reqs: List[RecRequest],
-                  bucket: int) -> Dict[str, torch.Tensor]:
+    def _assemble(self, reqs: List[RecRequest], bucket: int):
         """Pad a micro-batch to its bucket's static shapes, on the
-        engine's device."""
+        engine's device. Returns (batch, n_valid): n_valid, the real
+        index count, comes from the numpy offsets, so hit accounting never
+        reads a device tensor to learn it."""
         t = self.cfg.n_tables
         dense = np.zeros((bucket, self.cfg.dense_features), np.float32)
         lens = np.zeros(bucket * t, np.int32)
@@ -170,9 +329,10 @@ class RecEngine:
             for j, ids in enumerate(r.sparse_ids):
                 o = offsets[i * t + j]
                 flat[o:o + len(ids)] = ids
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in (("dense", dense), ("indices", flat),
-                             ("offsets", offsets))}
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in (("dense", dense), ("indices", flat),
+                              ("offsets", offsets))}
+        return batch, int(offsets[-1])
 
     def step(self, force: bool = False) -> int:
         """Serve one micro-batch; returns the number of requests served."""
@@ -182,8 +342,10 @@ class RecEngine:
         now = time.time()
         for r in reqs:
             r.started_at = now
-        batch = self._assemble(reqs, _bucket(len(reqs), self.buckets))
-        probs = self._serve(self.params, batch).cpu().numpy()  # host sync
+        batch, n_valid = self._assemble(reqs, _bucket(len(reqs),
+                                                      self.buckets))
+        probs = self._serve(self._params, batch,
+                            self.source).cpu().numpy()  # host sync
         done, done_m = time.time(), time.monotonic()
         for i, r in enumerate(reqs):
             r.prob = float(probs[i])
@@ -191,6 +353,13 @@ class RecEngine:
             self._lat_ms.append((done_m - r.submitted_mono) * 1e3)
         self.served += len(reqs)
         self.batches += 1
+        cache = self.cache
+        if cache is not None and n_valid:
+            # enqueued after the response, read only by stats(): the
+            # probe adds no host sync and no latency to this batch
+            self._hits += se.cache_hits(cache, self.spec, batch["indices"],
+                                        batch["offsets"])
+            self._lookups += n_valid
         return len(reqs)
 
     def drain(self) -> int:
@@ -201,19 +370,27 @@ class RecEngine:
         return n
 
     def stats(self) -> Dict:
-        """Requests served, latency percentiles over the ring, buckets."""
+        """Requests served, latency percentiles over the ring, the source,
+        the live cache version's hit rate (None without a cache or before
+        its first lookup, never a fake 0.0) and buckets."""
         if not self._lat_ms:
             return {"n": 0}
         lat = np.fromiter(self._lat_ms, np.float64, count=len(self._lat_ms))
-        return {"n": self.served,
-                "path": self.path,
-                "p50_ms": float(np.percentile(lat, 50)),
-                "p95_ms": float(np.percentile(lat, 95)),
-                "p99_ms": float(np.percentile(lat, 99)),
-                "mean_ms": float(lat.mean()),
-                # no hot cache on the fp path: None, never a fake 0.0
-                "cache_hit_rate": None,
-                "buckets": self.buckets}
+        out = {"n": self.served,
+               "path": self.path,
+               "source": es.describe_source(self.source),
+               "p50_ms": float(np.percentile(lat, 50)),
+               "p95_ms": float(np.percentile(lat, 95)),
+               "p99_ms": float(np.percentile(lat, 99)),
+               "mean_ms": float(lat.mean())}
+        if self.cache is None:
+            out["cache_hit_rate"] = None
+        else:
+            out["cache_hit_rate"] = (int(self._hits) / self._lookups
+                                     if self._lookups else None)
+            out["cache_version"] = self.source_version
+        out["buckets"] = self.buckets
+        return out
 
 
 def requests_from_ragged_batch(batch: Dict[str, np.ndarray], n_tables: int,

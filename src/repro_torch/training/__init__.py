@@ -1,11 +1,17 @@
 """Online ragged training for DLRM: the row-wise sparse optimizer
-(``sparse_optim``) and the uncached ``OnlineTrainer`` (``online``)."""
-from repro_torch.training.online import OnlineTrainer
+(``sparse_optim``) and the ``OnlineTrainer`` with its live hot-row cache
+and broadcast artifacts (``online``)."""
+from repro_torch.core.embedding_source import VersionedSource
+from repro_torch.training.online import (OnlineCacheConfig, OnlineTrainer,
+                                         VersionedHotCache,
+                                         make_drifting_zipf)
 from repro_torch.training.sparse_optim import (SparseOptimizer,
                                                ragged_row_grads,
                                                source_row_grads,
                                                sparse_rowwise_adagrad,
                                                unique_padded)
 
-__all__ = ["OnlineTrainer", "SparseOptimizer", "ragged_row_grads",
-           "source_row_grads", "sparse_rowwise_adagrad", "unique_padded"]
+__all__ = ["OnlineCacheConfig", "OnlineTrainer", "SparseOptimizer",
+           "VersionedHotCache", "VersionedSource", "make_drifting_zipf",
+           "ragged_row_grads", "source_row_grads", "sparse_rowwise_adagrad",
+           "unique_padded"]

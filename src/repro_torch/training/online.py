@@ -1,15 +1,30 @@
-"""Online trainer: the ragged training loop.
+"""Online trainer: the ragged training loop and the live hot-row cache.
 
 ``OnlineTrainer`` consumes ragged numpy batches and advances the model
-and optimizer state with ``dlrm.make_train_step_ragged``. This slice
-ports the uncached trainer: the decayed row histogram, the versioned
-hot-cache rebuild and write-through, the int8 and tiered maintenance and
-the broadcast artifacts wait for the cached sources (ROADMAP Queue 1,
-item 9, after item 8), and so does telemetry, which needs the port's copy
-of ``repro.obs``.
+and optimizer state with ``dlrm.make_train_step_ragged``. With a
+``cache_cfg`` it keeps the serving hot cache exact while the model
+learns, as the reference's protocol does:
+
+* a host-side, exponentially decayed row histogram of the live index
+  stream (``observe``), the ranking the rebuilds follow;
+* write-through after every step: the hot copies of the rows the step
+  touched are refreshed from the new arena (``_patch_hot_rows``);
+* a rebuild every ``refresh_every`` steps under a bumped version, with
+  the int8 cold arena re-quantized in the rows dirtied since the last one;
+* publication: the hot cache as a ``VersionedHotCache`` blob (the
+  reference's ``CHC1`` layout), the whole serving source as a
+  ``VersionedSource`` blob, or ``sync_engine`` in process.
+
+The train step works in place, so the port's sync copies: an engine never
+aliases a tensor the trainer updates (``RecEngine.params``). Not ported
+yet: tiered maintenance (``OnlineCacheConfig.tiers``) and telemetry,
+which needs the port's copy of ``repro.obs`` (ROADMAP Queue 1, item 9);
+the per-table group trainer (item 8).
 """
 from __future__ import annotations
 
+import io
+from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Union
 
 import numpy as np
@@ -18,13 +33,106 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm
+from repro_torch.core import embedding_source as es
+from repro_torch.core import sparse_engine as se
+from repro_torch.core.embedding_source import VersionedSource
 from repro_torch.optim import tree_map
 
 _BATCH_KEYS = ("dense", "indices", "offsets", "labels")
 
 
+@dataclass(frozen=True)
+class OnlineCacheConfig:
+    k: int                       # hot rows pinned per rebuild
+    refresh_every: int = 50      # steps between re-rank + rebuild
+    decay: float = 0.98          # per-step histogram decay
+    quantize_cold: bool = False  # maintain an int8 cold arena beside the
+    #                              fp one, re-quantizing only touched rows
+    tiers: Optional[object] = None
+
+    def __post_init__(self):
+        if self.tiers is not None:
+            raise NotImplementedError(
+                "tiered maintenance (tiers=) is not ported yet (ROADMAP "
+                "Queue 1, item 9, after item 12's tiered storage)")
+
+
+@dataclass(frozen=True)
+class VersionedHotCache:
+    """A hot cache plus the monotone version of the rebuild that made it:
+    the fleet broadcast artifact. ``serialize`` writes one blob (the
+    reference's npz layout), ``deserialize`` rebuilds it on a serving
+    host, and ``apply`` adopts it into a ``RecEngine`` iff it is strictly
+    newer, so a reordered delivery is safe."""
+    cache: se.HotRowCache
+    version: int
+
+    MAGIC = b"CHC1"          # Centaur hot-cache artifact, format v1
+
+    def serialize(self) -> bytes:
+        buf = io.BytesIO()
+        np.savez(buf,
+                 magic=np.frombuffer(self.MAGIC, np.uint8),
+                 version=np.asarray(self.version, np.int64),
+                 hot_rows=self.cache.hot_rows.detach().cpu().numpy(),
+                 slot_of=self.cache.slot_of.cpu().numpy(),
+                 hot_ids=self.cache.hot_ids.cpu().numpy())
+        return buf.getvalue()
+
+    @staticmethod
+    def deserialize(blob: bytes, *,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> "VersionedHotCache":
+        """Rebuild on ``device`` (the card unless told otherwise)."""
+        device = resolve_device(device)
+        try:
+            with np.load(io.BytesIO(blob)) as z:
+                if z["magic"].tobytes() != VersionedHotCache.MAGIC:
+                    raise ValueError("bad magic")
+                cache = se.HotRowCache(
+                    **{k: torch.from_numpy(np.array(z[k])).to(device)
+                       for k in ("hot_rows", "slot_of", "hot_ids")})
+                return VersionedHotCache(cache=cache,
+                                         version=int(z["version"]))
+        except Exception as e:
+            raise ValueError(
+                f"not a hot-cache broadcast artifact: {e}") from e
+
+    def apply(self, engine) -> bool:
+        """Adopt into a RecEngine iff strictly newer; returns True when the
+        engine swapped. Same-or-older versions are absorbed (a direct
+        ``update_cache`` with an older one raises)."""
+        if engine.cache_version >= self.version:
+            return False
+        engine.update_cache(self.cache, version=self.version)
+        return True
+
+
+def _patch_hot_rows(cache: se.HotRowCache, arena: torch.Tensor,
+                    null_row: int, rows: torch.Tensor) -> se.HotRowCache:
+    """Write-through: a new cache whose hot copies of ``rows`` are
+    refreshed from ``arena``; the one given is left as it was, so an
+    engine serving it keeps its version.
+
+    Rows that are not pinned map to the miss slot K, whose source is
+    forced to the always-zero null row, so slot K is only ever rewritten
+    with zeros. Those are the only duplicate slots (``rows`` are unique
+    but for null-row padding), and ``index_put_`` on the card applies
+    duplicates in no fixed order: that is harmless only because every
+    duplicate write carries the same zeros.
+    """
+    k = cache.k
+    slots = cache.slot_of[rows]
+    src = torch.where(slots < k, rows, null_row)
+    hot_rows = cache.hot_rows.clone()
+    hot_rows[slots] = arena[src].to(hot_rows.dtype)
+    return se.HotRowCache(hot_rows=hot_rows, slot_of=cache.slot_of,
+                          hot_ids=cache.hot_ids)
+
+
 class OnlineTrainer:
-    """Consume ragged batches on the card (or wherever ``device`` says).
+    """Consume ragged batches on the card (or wherever ``device`` says);
+    with ``cache_cfg``, keep the serving hot cache live and exact.
 
     The train step works in place: ``params`` is moved to ``device`` once
     and from then on the trainer's tensors are updated step by step.
@@ -32,13 +140,9 @@ class OnlineTrainer:
 
     def __init__(self, cfg: DLRMConfig, params: Dict, *, max_l: int,
                  lr: float = 1e-3, sparse: bool = True,
-                 cache_cfg: Optional[Any] = None, mesh: Any = None,
-                 telemetry: Optional[Any] = None,
+                 cache_cfg: Optional[OnlineCacheConfig] = None,
+                 mesh: Any = None, telemetry: Optional[Any] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if cache_cfg is not None:
-            raise NotImplementedError(
-                "the online hot cache (cache_cfg) is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
         if telemetry is not None:
             raise NotImplementedError(
                 "trainer telemetry needs the port's copy of repro.obs, "
@@ -48,21 +152,61 @@ class OnlineTrainer:
         self.spec = dlrm.arena_spec(cfg)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_l = max_l
+        self.cache_cfg = cache_cfg
         opt, self._step = dlrm.make_train_step_ragged(
             cfg, max_l=max_l, lr=lr, sparse=sparse, mesh=mesh)
         self.opt_state = opt.init(self.params)
+        self.hist = np.zeros(self.spec.total_rows, np.float64)
         self.steps = 0
+        self.version = 0
+        self.cache: Optional[se.HotRowCache] = None
         self.losses: list = []
+        # incremental int8 maintenance: an int8 mirror of the arena and a
+        # mask of the rows dirtied since the last refresh, kept on the
+        # device so that marking them costs no copy to the host
+        self.cold_q: Optional[es.QuantizedArena] = None
+        self._dirty_q: Optional[torch.Tensor] = None
+        if cache_cfg is not None and cache_cfg.quantize_cold:
+            self.cold_q = es.QuantizedArena.from_arena(self.params["arena"])
+            self._dirty_q = torch.zeros(self.params["arena"].shape[0],
+                                        dtype=torch.bool, device=self.device)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
                 for k in _BATCH_KEYS}
 
+    # -- histogram ---------------------------------------------------------
+
+    def observe(self, batch: Dict) -> None:
+        """Fold one batch's index stream into the decayed histogram, on
+        the host from the numpy batch (never from device tensors). No-op
+        without a ``cache_cfg``: the histogram only ranks rebuilds."""
+        if self.cache_cfg is None:
+            return
+        counts = se.trace_row_counts(self.spec, np.asarray(batch["indices"]),
+                                     np.asarray(batch["offsets"]))
+        self.hist = self.cache_cfg.decay * self.hist + counts
+
+    # -- training ----------------------------------------------------------
+
     def train_step(self, batch: Dict) -> float:
-        """One optimizer step on a numpy batch; returns its loss."""
-        self.params, self.opt_state, loss, _ = self._step(
+        """One optimizer step on a numpy batch; returns its loss and keeps
+        the cache protocol as a side effect."""
+        self.observe(batch)
+        self.params, self.opt_state, loss, rows = self._step(
             self.params, self.opt_state, self._to_device(batch))
         self.steps += 1
+        if self._dirty_q is not None:
+            # the null row rides along harmlessly: re-quantizing a zero
+            # row is an exact no-op
+            self._dirty_q[rows] = True
+        if self.cache is not None:
+            # values never go stale: refresh the touched hot copies
+            self.cache = _patch_hot_rows(self.cache, self.params["arena"],
+                                         self.spec.null_row, rows)
+        if self.cache_cfg is not None \
+                and self.steps % self.cache_cfg.refresh_every == 0:
+            self.rebuild_cache()
         loss = float(loss)
         self.losses.append(loss)
         return loss
@@ -71,3 +215,159 @@ class OnlineTrainer:
         for batch in batches:
             self.train_step(batch)
         return self.losses
+
+    # -- cache publication -------------------------------------------------
+
+    def rebuild_cache(self) -> VersionedHotCache:
+        """Re-rank from the decayed histogram and publish a fresh cache
+        under a bumped version; the int8 mirror, when kept, is patched in
+        the same version."""
+        if self.cache_cfg is None:
+            raise ValueError("no cache_cfg configured")
+        self.cache = se.build_hot_cache(self.params["arena"], self.spec,
+                                        self.hist, self.cache_cfg.k)
+        if self.cold_q is not None:
+            self.refresh_quantized()
+        self.version += 1
+        return self.snapshot()
+
+    def refresh_quantized(self) -> es.QuantizedArena:
+        """Re-quantize exactly the rows dirtied since the last refresh
+        (O(touched), not O(V)); equal to a full ``from_arena`` rebuild,
+        as row-wise quantization has no cross-row state. Finding the
+        dirty rows reads their count on the host, once per refresh."""
+        if self.cold_q is None:
+            raise ValueError("no int8 cold arena is maintained "
+                             "(OnlineCacheConfig.quantize_cold)")
+        rows = self._dirty_q.nonzero().reshape(-1).to(torch.int32)
+        if rows.numel():
+            self.cold_q = self.cold_q.quantize_rows(self.params["arena"],
+                                                    rows)
+            self._dirty_q.zero_()
+        return self.cold_q
+
+    def snapshot(self) -> Optional[VersionedHotCache]:
+        if self.cache is None:
+            return None
+        return VersionedHotCache(cache=self.cache, version=self.version)
+
+    def serving_source(self) -> es.EmbeddingSource:
+        """The source a replica should serve now: the live hot cache over
+        the maintained cold arena (int8 when ``quantize_cold``, else the
+        trainer's fp arena). Its structure is the same at every version.
+        It aliases the trainer's arena: serialize it or hand it to
+        ``sync_engine``, which copies."""
+        cold = (self.cold_q if self.cold_q is not None
+                else es.FpArena(self.params["arena"]))
+        if self.cache is None:
+            return cold
+        # published at a write-through or rebuild boundary, where the hot
+        # copies equal their arena rows
+        return es.CachedSource(hot=self.cache, cold=cold, coherent=True)
+
+    def publish_source(self, include_head: bool = False) -> Optional[bytes]:
+        """The whole serving source (hot rows and the entire cold arena)
+        as a ``VersionedSource`` blob, None before the first rebuild;
+        ``include_head=True`` adds the dense MLP head, so a remote replica
+        adopts everything it serves from one blob."""
+        if self.cache is None:
+            return None
+        return VersionedSource(source=self.serving_source(),
+                               version=self.version,
+                               head=({k: self.params[k]
+                                      for k in ("bottom", "top")}
+                                     if include_head else None)).serialize()
+
+    def publish(self) -> Optional[bytes]:
+        """The current hot cache as a broadcast blob (None before the
+        first rebuild): every replica calls
+        ``VersionedHotCache.deserialize(blob).apply(engine)``."""
+        snap = self.snapshot()
+        return None if snap is None else snap.serialize()
+
+    def sync_engine(self, engine) -> bool:
+        """Publish the trained state into a RecEngine if it is behind;
+        returns True when a swap happened.
+
+        Params and cache swap together: hot copies are snapshots of arena
+        rows, so one without the other would serve two arena versions at
+        once. The gate is the trainer's step, so between rebuilds every
+        step's (params, patched cache) pair reaches the engine. The
+        params are copied into the engine's own tensors, and the source
+        is rebuilt to the engine's structure over the engine's arena, so
+        later in-place steps do not reach the engine before the next
+        sync.
+        """
+        snap = self.snapshot()
+        if snap is None:
+            return False
+        if getattr(engine, "_trainer_step", -1) >= self.steps \
+                and engine.cache_version >= snap.version:
+            return False
+        engine.params = self.params
+        new_source = es.rebind_arena(
+            self._match_structure(engine.source, snap.cache),
+            engine.params["arena"])
+        engine.update_source(new_source, version=snap.version)
+        engine._trainer_step = self.steps
+        return True
+
+    def _match_structure(self, engine_source,
+                         cache: se.HotRowCache) -> es.EmbeddingSource:
+        """The engine's source shape, rebuilt from live trainer state."""
+        def cold_like(c):
+            if isinstance(c, es.QuantizedArena):
+                if self.cold_q is None:
+                    raise ValueError(
+                        "the engine serves an int8 cold arena but the "
+                        "trainer maintains none; set "
+                        "OnlineCacheConfig(quantize_cold=True)")
+                return self.cold_q
+            if isinstance(c, es.FpArena):
+                return es.FpArena(self.params["arena"])
+            raise TypeError(f"cannot sync cold source {type(c).__name__}")
+        if isinstance(engine_source, es.CachedSource):
+            return es.CachedSource(hot=cache,
+                                   cold=cold_like(engine_source.cold),
+                                   coherent=engine_source.coherent)
+        return cold_like(engine_source)
+
+
+def make_drifting_zipf(cfg: DLRMConfig, *, batch_size: int, mean_l: int,
+                       max_l: int, drift_per_batch: int = 0,
+                       alpha: float = 1.05, seed: int = 0):
+    """Ragged-batch generator whose hot set rotates over time.
+
+    Zipf rank r maps to row (r + t * drift_per_batch) % rows at batch t, so
+    the most popular rows shift by `drift_per_batch` every batch. Yields
+    batches shaped exactly like DLRMSynthetic.ragged_batch, padded to a
+    static stream length. The numpy draws are the reference's, call for
+    call, so one seed gives the same batches in both packages.
+    """
+    rng = np.random.RandomState(seed)
+    w = rng.randn(cfg.dense_features).astype(np.float32)
+    n_bags = batch_size * cfg.n_tables
+    pad_to = n_bags * max_l
+    t = 0
+    while True:
+        lens = np.clip(rng.poisson(mean_l, n_bags), 0, max_l).astype(np.int32)
+        offsets = np.zeros(n_bags + 1, np.int32)
+        np.cumsum(lens, out=offsets[1:])
+        n = int(offsets[-1])
+        raw = rng.zipf(alpha, size=n)
+        shifted = (raw - 1) + t * drift_per_batch
+        if cfg.heterogeneous:
+            # fold each position into its own table's vocab
+            seg = np.searchsorted(offsets[1:], np.arange(n), side="right")
+            rows = np.asarray(cfg.resolved_table_rows)
+            indices = (shifted % rows[seg % cfg.n_tables]).astype(np.int32)
+        else:
+            indices = (shifted % cfg.rows_per_table).astype(np.int32)
+        indices = np.concatenate([indices, np.zeros(pad_to - n, np.int32)])
+        dense = rng.randn(batch_size, cfg.dense_features).astype(np.float32)
+        logit = dense @ w * 0.5
+        labels = (rng.rand(batch_size)
+                  < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+        yield {"dense": dense, "indices": indices, "offsets": offsets,
+               "lengths": lens, "labels": labels, "max_l": max_l}
+        t += 1

@@ -312,6 +312,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.optim, repro_torch.training.sparse_optim\n"
             "import repro_torch.training.online, repro_torch.launch.train\n"
             "import repro_torch.kernels.embedding_gather\n"
+            "import repro_torch.kernels.fused_dispatch\n"
+            "import repro_torch.core.sparse_engine\n"
+            "import repro_torch.core.embedding_source\n"
+            "import repro_torch.serving.rec_engine, repro_torch.training\n"
+            "from repro_torch.training import (OnlineCacheConfig,\n"
+            "    VersionedHotCache, VersionedSource, make_drifting_zipf)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

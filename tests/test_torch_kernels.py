@@ -141,6 +141,10 @@ def test_mlp_ref_matches_jax():
 # ---------------------------------------------------------------------------
 
 _OPS = {
+    "fused_cached_segment_sum": lambda dev: ops.fused_cached_segment_sum(
+        torch.ones(3, 4, device=dev), torch.ones(5, 4, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev)),
     "gemm": lambda dev: ops.gemm(torch.ones(2, 3, device=dev),
                                  torch.ones(3, 4, device=dev)),
     "fused_segment_sum": lambda dev: ops.fused_segment_sum(
@@ -167,6 +171,10 @@ def test_ops_refuse_mixed_devices():
 
 
 _WRAPPERS = {
+    "fused_cached_segment_sum": lambda: t_fd.fused_cached_segment_sum(
+        torch.ones(3, 4), torch.ones(5, 4),
+        torch.zeros(2, 3, dtype=torch.int32),
+        torch.zeros(2, 3, dtype=torch.int32)),
     "fused_segment_sum": lambda: t_fd.fused_segment_sum(
         torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32)),
     "gemm": lambda: t_gm.gemm(torch.ones(2, 3), torch.ones(3, 4)),
@@ -181,10 +189,12 @@ _WRAPPERS = {
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises; it never computes on the
     CPU (and never builds anything to find that out)."""
-    before = {m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)}
+    before = ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
+              t_fd.cached_launches)
     with pytest.raises(ValueError, match="CUDA device"):
         _WRAPPERS[name]()
-    assert {m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)} == before
+    assert ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
+            t_fd.cached_launches) == before
 
 
 @pytest.mark.parametrize("ids_dtype,msg", [(torch.int64, "int32"),
@@ -213,7 +223,8 @@ def test_build_targets_sm90a_with_a_c_interface(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert [p.stem for p in _build.sources()] == [
-        "fused_segment_sum", "gemm", "interaction", "sls_grad_table"]
+        "fused_cached_segment_sum", "fused_segment_sum", "gemm",
+        "interaction", "sls_grad_table"]
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -231,5 +242,5 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         _build.build_all()
     assert not list((tmp_path / "build").rglob("*.so*"))
     logs = _build.build_logs()
-    assert set(logs) == {"fused_segment_sum", "gemm", "interaction",
-                         "sls_grad_table"}
+    assert set(logs) == {"fused_cached_segment_sum", "fused_segment_sum",
+                         "gemm", "interaction", "sls_grad_table"}

@@ -1,6 +1,7 @@
 """The port's RecEngine on the "ragged" fp plan against the JAX RecEngine:
 the same requests, the same params, per-request probabilities; plus the
-batcher, bucketing, stats and the plans that are not ported yet.
+batcher, bucketing, stats and the plans that are not ported yet. The
+cached plan has its own file, ``test_torch_cached_serving.py``.
 
 Tolerance: probabilities atol=1e-5 (fp32 logits of O(1) through
 sigmoid, XLA and torch summing in different orders).
@@ -154,17 +155,10 @@ def test_latency_ring_is_bounded(params, monkeypatch):
 
 
 @pytest.mark.parametrize("plan,item", [("fixed", "item 4"),
-                                       ("cached", "item 8"),
                                        ("sharded", "item 13")])
 def test_unported_plans_name_their_roadmap_item(params, plan, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
         _engine(params, source=plan)
-
-
-def test_prebuilt_sources_are_not_ported(params):
-    from repro_torch.core.embedding_source import FpArena
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _engine(params, source=FpArena(params["arena"]))
 
 
 def test_engine_refuses_the_cpu_unasked(params, monkeypatch):
