@@ -18,6 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    a warm trace; on a coherent cache it must equal the
    ``fused_segment_sum`` kernel over the arena bit for bit (the hot/cold
    law, on the card), and on a stale one its plain version.
+   ``embedding_bag`` at DLRM(1)'s fixed shapes (and L = 1 through
+   ``gather_rows``, L = 80, D = 16 and 48) and ``sparse_lengths_sum`` on
+   poisson bags (empty bags, a padded tail, a bag longer than ``max_l``)
+   must also equal ``fused_segment_sum`` over the same bags bit for bit.
 3. Serve: DLRM(1) at full size (5 x 200,000 x 32 fp32 arena, MLPs
    13-512-256-32 and 47-512-256-1) from a seeded generator, served by
    ``RecEngine(max_l=40, max_batch=32)`` for 512 requests. Every serving
@@ -56,7 +60,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    unsynced, it must still serve the forward as of the sync; a stale
    artifact must be refused; a fresh engine adopting
    ``publish_source()`` must serve the live forward.
-7. Report: one JSON line of the kernels, then the device line, which is
+7. Fixed serving and the hybrid pipeline: 512 fixed-L requests (L = 20)
+   through ``RecEngine(source="fixed")``: one ``embedding_bag`` launch
+   per micro-batch and no ``fused_segment_sum``, probabilities within
+   tolerance of the CPU path and equal bit for bit to the ragged fp
+   plan's on the same bags. The flat route: the phase 3 requests served
+   through a source that implements ``reduce_flat`` alone (the base
+   class's fallback onto ``sparse_lengths_sum``), equal bit for bit to
+   phase 3's probabilities. The two-stream pipelines
+   (``pipelined_forward``, ``pipelined_forward_ragged``, 4 micro-batches)
+   against the single-shot forwards at bucket 32 and at 2048 samples,
+   their launches, device time, idle share and whether the two streams'
+   kernels overlap; then the serve launcher with and without
+   ``--pipelined``.
+8. Fixed training: 4 steps of ``make_train_step`` at batch 32, card
+   against the CPU path from the card's state each step, two card runs
+   equal bit for bit, launches and time per step, and three steps of the
+   training launcher without ``--ragged``.
+9. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -65,10 +86,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -80,13 +103,16 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.dlrm import DLRM_CONFIGS  # noqa: E402
 from repro_torch.core import dlrm  # noqa: E402
+from repro_torch.core import embedding_source as es  # noqa: E402
+from repro_torch.core import hybrid  # noqa: E402
 from repro_torch.core import sparse_engine as se  # noqa: E402
 from repro_torch.data import DLRMSynthetic  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg_k  # noqa: E402
 from repro_torch.kernels import feature_interaction as fi_k  # noqa: E402
 from repro_torch.kernels import fused_dispatch as fd_k  # noqa: E402
 from repro_torch.kernels import gemm as gm_k  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import RecEngine, requests_from_ragged_batch  # noqa: E402
@@ -111,39 +137,61 @@ DRIFT = 64                         # rows the Zipf head moves per batch
 TRAIN_STEPS = 4                    # steps of each mode, card against CPU
 TIMED_STEPS = 20                   # steps per timing trial
 LR = 1e-3                          # make_train_step_ragged's default
+N_MICRO = 4                        # micro-batches of the pipelined forwards
+TRACE_DIR = None                   # keeps the profiler traces: the --out
+                                   # file's directory, when one is given
 
 # launches per served forward on the fp plan, per train step (either
-# mode) and per served forward on the cached plan: a step runs the
-# forward (6 gemm), dw of all six layers and dx of five (the bottom MLP's
-# input needs none), and one sls_grad_table -- the table gradient in the
-# dense mode, the row gradients in the sparse mode. "counter" names the
-# wrapper module's launch count.
+# mode), per served forward on the cached plan, per served forward on the
+# fixed plan, per forward through a reduce_flat-only source and per
+# fixed-L train step: a step runs the forward (6 gemm), dw of all six
+# layers and dx of five (the bottom MLP's input needs none), and one
+# sls_grad_table -- the table gradient in the dense modes, the row
+# gradients in the sparse mode. "counter" names the wrapper module's
+# launch count.
 KERNELS = {
     "fused_segment_sum": {
         "module": fd_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/fused_segment_sum.cu",
         "replaces": "src/repro/kernels/fused_dispatch.py:61",
-        "per_forward": 1, "per_step": 1, "per_cached_forward": 0},
+        "per_forward": 1, "per_step": 1, "per_cached_forward": 0,
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0},
     "gemm": {
         "module": gm_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/gemm.py:39",
-        "per_forward": 6, "per_step": 17, "per_cached_forward": 6},
+        "per_forward": 6, "per_step": 17, "per_cached_forward": 6,
+        "per_fixed_forward": 6, "per_flat_forward": 6, "per_fixed_step": 17},
     "interaction": {
         "module": fi_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/interaction.cu",
         "replaces": "src/repro/kernels/feature_interaction.py:30",
-        "per_forward": 1, "per_step": 1, "per_cached_forward": 1},
+        "per_forward": 1, "per_step": 1, "per_cached_forward": 1,
+        "per_fixed_forward": 1, "per_flat_forward": 1, "per_fixed_step": 1},
     "sls_grad_table": {
         "module": eg_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/sls_grad_table.cu",
         "replaces": "src/repro/kernels/embedding_gather.py:188",
-        "per_forward": 0, "per_step": 1, "per_cached_forward": 0},
+        "per_forward": 0, "per_step": 1, "per_cached_forward": 0,
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 1},
     "fused_cached_segment_sum": {
         "module": fd_k, "counter": "cached_launches",
         "source": "src/repro_torch/kernels/csrc/fused_cached_segment_sum.cu",
         "replaces": "src/repro/kernels/fused_dispatch.py:116",
-        "per_forward": 0, "per_step": 0, "per_cached_forward": 1},
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 1,
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0},
+    "embedding_bag": {
+        "module": eg_k, "counter": "bag_launches",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_gather.py:57",
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
+        "per_fixed_forward": 1, "per_flat_forward": 0, "per_fixed_step": 1},
+    "sparse_lengths_sum": {
+        "module": eg_k, "counter": "sls_launches",
+        "source": "src/repro_torch/kernels/csrc/sparse_lengths_sum.cu",
+        "replaces": "src/repro/kernels/embedding_gather.py:125",
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
+        "per_fixed_forward": 0, "per_flat_forward": 1, "per_fixed_step": 0},
 }
 
 
@@ -167,6 +215,13 @@ def uncounted():
         for n, k in KERNELS.items():
             setattr(k["module"], k["counter"], saved[n])
 
+# the pipelined forwards against the single-shot ones: every kernel of
+# the port computes a bag, a sample or an output row on its own (gemm in
+# order of k), so they are expected equal bit for bit; should a layer
+# ever add in another order per micro-batch, logits of magnitude <= ~10
+# summed over K <= 512 agree within 1e-5.
+PIPE_ATOL = 1e-5
+
 # Tolerances, kernel against plain version, both fp32 on the card:
 # fused_segment_sum and fused_cached_segment_sum: <= 40 terms of ~1e-2
 # summed in another order.
@@ -183,7 +238,12 @@ def uncounted():
 # five runs on the H100 saw 1.9e-4 to 3.5e-4.
 # Against the plain version on the CPU, which adds in the kernel's
 # order, the tolerance is 0.
+# embedding_bag and sparse_lengths_sum: as fused_segment_sum, <= 80
+# terms of ~1e-2; both must besides equal the fused_segment_sum kernel
+# bit for bit, since all three add a bag's rows in order of position.
 TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
+       "embedding_bag": dict(rtol=0.0, atol=1e-6),
+       "sparse_lengths_sum": dict(rtol=0.0, atol=1e-6),
        "fused_cached_segment_sum": dict(rtol=0.0, atol=1e-6),
        "fused_cached_segment_sum_stale": dict(rtol=0.0, atol=1e-5),
        "gemm": dict(rtol=1e-5, atol=1e-5),
@@ -259,16 +319,21 @@ def _kernel_times_us(prof) -> dict:
 def device_ms(fn, reps: int = 20):
     """Mean device time per call, summed over every kernel `fn` runs, from
     torch.profiler's CUPTI trace; None when the trace holds no device
-    time. Unlike `time_ms`, the host's launch cost is not in it."""
+    time. Unlike `time_ms`, the host's launch cost is not in it. A trace
+    that comes back empty (the profiler on the card has lost one) is
+    taken once more."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_kernel_times_us(prof).values())
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_kernel_times_us(prof).values())
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def measure(kernel, plain, library) -> dict:
@@ -545,6 +610,166 @@ def check_interaction(cfg, gen) -> tuple:
     return max(errs), rows
 
 
+def _same_as_fused(name: str, got: torch.Tensor, table: torch.Tensor,
+                   dense: torch.Tensor, what: str) -> None:
+    """The law of the three embedding kernels: one bag, summed in order
+    of position, gives the same bits in every form."""
+    want = fd_k.fused_segment_sum(table, dense)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{name} {what}: differs from the fused_segment_sum kernel by "
+             f"{(got - want).abs().max().item()}")
+    print(f"  {name:24s} {what:34s} equal to fused_segment_sum "
+          f"(torch.equal)")
+
+
+def fixed_ids(cfg, samples: int, seed: int) -> torch.Tensor:
+    """The (B*T, L) arena ids the fixed path hands the kernel: a
+    DLRMSynthetic.batch, flattened into the arena."""
+    b = DLRMSynthetic(cfg, seed=seed).batch(samples)
+    return se.flatten_indices(dlrm.arena_spec(cfg),
+                              torch.from_numpy(b["indices"]).cuda())
+
+
+def _small_table(gen, v: int, d: int) -> torch.Tensor:
+    # rows of the arena's scale, so the stated tolerance holds
+    t = 0.01 * torch.randn((v, d), generator=gen, device="cuda")
+    t[-1] = 0.0
+    return t
+
+
+def check_embedding_bag(arena, cfg, gen) -> tuple:
+    """embedding_bag at DLRM(1)'s fixed shapes (and gather_rows, L = 80,
+    D = 16 and 48): against its plain version, and bit for bit against
+    fused_segment_sum over the same bags padded with null-row fill."""
+    name = "embedding_bag"
+    spec = dlrm.arena_spec(cfg)
+    errs, rows = [], []
+
+    def check(table, ids, null_row, what):
+        got = eg_k.embedding_bag(table, ids)
+        errs.append(compare(name, got, ref.embedding_bag(table, ids), what))
+        fill = torch.full_like(ids, null_row)
+        _same_as_fused(name, got, table, torch.cat([ids, fill], 1), what)
+
+    for samples, seed in ((BUCKET, 31), (LARGE, 32)):
+        ids = fixed_ids(cfg, samples, seed)
+        check(arena, ids, spec.null_row, f"ids {tuple(ids.shape)}")
+        b, n_l = ids.shape
+        d = arena.shape[1]
+        touched = torch.unique(ids).numel()
+        bound_ms, by = bound(4 * (ids.numel() + touched * d + b * d),
+                             ids.numel() * d)
+        rows.append({
+            "samples": samples, "shape": [b, n_l, d], "rows_read": touched,
+            **measure(lambda: eg_k.embedding_bag(arena, ids),
+                      lambda: ref.embedding_bag(arena, ids),
+                      lambda: F.embedding_bag(ids, arena, mode="sum")),
+            "bound_ms": bound_ms, "bound_by": by})
+    # DLRM(3)'s bags of 80 over the same arena
+    check(arena, fixed_ids(dataclasses.replace(cfg, lookups_per_table=80),
+                           BUCKET, 33), spec.null_row, "L = 80 (DLRM(3))")
+    # gather_rows: single-row bags, an exact copy of the rows
+    one = fixed_ids(cfg, BUCKET, 34)[:, 0].contiguous()
+    got = eg_k.gather_rows(arena, one)
+    torch.cuda.synchronize()
+    if not torch.equal(got, arena[one]):
+        fail(f"{name} gather_rows: differs from arena[ids]")
+    print(f"  {name:24s} {'gather_rows, L = 1':34s} equal to arena[ids]")
+    errs.append(compare(name, eg_k.embedding_bag(
+        arena, one[:, None][:, :0].contiguous()),
+        torch.zeros(one.shape[0], arena.shape[1], device="cuda"), "L = 0"))
+    for d in (48, 16):
+        small = _small_table(gen, 300, d)
+        ids = torch.randint(0, 299, (9, 45), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        check(small, ids, 299, f"D = {d}, B = 9, L = 45")
+    return max(errs), rows
+
+
+def check_sls(arena, cfg, gen) -> tuple:
+    """sparse_lengths_sum on poisson bags (mean 20, max 40) at bucket 32
+    and 2048 samples, with their padded tail: against its plain version,
+    bit for bit against fused_segment_sum over the relayouted ids; then
+    empty bags, a bag longer than max_l, D = 16 and 48, and the cached
+    source's flat split."""
+    name = "sparse_lengths_sum"
+    spec = dlrm.arena_spec(cfg)
+    errs, rows = [], []
+
+    def check(table, ids, off, max_l, null_row, what):
+        got = eg_k.sparse_lengths_sum(table, ids, off, max_l=max_l)
+        errs.append(compare(name, got, ref.sparse_lengths_sum(
+            table, ids, off, max_l), what))
+        dense = se.ragged_dense_ids(ids, off, max_l=max_l, fill=null_row)
+        _same_as_fused(name, got, table, dense, what)
+
+    for samples, seed in ((BUCKET, 11), (LARGE, 12)):
+        rb = DLRMSynthetic(cfg, seed=seed).ragged_batch(
+            samples, dist="poisson", max_l=MAX_L,
+            pad_to=samples * cfg.n_tables * MAX_L)
+        off = torch.from_numpy(rb["offsets"]).cuda()
+        flat = se.flatten_ragged_indices(
+            spec, torch.from_numpy(rb["indices"]).cuda(), off)
+        check(arena, flat, off, MAX_L, spec.null_row,
+              f"{off.numel() - 1} poisson bags, padded")
+        n_valid = int(rb["offsets"][-1])
+        b, d = off.numel() - 1, arena.shape[1]
+        valid = flat[:n_valid].contiguous()
+        touched = torch.unique(valid).numel()
+        bound_ms, by = bound(4 * (n_valid + (b + 1) + touched * d + b * d),
+                             n_valid * d)
+        rows.append({
+            "samples": samples, "bags": b, "ids": n_valid,
+            "positions": flat.numel(), "rows_read": touched,
+            **measure(lambda: eg_k.sparse_lengths_sum(arena, flat, off,
+                                                      max_l=MAX_L),
+                      lambda: ref.sparse_lengths_sum(arena, flat, off,
+                                                     MAX_L),
+                      lambda: F.embedding_bag(valid, arena, off, mode="sum",
+                                              include_last_offset=True)),
+            "bound_ms": bound_ms, "bound_by": by})
+    # empty bags and a padded tail, D = 16 and 48
+    off = torch.tensor([0, 0, 3, 3, 7, 9, 9], dtype=torch.int32,
+                       device="cuda")
+    for d in (48, 16):
+        small = _small_table(gen, 300, d)
+        ids = torch.randint(0, 299, (14,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        check(small, ids, off, 5, 299, f"D = {d}, empty bags, padded tail")
+    # a bag longer than max_l: the first max_l rows, as the reference's
+    # Pallas kernel sums them
+    table = torch.arange(40, dtype=torch.float32, device="cuda").reshape(10, 4)
+    ids = torch.tensor([1, 2, 3, 4, 5, 6, 0, 0], dtype=torch.int32,
+                       device="cuda")
+    off = torch.tensor([0, 5, 6], dtype=torch.int32, device="cuda")
+    got = eg_k.sparse_lengths_sum(table, ids, off, max_l=2)
+    want = torch.tensor([[12, 14, 16, 18], [24, 25, 26, 27]],
+                        dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(
+            got, ref.sparse_lengths_sum(table, ids, off, 2)):
+        fail(f"{name} bag longer than max_l: {got.tolist()}")
+    print(f"  {name:24s} {'bag of 5 at max_l = 2':34s} sums its first 2 "
+          f"rows, as the Pallas kernel")
+    # the cached source's flat form: hot slots and cold redirects, each
+    # through the kernel, against the fp arena's flat form
+    rb = DLRMSynthetic(cfg, seed=11).ragged_batch(
+        BUCKET, dist="poisson", max_l=MAX_L,
+        pad_to=BUCKET * cfg.n_tables * MAX_L)
+    off = torch.from_numpy(rb["offsets"]).cuda()
+    flat = se.flatten_ragged_indices(
+        spec, torch.from_numpy(rb["indices"]).cuda(), off)
+    cache = se.build_hot_cache(arena, spec, warm_counts(cfg), CACHE_K)
+    cached = es.CachedSource(cache, es.FpArena(arena))
+    errs.append(compare(name, cached.reduce_flat(spec, flat, off,
+                                                 max_l=MAX_L),
+                        es.FpArena(arena).reduce_flat(spec, flat, off,
+                                                      max_l=MAX_L),
+                        "CachedSource.reduce_flat"))
+    return max(errs), rows
+
+
 def phase_kernels(cfg, params, gen) -> dict:
     out = {}
     for name, (err, rows) in (
@@ -552,7 +777,9 @@ def phase_kernels(cfg, params, gen) -> dict:
             ("gemm", check_gemm(params, gen)),
             ("interaction", check_interaction(cfg, gen)),
             ("fused_cached_segment_sum",
-             check_cached(params["arena"], cfg, gen))):
+             check_cached(params["arena"], cfg, gen)),
+            ("embedding_bag", check_embedding_bag(params["arena"], cfg, gen)),
+            ("sparse_lengths_sum", check_sls(params["arena"], cfg, gen))):
         out[name] = {"max_abs_err": err, "rows": rows}
         for r in rows:
             if "hit_rate" in r:
@@ -577,15 +804,17 @@ def served_batch(cfg) -> dict:
                                                    max_l=MAX_L)
 
 
-def serve(cfg, params, device: str, **plan):
-    """512 requests, sent by the client 32 at a time: each group is
-    stamped when it is sent and served by one engine step. ``plan`` goes
-    to the engine (source, cache_k, ...). On the card the launch counts
-    are zeroed just before the requests."""
+def serve(cfg, params, device: str, batch=None, **plan):
+    """512 requests (``batch``, in the ragged dict form; default the
+    poisson ``served_batch``), sent by the client 32 at a time: each group
+    is stamped when it is sent and served by one engine step. ``plan``
+    goes to the engine (source, cache_k, ...). On the card the launch
+    counts are zeroed just before the requests."""
     engine = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
                        device=device, **plan)
     engine.warmup()
-    reqs = requests_from_ragged_batch(served_batch(cfg), cfg.n_tables)
+    reqs = requests_from_ragged_batch(
+        served_batch(cfg) if batch is None else batch, cfg.n_tables)
     if device == "cuda":
         reset_counts()
     for i in range(0, len(reqs), BUCKET):
@@ -602,6 +831,9 @@ def _kernel_group(name: str) -> str:
     for group, symbol in (("fused_cached_segment_sum",
                            "fused_cached_segment_sum_kernel"),
                           ("fused_segment_sum", "fused_segment_sum_kernel"),
+                          ("embedding_bag", "embedding_bag_kernel"),
+                          ("sparse_lengths_sum",
+                           "sparse_lengths_sum_kernel"),
                           ("gemm", "gemm_f32_kernel"),
                           ("interaction", "interaction_kernel"),
                           ("sls_grad_table", "sls_grad_table_kernel")):
@@ -614,7 +846,13 @@ def _kernel_group(name: str) -> str:
 STAGES = ("sparse_lookup", "emb_lookup", "interaction", "mlp")
 
 
-def profile_serve(engine, cfg, n_batches: int = 4) -> dict:
+def poisson_batch(cfg, n: int, seed: int) -> dict:
+    return DLRMSynthetic(cfg, seed=seed).ragged_batch(n, dist="poisson",
+                                                      max_l=MAX_L)
+
+
+def profile_serve(engine, cfg, n_batches: int = 4,
+                  batch_fn=poisson_batch) -> dict:
     """Where a served micro-batch's time goes. Three passes of n_batches
     micro-batches of 32: plain (host clock), under torch.profiler tracing
     the card (device time per kernel group), and tracing the host (time
@@ -625,9 +863,8 @@ def profile_serve(engine, cfg, n_batches: int = 4) -> dict:
                   torch.profiler.ProfilerActivity.CPU)
     walls, traces = [], []
     for seed, activity in zip((8, 9, 10), activities):
-        rb = DLRMSynthetic(cfg, seed=seed).ragged_batch(
-            n_batches * BUCKET, dist="poisson", max_l=MAX_L)
-        reqs = requests_from_ragged_batch(rb, cfg.n_tables)
+        reqs = requests_from_ragged_batch(
+            batch_fn(cfg, n_batches * BUCKET, seed), cfg.n_tables)
         torch.cuda.synchronize()
         with (torch.profiler.profile(activities=[activity])
               if activity is not None else contextlib.nullcontext()) as prof:
@@ -1222,7 +1459,8 @@ def phase_online(cfg) -> dict:
     for name, k in KERNELS.items():
         want = k["per_step"] * n_steps \
             + k["per_cached_forward"] * served_batches
-        if launches[name] != want or not launches[name]:
+        on_path = k["per_step"] or k["per_cached_forward"]
+        if launches[name] != want or (on_path and not launches[name]):
             fail(f"online: {name} launched {launches[name]} times; "
                  f"{k['per_step']} x {n_steps} steps + "
                  f"{k['per_cached_forward']} x {served_batches} served = "
@@ -1294,6 +1532,340 @@ def phase_online(cfg) -> dict:
             "checks": checks, "costs": costs, "losses": trainer.losses}
 
 
+# ---------------------------------------------------------------- phase 7
+
+def fixed_as_ragged(b: dict) -> dict:
+    """A DLRMSynthetic.batch in the ragged dict form: every bag L long."""
+    n, t, n_l = b["indices"].shape
+    return {"dense": b["dense"], "indices": b["indices"].reshape(-1),
+            "offsets": (np.arange(n * t + 1) * n_l).astype(np.int32),
+            "labels": b["labels"]}
+
+
+def fixed_batch(cfg, n: int, seed: int) -> dict:
+    return fixed_as_ragged(DLRMSynthetic(cfg, seed=seed).batch(n))
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatArena(es.EmbeddingSource):
+    """A source as the protocol lets a user add one: ``reduce_flat``
+    alone. Both entry points reach it through the base class's fallback
+    ``reduce_dense``, so its lookups run on ``sparse_lengths_sum``."""
+    arena: torch.Tensor
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return self.arena.dtype
+
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        return ops.sparse_lengths_sum(self.arena, flat, offsets,
+                                      max_l=max_l).float()
+
+
+def serve_flat(cfg, params, fp_probs) -> dict:
+    """Phase 3's requests, in its micro-batches of 32 and its padded
+    shapes, through the ragged serve step over a FlatArena."""
+    rb = served_batch(cfg)
+    dev = {k: torch.from_numpy(rb[k]).cuda()
+           for k in ("dense", "indices", "offsets")}
+    n = N_REQUESTS // BUCKET
+    idx_s, off_s = hybrid.split_ragged_microbatches(
+        dev["indices"], dev["offsets"], n, MAX_L)
+    dense_s = dev["dense"].reshape(n, BUCKET, -1)
+    step = dlrm.make_ragged_serve_step(cfg, max_l=MAX_L)
+    src = FlatArena(params["arena"])
+    reset_counts()
+    probs = [step(params, {"dense": dense_s[i], "indices": idx_s[i],
+                           "offsets": off_s[i]}, src) for i in range(n)]
+    launches = launch_counts()
+    _check_launches(launches, "per_flat_forward", n, "flat route")
+    probs = torch.cat(probs).cpu().numpy().astype(np.float64)
+    if not np.array_equal(probs, fp_probs):
+        fail(f"flat route differs from the fp plan by "
+             f"{np.abs(probs - fp_probs).max()} (must be equal)")
+    print(f"  flat route (reduce_flat-only source, {n} micro-batches): "
+          f"every probability equal to phase 3's fp plan (np.array_equal); "
+          f"launches {launches}")
+    return {"launches": launches, "batches": n}
+
+
+def stream_profile(fn, tag: str, reps: int = 10) -> dict:
+    """Kernel intervals of ``reps`` calls from the profiler's trace of the
+    card (kept beside the --out file): device busy time per call (the
+    union of kernel intervals), summed kernel time, the time two kernels
+    ran at once (in a pipeline only kernels of different streams can) and
+    the streams used."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(TRACE_DIR or tmp) / f"trace_{tag}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    ks = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 e.get("args", {}).get("stream"))
+                for e in events if e.get("cat") == "kernel" and "dur" in e)
+    if not ks:
+        return {"kernels": 0}
+    total = sum(b - a for a, b, _ in ks)
+    union, (lo, hi) = 0.0, ks[0][:2]
+    for a, b, _ in ks[1:]:
+        if a > hi:
+            union += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    union += hi - lo
+    return {"kernels": len(ks) / reps,
+            "streams": sorted({str(st) for *_, st in ks}),
+            "device_busy_ms": union / 1e3 / reps,
+            "kernel_sum_ms": total / 1e3 / reps,
+            "overlap_ms": (total - union) / 1e3 / reps,
+            "trace": str(path) if TRACE_DIR else None}
+
+
+def check_pipelines(cfg, params) -> dict:
+    """Both pipelines (N_MICRO micro-batches, two streams) against the
+    single-shot forwards at bucket 32 and 2048 samples; their launches
+    at bucket 32 (the main path of this sub-phase); time per call, device
+    busy time, idle share and stream overlap."""
+    launches = {n: 0 for n in KERNELS}
+    out = {"rows": []}
+    for samples, seed in ((BUCKET, 41), (LARGE, 42)):
+        fb = DLRMSynthetic(cfg, seed=seed).batch(samples)
+        rb = poisson_batch(cfg, samples, seed)
+        f = {k: torch.from_numpy(fb[k]).cuda() for k in ("dense", "indices")}
+        r = {k: torch.from_numpy(rb[k]).cuda()
+             for k in ("dense", "indices", "offsets")}
+        runs = {
+            "fixed": (
+                lambda: dlrm.forward(params, cfg, f["dense"], f["indices"]),
+                lambda: hybrid.pipelined_forward(params, cfg, f["dense"],
+                                                 f["indices"], N_MICRO),
+                {"embedding_bag": N_MICRO + 1}),
+            "ragged": (
+                lambda: dlrm.forward_ragged(params, cfg, r["dense"],
+                                            r["indices"], r["offsets"],
+                                            max_l=MAX_L),
+                lambda: hybrid.pipelined_forward_ragged(
+                    params, cfg, r["dense"], r["indices"], r["offsets"],
+                    max_l=MAX_L, n_micro=N_MICRO),
+                {"fused_segment_sum": N_MICRO + 1})}
+        for kind, (single, piped, lookups) in runs.items():
+            with torch.inference_mode():
+                with uncounted():
+                    want = single()
+                if samples == BUCKET:
+                    reset_counts()
+                    got = piped()
+                    counts = launch_counts()
+                    expect = {n: lookups.get(n, 0) for n in KERNELS}
+                    expect["gemm"] = 6 * N_MICRO
+                    expect["interaction"] = N_MICRO
+                    if counts != expect:
+                        fail(f"pipelined {kind}: launches {counts}, "
+                             f"expected {expect}")
+                    for n in KERNELS:
+                        launches[n] += counts[n]
+                else:
+                    with uncounted():
+                        got = piped()
+                torch.cuda.synchronize()
+                equal = torch.equal(got, want)
+                err = (got - want).abs().max().item()
+                if not equal and err > PIPE_ATOL:
+                    fail(f"pipelined {kind} at {samples}: differs from the "
+                         f"single-shot forward by {err}")
+
+                def timed(fn):
+                    def call():
+                        with torch.inference_mode():
+                            fn()
+                    return call
+                with uncounted():
+                    row = {"kind": kind, "samples": samples,
+                           "equal": equal, "max_abs_err": err,
+                           "single_ms": time_ms(timed(single), reps=10,
+                                                trials=5),
+                           "pipelined_ms": time_ms(timed(piped), reps=10,
+                                                   trials=5),
+                           "single": stream_profile(
+                               timed(single), f"{kind}_{samples}_single"),
+                           "pipelined": stream_profile(
+                               timed(piped), f"{kind}_{samples}_pipelined")}
+            for key, ms in (("single", row["single_ms"]),
+                            ("pipelined", row["pipelined_ms"])):
+                busy = row[key].get("device_busy_ms")
+                row[key]["idle_share"] = (1.0 - busy / ms) if busy else None
+            out["rows"].append(row)
+            p = row["pipelined"]
+            print(f"  pipelined {kind:6s} {samples:5d} samples: "
+                  f"{'equal to the single-shot forward (torch.equal)' if equal else f'within {PIPE_ATOL} of the single-shot forward ({err:.2e})'}"
+                  f"; ms per call single {row['single_ms']:.4f} / pipelined "
+                  f"{row['pipelined_ms']:.4f}; pipelined device busy "
+                  f"{_fmt(p.get('device_busy_ms'))} ms, idle share "
+                  f"{p.get('idle_share')}, kernels {p.get('kernels')} on "
+                  f"streams {p.get('streams')}, overlap "
+                  f"{_fmt(p.get('overlap_ms'))} ms (single-shot busy "
+                  f"{_fmt(row['single'].get('device_busy_ms'))} ms)")
+    out["launches"] = launches
+    return out
+
+
+def phase_serve_fixed(cfg, params, fp_probs) -> dict:
+    batch = fixed_batch(cfg, N_REQUESTS, seed=7)
+    t0 = time.perf_counter()
+    engine, probs = serve(cfg, params, "cuda", batch=batch, source="fixed")
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = engine.stats()
+    print(f"  served {engine.served} fixed-L requests (L "
+          f"{cfg.lookups_per_table}) in {engine.batches} batches "
+          f"({serve_s:.2f} s with warmup); launches {launches}")
+    print(f"  stats {stats}")
+    if engine.served != N_REQUESTS:
+        fail(f"fixed: served {engine.served} of {N_REQUESTS} requests")
+    _check_launches(launches, "per_fixed_forward", engine.batches,
+                    "fixed plan")
+    if not (np.isfinite(probs).all() and (probs > 0).all()
+            and (probs < 1).all()):
+        fail("fixed: probabilities outside (0, 1) or not finite")
+    _, cpu_probs = serve(cfg, _cpu(params), "cpu", batch=batch,
+                         source="fixed")
+    err = float(np.abs(probs - cpu_probs).max())
+    print(f"  card vs CPU path: max |prob diff| {err:.3e} (atol {PROB_ATOL})")
+    if err > PROB_ATOL:
+        fail(f"fixed: card probabilities differ from the CPU path by {err}")
+    with uncounted():
+        _, ragged_probs = serve(cfg, params, "cuda", batch=batch)
+    if not np.array_equal(probs, ragged_probs):
+        fail(f"fixed plan differs from the ragged fp plan on the same bags "
+             f"by {np.abs(probs - ragged_probs).max()} (must be equal)")
+    print("  fixed plan: every probability equal to the ragged fp plan's on "
+          "the same bags (np.array_equal)")
+    prof = profile_serve(engine, cfg, batch_fn=fixed_batch)
+    _print_profile(prof, "fixed plan")
+    out = {"launches": launches, "stats": stats, "batches": engine.batches,
+           "serve_s": serve_s, "prob_max_abs_err": err, "profile": prof}
+    out["flat"] = serve_flat(cfg, params, fp_probs)
+    out["pipelined"] = check_pipelines(cfg, params)
+    # the serve launcher, on the card by default (no --device)
+    for extra in ([], ["--pipelined", "--microbatches", str(N_MICRO)]):
+        stats = serve_launcher.main(["--arch", "dlrm1", "--requests", "256",
+                                     "--batch-size", str(BUCKET), *extra])
+        out["launcher" + ("_pipelined" if extra else "")] = stats
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+
+FIXED_KEYS = ("dense", "indices", "labels")
+
+
+def phase_train_fixed(cfg) -> dict:
+    """make_train_step (fixed L, dense gradients) at batch 32: each step
+    on the card and on the CPU path from a copy of the card's state; a
+    second card run, counted, equal bit for bit; time per step; the
+    launcher without --ragged."""
+    spec = dlrm.arena_spec(cfg)
+    p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(1), cfg,
+                   device="cuda")
+    data = DLRMSynthetic(cfg, seed=51)
+    batches = [data.batch(BUCKET) for _ in range(TRAIN_STEPS)]
+    opt, step = dlrm.make_train_step(cfg)
+    p_max = max(w.abs().max().item() for w in tree_leaves(
+        {k: p0[k] for k in ("bottom", "top")}))
+    params = _copy(p0, "cuda")
+    state = opt.init(params)
+    losses, cmp = [], []
+    for i, b in enumerate(batches):
+        cpu_params, cpu_state = _copy(params, "cpu"), _copy(state, "cpu")
+        params, state, loss = step(params, state, {
+            k: torch.from_numpy(b[k]).cuda() for k in FIXED_KEYS})
+        cpu_params, cpu_state, cpu_loss = step(
+            cpu_params, cpu_state,
+            {k: torch.from_numpy(b[k]) for k in FIXED_KEYS})
+        losses.append(float(loss))
+        rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        if rel > LOSS_RTOL:
+            fail(f"train fixed step {i}: loss {float(loss)} on the card, "
+                 f"{float(cpu_loss)} on the CPU")
+        touched = torch.unique(se.flatten_indices(
+            spec, torch.from_numpy(b["indices"]))).long()
+        mlp_card, mlp_cpu = (torch.cat([t.reshape(-1)
+                                        for k in ("bottom", "top")
+                                        for t in tree_leaves(p[k])])
+                             for p in (params, cpu_params))
+        mlp = _beyond(mlp_card, mlp_cpu, int(MLP_SHARE * mlp_cpu.numel()),
+                      2 * LR * (1.01 + 0.01 * p_max),
+                      f"train fixed step {i} MLP")
+        arena = _beyond(params["arena"][touched.cuda()],
+                        cpu_params["arena"][touched],
+                        ARENA_SAMPLES * cfg.n_tables * cfg.lookups_per_table,
+                        2 * 10 * LR * spec.dim ** 0.5,
+                        f"train fixed step {i} arena rows")
+        # rows no bag touched have a zero gradient and stay where they
+        # were, on both devices
+        moved = ((params["arena"].cpu() - cpu_params["arena"]).abs()
+                 .amax(dim=1) > 0).nonzero().reshape(-1)
+        if not torch.isin(moved, touched).all():
+            fail(f"train fixed step {i}: untouched arena rows differ")
+        if params["arena"][spec.null_row].any():
+            fail(f"train fixed step {i}: the null row moved")
+        cmp.append({"loss_card": float(loss), "loss_cpu": float(cpu_loss),
+                    "loss_rel_err": rel, "mlp": mlp, "arena": arena})
+        print(f"  train fixed  step {i}: loss {float(loss):.6f} (card vs "
+              f"CPU rel {rel:.1e}); MLP {mlp['beyond']} of {mlp['of']} "
+              f"beyond {PARAM_ATOL} (max {mlp['max_abs_err']:.1e}), touched"
+              f" arena rows {arena['beyond']} of {arena['of']} (max "
+              f"{arena['max_abs_err']:.1e}); untouched rows unmoved")
+    # the main path: the same steps again on the card, counted
+    again = _copy(p0, "cuda")
+    again_state = opt.init(again)
+    again_losses = []
+    reset_counts()
+    for b in batches:
+        again, again_state, loss = step(again, again_state, {
+            k: torch.from_numpy(b[k]).cuda() for k in FIXED_KEYS})
+        again_losses.append(float(loss))
+    launches = launch_counts()
+    _check_launches(launches, "per_fixed_step", TRAIN_STEPS, "train fixed")
+    if again_losses != losses or not all(
+            torch.equal(a, c) for a, c in zip(tree_leaves(again),
+                                              tree_leaves(params))):
+        fail("train fixed: two runs on the card differ")
+    print(f"  train fixed  two card runs equal bit for bit; launches "
+          f"{launches}")
+    batch = {k: torch.from_numpy(batches[0][k]).cuda() for k in FIXED_KEYS}
+    st = [opt.init(again)]
+
+    def one():
+        _, st[0], _ = step(again, st[0], batch)
+
+    with uncounted():
+        before = launch_counts()
+        ms = time_ms(one, reps=10, trials=5)
+        after = launch_counts()
+        dev = device_ms(one, reps=10)
+    per_step = {n: (after[n] - before[n]) / (3 + 50) for n in KERNELS}
+    idle = (1.0 - dev / ms) if dev else None
+    print(f"  train fixed  per step of {BUCKET}: {ms:.4f} ms (CUDA events), "
+          f"device {_fmt(dev)} ms, idle share {idle}; launches per step "
+          f"{per_step}")
+    loss = train_launcher.main(["--arch", "dlrm1", "--steps", "3",
+                                "--log-every", "1"])
+    if not np.isfinite(loss):
+        fail(f"fixed launcher: final loss {loss}")
+    return {"steps": cmp, "losses": losses, "launches": launches,
+            "ms_per_step": ms, "device_ms_per_step": dev,
+            "device_idle_share": idle, "launches_per_step": per_step,
+            "launcher_loss": loss}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -1301,6 +1873,10 @@ def main() -> None:
     ap.add_argument("--out", type=pathlib.Path,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    global TRACE_DIR
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        TRACE_DIR = args.out.parent
 
     print("== phase 1: card")
     card = phase_card()
@@ -1318,9 +1894,13 @@ def main() -> None:
         kernels["gemm"]["max_abs_err"], trained["gemm_backward_max_abs_err"])
     print("== phase 5: serve DLRM(1) on the cached plan")
     cached = phase_serve_cached(cfg, params, fp_probs)
-    del params
     print("== phase 6: online refresh of the hot cache on the card")
     online = phase_online(cfg)
+    print("== phase 7: fixed-L serving and the hybrid pipeline")
+    fixed = phase_serve_fixed(cfg, params, fp_probs)
+    del params
+    print("== phase 8: fixed-L training")
+    trained_fixed = phase_train_fixed(cfg)
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -1329,7 +1909,11 @@ def main() -> None:
                    "train_sparse": trained["sparse"]["launches"][name],
                    "train_dense": trained["dense"]["launches"][name],
                    "serve_cached": cached["launches"][name],
-                   "online": online["launches"][name]}
+                   "online": online["launches"][name],
+                   "serve_fixed": fixed["launches"][name],
+                   "serve_flat": fixed["flat"]["launches"][name],
+                   "pipelined": fixed["pipelined"]["launches"][name],
+                   "train_fixed": trained_fixed["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -1345,10 +1929,10 @@ def main() -> None:
             **{k: at32[k] for k in ("zero_fill_bound_ms",
                                     "bound_per_position_ms") if k in at32}})
     if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
-             "serve_cached": cached, "train": trained, "online": online},
+             "serve_cached": cached, "train": trained, "online": online,
+             "serve_fixed": fixed, "train_fixed": trained_fixed},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -6,11 +6,17 @@ Topology: dense features -> bottom MLP ─┐
 
 Parameters are the reference's nested dict, ``{"bottom": [(w, b), ...],
 "top": [(w, b), ...], "arena": T}``; ``params_from_numpy`` carries the
-reference's weights across. Ported on the uniform, replicated arena: the
-ragged serve step and the ragged train step, both the row-wise sparse
-step and the dense-gradient baseline (row-wise Adagrad on the arena,
-AdamW on the MLPs). The heterogeneous table groups are ROADMAP Queue 1,
-item 8; sharded training is item 13.
+reference's weights across. Ported on the uniform, replicated arena:
+
+* the fixed (B, T, L) layout: ``forward``, ``loss_fn``, the
+  dense-gradient ``make_train_step`` and ``make_serve_step``;
+* the ragged layout: ``forward_ragged``, the ragged serve step and the
+  ragged train step, both the row-wise sparse step and the
+  dense-gradient baseline.
+
+Both train steps put row-wise Adagrad on the arena and AdamW on the
+MLPs. The heterogeneous table groups are ROADMAP Queue 1, item 8;
+sharding (a ``mesh``) is item 13.
 """
 from __future__ import annotations
 
@@ -100,6 +106,43 @@ def head_logits(mlp_params: Dict, dense: torch.Tensor,
         return de.mlp_apply(mlp_params["top"], x)[:, 0]
 
 
+def _no_mesh(mesh: Any) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded sources are not ported yet (ROADMAP Queue 1, item 13)")
+
+
+def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
+            indices: torch.Tensor, mesh: Any = None, *,
+            source: Optional[es.EmbeddingSource] = None) -> torch.Tensor:
+    """Fixed-L forward: dense (B, dense_features), indices (B, T, L)
+    int32 per-table ids -> logits (B,).
+
+    The sparse stage is ``lookup_fixed`` over `source` (default: the fp
+    arena in `params`, one ``embedding_bag`` launch for all tables); the
+    head is the one the ragged path runs.
+    """
+    _no_mesh(mesh)
+    spec = arena_spec(cfg)
+    if source is None:
+        source = es.FpArena(params["arena"])
+    with record_function("sparse_lookup"):
+        emb = es.lookup_fixed(source, spec, indices)
+    return head_logits(params, dense, emb)
+
+
+def make_serve_step(cfg: DLRMConfig, mesh: Any = None):
+    """Serve step over fixed-L batches ({dense, indices} -> CTR), run
+    under ``torch.inference_mode``, from the fp arena in `params`."""
+    _no_mesh(mesh)
+
+    def serve_step(params: Dict, batch: Dict) -> torch.Tensor:
+        with torch.inference_mode():
+            return torch.sigmoid(forward(params, cfg, batch["dense"],
+                                         batch["indices"]))
+    return serve_step
+
+
 def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
                    indices: torch.Tensor, offsets: torch.Tensor, *,
                    max_l: int,
@@ -145,6 +188,13 @@ def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -(labels * logp + (1 - labels) * lognp).mean()
 
 
+def loss_fn(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
+            indices: torch.Tensor, labels: torch.Tensor,
+            mesh: Any = None) -> torch.Tensor:
+    """Binary cross-entropy on click labels over the fixed-L forward."""
+    return _bce(forward(params, cfg, dense, indices, mesh), labels)
+
+
 def loss_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
                 indices: torch.Tensor, offsets: torch.Tensor,
                 labels: torch.Tensor, *, max_l: int) -> torch.Tensor:
@@ -163,6 +213,38 @@ def make_optimizer(cfg: DLRMConfig, lr: float = 1e-3) -> Optimizer:
 def _tracked(tree: Any) -> Any:
     """Aliases of the tree's tensors (same storage) that autograd tracks."""
     return tree_map(lambda t: t.detach().requires_grad_(), tree)
+
+
+def make_train_step(cfg: DLRMConfig, optimizer: Optional[Optimizer] = None,
+                    mesh: Any = None):
+    """Train step over fixed-L batches {dense, indices (B, T, L),
+    labels}: the dense-gradient step of the reference, autograd through
+    the whole model (the arena's gradient is ``embedding_bag``'s
+    backward, the ``sls_grad_table`` scatter-add into a (V, D) table),
+    then ``optimizer`` (default ``make_optimizer``: row-wise Adagrad on
+    the arena, AdamW on the MLPs).
+
+    Returns (opt, step) where step(params, opt_state, batch) ->
+    (new_params, new_opt_state, loss), loss a 0-dim tensor on the
+    params' device. The step updates the parameters and the optimizer
+    state **in place** and returns the same tensors: keep a copy of
+    whatever must survive the step.
+    """
+    _no_mesh(mesh)
+    opt = optimizer or make_optimizer(cfg)
+
+    def train_step(params, opt_state, batch):
+        live = _tracked(params)
+        loss = loss_fn(live, cfg, batch["dense"], batch["indices"],
+                       batch["labels"])
+        with record_function("backward"):
+            loss.backward()
+        with torch.no_grad(), record_function("optimizer"):
+            grads = tree_map(lambda t: t.grad, live)
+            new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, loss.detach()
+
+    return opt, train_step
 
 
 def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,

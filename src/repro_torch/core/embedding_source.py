@@ -1,9 +1,12 @@
-"""Embedding sources: one ragged lookup entry point over swappable backends.
+"""Embedding sources: two lookup entry points over swappable backends.
 
 Every way of materialising a reduced embedding bag is an
-``EmbeddingSource``, and the ragged sparse stage is one call,
-``lookup_bags(source, spec, indices, offsets, *, max_l)``: (N,) flat
-per-table ids + (B*T+1,) offsets -> (B, T, D).
+``EmbeddingSource``. The sparse stage is one call for each batch layout:
+
+    lookup_bags(source, spec, indices, offsets, *, max_l)   ragged:
+        (N,) flat per-table ids + (B*T+1,) offsets -> (B, T, D)
+    lookup_fixed(source, spec, indices)                     fixed:
+        (B, T, L) per-table ids -> (B, T, D)
 
 Ported sources::
 
@@ -19,9 +22,8 @@ other). The hot/cold law holds bit for bit: a coherent ``CachedSource``
 over an ``FpArena`` reduces to exactly the ``FpArena`` lookup.
 
 Not ported yet, each refused naming its ROADMAP item: sharded sources
-(Queue 1, item 13), table groups and ``TablePlan`` (item 8), tiered
-storage (item 12), the fixed layout (item 4), and the ``reduce_flat``
-forms (Queue 2, item 6, with ``sparse_lengths_sum``).
+(Queue 1, item 13), table groups and ``TablePlan`` (item 8) and tiered
+storage (item 12).
 """
 from __future__ import annotations
 
@@ -40,17 +42,24 @@ from repro_torch.kernels import ops
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
            "SourceSpec", "VersionedSource", "describe_source", "fmt_bytes",
-           "hot_cache_of", "lookup_bags", "rebind_arena", "source_bytes",
-           "source_structure", "with_hot_cache"]
+           "hot_cache_of", "lookup_bags", "lookup_fixed", "rebind_arena",
+           "source_bytes", "source_structure", "with_hot_cache"]
 
 
 class EmbeddingSource:
     """Base protocol for embedding sources.
 
-    ``reduce_bags`` relayouts the ragged stream once into a static
-    (n_bags, max_l) id matrix (``se.ragged_dense_ids``) and hands it to
-    ``reduce_dense``, the fused gather + per-bag sum each source
-    implements.
+    A source implements ``reduce_flat`` (the ragged reduction over
+    flattened arena row ids) and ``out_dtype``. The entry points route
+    through ``reduce_dense``: ``reduce_bags`` relayouts the ragged stream
+    once into a static (n_bags, max_l) id matrix
+    (``se.ragged_dense_ids``), and a fixed-L batch already is one
+    (``reduce_fixed``). ``reduce_dense`` falls back to ``reduce_flat``
+    with uniform offsets, so a new source is still one dataclass
+    implementing ``reduce_flat``; the built-in sources override it with
+    their fused forms. ``reduce_bags`` and ``reduce_fixed_ids`` are the
+    per-table-id halves of the two entry points, flattening against the
+    uniform arena layout.
     """
 
     @property
@@ -67,11 +76,35 @@ class EmbeddingSource:
                                     fill=spec.null_row)
         return self.reduce_dense(spec, dense)
 
+    def reduce_fixed_ids(self, spec: se.ArenaSpec,
+                         indices: torch.Tensor) -> torch.Tensor:
+        """(B, T, L) per-table row ids -> f32 (B*T, D)."""
+        return self.reduce_fixed(spec, se.flatten_indices(spec, indices))
+
+    def reduce_flat(self, spec: se.ArenaSpec, flat: torch.Tensor,
+                    offsets: torch.Tensor, *, max_l: int) -> torch.Tensor:
+        """(N,) arena row ids + (n_bags+1,) offsets -> f32 (n_bags, D),
+        each bag at most ``max_l`` long."""
+        raise NotImplementedError(
+            f"{type(self).__name__} implements neither reduce_flat nor "
+            "reduce_dense")
+
     def reduce_dense(self, spec: se.ArenaSpec,
                      dense: torch.Tensor) -> torch.Tensor:
         """(n_bags, max_l) arena row ids (short/padded slots point at the
-        zero null row) -> f32 (n_bags, D)."""
-        raise NotImplementedError
+        zero null row) -> f32 (n_bags, D). Default: the ragged reduction
+        with uniform offsets, so a ``reduce_flat``-only source works
+        unchanged."""
+        n_bags, l = dense.shape
+        offsets = torch.arange(n_bags + 1, dtype=torch.int32,
+                               device=dense.device) * l
+        return self.reduce_flat(spec, dense.reshape(-1), offsets, max_l=l)
+
+    def reduce_fixed(self, spec: se.ArenaSpec,
+                     flat: torch.Tensor) -> torch.Tensor:
+        """(B*T, L) arena row ids -> f32 (B*T, D). A fixed-L batch is
+        already a dense id matrix, so this is the fused hook."""
+        return self.reduce_dense(spec, flat)
 
 
 @dataclass(frozen=True)
@@ -84,9 +117,18 @@ class FpArena(EmbeddingSource):
     def out_dtype(self) -> torch.dtype:
         return self.arena.dtype
 
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        return ops.sparse_lengths_sum(self.arena, flat, offsets,
+                                      max_l=max_l).float()
+
     def reduce_dense(self, spec, dense):
         return ops.fused_segment_sum(self.arena, dense,
                                      null_row=spec.null_row)
+
+    def reduce_fixed(self, spec, flat):
+        # one embedding_bag pass over all tables: the fixed layout has no
+        # fill slots, so no null row to pin
+        return ops.embedding_bag(self.arena, flat).float()
 
 
 @dataclass(frozen=True)
@@ -120,6 +162,14 @@ class QuantizedArena(EmbeddingSource):
         s[rows] = scales
         return QuantizedArena(q=q, scales=s)
 
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        # the reference segment-sums the stream in XLA; on the card a
+        # scatter (index_add_) would add with float atomics, so the port
+        # relayouts the stream (max_l bounds every bag) and takes the
+        # one-pass dequantizing sum, deterministic on both devices
+        return self.reduce_dense(spec, se.ragged_dense_ids(
+            flat, offsets, max_l=max_l, fill=spec.null_row))
+
     def reduce_dense(self, spec, dense):
         rows = self.q[dense].float() * self.scales[dense]
         return rows.sum(dim=1)
@@ -151,6 +201,12 @@ class CachedSource(EmbeddingSource):
     @property
     def k(self) -> int:
         return self.hot.k
+
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        hot, cold_idx = se.cache_split_flat(self.hot, spec.null_row, flat,
+                                            offsets, max_l)
+        return hot + self.cold.reduce_flat(spec, cold_idx, offsets,
+                                           max_l=max_l)
 
     def reduce_dense(self, spec, dense):
         # one pass with the hit test folded into the walk: per position
@@ -186,6 +242,16 @@ def lookup_bags(source: EmbeddingSource, spec: se.ArenaSpec,
         out = source.reduce_bags(spec, indices, offsets, max_l=max_l)
         return out.reshape(n_bags // spec.n_tables, spec.n_tables,
                            spec.dim).to(source.out_dtype)
+
+
+def lookup_fixed(source: EmbeddingSource, spec: se.ArenaSpec,
+                 indices: torch.Tensor) -> torch.Tensor:
+    """The fixed-L sparse stage: (B, T, L) per-table ids -> (B, T, D) in
+    the source's dtype."""
+    with record_function("emb_lookup"):
+        b, t, _ = indices.shape
+        out = source.reduce_fixed_ids(spec, indices)
+        return out.reshape(b, t, spec.dim).to(source.out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -348,10 +414,14 @@ class SourceSpec:
         if self.layout not in ("ragged", "fixed"):
             raise ValueError(f"layout {self.layout!r} is neither 'ragged' "
                              "nor 'fixed'")
-        if self.layout == "fixed":
-            raise NotImplementedError(
-                "the fixed layout is not ported yet (ROADMAP Queue 1, "
-                "item 4)")
+        if self.layout == "fixed" and (self.cache_k or self.quantize_cold
+                                       or self.tables is not None
+                                       or self.tiers is not None):
+            raise ValueError(
+                "layout='fixed' serves the fp arena through the fixed-L "
+                "step and cannot take a cached/quantized/grouped/tiered "
+                "source; drop cache_k/quantize_cold/tables/tiers or use "
+                "the ragged layout")
         if self.mesh is not None or self.require_mesh:
             raise NotImplementedError(
                 "sharded sources are not ported yet (ROADMAP Queue 1, "
@@ -398,6 +468,8 @@ class SourceSpec:
 
     def path_name(self) -> str:
         """The nearest path string (for stats labels)."""
+        if self.layout == "fixed":
+            return "fixed"
         return "cached" if self.cached else "ragged"
 
     def build(self, arena: torch.Tensor, spec: se.ArenaSpec,

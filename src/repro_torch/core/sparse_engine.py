@@ -12,9 +12,14 @@ stream of per-table row ids of all bags, possibly padded past
 ``offsets[-1]`` (padding is inert); ``offsets`` has B*T+1 entries. Ids
 and offsets are int32 throughout, as in the reference.
 
+Fixed layout: (B, T, L) per-table ids, every bag exactly L long,
+flattened into arena rows by ``flatten_indices``; ``null_indices`` is
+the all-null stream that pipeline tails reduce.
+
 Also here: the int8 row-wise quantization rule and the hot-row cache
-(``HotRowCache``, its host-side build from a trace histogram, hit
-accounting) that ``embedding_source`` composes into sources.
+(``HotRowCache``, its host-side build from a trace histogram, the
+hot/cold split of a flat stream, hit accounting) that
+``embedding_source`` composes into sources.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 @dataclass(frozen=True)
@@ -62,6 +69,23 @@ def flatten_indices(spec: ArenaSpec, indices: torch.Tensor) -> torch.Tensor:
     base = torch.arange(t, dtype=indices.dtype,
                         device=indices.device) * spec.rows_per_table
     return (indices + base[None, :, None]).reshape(b * t, l)
+
+
+def null_indices(spec: ArenaSpec, shape, *,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """Per-table ids of shape (..., T, L) that all flatten to the null
+    (always-zero) arena row: id (T - t) * rows_per_table for table t.
+
+    Gathering them is a zero-contribution reduction over one row that
+    stays in the cache: the no-op stream for pipeline tails.
+    """
+    if shape[-2] != spec.n_tables:
+        raise ValueError(f"shape {tuple(shape)} has {shape[-2]} tables, "
+                         f"the arena {spec.n_tables}")
+    ids = (spec.n_tables - torch.arange(spec.n_tables, dtype=torch.int32,
+                                        device=device)) \
+        * spec.rows_per_table
+    return ids[:, None].expand(tuple(shape)).contiguous()
 
 
 def quantize_arena(arena: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,6 +219,33 @@ def build_hot_cache(arena: torch.Tensor, spec: ArenaSpec, counts,
     return HotRowCache(hot_rows=hot_rows,
                        slot_of=torch.from_numpy(slot_of).to(arena.device),
                        hot_ids=ids)
+
+
+def cache_split_flat(cache: HotRowCache, null_row: int, flat: torch.Tensor,
+                     offsets: torch.Tensor, max_l: int):
+    """The hot/cold split over flattened arena row ids: the hot pass
+    reduces cache slots (a miss reads the zero slot K) with
+    ``sparse_lengths_sum``, and the cold ids redirect cached rows to the
+    arena's null row, so any cold reduction over them is exactly the
+    complement. Returns (hot sum (n_bags, D) f32, cold ids (N,))."""
+    slots = cache.slot_of[flat]
+    hot = ops.sparse_lengths_sum(cache.hot_rows, slots, offsets,
+                                 max_l=max_l).float()
+    # a Python scalar, not a device tensor: copying one to the card
+    # would wait for the stream
+    cold_idx = torch.where(slots < cache.k, null_row, flat)
+    return hot, cold_idx
+
+
+def cache_split(cache: HotRowCache, spec: ArenaSpec, indices: torch.Tensor,
+                offsets: torch.Tensor, max_l: int):
+    """``cache_split_flat`` over per-table ids (flattens first). Returns
+    (hot sum (n_bags, D) f32, cold ids (N,), n_bags)."""
+    n_bags = offsets.shape[0] - 1
+    flat = flatten_ragged_indices(spec, indices, offsets)
+    hot, cold_idx = cache_split_flat(cache, spec.null_row, flat, offsets,
+                                     max_l)
+    return hot, cold_idx, n_bags
 
 
 def cache_hits(cache: HotRowCache, spec: ArenaSpec, indices: torch.Tensor,

@@ -6,15 +6,18 @@ global implementation switch and no fallback: a CUDA tensor never
 reaches a plain version here, and tensors on any other device, or on
 two devices at once, are refused.
 
-``gemm``, ``fused_segment_sum``, ``fused_cached_segment_sum`` and
-``interaction`` are ``torch.autograd.Function``s whose backward passes do
-what the reference's custom VJPs do: the backward of a GEMM is two GEMMs
-on the same kernel, the backward of a fused gather-reduce is the
-``sls_grad_table`` segment scatter-add with the null row's gradient
-pinned to zero (twice for the cached one: onto the hot slots with the
-miss slot pinned, and onto the cold ids), and the interaction's backward
-is (G + G^T) X in plain torch, as the reference's einsum sits outside any
-Pallas kernel.
+``gemm``, ``embedding_bag`` (and ``gather_rows``), ``sparse_lengths_sum``,
+``fused_segment_sum``, ``fused_cached_segment_sum`` and ``interaction``
+are ``torch.autograd.Function``s whose backward passes do what the
+reference's custom VJPs do: the backward of a GEMM is two GEMMs on the
+same kernel; the backward of every gather-reduce is the
+``sls_grad_table`` segment scatter-add, deterministic on the card (no
+float atomics), with the null row's gradient pinned to zero for the fused
+forms (twice for the cached one: onto the hot slots with the miss slot
+pinned, and onto the cold ids) and nothing pinned for ``embedding_bag``
+and ``sparse_lengths_sum``; and the interaction's backward is (G + G^T) X
+in plain torch, as the reference's einsum sits outside any Pallas
+kernel.
 Serving runs them under ``torch.inference_mode``, which records nothing.
 """
 from __future__ import annotations
@@ -100,6 +103,77 @@ def _dense_grad_table(g: torch.Tensor, dense_ids: torch.Tensor, n_rows: int,
                            device=dense_ids.device) * max_l
     return sls_grad_table(g.float().contiguous(), dense_ids.reshape(-1),
                           offsets, n_rows=n_rows, skip_row=skip_row)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, indices):
+        ctx.save_for_backward(indices)
+        ctx.n_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
+        if _on_cuda(table, indices):
+            return _eg.embedding_bag(table, indices)
+        return _ref.embedding_bag(table, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's _bag_bwd (kernels/ops.py:92-99) scatter-adds
+        # every position's bag gradient, with no row pinned: a fixed bag
+        # has no fill slots. A (B, L) matrix is a uniform-offset stream,
+        # so it is sls_grad_table's deterministic walk, not index_add_'s
+        # float atomics on the card.
+        (indices,) = ctx.saved_tensors
+        d = _dense_grad_table(g, indices, ctx.n_rows, None)
+        return d.to(ctx.table_dtype), None
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Fixed-lookup SparseLengthsSum: out[b] = sum_l table[indices[b, l]];
+    table (V, D), indices (B, L) int32 -> (B, D) in the table's dtype,
+    accumulated in f32. Differentiable w.r.t. the table."""
+    return _EmbeddingBag.apply(table, indices)
+
+
+def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """out[t] = table[indices[t]]: single-row bags of ``embedding_bag``."""
+    return embedding_bag(table, indices[:, None])
+
+
+class _SparseLengthsSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, indices, offsets, max_l):
+        ctx.save_for_backward(indices, offsets)
+        ctx.n_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
+        if _on_cuda(table, indices, offsets):
+            return _eg.sparse_lengths_sum(table, indices, offsets,
+                                          max_l=max_l)
+        return _ref.sparse_lengths_sum(table, indices, offsets, max_l)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's _sls_bwd (kernels/ops.py:130-139): the segment
+        # scatter-add over the same stream, padded positions adding
+        # nothing
+        indices, offsets = ctx.saved_tensors
+        d = sls_grad_table(g.float().contiguous(), indices, offsets,
+                           n_rows=ctx.n_rows)
+        return d.to(ctx.table_dtype), None, None, None
+
+
+def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
+                       offsets: torch.Tensor, *, max_l: int) -> torch.Tensor:
+    """Ragged SparseLengthsSum (the paper's Fig. 2 API): bag b sums
+    ``table[indices[offsets[b]:offsets[b+1]]]``, at most its first
+    ``max_l`` rows; indices may be padded past offsets[-1]. Returns
+    (B, D) in the table's dtype.
+
+    ``max_l`` must bound every bag, as for ``se.ragged_dense_ids``. Past
+    it the forward follows the reference's Pallas kernel (the first
+    ``max_l`` rows), and the backward, as the reference's, scatters to
+    every position of the bag.
+    """
+    return _SparseLengthsSum.apply(table, indices, offsets, int(max_l))
 
 
 class _FusedSegmentSum(torch.autograd.Function):

@@ -1,5 +1,10 @@
 """Plain PyTorch versions of every ported kernel.
 
+The bag sums reduce a non-innermost dim, which torch adds in order of
+position, as the CUDA kernels do; a masked or fill position adds +0.0,
+which leaves a sum's value as it was. So one bag summed by any of them,
+with or without trailing fill, gives the same bits.
+
 The ground truth in the tests, the path a CPU tensor takes through
 ``kernels.ops``, and what ``chip_smoke.py`` holds each CUDA kernel
 against on the card. Same names and semantics as the reference's
@@ -13,6 +18,48 @@ import torch
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x:(M,K) @ w:(K,N) with fp32 accumulation, result in x.dtype."""
     return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Fixed-lookup SparseLengthsSum: out[b] = sum_l table[indices[b, l]].
+
+    table (V, D), indices (B, L) int32 -> (B, D) in the table's dtype,
+    accumulated in f32. Any in-range id is taken; nothing is masked.
+    """
+    return table[indices].float().sum(dim=1).to(table.dtype)
+
+
+def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Single-row bags: out[t] = table[indices[t]], the L = 1 case."""
+    return embedding_bag(table, indices[:, None])
+
+
+def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
+                       offsets: torch.Tensor, max_l: int) -> torch.Tensor:
+    """Ragged SparseLengthsSum (paper Fig. 2): bag b sums the rows of
+    ``indices[offsets[b]:offsets[b+1]]``, at most its first ``max_l``.
+
+    table (V, D); indices (N,) int32, padding past offsets[-1] never
+    read; offsets (B+1,) int32. Returns (B, D) in the table's dtype,
+    accumulated in f32; an empty bag sums to zeros.
+
+    ``max_l`` bounds every bag by contract (``se.ragged_dense_ids``).
+    Past it the reference's two versions differ: its Pallas kernel
+    (``repro/kernels/embedding_gather.py:125``) walks ``max_l`` grid
+    steps, so it sums a bag's first ``max_l`` rows, while its XLA oracle
+    (``repro/kernels/ref.py:22``) sums the whole bag. This version, and
+    the CUDA kernel, do what the Pallas kernel does.
+    """
+    n_bags = offsets.shape[0] - 1
+    if n_bags == 0 or indices.shape[0] == 0 or max_l == 0:
+        return torch.zeros((n_bags, table.shape[1]), dtype=table.dtype,
+                           device=table.device)
+    pos = offsets[:-1, None].long() + torch.arange(max_l,
+                                                  device=offsets.device)
+    valid = pos < offsets[1:, None]
+    safe = torch.clamp(torch.where(valid, pos, 0), max=indices.shape[0] - 1)
+    rows = table[indices[safe]].float()
+    return torch.where(valid[..., None], rows, 0.0).sum(dim=1).to(table.dtype)
 
 
 def fused_segment_sum(table: torch.Tensor,

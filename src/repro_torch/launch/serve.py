@@ -1,0 +1,91 @@
+"""Serving launcher: batched DLRM inference, the paper's deployment.
+
+    python -m repro_torch.launch.serve --arch dlrm1 --requests 64
+    python -m repro_torch.launch.serve --arch dlrm1 --pipelined \\
+        --microbatches 4 --batch-size 32
+    python -m repro_torch.launch.serve --smoke --device cpu
+
+Serves fixed-L batches (``DLRMSynthetic.batch``) with random weights
+from a seeded generator, through ``dlrm.make_serve_step`` or, with
+``--pipelined``, the two-stream micro-batch pipeline
+(``hybrid.make_pipelined_serve_step``), and prints p50/p99 of the time
+around each synchronised step, the first (which builds the kernels)
+left out. Runs on the card unless ``--device cpu``. Not offered yet: a
+``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13) and the LM
+architectures with their decode engine (item 15).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
+from repro_torch.core import dlrm as dlrm_mod
+from repro_torch.core.hybrid import make_pipelined_serve_step
+from repro_torch.data import DLRMSynthetic
+
+
+def serve_dlrm(args) -> Dict[str, float]:
+    cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
+    device = (default_device() if args.device == "cuda"
+              else torch.device(args.device))
+    params = dlrm_mod.init(torch.Generator(device=device).manual_seed(0),
+                           cfg, device=device)
+    serve = (make_pipelined_serve_step(cfg, args.microbatches)
+             if args.pipelined else dlrm_mod.make_serve_step(cfg))
+    data = DLRMSynthetic(cfg, seed=1)
+    lat = []
+    for _ in range(max(1, args.requests // args.batch_size)):
+        b = data.batch(args.batch_size)
+        batch = {k: torch.from_numpy(b[k]).to(device)
+                 for k in ("dense", "indices")}
+        t0 = time.perf_counter()
+        probs = serve(params, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        lat.append(time.perf_counter() - t0)
+        if not torch.isfinite(probs).all():
+            raise RuntimeError("non-finite probabilities")
+    arr = np.array(lat[1:] or lat)   # the first step builds the kernels
+    out = {"p50_ms": float(np.percentile(arr, 50) * 1e3),
+           "p99_ms": float(np.percentile(arr, 99) * 1e3),
+           "steps": len(lat)}
+    print(f"dlrm serve: {args.requests} reqs, batch {args.batch_size}"
+          f"{f', pipelined x{args.microbatches}' if args.pipelined else ''}"
+          f", p50 {out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms")
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="dlrm1",
+                   help="a DLRM of paper Table I (dlrm1..dlrm6)")
+    p.add_argument("--smoke", action="store_true",
+                   help="use the reduced config (CPU-runnable)")
+    p.add_argument("--mesh", default="none",
+                   choices=("none", "pod", "multipod"))
+    p.add_argument("--requests", type=int, default=64)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--pipelined", action="store_true",
+                   help="overlap sparse/dense via the micro-batch pipeline")
+    p.add_argument("--microbatches", type=int, default=4)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu")
+    args = p.parse_args(argv)
+    if args.mesh != "none":
+        p.error("sharded serving (--mesh) is not ported yet (ROADMAP "
+                "Queue 1, item 13)")
+    if args.arch not in DLRM_CONFIGS:
+        p.error(f"{args.arch!r}: the LM architectures and their decode "
+                "engine are not ported yet (ROADMAP Queue 1, item 15); "
+                f"DLRMs: {sorted(DLRM_CONFIGS)}")
+    return serve_dlrm(args)
+
+
+if __name__ == "__main__":
+    main()

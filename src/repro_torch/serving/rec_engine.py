@@ -9,10 +9,14 @@
   rows, flat index stream padded to bucket*T*max_l) and serves one ragged
   forward on the device, under ``torch.inference_mode``, whose embedding
   stage is one ``embedding_source.lookup_bags`` over the engine's source.
+  On the fixed layout every bag holds exactly ``lookups_per_table`` ids,
+  a micro-batch is one (bucket, T, L) id block, and the forward is
+  ``dlrm.forward`` over the fp arena (one ``embedding_bag`` launch).
 
 Which source serves is a plan: ``source=`` takes a path string
-(``"ragged"``, the fp arena; ``"cached"``, the hot-row cache over an fp
-or int8 cold arena), a ``SourceSpec`` or a built ``EmbeddingSource``.
+(``"ragged"``, the fp arena; ``"fixed"``, the fp arena on the fixed
+layout; ``"cached"``, the hot-row cache over an fp or int8 cold arena),
+a ``SourceSpec`` or a built ``EmbeddingSource``.
 ``update_source``/``update_cache`` swap it atomically under a monotone
 version, refusing stale versions and any change of structure, shapes or
 dtypes. Hit accounting runs on the device and is read only by
@@ -24,8 +28,8 @@ copied into its own tensors (in place when the shapes match, so their
 addresses stay fixed).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the fixed and sharded plans, table groups, telemetry,
-dispatch/settle, the int8 downgrade path and CUDA-graph capture.
+item: the sharded plans, table groups, telemetry, dispatch/settle, the
+int8 downgrade path and CUDA-graph capture.
 """
 from __future__ import annotations
 
@@ -113,10 +117,13 @@ class RecEngine:
     """Batcher-fed DLRM inference; the embedding stage is one
     ``lookup_bags`` over a swappable ``EmbeddingSource``.
 
-    ``source`` accepts a path string (``"ragged"`` or ``"cached"``; the
-    latter takes ``cache_k``, ``cache_trace`` and ``quantize_cold``), a
-    ``SourceSpec`` built against the engine's copy of ``params["arena"]``,
-    or a built ``EmbeddingSource``, served as it is.
+    ``source`` accepts a path string (``"ragged"``, ``"fixed"`` or
+    ``"cached"``; the last takes ``cache_k``, ``cache_trace`` and
+    ``quantize_cold``), a ``SourceSpec`` built against the engine's copy
+    of ``params["arena"]``, or a built ``EmbeddingSource``, served as it
+    is on the ragged layout. A fixed-layout engine serves
+    ``params["arena"]`` and takes requests whose every bag holds exactly
+    ``cfg.lookups_per_table`` ids.
 
     ``device`` defaults to the card; pass ``device="cpu"`` (with params
     on the CPU) to serve through the plain PyTorch path. Latencies are
@@ -184,7 +191,12 @@ class RecEngine:
         else:
             raise TypeError(f"source must be a path string, a SourceSpec or "
                             f"an EmbeddingSource, got {type(source)}")
-        self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
+        self.layout = ("fixed" if self.plan is not None
+                       and self.plan.layout == "fixed" else "ragged")
+        if self.layout == "fixed":
+            self._serve = dlrm.make_serve_step(cfg)
+        else:
+            self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
         self._reset_hit_counters()
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
@@ -243,6 +255,11 @@ class RecEngine:
         CUDA graph, are shaped for it. A version bump resets the hit
         counters, so the reported rate is the live cache's.
         """
+        if self.layout == "fixed":
+            raise ValueError(
+                "a fixed-layout engine serves params['arena'] and never "
+                "reads engine.source; a swap would bump the version while "
+                "serving the old embeddings")
         if version is not None and version < self.source_version:
             raise ValueError(
                 f"stale source broadcast: version {version} < served "
@@ -294,12 +311,18 @@ class RecEngine:
     def warmup(self) -> None:
         """Serve one dummy request through every bucket, off the SLA
         clock: the first call builds and loads the kernels."""
+        n_l = self.cfg.lookups_per_table if self.layout == "fixed" else 0
         dummy = [RecRequest(
             rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
-            sparse_ids=[np.zeros(0, np.int32)] * self.cfg.n_tables)]
+            sparse_ids=[np.zeros(n_l, np.int32)] * self.cfg.n_tables)]
         for bucket in self.buckets:
             batch, _ = self._assemble(dummy, bucket)
-            self._serve(self._params, batch, self.source).cpu()
+            self._run_serve(batch).cpu()
+
+    def _run_serve(self, batch: Dict) -> torch.Tensor:
+        if self.layout == "fixed":
+            return self._serve(self._params, batch)
+        return self._serve(self._params, batch, self.source)
 
     def submit(self, req: RecRequest) -> None:
         if len(req.sparse_ids) != self.cfg.n_tables:
@@ -314,9 +337,25 @@ class RecEngine:
         reads a device tensor to learn it."""
         t = self.cfg.n_tables
         dense = np.zeros((bucket, self.cfg.dense_features), np.float32)
-        lens = np.zeros(bucket * t, np.int32)
         for i, r in enumerate(reqs):
             dense[i] = r.dense
+        if self.layout == "fixed":
+            n_l = self.cfg.lookups_per_table
+            idx = np.zeros((bucket, t, n_l), np.int32)
+            for i, r in enumerate(reqs):
+                for j, ids in enumerate(r.sparse_ids):
+                    if len(ids) != n_l:
+                        raise ValueError(
+                            f"request {r.rid} table {j}: the fixed layout "
+                            f"takes bags of exactly {n_l} ids, got "
+                            f"{len(ids)}")
+                    idx[i, j] = ids
+            # padding rows gather row 0: harmless, their outputs are
+            # dropped, and every kernel computes each row on its own
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in (("dense", dense), ("indices", idx))}, 0
+        lens = np.zeros(bucket * t, np.int32)
+        for i, r in enumerate(reqs):
             for j, ids in enumerate(r.sparse_ids):
                 if len(ids) > self.max_l:
                     raise ValueError(f"request {r.rid} table {j}: bag of "
@@ -344,8 +383,7 @@ class RecEngine:
             r.started_at = now
         batch, n_valid = self._assemble(reqs, _bucket(len(reqs),
                                                       self.buckets))
-        probs = self._serve(self._params, batch,
-                            self.source).cpu().numpy()  # host sync
+        probs = self._run_serve(batch).cpu().numpy()  # host sync
         done, done_m = time.time(), time.monotonic()
         for i, r in enumerate(reqs):
             r.prob = float(probs[i])

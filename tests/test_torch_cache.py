@@ -382,7 +382,6 @@ def test_source_spec_matches_jax(case, path, kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"layout": "fixed"}, "Queue 1, item 4"),
     ({"mesh": object()}, "Queue 1, item 13"),
     ({"require_mesh": True}, "Queue 1, item 13"),
     ({"tables": ()}, "Queue 1, item 8"),
@@ -395,8 +394,6 @@ def test_source_spec_refuses_what_is_not_ported(kw, item):
 def test_source_spec_from_path_refusals():
     with pytest.raises(NotImplementedError, match="item 13"):
         es.SourceSpec.from_path("sharded")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        es.SourceSpec.from_path("fixed")
     with pytest.raises(ValueError, match="cache_k"):
         es.SourceSpec.from_path("cached", cache_k=0)
     with pytest.raises(ValueError, match="ignores"):

@@ -141,6 +141,16 @@ def test_mlp_ref_matches_jax():
 # ---------------------------------------------------------------------------
 
 _OPS = {
+    "embedding_bag": lambda dev: ops.embedding_bag(
+        torch.ones(5, 4, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev)),
+    "gather_rows": lambda dev: ops.gather_rows(
+        torch.ones(5, 4, device=dev),
+        torch.zeros(3, dtype=torch.int32, device=dev)),
+    "sparse_lengths_sum": lambda dev: ops.sparse_lengths_sum(
+        torch.ones(5, 4, device=dev),
+        torch.zeros(3, dtype=torch.int32, device=dev),
+        torch.tensor([0, 1, 3], dtype=torch.int32, device=dev), max_l=2),
     "fused_cached_segment_sum": lambda dev: ops.fused_cached_segment_sum(
         torch.ones(3, 4, device=dev), torch.ones(5, 4, device=dev),
         torch.zeros(2, 3, dtype=torch.int32, device=dev),
@@ -171,6 +181,13 @@ def test_ops_refuse_mixed_devices():
 
 
 _WRAPPERS = {
+    "embedding_bag": lambda: t_eg.embedding_bag(
+        torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32)),
+    "gather_rows": lambda: t_eg.gather_rows(
+        torch.ones(5, 4), torch.zeros(3, dtype=torch.int32)),
+    "sparse_lengths_sum": lambda: t_eg.sparse_lengths_sum(
+        torch.ones(5, 4), torch.zeros(3, dtype=torch.int32),
+        torch.tensor([0, 1, 3], dtype=torch.int32), max_l=2),
     "fused_cached_segment_sum": lambda: t_fd.fused_cached_segment_sum(
         torch.ones(3, 4), torch.ones(5, 4),
         torch.zeros(2, 3, dtype=torch.int32),
@@ -189,12 +206,14 @@ _WRAPPERS = {
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises; it never computes on the
     CPU (and never builds anything to find that out)."""
-    before = ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
-              t_fd.cached_launches)
+    def counts():
+        return ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
+                t_fd.cached_launches, t_eg.bag_launches, t_eg.sls_launches)
+
+    before = counts()
     with pytest.raises(ValueError, match="CUDA device"):
         _WRAPPERS[name]()
-    assert ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
-            t_fd.cached_launches) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("ids_dtype,msg", [(torch.int64, "int32"),
@@ -223,8 +242,8 @@ def test_build_targets_sm90a_with_a_c_interface(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert [p.stem for p in _build.sources()] == [
-        "fused_cached_segment_sum", "fused_segment_sum", "gemm",
-        "interaction", "sls_grad_table"]
+        "embedding_bag", "fused_cached_segment_sum", "fused_segment_sum",
+        "gemm", "interaction", "sls_grad_table", "sparse_lengths_sum"]
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -242,5 +261,6 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         _build.build_all()
     assert not list((tmp_path / "build").rglob("*.so*"))
     logs = _build.build_logs()
-    assert set(logs) == {"fused_cached_segment_sum", "fused_segment_sum",
-                         "gemm", "interaction", "sls_grad_table"}
+    assert set(logs) == {"embedding_bag", "fused_cached_segment_sum",
+                         "fused_segment_sum", "gemm", "interaction",
+                         "sls_grad_table", "sparse_lengths_sum"}

@@ -154,8 +154,7 @@ def test_latency_ring_is_bounded(params, monkeypatch):
     assert len(engine._lat_ms) == 4
 
 
-@pytest.mark.parametrize("plan,item", [("fixed", "item 4"),
-                                       ("sharded", "item 13")])
+@pytest.mark.parametrize("plan,item", [("sharded", "item 13")])
 def test_unported_plans_name_their_roadmap_item(params, plan, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
         _engine(params, source=plan)

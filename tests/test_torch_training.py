@@ -429,5 +429,8 @@ def test_launcher_smoke_on_cpu(dense_grads):
 
 
 def test_launcher_refuses_the_fixed_layout():
+    """Without --ragged the launcher trains the fixed layout with the
+    dense-gradient step, so it refuses --dense-grads there (the flag
+    picks the ragged baseline) rather than drop it silently."""
     with pytest.raises(SystemExit):
-        t_launch.main(["--smoke", "--device", "cpu"])
+        t_launch.main(["--smoke", "--device", "cpu", "--dense-grads"])
