@@ -77,7 +77,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the CPU path from the card's state each step, two card runs
    equal bit for bit, launches and time per step, and three steps of the
    training launcher without ``--ragged``.
-9. Report: one JSON line of the kernels, then the device line, which is
+9. Tiered storage: ``fused_int4_segment_sum`` against its plain version
+   (within 1e-6 of each bag's sum of |terms|) and against
+   ``fused_segment_sum`` over ``int4_unpack`` (bit for bit) at the
+   serving shape, at 2048 samples and at edge shapes, with its times and
+   bound; the phase 3 requests served on
+   ``SourceSpec(tiers=TierPolicy(hot=4096, warm=65536, cold="int4"))``
+   (the CPU path within tolerance, pooled bags within the quantization
+   bound of the fp arena, all-hot bags equal to the fp plan bit for bit)
+   and on a host cold tier (hot 4096, no warm tier, a 16,384-row staging
+   arena: the fp plan within tolerance, one-tier bags bit for bit, hits +
+   misses == touches, no stream synchronize on the staging path); then a
+   tiered ``OnlineTrainer`` (migration every 10 steps) takes 30 steps
+   feeding one engine: the hot tier exact after every step, each
+   migration equal to a full ``build_tiered``, post-sync probabilities
+   equal to the forward over the trainer's source, the engine's tensors
+   at fixed addresses.
+10. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -116,6 +132,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import RecEngine, requests_from_ragged_batch  # noqa: E402
+from repro_torch.storage import tiered as st  # noqa: E402
 from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
                                   VersionedHotCache, VersionedSource,
                                   make_drifting_zipf, unique_padded)
@@ -143,55 +160,72 @@ TRACE_DIR = None                   # keeps the profiler traces: the --out
 
 # launches per served forward on the fp plan, per train step (either
 # mode), per served forward on the cached plan, per served forward on the
-# fixed plan, per forward through a reduce_flat-only source and per
-# fixed-L train step: a step runs the forward (6 gemm), dw of all six
-# layers and dx of five (the bottom MLP's input needs none), and one
-# sls_grad_table -- the table gradient in the dense modes, the row
-# gradients in the sparse mode. "counter" names the wrapper module's
-# launch count.
+# fixed plan, per forward through a reduce_flat-only source, per fixed-L
+# train step and per served forward on the two tiered plans: a step runs
+# the forward (6 gemm), dw of all six layers and dx of five (the bottom
+# MLP's input needs none), and one sls_grad_table -- the table gradient
+# in the dense modes, the row gradients in the sparse mode; a tiered
+# forward reduces its hot tier with fused_segment_sum, its int8 warm tier
+# with torch ops and its cold tier with fused_int4_segment_sum or, host
+# cold, fused_segment_sum over the staging arena. "counter" names the
+# wrapper module's launch count.
 KERNELS = {
     "fused_segment_sum": {
         "module": fd_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/fused_segment_sum.cu",
         "replaces": "src/repro/kernels/fused_dispatch.py:61",
         "per_forward": 1, "per_step": 1, "per_cached_forward": 0,
-        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0},
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0,
+        "per_tiered_forward": 1, "per_host_forward": 2},
     "gemm": {
         "module": gm_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/gemm.cu",
         "replaces": "src/repro/kernels/gemm.py:39",
         "per_forward": 6, "per_step": 17, "per_cached_forward": 6,
-        "per_fixed_forward": 6, "per_flat_forward": 6, "per_fixed_step": 17},
+        "per_fixed_forward": 6, "per_flat_forward": 6, "per_fixed_step": 17,
+        "per_tiered_forward": 6, "per_host_forward": 6},
     "interaction": {
         "module": fi_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/interaction.cu",
         "replaces": "src/repro/kernels/feature_interaction.py:30",
         "per_forward": 1, "per_step": 1, "per_cached_forward": 1,
-        "per_fixed_forward": 1, "per_flat_forward": 1, "per_fixed_step": 1},
+        "per_fixed_forward": 1, "per_flat_forward": 1, "per_fixed_step": 1,
+        "per_tiered_forward": 1, "per_host_forward": 1},
     "sls_grad_table": {
         "module": eg_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/sls_grad_table.cu",
         "replaces": "src/repro/kernels/embedding_gather.py:188",
         "per_forward": 0, "per_step": 1, "per_cached_forward": 0,
-        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 1},
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 1,
+        "per_tiered_forward": 0, "per_host_forward": 0},
     "fused_cached_segment_sum": {
         "module": fd_k, "counter": "cached_launches",
         "source": "src/repro_torch/kernels/csrc/fused_cached_segment_sum.cu",
         "replaces": "src/repro/kernels/fused_dispatch.py:116",
         "per_forward": 0, "per_step": 0, "per_cached_forward": 1,
-        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0},
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0,
+        "per_tiered_forward": 0, "per_host_forward": 0},
     "embedding_bag": {
         "module": eg_k, "counter": "bag_launches",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_gather.py:57",
         "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
-        "per_fixed_forward": 1, "per_flat_forward": 0, "per_fixed_step": 1},
+        "per_fixed_forward": 1, "per_flat_forward": 0, "per_fixed_step": 1,
+        "per_tiered_forward": 0, "per_host_forward": 0},
     "sparse_lengths_sum": {
         "module": eg_k, "counter": "sls_launches",
         "source": "src/repro_torch/kernels/csrc/sparse_lengths_sum.cu",
         "replaces": "src/repro/kernels/embedding_gather.py:125",
         "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
-        "per_fixed_forward": 0, "per_flat_forward": 1, "per_fixed_step": 0},
+        "per_fixed_forward": 0, "per_flat_forward": 1, "per_fixed_step": 0,
+        "per_tiered_forward": 0, "per_host_forward": 0},
+    "fused_int4_segment_sum": {
+        "module": fd_k, "counter": "int4_launches",
+        "source": "src/repro_torch/kernels/csrc/fused_int4_segment_sum.cu",
+        "replaces": "src/repro/kernels/fused_dispatch.py:183",
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0,
+        "per_tiered_forward": 1, "per_host_forward": 0},
 }
 
 
@@ -830,6 +864,8 @@ def serve(cfg, params, device: str, batch=None, **plan):
 def _kernel_group(name: str) -> str:
     for group, symbol in (("fused_cached_segment_sum",
                            "fused_cached_segment_sum_kernel"),
+                          ("fused_int4_segment_sum",
+                           "fused_int4_segment_sum_kernel"),
                           ("fused_segment_sum", "fused_segment_sum_kernel"),
                           ("embedding_bag", "embedding_bag_kernel"),
                           ("sparse_lengths_sum",
@@ -1866,6 +1902,478 @@ def phase_train_fixed(cfg) -> dict:
             "launcher_loss": loss}
 
 
+# ---------------------------------------------------------------- phase 9
+
+TIER_HOT = 4096                    # rows of the fp hot tier
+TIER_WARM = 65_536                 # rows of the int8 warm tier
+STAGING = 16_384                   # staging arena of the host cold tier
+MAX_STAGE = 4_096                  # rows per staging flush chunk
+# the int4 kernel against its plain version on the card: the two sum a
+# bag's terms in other orders, so each output may differ by a few ulp of
+# the partial sums, bounded by 1e-6 of the bag's sum of |terms| (40
+# terms x 6e-8 relative rounding each is 2.4e-6 at worst, ~4e-7 as a
+# random walk). Against fused_segment_sum over int4_unpack: exact, the
+# same rounded products added in the same order.
+INT4_REL = 1e-6
+
+
+def int4_policy() -> st.TierPolicy:
+    return st.TierPolicy(hot=TIER_HOT, warm=TIER_WARM, cold="int4")
+
+
+def host_policy() -> st.TierPolicy:
+    return st.TierPolicy(hot=TIER_HOT, warm=0, cold="host",
+                         staging_rows=STAGING, max_stage_per_batch=MAX_STAGE)
+
+
+def cold_ids_of(tiered, dense: torch.Tensor) -> torch.Tensor:
+    """The cold tier's ids of a dense id matrix, as TieredSource makes
+    them (every other position reads the cold null row)."""
+    h, w, c = tiered.n_hot, tiered.n_warm, tiered.n_cold
+    ts = tiered.tier_slot[dense]
+    return torch.where(ts >= h + w, torch.clamp(ts - (h + w), max=c), c)
+
+
+def check_int4_case(packed, scales, ids, dim: int, what: str) -> float:
+    """The kernel against its plain version (within INT4_REL of each
+    bag's sum of |terms|) and against fused_segment_sum over the
+    unpacked table (torch.equal), on the card."""
+    name = "fused_int4_segment_sum"
+    got = fd_k.fused_int4_segment_sum(packed, scales, ids, dim=dim)
+    want = ref.fused_int4_segment_sum(packed, scales, ids, dim)
+    table = ops.int4_unpack(packed, scales, dim)
+    with uncounted():
+        same = fd_k.fused_segment_sum(table, ids)
+    abs_terms = ref.fused_segment_sum(table.abs(), ids)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    if not bool((err <= INT4_REL * abs_terms).all()):
+        fail(f"{name} {what}: |kernel - plain| {worst} over {INT4_REL} x "
+             f"the bag's sum of |terms|")
+    if not torch.equal(got, same):
+        fail(f"{name} {what}: differs from fused_segment_sum over "
+             f"int4_unpack by {float((got - same).abs().max())}")
+    print(f"  {name:24s} {what:34s} max_abs_err {worst:.3e}; equal to "
+          f"fused_segment_sum(int4_unpack)")
+    return worst
+
+
+def check_int4(params, cfg, counts, gen) -> tuple:
+    """The int4 kernel over the cold tier of DLRM(1) (930,368 rows of 16
+    bytes + a 4-byte scale): the serving shape (bucket 32 and max_l 40,
+    ids through the tier map), 2048 samples, and edge shapes; times and
+    bounds at the first two."""
+    spec = dlrm.arena_spec(cfg)
+    tiered = st.build_tiered(params["arena"], spec, int4_policy(), counts)
+    cold = tiered.cold
+    errs, rows = [], []
+    for samples, seed in ((BUCKET, 11), (LARGE, 12)):
+        ids = cold_ids_of(tiered, serving_dense_ids(cfg, samples, seed))
+        errs.append(check_int4_case(cold.packed, cold.scales, ids, cold.dim,
+                                    f"ids {tuple(ids.shape)}"))
+        b, l = ids.shape
+        d, p = cold.dim, cold.packed.shape[1]
+        touched = torch.unique(ids).numel()
+        bound_ms, by = bound(4 * ids.numel() + touched * (p + 4)
+                             + 4 * b * d, 2 * ids.numel() * d)
+        table = ops.int4_unpack(cold.packed, cold.scales, d)
+        r = measure(
+            lambda: fd_k.fused_int4_segment_sum(cold.packed, cold.scales,
+                                                ids, dim=d),
+            lambda: ref.fused_int4_segment_sum(cold.packed, cold.scales,
+                                               ids, d),
+            # a reference point, not the same function: no one PyTorch
+            # call reduces int4 rows, so F.embedding_bag sums the
+            # dequantized fp32 table over the same ids
+            lambda: F.embedding_bag(ids, table, mode="sum"))
+        r["reference_point_ms"] = r.pop("library_ms")
+        r["reference_point_device_ms"] = r.pop("library_device_ms")
+        r["library_ms"] = None
+        r["library_device_ms"] = None
+        rows.append({"samples": samples, "shape": [b, l, d], **r,
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "rows_read": touched,
+                     "cold_share": float((ids != cold.packed.shape[0] - 1)
+                                         .float().mean()),
+                     "bound_per_position_ms": bound(
+                         4 * ids.numel() + ids.numel() * 64 + 4 * b * d,
+                         0)[0]})
+    # edges: D 7/16/32/48 (an all-zero row among them), max_l 0, bags of
+    # fill slots only
+    for d in (7, 16, 32, 48):
+        table = torch.randn((50, d), generator=gen, device="cuda") * 0.05
+        table[3] = 0.0
+        table[49] = 0.0                          # the null row
+        packed, scales = ops.int4_pack(table)
+        ids = torch.randint(0, 50, (9, 7), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids[0] = 3
+        ids[1, 2:] = 49
+        ids[2] = 49
+        errs.append(check_int4_case(packed, scales, ids, d,
+                                    f"D = {d}, B = 9, max_l = 7"))
+        if float(scales[3]) != 0.0:
+            fail("int4: an all-zero row packed with a nonzero scale")
+        got = fd_k.fused_int4_segment_sum(packed, scales, ids, dim=d)
+        if got[0].any() or got[2].any():
+            fail(f"int4 D = {d}: a bag of zero rows or fill slots only is "
+                 f"not zero")
+    empty = torch.zeros((9, 0), dtype=torch.int32, device="cuda")
+    before = fd_k.int4_launches
+    out = fd_k.fused_int4_segment_sum(packed, scales, empty, dim=48)
+    if out.shape != (9, 48) or out.any():
+        fail("int4: max_l = 0 must give zeros")
+    if fd_k.int4_launches != before:
+        fail("int4: max_l = 0 launched the kernel")
+    print(f"  {'fused_int4_segment_sum':24s} {'max_l = 0':34s} zeros, no "
+          f"launch")
+    return max(errs), rows, tiered
+
+
+def _all_in(cfg, tier_rows: np.ndarray, n: int, seed: int) -> dict:
+    """A ragged batch of n samples whose every bag holds 20 ids drawn from
+    ``tier_rows`` (arena rows) of its own table."""
+    rng = np.random.RandomState(seed)
+    v, t = cfg.rows_per_table, cfg.n_tables
+    per_table = [tier_rows[(tier_rows // v) == j] % v for j in range(t)]
+    idx = np.concatenate([rng.choice(per_table[j], 20)
+                          for _ in range(n) for j in range(t)])
+    off = (np.arange(n * t + 1) * 20).astype(np.int32)
+    dense = np.random.RandomState(seed + 1).randn(
+        n, cfg.dense_features).astype(np.float32)
+    return {"dense": dense, "indices": idx.astype(np.int32),
+            "offsets": off}
+
+
+def _pooled(source, spec, batch) -> torch.Tensor:
+    with uncounted():
+        return es.lookup_bags(source, spec,
+                              torch.from_numpy(batch["indices"]).cuda(),
+                              torch.from_numpy(batch["offsets"]).cuda(),
+                              max_l=MAX_L)
+
+
+def _runtime_calls(fn) -> dict:
+    """CUDA runtime calls made while ``fn`` runs and the card finishes
+    (profiler, tracing the card), less those of the same profiled window
+    around nothing: the profiler's and the closing synchronize."""
+    def window(f):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            f()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages()
+                if e.key.startswith("cuda")}
+    base, calls = window(lambda: None), window(fn)
+    return {k: n - base.get(k, 0) for k, n in calls.items()
+            if n - base.get(k, 0)}
+
+
+def _staging_syncs(engine, cfg, n: int = 4) -> dict:
+    """CUDA runtime calls of the staging path alone over n micro-batches
+    of fresh requests: its copies must be asynchronous, with no
+    synchronize."""
+    reqs = requests_from_ragged_batch(poisson_batch(cfg, n * BUCKET, 31),
+                                      cfg.n_tables)
+    for r in reqs:
+        engine.submit(r)
+
+    def stage():
+        for i in range(0, len(reqs), BUCKET):
+            engine._stage_batch(reqs[i:i + BUCKET])
+    calls = _runtime_calls(stage)
+    engine.drain()
+    return calls
+
+
+def serve_tiered(cfg, params, fp_probs, counts) -> dict:
+    spec = dlrm.arena_spec(cfg)
+    out = {}
+    # -- int4 cold
+    plan = {"source": es.SourceSpec(tiers=int4_policy()),
+            "cache_trace": counts}
+    t0 = time.perf_counter()
+    engine, probs = serve(cfg, params, "cuda", **plan)
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = engine.stats()
+    print(f"  int4 cold: served {engine.served} requests in "
+          f"{engine.batches} batches ({serve_s:.2f} s with warmup); "
+          f"launches {launches}")
+    if engine.served != N_REQUESTS or stats["path"] != "tiered":
+        fail(f"tiered int4: served {engine.served}, path {stats['path']}")
+    _check_launches(launches, "per_tiered_forward", engine.batches,
+                    "tiered int4 plan")
+    _, cpu_probs = serve(cfg, _cpu(params), "cpu", **plan)
+    err = float(np.abs(probs - cpu_probs).max())
+    err_fp = float(np.abs(probs - fp_probs).max())
+    print(f"  int4 cold: card vs CPU path max |prob diff| {err:.3e} (atol "
+          f"{PROB_ATOL}); against the fp plan {err_fp:.3e}")
+    if err > PROB_ATOL:
+        fail(f"tiered int4: card probabilities differ from the CPU path by "
+             f"{err}")
+    # pooled bags against the fp arena: the reference's per-bag bound
+    batch = served_batch(cfg)
+    got = _pooled(engine.source, spec, batch)
+    want = _pooled(es.FpArena(params["arena"]), spec, batch)
+    amax = float(params["arena"].abs().max())
+    limit = MAX_L * (amax / 254.0 + amax / 14.0)
+    pooled_err = float((got - want).abs().max())
+    print(f"  int4 cold: pooled bags against the fp arena max |diff| "
+          f"{pooled_err:.3e} (bound max_l x (amax/254 + amax/14) = "
+          f"{limit:.3e})")
+    if pooled_err > limit:
+        fail(f"tiered int4: pooled bags {pooled_err} beyond {limit}")
+    # bags of hot rows only: the fp plan's bits
+    hot_batch = _all_in(cfg, engine.source.hot_ids.cpu().numpy(), 64, 41)
+    _, hot_probs = serve(cfg, params, "cuda", batch=hot_batch, **plan)
+    _, hot_fp = serve(cfg, params, "cuda", batch=hot_batch)
+    if not np.array_equal(hot_probs, hot_fp):
+        fail(f"tiered int4: all-hot bags differ from the fp plan by "
+             f"{np.abs(hot_probs - hot_fp).max()}")
+    print("  int4 cold: 64 requests of all-hot bags equal to the fp plan "
+          "(np.array_equal)")
+    tb = st.tier_bytes(engine.source)
+    print(f"  int4 cold: tier bytes {tb} against the fp arena's "
+          f"{es.source_bytes(es.FpArena(params['arena']))}")
+    prof = profile_serve(engine, cfg)
+    _print_profile(prof, "tiered int4")
+    out["int4"] = {"launches": launches, "stats": stats, "serve_s": serve_s,
+                   "batches": engine.batches, "prob_max_abs_err": err,
+                   "prob_max_abs_err_vs_fp": err_fp,
+                   "pooled_max_abs_err_vs_fp": pooled_err,
+                   "pooled_bound": limit, "tier_bytes": tb,
+                   "profile": prof}
+    del engine
+    # -- host cold, no warm tier: every row fp32
+    plan = {"source": es.SourceSpec(tiers=host_policy()),
+            "cache_trace": counts}
+    t0 = time.perf_counter()
+    engine, probs = serve(cfg, params, "cuda", **plan)
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = engine.stats()
+    pre = stats["prefetch"]
+    print(f"  host cold: served {engine.served} requests in {engine.batches}"
+          f" batches ({serve_s:.2f} s with warmup); launches {launches}; "
+          f"prefetch {pre}")
+    _check_launches(launches, "per_host_forward", engine.batches,
+                    "tiered host plan")
+    err_fp = float(np.abs(probs - fp_probs).max())
+    print(f"  host cold: against the fp plan max |prob diff| {err_fp:.3e} "
+          f"(atol {PROB_ATOL})")
+    if err_fp > PROB_ATOL:
+        fail(f"tiered host: differs from the fp plan by {err_fp}")
+    store = engine._host_stores[0]
+    s = store.stats()
+    if s["hits"] + s["misses"] != s["touches"] or pre["touches"] == 0:
+        fail(f"tiered host: hits + misses != touches: {s}")
+    reqs = requests_from_ragged_batch(served_batch(cfg), cfg.n_tables)
+    largest = max(len(store.cold_ids_of(engine._host_ids(
+        reqs[i:i + BUCKET]))) for i in range(0, len(reqs), BUCKET))
+    print(f"  host cold: the largest micro-batch touches {largest} unique "
+          f"cold rows (staging arena {STAGING}, half {STAGING // 2}); "
+          f"prefetch hit rate {pre['hit_rate']:.4f}")
+    if largest >= STAGING // 2:
+        fail(f"tiered host: {largest} unique cold rows leave no room for "
+             f"the lookahead")
+    # one-tier bags: hot only, host cold only
+    hot_ids = engine.source.hot_ids.cpu().numpy()
+    cold_rows = np.nonzero(store.compact_of < store.n_cold)[0]
+    for tag, rows_, seed in (("hot", hot_ids, 42), ("host", cold_rows, 43)):
+        b = _all_in(cfg, rows_, 64, seed)
+        _, a = serve(cfg, params, "cuda", batch=b, **plan)
+        _, f = serve(cfg, params, "cuda", batch=b)
+        if not np.array_equal(a, f):
+            fail(f"tiered host: all-{tag} bags differ from the fp plan by "
+                 f"{np.abs(a - f).max()}")
+    print("  host cold: 64 requests of all-hot and 64 of all-cold bags "
+          "equal to the fp plan (np.array_equal)")
+    # the prefetcher with a queue to look into: all 512 requests admitted
+    # first, so each step stages its own batch and the next one's rows
+    with uncounted():
+        ahead = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                          device="cuda", **plan)
+        ahead.warmup()
+        for r in requests_from_ragged_batch(served_batch(cfg),
+                                            cfg.n_tables):
+            ahead.submit(r)
+        ahead.drain()
+    pre_q = ahead.stats()["prefetch"]
+    if pre_q["hits"] + pre_q["misses"] != pre_q["touches"]:
+        fail(f"tiered host, queued: hits + misses != touches: {pre_q}")
+    print(f"  host cold, all 512 requests queued first (the lookahead sees "
+          f"the next micro-batch): prefetch {pre_q}")
+    del ahead
+    calls = _staging_syncs(engine, cfg)
+    print(f"  host cold: CUDA runtime calls of the staging path over 4 "
+          f"micro-batches: {calls}")
+    if any(k.endswith("Synchronize") for k in calls):
+        fail(f"tiered host: the staging path synchronized: {calls}")
+    # for comparison, one whole served micro-batch: its request copies and
+    # the probabilities' copy back wait for the stream, staging does not
+    step_reqs = requests_from_ragged_batch(poisson_batch(cfg, BUCKET, 32),
+                                           cfg.n_tables)
+
+    def one_step():
+        for r in step_reqs:
+            engine.submit(r)
+        engine.step(force=True)
+    step_calls = _runtime_calls(one_step)
+    print(f"  host cold: CUDA runtime calls of one served micro-batch: "
+          f"{step_calls}")
+    tb = st.tier_bytes(engine.source)
+    print(f"  host cold: tier bytes {tb}")
+    prof = profile_serve(engine, cfg)
+    _print_profile(prof, "tiered host")
+    out["host"] = {"launches": launches, "stats": stats,
+                   "serve_s": serve_s, "batches": engine.batches,
+                   "prob_max_abs_err_vs_fp": err_fp,
+                   "largest_unique_cold": largest,
+                   "prefetch_queued": pre_q,
+                   "staging_runtime_calls": calls,
+                   "step_runtime_calls": step_calls, "tier_bytes": tb,
+                   "profile": prof}
+    return out
+
+
+def online_tiered(cfg, counts) -> dict:
+    """A tiered OnlineTrainer (int4 cold, a migration every REFRESH
+    steps) feeding one engine through sync_engine every 5 steps."""
+    spec = dlrm.arena_spec(cfg)
+    pol = int4_policy()
+    p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
+                   device="cuda")
+    trainer = OnlineTrainer(cfg, p0, max_l=MAX_L, device="cuda",
+                            cache_cfg=OnlineCacheConfig(
+                                k=0, tiers=pol, refresh_every=REFRESH))
+    engine = RecEngine(cfg, trainer.params, source=es.SourceSpec(tiers=pol),
+                       cache_trace=counts, max_l=MAX_L, max_batch=BUCKET,
+                       device="cuda")
+    engine.warmup()
+    own = engine.source
+    ptrs = [t.data_ptr() for t in es.source_structure(own)[1]] \
+        + [t.data_ptr() for t in tree_leaves(engine.params)]
+    train = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
+                               max_l=MAX_L, drift_per_batch=DRIFT, seed=3)
+    traffic = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
+                                 max_l=MAX_L, drift_per_batch=DRIFT, seed=4)
+    step_fn = dlrm.make_ragged_serve_step(cfg, max_l=MAX_L)
+    step_ms, migrations, served = [], [], 0
+    reset_counts()
+    for i in range(1, ONLINE_STEPS + 1):
+        batch = next(train)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        src = trainer.tiered
+        with uncounted():
+            if not torch.equal(src.hot_rows[:-1],
+                               trainer.params["arena"][src.hot_ids.long()]):
+                fail(f"online tiered step {i}: the hot tier differs from "
+                     f"the trainer's arena rows")
+        if i % REFRESH == 0:
+            with uncounted():
+                full = st.build_tiered(trainer.params["arena"], spec, pol,
+                                       trainer.hist)
+                for a, b in zip(es.source_structure(src)[1],
+                                es.source_structure(full)[1]):
+                    if not torch.equal(a, b):
+                        fail(f"online tiered step {i}: the migration "
+                             f"differs from a full build_tiered")
+            migrations.append({"step": i, **trainer.last_migration})
+            print(f"  online tiered step {i:2d}: migration v"
+                  f"{trainer.version} {trainer.last_migration}, equal to "
+                  f"build_tiered bit for bit")
+        if i % 5:
+            continue
+        if not trainer.sync_engine(engine):
+            fail(f"online tiered step {i}: sync_engine did not publish")
+        if engine.source is not own or [
+                t.data_ptr() for t in es.source_structure(own)[1]] \
+                + [t.data_ptr() for t in tree_leaves(engine.params)] != ptrs:
+            fail(f"online tiered step {i}: the engine's tensors moved")
+        reqs = _requests(next(traffic), cfg)
+        got = _served(engine, reqs)
+        served += 1
+        with uncounted():
+            b, _ = engine._assemble(reqs, BUCKET)
+            want = step_fn(trainer.params, b,
+                           trainer.serving_source()).cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"online tiered step {i}: served probabilities differ from "
+                 f"the forward over the trainer's source by "
+                 f"{np.abs(got - want).max()}")
+        print(f"  online tiered step {i:2d}: sync at v{engine.source_version}"
+              f"; served batch equal to the forward over the trainer's "
+              f"source (bit for bit); engine tensors at fixed addresses")
+    launches = launch_counts()
+    for name, k in KERNELS.items():
+        want = k["per_step"] * ONLINE_STEPS + k["per_tiered_forward"] * served
+        on_path = k["per_step"] or k["per_tiered_forward"]
+        if launches[name] != want or (on_path and not launches[name]):
+            fail(f"online tiered: {name} launched {launches[name]} times; "
+                 f"{k['per_step']} x {ONLINE_STEPS} steps + "
+                 f"{k['per_tiered_forward']} x {served} served = {want}")
+    print(f"  online tiered launches {launches} ({ONLINE_STEPS} steps, "
+          f"{served} served micro-batches)")
+    # the migration's own cost: host wall (synchronised) and device time
+    dirty = np.zeros(spec.total_rows, bool)
+    dirty[np.unique(next(train)["indices"])] = True
+
+    def retier():
+        return st.migrate(trainer.tiered, trainer.params["arena"], spec, pol,
+                          trainer.hist, dirty)
+    wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        retier()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    dev = device_ms(retier, reps=3)
+    plain = [m for j, m in enumerate(step_ms, 1) if j % REFRESH]
+    costs = {"step_ms_median": float(np.median(plain)),
+             "migration_step_ms": [m for j, m in enumerate(step_ms, 1)
+                                   if j % REFRESH == 0],
+             "retier_host_ms_median": float(np.median(wall)),
+             "retier_device_ms": dev}
+    print(f"  online tiered costs: step {costs['step_ms_median']:.3f} ms "
+          f"(median of the {len(plain)} steps without a migration), "
+          f"migration steps "
+          f"{[round(m, 3) for m in costs['migration_step_ms']]} ms, "
+          f"migrate {costs['retier_host_ms_median']:.3f} ms host (device "
+          f"{_fmt(dev)} ms)")
+    return {"launches": launches, "served_batches": served,
+            "migrations": migrations, "costs": costs,
+            "losses": trainer.losses}
+
+
+def phase_tiered(cfg, params, fp_probs, gen) -> tuple:
+    counts = warm_counts(cfg)
+    err, rows, _ = check_int4(params, cfg, counts, gen)
+    for r in rows:
+        print(f"  fused_int4_segment_sum {r['samples']:5d} samples, ms per "
+              f"call (device ms): kernel {r['ms']:.4f} "
+              f"({_fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} "
+              f"({_fmt(r['plain_device_ms'])}), reference point "
+              f"F.embedding_bag over the dequantized table "
+              f"{r['reference_point_ms']:.4f} "
+              f"({_fmt(r['reference_point_device_ms'])}), bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}; one row and scale "
+              f"sector pair per position {r['bound_per_position_ms']:.5f});"
+              f" {r['rows_read']} rows read, cold share of positions "
+              f"{r['cold_share']:.3f}")
+    served = serve_tiered(cfg, params, fp_probs, counts)
+    print("  -- online tier migration")
+    online = online_tiered(cfg, counts)
+    return {"max_abs_err": err, "rows": rows}, served, online
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -1898,9 +2406,12 @@ def main() -> None:
     online = phase_online(cfg)
     print("== phase 7: fixed-L serving and the hybrid pipeline")
     fixed = phase_serve_fixed(cfg, params, fp_probs)
-    del params
     print("== phase 8: fixed-L training")
     trained_fixed = phase_train_fixed(cfg)
+    print("== phase 9: tiered storage on DLRM(1)")
+    kernels["fused_int4_segment_sum"], tiered, online_t = phase_tiered(
+        cfg, params, fp_probs, gen)
+    del params
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -1913,7 +2424,10 @@ def main() -> None:
                    "serve_fixed": fixed["launches"][name],
                    "serve_flat": fixed["flat"]["launches"][name],
                    "pipelined": fixed["pipelined"]["launches"][name],
-                   "train_fixed": trained_fixed["launches"][name]}
+                   "train_fixed": trained_fixed["launches"][name],
+                   "serve_tiered_int4": tiered["int4"]["launches"][name],
+                   "serve_tiered_host": tiered["host"]["launches"][name],
+                   "online_tiered": online_t["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -1924,15 +2438,19 @@ def main() -> None:
             "bound_ms": at32["bound_ms"], "bound_by": at32["bound_by"],
             "library_ms": at32["library_ms"],
             # sls_grad_table: the (V, D) output's zero fill, apart from
-            # the kernel's own bytes; fused_cached_segment_sum: the bound
-            # with one row read per position
+            # the kernel's own bytes; the cached and int4 kernels: the
+            # bound with one row read per position; the int4 kernel: the
+            # labelled reference point (F.embedding_bag over the
+            # dequantized table), not a library call of the same function
             **{k: at32[k] for k in ("zero_fill_bound_ms",
-                                    "bound_per_position_ms") if k in at32}})
+                                    "bound_per_position_ms",
+                                    "reference_point_ms") if k in at32}})
     if args.out is not None:
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
              "serve_cached": cached, "train": trained, "online": online,
-             "serve_fixed": fixed, "train_fixed": trained_fixed},
+             "serve_fixed": fixed, "train_fixed": trained_fixed,
+             "serve_tiered": tiered, "online_tiered": online_t},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -15,18 +15,20 @@ Ported sources::
     CachedSource(hot, cold)        replicated top-K hot rows + any of
                                    these as the cold source
 
-with the declarative plan that builds them (``SourceSpec``) and the
-versioned broadcast artifact (``VersionedSource``, the reference's
+and, registered by ``repro_torch.storage``, the tiered sources
+(``TieredSource``, ``Int4Arena``, ``HostTier``), with the declarative
+plan that builds them (``SourceSpec``) and the versioned broadcast
+artifact (``VersionedSource``, the reference's
 ``CSA1`` layout, so a blob written by either package decodes in the
 other). The hot/cold law holds bit for bit: a coherent ``CachedSource``
 over an ``FpArena`` reduces to exactly the ``FpArena`` lookup.
 
 Not ported yet, each refused naming its ROADMAP item: sharded sources
-(Queue 1, item 13), table groups and ``TablePlan`` (item 8) and tiered
-storage (item 12).
+(Queue 1, item 13) and table groups and ``TablePlan`` (item 8).
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 from dataclasses import dataclass
@@ -43,7 +45,8 @@ from repro_torch.kernels import ops
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
            "SourceSpec", "VersionedSource", "describe_source", "fmt_bytes",
            "hot_cache_of", "lookup_bags", "lookup_fixed", "rebind_arena",
-           "source_bytes", "source_structure", "with_hot_cache"]
+           "register_meta_type", "register_source", "source_bytes",
+           "source_structure", "with_hot_cache"]
 
 
 class EmbeddingSource:
@@ -283,6 +286,9 @@ def rebind_arena(source: EmbeddingSource,
     if isinstance(source, CachedSource):
         return CachedSource(source.hot, rebind_arena(source.cold, arena),
                             coherent=source.coherent)
+    if hasattr(source, "_rebind_arena"):
+        # the hook of the tiered source, which refreshes its fp hot tier
+        return source._rebind_arena(arena)
     return source
 
 
@@ -302,12 +308,16 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def source_bytes(source) -> int:
     """Total device bytes of a source's tensors (slot maps and scales
-    included): the denominator of every capacity claim."""
+    included): the denominator of every capacity claim. A host tier
+    counts its device tensors only; its host rows are host bytes."""
+    if hasattr(source, "device_bytes"):
+        return int(source.device_bytes())
     return sum(_nbytes(t) for t in source_structure(source)[1])
 
 
 def describe_source(source, *, multiline: bool = False) -> str:
-    """Stats label: 'fp', 'int8', 'cached(fp)', 'cached(int8)'. With
+    """Stats label: 'fp', 'int8', 'int4', 'cached(fp)', 'cached(int8)',
+    'tiered(int4)', 'tiered(host)'. With
     ``multiline=True`` every nested source renders on its own indented
     line with its dtype and byte size."""
     if multiline:
@@ -318,6 +328,9 @@ def describe_source(source, *, multiline: bool = False) -> str:
         return "int8"
     if isinstance(source, CachedSource):
         return f"cached({describe_source(source.cold)})"
+    if hasattr(source, "_describe"):
+        # the hook of the sources registered from outside this module
+        return source._describe()
     return type(source).__name__
 
 
@@ -341,6 +354,8 @@ def _describe_lines(source, depth: int) -> List[str]:
                 f"{str(hot.hot_rows.dtype).replace('torch.', '')}, "
                 f"{fmt_bytes(nb)})"] \
             + _describe_lines(source.cold, depth + 1)
+    if hasattr(source, "_describe_lines"):
+        return source._describe_lines(depth)
     return [f"{pad}{type(source).__name__}"]
 
 
@@ -349,7 +364,8 @@ def _describe_lines(source, depth: int) -> List[str]:
 # ---------------------------------------------------------------------------
 
 # name -> (cls, data_fields, meta_fields): drives the structure check of a
-# source swap and the artifact codec, as the reference's registry does
+# source swap and the artifact codec, as the reference's registry does;
+# repro_torch.storage registers its sources on import
 _SOURCE_REGISTRY = {
     "FpArena": (FpArena, ("arena",), ()),
     "QuantizedArena": (QuantizedArena, ("q", "scales"), ()),
@@ -361,10 +377,42 @@ _SOURCE_REGISTRY = {
 _UNPORTED_TYPES = {
     "ShardedArena": "sharded sources (ROADMAP Queue 1, item 13)",
     "TableGroupSource": "table groups (ROADMAP Queue 1, item 8)",
-    "TieredSource": "tiered storage (ROADMAP Queue 1, item 12)",
-    "Int4Arena": "tiered storage (ROADMAP Queue 1, item 12)",
-    "HostTier": "tiered storage (ROADMAP Queue 1, item 12)",
 }
+
+# frozen dataclasses that may sit in a source's meta fields and round-trip
+# through the codec by name (repro_torch.storage registers TierPolicy)
+_META_TYPES: Dict[str, type] = {}
+
+
+def register_source(cls, data_fields: tuple, meta_fields: tuple) -> None:
+    """Add a source type (under its class name, as the reference's blobs
+    name it) to the structure check and the artifact codec. A meta field
+    listed in the class's ``__ephemeral_meta__`` is host state: it enters
+    the structure by its ``_signature()`` and is left out of a blob."""
+    _SOURCE_REGISTRY[cls.__name__] = (cls, tuple(data_fields),
+                                      tuple(meta_fields))
+
+
+def register_meta_type(cls):
+    """Let a frozen dataclass sit in a source's meta fields and round-trip
+    through the artifact codec."""
+    _META_TYPES[cls.__name__] = cls
+    return cls
+
+
+def _registered(name: str):
+    if name not in _SOURCE_REGISTRY:
+        # the storage sources register on import: a blob that holds one
+        # must not need the consumer to have imported the package first
+        import repro_torch.storage  # noqa: F401
+    return _SOURCE_REGISTRY.get(name)
+
+
+def _meta_key(obj, field: str):
+    v = getattr(obj, field)
+    if field in getattr(obj, "__ephemeral_meta__", ()):
+        return None if v is None else v._signature()
+    return v
 
 
 def source_structure(source) -> Tuple[tuple, List[torch.Tensor]]:
@@ -384,7 +432,7 @@ def source_structure(source) -> Tuple[tuple, List[torch.Tensor]]:
             raise TypeError(f"{name} is not a source type of the port "
                             f"({sorted(_SOURCE_REGISTRY)})")
         _, data, meta = _SOURCE_REGISTRY[name]
-        return (name, tuple(getattr(obj, f) for f in meta),
+        return (name, tuple(_meta_key(obj, f) for f in meta),
                 tuple(walk(getattr(obj, f)) for f in data))
 
     return walk(source), leaves
@@ -406,7 +454,7 @@ class SourceSpec:
     axis: str = "model"
     require_mesh: bool = False           # 'sharded': no silent fallback
     tables: Optional[tuple] = None       # heterogeneous group
-    tiers: Optional[object] = None       # tiered storage policy
+    tiers: Optional[object] = None       # storage.TierPolicy
 
     PATH_NAMES = ("fixed", "ragged", "cached", "sharded")
 
@@ -430,10 +478,11 @@ class SourceSpec:
             raise NotImplementedError(
                 "table-group plans are not ported yet (ROADMAP Queue 1, "
                 "item 8)")
-        if self.tiers is not None:
-            raise NotImplementedError(
-                "tiered storage is not ported yet (ROADMAP Queue 1, "
-                "item 12)")
+        if self.tiers is not None and (self.cache_k or self.quantize_cold):
+            raise ValueError(
+                "a tiered plan is its own caching and quantization: "
+                "TierPolicy.hot replaces cache_k and the warm/cold tiers "
+                "replace quantize_cold; drop cache_k/quantize_cold")
 
     @staticmethod
     def from_path(path: Union[str, "SourceSpec"], *, cache_k: int = 0,
@@ -468,6 +517,8 @@ class SourceSpec:
 
     def path_name(self) -> str:
         """The nearest path string (for stats labels)."""
+        if self.tiers is not None:
+            return "tiered"
         if self.layout == "fixed":
             return "fixed"
         return "cached" if self.cached else "ragged"
@@ -475,7 +526,10 @@ class SourceSpec:
     def build(self, arena: torch.Tensor, spec: se.ArenaSpec,
               counts=None) -> EmbeddingSource:
         """Materialise the plan for an arena; ``counts`` is the trace
-        histogram that ranks the hot rows (uniform when omitted)."""
+        histogram that ranks the hot rows, or the tiers (uniform when
+        omitted)."""
+        if self.tiers is not None:
+            return self.tiers.build_source(arena, spec, counts)
         cold: EmbeddingSource = (QuantizedArena.from_arena(arena)
                                  if self.quantize_cold else FpArena(arena))
         if not self.cached:
@@ -491,6 +545,31 @@ class SourceSpec:
 # ---------------------------------------------------------------------------
 # Versioned broadcast artifact: any source + a monotone version
 # ---------------------------------------------------------------------------
+
+def _encode_meta(v):
+    """A meta value as JSON: plain scalars pass through, registered
+    dataclasses and sequences get the reference's self-describing
+    wrappers."""
+    if type(v).__name__ in _META_TYPES:
+        return {"__meta_dc__": type(v).__name__,
+                "fields": {f.name: _encode_meta(getattr(v, f.name))
+                           for f in dataclasses.fields(v)}}
+    if isinstance(v, (tuple, list)):
+        return {"__seq__": [_encode_meta(x) for x in v]}
+    return v
+
+
+def _decode_meta(v):
+    if isinstance(v, dict) and "__meta_dc__" in v:
+        name = v["__meta_dc__"]
+        if name not in _META_TYPES:
+            import repro_torch.storage  # noqa: F401  (registers its types)
+        return _META_TYPES[name](**{k: _decode_meta(x)
+                                    for k, x in v["fields"].items()})
+    if isinstance(v, dict) and "__seq__" in v:
+        return tuple(_decode_meta(x) for x in v["__seq__"])
+    return v
+
 
 def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
     if isinstance(obj, torch.Tensor):
@@ -521,7 +600,13 @@ def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
     for f in data_fields:
         node["fields"][f] = _encode(getattr(obj, f), arrays, counter)
     for f in meta_fields:
-        node["fields"][f] = {"kind": "meta", "value": getattr(obj, f)}
+        if f in getattr(obj, "__ephemeral_meta__", ()):
+            # host-process state (a HostStore): the consumer binds its
+            # own; the decoded source serves its staged snapshot
+            node["fields"][f] = {"kind": "ephemeral"}
+        else:
+            node["fields"][f] = {"kind": "meta",
+                                 "value": _encode_meta(getattr(obj, f))}
     return node
 
 
@@ -542,18 +627,22 @@ def _decode(node, z, device: torch.device):
     if name in _UNPORTED_TYPES:
         raise NotImplementedError(f"{name}: {_UNPORTED_TYPES[name]} "
                                   "is not ported yet")
-    if name not in _SOURCE_REGISTRY:
+    if _registered(name) is None:
         raise ValueError(f"unknown source type {name!r}")
     cls, data_fields, meta_fields = _SOURCE_REGISTRY[name]
     kw = {}
     for f in data_fields + meta_fields:
         sub = node["fields"][f]
-        if sub["kind"] in ("mesh", "ephemeral"):
+        if sub["kind"] == "mesh":
             raise NotImplementedError(
-                f"{name}.{f} is host state of a sharded or tiered source, "
-                "not ported yet (ROADMAP Queue 1, items 12 and 13)")
-        kw[f] = sub["value"] if sub["kind"] == "meta" \
-            else _decode(sub, z, device)
+                f"{name}.{f} is the mesh of a sharded source, not ported "
+                "yet (ROADMAP Queue 1, item 13)")
+        if sub["kind"] == "ephemeral":
+            kw[f] = None
+        elif sub["kind"] == "meta":
+            kw[f] = _decode_meta(sub["value"])
+        else:
+            kw[f] = _decode(sub, z, device)
     return cls(**kw)
 
 

@@ -1,5 +1,5 @@
-"""Fused segmented dispatch on Hopper: the ``fused_segment_sum`` and
-``fused_cached_segment_sum`` kernels.
+"""Fused segmented dispatch on Hopper: the ``fused_segment_sum``,
+``fused_cached_segment_sum`` and ``fused_int4_segment_sum`` kernels.
 
 ``fused_segment_sum`` replaces the Pallas kernel
 ``repro/kernels/fused_dispatch.py:61 fused_segment_sum`` (body
@@ -19,6 +19,14 @@ test inside: per position it reads the one nonzero row, a hot copy (the
 hot arena stays in the 50 MB L2) or a cold arena row, so on a coherent
 cache it equals ``fused_segment_sum`` bit for bit.
 
+``fused_int4_segment_sum`` replaces ``:183 fused_int4_segment_sum`` (body
+``_int4_kernel``, :159), the int4 cold tier of tiered storage
+(``storage.tiered.Int4Arena``). Its kernel
+(``csrc/fused_int4_segment_sum.cu``) walks the same way over nibble-packed
+rows, an eighth of the fp32 row bytes plus a 4-byte scale per position,
+and keeps each term the rounded product code * scale, so it equals
+``fused_segment_sum`` over the unpacked table bit for bit.
+
 These wrappers take CUDA tensors only; ``kernels.ops`` routes CPU tensors
 to the plain version in ``kernels.ref``.
 """
@@ -31,15 +39,19 @@ import torch
 from repro_torch.kernels import _build
 
 # launches of each CUDA kernel in this process (not of the plain version):
-# fused_segment_sum, fused_cached_segment_sum
+# fused_segment_sum, fused_cached_segment_sum, fused_int4_segment_sum
 launches = 0
 cached_launches = 0
+int4_launches = 0
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int)
 _CACHED_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int)
+_INT4_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int)
 
 
 def fused_segment_sum(table: torch.Tensor,
@@ -113,4 +125,46 @@ def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
                   cold_ids.data_ptr(), out.data_ptr(), b, max_l, d,
                   hot_rows.shape[0] - 1)
     cached_launches += 1
+    return out
+
+
+def fused_int4_segment_sum(packed: torch.Tensor, scales: torch.Tensor,
+                           dense_ids: torch.Tensor, *,
+                           dim: int) -> torch.Tensor:
+    """Int4 dequantize-in-the-gather segmented reduce.
+
+    packed (V, P) uint8 nibble pairs and scales (V, 1) f32 from
+    ``int4_pack``, with ``2P >= dim > 2(P - 1)``; dense_ids (B, max_l)
+    int32 with short/padded slots pointing at a zero-scale row. Returns
+    f32 (B, dim): ``out[b] = sum_j unpack(packed)[dense_ids[b, j]]``;
+    ``max_l == 0`` gives zeros without a launch.
+    """
+    global int4_launches
+    _build.require(dense_ids, "dense_ids", dtype=torch.int32, ndim=2)
+    _build.require(packed, "packed", dtype=torch.uint8, ndim=2)
+    _build.require(scales, "scales", dtype=torch.float32, ndim=2)
+    devices = {t.device for t in (packed, scales, dense_ids)}
+    if len(devices) != 1:
+        raise ValueError(f"packed, scales and dense_ids on "
+                         f"{sorted(map(str, devices))}")
+    v, p = packed.shape
+    if tuple(scales.shape) != (v, 1):
+        raise ValueError(f"scales {tuple(scales.shape)} for packed "
+                         f"{tuple(packed.shape)}: one f32 scale per row")
+    dim = int(dim)
+    if not 2 * p >= dim > 2 * (p - 1):
+        raise ValueError(f"dim {dim} does not fit {p} packed bytes a row "
+                         f"(2P >= dim > 2(P - 1))")
+    b, max_l = dense_ids.shape
+    out = torch.empty((b, dim), dtype=torch.float32, device=packed.device)
+    if b == 0 or dim == 0:
+        return out
+    if max_l == 0:
+        return out.zero_()
+    fn = _build.function("fused_int4_segment_sum",
+                         "fused_int4_segment_sum_f32", _INT4_ARGS)
+    _build.launch(fn, "fused_int4_segment_sum", packed.device,
+                  packed.data_ptr(), scales.data_ptr(), dense_ids.data_ptr(),
+                  out.data_ptr(), b, max_l, dim, p)
+    int4_launches += 1
     return out

@@ -7,15 +7,18 @@ reaches a plain version here, and tensors on any other device, or on
 two devices at once, are refused.
 
 ``gemm``, ``embedding_bag`` (and ``gather_rows``), ``sparse_lengths_sum``,
-``fused_segment_sum``, ``fused_cached_segment_sum`` and ``interaction``
-are ``torch.autograd.Function``s whose backward passes do what the
+``fused_segment_sum``, ``fused_cached_segment_sum``,
+``fused_int4_segment_sum`` and ``interaction`` are
+``torch.autograd.Function``s whose backward passes do what the
 reference's custom VJPs do: the backward of a GEMM is two GEMMs on the
 same kernel; the backward of every gather-reduce is the
 ``sls_grad_table`` segment scatter-add, deterministic on the card (no
 float atomics), with the null row's gradient pinned to zero for the fused
 forms (twice for the cached one: onto the hot slots with the miss slot
 pinned, and onto the cold ids) and nothing pinned for ``embedding_bag``
-and ``sparse_lengths_sum``; and the interaction's backward is (G + G^T) X
+and ``sparse_lengths_sum``; the int4 reduce's gradient reaches its
+scales only, one ``sls_grad_table`` walk over one-position bags; and the
+interaction's backward is (G + G^T) X
 in plain torch, as the reference's einsum sits outside any Pallas
 kernel.
 Serving runs them under ``torch.inference_mode``, which records nothing.
@@ -264,6 +267,65 @@ def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
     return _FusedCachedSegmentSum.apply(
         hot_rows, arena, slots, cold_ids,
         None if null_row is None else int(null_row))
+
+
+def int4_pack(a32: torch.Tensor):
+    """Row-wise symmetric int4 quantize + nibble-pack: per-row scale
+    amax/7, an all-zero row gets a zero scale. Returns (packed uint8
+    (R, ceil(D/2)), scales f32 (R, 1)); torch ops on either device, as
+    the reference leaves them to XLA."""
+    return _ref.int4_pack(a32)
+
+
+def int4_unpack(packed: torch.Tensor, scales: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """Dequantize an ``int4_pack`` arena back to f32 (R, dim)."""
+    return _ref.int4_unpack(packed, scales, dim)
+
+
+class _FusedInt4SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, scales, dense_ids, dim):
+        ctx.save_for_backward(packed, dense_ids)
+        ctx.dim = dim
+        if _on_cuda(packed, scales, dense_ids):
+            return _fd.fused_int4_segment_sum(packed, scales, dense_ids,
+                                              dim=dim)
+        return _ref.fused_int4_segment_sum(packed, scales, dense_ids, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # as the reference (kernels/ops.py:372-386): the codes are frozen
+        # integers, so the one trainable leaf is the scales, d_scales[r] =
+        # sum over positions p with id_p == r of <g[bag(p)], codes[r]>. A
+        # null row's codes are zero, so its gradient is zero unpinned.
+        # The scatter is sls_grad_table over one-position bags (offsets
+        # 0..N): deterministic, where index_add_ on the card would add
+        # with float atomics.
+        packed, dense_ids = ctx.saved_tensors
+        codes = _ref._int4_codes(packed[dense_ids], ctx.dim).float()
+        per_pos = torch.einsum("bld,bd->bl", codes, g.float())
+        n = per_pos.numel()
+        offsets = torch.arange(n + 1, dtype=torch.int32,
+                               device=dense_ids.device)
+        d_scales = sls_grad_table(per_pos.reshape(n, 1).contiguous(),
+                                  dense_ids.reshape(-1), offsets,
+                                  n_rows=packed.shape[0])
+        return None, d_scales, None, None
+
+
+def fused_int4_segment_sum(packed: torch.Tensor, scales: torch.Tensor,
+                           dense_ids: torch.Tensor, *,
+                           dim: int) -> torch.Tensor:
+    """Int4 dequantize-in-the-gather reduce over a dense id matrix:
+    out[b] = sum_j unpack(packed)[dense_ids[b, j]], f32 (B, dim).
+
+    packed (V, ceil(dim/2)) uint8 and scales (V, 1) f32 from
+    ``int4_pack``; dense_ids (B, max_l) int32 with fill slots pointing at
+    a zero-scale row. Differentiable in ``scales`` only: the codes are
+    frozen integers.
+    """
+    return _FusedInt4SegmentSum.apply(packed, scales, dense_ids, int(dim))
 
 
 class _Interaction(torch.autograd.Function):

@@ -5,6 +5,9 @@ position, as the CUDA kernels do; a masked or fill position adds +0.0,
 which leaves a sum's value as it was. So one bag summed by any of them,
 with or without trailing fill, gives the same bits.
 
+``int4_pack``, ``int4_unpack`` and ``_int4_codes`` have no kernel, in
+the reference either; they are the cold tier's codec.
+
 The ground truth in the tests, the path a CPU tensor takes through
 ``kernels.ops``, and what ``chip_smoke.py`` holds each CUDA kernel
 against on the card. Same names and semantics as the reference's
@@ -82,6 +85,57 @@ def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
     """
     rows = hot_rows[slots].float() + arena[cold_ids].float()
     return rows.sum(dim=1)
+
+
+def int4_pack(a32: torch.Tensor):
+    """Row-wise symmetric int4 quantize + nibble-pack (the cold tier).
+
+    The int8 rule at 4 bits: per-row scale = amax/7, values rounded
+    (half to even, as ``jnp.round``) into [-7, 7], an all-zero row gets a
+    zero scale. Codes are stored biased (+8, so 8 encodes zero), two per
+    byte: column 2j in the low nibble, 2j+1 in the high one; an odd dim
+    pads one zero-code column. Returns (packed uint8 (R, ceil(D/2)),
+    scales f32 (R, 1)), equal to the reference's codes and scales.
+    """
+    a32 = a32.float()
+    amax = a32.abs().amax(dim=-1, keepdim=True)
+    scales = amax / 7.0
+    q = torch.where(scales > 0,
+                    torch.clamp(torch.round(a32 / torch.clamp(scales,
+                                                              min=1e-30)),
+                                -7, 7), 0.0).to(torch.int32)
+    if q.shape[-1] % 2:
+        q = torch.nn.functional.pad(q, (0, 1))
+    code = (q + 8).to(torch.uint8)               # 1..15, 8 == zero
+    return code[:, 0::2] | (code[:, 1::2] << 4), scales
+
+
+def _int4_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """Unbiased integer codes in [-7, 7]: (..., P) uint8 -> (..., dim)
+    int32."""
+    p = packed.to(torch.int32)
+    lo = (p & 0xF) - 8
+    hi = (p >> 4) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *p.shape[:-1], 2 * p.shape[-1])[..., :dim]
+
+
+def int4_unpack(packed: torch.Tensor, scales: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """Dequantize an ``int4_pack`` arena back to f32 (R, dim): each value
+    is the rounded product code * scale."""
+    return _int4_codes(packed, dim).float() * scales
+
+
+def fused_int4_segment_sum(packed: torch.Tensor, scales: torch.Tensor,
+                           dense_ids: torch.Tensor, dim: int) -> torch.Tensor:
+    """Int4 dequantize-in-the-gather segmented reduce: out[b] = sum_j
+    unpack(packed)[dense_ids[b, j]], f32 (B, dim). Fill slots point at a
+    row of zero codes and zero scale. Each term is the rounded product of
+    ``int4_unpack``, so on the CPU this equals ``fused_segment_sum`` over
+    the unpacked table bit for bit."""
+    codes = _int4_codes(packed[dense_ids], dim).float()
+    return (codes * scales[dense_ids]).sum(dim=1)
 
 
 def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,

@@ -16,7 +16,12 @@
 Which source serves is a plan: ``source=`` takes a path string
 (``"ragged"``, the fp arena; ``"fixed"``, the fp arena on the fixed
 layout; ``"cached"``, the hot-row cache over an fp or int8 cold arena),
-a ``SourceSpec`` or a built ``EmbeddingSource``.
+a ``SourceSpec`` (``SourceSpec(tiers=TierPolicy(...))`` is the tiered
+plan: hot fp, warm int8 and an int4 or host-resident cold tier) or a
+built ``EmbeddingSource``. With a host cold tier the engine stages each
+micro-batch's cold rows into its staging arena before the forward, and
+the admission queue's next micro-batch in the same flush (the
+prefetcher); ``stats()["prefetch"]`` counts the hits and misses.
 ``update_source``/``update_cache`` swap it atomically under a monotone
 version, refusing stale versions and any change of structure, shapes or
 dtypes. Hit accounting runs on the device and is read only by
@@ -25,7 +30,9 @@ dtypes. Hit accounting runs on the device and is read only by
 The engine never aliases tensors that a trainer updates in place: the
 params it is given, or assigned through ``engine.params = ...``, are
 copied into its own tensors (in place when the shapes match, so their
-addresses stay fixed).
+addresses stay fixed). A tiered source is the engine's own copy too:
+a swap copies into its tensors and adopts a host tier's rows into the
+engine's own ``HostStore``, never the trainer's.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the sharded plans, table groups, telemetry, dispatch/settle, the
@@ -48,6 +55,7 @@ from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.core.embedding_source import SourceSpec
 from repro_torch.optim import tree_leaves, tree_map
+from repro_torch.storage import tiered as st
 
 
 @dataclass
@@ -62,6 +70,9 @@ class RecRequest:
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
     prob: Optional[float] = None        # predicted CTR, set when served
+    # (per-table ids, table) streams, extracted at admission when the
+    # engine serves a host cold tier
+    cold_streams: Optional[tuple] = None
 
 
 class RecBatcher:
@@ -120,10 +131,11 @@ class RecEngine:
     ``source`` accepts a path string (``"ragged"``, ``"fixed"`` or
     ``"cached"``; the last takes ``cache_k``, ``cache_trace`` and
     ``quantize_cold``), a ``SourceSpec`` built against the engine's copy
-    of ``params["arena"]``, or a built ``EmbeddingSource``, served as it
-    is on the ragged layout. A fixed-layout engine serves
-    ``params["arena"]`` and takes requests whose every bag holds exactly
-    ``cfg.lookups_per_table`` ids.
+    of ``params["arena"]`` (a tiered plan ranks its tiers by
+    ``cache_trace``), or a built ``EmbeddingSource``, served as it is on
+    the ragged layout (a ``TieredSource`` as the engine's own copy). A
+    fixed-layout engine serves ``params["arena"]`` and takes requests
+    whose every bag holds exactly ``cfg.lookups_per_table`` ids.
 
     ``device`` defaults to the card; pass ``device="cpu"`` (with params
     on the CPU) to serve through the plain PyTorch path. Latencies are
@@ -187,7 +199,9 @@ class RecEngine:
                 self._check_device(t, "source")
             self.plan = None
             self.path = es.describe_source(source)
-            self.source = source
+            self.source = (st.clone_tiered(source)
+                           if isinstance(source, st.TieredSource)
+                           else source)
         else:
             raise TypeError(f"source must be a path string, a SourceSpec or "
                             f"an EmbeddingSource, got {type(source)}")
@@ -198,6 +212,7 @@ class RecEngine:
         else:
             self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
         self._reset_hit_counters()
+        self._bind_host_stores()
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
         if t.device.type != self.device.type:
@@ -225,7 +240,18 @@ class RecEngine:
         else:
             self._params = _own_copy(params)
         if self.source is not None:
-            self.source = es.rebind_arena(self.source, self._params["arena"])
+            self._set_source(es.rebind_arena(self.source,
+                                             self._params["arena"]))
+
+    def _set_source(self, source: es.EmbeddingSource) -> None:
+        """Serve ``source``; a tiered one is copied into the engine's own
+        tiered source (the snapshot rule), whose tensors keep their
+        addresses."""
+        if isinstance(source, st.TieredSource) \
+                and isinstance(self.source, st.TieredSource):
+            st.adopt_tiered(self.source, source)
+        else:
+            self.source = source
 
     @property
     def cache(self) -> Optional[se.HotRowCache]:
@@ -279,7 +305,8 @@ class RecEngine:
                     f"cache_k and arena shapes equal")
         new_version = (version if version is not None
                        else self.source_version + 1)
-        self.source = source
+        self._set_source(source)
+        self._bind_host_stores()
         if new_version > self.source_version:
             self._reset_hit_counters()
         self.source_version = new_version
@@ -306,15 +333,100 @@ class RecEngine:
         raise NotImplementedError(
             "dispatch/settle is not ported yet (ROADMAP Queue 1, item 6)")
 
+    # -- host cold tier: staging and prefetch --------------------------------
+
+    def _bind_host_stores(self) -> None:
+        """The host stores behind the served source: the engine's own
+        (see ``_set_source``), staged before every forward."""
+        self._host_stores: List = ([] if self.layout == "fixed"
+                                   else st.host_stores_of(self.source))
+        self._stream_cache = None
+
+    def _req_streams(self, r: RecRequest) -> tuple:
+        """One request's (per-table id, table) streams, extracted once:
+        ``submit`` does it at admission, so the serve path only
+        concatenates."""
+        s = r.cold_streams
+        if s is None:
+            t = self.cfg.n_tables
+            lens = np.fromiter(map(len, r.sparse_ids), np.int64, count=t)
+            per_id = (np.concatenate(r.sparse_ids).astype(
+                np.int64, copy=False) if int(lens.sum())
+                else np.zeros(0, np.int64))
+            tbl = np.repeat(np.arange(t, dtype=np.int64), lens)
+            s = r.cold_streams = (per_id, tbl)
+        return s
+
+    def _host_ids(self, reqs: List[RecRequest]) -> np.ndarray:
+        """The arena row ids of a micro-batch (per-table id + table base),
+        from the requests' numpy streams: staging never reads a device
+        tensor."""
+        if not reqs:
+            return np.zeros(0, np.int64)
+        parts = [self._req_streams(r) for r in reqs]
+        per_id = np.concatenate([p[0] for p in parts])
+        tbl = np.concatenate([p[1] for p in parts])
+        return per_id + tbl * self.spec.rows_per_table
+
+    def _stage_batch(self, reqs: List[RecRequest], *,
+                     ahead: bool = False) -> None:
+        """Residency guarantee (``ahead=False``, counted as hits and
+        misses) or prefetch (``ahead=True``, uncounted) for one
+        micro-batch's cold rows.
+
+        The batch path folds the admission queue's next micro-batch into
+        the same flush and remembers its cold sets: when that batch
+        arrives, its rows are already resident and its extraction done.
+        That is the prefetcher: misses become hits one step ahead of
+        their batch. The copies and scatters are enqueued on the serving
+        stream before the forward, with no host synchronisation, into the
+        tensors the served source holds (the reference refreshes its
+        source's snapshot here; the port's stores update in place).
+        """
+        if not self._host_stores or not reqs:
+            return
+        if ahead:
+            ids = self._host_ids(reqs)
+            for store in self._host_stores:
+                store.prefetch_arena(ids)
+            return
+        cache, self._stream_cache = self._stream_cache, None
+        if cache is not None and cache[0] == [r.rid for r in reqs]:
+            cur_cold = cache[1]
+        else:
+            ids = self._host_ids(reqs)
+            cur_cold = [store.cold_ids_of(ids) for store in self._host_stores]
+        nxt = list(self.batcher._queue[:self.max_batch])
+        nxt_cold = None
+        if nxt:
+            ids = self._host_ids(nxt)
+            nxt_cold = [store.cold_ids_of(ids) for store in self._host_stores]
+        for i, store in enumerate(self._host_stores):
+            store.stage(cur_cold[i],
+                        ahead=None if nxt_cold is None else nxt_cold[i])
+        if nxt_cold is not None:
+            self._stream_cache = ([r.rid for r in nxt], nxt_cold)
+
+    def prefetch(self, reqs: List[RecRequest]) -> None:
+        """Stage a future micro-batch's cold rows ahead of its forward
+        (uncounted: they count as hits when their batch arrives; rows
+        pinned by the batch in flight are never evicted). The engine
+        already prefetches the queue's next micro-batch in every step;
+        this is for lookahead the queue cannot see yet."""
+        self._stage_batch(reqs, ahead=True)
+
     # -- request plumbing ---------------------------------------------------
 
     def warmup(self) -> None:
         """Serve one dummy request through every bucket, off the SLA
-        clock: the first call builds and loads the kernels."""
+        clock: the first call builds and loads the kernels, and every
+        host store runs one flush at each chunk size."""
         n_l = self.cfg.lookups_per_table if self.layout == "fixed" else 0
         dummy = [RecRequest(
             rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
             sparse_ids=[np.zeros(n_l, np.int32)] * self.cfg.n_tables)]
+        for store in self._host_stores:
+            store.warm_compile()
         for bucket in self.buckets:
             batch, _ = self._assemble(dummy, bucket)
             self._run_serve(batch).cpu()
@@ -328,6 +440,8 @@ class RecEngine:
         if len(req.sparse_ids) != self.cfg.n_tables:
             raise ValueError(f"request {req.rid} has {len(req.sparse_ids)} "
                              f"id lists for {self.cfg.n_tables} tables")
+        if self._host_stores:
+            self._req_streams(req)       # admission-time extraction
         self.batcher.submit(req)
 
     def _assemble(self, reqs: List[RecRequest], bucket: int):
@@ -381,6 +495,7 @@ class RecEngine:
         now = time.time()
         for r in reqs:
             r.started_at = now
+        self._stage_batch(reqs)          # host-cold residency guarantee
         batch, n_valid = self._assemble(reqs, _bucket(len(reqs),
                                                       self.buckets))
         probs = self._run_serve(batch).cpu().numpy()  # host sync
@@ -428,6 +543,17 @@ class RecEngine:
                                      if self._lookups else None)
             out["cache_version"] = self.source_version
         out["buckets"] = self.buckets
+        if self._host_stores:
+            hs = [store.stats() for store in self._host_stores]
+            hits = sum(s["hits"] for s in hs)
+            touches = sum(s["touches"] for s in hs)
+            out["prefetch"] = {
+                "hits": hits,
+                "misses": sum(s["misses"] for s in hs),
+                "touches": touches,
+                "hit_rate": hits / touches if touches else 1.0,
+                "staged_resident": sum(s["resident"] for s in hs),
+                "host_bytes": sum(s["host_bytes"] for s in hs)}
         return out
 
 

@@ -15,14 +15,21 @@ learns, as the reference's protocol does:
   reference's ``CHC1`` layout), the whole serving source as a
   ``VersionedSource`` blob, or ``sync_engine`` in process.
 
+With ``OnlineCacheConfig(k=0, tiers=TierPolicy(...))`` the trainer keeps a
+frequency-tiered source instead (``repro_torch.storage``): the fp hot
+tier is written through after every step (``_patch_tiered_hot``), and the
+rebuild cadence becomes a tier migration (``retier``, an incremental
+``migrate`` over the rows dirtied since the last one).
+
 The train step works in place, so the port's sync copies: an engine never
-aliases a tensor the trainer updates (``RecEngine.params``). Not ported
-yet: tiered maintenance (``OnlineCacheConfig.tiers``) and telemetry,
-which needs the port's copy of ``repro.obs`` (ROADMAP Queue 1, item 9);
-the per-table group trainer (item 8).
+aliases a tensor the trainer updates (``RecEngine.params``), nor shares
+the trainer's host store. Not ported yet: telemetry, which needs the
+port's copy of ``repro.obs`` (ROADMAP Queue 1, item 9); the per-table
+group trainer (item 8).
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Union
@@ -37,6 +44,7 @@ from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.core.embedding_source import VersionedSource
 from repro_torch.optim import tree_map
+from repro_torch.storage import tiered as st
 
 _BATCH_KEYS = ("dense", "indices", "offsets", "labels")
 
@@ -48,13 +56,18 @@ class OnlineCacheConfig:
     decay: float = 0.98          # per-step histogram decay
     quantize_cold: bool = False  # maintain an int8 cold arena beside the
     #                              fp one, re-quantizing only touched rows
-    tiers: Optional[object] = None
+    tiers: Optional[object] = None   # storage.TierPolicy: maintain a
+    #                              tiered serving source instead of the hot
+    #                              cache and the int8 mirror; the rebuild
+    #                              cadence becomes the migration cadence
 
     def __post_init__(self):
-        if self.tiers is not None:
-            raise NotImplementedError(
-                "tiered maintenance (tiers=) is not ported yet (ROADMAP "
-                "Queue 1, item 9, after item 12's tiered storage)")
+        if self.tiers is not None and (self.k or self.quantize_cold):
+            raise ValueError(
+                "a tiered maintenance plan replaces the hot cache and the "
+                "int8 mirror (TierPolicy.hot is the hot set; the warm and "
+                "cold tiers are the quantized ones): set k=0 and "
+                "quantize_cold=False")
 
 
 @dataclass(frozen=True)
@@ -130,6 +143,23 @@ def _patch_hot_rows(cache: se.HotRowCache, arena: torch.Tensor,
                           hot_ids=cache.hot_ids)
 
 
+def _patch_tiered_hot(tiered: st.TieredSource, arena: torch.Tensor,
+                      null_row: int, rows: torch.Tensor) -> st.TieredSource:
+    """Write-through for a ``TieredSource``'s fp hot tier: a new source
+    whose hot copies of ``rows`` are refreshed from ``arena``; warm and
+    cold rows wait, dirty-masked, for the migration. The source given is
+    left as it was. Rows that are not hot map to the null slot H, whose
+    source is forced to the always-zero null row, so slot H is only ever
+    rewritten with zeros (duplicate writes carry equal values)."""
+    h = tiered.n_hot
+    ts = tiered.tier_slot[rows]
+    slots = torch.where(ts < h, ts, h)
+    src = torch.where(ts < h, rows, null_row)
+    hot_rows = tiered.hot_rows.clone()
+    hot_rows[slots] = arena[src].to(hot_rows.dtype)
+    return dataclasses.replace(tiered, hot_rows=hot_rows)
+
+
 class OnlineTrainer:
     """Consume ragged batches on the card (or wherever ``device`` says);
     with ``cache_cfg``, keep the serving hot cache live and exact.
@@ -170,6 +200,16 @@ class OnlineTrainer:
             self.cold_q = es.QuantizedArena.from_arena(self.params["arena"])
             self._dirty_q = torch.zeros(self.params["arena"].shape[0],
                                         dtype=torch.bool, device=self.device)
+        # tiered maintenance: the source is built at once (uniform
+        # histogram) so its structure is fixed from step 0, and the dirty
+        # mask feeds the incremental migration
+        self.tiered: Optional[st.TieredSource] = None
+        self.last_migration: Optional[dict] = None   # migrate's stats
+        if cache_cfg is not None and cache_cfg.tiers is not None:
+            self.tiered = cache_cfg.tiers.build_source(self.params["arena"],
+                                                       self.spec, None)
+            self._dirty_q = torch.zeros(self.params["arena"].shape[0],
+                                        dtype=torch.bool, device=self.device)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
@@ -204,6 +244,11 @@ class OnlineTrainer:
             # values never go stale: refresh the touched hot copies
             self.cache = _patch_hot_rows(self.cache, self.params["arena"],
                                          self.spec.null_row, rows)
+        if self.tiered is not None:
+            # the same for the fp hot tier; warm and cold rows wait for
+            # the migration, dirty-masked
+            self.tiered = _patch_tiered_hot(self.tiered, self.params["arena"],
+                                            self.spec.null_row, rows)
         if self.cache_cfg is not None \
                 and self.steps % self.cache_cfg.refresh_every == 0:
             self.rebuild_cache()
@@ -224,6 +269,12 @@ class OnlineTrainer:
         the same version."""
         if self.cache_cfg is None:
             raise ValueError("no cache_cfg configured")
+        if self.tiered is not None:
+            self.version += 1
+            self.retier()
+            # tiered serving has no hot-cache artifact: publish_source()
+            # is the blob
+            return self.snapshot()
         self.cache = se.build_hot_cache(self.params["arena"], self.spec,
                                         self.hist, self.cache_cfg.k)
         if self.cold_q is not None:
@@ -246,6 +297,21 @@ class OnlineTrainer:
             self._dirty_q.zero_()
         return self.cold_q
 
+    def retier(self) -> st.TieredSource:
+        """Tier migration at the rebuild cadence: re-rank from the decayed
+        histogram and move rows across the fixed-size tiers. Incremental
+        as ``refresh_quantized``: rows that kept their tier and were not
+        dirtied keep their quantized values; the dirty mask is read on
+        the host once per migration."""
+        if self.tiered is None:
+            raise ValueError("no tiered source is maintained "
+                             "(OnlineCacheConfig.tiers)")
+        self.tiered, self.last_migration = st.migrate(
+            self.tiered, self.params["arena"], self.spec,
+            self.cache_cfg.tiers, self.hist, self._dirty_q.cpu().numpy())
+        self._dirty_q.zero_()
+        return self.tiered
+
     def snapshot(self) -> Optional[VersionedHotCache]:
         if self.cache is None:
             return None
@@ -256,7 +322,10 @@ class OnlineTrainer:
         the maintained cold arena (int8 when ``quantize_cold``, else the
         trainer's fp arena). Its structure is the same at every version.
         It aliases the trainer's arena: serialize it or hand it to
-        ``sync_engine``, which copies."""
+        ``sync_engine``, which copies. A tiered trainer serves its
+        ``TieredSource``."""
+        if self.tiered is not None:
+            return self.tiered
         cold = (self.cold_q if self.cold_q is not None
                 else es.FpArena(self.params["arena"]))
         if self.cache is None:
@@ -269,8 +338,10 @@ class OnlineTrainer:
         """The whole serving source (hot rows and the entire cold arena)
         as a ``VersionedSource`` blob, None before the first rebuild;
         ``include_head=True`` adds the dense MLP head, so a remote replica
-        adopts everything it serves from one blob."""
-        if self.cache is None:
+        adopts everything it serves from one blob. A tiered trainer's blob
+        carries the whole ``TieredSource``: a host cold tier ships its
+        staged snapshot, its store being process-local."""
+        if self.cache is None and self.tiered is None:
             return None
         return VersionedSource(source=self.serving_source(),
                                version=self.version,
@@ -296,8 +367,19 @@ class OnlineTrainer:
         params are copied into the engine's own tensors, and the source
         is rebuilt to the engine's structure over the engine's arena, so
         later in-place steps do not reach the engine before the next
-        sync.
+        sync. A tiered source is copied into the engine's own tiered
+        source, whose host store adopts the trainer's rows
+        (``RecEngine.update_source``).
         """
+        if self.tiered is not None:
+            # the pair that swaps together is (params, TieredSource)
+            if getattr(engine, "_trainer_step", -1) >= self.steps \
+                    and engine.source_version >= self.version:
+                return False
+            engine.params = self.params
+            engine.update_source(self.tiered, version=self.version)
+            engine._trainer_step = self.steps
+            return True
         snap = self.snapshot()
         if snap is None:
             return False

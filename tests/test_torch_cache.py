@@ -384,8 +384,7 @@ def test_source_spec_matches_jax(case, path, kw):
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "Queue 1, item 13"),
     ({"require_mesh": True}, "Queue 1, item 13"),
-    ({"tables": ()}, "Queue 1, item 8"),
-    ({"tiers": object()}, "Queue 1, item 12")])
+    ({"tables": ()}, "Queue 1, item 8")])
 def test_source_spec_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         es.SourceSpec(**kw)

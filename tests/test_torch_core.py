@@ -317,6 +317,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.core.embedding_source\n"
             "import repro_torch.serving.rec_engine, repro_torch.training\n"
             "import repro_torch.core.hybrid, repro_torch.launch.serve\n"
+            "import repro_torch.storage.tiered\n"
+            "import repro_torch.storage.host_store\n"
             "from repro_torch.training import (OnlineCacheConfig,\n"
             "    VersionedHotCache, VersionedSource, make_drifting_zipf)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

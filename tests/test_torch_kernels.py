@@ -166,6 +166,10 @@ _OPS = {
         torch.ones(2, 4, device=dev),
         torch.zeros(3, dtype=torch.int32, device=dev),
         torch.tensor([0, 1, 3], dtype=torch.int32, device=dev), n_rows=5),
+    "fused_int4_segment_sum": lambda dev: ops.fused_int4_segment_sum(
+        torch.zeros(5, 2, dtype=torch.uint8, device=dev),
+        torch.ones(5, 1, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev), dim=4),
 }
 
 
@@ -199,6 +203,9 @@ _WRAPPERS = {
     "sls_grad_table": lambda: t_eg.sls_grad_table(
         torch.ones(2, 4), torch.zeros(3, dtype=torch.int32),
         torch.tensor([0, 1, 3], dtype=torch.int32), n_rows=5),
+    "fused_int4_segment_sum": lambda: t_fd.fused_int4_segment_sum(
+        torch.zeros(5, 2, dtype=torch.uint8), torch.ones(5, 1),
+        torch.zeros(2, 3, dtype=torch.int32), dim=4),
 }
 
 
@@ -208,7 +215,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     CPU (and never builds anything to find that out)."""
     def counts():
         return ({m: m.launches for m in (t_fd, t_gm, t_fi, t_eg)},
-                t_fd.cached_launches, t_eg.bag_launches, t_eg.sls_launches)
+                t_fd.cached_launches, t_eg.bag_launches, t_eg.sls_launches,
+                t_fd.int4_launches)
 
     before = counts()
     with pytest.raises(ValueError, match="CUDA device"):
@@ -242,8 +250,9 @@ def test_build_targets_sm90a_with_a_c_interface(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert [p.stem for p in _build.sources()] == [
-        "embedding_bag", "fused_cached_segment_sum", "fused_segment_sum",
-        "gemm", "interaction", "sls_grad_table", "sparse_lengths_sum"]
+        "embedding_bag", "fused_cached_segment_sum",
+        "fused_int4_segment_sum", "fused_segment_sum", "gemm",
+        "interaction", "sls_grad_table", "sparse_lengths_sum"]
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -262,5 +271,6 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").rglob("*.so*"))
     logs = _build.build_logs()
     assert set(logs) == {"embedding_bag", "fused_cached_segment_sum",
-                         "fused_segment_sum", "gemm", "interaction",
-                         "sls_grad_table", "sparse_lengths_sum"}
+                         "fused_int4_segment_sum", "fused_segment_sum",
+                         "gemm", "interaction", "sls_grad_table",
+                         "sparse_lengths_sum"}

@@ -44,8 +44,7 @@ from repro_torch.core import embedding_source as t_es
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as t_launch
 from repro_torch.optim import tree_leaves
-from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,
-                                  unique_padded)
+from repro_torch.training import OnlineTrainer, unique_padded
 from repro_torch.training import sparse_optim as t_so
 
 torch.set_num_threads(1)
@@ -394,14 +393,11 @@ def test_online_trainer_matches_the_train_step():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("kw", [{"cache_cfg": {"k": 0, "tiers": object()}},
-                                {"telemetry": object()}])
+@pytest.mark.parametrize("kw", [{"telemetry": object()}])
 def test_online_trainer_refuses_what_is_not_ported(kw):
-    """Tiered maintenance (refused by its config) and telemetry."""
+    """Telemetry."""
     params = t_dlrm.params_from_numpy(_np_params(), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        if "cache_cfg" in kw:
-            kw = {"cache_cfg": OnlineCacheConfig(**kw["cache_cfg"])}
         OnlineTrainer(CFG, params, max_l=MAX_L, device="cpu", **kw)
 
 
