@@ -93,7 +93,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    migration equal to a full ``build_tiered``, post-sync probabilities
    equal to the forward over the trainer's source, the engine's tensors
    at fixed addresses.
-10. Report: one JSON line of the kernels, then the device line, which is
+10. LM serving: (a) ``flash_attention`` against its plain version in
+   bf16 (within 2^-7 (1 + |plain|)) at smollm-360m's heads at S = 2048
+   and 4096, danube's hd 80 with a window of 512, qwen's hd 128, the
+   smoke configs' hd 16 and 20 and at S = 100 and 2049, with its times
+   beside the plain version's, ``F.scaled_dot_product_attention``'s and
+   the bound (bf16 operations of the causal band); (b) smollm-360m at
+   full width (32 layers, d 960, vocab 49,152, bf16, seeded weights):
+   ``api.prefill`` at S = 2048 and 4096 launches the kernel once a layer
+   and nothing else of the port, gives finite logits, and its tokens/s,
+   device time by group and idle share are measured; (c) on one prompt
+   of 2,048 tokens, the card's prefill, forward and decode after a
+   prefill of all but the last token, and a 2-layer prefill, each
+   within twice the CPU bf16 path's own error of the CPU path's fp32
+   logits, with the same greedy token (or a tie within that); (d) a
+   ``DecodeEngine`` serves 8 requests in waves of 4 slots (16-token
+   prompts, 16 new tokens; latency, tokens/s, launches per decode step),
+   then the serve launcher serves smollm-360m at full width.
+11. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -117,6 +134,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.dlrm import DLRM_CONFIGS  # noqa: E402
 from repro_torch.core import dlrm  # noqa: E402
 from repro_torch.core import embedding_source as es  # noqa: E402
@@ -126,12 +144,15 @@ from repro_torch.data import DLRMSynthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg_k  # noqa: E402
 from repro_torch.kernels import feature_interaction as fi_k  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import fused_dispatch as fd_k  # noqa: E402
 from repro_torch.kernels import gemm as gm_k  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
-from repro_torch.serving import RecEngine, requests_from_ragged_batch  # noqa: E402
+from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
+                                 Request, requests_from_ragged_batch)
 from repro_torch.storage import tiered as st  # noqa: E402
 from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
                                   VersionedHotCache, VersionedSource,
@@ -226,6 +247,14 @@ KERNELS = {
         "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
         "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0,
         "per_tiered_forward": 1, "per_host_forward": 0},
+    # no DLRM path runs it; an LM prefill runs it once a layer (phase 10)
+    "flash_attention": {
+        "module": fa_k, "counter": "launches",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "per_forward": 0, "per_step": 0, "per_cached_forward": 0,
+        "per_fixed_forward": 0, "per_flat_forward": 0, "per_fixed_step": 0,
+        "per_tiered_forward": 0, "per_host_forward": 0},
 }
 
 
@@ -282,7 +311,13 @@ TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
        "fused_cached_segment_sum_stale": dict(rtol=0.0, atol=1e-5),
        "gemm": dict(rtol=1e-5, atol=1e-5),
        "interaction": dict(rtol=1e-5, atol=1e-5),
-       "sls_grad_table": dict(rtol=1e-5, atol=1e-3)}
+       "sls_grad_table": dict(rtol=1e-5, atol=1e-3),
+       "flash_attention": dict(rtol=2 ** -7, atol=2 ** -7)}
+# flash_attention (phase 10), bf16 on both sides: each output is rounded
+# to bf16, whose ulp is at most 2^-7 of the value, and fp32 scores summed
+# in another order can flip the bf16 rounding of a P entry before the PV
+# product; so |kernel - plain| <= 2^-7 (1 + |plain|). The first card run
+# saw at most one ulp, 7.8e-3 at |o| in [2, 4).
 # served probabilities, card kernels against the CPU path: fp32 logits
 # of magnitude <= ~10 through sigmoid (slope <= 1/4); the same for the
 # int8 cold arena, whose codes the card and the CPU share. The int8 plan
@@ -2374,6 +2409,382 @@ def phase_tiered(cfg, params, fp_probs, gen) -> tuple:
     return {"max_abs_err": err, "rows": rows}, served, online
 
 
+# ---------------------------------------------------------------- phase 10
+
+BF16_FLOPS_PER_S = 989e12          # bf16 on the tensor cores, dense
+
+LM_ARCH = "smollm-360m"
+LM_PREFILL_S = (2048, 4096)        # prompt lengths of the prefill rows
+LM_AGREE_S = 2048                  # decode-after-prefill against forward
+LM_CPU_LAYERS = 2                  # depth of the card-against-CPU check
+LM_REQUESTS = 8                    # DecodeEngine: requests, slots, prompt
+LM_SLOTS = 4                       # and new tokens of each request, and
+LM_PROMPT = 16                     # the cache length
+LM_NEW = 16
+LM_MAX_LEN = 64
+LM_TIMED = 3                       # timed prefills per length
+
+# logits of smollm-360m at full width (bf16 params, fp32 logits of
+# magnitude up to ~3): every card result is held against an fp32
+# evaluation of the same weights on the CPU path. The bar is the error
+# of one bf16 evaluation there: ``floor`` = max |CPU bf16 - CPU fp32|
+# logit of the same prompt. A card result (prefill through the kernel,
+# the forward through the kernel, decode after a prefill of the prompt
+# but its last token) must lie within LM_FLOOR_FACTOR x floor of the
+# fp32 logits, a path as accurate as the CPU's with room for rounding
+# in another order; and its greedy token must be the fp32 one, unless
+# the two are tied within that bound. (A fixed tolerance cannot serve:
+# the first full-width run saw 2.7e-2 between the 2-layer card and CPU
+# prefills, and the CPU bf16 path alone 3.0e-2 from fp32.)
+LM_FLOOR_FACTOR = 2.0
+
+# (what, B, S, H, KH, hd, window): the path's shapes (smollm-360m's
+# heads at both prefill lengths), danube's hd 80 with a window, qwen's hd
+# 128, the smoke configs' 16 and 20, and lengths that are no multiple of
+# the kernel's 64-row tiles
+FLASH_SHAPES = (
+    ("smollm-360m", 1, 2048, 15, 5, 64, None),
+    ("smollm-360m", 1, 4096, 15, 5, 64, None),
+    ("danube hd 80, window 512", 1, 4096, 32, 8, 80, 512),
+    ("qwen hd 128", 1, 2048, 20, 20, 128, None),
+    ("danube smoke hd 16, window 16", 2, 2048, 4, 2, 16, 16),
+    ("smollm smoke hd 20", 2, 2048, 3, 1, 20, None),
+    ("ragged S = 100", 2, 100, 3, 1, 20, None),
+    ("ragged S = 2049", 1, 2049, 15, 5, 64, None),
+)
+
+
+def attention_pairs(s: int, window) -> int:
+    """(q, k) pairs of the causal band, each counted once."""
+    if window is None:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_bound(b, s, h, kh, d, window):
+    n_bytes = 2 * b * s * d * (2 * h + 2 * kh)   # q, out; k, v (bf16)
+    n_flops = 4 * d * attention_pairs(s, window) * h * b
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash(gen) -> tuple:
+    """The kernel against its plain version at every listed shape, and
+    times at the first four: kernel, plain version and
+    F.scaled_dot_product_attention (a yardstick the port never calls, on
+    kv heads repeated before the timing; with a window it needs an
+    explicit boolean mask, which takes it off its flash backend)."""
+    name = "flash_attention"
+    errs, rows = [], []
+    for i, (what, b, s, h, kh, d, window) in enumerate(FLASH_SHAPES):
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, s, kh, d), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((b, s, kh, d), generator=gen,
+                        device="cuda").bfloat16()
+        got = fa_k.flash_attention_gqa(q, k, v, causal=True, window=window)
+        # the plain version's blocks shrink to a divisor of S, as the
+        # reference's do: 2049 = 3 x 683 would take 683^2 blocks of 3;
+        # one block of S is the same function
+        blk = 512 if any(s % c == 0 for c in range(64, 513)) else s
+        errs.append(compare(name, got, ref.flash_attention_gqa(
+            q, k, v, causal=True, window=window, bq=blk, bk=blk),
+            f"{what}: {b}x{s}x{h}/{kh}x{d}"))
+        if i >= 4:
+            continue
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+                  for t in (k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+
+        bound_ms, by = flash_bound(b, s, h, kh, d, window)
+        row = {"what": what, "shape": [b, s, h, kh, d], "window": window,
+               "ms": time_ms(lambda: fa_k.flash_attention_gqa(
+                   q, k, v, causal=True, window=window), reps=10, trials=10),
+               "plain_ms": time_ms(lambda: ref.flash_attention_gqa(
+                   q, k, v, causal=True, window=window), reps=1, trials=3),
+               "library_ms": time_ms(library, reps=10, trials=10),
+               "device_ms": device_ms(lambda: fa_k.flash_attention_gqa(
+                   q, k, v, causal=True, window=window), reps=10),
+               "plain_device_ms": device_ms(lambda: ref.flash_attention_gqa(
+                   q, k, v, causal=True, window=window), reps=2),
+               "library_device_ms": device_ms(library, reps=10),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_err": float((library().transpose(1, 2).float()
+                                     - got.float()).abs().max())}
+        rows.append(row)
+        print(f"  {name:24s} {what}: ms per call (device ms): kernel "
+              f"{row['ms']:.4f} ({_fmt(row['device_ms'])}), plain "
+              f"{row['plain_ms']:.4f} ({_fmt(row['plain_device_ms'])}), "
+              f"library {row['library_ms']:.4f} "
+              f"({_fmt(row['library_device_ms'])}), bound "
+              f"{bound_ms:.5f} ({by}); |library - kernel| "
+              f"{row['library_err']:.3e}")
+    return max(errs), rows
+
+
+def _kernel_count(prof) -> int:
+    """Kernels a torch.profiler run of the card saw (copies and fills
+    apart)."""
+    n = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        low = e.key.lower()
+        if us > 0 and "memcpy" not in low and "memset" not in low:
+            n += e.count
+    return n
+
+
+def _lm_group(name: str) -> str:
+    low = name.lower()
+    if "flash_attention_kernel" in name:
+        return "flash"
+    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "copies" if "memcpy" in low or "memset" in low else "other"
+
+
+def _lm_tokens(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+
+
+def lm_prefill(cfg, params) -> dict:
+    """``api.prefill`` of smollm-360m at full width, B = 1, at each length:
+    flash_attention launched once a layer, finite logits, tokens/s (host
+    clock around a synchronised prefill), device time by group and the
+    device's idle share."""
+    out = {}
+    for s in LM_PREFILL_S:
+        batch = {"tokens": _lm_tokens(cfg, 1, s, seed=s)}
+        reset_counts()
+        logits, cache = lm_api.prefill(params, cfg, batch, s)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if launches["flash_attention"] != cfg.n_layers or any(
+                n != "flash_attention" and c for n, c in launches.items()):
+            fail(f"prefill S = {s}: launches {launches}, expected "
+                 f"flash_attention x {cfg.n_layers} only")
+        if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            fail(f"prefill S = {s}: non-finite logits")
+        walls = []
+        for _ in range(LM_TIMED):
+            t0 = time.perf_counter()
+            lm_api.prefill(params, cfg, batch, s)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lm_api.prefill(params, cfg, batch, s)
+            torch.cuda.synchronize()
+        groups = {}
+        for kname, us in _kernel_times_us(prof).items():
+            g = _lm_group(kname)
+            groups[g] = groups.get(g, 0.0) + us / 1e3
+        busy = sum(groups.values())
+        kernels = _kernel_count(prof)
+        out[s] = {"launches": launches, "ms": wall, "walls_ms": walls,
+                  "kernel_launches": kernels,
+                  "tokens_per_s": s / wall * 1e3,
+                  "device_ms": groups, "device_busy_ms": busy,
+                  "device_idle_share": (1.0 - busy / wall) if busy else None,
+                  "logits_range": [float(logits[:, :cfg.vocab_size].min()),
+                                   float(logits[:, :cfg.vocab_size].max())]}
+        print(f"  prefill S = {s}: {wall:.2f} ms ({s / wall * 1e3:.0f} "
+              f"tokens/s), device {busy:.3f} ms "
+              f"{ {g: round(v, 4) for g, v in groups.items()} }, idle share "
+              f"{out[s]['device_idle_share']}, {kernels} kernel launches; "
+              f"launches {launches}")
+        del cache
+    return out
+
+
+def _against_fp32(what: str, got: torch.Tensor, want32: torch.Tensor,
+                  floor: float) -> dict:
+    """A card result against the fp32 logits, within LM_FLOOR_FACTOR x
+    floor, and its greedy token against theirs (or a tie within that)."""
+    bound = LM_FLOOR_FACTOR * floor
+    err = float((got - want32).abs().max())
+    a, b = int(got.argmax()), int(want32.argmax())
+    margin = float(want32[b] - want32[a])
+    print(f"  {what}: max |card - CPU fp32| {err:.3e} (bound {bound:.3e}), "
+          f"greedy token {a} / {b} (fp32 margin {margin:.3e})")
+    if err > bound or (a != b and margin > bound):
+        fail(f"{what}: {err} from the fp32 logits (bound {bound}), token "
+             f"{a} against {b}")
+    return {"max_abs_err_vs_fp32": err, "bound": bound,
+            "token": a, "fp32_token": b, "fp32_margin": margin}
+
+
+def _cpu_logits(params, cfg, tokens: torch.Tensor) -> tuple:
+    """Last-position logits of ``tokens`` on the CPU path, in the
+    working bf16 and in fp32 from the same weights, and the floor."""
+    cpu = tree_map(lambda t: t.cpu(), params)
+    batch = {"tokens": tokens.cpu()}
+    s = tokens.shape[1]
+    c16, _ = lm_api.prefill(cpu, cfg, batch, s)
+    c32, _ = lm_api.prefill(tree_map(lambda t: t.float(), cpu),
+                            cfg.replace(dtype="float32"), batch, s)
+    v = cfg.vocab_size
+    c16, c32 = c16[0, :v].float(), c32[0, :v]
+    return c16, c32, float((c16 - c32).abs().max())
+
+
+def lm_agree(cfg, params) -> dict:
+    """Card against the CPU path's fp32 logits on one prompt of LM_AGREE_S
+    tokens, each within LM_FLOOR_FACTOR x the CPU bf16 path's own error:
+    (1) at full depth, the prefill (the kernel at S = 2048), the forward
+    (the kernel; its last position) and decode_step after prefill of the
+    prompt but its last token (S = 2047, the direct path; decode's einsum
+    over the cache is independent of the kernel); (2) a prefill of the
+    first LM_CPU_LAYERS layers, card against the CPU path."""
+    v = cfg.vocab_size
+    toks = _lm_tokens(cfg, 1, LM_AGREE_S, seed=5)
+    with uncounted():
+        pre, _ = lm_api.prefill(params, cfg, {"tokens": toks}, LM_AGREE_S)
+        full, _ = lm_api.forward(params, cfg, {"tokens": toks})
+        _, cache = lm_api.prefill(params, cfg, {"tokens": toks[:, :-1]},
+                                  LM_AGREE_S)
+        dec, _ = lm_api.decode_step(params, cfg, cache, toks[:, -1],
+                                    LM_AGREE_S - 1)
+    card = {"prefill": pre[0, :v], "forward": full[0, -1, :v],
+            "decode after prefill": dec[0, :v]}
+    card = {k: t.float().cpu() for k, t in card.items()}
+    del full, cache
+    t0 = time.perf_counter()
+    c16, c32, floor = _cpu_logits(params, cfg, toks)
+    print(f"  {cfg.n_layers} layers, S = {LM_AGREE_S}: CPU path bf16 vs "
+          f"fp32 (floor) {floor:.3e}, |logits| <= "
+          f"{float(c32.abs().max()):.3f} ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU)")
+    out = {"floor": floor, "cpu_bf16_token": int(c16.argmax())}
+    for what, t in card.items():
+        out[what] = _against_fp32(what, t, c32, floor)
+    out["decode_vs_forward_max_abs_err"] = float(
+        (card["decode after prefill"] - card["forward"]).abs().max())
+    shallow = cfg.replace(n_layers=LM_CPU_LAYERS)
+    sub = dict(params, layers=tree_map(lambda t: t[:LM_CPU_LAYERS].clone(),
+                                       params["layers"]))
+    with uncounted():
+        card2, _ = lm_api.prefill(sub, shallow, {"tokens": toks}, LM_AGREE_S)
+    c16, c32, floor2 = _cpu_logits(sub, shallow, toks)
+    card2 = card2[0, :v].float().cpu()
+    out["shallow"] = {"floor": floor2,
+                      "card_vs_cpu_bf16": float((card2 - c16).abs().max())}
+    print(f"  {LM_CPU_LAYERS} layers: CPU path bf16 vs fp32 (floor) "
+          f"{floor2:.3e}; card vs CPU bf16 "
+          f"{out['shallow']['card_vs_cpu_bf16']:.3e}")
+    out["shallow"].update(_against_fp32(
+        f"prefill, {LM_CPU_LAYERS} layers", card2, c32, floor2))
+    return out
+
+
+def lm_serve(cfg, params) -> dict:
+    """DecodeEngine at full width: LM_REQUESTS requests of LM_PROMPT random
+    tokens in waves of LM_SLOTS, LM_NEW new tokens each; p50/p99,
+    generated tokens/s, ms and kernel launches per decode step (profiled
+    over one wave), then the serve launcher at full width."""
+    rng = np.random.RandomState(9)
+
+    def requests():
+        return [Request(rid=i, prompt=rng.randint(
+            0, cfg.vocab_size, LM_PROMPT).astype(np.int32),
+            max_new_tokens=LM_NEW) for i in range(LM_REQUESTS)]
+
+    def run(engine, reqs):
+        """Serve ``reqs``; returns the decode_step calls it took (a
+        wave's prompt positions, then one per generated position)."""
+        batcher = Batcher(max_batch=LM_SLOTS, max_wait_ms=0.0)
+        for r in reqs:
+            batcher.submit(r)
+        calls = 0
+        while any(r.finished_at is None for r in reqs):
+            if engine.idle():
+                wave = batcher.take()
+                engine.admit(wave)
+                calls += max(len(r.prompt) for r in wave)
+            engine.step()
+            calls += 1
+        torch.cuda.synchronize()
+        return calls
+
+    engine = DecodeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    run(engine, requests()[:LM_SLOTS])              # warm the allocator
+    engine.latencies.clear()
+    reqs = requests()
+    reset_counts()
+    t0 = time.perf_counter()
+    steps = run(engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"decode serving launched {launches}; its attention is the "
+             "plain einsum over the cache")
+    generated = sum(len(r.output) for r in reqs)
+    if generated != LM_REQUESTS * LM_NEW or any(
+            not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        fail(f"served {generated} tokens, expected {LM_REQUESTS * LM_NEW}")
+    stats = engine.stats()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_steps = run(engine, requests()[:LM_SLOTS])
+    kernels = _kernel_count(prof)
+    busy = sum(_kernel_times_us(prof).values()) / 1e3
+    out = {**stats, "decode_steps": steps, "wall_s": wall,
+           "generated_tokens": generated,
+           "tokens_per_s": generated / wall,
+           "ms_per_decode_step": wall * 1e3 / steps,
+           "launches_per_decode_step": kernels / prof_steps,
+           "device_ms_per_decode_step": busy / prof_steps}
+    print(f"  DecodeEngine: {LM_REQUESTS} requests, {LM_SLOTS} slots, "
+          f"prompts {LM_PROMPT}, {LM_NEW} new tokens: p50 "
+          f"{stats['p50_ms']:.1f} ms, p99 {stats['p99_ms']:.1f} ms, "
+          f"{out['tokens_per_s']:.1f} generated tokens/s, "
+          f"{out['ms_per_decode_step']:.2f} ms and "
+          f"{out['launches_per_decode_step']:.0f} kernel launches per "
+          f"decode step (device {out['device_ms_per_decode_step']:.3f} ms)")
+    argv = ["--arch", LM_ARCH, "--requests", str(LM_SLOTS), "--batch-size",
+            str(LM_SLOTS), "--prompt-len", str(LM_PROMPT), "--new-tokens",
+            "8", "--max-len", str(LM_MAX_LEN)]
+    launcher = serve_launcher.main(argv)
+    if launcher.get("n") != LM_SLOTS:
+        fail(f"serve launcher: {launcher}")
+    print(f"  serve launcher {' '.join(argv)}: {launcher}")
+    return {"engine": out, "launcher": launcher}
+
+
+def phase_lm(gen) -> dict:
+    err, rows = check_flash(gen)
+    cfg = registry.get_arch(LM_ARCH)
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(0),
+                         cfg, device="cuda")
+    print(f"  {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e6:.1f} M "
+          f"params from a seeded generator")
+    prefill = lm_prefill(cfg, params)
+    agree = lm_agree(cfg, params)
+    served = lm_serve(cfg, params)
+    return {"max_abs_err": err, "rows": rows}, {
+        "prefill": {str(s): r for s, r in prefill.items()},
+        "launches": prefill[LM_PREFILL_S[0]]["launches"],
+        "agree": agree, "serve": served}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -2412,6 +2823,8 @@ def main() -> None:
     kernels["fused_int4_segment_sum"], tiered, online_t = phase_tiered(
         cfg, params, fp_probs, gen)
     del params
+    print("== phase 10: LM serving, smollm-360m at full width")
+    kernels["flash_attention"], lm = phase_lm(gen)
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -2427,7 +2840,8 @@ def main() -> None:
                    "train_fixed": trained_fixed["launches"][name],
                    "serve_tiered_int4": tiered["int4"]["launches"][name],
                    "serve_tiered_host": tiered["host"]["launches"][name],
-                   "online_tiered": online_t["launches"][name]}
+                   "online_tiered": online_t["launches"][name],
+                   "lm_prefill": lm["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -2450,7 +2864,8 @@ def main() -> None:
             {"card": card, "kernels": kernels, "serve": served,
              "serve_cached": cached, "train": trained, "online": online,
              "serve_fixed": fixed, "train_fixed": trained_fixed,
-             "serve_tiered": tiered, "online_tiered": online_t},
+             "serve_tiered": tiered, "online_tiered": online_t,
+             "lm": lm},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

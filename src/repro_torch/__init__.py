@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the Centaur DLRM reproduction.
+"""PyTorch/CUDA port of the Centaur reproduction: the DLRM side and the
+serving path of the dense LM decoders.
 
 A second package beside the JAX reference ``repro``: each module sits at
 the same relative path as its JAX counterpart and keeps its public names.
@@ -8,8 +9,10 @@ It imports ``torch`` and numpy only, never ``jax`` and nothing of
 PyTorch version instead (``kernels/ref.py``).
 
 Entry points (``core.dlrm.init``, ``serving.rec_engine.RecEngine``,
-``training.online.OnlineTrainer``, ``python -m repro_torch.launch.train``)
-run on the card unless the caller passes ``device="cpu"``.
+``training.online.OnlineTrainer``, ``models.api.init`` and
+``params_from_numpy``, ``python -m repro_torch.launch.train`` and
+``launch.serve``) run on the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 

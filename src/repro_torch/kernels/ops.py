@@ -20,7 +20,8 @@ and ``sparse_lengths_sum``; the int4 reduce's gradient reaches its
 scales only, one ``sls_grad_table`` walk over one-position bags; and the
 interaction's backward is (G + G^T) X
 in plain torch, as the reference's einsum sits outside any Pallas
-kernel.
+kernel. ``flash_attention`` and ``flash_attention_gqa`` are forward-only,
+as the reference's kernel is: their backward raises.
 Serving runs them under ``torch.inference_mode``, which records nothing.
 """
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import feature_interaction as _fi
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dispatch as _fd
 from repro_torch.kernels import gemm as _gm
 from repro_torch.kernels import ref as _ref
@@ -356,3 +358,40 @@ def interaction_tril(x: torch.Tensor) -> torch.Tensor:
     f = x.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=x.device)
     return z[:, li, lj]
+
+
+class _FlashAttentionGQA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _on_cuda(q, k, v):
+            return _fa.flash_attention_gqa(q, k, v, causal=causal,
+                                           window=window)
+        return _ref.flash_attention_gqa(q, k, v, causal=causal,
+                                        window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's kernel has no VJP either (its jax.grad raises
+        # inside pallas_call); the recompute through the chunked path
+        # comes with LM training
+        raise NotImplementedError(
+            "flash_attention has no backward yet: LM training, with a "
+            "recompute through the chunked attention, is ROADMAP Queue 1, "
+            "item 16")
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Causal or windowed online-softmax attention, GQA form: q (B, S, H,
+    hd), k/v (B, S, KH, hd) -> (B, S, H, hd) in q.dtype, query head h on
+    kv head h // (H / KH). Forward only."""
+    return _FlashAttentionGQA.apply(q, k, v, bool(causal), window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The (BH, S, d) form: one head per row of the leading dim."""
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, window=window)[:, :, 0]

@@ -54,7 +54,11 @@ def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
     the CUDA kernel, do what the Pallas kernel does.
     """
     n_bags = offsets.shape[0] - 1
-    if n_bags == 0 or indices.shape[0] == 0 or max_l == 0:
+    if n_bags > 0:
+        # a bound past the longest bag walks no further than that bag
+        # does, and keeps the (B, max_l) position plan small
+        max_l = min(max_l, int((offsets[1:] - offsets[:-1]).max()))
+    if n_bags == 0 or indices.shape[0] == 0 or max_l <= 0:
         return torch.zeros((n_bags, table.shape[1]), dtype=table.dtype,
                            device=table.device)
     pos = offsets[:-1, None].long() + torch.arange(max_l,
@@ -173,6 +177,88 @@ def interaction_tril(x: torch.Tensor) -> torch.Tensor:
     f = x.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=x.device)
     return z[:, li, lj]
+
+
+# the masked score of the reference's flash kernel: a finite stand-in for
+# -inf, so a fully masked block gives exp(0) terms that a later valid
+# block wipes (corr = exp(-1e30 - m) = 0)
+NEG_INF = -1e30
+
+
+def _block(b: int, s: int) -> int:
+    """The reference's block size: ``b`` capped at S, shrunk to a divisor
+    of S."""
+    b = min(b, s)
+    while s % b:
+        b -= 1
+    return b
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, bq: int = 512,
+                    bk: int = 512) -> torch.Tensor:
+    """Causal or windowed online-softmax attention: q, k, v (BH, S, d) ->
+    (BH, S, d) in q.dtype, block by block as the reference's Pallas
+    kernel (``repro/kernels/flash_attention.py:31``) computes it.
+
+    Per q block, over every kv block in order (masked ones included):
+    scores in fp32 times d**-0.5, masked entries -1e30 (``kpos <= qpos``
+    when causal, ``kpos > qpos - window`` with a window); ``m_new =
+    max(m, rowmax)``, ``p = exp(s - m_new)``, ``corr = exp(m - m_new)``,
+    ``l = l corr + sum p`` in fp32, ``acc = acc corr + p.to(v.dtype) @
+    v`` with an fp32 product; the output is ``acc / max(l, 1e-30)``.
+    """
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return out
+    bq, bk = _block(bq, s), _block(bk, s)
+    scale = d ** -0.5
+    pos = torch.arange(s, device=q.device)
+    for i in range(0, s, bq):
+        qi = q[:, i:i + bq].float()
+        qpos = pos[i:i + bq, None]
+        acc = torch.zeros((bh, bq, v.shape[-1]), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((bh, bq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, bq, 1), dtype=torch.float32, device=q.device)
+        for j in range(0, s, bk):
+            sc = torch.matmul(qi, k[:, j:j + bk].float().transpose(1, 2))
+            sc = sc * scale
+            kpos = pos[None, j:j + bk]
+            keep = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                keep &= kpos <= qpos
+            if window is not None:
+                keep &= kpos > qpos - window
+            sc = torch.where(keep, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                            v[:, j:j + bk].float())
+            m = m_new
+        out[:, i:i + bq] = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window=None, bq: int = 512,
+                        bk: int = 512) -> torch.Tensor:
+    """GQA form: q (B, S, H, hd), k/v (B, S, KH, hd) -> (B, S, H, hd).
+    Each kv head serves H/KH query heads, repeated as the reference's
+    wrapper (``flash_attention.py:113``) repeats them; ``bq``, ``bk`` as
+    ``flash_attention``'s."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.transpose(1, 2).reshape(b * h, s, hd)
+    kf = k.transpose(1, 2).repeat_interleave(g, dim=1).reshape(b * h, s, hd)
+    vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(b * h, s, hd)
+    out = flash_attention(qf, kf, vf, causal=causal, window=window, bq=bq,
+                          bk=bk)
+    return out.reshape(b, h, s, hd).transpose(1, 2).contiguous()
 
 
 def mlp(x: torch.Tensor, ws, bs) -> torch.Tensor:

@@ -1,18 +1,24 @@
-"""Serving launcher: batched DLRM inference, the paper's deployment.
+"""Serving launcher: batched DLRM inference (the paper's deployment) or LM
+decode through the slot-pooled decode engine.
 
     python -m repro_torch.launch.serve --arch dlrm1 --requests 64
     python -m repro_torch.launch.serve --arch dlrm1 --pipelined \\
         --microbatches 4 --batch-size 32
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --arch smollm-360m --smoke --device cpu
 
-Serves fixed-L batches (``DLRMSynthetic.batch``) with random weights
-from a seeded generator, through ``dlrm.make_serve_step`` or, with
-``--pipelined``, the two-stream micro-batch pipeline
+DLRM: serves fixed-L batches (``DLRMSynthetic.batch``) with random
+weights from a seeded generator, through ``dlrm.make_serve_step`` or,
+with ``--pipelined``, the two-stream micro-batch pipeline
 (``hybrid.make_pipelined_serve_step``), and prints p50/p99 of the time
 around each synchronised step, the first (which builds the kernels)
-left out. Runs on the card unless ``--device cpu``. Not offered yet: a
-``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13) and the LM
-architectures with their decode engine (item 15).
+left out. LM (smollm-360m, h2o-danube-1.8b, qwen1.5-4b): seeded random
+weights, ``--requests`` random prompts of ``--prompt-len`` tokens
+decoded for ``--new-tokens`` tokens by a ``DecodeEngine`` of
+``--batch-size`` slots and a ``--max-len`` cache, and prints the
+engine's latency stats. Runs on the card unless ``--device cpu``. Not
+offered yet: a ``--mesh`` other than ``none`` (ROADMAP Queue 1, item
+13) and the other LM architectures (item 15b).
 """
 from __future__ import annotations
 
@@ -24,16 +30,23 @@ import numpy as np
 import torch
 
 from repro_torch import default_device
+from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.core.hybrid import make_pipelined_serve_step
 from repro_torch.data import DLRMSynthetic
+from repro_torch.models import api
+from repro_torch.serving import Batcher, DecodeEngine, Request
+
+
+def _device(args) -> torch.device:
+    return (default_device() if args.device == "cuda"
+            else torch.device(args.device))
 
 
 def serve_dlrm(args) -> Dict[str, float]:
     cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
-    device = (default_device() if args.device == "cuda"
-              else torch.device(args.device))
+    device = _device(args)
     params = dlrm_mod.init(torch.Generator(device=device).manual_seed(0),
                            cfg, device=device)
     serve = (make_pipelined_serve_step(cfg, args.microbatches)
@@ -61,10 +74,40 @@ def serve_dlrm(args) -> Dict[str, float]:
     return out
 
 
+def serve_lm(args) -> Dict[str, float]:
+    cfg = (registry.get_smoke if args.smoke else registry.get_arch)(args.arch)
+    device = _device(args)
+    params = api.init(torch.Generator(device=device).manual_seed(0), cfg,
+                      device=device)
+    engine = DecodeEngine(cfg, params, n_slots=args.batch_size,
+                          max_len=args.max_len)
+    batcher = Batcher(max_batch=args.batch_size)
+    rng = np.random.RandomState(0)
+    for rid in range(args.requests):
+        batcher.submit(Request(
+            rid=rid,
+            prompt=rng.randint(0, cfg.vocab_size, size=(args.prompt_len,))
+            .astype(np.int32),
+            max_new_tokens=args.new_tokens))
+    t0 = time.perf_counter()
+    while len(engine.latencies) < args.requests:
+        if engine.idle():
+            wave = batcher.take()
+            if not wave:
+                break
+            engine.admit(wave)
+        engine.step()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    print(f"lm serve stats: {stats}, {wall:.2f} s")
+    return {**stats, "wall_s": wall}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--arch", default="dlrm1",
-                   help="a DLRM of paper Table I (dlrm1..dlrm6)")
+                   help="a DLRM of paper Table I (dlrm1..dlrm6) or an LM: "
+                   f"{', '.join(registry.ARCH_IDS)}")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced config (CPU-runnable)")
     p.add_argument("--mesh", default="none",
@@ -74,16 +117,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     p.add_argument("--pipelined", action="store_true",
                    help="overlap sparse/dense via the micro-batch pipeline")
     p.add_argument("--microbatches", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=8)
+    p.add_argument("--new-tokens", type=int, default=8)
+    p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     if args.mesh != "none":
         p.error("sharded serving (--mesh) is not ported yet (ROADMAP "
                 "Queue 1, item 13)")
+    if args.arch in registry.ARCHS:
+        return serve_lm(args)
+    if args.arch in registry.NOT_PORTED:
+        p.error(f"{args.arch!r} is not ported yet (ROADMAP Queue 1, item "
+                f"15b); LMs: {sorted(registry.ARCHS)}")
     if args.arch not in DLRM_CONFIGS:
-        p.error(f"{args.arch!r}: the LM architectures and their decode "
-                "engine are not ported yet (ROADMAP Queue 1, item 15); "
-                f"DLRMs: {sorted(DLRM_CONFIGS)}")
+        p.error(f"unknown arch {args.arch!r}; DLRMs: {sorted(DLRM_CONFIGS)}"
+                f", LMs: {sorted(registry.ARCHS)}")
     return serve_dlrm(args)
 
 

@@ -11,7 +11,7 @@ the fixed-L layout (``DLRMSynthetic.batch``, every bag
 (``dlrm.make_train_step``); ``--ragged`` trains on ragged
 SparseLengthsSum batches with the row-wise sparse optimizer, or with
 ``--dense-grads`` the dense-gradient baseline. Not offered yet, each with
-the ROADMAP item it waits for: the LM architectures (Queue 1, item 15),
+the ROADMAP item it waits for: LM training (Queue 1, item 16),
 ``--online-cache``/``--quantize-cold`` (item 9), ``--shards``/``--mesh``
 (item 13), ``--ckpt-dir``/``--resume`` and the straggler monitor
 (item 14), ``--trace`` and ``--metrics-json`` (the ``repro.obs`` copy,

@@ -1,0 +1,57 @@
+"""Token embedding and LM head, the counterpart of the reference's
+``repro/models/embedding.py`` on one card.
+
+The reference shards the (padded) vocab table's rows over its 'model'
+mesh axis and gathers with a masked local gather and a psum; on one card
+that is a plain gather, and the head a plain product (sharding is
+ROADMAP Queue 1, item 13). Logits are fp32 from bf16 operands, as the
+reference's ``preferred_element_type=float32``: both operands are
+widened, so each product is exact and the sum is fp32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.params import Builder
+
+VOCAB_PAD = 128
+# the score of a padded vocab entry
+NEG_INF = -1e30
+
+
+def padded_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def init_table(b: Builder, vocab: int, d: int) -> torch.Tensor:
+    """(padded vocab, d) rows ~ N(0, 0.02^2); the padding rows are zero,
+    so tied logits of pad ids stay inert."""
+    t = b.normal((padded_vocab(vocab), d), scale=0.02)
+    t[vocab:] = 0
+    return t
+
+
+def init_unembed(b: Builder, vocab: int, d: int) -> torch.Tensor:
+    return b.normal((d, padded_vocab(vocab)), scale=0.02)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, D)."""
+    return table[tokens.long()]
+
+
+def _mask_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    if logits.shape[-1] != vocab:
+        logits[..., vocab:] = NEG_INF
+    return logits
+
+
+def lm_head(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
+    """x (B, S, D) @ table^T -> fp32 logits (B, S, Vpad), pads -1e30."""
+    return _mask_pad(torch.matmul(x.float(), table.float().t()), vocab)
+
+
+def lm_head_untied(x: torch.Tensor, w: torch.Tensor,
+                   vocab: int) -> torch.Tensor:
+    """x (B, S, D) @ w (D, Vpad) -> fp32 logits, pads -1e30."""
+    return _mask_pad(torch.matmul(x.float(), w.float()), vocab)

@@ -1,0 +1,266 @@
+"""Transformer building blocks of the dense decoders: norms, RoPE, the
+FFNs and GQA attention, the counterpart of the dense half of the
+reference's ``repro/models/layers.py``.
+
+Attention has two full-sequence paths and a decode path:
+  * direct: materialises the (S, S) scores, below ``CHUNKED_THRESHOLD``;
+  * flash: at S >= ``CHUNKED_THRESHOLD``, ``ops.flash_attention_gqa`` on
+    every device, the hand-written kernel on the card and its plain
+    version on the CPU (the reference takes its Pallas kernel on the TPU
+    there, and its chunked path elsewhere; the chunked path comes with LM
+    training, ROADMAP Queue 1, item 16, whose backward recomputes
+    through it);
+  * decode: one query token against a linear or ring-buffered KV cache.
+
+The reference's sharding constraints (``constrain``, ``head_constrain``)
+are identities on one card and are not carried over (item 13).
+
+Numerics follow the reference: norms and RoPE compute in fp32 and cast
+back; attention scores are fp32 from the bf16 operands (both widened, so
+each product is exact), masked entries -1e30, and the PV product takes P
+rounded to ``v.dtype``; ``gelu`` is the tanh approximation, as
+``jax.nn.gelu``'s default.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels import ops
+from repro_torch.models.params import Builder
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(b: Builder, d: int, kind: str):
+    if kind == "rmsnorm":
+        return {"w": b.ones((d,), dtype=torch.float32)}
+    return {"w": b.ones((d,), dtype=torch.float32),
+            "b": b.zeros((d,), dtype=torch.float32)}
+
+
+def apply_norm(p, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    if kind == "rmsnorm":
+        scale = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+        return (x32 * scale * p["w"]).to(x.dtype)
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * p["w"]
+            + p["b"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq            # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP blocks
+# ---------------------------------------------------------------------------
+
+def init_mlp(b: Builder, d: int, dff: int, act: str):
+    if act in ("swiglu", "geglu"):
+        return {"wg": b.normal((d, dff)), "wu": b.normal((d, dff)),
+                "wd": b.normal((dff, d))}
+    return {"wi": b.normal((d, dff)), "wd": b.normal((dff, d))}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act in ("swiglu", "geglu"):
+        gate = F.silu if act == "swiglu" else _gelu
+        return (gate(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    act_fn = _gelu if act == "gelu" else torch.relu
+    return act_fn(x @ p["wi"]) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def init_attention(b: Builder, acfg: AttentionConfig, d: int):
+    hd = acfg.resolved_head_dim(d)
+    h, k = acfg.n_heads, acfg.n_kv_heads
+    p = {"wq": b.normal((d, h * hd)), "wk": b.normal((d, k * hd)),
+         "wv": b.normal((d, k * hd)), "wo": b.normal((h * hd, d))}
+    if acfg.qkv_bias:
+        p["bq"] = b.zeros((h * hd,))
+        p["bk"] = b.zeros((k * hd,))
+        p["bv"] = b.zeros((k * hd,))
+    return p
+
+
+def _project_qkv(p, acfg: AttentionConfig, x: torch.Tensor, d: int):
+    b_, s, _ = x.shape
+    hd = acfg.resolved_head_dim(d)
+    h, k = acfg.n_heads, acfg.n_kv_heads
+    q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if acfg.qkv_bias:
+        q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
+    return (q.reshape(b_, s, h, hd), kk.reshape(b_, s, k, hd),
+            v.reshape(b_, s, k, hd))
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """qpos (..., Sq), kpos (..., Sk) -> bool (..., Sq, Sk); True = keep."""
+    m = torch.ones(qpos.shape + kpos.shape[-1:], dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= kpos[..., None, :] <= qpos[..., None]
+    if window is not None:
+        m &= kpos[..., None, :] > qpos[..., None] - window
+    return m
+
+
+def _sdpa_direct(q, k, v, qpos, kpos, causal, window):
+    """q (B, Sq, K, G, h); k, v (B, Sk, K, h) -> (B, Sq, K, G, h) in
+    v.dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) * scale
+    mask = _mask(qpos, kpos, causal, window)              # (Sq, Sk)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype), v)
+
+
+# Sequences at or beyond this length take the flash kernel.
+CHUNKED_THRESHOLD = 2048
+
+
+def pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of s not exceeding target (the chunked path's block
+    size)."""
+    for c in range(min(target, s), 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def attention_full(p, acfg: AttentionConfig, x: torch.Tensor,
+                   positions: torch.Tensor, d: int,
+                   return_kv: bool = False):
+    """Full-sequence self-attention (forward and prefill). At S >=
+    ``CHUNKED_THRESHOLD`` it attends through ``flash_attention_gqa``,
+    which masks by sequence index: ``positions`` is ``arange(S)`` there,
+    as every caller passes it."""
+    b_, s, _ = x.shape
+    hd = acfg.resolved_head_dim(d)
+    h, kh = acfg.n_heads, acfg.n_kv_heads
+    q, k, v = _project_qkv(p, acfg, x, d)
+    q = rope(q, positions, acfg.rope_theta)
+    k = rope(k, positions, acfg.rope_theta)
+    if s >= CHUNKED_THRESHOLD:
+        out = ops.flash_attention_gqa(q, k, v, causal=acfg.causal,
+                                      window=acfg.window)
+    else:
+        out = _sdpa_direct(q.reshape(b_, s, kh, h // kh, hd), k, v,
+                           positions, positions, acfg.causal, acfg.window)
+    out = out.reshape(b_, s, h * hd).to(x.dtype) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode (KV cache) path
+# ---------------------------------------------------------------------------
+
+def _cache_size(acfg: AttentionConfig, max_len: int, ring: bool) -> int:
+    return min(max_len, acfg.window) if (ring and acfg.window) else max_len
+
+
+def init_kv_cache(acfg: AttentionConfig, d: int, batch: int, max_len: int,
+                  dtype=torch.bfloat16, ring: bool = False,
+                  device=None):
+    """Cache tree for one attention layer. ring=True bounds the buffer at
+    ``window`` slots; slot_pos holds the absolute position in each slot
+    (-1 = empty)."""
+    hd = acfg.resolved_head_dim(d)
+    size = _cache_size(acfg, max_len, ring)
+    shape = (batch, size, acfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((size,), -1, dtype=torch.int32,
+                                   device=device)}
+
+
+def cache_from_kv(acfg: AttentionConfig, k: torch.Tensor, v: torch.Tensor,
+                  max_len: int, dtype=torch.bfloat16, ring: bool = False):
+    """A decode cache from prefill K/V (B, S, KV, hd): the last
+    min(S, size) positions, each in slot ``position % size``."""
+    b_, s, kh, hd = k.shape
+    size = _cache_size(acfg, max_len, ring)
+    cache = {"k": torch.zeros((b_, size, kh, hd), dtype=dtype,
+                              device=k.device),
+             "v": torch.zeros((b_, size, kh, hd), dtype=dtype,
+                              device=k.device),
+             "slot_pos": torch.full((size,), -1, dtype=torch.int32,
+                                    device=k.device)}
+    keep = min(s, size)
+    positions = torch.arange(s - keep, s, device=k.device)
+    slots = positions % size
+    cache["k"][:, slots] = k[:, s - keep:].to(dtype)
+    cache["v"][:, slots] = v[:, s - keep:].to(dtype)
+    cache["slot_pos"][slots] = positions.to(torch.int32)
+    return cache
+
+
+def attention_decode(p, acfg: AttentionConfig, x: torch.Tensor, pos: int,
+                     cache, d: int):
+    """One-token attention step. x (B, 1, D); pos the token's position.
+
+    Returns (out (B, 1, D), cache). Unlike the reference, which returns a
+    new cache, the token's k/v and position are written into ``cache``'s
+    tensors in place, and the same tree is returned. Works for linear
+    caches (size > every position) and ring buffers (size == window).
+    """
+    b_ = x.shape[0]
+    hd = acfg.resolved_head_dim(d)
+    h, kh = acfg.n_heads, acfg.n_kv_heads
+    q, k_new, v_new = _project_qkv(p, acfg, x, d)
+    posb = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posb, acfg.rope_theta)
+    k_new = rope(k_new, posb, acfg.rope_theta)
+
+    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    slot = pos % k.shape[1]
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    slot_pos[slot] = pos
+
+    qg = q.reshape(b_, 1, kh, h // kh, hd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg.float(), k.float()) * hd ** -0.5
+    keep = (slot_pos >= 0) & (slot_pos <= pos)
+    if acfg.window is not None:
+        keep &= slot_pos > pos - acfg.window
+    s = torch.where(keep, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bckh->bqkgh", prob.to(v.dtype), v)
+    out = out.reshape(b_, 1, h * hd).to(x.dtype) @ p["wo"]
+    return out, cache

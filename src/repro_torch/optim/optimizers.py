@@ -15,7 +15,7 @@ Python int, so no update reads the device.
 Ported: ``adamw`` (the MLPs), ``rowwise_adagrad`` (the embedding arena)
 and ``partitioned`` (one rule per top-level key), at a constant learning
 rate. ``sgd``, ``adafactor``, ``layerwise``, global-norm clipping and the
-schedules come with the LM side (ROADMAP Queue 1, item 15).
+schedules come with LM training (ROADMAP Queue 1, item 16).
 """
 from __future__ import annotations
 

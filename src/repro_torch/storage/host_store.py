@@ -103,12 +103,15 @@ class HostTier(es.EmbeddingSource):
                                      null_row=self.staging_rows)
 
     def reduce_flat(self, spec, flat, offsets, *, max_l):
-        # the reference segment-sums the stream in XLA; on the card a
+        # the reference segment-sums whole bags in XLA; on the card a
         # scatter would add with float atomics, so the port takes the
-        # deterministic ragged kernel over the staging slots, equal to
-        # reduce_dense bit for bit on bags within max_l
+        # deterministic ragged kernel over the staging slots. It walks
+        # min(len, max_l) positions a bag, so a bound of the stream's
+        # length sums every bag whole, as the reference does, and on bags
+        # within max_l it equals reduce_dense bit for bit
         return ops.sparse_lengths_sum(self.staging, self.slot_of[flat],
-                                      offsets, max_l=max_l).float()
+                                      offsets,
+                                      max_l=flat.shape[0]).float()
 
     def _describe(self) -> str:
         return "host"

@@ -319,6 +319,14 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.core.hybrid, repro_torch.launch.serve\n"
             "import repro_torch.storage.tiered\n"
             "import repro_torch.storage.host_store\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.configs.registry, repro_torch.models.api\n"
+            "import repro_torch.models.layers, repro_torch.models.params\n"
+            "import repro_torch.models.embedding\n"
+            "import repro_torch.models.transformer\n"
+            "import repro_torch.serving.engine\n"
+            "from repro_torch.configs import (smollm_360m, h2o_danube_1_8b,\n"
+            "    qwen1_5_4b)\n"
             "from repro_torch.training import (OnlineCacheConfig,\n"
             "    VersionedHotCache, VersionedSource, make_drifting_zipf)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -595,7 +595,7 @@ def test_serve_launcher_on_cpu(pipelined):
 
 
 @pytest.mark.parametrize("argv,item", [(["--mesh", "pod"], "item 13"),
-                                       (["--arch", "smollm-360m"],
+                                       (["--arch", "rwkv6-7b"],
                                         "item 15")])
 def test_serve_launcher_refuses_what_is_not_ported(argv, item, capsys):
     with pytest.raises(SystemExit):

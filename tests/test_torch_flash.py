@@ -1,0 +1,163 @@
+"""The port's flash attention (its plain version, as a CPU tensor runs it)
+against the reference's Pallas kernel in interpret mode, on the same
+numpy inputs; the forward-only op; and the wrapper's guards.
+
+The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
+against this plain version there.
+
+Tolerances, the reference's own (tests/test_kernels.py): f32 2e-5 (the
+same blocked online softmax, matmuls summed in another order); bf16 5e-2
+(outputs rounded to bf16, P rounded to bf16 before the PV product on
+both sides).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as j_fa
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+_DTYPES = {"float32": (jnp.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _both(a, dtype):
+    j_dt, t_dt = _DTYPES[dtype]
+    return jnp.asarray(a, j_dt), torch.from_numpy(a).to(t_dt)
+
+
+def _close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+# the JAX test's grid (tests/test_kernels.py), plus a window that masks
+# whole kv blocks (window 16 with blocks of 32: a q block's earliest kv
+# blocks hold no key of its band)
+@pytest.mark.parametrize("s,d,causal,window,bq,bk",
+                         [(128, 64, True, None, 64, 64),
+                          (96, 32, False, None, 32, 32),
+                          (128, 64, True, 32, 64, 32),
+                          (100, 16, True, None, 64, 64),
+                          (128, 16, True, 16, 32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_kernel(s, d, causal, window, bq, bk,
+                                               dtype):
+    rng = np.random.RandomState(s + d + (window or 0))
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.randn(2, s, d).astype(np.float32), dtype)
+        for _ in range(3))
+    got = ref.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              bq=bq, bk=bk)
+    assert got.dtype == tq.dtype and got.shape == (2, s, d)
+    want = j_fa.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                bq=bq, bk=bk, interpret=True)
+    _close(got, want, _TOL[dtype])
+    # the op on CPU tensors is the plain version (default blocks)
+    assert torch.equal(ops.flash_attention(tq, tk, tv, causal=causal,
+                                           window=window),
+                       ref.flash_attention(tq, tk, tv, causal=causal,
+                                           window=window))
+
+
+@pytest.mark.parametrize("h,kh,window", [(8, 2, None), (6, 3, 24),
+                                         (4, 4, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gqa_matches_reference_wrapper(h, kh, window, dtype):
+    rng = np.random.RandomState(h * 10 + kh)
+    (jq, tq), = [_both(rng.randn(2, 64, h, 32).astype(np.float32), dtype)]
+    (jk, tk), (jv, tv) = (_both(rng.randn(2, 64, kh, 32).astype(np.float32),
+                                dtype) for _ in range(2))
+    got = ops.flash_attention_gqa(tq, tk, tv, causal=True, window=window)
+    assert got.shape == (2, 64, h, 32) and got.dtype == tq.dtype
+    want = j_fa.flash_attention_gqa(jq, jk, jv, causal=True, window=window,
+                                    interpret=True)
+    _close(got, want, _TOL[dtype])
+
+
+def test_flash_attention_op_is_forward_only():
+    """The reference's kernel has no backward; the port's op refuses one,
+    naming the ROADMAP item that brings it."""
+    q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    out = ops.flash_attention_gqa(q, q.detach()[:, :, :1],
+                                  q.detach()[:, :, :1])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        out.sum().backward()
+
+
+def test_reference_flash_kernel_has_no_gradient():
+    """The contract gap the op follows (ROADMAP Queue 3): ``jax.grad``
+    through the Pallas kernel raises, though its docstring promises a
+    recompute."""
+    q = jnp.ones((1, 32, 8), jnp.float32)
+    with pytest.raises(Exception):
+        jax.grad(lambda x: j_fa.flash_attention(
+            x, x, x, bq=16, bk=16, interpret=True).sum())(q)
+
+
+# ---------------------------------------------------------------------------
+# guards: dispatch by device, what the wrapper takes
+# ---------------------------------------------------------------------------
+
+def _qkv(dtype=torch.bfloat16, d=16, h=2, kh=1, device="cpu"):
+    return (torch.zeros(1, 4, h, d, dtype=dtype, device=device),
+            torch.zeros(1, 4, kh, d, dtype=dtype, device=device),
+            torch.zeros(1, 4, kh, d, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("op", ["flash_attention_gqa", "flash_attention"])
+def test_op_refuses_devices_other_than_cpu_and_cuda(op):
+    q, k, v = _qkv(device="meta")
+    args = (q, k, v) if op == "flash_attention_gqa" else (q[:, :, 0],
+                                                          k[:, :, 0],
+                                                          v[:, :, 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(ops, op)(*args)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA device"),
+    ("int64", "bfloat16"),
+    ("float32", "bfloat16"),
+    ("d112", "item 15b"),
+    ("d256", "item 15b"),
+    ("d32", "not instantiated"),
+    ("heads", "evenly"),
+    ("window", "window"),
+    ("rank", "4 dims"),
+])
+def test_wrapper_guards(case, match):
+    """The wrapper launches its kernel or raises, and never computes on
+    the CPU."""
+    kw = {}
+    if case in ("int64", "float32"):
+        q, k, v = _qkv(dtype=getattr(torch, case))
+    elif case.startswith("d"):
+        q, k, v = _qkv(d=int(case[1:]))
+    elif case == "heads":
+        q, k, v = _qkv(h=3, kh=2)
+    elif case == "rank":
+        q, k, v = (t[0] for t in _qkv())
+    else:
+        q, k, v = _qkv()
+        kw = {"window": 0} if case == "window" else {}
+    before = t_fa.launches
+    with pytest.raises(ValueError, match=match):
+        t_fa.flash_attention_gqa(q, k, v, **kw)
+    assert t_fa.launches == before
+
+
+def test_wrapper_instantiates_every_head_dim_the_configs_reach():
+    from repro_torch.configs import registry
+    dims = {c.attention.resolved_head_dim(c.d_model)
+            for table in (registry.ARCHS, registry.SMOKE_ARCHS)
+            for c in table.values()}
+    assert dims == {16, 20, 64, 80, 128} == set(t_fa.HEAD_DIMS)

@@ -250,7 +250,7 @@ def test_build_targets_sm90a_with_a_c_interface(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert [p.stem for p in _build.sources()] == [
-        "embedding_bag", "fused_cached_segment_sum",
+        "embedding_bag", "flash_attention", "fused_cached_segment_sum",
         "fused_int4_segment_sum", "fused_segment_sum", "gemm",
         "interaction", "sls_grad_table", "sparse_lengths_sum"]
 
@@ -270,7 +270,8 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         _build.build_all()
     assert not list((tmp_path / "build").rglob("*.so*"))
     logs = _build.build_logs()
-    assert set(logs) == {"embedding_bag", "fused_cached_segment_sum",
+    assert set(logs) == {"embedding_bag", "flash_attention",
+                         "fused_cached_segment_sum",
                          "fused_int4_segment_sum", "fused_segment_sum",
                          "gemm", "interaction", "sls_grad_table",
                          "sparse_lengths_sum"}

@@ -277,6 +277,27 @@ def test_host_tier_flat_form_equals_dense_form():
                        fp.reduce_flat(spec, flat, _t(off), max_l=4))
 
 
+def test_host_tier_flat_form_sums_over_long_bags_whole():
+    """A bag longer than ``max_l``: the reference's ``HostTier.reduce_flat``
+    segment-sums the whole bag, and so does the port's (ROADMAP Queue 3's
+    smallest input, the one that pins ``sparse_lengths_sum``)."""
+    staging = np.zeros((11, 4), np.float32)          # slot 10: the zero slot
+    staging[:10] = np.arange(40, dtype=np.float32).reshape(10, 4)
+    slot_of = np.arange(11, dtype=np.int32)           # compact id -> slot
+    ids = np.array([1, 2, 3, 4, 5, 6, 0, 0], np.int32)
+    off = np.array([0, 5, 6], np.int32)
+    spec = se.ArenaSpec(1, 10, 4)
+    got = t_st.HostTier(_t(staging), _t(slot_of)).reduce_flat(
+        spec, _t(ids), _t(off), max_l=2)
+    want = j_st.HostTier(jnp.asarray(staging), jnp.asarray(slot_of)
+                         ).reduce_flat(j_spec(spec), jnp.asarray(ids),
+                                       jnp.asarray(off), max_l=2)
+    np.testing.assert_array_equal(_n(want), [[60, 65, 70, 75],
+                                             [24, 25, 26, 27]])
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), _n(want))
+
+
 def test_tiered_grads_reach_only_touched_hot_slots():
     spec = se.ArenaSpec(1, 120, 8)
     rng = np.random.RandomState(12)

@@ -21,6 +21,12 @@ Tolerances:
     rows, ``torch.equal``) and post-sync probabilities equal to the
     forward over the trainer's serving source bit for bit.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +53,8 @@ from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,
                                   make_drifting_zipf)
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 MAX_L = 6
 LR = 1e-2
@@ -349,3 +357,84 @@ def test_host_snapshot_rule(np_params, counts):
     trainer.sync_engine(engine)
     assert engine._host_stores == [mine] and mine._origin is theirs.generation
     np.testing.assert_array_equal(mine.host_rows, theirs.host_rows)
+
+
+# ---------------------------------------------------------------------------
+# prefetch accounting with several engines per trainer (ROADMAP Queue 3)
+# ---------------------------------------------------------------------------
+
+def _prefetch_counts(np_params, counts, n_engines):
+    """One host-cold trainer on each side and ``n_engines`` engines; engine
+    i is synced after train step i and serves 16 requests of its own.
+    Returns each side's (hits, misses, touches) per engine."""
+    pol, j_pol = _pols("host")
+    trainer = _trainer(np_params, pol)
+    j_trainer = JOnlineTrainer(
+        J_CFG, jax.tree.map(jnp.asarray, np_params), max_l=MAX_L, lr=LR,
+        cache_cfg=JOnlineCacheConfig(k=0, refresh_every=R, tiers=j_pol))
+    engines = [_engine(trainer.params, source=es.SourceSpec(tiers=pol),
+                       cache_trace=counts) for _ in range(n_engines)]
+    j_engines = [JRecEngine(J_CFG, jax.tree.map(jnp.asarray, np_params),
+                            source=j_es.SourceSpec(tiers=j_pol),
+                            cache_trace=counts, max_l=MAX_L, max_batch=8,
+                            max_wait_ms=0.0, buckets=(2, 4, 8))
+                 for _ in range(n_engines)]
+    gen, j_gen = _gen(seed=8), _gen(seed=8)
+    for i, (engine, j_engine) in enumerate(zip(engines, j_engines)):
+        trainer.train_step(next(gen))
+        j_trainer.train_step(next(j_gen))
+        trainer.sync_engine(engine)
+        j_trainer.sync_engine(j_engine)
+        rb = _batch(16, seed=21 + i)
+        _drive(engine, t_requests(rb, CFG.n_tables))
+        _drive(j_engine, j_requests(rb, J_CFG.n_tables))
+
+    def counts_of(e):
+        p = e.stats()["prefetch"]
+        return [p["hits"], p["misses"], p["touches"]]
+    return ([counts_of(e) for e in engines],
+            [counts_of(e) for e in j_engines])
+
+
+@pytest.mark.parametrize("n_engines", [1, 2])
+def test_prefetch_accounting_with_engines_sharing_a_trainer(n_engines):
+    """The snapshot rule gives each engine its own ``HostStore``
+    (``HostStore.adopt``), where a reference engine synced from a
+    host-cold trainer stages into, and reads, the trainer's store.
+
+    * One engine per trainer: the two count the same, exactly.
+    * Two engines: the reference reports the shared store's totals on
+      both engines; the port reports each engine's own counts, whose
+      touches sum to the reference's total (each touch is counted once,
+      by the engine that served it). Hits differ: in the shared store a
+      row staged for one engine is a hit for the other.
+
+    Each case runs in a fresh process: in one process the reference's
+    counts for a second trainer and engine were seen to continue from an
+    earlier pair's (888 touches where a fresh process counts 137)."""
+    code = ("import json, sys\n"
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}, "
+            f"{str(ROOT / 'tests')!r}]\n"
+            "import jax, numpy as np\n"
+            "import test_torch_tiered_serving as t\n"
+            "np_params = jax.tree.map(np.asarray, t.j_dlrm.init("
+            "jax.random.PRNGKey(1), t.J_CFG))\n"
+            "rb = t.DLRMSynthetic(t.J_CFG, seed=3).ragged_batch("
+            "64, mean_l=3, max_l=t.MAX_L)\n"
+            "counts = t.se.trace_row_counts(t.t_dlrm.arena_spec(t.CFG), "
+            "rb['indices'], rb['offsets'])\n"
+            f"print(json.dumps(t._prefetch_counts(np_params, counts, "
+            f"{n_engines})))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=300)
+    ours, theirs = json.loads(run.stdout.strip().splitlines()[-1])
+    if n_engines == 1:
+        assert ours == theirs
+        return
+    assert theirs[0] == theirs[1]                 # one shared store
+    assert sum(t for _, _, t in ours) == theirs[0][2]
+    for hits, misses, touches in ours:
+        assert hits + misses == touches
+    assert ours[0] != ours[1]                     # each engine its own
+    assert sum(h for h, _, _ in ours) < theirs[0][0]
