@@ -95,14 +95,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    at fixed addresses.
 10. LM serving: (a) ``flash_attention`` against its plain version in
    bf16 (within 2^-7 (1 + |plain|)) at smollm-360m's heads at S = 2048
-   and 4096, danube's hd 80 with a window of 512, qwen's hd 128, the
-   smoke configs' hd 16 and 20 and at S = 100 and 2049, with its times
-   beside the plain version's, ``F.scaled_dot_product_attention``'s and
-   the bound (bf16 operations of the causal band); (b) smollm-360m at
+   and 4096 (and at 2048 without the causal mask), danube's hd 80 with
+   a window of 512, qwen's hd 128, the smoke configs' hd 16 and 20 and
+   at S = 100 and 2049; at the four timed shapes two launches must give
+   the same bits, and its times (warm, back to back and one call at a
+   time, and with a cold L2: a 64 MB buffer written between single
+   calls) and TFLOP/s stand beside the
+   plain version's, ``F.scaled_dot_product_attention``'s and the bound
+   (bf16 operations of the band); (b) smollm-360m at
    full width (32 layers, d 960, vocab 49,152, bf16, seeded weights):
    ``api.prefill`` at S = 2048 and 4096 launches the kernel once a layer
    and nothing else of the port, gives finite logits, and its tokens/s,
-   device time by group and idle share are measured; (c) on one prompt
+   device time by group, idle share and the kernel's device time a
+   launch (beside its time alone) are measured; (c) on one prompt
    of 2,048 tokens, the card's prefill, forward and decode after a
    prefill of all but the last token, and a 2-layer prefill, each
    within twice the CPU bf16 path's own error of the CPU path's fp32
@@ -316,8 +321,10 @@ TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
 # flash_attention (phase 10), bf16 on both sides: each output is rounded
 # to bf16, whose ulp is at most 2^-7 of the value, and fp32 scores summed
 # in another order can flip the bf16 rounding of a P entry before the PV
-# product; so |kernel - plain| <= 2^-7 (1 + |plain|). The first card run
-# saw at most one ulp, 7.8e-3 at |o| in [2, 4).
+# product; so |kernel - plain| <= 2^-7 (1 + |plain|). The mma.sync kernel
+# and the wgmma kernel that replaced it each saw at most one ulp on the
+# card, 7.8e-3 at |o| in [2, 4); the latter's exp2 with the scale folded
+# in moves P by a few fp32 ulps, far inside that.
 # served probabilities, card kernels against the CPU path: fp32 logits
 # of magnitude <= ~10 through sigmoid (slope <= 1/4); the same for the
 # int8 cold arena, whose codes the card and the CPU share. The int8 plan
@@ -2438,62 +2445,106 @@ LM_TIMED = 3                       # timed prefills per length
 # prefills, and the CPU bf16 path alone 3.0e-2 from fp32.)
 LM_FLOOR_FACTOR = 2.0
 
-# (what, B, S, H, KH, hd, window): the path's shapes (smollm-360m's
+# (what, B, S, H, KH, hd, causal, window): the path's shapes (smollm-360m's
 # heads at both prefill lengths), danube's hd 80 with a window, qwen's hd
-# 128, the smoke configs' 16 and 20, and lengths that are no multiple of
-# the kernel's 64-row tiles
+# 128 (the four timed ones), smollm-360m's heads without the causal mask
+# (the encoder self-attention of ROADMAP item 15b), the smoke configs' 16
+# and 20 (the latter padded to 32 by the wrapper), and lengths that are
+# no multiple of the kernel's 64- or 128-row q tiles and 128-key kv tiles
 FLASH_SHAPES = (
-    ("smollm-360m", 1, 2048, 15, 5, 64, None),
-    ("smollm-360m", 1, 4096, 15, 5, 64, None),
-    ("danube hd 80, window 512", 1, 4096, 32, 8, 80, 512),
-    ("qwen hd 128", 1, 2048, 20, 20, 128, None),
-    ("danube smoke hd 16, window 16", 2, 2048, 4, 2, 16, 16),
-    ("smollm smoke hd 20", 2, 2048, 3, 1, 20, None),
-    ("ragged S = 100", 2, 100, 3, 1, 20, None),
-    ("ragged S = 2049", 1, 2049, 15, 5, 64, None),
+    ("smollm-360m", 1, 2048, 15, 5, 64, True, None),
+    ("smollm-360m", 1, 4096, 15, 5, 64, True, None),
+    ("danube hd 80, window 512", 1, 4096, 32, 8, 80, True, 512),
+    ("qwen hd 128", 1, 2048, 20, 20, 128, True, None),
+    ("smollm-360m, not causal", 1, 2048, 15, 5, 64, False, None),
+    ("danube smoke hd 16, window 16", 2, 2048, 4, 2, 16, True, 16),
+    ("smollm smoke hd 20", 2, 2048, 3, 1, 20, True, None),
+    ("ragged S = 100", 2, 100, 3, 1, 20, True, None),
+    ("ragged S = 2049", 1, 2049, 15, 5, 64, True, None),
 )
+FLASH_TIMED = 4                    # the first rows are timed
+L2_FLUSH_BYTES = 64 << 20          # written between cold-L2 calls (L2: 50 MB)
 
 
-def attention_pairs(s: int, window) -> int:
-    """(q, k) pairs of the causal band, each counted once."""
+def attention_pairs(s: int, causal: bool, window) -> int:
+    """(q, k) pairs of the band, each counted once."""
+    if not causal:
+        return s * s
     if window is None:
         return s * (s + 1) // 2
     w = min(window, s)
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def flash_bound(b, s, h, kh, d, window):
+def flash_flops(b, s, h, d, causal, window) -> int:
+    """Two products of 2 d flops a (q, k) pair of the band, a head."""
+    return 4 * d * attention_pairs(s, causal, window) * h * b
+
+
+def flash_bound(b, s, h, kh, d, causal, window):
     n_bytes = 2 * b * s * d * (2 * h + 2 * kh)   # q, out; k, v (bf16)
-    n_flops = 4 * d * attention_pairs(s, window) * h * b
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flash_flops(b, s, h, d, causal, window) / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def single_call_ms(fn, cold: bool, reps: int = 10) -> float:
+    """Median device time of single calls, each between two CUDA events.
+    A spin of ~0.5 ms on the device before the start event lets the host
+    enqueue the call meanwhile, so its launch cost stays out. With
+    ``cold``, L2_FLUSH_BYTES are written before the spin, outside the
+    timed span, so that the call finds its inputs in device memory and
+    not in the 50 MB L2. Warm, it checks the profiler's device time by
+    another clock."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    out = []
+    for i in range(reps):
+        if cold:
+            flush.fill_(i)
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out))
 
 
 def check_flash(gen) -> tuple:
     """The kernel against its plain version at every listed shape, and
-    times at the first four: kernel, plain version and
-    F.scaled_dot_product_attention (a yardstick the port never calls, on
-    kv heads repeated before the timing; with a window it needs an
-    explicit boolean mask, which takes it off its flash backend)."""
+    at the first FLASH_TIMED: two launches equal bit for bit, and times
+    of the kernel (warm and with a cold L2; its TFLOP/s over the band),
+    the plain version and F.scaled_dot_product_attention (a yardstick
+    the port never calls, on kv heads repeated before the timing; with a
+    window it needs an explicit boolean mask, which takes it off its
+    flash backend)."""
     name = "flash_attention"
     errs, rows = [], []
-    for i, (what, b, s, h, kh, d, window) in enumerate(FLASH_SHAPES):
+    for i, (what, b, s, h, kh, d, causal, window) in enumerate(
+            FLASH_SHAPES):
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
         k = torch.randn((b, s, kh, d), generator=gen,
                         device="cuda").bfloat16()
         v = torch.randn((b, s, kh, d), generator=gen,
                         device="cuda").bfloat16()
-        got = fa_k.flash_attention_gqa(q, k, v, causal=True, window=window)
+        got = fa_k.flash_attention_gqa(q, k, v, causal=causal,
+                                       window=window)
         # the plain version's blocks shrink to a divisor of S, as the
         # reference's do: 2049 = 3 x 683 would take 683^2 blocks of 3;
         # one block of S is the same function
         blk = 512 if any(s % c == 0 for c in range(64, 513)) else s
         errs.append(compare(name, got, ref.flash_attention_gqa(
-            q, k, v, causal=True, window=window, bq=blk, bk=blk),
+            q, k, v, causal=causal, window=window, bq=blk, bk=blk),
             f"{what}: {b}x{s}x{h}/{kh}x{d}"))
-        if i >= 4:
+        if i >= FLASH_TIMED:
             continue
+        again = fa_k.flash_attention_gqa(q, k, v, causal=causal,
+                                         window=window)
+        if not torch.equal(got, again):
+            fail(f"{name} {what}: two launches on the same inputs differ")
         qt = q.transpose(1, 2)
         kt, vt = (t.transpose(1, 2).repeat_interleave(h // kh, dim=1)
                   for t in (k, v))
@@ -2505,31 +2556,49 @@ def check_flash(gen) -> tuple:
 
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
 
-        bound_ms, by = flash_bound(b, s, h, kh, d, window)
-        row = {"what": what, "shape": [b, s, h, kh, d], "window": window,
-               "ms": time_ms(lambda: fa_k.flash_attention_gqa(
-                   q, k, v, causal=True, window=window), reps=10, trials=10),
+        def kernel():
+            return fa_k.flash_attention_gqa(q, k, v, causal=causal,
+                                            window=window)
+
+        bound_ms, by = flash_bound(b, s, h, kh, d, causal, window)
+        row = {"what": what, "shape": [b, s, h, kh, d], "causal": causal,
+               "window": window,
+               "ms": time_ms(kernel, reps=10, trials=10),
                "plain_ms": time_ms(lambda: ref.flash_attention_gqa(
-                   q, k, v, causal=True, window=window), reps=1, trials=3),
+                   q, k, v, causal=causal, window=window), reps=1, trials=3),
                "library_ms": time_ms(library, reps=10, trials=10),
-               "device_ms": device_ms(lambda: fa_k.flash_attention_gqa(
-                   q, k, v, causal=True, window=window), reps=10),
+               "device_ms": device_ms(kernel, reps=10),
+               "single_ms": single_call_ms(kernel, cold=False),
+               "cold_l2_ms": single_call_ms(kernel, cold=True),
                "plain_device_ms": device_ms(lambda: ref.flash_attention_gqa(
-                   q, k, v, causal=True, window=window), reps=2),
+                   q, k, v, causal=causal, window=window), reps=2),
                "library_device_ms": device_ms(library, reps=10),
+               "library_single_ms": single_call_ms(library, cold=False),
+               "library_cold_l2_ms": single_call_ms(library, cold=True),
                "bound_ms": bound_ms, "bound_by": by,
+               "deterministic": True,
                "library_err": float((library().transpose(1, 2).float()
                                      - got.float()).abs().max())}
+        flops = flash_flops(b, s, h, d, causal, window)
+        for key in ("device_ms", "library_device_ms"):
+            ms = row[key]
+            row[key.replace("ms", "tflops")] = (
+                None if ms is None else flops / ms / 1e9)
         rows.append(row)
         print(f"  {name:24s} {what}: ms per call (device ms): kernel "
-              f"{row['ms']:.4f} ({_fmt(row['device_ms'])}), plain "
+              f"{row['ms']:.4f} ({_fmt(row['device_ms'])}; one call "
+              f"{row['single_ms']:.4f}, cold L2 {row['cold_l2_ms']:.4f}; "
+              f"{_fmt(row['device_tflops'])} TFLOP/s), plain "
               f"{row['plain_ms']:.4f} ({_fmt(row['plain_device_ms'])}), "
               f"library {row['library_ms']:.4f} "
-              f"({_fmt(row['library_device_ms'])}), bound "
+              f"({_fmt(row['library_device_ms'])}; one call "
+              f"{row['library_single_ms']:.4f}, cold L2 "
+              f"{row['library_cold_l2_ms']:.4f}; "
+              f"{_fmt(row['library_device_tflops'])} TFLOP/s), bound "
               f"{bound_ms:.5f} ({by}); |library - kernel| "
-              f"{row['library_err']:.3e}")
+              f"{row['library_err']:.3e}; two launches equal")
     return max(errs), rows
 
 
@@ -2596,8 +2665,12 @@ def lm_prefill(cfg, params) -> dict:
             groups[g] = groups.get(g, 0.0) + us / 1e3
         busy = sum(groups.values())
         kernels = _kernel_count(prof)
+        # the kernel's device time per launch inside the model, against
+        # phase 10(a)'s time of the same shape alone
+        per_launch = groups.get("flash", 0.0) / cfg.n_layers
         out[s] = {"launches": launches, "ms": wall, "walls_ms": walls,
                   "kernel_launches": kernels,
+                  "flash_device_ms_per_launch": per_launch,
                   "tokens_per_s": s / wall * 1e3,
                   "device_ms": groups, "device_busy_ms": busy,
                   "device_idle_share": (1.0 - busy / wall) if busy else None,
@@ -2607,6 +2680,7 @@ def lm_prefill(cfg, params) -> dict:
               f"tokens/s), device {busy:.3f} ms "
               f"{ {g: round(v, 4) for g, v in groups.items()} }, idle share "
               f"{out[s]['device_idle_share']}, {kernels} kernel launches; "
+              f"flash {per_launch:.4f} device ms a launch in the model; "
               f"launches {launches}")
         del cache
     return out
@@ -2777,6 +2851,17 @@ def phase_lm(gen) -> dict:
           f"{sum(t.numel() for t in tree_leaves(params)) / 1e6:.1f} M "
           f"params from a seeded generator")
     prefill = lm_prefill(cfg, params)
+    for s, r in prefill.items():
+        alone = next((row for row in rows if row["what"] == LM_ARCH
+                      and row["shape"][1] == s), None)
+        if alone is None:
+            continue
+        r["flash_device_ms_alone"] = alone["device_ms"]
+        print(f"  flash_attention at S = {s}: "
+              f"{r['flash_device_ms_per_launch']:.4f} device ms a launch in "
+              f"the prefill, {_fmt(alone['device_ms'])} alone (warm; one "
+              f"call {alone['single_ms']:.4f}), {alone['cold_l2_ms']:.4f} "
+              f"alone with a cold L2 (events)")
     agree = lm_agree(cfg, params)
     served = lm_serve(cfg, params)
     return {"max_abs_err": err, "rows": rows}, {

@@ -10,14 +10,25 @@ sees only q, k, v and the output, never the (S, S) scores.
 What bounds it on the card: operations. Causal attention at the LM's
 prefill lengths (S = 2048..4096) does a few hundred flops per byte of
 q, k, v and out, above the bf16 tensor cores' balance point. The CUDA
-kernel (``csrc/flash_attention.cu``) runs both products on the tensor
-cores with ``mma.sync`` (bf16 operands, fp32 accumulation); one block
-owns a 64-row q tile of one head and loops over 64-key kv tiles staged
-in shared memory, skipping tiles wholly outside the causal and window
-band. Each query head reads its kv head directly, so GQA repeats
-nothing. It keeps the reference's numerics: fp32 scores times d**-0.5,
--1e30 for masked entries, P rounded to bf16 before the PV product while
-the row sum adds the fp32 P, and acc / max(l, 1e-30).
+kernel (``csrc/flash_attention.cu``, whose header note has the details)
+is warp-specialised: one producer warpgroup issues TMA copies of a q
+tile and of 128-key K and V tiles into a two-stage ring behind
+mbarriers, and consumer warpgroups of 64 query rows (one a block at hd
+<= 80, two at hd 128) run both products on ``wgmma`` (S = Q K^T from shared memory, O += P V with
+P from registers and V as an MN-major operand), skipping kv tiles
+wholly outside the causal and window band and the mask arithmetic on
+tiles wholly inside it. Each query head reads its kv head as a TMA
+coordinate, so GQA repeats nothing. It keeps the reference's numerics:
+fp32 scores from bf16 operands times d**-0.5 (folded with log2(e) into
+an exp2), -1e30 for masked entries, P rounded to bf16 before the PV
+product while the row sum adds the fp32 P, and acc / max(l, 1e-30).
+
+The wrapper's own decisions are pure functions here, so the CPU tests
+reach them: the depth each head dim runs at (TMA needs 16-byte strides:
+hd 20 is padded to 32 with one copy of q, k and v, and its 20 columns
+are stored), the 16-byte stride rule, and the scalars handed to the C
+entry. The tiling (q and kv tiles, TMA boxes, grid) is fixed per depth
+in the C++ and held on the card by ``chip_smoke.py``.
 
 This wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors
 to the plain version in ``kernels.ref``.
@@ -25,22 +36,28 @@ to the plain version in ``kernels.ref``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 # launches of the CUDA kernel in this process (not of the plain version)
 launches = 0
 
-# head dims the kernel is instantiated for: the smoke configs' 16 and 20,
-# smollm-360m's 64, h2o-danube's 80 and qwen1.5's 128
+# head dims the kernel takes: the smoke configs' 16 and 20, smollm-360m's
+# 64, h2o-danube's 80 and qwen1.5's 128
 HEAD_DIMS = (16, 20, 64, 80, 128)
+# TMA: the global address and every stride a multiple of 16 bytes
+TMA_ALIGN = 16
+# the C entry adds this to the CUresult of a tensor map that failed
+ENCODE_ERROR = 20000
+LOG2E = 1.4426950408889634
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_float, ctypes.c_int, ctypes.c_int)
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int)
 
 
 def _check_head_dim(d: int) -> None:
@@ -50,6 +67,54 @@ def _check_head_dim(d: int) -> None:
             f"takes {HEAD_DIMS}); 112 (the MoE decoders) and 256 "
             "(recurrentgemma) come with their models, ROADMAP Queue 1, "
             "item 15b")
+
+
+def tma_strides_ok(depth: int, heads: int) -> bool:
+    """TMA's stride rule for a contiguous (B, S, heads, depth) bf16
+    tensor: the head and row strides are multiples of 16 bytes (the
+    batch stride then is too)."""
+    return ((2 * depth) % TMA_ALIGN == 0
+            and (2 * depth * heads) % TMA_ALIGN == 0)
+
+
+def depth(d: int) -> int:
+    """The depth the kernel runs a head dim at: d itself where a head's
+    2d bytes meet TMA's 16-byte rule (then any head count does), else d
+    padded to a multiple of 16 (hd 20 -> 32)."""
+    return d if tma_strides_ok(d, 1) else -(-d // 16) * 16
+
+
+def route(d: int) -> str:
+    """"tma": q, k, v go to the kernel as they are; "pad": the wrapper
+    first pads them to ``depth(d)`` with one copy each."""
+    return "tma" if depth(d) == d else "pad"
+
+
+def c_args(d: int, causal: bool,
+           window: Optional[int]) -> Tuple[int, int, float, int, int]:
+    """The scalars the C entry takes for head dim ``d``: the depth it
+    runs at, the columns it stores, d**-0.5 log2(e) of the true head dim
+    (hd 20 scales by 20**-0.5 at depth 32), causal as 0/1 and the window
+    (0: none)."""
+    return (depth(d), d, d ** -0.5 * LOG2E, int(bool(causal)),
+            0 if window is None else int(window))
+
+
+def launch_error(rc: int) -> str:
+    if rc >= ENCODE_ERROR:
+        return (f"flash_attention: cuTensorMapEncodeTiled failed with "
+                f"CUresult {rc - ENCODE_ERROR}")
+    what = (torch.cuda.CudaError(rc) if torch.cuda.is_available()
+            else f"cudaError {rc}")
+    return f"flash_attention kernel failed to launch: {what}"
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """TMA reads from 16-byte aligned addresses only."""
+    for name, t in tensors.items():
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name} must be {TMA_ALIGN}-byte aligned for "
+                             f"TMA, got address {t.data_ptr():#x}")
 
 
 def _check(q, k, v, window, ndim: int) -> None:
@@ -88,21 +153,26 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query head h attends with kv head h // (H / KH)."""
     global launches
     _check(q, k, v, window, 4)
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    dp, d_out, scale_log2, causal, window = c_args(d, causal, window)
+    if route(d) == "pad":
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+    check_aligned(q=q, k=k, v=v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, dtype=torch.bfloat16, ndim=4)
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    b, s, h, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     fn = _build.function("flash_attention", "flash_attention_bf16", _ARGS)
-    _build.launch(fn, "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, s, h, k.shape[2], d,
-                  d ** -0.5, int(bool(causal)),
-                  0 if window is None else int(window))
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, h, kh, dp, d_out, scale_log2, causal, window,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(launch_error(rc))
     launches += 1
     return out
 

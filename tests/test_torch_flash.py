@@ -161,3 +161,82 @@ def test_wrapper_instantiates_every_head_dim_the_configs_reach():
             for table in (registry.ARCHS, registry.SMOKE_ARCHS)
             for c in table.values()}
     assert dims == {16, 20, 64, 80, 128} == set(t_fa.HEAD_DIMS)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's own decisions, on the CPU
+# ---------------------------------------------------------------------------
+
+def _registry_heads():
+    """(hd, H, KH) of every config the registry holds."""
+    from repro_torch.configs import registry
+    out = set()
+    for table in (registry.ARCHS, registry.SMOKE_ARCHS):
+        for c in table.values():
+            a = c.attention
+            out.add((a.resolved_head_dim(c.d_model), a.n_heads,
+                     a.n_kv_heads))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("d,route,depth", [
+    (16, "tma", 16), (20, "pad", 32), (64, "tma", 64), (80, "tma", 80),
+    (128, "tma", 128)])
+def test_route_and_depth_per_head_dim(d, route, depth):
+    """hd 20 alone is padded (its 40-byte head stride breaks TMA's rule),
+    to the next multiple of 16; every other head dim runs as it is."""
+    assert d in t_fa.HEAD_DIMS
+    assert t_fa.route(d) == route and t_fa.depth(d) == depth
+
+
+@pytest.mark.parametrize("hd,h,kh", _registry_heads())
+def test_tma_stride_rule_holds_for_every_registry_config(hd, h, kh):
+    dp = t_fa.depth(hd)
+    assert t_fa.tma_strides_ok(dp, h) and t_fa.tma_strides_ok(dp, kh)
+    # the unpadded hd 20 is what the pad route exists for
+    assert t_fa.tma_strides_ok(hd, kh) == (hd != 20)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 512)])
+@pytest.mark.parametrize("d", [16, 20, 64, 80, 128])
+def test_c_entry_scalars_per_head_dim(d, causal, window):
+    """The C entry runs at the padded depth, stores the true head dim's
+    columns and scales by the true head dim (hd 20: 20**-0.5, not
+    32**-0.5), folded with log2(e) for the kernel's exp2."""
+    dp, d_out, scale_log2, c, w = t_fa.c_args(d, causal, window)
+    assert dp == t_fa.depth(d) and d_out == d <= dp
+    np.testing.assert_allclose(scale_log2 / np.log2(np.e), d ** -0.5,
+                               rtol=1e-12)
+    assert c == int(causal) and w == (window or 0)
+
+
+def test_launch_error_names_the_failing_call():
+    assert "CUresult 1" in t_fa.launch_error(t_fa.ENCODE_ERROR + 1)
+    assert "failed to launch" in t_fa.launch_error(1)
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_refuses_inputs_off_tma_alignment(which, d):
+    """TMA reads 16-byte aligned addresses: a view two bytes into its
+    storage is refused before any launch (and before the device check),
+    at every head dim that goes to the kernel as it is."""
+    q, k, v = _qkv(d=d)
+    t = {"q": q, "k": k, "v": v}[which]
+    shifted = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args = {"q": q, "k": k, "v": v, which: shifted}
+    before = t_fa.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t_fa.flash_attention_gqa(args["q"], args["k"], args["v"])
+    assert t_fa.launches == before
+
+
+def test_wrapper_pads_hd_20_before_its_checks():
+    """hd 20 goes through the pad route: a misaligned view is copied, so
+    only the device check remains to refuse a CPU tensor."""
+    q, k, v = _qkv(d=20)
+    shifted = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_fa.flash_attention_gqa(shifted, k, v)
