@@ -22,6 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gather_rows``, L = 80, D = 16 and 48) and ``sparse_lengths_sum`` on
    poisson bags (empty bags, a padded tail, a bag longer than ``max_l``)
    must also equal ``fused_segment_sum`` over the same bags bit for bit.
+   ``gemm`` runs every DLRM(1) layer at M = 1, 8, 32, 64, 65 and 2048
+   (the cluster split-K tiling, and 3xTF32 for the 512 x 256 layers
+   above 64 rows) and the 33 x 70 x 65 edge case;
+   two launches must give the same bits, and at M <= 64 the first 1, 8
+   and 31 rows of a product must equal the product of those rows alone.
 3. Serve: DLRM(1) at full size (5 x 200,000 x 32 fp32 arena, MLPs
    13-512-256-32 and 47-512-256-1) from a seeded generator, served by
    ``RecEngine(max_l=40, max_batch=32)`` for 512 requests. Every serving
@@ -36,11 +41,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    dense-gradient baseline). (a) ``sls_grad_table`` against its plain
    version at 6,400 and 409,600 positions (two launches bitwise equal,
    and equal bit for bit to the plain version on the CPU, which adds in
-   the same order), and ``gemm`` at the backward shapes. (b) A few steps
+   the same order), and ``gemm_nt`` (dx) and ``gemm_tn`` (dw) at the
+   backward shapes at batch 32 and 2048, each against its plain version
+   and timed against ``torch.matmul`` on the transposed view. (b) A few steps
    of each mode from one set of params on the same numpy batches, each
    on the card and on the CPU path from a copy of the card's state:
    losses, touched rows, MLP params and touched arena rows. (c) Time per step (CUDA events), device busy and
-   idle share (torch.profiler), launches per step. (d) The main path:
+   idle share (torch.profiler), launches per step, the kernels on the
+   card and ``gemm``'s device ms per step. (d) The main path:
    an uncached ``OnlineTrainer`` on the card takes those steps again;
    every kernel must launch exactly as often as the step claims, and the
    run must repeat (b)'s card run bit for bit. Then the training
@@ -293,8 +301,20 @@ PIPE_ATOL = 1e-5
 # Tolerances, kernel against plain version, both fp32 on the card:
 # fused_segment_sum and fused_cached_segment_sum: <= 40 terms of ~1e-2
 # summed in another order.
-# gemm: up to K = 512 products of O(1) values, FMA in order of k against
-# cuBLAS's blocked order; relative error grows ~ sqrt(K) * 6e-8.
+# gemm: up to K = 512 products of O(1) values against cuBLAS's blocked
+# order; relative error grows ~ sqrt(K) * 6e-8. The kernel sums in one of
+# two orders, each fixed by K (and N): on the CUDA cores (M <= 64, or K
+# <= 64, or N <= 32), fmaf in order of k within each cluster rank's slice
+# of K, then the slices in rank order; else 3xTF32 on the tensor cores
+# (lo*hi + hi*lo + hi*hi, the lo*lo term of ~2^-22 of a product
+# dropped), each 32-deep k-tile summed in the tensor core and added to
+# the accumulator in fp32, then the slices in rank order.
+# gemm_long: dw at batch 2048 sums K = 2048 O(1) products, where fp32 in
+# any order lies past TOL["gemm"] from the exact sum: on the H100 the
+# plain version (cuBLAS) itself lies up to 5.8e-5 from the fp64 product
+# at these shapes. Two sums each that close to the truth differ by at
+# most twice that, so atol 1.2e-4: the kernel held to be as accurate as
+# the plain version. Both distances from the fp64 product are printed.
 # fused_cached_segment_sum on a stale cache: hot copies moved by 0.5, so
 # up to 40 terms of ~0.5 and sums up to ~20, whose ulp is ~2e-6 (the
 # first chip run saw 1.4e-6 at 1e-6).
@@ -315,6 +335,7 @@ TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
        "fused_cached_segment_sum": dict(rtol=0.0, atol=1e-6),
        "fused_cached_segment_sum_stale": dict(rtol=0.0, atol=1e-5),
        "gemm": dict(rtol=1e-5, atol=1e-5),
+       "gemm_long": dict(rtol=1e-5, atol=1.2e-4),
        "interaction": dict(rtol=1e-5, atol=1e-5),
        "sls_grad_table": dict(rtol=1e-5, atol=1e-3),
        "flash_attention": dict(rtol=2 ** -7, atol=2 ** -7)}
@@ -628,40 +649,74 @@ def check_cached(arena, cfg, gen) -> tuple:
     return max(errs), rows
 
 
+GEMM_ROWS = (1, 8, 32, 64, 65, LARGE)   # both tilings and their edge
+GEMM_LONG = 512                          # contractions under TOL["gemm"]
+GEMM_PREFIXES = (1, 8, 31)               # rows checked against a full run
+
+
+def _gemm_layers(params) -> list:
+    return [w for w, _ in params["bottom"]] + [w for w, _ in params["top"]]
+
+
 def check_gemm(params, gen) -> tuple:
+    """Every layer at M = 1, 8, 32, 64, 65 and 2048 (both tilings: see
+    ``gm_k.plan``), and the 33 x 70 x 65 edge case, against the plain
+    version; two launches equal bit for bit; at M <= 64 the first m rows
+    of a product equal the m-row product bit for bit. Times at bucket 32
+    and 2048, the six layers summed."""
     name = "gemm"
-    layers = [w for w, _ in params["bottom"]] + [w for w, _ in params["top"]]
+    layers = _gemm_layers(params)
     errs = []
-    for m in (BUCKET, 1):
+    for m in GEMM_ROWS:
         for w in layers:
             x = torch.randn((m, w.shape[0]), generator=gen, device="cuda")
-            errs.append(compare(name, gm_k.gemm(x, w), ref.gemm(x, w),
-                                f"{m} x {w.shape[0]} x {w.shape[1]}"))
+            got = gm_k.gemm(x, w)
+            what = f"{m} x {w.shape[0]} x {w.shape[1]}"
+            errs.append(compare(name, got, ref.gemm(x, w), what))
+            if not torch.equal(got, gm_k.gemm(x, w)):
+                fail(f"{name} {what}: two launches differ")
+            for r in GEMM_PREFIXES if m <= gm_k.CLUSTER_ROWS else ():
+                if r < m and not torch.equal(gm_k.gemm(x[:r].contiguous(), w),
+                                             got[:r]):
+                    fail(f"{name} {what}: rows 0..{r - 1} differ from the "
+                         f"{r}-row product")
     x = torch.randn((33, 70), generator=gen, device="cuda")
     w = torch.randn((70, 65), generator=gen, device="cuda")
     errs.append(compare(name, gm_k.gemm(x, w), ref.gemm(x, w),
                         "33 x 70 x 65 (tile edges)"))
+    print(f"  {name:24s} two launches equal at every shape; rows "
+          f"{GEMM_PREFIXES} equal the full product's at M <= "
+          f"{gm_k.CLUSTER_ROWS}")
     rows = []
     for m in (BUCKET, LARGE):
-        row = {"samples": m, "shape": [], "bound_ms": 0.0, "bytes": 0,
-               "flops": 0}
-        for w in layers:
-            k, n = w.shape
-            x = torch.randn((m, k), generator=gen, device="cuda")
-            row["shape"].append([m, k, n])
-            for key, v in measure(lambda: gm_k.gemm(x, w),
-                                  lambda: ref.gemm(x, w),
-                                  lambda: torch.matmul(x, w)).items():
-                # the six layers' sum; None once any layer has no trace
-                row[key] = (None if v is None or row.get(key, 0.0) is None
-                            else row.get(key, 0.0) + v)
-            row["bytes"] += 4 * (m * k + k * n + m * n)
-            row["flops"] += 2 * m * k * n
-            row["bound_ms"] += bound(4 * (m * k + k * n + m * n),
-                                     2 * m * k * n)[0]
-        row["bound_by"] = bound(row["bytes"], row["flops"])[1]
-        rows.append(row)
+        xs = [torch.randn((m, w.shape[0]), generator=gen, device="cuda")
+              for w in layers]
+        rows.append(_gemm_row(
+            m, [(m, w.shape[0], w.shape[1]) for w in layers],
+            [(lambda x=x, w=w: gm_k.gemm(x, w)) for x, w in zip(xs, layers)],
+            [(lambda x=x, w=w: ref.gemm(x, w)) for x, w in zip(xs, layers)],
+            [(lambda x=x, w=w: torch.matmul(x, w))
+             for x, w in zip(xs, layers)]))
     return max(errs), rows
+
+
+def _gemm_row(samples: int, shapes, kernels, plains, libraries) -> dict:
+    """Times of a list of products (M, K, N), summed: kernel, plain
+    version and library call; the bound of each product summed."""
+    row = {"samples": samples, "shape": [list(s) for s in shapes],
+           "bound_ms": 0.0, "bytes": 0, "flops": 0}
+    for (m, k, n), kern, plain, lib in zip(shapes, kernels, plains,
+                                           libraries):
+        for key, v in measure(kern, plain, lib).items():
+            # the sum; None once any product has no trace
+            row[key] = (None if v is None or row.get(key, 0.0) is None
+                        else row.get(key, 0.0) + v)
+        row["bytes"] += 4 * (m * k + k * n + m * n)
+        row["flops"] += 2 * m * k * n
+        row["bound_ms"] += bound(4 * (m * k + k * n + m * n),
+                                 2 * m * k * n)[0]
+    row["bound_by"] = bound(row["bytes"], row["flops"])[1]
+    return row
 
 
 def check_interaction(cfg, gen) -> tuple:
@@ -912,7 +967,8 @@ def _kernel_group(name: str) -> str:
                           ("embedding_bag", "embedding_bag_kernel"),
                           ("sparse_lengths_sum",
                            "sparse_lengths_sum_kernel"),
-                          ("gemm", "gemm_f32_kernel"),
+                          ("gemm", "gemm_splitk_cluster_kernel"),
+                          ("gemm", "gemm_tf32x3_kernel"),
                           ("interaction", "interaction_kernel"),
                           ("sls_grad_table", "sls_grad_table_kernel")):
         if symbol in name:
@@ -1144,21 +1200,54 @@ def check_sls_grad_table(cfg, gen) -> tuple:
     return max(errs), rows
 
 
-def check_gemm_backward(params, gen) -> float:
-    """The two backward GEMMs of every layer at batch 32: dx = g w^T and
-    dw = x^T g, with the transposes made contiguous as the step does."""
+def check_gemm_backward(params, gen) -> tuple:
+    """The two backward GEMMs of every layer, dx = g w^T (``gemm_nt``) and
+    dw = x^T g (``gemm_tn``), each operand read in place, at batch 32 and
+    2048 against the plain versions; two launches equal bit for bit.
+    Times per batch, the twelve products summed, against
+    ``torch.matmul(g, w.t())`` and ``torch.matmul(x.t(), g)``."""
     name = "gemm"
-    errs = []
-    for w, _ in params["bottom"] + params["top"]:
-        k, n = w.shape
-        gy = torch.randn((BUCKET, n), generator=gen, device="cuda")
-        x = torch.randn((BUCKET, k), generator=gen, device="cuda")
-        wt, xt = w.t().contiguous(), x.t().contiguous()
-        errs.append(compare(name, gm_k.gemm(gy, wt), ref.gemm(gy, wt),
-                            f"dx {BUCKET} x {n} x {k}"))
-        errs.append(compare(name, gm_k.gemm(xt, gy), ref.gemm(xt, gy),
-                            f"dw {k} x {BUCKET} x {n}"))
-    return max(errs)
+    layers = _gemm_layers(params)
+    errs, rows = [], []
+    for b in (BUCKET, LARGE):
+        shapes, kernels, plains, libraries = [], [], [], []
+        for w in layers:
+            k, n = w.shape
+            gy = torch.randn((b, n), generator=gen, device="cuda")
+            x = torch.randn((b, k), generator=gen, device="cuda")
+            for what, kern, plain, lib, shape, tol in (
+                    (f"dx {b} x {n} x {k}", lambda gy=gy, w=w:
+                     gm_k.gemm_nt(gy, w), lambda gy=gy, w=w:
+                     ref.gemm_nt(gy, w), lambda gy=gy, w=w:
+                     torch.matmul(gy, w.t()), (b, n, k), None),
+                    (f"dw {k} x {b} x {n}", lambda x=x, gy=gy:
+                     gm_k.gemm_tn(x, gy), lambda x=x, gy=gy:
+                     ref.gemm_tn(x, gy), lambda x=x, gy=gy:
+                     torch.matmul(x.t(), gy), (k, b, n),
+                     TOL["gemm_long"] if b > GEMM_LONG else None)):
+                got, want = kern(), plain()
+                errs.append(compare(name, got, want, what, tol))
+                if not torch.equal(got, kern()):
+                    fail(f"{name} {what}: two launches differ")
+                if tol is not None:
+                    exact = x.double().t() @ gy.double()
+                    far = [(t.double() - exact).abs().max().item()
+                           for t in (got, want)]
+                    print(f"  {name:24s} {what}: from the fp64 product "
+                          f"kernel {far[0]:.3e}, plain {far[1]:.3e}")
+                shapes.append(shape)
+                kernels.append(kern)
+                plains.append(plain)
+                libraries.append(lib)
+        rows.append(_gemm_row(b, shapes, kernels, plains, libraries))
+        r = rows[-1]
+        print(f"  {name:24s} backward {b:5d} samples (dx and dw of six "
+              f"layers), ms (device ms): kernel {r['ms']:.4f} "
+              f"({_fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} "
+              f"({_fmt(r['plain_device_ms'])}), library {r['library_ms']:.4f}"
+              f" ({_fmt(r['library_device_ms'])}), bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+    return max(errs), rows
 
 
 def train_batches(cfg, n: int, seed: int) -> list:
@@ -1284,6 +1373,7 @@ def profile_train(cfg, params, batch, sparse: bool) -> dict:
                    e.count / TIMED_STEPS, e.key)
                   for e in traces[1].key_averages()), reverse=True)[:12]
     return {"ms_per_step": ms, "device_ms_per_step": groups,
+            "kernels_per_step": _kernel_count(traces[0]) / TIMED_STEPS,
             "device_busy_ms_per_step": busy,
             "device_idle_share": (1.0 - busy / ms) if busy else None,
             "host_stage_ms_per_step": host, "launches_per_step": per_step,
@@ -1306,10 +1396,11 @@ def phase_train(cfg, gen) -> dict:
               f"part { {k: round(v, 5) for k, v in r['device_ms_by_part'].items()} }")
     p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(1), cfg,
                    device="cuda")
-    gemm_err = check_gemm_backward(p0, gen)
+    gemm_err, gemm_rows = check_gemm_backward(p0, gen)
     batches = train_batches(cfg, TRAIN_STEPS, seed=21)
     out = {"sls_grad_table": {"max_abs_err": sls_err, "rows": sls_rows},
-           "gemm_backward_max_abs_err": gemm_err}
+           "gemm_backward_max_abs_err": gemm_err,
+           "gemm_backward_rows": gemm_rows}
     for sparse, mode in ((True, "sparse"), (False, "dense")):
         card = train_card_vs_cpu(cfg, p0, batches, sparse)
         out[mode] = {"steps": card["steps"]}
@@ -1340,6 +1431,9 @@ def phase_train(cfg, gen) -> dict:
               f"{prof['device_busy_ms_per_step']:.4f} ms "
               f"{ {k: round(v, 5) for k, v in prof['device_ms_per_step'].items()} }"
               f", idle share {prof['device_idle_share']}")
+        print(f"  train {mode:6s} gemm device ms per step "
+              f"{prof['device_ms_per_step'].get('gemm', 0.0):.5f}; kernels "
+              f"on the card per step {prof['kernels_per_step']:.1f}")
         print(f"  train {mode:6s} host ms per step inside each stage "
               f"(traced): "
               f"{ {k: round(v, 4) for k, v in prof['host_stage_ms_per_step'].items()} }"
@@ -2896,6 +2990,7 @@ def main() -> None:
     kernels["sls_grad_table"] = trained["sls_grad_table"]
     kernels["gemm"]["max_abs_err"] = max(
         kernels["gemm"]["max_abs_err"], trained["gemm_backward_max_abs_err"])
+    kernels["gemm"]["backward_rows"] = trained["gemm_backward_rows"]
     print("== phase 5: serve DLRM(1) on the cached plan")
     cached = phase_serve_cached(cfg, params, fp_probs)
     print("== phase 6: online refresh of the hot cache on the card")

@@ -11,9 +11,10 @@ two devices at once, are refused.
 ``fused_int4_segment_sum`` and ``interaction`` are
 ``torch.autograd.Function``s whose backward passes do what the
 reference's custom VJPs do: the backward of a GEMM is two GEMMs on the
-same kernel; the backward of every gather-reduce is the
-``sls_grad_table`` segment scatter-add, deterministic on the card (no
-float atomics), with the null row's gradient pinned to zero for the fused
+same kernel, reading the transposed operands in place; the backward of
+every gather-reduce is the ``sls_grad_table`` segment scatter-add,
+deterministic on the card (no float atomics), with the null row's
+gradient pinned to zero for the fused
 forms (twice for the cached one: onto the hot slots with the miss slot
 pinned, and onto the cold ids) and nothing pinned for ``embedding_bag``
 and ``sparse_lengths_sum``; the int4 reduce's gradient reaches its
@@ -55,6 +56,22 @@ def _gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _ref.gemm(x, w)
 
 
+def gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a:(M,K) @ b:(N,K)^T with fp32 accumulation, b read in place: dx of
+    a layer. Forward only, a building block of ``gemm``'s backward."""
+    if _on_cuda(a, b):
+        return _gm.gemm_nt(a, b)
+    return _ref.gemm_nt(a, b)
+
+
+def gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a:(K,M)^T @ b:(K,N) with fp32 accumulation, a read in place: dw of
+    a layer. Forward only, a building block of ``gemm``'s backward."""
+    if _on_cuda(a, b):
+        return _gm.gemm_tn(a, b)
+    return _ref.gemm_tn(a, b)
+
+
 class _Gemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
@@ -63,22 +80,23 @@ class _Gemm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # two GEMMs on the same kernel (dx = g w^T, dw = x^T g); the
-        # kernel takes contiguous operands, so the transposes are copied
+        # two GEMMs on the same kernel (dx = g w^T, dw = x^T g), which
+        # reads the transposed operands in place
         x, w = ctx.saved_tensors
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gemm(g, w.t().contiguous()).to(x.dtype)
+            dx = gemm_nt(g, w).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _gemm(x.t().contiguous(), g).to(w.dtype)
+            dw = gemm_tn(x, g).to(w.dtype)
         return dx, dw
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x:(M,K) @ w:(K,N) with fp32 accumulation (the dense engine).
-    Differentiable: the backward runs the same kernel twice, and skips
-    dx where nothing needs it (the bottom MLP's first layer)."""
+    Differentiable: the backward runs the same kernel twice, on w and x
+    in place (``gemm_nt``, ``gemm_tn``), and skips dx where nothing needs
+    it (the bottom MLP's first layer)."""
     return _Gemm.apply(x, w)
 
 

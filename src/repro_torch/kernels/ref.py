@@ -23,6 +23,16 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+def gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a:(M,K) @ b:(N,K)^T with fp32 accumulation, result in a.dtype."""
+    return torch.matmul(a.float(), b.float().t()).to(a.dtype)
+
+
+def gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a:(K,M)^T @ b:(K,N) with fp32 accumulation, result in a.dtype."""
+    return torch.matmul(a.float().t(), b.float()).to(a.dtype)
+
+
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Fixed-lookup SparseLengthsSum: out[b] = sum_l table[indices[b, l]].
 
