@@ -39,9 +39,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. Train: DLRM(1) at full size, batch 32, both modes of
    ``make_train_step_ragged`` (the row-wise sparse step and the
    dense-gradient baseline). (a) ``sls_grad_table`` against its plain
-   version at 6,400 and 409,600 positions (two launches bitwise equal,
-   and equal bit for bit to the plain version on the CPU, which adds in
-   the same order), and ``gemm_nt`` (dx) and ``gemm_tn`` (dw) at the
+   version at 6,400 and 409,600 positions of the dense id form, on the
+   sparse step's unique-row ids and at the kernel's schedule edges (runs
+   longer than a chunk, runs on both sides of the edges between blocks'
+   rows, one row for every position, ``skip_row`` inside a hot run,
+   tables smaller than one block's rows, D = 1, 6 and 48, unaligned
+   ids): two launches bitwise equal, and equal bit for bit to the plain
+   version on the CPU, which adds in the same order; the wrapper's
+   device time by kernel (its one kernel and nothing else) and its bound
+   with the whole output written, at both sizes and for the sparse
+   step's row gradients; and ``gemm_nt`` (dx) and ``gemm_tn`` (dw) at the
    backward shapes at batch 32 and 2048, each against its plain version
    and timed against ``torch.matmul`` on the transposed view. (b) A few steps
    of each mode from one set of params on the same numpy batches, each
@@ -51,7 +58,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    card and ``gemm``'s device ms per step. (d) The main path:
    an uncached ``OnlineTrainer`` on the card takes those steps again;
    every kernel must launch exactly as often as the step claims, and the
-   run must repeat (b)'s card run bit for bit. Then the training
+   run must repeat (b)'s card run bit for bit; its kernels on the card
+   per step are printed. Then the training
    launcher takes three steps of each mode on the card.
 5. Serve cached: the same 512 requests through
    ``RecEngine(source="cached", cache_k=4096)``. Every probability must
@@ -83,8 +91,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--pipelined``.
 8. Fixed training: 4 steps of ``make_train_step`` at batch 32, card
    against the CPU path from the card's state each step, two card runs
-   equal bit for bit, launches and time per step, and three steps of the
-   training launcher without ``--ragged``.
+   equal bit for bit, launches, kernels and time per step, and three
+   steps of the training launcher without ``--ragged``.
 9. Tiered storage: ``fused_int4_segment_sum`` against its plain version
    (within 1e-6 of each bag's sum of |terms|) and against
    ``fused_segment_sum`` over ``int4_unpack`` (bit for bit) at the
@@ -970,7 +978,8 @@ def _kernel_group(name: str) -> str:
                           ("gemm", "gemm_splitk_cluster_kernel"),
                           ("gemm", "gemm_tf32x3_kernel"),
                           ("interaction", "interaction_kernel"),
-                          ("sls_grad_table", "sls_grad_table_kernel")):
+                          ("sls_grad_table", "sls_grad_table_kernel"),
+                          ("sls_grad_table", "sls_grad_partition_kernel")):
         if symbol in name:
             return group
     low = name.lower()
@@ -1079,67 +1088,120 @@ def phase_serve(cfg, params) -> tuple:
 
 # ---------------------------------------------------------------- phase 4
 
-def _runs(dst: torch.Tensor, null_row: int, n_rows: int) -> dict:
-    """Longest run of one destination in a sorted stream, the null row's
-    run and padding apart."""
-    rows, counts = torch.unique_consecutive(dst, return_counts=True)
-    real = (rows != null_row) & (rows < n_rows)
+def _runs(ids: torch.Tensor, off: torch.Tensor, skip, n_rows: int) -> dict:
+    """Longest run of one destination among the valid positions, the
+    skipped row's run apart, and the rows touched."""
+    pos = torch.arange(ids.numel(), device=ids.device)
+    rows, counts = torch.unique(ids[pos < off[-1]], return_counts=True)
+    real = (rows != (-1 if skip is None else skip)) & (rows < n_rows)
     return {"longest_run": int(counts[real].max()) if real.any() else 0,
-            "null_run": int(counts[rows == null_row].sum()),
+            "skipped_run": int(counts[~real].sum()),
             "touched_rows": int(real.sum())}
 
 
-def _sls_part(name: str) -> str:
-    low = name.lower()
-    if "sls_grad_table_kernel" in name:
-        return "kernel"
-    if "sort" in low:
-        return "sort"
-    if "fill" in low or "memset" in low:
-        return "zero fill"
-    return "other"
+# the wrapper's two kernels: the partition by owner block, and the main one
+SLS_SYMBOLS = ("sls_grad_partition_kernel", "sls_grad_table_kernel")
 
 
 def sls_device_parts(fn, reps: int = 20) -> dict:
-    """Device ms per call of the wrapper's parts: the kernel, the sort,
-    the zero fill and the other small ops (torch.profiler)."""
+    """Device ms per call of each kernel the wrapper runs, and kernels a
+    call (torch.profiler); fails if anything but its two kernels runs. A
+    trace that comes back empty is taken once more, then reported as not
+    measured."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    parts = {}
-    for name, us in _kernel_times_us(prof).items():
-        part = _sls_part(name)
-        parts[part] = parts.get(part, 0.0) + us / 1e3 / reps
-    return parts
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = {name: us / 1e3 / reps
+                 for name, us in _kernel_times_us(prof).items()}
+        if parts:
+            break
+    others = [k for k in parts if not any(s in k for s in SLS_SYMBOLS)]
+    if others:
+        fail(f"sls_grad_table: the wrapper ran more than its kernels: "
+             f"{others}")
+    return {"by_kernel": parts or None,
+            "kernels_per_call": _kernel_count(prof) / reps if parts
+            else None}
+
+
+def sls_row(what: str, samples: int, g, ids, off, n_rows: int,
+            skip) -> dict:
+    """Times of the wrapper at one of the path's calls, beside the plain
+    version, ``zeros`` + ``index_add_`` and the bound: each input read
+    once (ids, offsets, g) and the whole (n_rows, D) output written."""
+    n_bags, d = g.shape
+    pos = torch.arange(ids.numel(), device="cuda", dtype=torch.int32)
+    bag = torch.clamp(torch.searchsorted(off[1:], pos, right=True),
+                      max=n_bags - 1)
+    keep = pos < off[-1]
+    if skip is not None:
+        keep &= ids != skip
+    valid = keep.float()[:, None]
+
+    def kernel():
+        return eg_k.sls_grad_table(g, ids, off, n_rows=n_rows, skip_row=skip)
+
+    bound_ms, by = bound(4 * (ids.numel() + off.numel() + n_bags * d
+                              + n_rows * d), int(keep.sum()) * d)
+    return {"what": what, "samples": samples, "positions": ids.numel(),
+            "n_rows": n_rows, **_runs(ids, off, skip, n_rows),
+            "device_parts": sls_device_parts(kernel),
+            **measure(kernel, lambda: ref.sls_grad_table(g, ids, off, n_rows),
+                      lambda: torch.zeros(n_rows, d, device="cuda")
+                      .index_add_(0, ids, g[bag] * valid)),
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def _hot_ids(gen, n: int, hot: list, n_rows: int) -> torch.Tensor:
+    """n ids: each of the `hot` (row, share) pairs takes its share of
+    the positions, the rest uniform over the table, in random order."""
+    ids = torch.randint(0, n_rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    u = torch.rand(n, generator=gen, device="cuda")
+    edge = 0.0
+    for row, share in hot:
+        ids = torch.where((u >= edge) & (u < edge + share), row, ids)
+        edge += share
+    return ids.to(torch.int32)
 
 
 def check_sls_grad_table(cfg, gen) -> tuple:
     """The kernel at the training path's shapes: the dense-gradient
     backward over the dense id form (null row skipped, 6,400 and 409,600
-    positions), the sparse step's row gradients, and edge cases."""
+    positions), the sparse step's row gradients, and edge cases: runs
+    longer than a chunk, runs on both sides of the boundaries between
+    blocks' rows, one row for every position, skip_row inside a hot run,
+    tables smaller than a block's rows, D = 1, 6 and 48, unaligned ids.
+    Every case must equal the plain version on the CPU bit for bit and
+    repeat bit for bit on a second launch."""
     name = "sls_grad_table"
     spec = dlrm.arena_spec(cfg)
     d = spec.dim
     errs = []
 
-    def check(g, ids, off, n_rows, skip, what):
+    def check(g, ids, off, n_rows, skip, what, card_plain=True):
         k1 = eg_k.sls_grad_table(g, ids, off, n_rows=n_rows, skip_row=skip)
         k2 = eg_k.sls_grad_table(g, ids, off, n_rows=n_rows, skip_row=skip)
         torch.cuda.synchronize()
         if not torch.equal(k1, k2):
             fail(f"{name} {what}: two launches differ")
-        plain = ref.sls_grad_table(g, ids, off, n_rows)
         cpu = ref.sls_grad_table(g.cpu(), ids.cpu(), off.cpu(), n_rows)
         if skip is not None:
-            plain[skip] = 0.0
             cpu[skip] = 0.0
         if not torch.equal(k1.cpu(), cpu):
             fail(f"{name} {what}: differs from the plain version on the "
                  f"CPU by {(k1.cpu() - cpu).abs().max().item()}")
+        if not card_plain:
+            print(f"  {name:24s} {what:34s} equal to the CPU plain version")
+            return
+        plain = ref.sls_grad_table(g, ids, off, n_rows)
+        if skip is not None:
+            plain[skip] = 0.0
         errs.append(compare(name, k1, plain, what))
 
     rows = []
@@ -1151,31 +1213,8 @@ def check_sls_grad_table(cfg, gen) -> tuple:
         g = torch.randn((n_bags, d), generator=gen, device="cuda")
         check(g, ids, off, spec.total_rows, spec.null_row,
               f"dense ids, {ids.numel()} positions")
-        dst, bag = eg_k.sort_by_destination(ids, off, spec.total_rows)
-        runs = _runs(dst, spec.null_row, spec.total_rows)
-        valid = (dst != spec.null_row).float()[:, None]
-        walked = int(valid.sum())
-
-        def kernel():
-            return eg_k.sls_grad_table(g, ids, off, n_rows=spec.total_rows,
-                                       skip_row=spec.null_row)
-
-        # the kernel's own bytes: sorted ids and bag ids, the g rows, the
-        # touched rows written; the zero fill is a bound of its own
-        bound_ms, by = bound(4 * (2 * ids.numel() + n_bags * d
-                                  + runs["touched_rows"] * d), walked * d)
-        rows.append({
-            "samples": b, "positions": ids.numel(), **runs,
-            "device_ms_by_part": sls_device_parts(kernel),
-            **measure(kernel,
-                      lambda: ref.sls_grad_table(g, ids, off,
-                                                 spec.total_rows),
-                      lambda: torch.zeros(spec.total_rows, d,
-                                          device="cuda").index_add_(
-                          0, dst, g[bag] * valid)),
-            "bound_ms": bound_ms, "bound_by": by,
-            "zero_fill_bound_ms": 4 * spec.total_rows * d
-            / HBM_BYTES_PER_S * 1e3})
+        rows.append(sls_row("dense ids", b, g, ids, off, spec.total_rows,
+                            spec.null_row))
     # the sparse step's use: row gradients over unique-row ids, n_rows = N
     rb = DLRMSynthetic(cfg, seed=14).ragged_batch(
         BUCKET, max_l=MAX_L, pad_to=BUCKET * cfg.n_tables * MAX_L)
@@ -1183,9 +1222,11 @@ def check_sls_grad_table(cfg, gen) -> tuple:
     off = torch.from_numpy(rb["offsets"]).cuda()
     flat = se.flatten_ragged_indices(spec, idx, off)
     _, inv = unique_padded(flat, spec.null_row)
+    inv = inv.to(torch.int32)
     g = torch.randn((off.numel() - 1, d), generator=gen, device="cuda")
-    check(g, inv.to(torch.int32), off, flat.numel(), None,
-          "unique-row ids (sparse step)")
+    check(g, inv, off, flat.numel(), None, "unique-row ids (sparse step)")
+    rows.append(sls_row("sparse step row gradients", BUCKET, g, inv, off,
+                        flat.numel(), None))
     check(g, flat, off, spec.total_rows, None, "ragged, padded tail")
     # edges: empty bags and a padded tail, D = 16, no ids at all
     small_off = torch.tensor([0, 0, 3, 3, 7, 9], dtype=torch.int32,
@@ -1197,6 +1238,33 @@ def check_sls_grad_table(cfg, gen) -> tuple:
     check(torch.randn((5, 16), generator=gen, device="cuda"),
           small_ids[:0].contiguous(), torch.zeros_like(small_off), 6, None,
           "N = 0")
+    # the schedule's edges, at the kernels' plan for each shape: 128
+    # blocks own granules of 4 rows (D = 32), chunks of 4,096 positions;
+    # past 8,192 positions the partition kernel runs first
+    v, n = 100_000, 12_000
+    off = torch.arange(0, n + 1, 10, dtype=torch.int32, device="cuda")
+    off[-1] = n - 7                              # a padded tail
+    g = torch.randn((off.numel() - 1, d), generator=gen, device="cuda")
+    for hot, skip, what in (
+            ([(77, 0.75)], None, "a run of ~9,000: three chunks"),
+            ([(77, 0.6), (78, 0.3)], 77, "skip_row inside a hot run"),
+            ([(3, 1.0)], None, "every position on one row"),
+            ([(3, 0.2), (4, 0.2), (511, 0.2), (512, 0.2)], None,
+             "runs on both sides of block edges")):
+        check(g, _hot_ids(gen, n, hot, v), off, v, skip, what,
+              card_plain=False)
+    ids = _hot_ids(gen, n + 1, [(5, 0.5)], v)
+    check(g, ids[1:], off, v, None, "ids not 16-byte aligned",
+          card_plain=False)
+    # no partition (8,000 positions): one row takes both tiles, two chunks
+    check(g[:800].contiguous(), _hot_ids(gen, n, [(9, 1.0)], v)[:8_000],
+          off[:801].contiguous(), v, None, "8,000 on one row, no partition",
+          card_plain=False)
+    for dim, v in ((1, 3), (6, 5), (48, 5), (32, 5), (1, 300)):
+        gd = torch.randn((off.numel() - 1, dim), generator=gen,
+                         device="cuda")
+        check(gd, _hot_ids(gen, n, [(1, 0.5)], v), off, v, 0 if v > 5
+              else None, f"{v} rows, D = {dim}", card_plain=False)
     return max(errs), rows
 
 
@@ -1384,16 +1452,17 @@ def profile_train(cfg, params, batch, sparse: bool) -> dict:
 def phase_train(cfg, gen) -> dict:
     sls_err, sls_rows = check_sls_grad_table(cfg, gen)
     for r in sls_rows:
-        print(f"  sls_grad_table     {r['samples']:5d} samples, "
-              f"{r['positions']} positions (longest run {r['longest_run']},"
-              f" null-row run {r['null_run']}, {r['touched_rows']} rows): "
-              f"ms per call (device ms): kernel {r['ms']:.4f} "
-              f"({_fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} "
-              f"({_fmt(r['plain_device_ms'])}), library "
+        parts = r["device_parts"]
+        print(f"  sls_grad_table     {r['what']}, {r['samples']} samples, "
+              f"{r['positions']} positions into {r['n_rows']} rows (longest "
+              f"run {r['longest_run']}, skipped run {r['skipped_run']}, "
+              f"{r['touched_rows']} rows touched): ms per call (device ms): "
+              f"kernel {r['ms']:.4f} ({_fmt(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ({_fmt(r['plain_device_ms'])}), library "
               f"{r['library_ms']:.4f} ({_fmt(r['library_device_ms'])}), "
-              f"bound {r['bound_ms']:.5f} ({r['bound_by']}), zero fill "
-              f"bound {r['zero_fill_bound_ms']:.5f}; wrapper's device ms by "
-              f"part { {k: round(v, 5) for k, v in r['device_ms_by_part'].items()} }")
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']}); kernels a call "
+              f"{parts['kernels_per_call']}, device ms by kernel "
+              f"{parts['by_kernel']}")
     p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(1), cfg,
                    device="cuda")
     gemm_err, gemm_rows = check_gemm_backward(p0, gen)
@@ -1408,7 +1477,10 @@ def phase_train(cfg, gen) -> dict:
         trainer = OnlineTrainer(cfg, _copy(p0, "cuda"), max_l=MAX_L,
                                 sparse=sparse, device="cuda")
         reset_counts()
-        trainer.train(batches)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as tprof:
+            trainer.train(batches)
+            torch.cuda.synchronize()
         launches = launch_counts()
         for n, k in KERNELS.items():
             if launches[n] != k["per_step"] * TRAIN_STEPS:
@@ -1419,9 +1491,12 @@ def phase_train(cfg, gen) -> dict:
                     tree_leaves(trainer.params),
                     tree_leaves(card["params"]))):
             fail(f"train {mode}: two runs on the card differ")
+        kernels = _kernel_count(tprof) / TRAIN_STEPS
         print(f"  train {mode:6s} OnlineTrainer on the card: launches "
-              f"{launches}; repeats the card run bit for bit")
+              f"{launches}; {kernels:.1f} kernels on the card per step; "
+              f"repeats the card run bit for bit")
         out[mode]["launches"] = launches
+        out[mode]["trainer_kernels_per_step"] = kernels
         batch = {k: torch.from_numpy(batches[0][k]).cuda()
                  for k in TRAIN_KEYS}
         prof = profile_train(cfg, _copy(p0, "cuda"), batch, sparse)
@@ -1432,8 +1507,10 @@ def phase_train(cfg, gen) -> dict:
               f"{ {k: round(v, 5) for k, v in prof['device_ms_per_step'].items()} }"
               f", idle share {prof['device_idle_share']}")
         print(f"  train {mode:6s} gemm device ms per step "
-              f"{prof['device_ms_per_step'].get('gemm', 0.0):.5f}; kernels "
-              f"on the card per step {prof['kernels_per_step']:.1f}")
+              f"{prof['device_ms_per_step'].get('gemm', 0.0):.5f}, "
+              f"sls_grad_table "
+              f"{prof['device_ms_per_step'].get('sls_grad_table', 0.0):.5f}"
+              f"; kernels on the card per step {prof['kernels_per_step']:.1f}")
         print(f"  train {mode:6s} host ms per step inside each stage "
               f"(traced): "
               f"{ {k: round(v, 4) for k, v in prof['host_stage_ms_per_step'].items()} }"
@@ -2023,11 +2100,17 @@ def phase_train_fixed(cfg) -> dict:
         ms = time_ms(one, reps=10, trials=5)
         after = launch_counts()
         dev = device_ms(one, reps=10)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                one()
+            torch.cuda.synchronize()
     per_step = {n: (after[n] - before[n]) / (3 + 50) for n in KERNELS}
+    kernels = _kernel_count(prof) / 10
     idle = (1.0 - dev / ms) if dev else None
     print(f"  train fixed  per step of {BUCKET}: {ms:.4f} ms (CUDA events), "
-          f"device {_fmt(dev)} ms, idle share {idle}; launches per step "
-          f"{per_step}")
+          f"device {_fmt(dev)} ms, idle share {idle}; {kernels:.1f} kernels "
+          f"on the card per step; launches per step {per_step}")
     loss = train_launcher.main(["--arch", "dlrm1", "--steps", "3",
                                 "--log-every", "1"])
     if not np.isfinite(loss):
@@ -2035,6 +2118,7 @@ def phase_train_fixed(cfg) -> dict:
     return {"steps": cmp, "losses": losses, "launches": launches,
             "ms_per_step": ms, "device_ms_per_step": dev,
             "device_idle_share": idle, "launches_per_step": per_step,
+            "kernels_per_step": kernels,
             "launcher_loss": loss}
 
 
@@ -3031,13 +3115,11 @@ def main() -> None:
             "ms": at32["ms"], "plain_ms": at32["plain_ms"],
             "bound_ms": at32["bound_ms"], "bound_by": at32["bound_by"],
             "library_ms": at32["library_ms"],
-            # sls_grad_table: the (V, D) output's zero fill, apart from
-            # the kernel's own bytes; the cached and int4 kernels: the
-            # bound with one row read per position; the int4 kernel: the
-            # labelled reference point (F.embedding_bag over the
-            # dequantized table), not a library call of the same function
-            **{k: at32[k] for k in ("zero_fill_bound_ms",
-                                    "bound_per_position_ms",
+            # the cached and int4 kernels: the bound with one row read
+            # per position; the int4 kernel: the labelled reference point
+            # (F.embedding_bag over the dequantized table), not a library
+            # call of the same function
+            **{k: at32[k] for k in ("bound_per_position_ms",
                                     "reference_point_ms") if k in at32}})
     if args.out is not None:
         args.out.write_text(json.dumps(

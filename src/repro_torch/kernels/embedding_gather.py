@@ -19,18 +19,27 @@ embedding kernels a path went through.
 ``_grad_kernel``, :164): the table gradient of every gather-reduce. On
 the training path it is the backward of ``fused_segment_sum`` and
 ``embedding_bag`` in the dense-gradient steps and of
-``sparse_lengths_sum``, and it sums the touched rows' gradients in the
-sparse step (``training.sparse_optim``).
+``sparse_lengths_sum``, it sums the touched rows' gradients in the
+sparse step (``training.sparse_optim``), and it is the int4 scales'
+backward. The TPU kernel walks the argsorted positions in one
+sequential grid, carries a run's sum in VMEM, flushes it once, and
+aliases a zero table onto the output so that it writes only the rows a
+run visits.
 
-What bounds it on the card: bytes. Each step reads one upstream gradient
-row at a data-dependent address and adds it; the (n_rows, D) zero output
-costs more than the kernel whenever the table is much larger than the
-index stream. The CUDA kernel (``csrc/sls_grad_table.cu``) gives each
-run of equal destinations one warp, which sums it in ascending position
-order and writes the row once: no float atomics, so it is deterministic
-and equals the CPU's ``index_add_`` bit for bit. The sort, the bag id of
-each position and the validity mask stay torch ops here, as they stay
-XLA ops in the reference's wrapper.
+What bounds it on the card: bytes, and at the training path's shapes
+the output write alone -- a (1,000,001, 32) f32 table is 128 MB, against
+a few MB of ids and g rows. So the kernel writes every row exactly once
+and nothing else does: no zero fill, no sort, no bag search outside the
+kernel (``grad_plan`` and ``csrc/sls_grad_table.cu``). Blocks on Hopper
+run in no order, so the kernel cannot carry a sum from block to block as
+the TPU's grid does; each block instead owns a fixed set of rows --
+granules of 512 bytes, dealt round-robin -- and is their only writer:
+it zeroes the rows no position touches and sums each touched row's
+positions in ascending order, with no float atomics. That order is the
+CPU's ``index_add_``'s, from +0.0, so the card's gradient equals the CPU
+plain version bit for bit, and two launches give the same bits. Past
+SCAN_MAX positions a partition kernel first splits the positions by
+owner, so that no block reads every id.
 
 These wrappers take CUDA tensors only; ``kernels.ops`` routes CPU
 tensors to the plain versions in ``kernels.ref``.
@@ -38,7 +47,7 @@ tensors to the plain versions in ``kernels.ref``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -51,8 +60,7 @@ launches = 0
 bag_launches = 0
 sls_launches = 0
 
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int)
+_ARGS = (*(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 12)
 _BAG_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int)
 _SLS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -143,21 +151,108 @@ def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
-def sort_by_destination(indices: torch.Tensor, offsets: torch.Tensor,
-                        n_rows: int):
-    """(dst, bag): the destination row and the bag of every position,
-    stably sorted by destination; padded positions (>= offsets[-1]) get
-    the destination n_rows, which the kernel skips. Both int32."""
-    n = indices.shape[0]
-    n_bags = offsets.shape[0] - 1
-    pos = torch.arange(n, dtype=torch.int32, device=indices.device)
-    seg = torch.searchsorted(offsets[1:], pos, right=True, out_int32=True)
-    # a Python scalar, not a device tensor: copying one to the card
-    # would wait for the stream
-    key = torch.where(pos < offsets[-1], indices, n_rows)
-    dst, order = torch.sort(key, stable=True)
-    bag = torch.clamp(seg, max=n_bags - 1)[order]
-    return dst.contiguous(), bag.contiguous()
+class GradPlan(NamedTuple):
+    """How ``sls_grad_table``'s two kernels cut their work.
+
+    The output rows are cut into granules of ``granule`` rows (about 512
+    bytes each); block q of ``blocks`` owns the granules g with g % blocks ==
+    q, ``rows_per_block`` rows at most, and is the only writer of them.
+    With ``partition``, a first kernel splits each tile of TILE positions
+    by owner; without it (N <= SCAN_MAX) every block tests every id
+    itself. A block of the main kernel sorts at most ``chunk`` of its
+    positions at a time and streams their g rows through STAGES
+    shared-memory tiles of ``tile`` rows. ``smem_bytes`` is the main
+    kernel's dynamic shared memory a block, ``work_words`` the int32
+    scratch the partition writes and the main kernel reads.
+    """
+    blocks: int
+    granule: int
+    rows_per_block: int
+    chunk: int
+    tile: int
+    smem_bytes: int
+    partition: bool
+    work_words: int
+
+
+# the kernels' shape (csrc/sls_grad_table.cu): positions a partition
+# block, the main kernel's compute threads, tiles in flight, words of
+# scratch, and the shared memory a block may use
+TILE = 4096
+COMPUTE_THREADS = 384
+STAGES = 4
+SORT_DIGITS = 256                     # the chunk sort's radix
+SCRATCH_WORDS = 40
+MAX_SMEM = 232448
+# one block an SM of the H100 (132), rounded down to a power of two so
+# that the owner of a granule is its low bits
+BLOCKS = 128
+MAX_BLOCKS = 2048                     # the partition's counters, 164 KB
+GRANULE_BYTES = 512
+MIN_CHUNK = 32
+MAX_CHUNK = 4096                      # = TILE: a tile's entries fit a chunk
+SCAN_MAX = 8192                       # N that every block scans whole
+MAX_ROWS_PER_BLOCK = 1 << 15          # two 4 KB bitmaps of rows
+STAGE_FLOATS = 8192                   # 32 KB a tile
+MAX_POSITIONS = 2 ** 31 - 1 - TILE    # positions in the kernels' int range
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def smem_bytes(dim: int, chunk: int, tile: int, rows_per_block: int) -> int:
+    """The main kernel's shared memory: STAGES tiles of g rows, two
+    carried rows, the keys and bags of a chunk twice (the sort's two
+    buffers), the sort's counters, the bitmaps of touched and written
+    rows, the gathered tiles' offsets and the scratch words."""
+    return 4 * (STAGES * tile * dim + 2 * dim + 4 * chunk
+                + COMPUTE_THREADS // 32 * SORT_DIGITS
+                + 2 * -(-rows_per_block // 32) + 2 * COMPUTE_THREADS
+                + SCRATCH_WORDS)
+
+
+def grad_plan(n: int, n_rows: int, dim: int) -> GradPlan:
+    """The kernels' plan for N positions into an (n_rows, dim) table.
+
+    It depends on these three sizes only, never on the ids, so two calls
+    of one shape run the same schedule; and no choice it makes changes a
+    bit of the result, since every row is summed in position order by
+    the one block that owns it. Granules of GRANULE_BYTES (4 rows at D =
+    32, 128 at D = 1: a table's hottest rows, its first, spread over
+    more blocks); BLOCKS blocks, fewer for a small table (a power of
+    two no larger than its granules), more when a block would own more
+    than MAX_ROWS_PER_BLOCK rows; a chunk of the next power of two >= N,
+    between MIN_CHUNK and MAX_CHUNK; tiles of STAGE_FLOATS floats, at
+    most COMPUTE_THREADS rows and at most a chunk; the partition kernel
+    only past SCAN_MAX positions, where each block reading every id
+    would cost more than one kernel that reads them once.
+    """
+    if n < 0 or n_rows < 1 or dim < 1:
+        raise ValueError(f"grad_plan: n {n}, n_rows {n_rows}, dim {dim}")
+    granule = _pow2_floor(max(1, GRANULE_BYTES // (4 * dim)))
+    granules = -(-n_rows // granule)
+    blocks = min(BLOCKS, _pow2_floor(granules))
+    while -(-granules // blocks) * granule > MAX_ROWS_PER_BLOCK:
+        blocks *= 2
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"sls_grad_table: {n_rows} rows need {blocks} "
+                         f"blocks, more than {MAX_BLOCKS}")
+    rows_per_block = -(-granules // blocks) * granule
+    chunk = min(MAX_CHUNK, max(MIN_CHUNK, _pow2_ceil(n)))
+    tile = max(1, min(COMPUTE_THREADS, chunk, STAGE_FLOATS // dim))
+    smem = smem_bytes(dim, chunk, tile, rows_per_block)
+    if smem > MAX_SMEM:
+        raise ValueError(f"sls_grad_table: dim {dim} needs {smem} bytes of "
+                         f"shared memory a block, more than {MAX_SMEM}")
+    partition = n > SCAN_MAX
+    work = 2 * n + 2 * -(-n // TILE) * blocks if partition else 0
+    return GradPlan(blocks, granule, rows_per_block, chunk, tile, smem,
+                    partition, work)
 
 
 def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
@@ -172,6 +267,11 @@ def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
     each row summed in ascending position order. ``skip_row`` names a
     row left at zero without walking its run (the null row of the dense
     id form, whose gradient the reference pins to zero).
+
+    One launch up to SCAN_MAX positions, else two (a partition of the
+    positions by the block that owns their row first): the main kernel
+    writes every row of the output, zeros included (``grad_plan``,
+    ``csrc/sls_grad_table.cu``).
     """
     global launches
     # ids stay int32: widening to int64 would double the id bytes read
@@ -187,13 +287,23 @@ def sls_grad_table(g: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"{offsets.shape[0]} offsets for {n_bags} bags")
     if not 0 <= n_rows < 2 ** 31:
         raise ValueError(f"n_rows {n_rows} outside the kernel's int32 range")
-    out = torch.zeros((n_rows, d), dtype=torch.float32, device=g.device)
-    if n == 0 or n_bags == 0 or d == 0 or n_rows == 0:
+    if n > MAX_POSITIONS:
+        raise ValueError(f"{n} positions; the kernels take at most "
+                         f"{MAX_POSITIONS}")
+    if n_rows * d >= 2 ** 31:
+        raise ValueError(f"a ({n_rows}, {d}) table has {n_rows * d} "
+                         "elements; the kernel takes 32-bit sizes")
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=g.device)
+    if n_rows == 0 or d == 0:
         return out
-    dst, bag = sort_by_destination(indices, offsets, n_rows)
+    p = grad_plan(n, n_rows, d)
+    work = torch.empty(p.work_words, dtype=torch.int32, device=g.device)
     fn = _build.function("sls_grad_table", "sls_grad_table_f32", _ARGS)
     _build.launch(fn, "sls_grad_table", g.device, g.data_ptr(),
-                  dst.data_ptr(), bag.data_ptr(), out.data_ptr(), n, n_rows,
-                  d, -1 if skip_row is None else int(skip_row))
+                  indices.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), n, n_bags, n_rows, d,
+                  -1 if skip_row is None else int(skip_row), p.blocks,
+                  p.granule, p.chunk, p.tile, p.rows_per_block, p.smem_bytes,
+                  int(p.partition))
     launches += 1
     return out

@@ -9,10 +9,12 @@ scatter back. The sparse update is exact against dense
 to the accumulator and 0 to the row.
 
 The shapes stay static as in the reference: ``rows`` is (N,), the sorted
-unique touched rows padded with the fill row. The per-row sum is
-deterministic: it is the ``sls_grad_table`` segment scatter-add over the
-positions' unique-row ids, which adds each row's positions in ascending
-order without float atomics (``index_add_`` on the card would add them in
+unique touched rows padded with the fill row (``unique_padded``: one
+sort). The per-row sum is deterministic: it is the ``sls_grad_table``
+segment scatter-add over the positions' unique-row ids into an (N, D)
+table, one kernel launch that finds each position's bag itself, adds
+each row's positions in ascending order without float atomics and
+writes the unused slots' zeros (``index_add_`` on the card would add in
 an order that changes from run to run). Nothing here syncs the host.
 
 The per-table group optimizer and the shard projection wait for ROADMAP
