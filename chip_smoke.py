@@ -18,6 +18,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    a warm trace; on a coherent cache it must equal the
    ``fused_segment_sum`` kernel over the arena bit for bit (the hot/cold
    law, on the card), and on a stale one its plain version.
+   ``fused_segment_sum`` must also equal a loop that adds a bag's rows
+   in order of j bit for bit, at every tile depth its plan picks (8 to
+   64 rows): at the serving path's shapes, on bags longer than one tile
+   (70 to 200 rows), at D = 6, 16 and 48 and on a table 4 bytes off
+   16-byte alignment.
+   ``interaction``'s
+   stage (the features, the kept pairs and the concat in one launch) and
+   its backward (one launch) run at B = 1, 9, 32 and 2048 with F = 6 and
+   D = 32 and at F = 51, D = 16: within tolerance of their plain
+   versions, the features exact, two launches and a batch's first
+   samples alone bit for bit, one kernel each way in the profiler, timed
+   beside the five-op composition it replaced and its autograd.
    ``embedding_bag`` at DLRM(1)'s fixed shapes (and L = 1 through
    ``gather_rows``, L = 80, D = 16 and 48) and ``sparse_lengths_sum`` on
    poisson bags (empty bags, a padded tail, a bag longer than ``max_l``)
@@ -204,8 +216,10 @@ TRACE_DIR = None                   # keeps the profiler traces: the --out
 # mode), per served forward on the cached plan, per served forward on the
 # fixed plan, per forward through a reduce_flat-only source, per fixed-L
 # train step and per served forward on the two tiered plans: a step runs
-# the forward (6 gemm), dw of all six layers and dx of five (the bottom
-# MLP's input needs none), and one sls_grad_table -- the table gradient
+# the forward (6 gemm, one interaction stage), dw of all six layers and
+# dx of five (the bottom MLP's input needs none), the interaction stage's
+# backward (one more interaction launch), and one sls_grad_table -- the
+# table gradient
 # in the dense modes, the row gradients in the sparse mode; a tiered
 # forward reduces its hot tier with fused_segment_sum, its int8 warm tier
 # with torch ops and its cold tier with fused_int4_segment_sum or, host
@@ -230,8 +244,8 @@ KERNELS = {
         "module": fi_k, "counter": "launches",
         "source": "src/repro_torch/kernels/csrc/interaction.cu",
         "replaces": "src/repro/kernels/feature_interaction.py:30",
-        "per_forward": 1, "per_step": 1, "per_cached_forward": 1,
-        "per_fixed_forward": 1, "per_flat_forward": 1, "per_fixed_step": 1,
+        "per_forward": 1, "per_step": 2, "per_cached_forward": 1,
+        "per_fixed_forward": 1, "per_flat_forward": 1, "per_fixed_step": 2,
         "per_tiered_forward": 1, "per_host_forward": 1},
     "sls_grad_table": {
         "module": eg_k, "counter": "launches",
@@ -326,7 +340,10 @@ PIPE_ATOL = 1e-5
 # fused_cached_segment_sum on a stale cache: hot copies moved by 0.5, so
 # up to 40 terms of ~0.5 and sums up to ~20, whose ulp is ~2e-6 (the
 # first chip run saw 1.4e-6 at 1e-6).
-# interaction: D = 32 products of O(1) values.
+# interaction: D = 32 products of O(1) values; the same for the stage's
+# kept pairs. interaction_backward: F - 1 <= 50 products of O(1) values
+# (pair gradients and features ~ N(0, 1)) against cuBLAS's order, plus the
+# pass-throughs, as gemm's K <= 64.
 # sls_grad_table: g ~ N(0, 1); the plain version on the card adds with
 # float atomics, in an order that changes from run to run. A run of k <=
 # ~2,200 terms (the hottest Zipf row at 2048 samples) differs between two
@@ -345,6 +362,7 @@ TOL = {"fused_segment_sum": dict(rtol=0.0, atol=1e-6),
        "gemm": dict(rtol=1e-5, atol=1e-5),
        "gemm_long": dict(rtol=1e-5, atol=1.2e-4),
        "interaction": dict(rtol=1e-5, atol=1e-5),
+       "interaction_backward": dict(rtol=1e-5, atol=1e-5),
        "sls_grad_table": dict(rtol=1e-5, atol=1e-3),
        "flash_attention": dict(rtol=2 ** -7, atol=2 ** -7)}
 # flash_attention (phase 10), bf16 on both sides: each output is rounded
@@ -512,13 +530,41 @@ def serving_dense_ids(cfg, batch_size: int, seed: int) -> torch.Tensor:
     return se.ragged_dense_ids(flat, off, max_l=MAX_L, fill=spec.null_row)
 
 
+def in_order(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The bag sum added strictly in order of j from zeros, one torch add
+    a position: the order the embedding kernels keep."""
+    acc = torch.zeros((ids.shape[0], table.shape[1]), device=table.device)
+    for j in range(ids.shape[1]):
+        acc = acc + table[ids[:, j]]
+    return acc
+
+
 def check_fused(arena, cfg, gen) -> tuple:
+    """Against the plain version within tolerance and against the in-order
+    loop bit for bit, at each of the tile depths segment_plan picks (8 to
+    64 rows in steps of 8): the serving path's ids at 32 and 2048
+    samples, max_l = 0, D = 16, bags longer than one tile (70, 97, 130
+    and 200 rows), D = 48 (two passes of 32 columns), D = 6 and a table 4
+    bytes off 16-byte alignment."""
     name = "fused_segment_sum"
     errs = []
     ids32 = serving_dense_ids(cfg, BUCKET, seed=11)
-    errs.append(compare(name, fd_k.fused_segment_sum(arena, ids32),
-                        ref.fused_segment_sum(arena, ids32),
-                        f"ids {tuple(ids32.shape)}"))
+    large = serving_dense_ids(cfg, LARGE, seed=12)
+
+    def check(table, ids, what):
+        got = fd_k.fused_segment_sum(table, ids)
+        errs.append(compare(name, got, ref.fused_segment_sum(table, ids),
+                            what))
+        want = in_order(table, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{name} {what}: differs from the in-order loop by "
+                 f"{(got - want).abs().max().item()}")
+        print(f"  {name:24s} {what:34s} equal to the in-order loop "
+              f"(torch.equal)")
+
+    check(arena, ids32, f"ids {tuple(ids32.shape)}")
+    check(arena, large, f"ids {tuple(large.shape)}")
     empty = ids32[:, :0].contiguous()
     errs.append(compare(name, fd_k.fused_segment_sum(arena, empty),
                         torch.zeros(ids32.shape[0], arena.shape[1],
@@ -526,11 +572,22 @@ def check_fused(arena, cfg, gen) -> tuple:
     small = torch.randn((50, 16), generator=gen, device="cuda")
     small_ids = torch.randint(0, 50, (9, 7), generator=gen, device="cuda",
                               dtype=torch.int32)
-    errs.append(compare(name, fd_k.fused_segment_sum(small, small_ids),
-                        ref.fused_segment_sum(small, small_ids),
-                        "D = 16, B = 9, max_l = 7"))
+    check(small, small_ids, "D = 16, B = 9, max_l = 7")
+    for v, d, b, l in ((300, 32, 37, 200), (300, 48, 9, 97), (300, 6, 9, 45),
+                       (300, 32, 3000, 70), (300, 48, 3000, 130),
+                       (300, 32, 9, 12), (300, 32, 9, 20), (300, 32, 300, 30),
+                       (300, 32, 300, 64)):
+        table = _small_table(gen, v, d)
+        ids = torch.randint(0, v, (b, l), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        check(table, ids, f"D = {d}, B = {b}, max_l = {l}")
+    # rows 4 bytes off 16-byte alignment: the 4-byte copies
+    flat = _small_table(gen, 300 * 32 + 1, 1).reshape(-1)
+    check(flat[1:].view(300, 32), torch.randint(
+        0, 300, (9, 40), generator=gen, device="cuda", dtype=torch.int32),
+        "unaligned table, D = 32")
     rows = []
-    for ids in (ids32, serving_dense_ids(cfg, LARGE, seed=12)):
+    for ids in (ids32, large):
         b, l = ids.shape
         d = arena.shape[1]
         touched = torch.unique(ids).numel()
@@ -727,11 +784,52 @@ def _gemm_row(samples: int, shapes, kernels, plains, libraries) -> dict:
     return row
 
 
+# the interaction stage's shapes (B, T, D), F = T + 1: DLRM(1) at the
+# serving batch, 1, 9 and 2048 samples, and the 50 tables of DLRM(2), (4)
+# and (5) at D = 16
+STAGE_SHAPES = ((BUCKET, 5, 32), (1, 5, 32), (9, 5, 32), (LARGE, 5, 32),
+                (BUCKET, 50, 16), (9, 50, 16))
+
+
+def stage_composition(bot, emb):
+    """The interaction stage as the dense engine ran it before it was one
+    kernel each way: five launches and the autograd of each (the
+    features' cat, the full-matrix kernel, tril_indices made on the card,
+    the gather of the pairs, the cat with the bottom output)."""
+    feats = torch.cat([bot[:, None, :], emb], dim=1)
+    return torch.cat([bot, ops.interaction_tril(feats)], dim=-1), feats
+
+
+def _same_bits(name: str, a, b, what: str) -> None:
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{name} {what}: differs bit for bit")
+    print(f"  {name:24s} {what:34s} equal (torch.equal)")
+
+
+def _stage_kernels(fn) -> int:
+    """Kernels on the card of one call of fn (profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _kernel_count(prof)
+
+
 def check_interaction(cfg, gen) -> tuple:
+    """The full-matrix kernel (the TPU kernel's function) against its
+    plain version and beside bmm; the stage's forward and backward (one
+    launch each) against their plain versions at STAGE_SHAPES, two
+    launches and a batch's first samples alone bit for bit, one kernel
+    each way on the card, timed beside the five-op composition it
+    replaced and its autograd."""
     name = "interaction"
     f, d = cfg.n_interact_features, cfg.emb_dim
     errs = []
-    for shape in ((BUCKET, f, d), (1, f, d), (9, f, d), (3, 4, 16)):
+    for shape in ((BUCKET, f, d), (1, f, d), (9, f, d), (3, 4, 16),
+                  (BUCKET, 51, 16)):
         x = torch.randn(shape, generator=gen, device="cuda")
         errs.append(compare(name, fi_k.interaction(x), ref.interaction(x),
                             f"x {shape}"))
@@ -741,11 +839,87 @@ def check_interaction(cfg, gen) -> tuple:
         xt = x.transpose(1, 2)
         bound_ms, by = bound(4 * (b * f * d + b * f * f), 2 * b * f * f * d)
         rows.append({
-            "samples": b, "shape": [b, f, d],
+            "what": "full X X^T", "samples": b, "shape": [b, f, d],
             **measure(lambda: fi_k.interaction(x),
                       lambda: ref.interaction(x),
                       lambda: torch.bmm(x, xt)),
             "bound_ms": bound_ms, "bound_by": by})
+    for b, t, d in STAGE_SHAPES:
+        bot = torch.randn((b, d), generator=gen, device="cuda")
+        emb = torch.randn((b, t, d), generator=gen, device="cuda")
+        f = t + 1
+        p = f * (f - 1) // 2
+        g = torch.randn((b, d + p), generator=gen, device="cuda")
+        gf = torch.randn((b, f, d), generator=gen, device="cuda")
+        what = f"stage B {b}, F {f}, D {d}"
+        got = fi_k.feature_interaction(bot, emb)
+        want = ref.feature_interaction(bot, emb)
+        errs.append(compare(name, got[0], want[0], what + " out"))
+        _same_bits(name, got[1:], want[1:], what + " feats")
+        _same_bits(name, got, fi_k.feature_interaction(bot, emb),
+                   what + " twice")
+        for grad_feats in (None, gf):
+            back = fi_k.feature_interaction_backward(g, grad_feats, bot, emb)
+            plain = ref.feature_interaction_backward(g, grad_feats, bot, emb)
+            tag = what + (" bwd" if grad_feats is None else " bwd + feats")
+            for got_d, want_d in zip(back, plain):
+                errs.append(compare(name, got_d, want_d, tag,
+                                    TOL["interaction_backward"]))
+            _same_bits(name, back, fi_k.feature_interaction_backward(
+                g, grad_feats, bot, emb), tag + " twice")
+        # a sample's bits do not depend on the batch or the grid (at 2048
+        # a block holds several samples, at 32 one)
+        n = min(BUCKET, b // 2)
+        if n:
+            head = [x[:n].contiguous() for x in (g, bot, emb)]
+            _same_bits(name, [x[:n] for x in got],
+                       fi_k.feature_interaction(*head[1:]),
+                       f"{what}: first {n} alone")
+            _same_bits(name, [x[:n] for x in fi_k.feature_interaction_backward(
+                g, None, bot, emb)], fi_k.feature_interaction_backward(
+                head[0], None, *head[1:]), f"{what} bwd: first {n} alone")
+        if (t, d) != (cfg.n_tables, cfg.emb_dim) or b not in (BUCKET, LARGE):
+            continue
+        # one kernel each way on the card, as the main path runs them
+        leaf_b = bot.clone().requires_grad_()
+        leaf_e = emb.clone().requires_grad_()
+        out, _ = ops.feature_interaction(leaf_b, leaf_e)
+        n_fwd = _stage_kernels(lambda: ops.feature_interaction(bot, emb))
+        n_bwd = _stage_kernels(lambda: torch.autograd.grad(
+            out, (leaf_b, leaf_e), g, retain_graph=True))
+        if (n_fwd, n_bwd) != (1, 1):
+            fail(f"{name} {what}: {n_fwd} kernels forward, {n_bwd} backward"
+                 f"; the stage is one launch each way")
+        old_out, _ = stage_composition(leaf_b, leaf_e)
+        old_kernels = (
+            _stage_kernels(lambda: stage_composition(bot, emb)),
+            _stage_kernels(lambda: torch.autograd.grad(
+                old_out, (leaf_b, leaf_e), g, retain_graph=True)))
+        print(f"  {name:24s} {what}: kernels a call forward / backward "
+              f"{n_fwd} / {n_bwd}; the five-op composition {old_kernels[0]} / "
+              f"{old_kernels[1]}")
+        bound_f = bound(4 * (b * d + b * t * d + b * (d + p) + b * f * d),
+                        2 * b * p * d)
+        rows.append({
+            "what": "stage forward", "samples": b, "shape": [b, t, d],
+            "kernels": n_fwd, "composition_kernels": old_kernels[0],
+            **measure(lambda: fi_k.feature_interaction(bot, emb),
+                      lambda: ref.feature_interaction(bot, emb),
+                      lambda: stage_composition(bot, emb)),
+            "bound_ms": bound_f[0], "bound_by": bound_f[1]})
+        # the main path's backward: the output's gradient alone (the head
+        # drops the features)
+        bound_b = bound(4 * (b * (d + p) + 2 * (b * d + b * t * d)),
+                        2 * b * f * (f - 1) * d)
+        rows.append({
+            "what": "stage backward", "samples": b, "shape": [b, t, d],
+            "kernels": n_bwd, "composition_kernels": old_kernels[1],
+            **measure(
+                lambda: fi_k.feature_interaction_backward(g, None, bot, emb),
+                lambda: ref.feature_interaction_backward(g, None, bot, emb),
+                lambda: torch.autograd.grad(old_out, (leaf_b, leaf_e), g,
+                                            retain_graph=True)),
+            "bound_ms": bound_b[0], "bound_by": bound_b[1]})
     return max(errs), rows
 
 
@@ -926,7 +1100,8 @@ def phase_kernels(cfg, params, gen) -> dict:
                       f"{r['k']}, batch hit rate {r['hit_rate']:.4f}, "
                       f"{r['rows_read']} rows read, bound with one row per "
                       f"position {r['bound_per_position_ms']:.5f} ms")
-            print(f"  {name:24s} {r['samples']:5d} samples, ms per call "
+            print(f"  {name:24s} {r.get('what', ''):14s} "
+                  f"{r['samples']:5d} samples, ms per call "
                   f"(device ms): kernel {r['ms']:.4f} "
                   f"({_fmt(r['device_ms'])}), plain {r['plain_ms']:.4f} "
                   f"({_fmt(r['plain_device_ms'])}), library "
@@ -977,7 +1152,8 @@ def _kernel_group(name: str) -> str:
                            "sparse_lengths_sum_kernel"),
                           ("gemm", "gemm_splitk_cluster_kernel"),
                           ("gemm", "gemm_tf32x3_kernel"),
-                          ("interaction", "interaction_kernel"),
+                          ("interaction", "interaction_forward_kernel"),
+                          ("interaction", "interaction_backward_kernel"),
                           ("sls_grad_table", "sls_grad_table_kernel"),
                           ("sls_grad_table", "sls_grad_partition_kernel")):
         if symbol in name:
@@ -1031,6 +1207,7 @@ def profile_serve(engine, cfg, n_batches: int = 4,
             "device_traced_wall_ms_per_batch": walls[1],
             "host_traced_wall_ms_per_batch": walls[2],
             "device_ms_per_batch": groups, "device_busy_ms_per_batch": busy,
+            "kernels_per_batch": _kernel_count(traces[1]) / n_batches,
             "device_idle_share": (1.0 - busy / walls[0]) if busy else None,
             "host_stage_ms_per_batch": host,
             "device_us_by_kernel": by_name}
@@ -1047,7 +1224,8 @@ def _print_profile(prof: dict, what: str) -> None:
           f"{prof['wall_ms_per_batch']:.4f} ms, device "
           f"{prof['device_busy_ms_per_batch']:.4f} ms "
           f"{ {k: round(v, 5) for k, v in prof['device_ms_per_batch'].items()} }"
-          f", device idle share {prof['device_idle_share']}")
+          f", device idle share {prof['device_idle_share']}, "
+          f"{prof['kernels_per_batch']:.1f} kernels")
     print(f"  {what}: host ms per micro-batch inside each stage (traced, "
           f"{prof['host_traced_wall_ms_per_batch']:.4f} ms per batch): "
           f"{ {k: round(v, 4) for k, v in prof['host_stage_ms_per_batch'].items()} }")
@@ -1960,7 +2138,8 @@ def check_pipelines(cfg, params) -> dict:
                   f"{p.get('idle_share')}, kernels {p.get('kernels')} on "
                   f"streams {p.get('streams')}, overlap "
                   f"{_fmt(p.get('overlap_ms'))} ms (single-shot busy "
-                  f"{_fmt(row['single'].get('device_busy_ms'))} ms)")
+                  f"{_fmt(row['single'].get('device_busy_ms'))} ms, "
+                  f"{row['single'].get('kernels')} kernels)")
     out["launches"] = launches
     return out
 
@@ -3120,7 +3299,19 @@ def main() -> None:
             # (F.embedding_bag over the dequantized table), not a library
             # call of the same function
             **{k: at32[k] for k in ("bound_per_position_ms",
-                                    "reference_point_ms") if k in at32}})
+                                    "reference_point_ms") if k in at32},
+            # interaction: the row above is the TPU kernel's function, the
+            # full X X^T beside bmm; the main path runs the stage, one
+            # launch each way, beside the five-op composition it replaced
+            **{r["what"].replace(" ", "_"): {
+                k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                  "plain_device_ms", "bound_ms", "bound_by",
+                                  "kernels", "composition_kernels")}
+               | {"composition_ms": r["library_ms"],
+                  "composition_device_ms": r["library_device_ms"]}
+               for r in kernels[name]["rows"]
+               if r.get("what", "").startswith("stage")
+               and r["samples"] == BUCKET}})
     if args.out is not None:
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,

@@ -47,8 +47,7 @@ def feature_interaction(bottom_out: torch.Tensor, reduced_embs: torch.Tensor
     bottom-MLP output.
 
     bottom_out: (B, D); reduced_embs: (B, T, D) -> (B, D + F(F-1)/2), and
-    the (B, F, D) features.
+    the (B, F, D) features. One ``interaction`` launch on the card, and
+    one for its backward.
     """
-    feats = torch.cat([bottom_out[:, None, :], reduced_embs], dim=1)
-    pairs = ops.interaction_tril(feats)            # (B, F(F-1)/2)
-    return torch.cat([bottom_out, pairs], dim=-1), feats
+    return ops.feature_interaction(bottom_out, reduced_embs)

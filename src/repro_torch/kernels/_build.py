@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+_SMS: Dict[int, int] = {}
 
 
 def sources() -> List[Path]:
@@ -115,6 +116,19 @@ def build_logs() -> Dict[str, str]:
     """nvcc's output (with ptxas's register and spill report) per kernel
     built into the current build directory."""
     return {p.stem: p.read_text() for p in sorted(build_dir().glob("*.log"))}
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card, read once: the
+    plans that spread work over the SMs take it as an argument."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -9,12 +9,15 @@
 embedding stage of the hot-row cached path (``CachedSource`` over an fp
 arena).
 
-What bounds both on the card: bytes. Every step reads one gathered table
-row at a data-dependent address and adds it, so the time is the row
-reads. The CUDA kernel (``csrc/fused_segment_sum.cu``) gives each bag one
-warp whose lanes span D, so each step is one coalesced 128-byte row at
-D = 32, and it sums in order of j. The cached kernel
-(``csrc/fused_cached_segment_sum.cu``) walks the same way with the hit
+What bounds both on the card: bytes, and at the serving path's sizes
+the issue of the row reads. Every position reads one gathered table row
+at a data-dependent address and adds it. The CUDA kernel
+(``csrc/fused_segment_sum.cu``) gives each bag a warp whose lanes span D,
+so each row is one coalesced 128-byte read, issues all of a chunk's
+reads before its first add, and sums in order of j from 0.f.
+``segment_plan`` sizes the chunk to the bags (40 rows at ``max_l`` 40)
+and the blocks to the card's SMs (batch 32's 160 bags on 80 blocks).
+The cached kernel (``csrc/fused_cached_segment_sum.cu``) walks a warp a bag with the hit
 test inside: per position it reads the one nonzero row, a hot copy (the
 hot arena stays in the 50 MB L2) or a cold arena row, so on a coherent
 cache it equals ``fused_segment_sum`` bit for bit.
@@ -33,6 +36,7 @@ to the plain version in ``kernels.ref``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -45,13 +49,49 @@ cached_launches = 0
 int4_launches = 0
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int)
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int)
 _CACHED_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int)
 _INT4_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int)
+
+
+# fused_segment_sum's tile: at most DEPTH rows of a bag in flight, in
+# steps of DEPTH_STEP (the depths the kernel is built for); blocks of at
+# most MAX_WARPS_PER_BLOCK warps, a warp a bag
+DEPTH = 64
+DEPTH_STEP = 8
+MAX_WARPS_PER_BLOCK = 4
+
+
+class SegmentPlan(NamedTuple):
+    """fused_segment_sum's launch: ``blocks`` of ``warps_per_block``
+    warps, warp w the owner of bag w, each bag read in chunks of
+    ``depth`` rows."""
+    blocks: int
+    warps_per_block: int
+    depth: int
+
+
+def segment_plan(n_bags: int, max_l: int, dim: int, sms: int) -> SegmentPlan:
+    """The launch of a call from its shapes and the card's ``sms``: blocks
+    of as few warps as spread the bags over the SMs, at most
+    ``MAX_WARPS_PER_BLOCK``; a bag split into equal chunks of at most
+    ``DEPTH`` rows, rounded up to ``DEPTH_STEP``, all of a chunk's reads
+    in flight before its first add. The reads past a bag's end are issued
+    too (unpredicated reads stay in flight; PERF.md), so the depth follows
+    ``max_l``. ``dim`` leaves the plan as it is: wider rows go through in
+    passes of 32 columns."""
+    n = max(1, n_bags)
+    per_block = min(MAX_WARPS_PER_BLOCK, -(-n // sms))
+    chunks = max(1, -(-max_l // DEPTH))
+    rows = max(1, -(-max_l // chunks))     # the longest chunk
+    depth = -(-rows // DEPTH_STEP) * DEPTH_STEP
+    return SegmentPlan(blocks=-(-n // per_block), warps_per_block=per_block,
+                       depth=depth)
 
 
 def fused_segment_sum(table: torch.Tensor,
@@ -76,9 +116,14 @@ def fused_segment_sum(table: torch.Tensor,
         return out
     if max_l == 0:
         return out.zero_()
+    if table.shape[0] == 0:
+        # the kernel's reads past a bag's end fall on row 0
+        raise ValueError("an empty table has no row for the ids")
     fn = _build.function("fused_segment_sum", "fused_segment_sum_f32", _ARGS)
+    p = segment_plan(b, max_l, d, _build.sm_count(table.device))
     _build.launch(fn, "fused_segment_sum", table.device, table.data_ptr(),
-                  dense_ids.data_ptr(), out.data_ptr(), b, max_l, d)
+                  dense_ids.data_ptr(), out.data_ptr(), b, max_l, d,
+                  p.blocks, p.warps_per_block, p.depth)
     launches += 1
     return out
 

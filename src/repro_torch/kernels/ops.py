@@ -18,16 +18,22 @@ gradient pinned to zero for the fused
 forms (twice for the cached one: onto the hot slots with the miss slot
 pinned, and onto the cold ids) and nothing pinned for ``embedding_bag``
 and ``sparse_lengths_sum``; the int4 reduce's gradient reaches its
-scales only, one ``sls_grad_table`` walk over one-position bags; and the
-interaction's backward is (G + G^T) X
-in plain torch, as the reference's einsum sits outside any Pallas
-kernel. ``flash_attention`` and ``flash_attention_gqa`` are forward-only,
+scales only, one ``sls_grad_table`` walk over one-position bags.
+``feature_interaction``, the dense engine's whole interaction stage, is
+one ``interaction`` launch each way on the card: the forward writes the
+output and the features from the two inputs read in place, and the
+backward writes both input gradients, the reference's (G + G^T) X over
+the kept triangle (its einsum sits outside any Pallas kernel, but on
+eager CUDA its scatter, transpose-add, ``bmm`` and pass-through adds
+would each be a launch) plus the pass-throughs. ``interaction``, the
+TPU kernel's full (B, F, F), keeps its (G + G^T) X backward in plain
+torch. ``flash_attention`` and ``flash_attention_gqa`` are forward-only,
 as the reference's kernel is: their backward raises.
 Serving runs them under ``torch.inference_mode``, which records nothing.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -376,6 +382,47 @@ def interaction_tril(x: torch.Tensor) -> torch.Tensor:
     f = x.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=x.device)
     return z[:, li, lj]
+
+
+class _FeatureInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bottom_out, reduced_embs):
+        ctx.save_for_backward(bottom_out, reduced_embs)
+        # a feats gradient that nothing produced stays None, and the
+        # backward kernel skips it
+        ctx.set_materialize_grads(False)
+        if _on_cuda(bottom_out, reduced_embs):
+            return _fi.feature_interaction(bottom_out, reduced_embs)
+        return _ref.feature_interaction(bottom_out, reduced_embs)
+
+    @staticmethod
+    def backward(ctx, g, g_feats):
+        bottom_out, reduced_embs = ctx.saved_tensors
+        if g is None and g_feats is None:
+            return None, None
+        if g is None:
+            b, t, d = reduced_embs.shape
+            g = bottom_out.new_zeros((b, d + _fi.n_pairs(t + 1)))
+        if _on_cuda(g, bottom_out, reduced_embs):
+            d_bottom, d_embs = _fi.feature_interaction_backward(
+                g.contiguous(),
+                None if g_feats is None else g_feats.contiguous(),
+                bottom_out, reduced_embs)
+        else:
+            d_bottom, d_embs = _ref.feature_interaction_backward(
+                g, g_feats, bottom_out, reduced_embs)
+        return (d_bottom if ctx.needs_input_grad[0] else None,
+                d_embs if ctx.needs_input_grad[1] else None)
+
+
+def feature_interaction(bottom_out: torch.Tensor, reduced_embs: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense engine's interaction stage (paper Fig. 3): bottom_out (B,
+    D) and reduced_embs (B, T, D) -> (out (B, D + F(F-1)/2) = [bottom_out,
+    tril(X X^T, -1) row-major], feats (B, F, D) = X), F = T + 1.
+    Differentiable in both inputs through both outputs."""
+    return _FeatureInteraction.apply(bottom_out.contiguous(),
+                                     reduced_embs.contiguous())
 
 
 class _FlashAttentionGQA(torch.autograd.Function):

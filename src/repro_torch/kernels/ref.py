@@ -1,9 +1,13 @@
 """Plain PyTorch versions of every ported kernel.
 
-The bag sums reduce a non-innermost dim, which torch adds in order of
-position, as the CUDA kernels do; a masked or fill position adds +0.0,
-which leaves a sum's value as it was. So one bag summed by any of them,
-with or without trailing fill, gives the same bits.
+The bag sums reduce a non-innermost dim with torch's ``sum``; a masked
+or fill position adds +0.0, which leaves a sum's value as it was. So one
+bag summed by any of them, with or without trailing fill, gives the same
+bits. Torch's order within a bag is its own (on the CPU not strictly in
+order of position past a few rows), so the CUDA kernels, which add in
+order of j, agree with these within a tolerance; on the card
+``chip_smoke.py`` also holds ``fused_segment_sum`` bit for bit against a
+loop over j.
 
 ``int4_pack``, ``int4_unpack`` and ``_int4_codes`` have no kernel, in
 the reference either; they are the cold tier's codec.
@@ -14,6 +18,8 @@ against on the card. Same names and semantics as the reference's
 ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -187,6 +193,37 @@ def interaction_tril(x: torch.Tensor) -> torch.Tensor:
     f = x.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=x.device)
     return z[:, li, lj]
+
+
+def feature_interaction(bottom_out: torch.Tensor, reduced_embs: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense engine's interaction stage, as the reference composes it:
+    feats = [bottom_out; reduced_embs] (B, F, D), out = [bottom_out,
+    tril(X X^T, -1)] (B, D + F(F-1)/2). Returns (out, feats)."""
+    feats = torch.cat([bottom_out[:, None, :], reduced_embs], dim=1)
+    return torch.cat([bottom_out, interaction_tril(feats)], dim=-1), feats
+
+
+def feature_interaction_backward(
+        g: torch.Tensor, g_feats: Optional[torch.Tensor],
+        bottom_out: torch.Tensor, reduced_embs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """VJP of ``feature_interaction``: the pair gradients scattered into
+    the triangle, dX = (G + G^T) X as the reference's interaction VJP
+    takes it, plus the feats gradient, and G[:, :D] into the bottom's.
+    Returns (d_bottom (B, D), d_embs (B, T, D))."""
+    d = bottom_out.shape[1]
+    feats = torch.cat([bottom_out[:, None, :], reduced_embs], dim=1).float()
+    f = feats.shape[1]
+    li, lj = torch.tril_indices(f, f, offset=-1, device=g.device)
+    gz = torch.zeros((g.shape[0], f, f), dtype=torch.float32, device=g.device)
+    gz[:, li, lj] = g[:, d:].float()
+    dx = torch.matmul(gz + gz.transpose(1, 2), feats)
+    if g_feats is not None:
+        dx = dx + g_feats.float()
+    d_bottom = g[:, :d].float() + dx[:, 0]
+    return (d_bottom.to(bottom_out.dtype),
+            dx[:, 1:].to(reduced_embs.dtype))
 
 
 # the masked score of the reference's flash kernel: a finite stand-in for
