@@ -15,9 +15,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    never calls) and the least time the card could take (``bound_ms``),
    at bucket 32 and at 2048 samples, with CUDA events (median).
    ``fused_cached_segment_sum`` runs over a K = 4,096 hot cache ranked by
-   a warm trace; on a coherent cache it must equal the
-   ``fused_segment_sum`` kernel over the arena bit for bit (the hot/cold
-   law, on the card), and on a stale one its plain version.
+   a warm trace; on a coherent cache it must equal the in-order loop and
+   the ``fused_segment_sum`` kernel over the arena bit for bit (the
+   hot/cold law, on the card), and on a stale one its plain version; its
+   stage entry (the hit split inside the kernel, one launch) must equal
+   the TPU kernel's form bit for bit, and is timed beside the split's
+   torch ops and the kernel it replaced; both at every tile depth the
+   plan picks, on bags longer than a tile, at D = 6, 16 and 48 and on an
+   arena 4 bytes off 16-byte alignment.
    ``fused_segment_sum`` must also equal a loop that adds a bag's rows
    in order of j bit for bit, at every tile depth its plan picks (8 to
    64 rows): at the serving path's shapes, on bags longer than one tile
@@ -77,9 +82,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``RecEngine(source="cached", cache_k=4096)``. Every probability must
    equal the fp plan's of phase 3 bit for bit and the CPU path's within
    tolerance, the hit rate must equal a numpy recount of the served ids,
-   and each micro-batch must launch ``fused_cached_segment_sum`` once and
-   ``fused_segment_sum`` never; then host and device time per
-   micro-batch. Then the int8 cold arena (``quantize_cold=True``).
+   and each micro-batch must launch ``fused_cached_segment_sum`` once,
+   through its stage entry, and ``fused_segment_sum`` never; then host
+   and device time and the kernels on the card per micro-batch. Then the
+   int8 cold arena (``quantize_cold=True``).
 6. Online refresh: a caching ``OnlineTrainer`` (K = 4,096, a rebuild
    every 10 steps) takes 30 steps of drifting Zipf traffic at batch 32
    while one engine serves. After each rebuild the engine adopts the
@@ -108,8 +114,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. Tiered storage: ``fused_int4_segment_sum`` against its plain version
    (within 1e-6 of each bag's sum of |terms|) and against
    ``fused_segment_sum`` over ``int4_unpack`` (bit for bit) at the
-   serving shape, at 2048 samples and at edge shapes, with its times and
-   bound; the phase 3 requests served on
+   serving shape, at 2048 samples, at every tile depth its plan picks,
+   on long bags, at D = 6 to 48 and on a table 4 bytes off 16-byte
+   alignment, with its times and bound; the phase 3 requests served on
    ``SourceSpec(tiers=TierPolicy(hot=4096, warm=65536, cold="int4"))``
    (the CPU path within tolerance, pooled bags within the quantization
    bound of the fp arena, all-hot bags equal to the fp plan bit for bit)
@@ -300,6 +307,8 @@ def launch_counts() -> dict:
 def reset_counts() -> None:
     for k in KERNELS.values():
         setattr(k["module"], k["counter"], 0)
+    # the cached kernel's stage entry, counted in cached_launches too
+    fd_k.cached_stage_launches = 0
 
 
 @contextlib.contextmanager
@@ -307,11 +316,13 @@ def uncounted():
     """Launches made inside (reference forwards that a main path is held
     against) do not count towards that path."""
     saved = launch_counts()
+    stage = fd_k.cached_stage_launches
     try:
         yield
     finally:
         for n, k in KERNELS.items():
             setattr(k["module"], k["counter"], saved[n])
+        fd_k.cached_stage_launches = stage
 
 # the pipelined forwards against the single-shot ones: every kernel of
 # the port computes a bag, a sample or an output row on its own (gemm in
@@ -612,42 +623,58 @@ def warm_counts(cfg) -> np.ndarray:
                                warm["offsets"])
 
 
-def cached_split(cache, dense, null_row: int):
-    """(slots, cold ids) of a dense id matrix, as CachedSource makes them."""
-    slots = cache.slot_of[dense]
-    return slots, torch.where(slots < cache.k, null_row, dense)
+# (V, D, B, max_l) of the cached kernel's edge cases: every tile depth
+# segment_plan picks (8 at max_l 1, 16 at 12, 24 at 20, 32 at 30, 40 at
+# 40, 48 at 45, 64 at 64, 56 at 97), bags longer than a tile (70 rows in
+# two chunks of 40, 97, 130 in three of 48, 200 in four of 56), D = 48
+# (two passes of 32 columns), 16 and 6
+CACHED_CASES = ((300, 32, 9, 1), (300, 32, 9, 12), (300, 32, 37, 20),
+                (300, 32, 300, 30), (300, 32, 300, 40), (300, 48, 9, 45),
+                (300, 32, 300, 64), (300, 32, 3000, 70), (300, 48, 37, 97),
+                (300, 32, 3000, 130), (300, 32, 37, 200), (300, 16, 9, 45),
+                (300, 6, 9, 45))
 
 
 def check_cached(arena, cfg, gen) -> tuple:
-    """The cached kernel at the serving path's shapes over a K = 4,096
-    cache ranked by a warm trace: against its plain version, against the
-    fused_segment_sum kernel bit for bit (coherent cache), against its
-    plain version on a stale cache, and at edge shapes."""
+    """The cached kernel's two entries over a K = 4,096 cache ranked by a
+    warm trace at the serving path's shapes: the TPU kernel's form
+    against its plain version and, on a coherent cache, bit for bit
+    against the in-order loop over the arena and the fused_segment_sum
+    kernel; the stage form (the hit split in the kernel) bit for bit
+    against the TPU kernel's form, one launch on the card, timed beside
+    the split's torch ops and the kernel it replaced. Then every tile
+    depth the plan picks, bags longer than a tile, D = 48, 16 and 6, an
+    arena 4 bytes off 16-byte alignment, and a stale cache against the
+    plain version."""
     name = "fused_cached_segment_sum"
     spec = dlrm.arena_spec(cfg)
     cache = se.build_hot_cache(arena, spec, warm_counts(cfg), CACHE_K)
     hot = cache.hot_rows
     errs = []
 
-    def law(slots, cold, dense, what):
-        got = fd_k.fused_cached_segment_sum(hot, arena, slots, cold)
-        want = fd_k.fused_segment_sum(arena, dense)
+    def case(c, table, dense, null_row, what):
+        """Both entries on a coherent cache: the TPU kernel's form against
+        the plain version, the in-order loop and fused_segment_sum, the
+        stage form against the TPU kernel's form, all bit for bit."""
+        slots, cold = ref.cached_split(c.slot_of, dense, c.k, null_row)
+        got = fd_k.fused_cached_segment_sum(c.hot_rows, table, slots, cold)
+        errs.append(compare(name, got, ref.fused_cached_segment_sum(
+            c.hot_rows, table, slots, cold), what))
+        want = in_order(table, dense)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"{name} {what}: differs from the fused_segment_sum kernel "
-                 f"by {(got - want).abs().max().item()} on a coherent cache")
-        print(f"  {name:24s} {what:34s} equal to fused_segment_sum "
-              f"(torch.equal)")
+            fail(f"{name} {what}: differs from the in-order loop by "
+                 f"{(got - want).abs().max().item()} on a coherent cache")
+        _same_as_fused(name, got, table, dense, what)
+        _same_bits(name, [got], [fd_k.fused_cached_segment_stage(
+            c.hot_rows, c.slot_of, table, dense)], what + " stage form")
+        return slots, cold
 
     rows = []
     for samples, seed in ((BUCKET, 11), (LARGE, 12)):
         dense = serving_dense_ids(cfg, samples, seed=seed)
-        slots, cold = cached_split(cache, dense, spec.null_row)
         what = f"ids {tuple(dense.shape)}"
-        errs.append(compare(name, fd_k.fused_cached_segment_sum(
-            hot, arena, slots, cold),
-            ref.fused_cached_segment_sum(hot, arena, slots, cold), what))
-        law(slots, cold, dense, what)
+        slots, cold = case(cache, arena, dense, spec.null_row, what)
         b, l = dense.shape
         d = arena.shape[1]
         hits = int((slots < cache.k).sum())
@@ -656,6 +683,7 @@ def check_cached(arena, cfg, gen) -> tuple:
         # misses, the cold rows (the null row of the fill slots included)
         read = torch.where(slots < cache.k, slots, cache.k + 1 + cold)
         touched = torch.unique(read).numel()
+        ids_read = torch.unique(dense).numel()
         bound_ms, by = bound(4 * (2 * b * l + touched * d + b * d), b * l * d)
         rows.append({
             "samples": samples, "shape": [b, l, d], "k": cache.k,
@@ -671,46 +699,81 @@ def check_cached(arena, cfg, gen) -> tuple:
             # were read twice from the L2
             "bound_per_position_ms": bound(4 * (2 * b * l + b * l * d
                                                 + b * d), b * l * d)[0]})
+
+        # the stage form as the cached plan runs it, one launch, beside
+        # the composition it replaced: the split's three torch ops and the
+        # TPU kernel's form
+        def stage():
+            return ops.fused_cached_segment_stage(
+                hot, cache.slot_of, arena, dense, null_row=spec.null_row)
+
+        def composition():
+            s, c = ref.cached_split(cache.slot_of, dense, cache.k,
+                                    spec.null_row)
+            return fd_k.fused_cached_segment_sum(hot, arena, s, c)
+        n_stage = _stage_kernels(stage)
+        n_old = _stage_kernels(composition)
+        if n_stage != 1:
+            fail(f"{name} {what}: the stage form ran {n_stage} kernels")
+        print(f"  {name:24s} {what}: stage form {n_stage} kernel a call, "
+              f"the split and the kernel {n_old}")
+        # the ids, the slot map's entry of each id read, the rows, the out
+        stage_bound = bound(4 * (b * l + ids_read + touched * d + b * d),
+                            b * l * d)
+        rows.append({
+            "what": "stage forward", "samples": samples, "shape": [b, l, d],
+            "kernels": n_stage, "composition_kernels": n_old,
+            **measure(stage, lambda: ref.fused_cached_segment_stage(
+                hot, cache.slot_of, arena, dense, spec.null_row),
+                composition),
+            "bound_ms": stage_bound[0], "bound_by": stage_bound[1]})
     # a stale cache: the hot copies drift from the arena, the kernel serves
     # them as they are (the slot K stays zero)
     dense = serving_dense_ids(cfg, BUCKET, seed=11)
-    slots, cold = cached_split(cache, dense, spec.null_row)
+    slots, cold = ref.cached_split(cache.slot_of, dense, cache.k,
+                                   spec.null_row)
     stale = hot + 0.5
     stale[-1] = 0.0
     got = fd_k.fused_cached_segment_sum(stale, arena, slots, cold)
     errs.append(compare(name, got, ref.fused_cached_segment_sum(
         stale, arena, slots, cold), "stale cache",
         TOL["fused_cached_segment_sum_stale"]))
+    _same_bits(name, [got], [fd_k.fused_cached_segment_stage(
+        stale, cache.slot_of, arena, dense)], "stale cache stage form")
     if torch.equal(got, fd_k.fused_segment_sum(arena, dense)):
         fail(f"{name}: a stale cache served the fresh arena")
-    # edges: max_l 0 and 1, D not a multiple of 32
+    # edges: max_l 0, every tile depth, long bags, narrow and wide rows
     errs.append(compare(name, fd_k.fused_cached_segment_sum(
         hot, arena, slots[:, :0].contiguous(), cold[:, :0].contiguous()),
         torch.zeros(slots.shape[0], arena.shape[1], device="cuda"),
         "max_l = 0"))
-    one = dense[:, :1].contiguous()
-    s1, c1 = cached_split(cache, one, spec.null_row)
-    errs.append(compare(name, fd_k.fused_cached_segment_sum(hot, arena, s1,
-                                                            c1),
-                        ref.fused_cached_segment_sum(hot, arena, s1, c1),
-                        "max_l = 1"))
-    law(s1, c1, one, "max_l = 1")
-    for d in (48, 16):
-        # rows of the arena's scale, so the stated tolerance holds
-        small = 0.01 * torch.randn((300, d), generator=gen, device="cuda")
-        small[-1] = 0.0
-        ids = torch.randint(0, 300, (9, 45), generator=gen, device="cuda",
+    errs.append(compare(name, fd_k.fused_cached_segment_stage(
+        hot, cache.slot_of, arena, dense[:, :0].contiguous()),
+        torch.zeros(slots.shape[0], arena.shape[1], device="cuda"),
+        "max_l = 0, stage form"))
+    case(cache, arena, dense[:, :1].contiguous(), spec.null_row, "max_l = 1")
+
+    def small_cache(table, ids, k):
+        v = table.shape[0]
+        return se.build_hot_cache(table, se.ArenaSpec(1, v - 1,
+                                                      table.shape[1]),
+                                  np.bincount(ids.cpu().numpy().ravel(),
+                                              minlength=v), k)
+    for v, d, b, l in CACHED_CASES:
+        table = _small_table(gen, v, d)
+        ids = torch.randint(0, v, (b, l), generator=gen, device="cuda",
                             dtype=torch.int32)
-        c = se.build_hot_cache(small, se.ArenaSpec(1, 299, d),
-                               np.bincount(ids.cpu().numpy().ravel(),
-                                           minlength=300), 20)
-        s2, c2 = cached_split(c, ids, 299)
-        errs.append(compare(name, fd_k.fused_cached_segment_sum(
-            c.hot_rows, small, s2, c2), ref.fused_cached_segment_sum(
-            c.hot_rows, small, s2, c2), f"D = {d}, B = 9, max_l = 45"))
-        got = fd_k.fused_cached_segment_sum(c.hot_rows, small, s2, c2)
-        if not torch.equal(got, fd_k.fused_segment_sum(small, ids)):
-            fail(f"{name} D = {d}: differs from fused_segment_sum")
+        depth = fd_k.segment_plan(b, l, d, _build.sm_count(ids.device)).depth
+        case(small_cache(table, ids, 20), table, ids, v - 1,
+             f"D = {d}, B = {b}, max_l = {l} (depth {depth})")
+    # rows 4 bytes off 16-byte alignment
+    flat = _small_table(gen, 300 * 32 + 1, 1).reshape(-1)
+    table = flat[1:].view(300, 32)
+    table[-1] = 0.0
+    ids = torch.randint(0, 300, (9, 40), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    case(small_cache(table, ids, 20), table, ids, 299,
+         "unaligned arena, D = 32")
     return max(errs), rows
 
 
@@ -1744,6 +1807,13 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
         fail(f"cached: served {engine.served} of {N_REQUESTS} requests")
     _check_launches(launches, "per_cached_forward", engine.batches,
                     "cached plan")
+    # the kernel through its stage entry: the split made inside it
+    if fd_k.cached_stage_launches != engine.batches:
+        fail(f"cached plan: the stage entry launched "
+             f"{fd_k.cached_stage_launches} times in {engine.batches} "
+             f"micro-batches")
+    print(f"  cached plan: {fd_k.cached_stage_launches} launches of the "
+          f"stage entry, one a micro-batch")
     if not np.array_equal(probs, fp_probs):
         fail(f"cached plan differs from the fp plan by "
              f"{np.abs(probs - fp_probs).max()} (must be equal)")
@@ -1761,6 +1831,9 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
              f"{recount}")
     prof = profile_serve(engine, cfg)
     _print_profile(prof, "cached plan")
+    print(f"  cached plan: {prof['kernels_per_batch']:.1f} kernels a "
+          f"micro-batch on the card (profiler), the hit split inside the "
+          f"gather")
     out = {"launches": launches, "stats": stats, "batches": engine.batches,
            "serve_s": serve_s, "prob_max_abs_err": err,
            "hit_rate_recount": recount, "profile": prof}
@@ -1771,8 +1844,9 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
     launches = launch_counts()
     want = {n: (k["per_cached_forward"] if n in ("gemm", "interaction")
                 else 0) * engine.batches for n, k in KERNELS.items()}
-    if launches != want:
-        fail(f"int8 cold: launches {launches}, expected {want}")
+    if launches != want or fd_k.cached_stage_launches:
+        fail(f"int8 cold: launches {launches}, expected {want}; stage "
+             f"entry {fd_k.cached_stage_launches}")
     _, cpu_probs = serve(cfg, _cpu(params), "cpu", **plan)
     err = float(np.abs(probs - cpu_probs).max())
     err_fp = float(np.abs(probs - fp_probs).max())
@@ -2398,6 +2472,27 @@ def check_int4(params, cfg, counts, gen) -> tuple:
                      "bound_per_position_ms": bound(
                          4 * ids.numel() + ids.numel() * 64 + 4 * b * d,
                          0)[0]})
+    # every tile depth, long bags, D 32 / 48 / 16 / 6 on the cached
+    # kernel's cases, D = 100 (passes of 32 columns), and a table 4 bytes
+    # off 16-byte alignment
+    for v, d, b, l in CACHED_CASES + ((300, 100, 9, 45),):
+        table = _small_table(gen, v, d)
+        packed, scales = ops.int4_pack(table)
+        ids = torch.randint(0, v, (b, l), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        p = fd_k.segment_plan(b, l, d, _build.sm_count(ids.device))
+        errs.append(check_int4_case(
+            packed, scales, ids, d,
+            f"D = {d}, B = {b}, max_l = {l} (depth {p.depth})"))
+    table = _small_table(gen, 300, 32)
+    packed, scales = ops.int4_pack(table)
+    off = torch.empty(300 * 16 + 4, dtype=torch.uint8, device="cuda")
+    shifted = off[4:].view(300, 16)
+    shifted.copy_(packed)
+    ids = torch.randint(0, 300, (9, 40), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    errs.append(check_int4_case(shifted, scales, ids, 32,
+                                "unaligned table, D = 32"))
     # edges: D 7/16/32/48 (an all-zero row among them), max_l 0, bags of
     # fill slots only
     for d in (7, 16, 32, 48):

@@ -41,6 +41,7 @@ from torch.profiler import record_function
 from repro_torch import resolve_device
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
            "SourceSpec", "VersionedSource", "describe_source", "fmt_bytes",
@@ -213,17 +214,15 @@ class CachedSource(EmbeddingSource):
 
     def reduce_dense(self, spec, dense):
         # one pass with the hit test folded into the walk: per position
-        # exactly one of hot_rows[slot] and cold[cold_id] is nonzero
-        slots = self.hot.slot_of[dense]
-        # a Python scalar, not a device tensor: copying one to the card
-        # would wait for the stream
-        cold_ids = torch.where(slots < self.k, spec.null_row, dense)
+        # exactly one of hot_rows[slot] and cold[cold_id] is nonzero. Over
+        # an fp arena the stage op makes the split inside its kernel
         cold = self.cold
         if isinstance(cold, FpArena):
-            return ops.fused_cached_segment_sum(
-                self.hot.hot_rows, cold.arena, slots, cold_ids,
-                dense_ids=dense if self.coherent else None,
+            return ops.fused_cached_segment_stage(
+                self.hot.hot_rows, self.hot.slot_of, cold.arena, dense,
                 null_row=spec.null_row)
+        slots, cold_ids = kref.cached_split(self.hot.slot_of, dense, self.k,
+                                            spec.null_row)
         if isinstance(cold, QuantizedArena):
             rows = self.hot.hot_rows[slots].float() \
                 + cold.q[cold_ids].float() * cold.scales[cold_ids]

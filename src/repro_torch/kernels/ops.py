@@ -7,8 +7,9 @@ reaches a plain version here, and tensors on any other device, or on
 two devices at once, are refused.
 
 ``gemm``, ``embedding_bag`` (and ``gather_rows``), ``sparse_lengths_sum``,
-``fused_segment_sum``, ``fused_cached_segment_sum``,
-``fused_int4_segment_sum`` and ``interaction`` are
+``fused_segment_sum``, ``fused_cached_segment_sum`` (and its stage form
+``fused_cached_segment_stage``), ``fused_int4_segment_sum`` and
+``interaction`` are
 ``torch.autograd.Function``s whose backward passes do what the
 reference's custom VJPs do: the backward of a GEMM is two GEMMs on the
 same kernel, reading the transposed operands in place; the backward of
@@ -240,6 +241,22 @@ def fused_segment_sum(table: torch.Tensor, dense_ids: torch.Tensor, *,
                                   None if null_row is None else int(null_row))
 
 
+def _cached_grads(ctx, g, slots, cold_ids, hot: bool, arena: bool):
+    """The cached reduce's gradients, as the reference's
+    (kernels/ops.py:248-257): the hot gradient over the slots with the
+    miss slot (the last hot row) pinned, the arena gradient over the
+    redirected cold ids with the null row pinned."""
+    n_hot, n_arena = ctx.shapes
+    d_hot = d_arena = None
+    if hot:
+        d_hot = _dense_grad_table(g, slots, n_hot,
+                                  n_hot - 1).to(ctx.dtypes[0])
+    if arena:
+        d_arena = _dense_grad_table(g, cold_ids, n_arena,
+                                    ctx.null_row).to(ctx.dtypes[1])
+    return d_hot, d_arena
+
+
 class _FusedCachedSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hot_rows, arena, slots, cold_ids, null_row):
@@ -255,25 +272,14 @@ class _FusedCachedSegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # as the reference (kernels/ops.py:248-257): the hot gradient over
-        # the slots with the miss slot (the last hot row) pinned, the
-        # arena gradient over the redirected cold ids with the null row
-        # pinned
         slots, cold_ids = ctx.saved_tensors
-        n_hot, n_arena = ctx.shapes
-        d_hot = d_arena = None
-        if ctx.needs_input_grad[0]:
-            d_hot = _dense_grad_table(g, slots, n_hot,
-                                      n_hot - 1).to(ctx.dtypes[0])
-        if ctx.needs_input_grad[1]:
-            d_arena = _dense_grad_table(g, cold_ids, n_arena,
-                                        ctx.null_row).to(ctx.dtypes[1])
-        return d_hot, d_arena, None, None, None
+        return (*_cached_grads(ctx, g, slots, cold_ids,
+                               ctx.needs_input_grad[0],
+                               ctx.needs_input_grad[1]), None, None, None)
 
 
 def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
                              slots: torch.Tensor, cold_ids: torch.Tensor, *,
-                             dense_ids: Optional[torch.Tensor] = None,
                              null_row: Optional[int] = None) -> torch.Tensor:
     """One-pass hot/cold segmented reduce with the hit test in the kernel:
     ``out[b] = sum_j hot_rows[slots[b, j]] + arena[cold_ids[b, j]]``, f32
@@ -282,17 +288,52 @@ def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
     hot_rows (K+1, D) has the zero miss slot K; slots and cold_ids are
     (B, max_l) over the same bags, a hit's cold id redirected to the zero
     ``null_row``. Gradients reach both tables, the miss slot's and
-    ``null_row``'s pinned to zero. ``dense_ids``, the matrix before the
-    split, is the reference's declaration that the cache is coherent: its
-    XLA lowering then reduces the arena alone. The card has no such
-    trade-off, so the port takes the two-table walk with or without it.
+    ``null_row``'s pinned to zero. (The reference's ``dense_ids``, its
+    declaration that the cache is coherent, has no counterpart: the card
+    takes the two-table walk either way.)
     """
-    if dense_ids is not None and dense_ids.shape != slots.shape:
-        raise ValueError(f"dense_ids {tuple(dense_ids.shape)} and slots "
-                         f"{tuple(slots.shape)} differ")
     return _FusedCachedSegmentSum.apply(
         hot_rows, arena, slots, cold_ids,
         None if null_row is None else int(null_row))
+
+
+class _FusedCachedSegmentStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hot_rows, slot_of, arena, dense_ids, null_row):
+        ctx.save_for_backward(slot_of, dense_ids)
+        ctx.shapes = (hot_rows.shape[0], arena.shape[0])
+        ctx.dtypes = (hot_rows.dtype, arena.dtype)
+        ctx.null_row = null_row
+        if _on_cuda(hot_rows, slot_of, arena, dense_ids):
+            return _fd.fused_cached_segment_stage(hot_rows, slot_of, arena,
+                                                  dense_ids)
+        return _ref.fused_cached_segment_stage(hot_rows, slot_of, arena,
+                                               dense_ids, null_row)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the split recomputed from the saved slot map and ids, then the
+        # two-matrix op's gradients
+        slot_of, dense_ids = ctx.saved_tensors
+        slots, cold_ids = _ref.cached_split(slot_of, dense_ids,
+                                            ctx.shapes[0] - 1, ctx.null_row)
+        d_hot, d_arena = _cached_grads(ctx, g, slots, cold_ids,
+                                       ctx.needs_input_grad[0],
+                                       ctx.needs_input_grad[2])
+        return d_hot, None, d_arena, None, None
+
+
+def fused_cached_segment_stage(hot_rows: torch.Tensor, slot_of: torch.Tensor,
+                               arena: torch.Tensor, dense_ids: torch.Tensor,
+                               *, null_row: int) -> torch.Tensor:
+    """The cached plan's embedding stage: the hit split of ``dense_ids``
+    (slots ``slot_of[dense]``, a hit's cold id redirected to the zero
+    ``null_row``) and ``fused_cached_segment_sum`` over it, f32 (B, D).
+    One launch on the card, which makes the split itself; on the CPU the
+    split's torch ops and the plain version. Gradients reach both tables
+    as ``fused_cached_segment_sum``'s do."""
+    return _FusedCachedSegmentStage.apply(hot_rows, slot_of, arena,
+                                          dense_ids, int(null_row))
 
 
 def int4_pack(a32: torch.Tensor):

@@ -107,6 +107,27 @@ def fused_cached_segment_sum(hot_rows: torch.Tensor, arena: torch.Tensor,
     return rows.sum(dim=1)
 
 
+def cached_split(slot_of: torch.Tensor, dense_ids: torch.Tensor, k: int,
+                 null_row: int):
+    """The hit split of a dense id matrix: (slots ``slot_of[dense]``, cold
+    ids with each hit redirected to ``null_row``), as ``CachedSource``
+    makes it."""
+    slots = slot_of[dense_ids]
+    # a Python scalar, not a device tensor: copying one to the card would
+    # wait for the stream
+    return slots, torch.where(slots < k, null_row, dense_ids)
+
+
+def fused_cached_segment_stage(hot_rows: torch.Tensor, slot_of: torch.Tensor,
+                               arena: torch.Tensor, dense_ids: torch.Tensor,
+                               null_row: int) -> torch.Tensor:
+    """The cached stage: the hit split of ``dense_ids`` through
+    ``slot_of``, then ``fused_cached_segment_sum`` over it, f32 (B, D)."""
+    slots, cold_ids = cached_split(slot_of, dense_ids,
+                                   hot_rows.shape[0] - 1, null_row)
+    return fused_cached_segment_sum(hot_rows, arena, slots, cold_ids)
+
+
 def int4_pack(a32: torch.Tensor):
     """Row-wise symmetric int4 quantize + nibble-pack (the cold tier).
 

@@ -95,9 +95,11 @@ def test_cached_op_matches_jax_on_any_tables(v, k, d, b, l):
 
 @pytest.mark.parametrize("coherent", [False, True])
 def test_cached_op_and_grads_match_jax(coherent):
-    """Both forms (with and without dense_ids) and the gradients of both
-    tables against jax.grad of the reference op, with the miss slot and
-    the null row pinned to zero."""
+    """The op and the gradients of both tables against jax.grad of the
+    reference op in both its forms (with and without dense_ids, its
+    coherent lowering), with the miss slot and the null row pinned to
+    zero. The port has one form: the card takes the two-table walk
+    either way."""
     rng = np.random.RandomState(7)
     v, d, b, l, k = 90, 16, 6, 5, 12
     null = v - 1
@@ -109,9 +111,8 @@ def test_cached_op_and_grads_match_jax(coherent):
     dense_kw = {"dense_ids": ids} if coherent else {}
 
     th, ta = _t(hot).requires_grad_(), _t(arena).requires_grad_()
-    out = ops.fused_cached_segment_sum(
-        th, ta, _t(slots), _t(cold), null_row=null,
-        **{k_: _t(x) for k_, x in dense_kw.items()})
+    out = ops.fused_cached_segment_sum(th, ta, _t(slots), _t(cold),
+                                       null_row=null)
     (out * _t(g_out)).sum().backward()
 
     def f(h, a):
@@ -460,6 +461,3 @@ def test_cached_op_refuses_mixed_and_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fused_cached_segment_sum(
             **_cached_args(arena=torch.zeros(5, 4, device="meta")))
-    with pytest.raises(ValueError, match="dense_ids"):
-        ops.fused_cached_segment_sum(
-            **_cached_args(), dense_ids=torch.zeros(1, 1, dtype=torch.int32))
