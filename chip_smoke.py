@@ -38,7 +38,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``embedding_bag`` at DLRM(1)'s fixed shapes (and L = 1 through
    ``gather_rows``, L = 80, D = 16 and 48) and ``sparse_lengths_sum`` on
    poisson bags (empty bags, a padded tail, a bag longer than ``max_l``)
-   must also equal ``fused_segment_sum`` over the same bags bit for bit.
+   must also equal ``fused_segment_sum`` over the same bags bit for bit,
+   and two launches must give the same bits: at every depth their plans
+   pick (``embedding_bag`` 1 for ``gather_rows`` and 8 to 64, long bags
+   of 80, 130 and 200 in equal chunks; ``sparse_lengths_sum`` 8 to 40,
+   bounds up to 200 in chunks of 40), on a table whose row 0 is 1e6 and
+   no bag's id (a read
+   past a bag's end that was added would show), with a padded tail of
+   out-of-range ids (-1 and V + 7) that must never be loaded, and for
+   ``sparse_lengths_sum`` at the host tier's bound (``HostTier.reduce_flat``,
+   ``max_l`` the stream's length, equal to its ``reduce_dense``); each
+   kernel's plan and ptxas's registers and spills are printed.
    ``gemm`` runs every DLRM(1) layer at M = 1, 8, 32, 64, 65 and 2048
    (the cluster split-K tiling, and 3xTF32 for the 512 x 256 layers
    above 64 rows) and the 33 x 70 x 65 edge case;
@@ -96,12 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``publish_source()`` must serve the live forward.
 7. Fixed serving and the hybrid pipeline: 512 fixed-L requests (L = 20)
    through ``RecEngine(source="fixed")``: one ``embedding_bag`` launch
-   per micro-batch and no ``fused_segment_sum``, probabilities within
-   tolerance of the CPU path and equal bit for bit to the ragged fp
-   plan's on the same bags. The flat route: the phase 3 requests served
-   through a source that implements ``reduce_flat`` alone (the base
-   class's fallback onto ``sparse_lengths_sum``), equal bit for bit to
-   phase 3's probabilities. The two-stream pipelines
+   per micro-batch (``bag_plan``: 160 bags of 20 rows, one chunk of 24)
+   and no ``fused_segment_sum``, probabilities within tolerance of the
+   CPU path and equal bit for bit to the ragged fp plan's on the same
+   bags. The flat route: the phase 3 requests served through a source
+   that implements ``reduce_flat`` alone (the base class's fallback onto
+   ``sparse_lengths_sum``, one launch a micro-batch, ``sls_plan``: one
+   chunk of 40), equal bit for bit to phase 3's probabilities. The
+   two-stream pipelines
    (``pipelined_forward``, ``pipelined_forward_ragged``, 4 micro-batches)
    against the single-shot forwards at bucket 32 and at 2048 samples,
    their launches, device time, idle share and whether the two streams'
@@ -162,6 +174,7 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -194,6 +207,7 @@ from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
                                  Request, requests_from_ragged_batch)
 from repro_torch.storage import tiered as st  # noqa: E402
+from repro_torch.storage.host_store import HostTier  # noqa: E402
 from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
                                   VersionedHotCache, VersionedSource,
                                   make_drifting_zipf, unique_padded)
@@ -1014,25 +1028,101 @@ def _small_table(gen, v: int, d: int) -> torch.Tensor:
     return t
 
 
+# a row 0 of 1e6 that no bag names: a read past a bag's end that was
+# added would show far past the tolerance
+ROW0 = 1e6
+# the bag lengths (embedding_bag) and bounds (sparse_lengths_sum) that
+# reach every depth the plans pick: embedding_bag 1 (gather_rows' own),
+# 8, 16 (12), 24 (20), 32 (30), 40, 48 (45), 56, 64, and long bags in
+# equal chunks (80 in two of 40, 130 in three of 48, 200 in four of 56);
+# sparse_lengths_sum 8 to 40 (SLS_DEPTH), every bound from 40 up in
+# chunks of 40
+PLAN_LENGTHS = (1, 8, 12, 20, 30, 40, 45, 56, 64, 80, 130, 200)
+PLAN_BAGS = 301                    # blocks of three warps, the last part-full
+
+
+def _row0_table(gen, v: int, d: int) -> torch.Tensor:
+    """_small_table with row 0 at ROW0; the last row is the zero null
+    row."""
+    t = _small_table(gen, v, d)
+    t[0] = ROW0
+    return t
+
+
+def _row0_stream(v: int, b: int, max_l: int, seed: int) -> tuple:
+    """Poisson bags (mean max_l / 2, every fifth empty, bag 1 three rows
+    longer than max_l) of ids in 1 .. v-2, then a padded tail of
+    out-of-range ids (-1 and v + 7) that no kernel may load."""
+    rng = np.random.RandomState(seed)
+    lens = np.minimum(rng.poisson(max_l / 2, b), max_l)
+    lens[::5] = 0
+    lens[1] = max_l + 3
+    off = np.zeros(b + 1, np.int32)
+    np.cumsum(lens, out=off[1:])
+    ids = np.concatenate([rng.randint(1, v - 1, int(off[-1])),
+                          np.tile([-1, v + 7], 5)]).astype(np.int32)
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(off).cuda()
+
+
+def _plan(p) -> str:
+    return (f"{p.blocks} blocks x {p.warps_per_block} warps, depth "
+            f"{p.depth}")
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's registers and spills for each instantiation of a kernel,
+    from its build log: one line a template depth."""
+    out, depth, spill = [], None, ""
+    for line in _build.build_logs().get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"ILi(\d+)E", line)
+            depth = m.group(1) if m else "?"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and depth is not None:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"depth {depth}: {regs} registers, {spill}")
+            depth = None
+    return out
+
+
+def _print_ptxas(name: str) -> None:
+    for line in ptxas_report(name):
+        print(f"  {name:24s} ptxas {line}")
+
+
+def _same_launches(name: str, fn, what: str) -> None:
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name} {what}: two launches differ")
+
+
 def check_embedding_bag(arena, cfg, gen) -> tuple:
     """embedding_bag at DLRM(1)'s fixed shapes (and gather_rows, L = 80,
     D = 16 and 48): against its plain version, and bit for bit against
-    fused_segment_sum over the same bags padded with null-row fill."""
+    fused_segment_sum over the same bags padded with null-row fill; two
+    launches equal. Then at every depth bag_plan picks (PLAN_LENGTHS) on
+    a table whose row 0 is ROW0 and no bag's id."""
     name = "embedding_bag"
     spec = dlrm.arena_spec(cfg)
     errs, rows = [], []
+    _print_ptxas(name)
 
     def check(table, ids, null_row, what):
         got = eg_k.embedding_bag(table, ids)
         errs.append(compare(name, got, ref.embedding_bag(table, ids), what))
         fill = torch.full_like(ids, null_row)
         _same_as_fused(name, got, table, torch.cat([ids, fill], 1), what)
+        _same_launches(name, lambda: eg_k.embedding_bag(table, ids), what)
 
     for samples, seed in ((BUCKET, 31), (LARGE, 32)):
         ids = fixed_ids(cfg, samples, seed)
-        check(arena, ids, spec.null_row, f"ids {tuple(ids.shape)}")
         b, n_l = ids.shape
         d = arena.shape[1]
+        p = eg_k.bag_plan(b, n_l, d, _build.sm_count(ids.device))
+        check(arena, ids, spec.null_row, f"ids {tuple(ids.shape)}")
+        print(f"  {name:24s} plan at {tuple(ids.shape)}: {_plan(p)}")
         touched = torch.unique(ids).numel()
         bound_ms, by = bound(4 * (ids.numel() + touched * d + b * d),
                              ids.numel() * d)
@@ -1060,6 +1150,18 @@ def check_embedding_bag(arena, cfg, gen) -> tuple:
         ids = torch.randint(0, 299, (9, 45), generator=gen, device="cuda",
                             dtype=torch.int32)
         check(small, ids, 299, f"D = {d}, B = 9, L = 45")
+    for n_l in PLAN_LENGTHS:
+        table = _row0_table(gen, 300, 32)
+        ids = torch.randint(1, 299, (PLAN_BAGS, n_l), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        p = eg_k.bag_plan(PLAN_BAGS, n_l, 32, _build.sm_count(ids.device))
+        check(table, ids, 299, f"L = {n_l}, row 0 {ROW0:g}: {_plan(p)}")
+        if n_l == 1:
+            got = eg_k.gather_rows(table, ids[:, 0].contiguous())
+            torch.cuda.synchronize()
+            if not torch.equal(got, table[ids[:, 0]]):
+                fail(f"{name} gather_rows at depth 1: differs from "
+                     "table[ids]")
     return max(errs), rows
 
 
@@ -1072,6 +1174,7 @@ def check_sls(arena, cfg, gen) -> tuple:
     name = "sparse_lengths_sum"
     spec = dlrm.arena_spec(cfg)
     errs, rows = [], []
+    _print_ptxas(name)
 
     def check(table, ids, off, max_l, null_row, what):
         got = eg_k.sparse_lengths_sum(table, ids, off, max_l=max_l)
@@ -1079,6 +1182,9 @@ def check_sls(arena, cfg, gen) -> tuple:
             table, ids, off, max_l), what))
         dense = se.ragged_dense_ids(ids, off, max_l=max_l, fill=null_row)
         _same_as_fused(name, got, table, dense, what)
+        _same_launches(name, lambda: eg_k.sparse_lengths_sum(
+            table, ids, off, max_l=max_l), what)
+        return got
 
     for samples, seed in ((BUCKET, 11), (LARGE, 12)):
         rb = DLRMSynthetic(cfg, seed=seed).ragged_batch(
@@ -1087,10 +1193,12 @@ def check_sls(arena, cfg, gen) -> tuple:
         off = torch.from_numpy(rb["offsets"]).cuda()
         flat = se.flatten_ragged_indices(
             spec, torch.from_numpy(rb["indices"]).cuda(), off)
-        check(arena, flat, off, MAX_L, spec.null_row,
-              f"{off.numel() - 1} poisson bags, padded")
         n_valid = int(rb["offsets"][-1])
         b, d = off.numel() - 1, arena.shape[1]
+        check(arena, flat, off, MAX_L, spec.null_row,
+              f"{off.numel() - 1} poisson bags, padded")
+        p = eg_k.sls_plan(b, MAX_L, d, _build.sm_count(off.device))
+        print(f"  {name:24s} plan at {b} bags, max_l {MAX_L}: {_plan(p)}")
         valid = flat[:n_valid].contiguous()
         touched = torch.unique(valid).numel()
         bound_ms, by = bound(4 * (n_valid + (b + 1) + touched * d + b * d),
@@ -1128,6 +1236,16 @@ def check_sls(arena, cfg, gen) -> tuple:
         fail(f"{name} bag longer than max_l: {got.tolist()}")
     print(f"  {name:24s} {'bag of 5 at max_l = 2':34s} sums its first 2 "
           f"rows, as the Pallas kernel")
+    # every depth sls_plan picks, on a table whose row 0 is ROW0 and no
+    # bag's id, with empty bags, a bag longer than max_l and a padded tail
+    # of out-of-range ids
+    for max_l in PLAN_LENGTHS:
+        table = _row0_table(gen, 300, 32)
+        ids, off = _row0_stream(300, PLAN_BAGS, max_l, seed=max_l)
+        p = eg_k.sls_plan(PLAN_BAGS, max_l, 32, _build.sm_count(ids.device))
+        check(table, ids, off, max_l, 299,
+              f"max_l = {max_l}, row 0 {ROW0:g}, tail -1 and V + 7: "
+              f"{_plan(p)}")
     # the cached source's flat form: hot slots and cold redirects, each
     # through the kernel, against the fp arena's flat form
     rb = DLRMSynthetic(cfg, seed=11).ragged_batch(
@@ -1143,6 +1261,27 @@ def check_sls(arena, cfg, gen) -> tuple:
                         es.FpArena(arena).reduce_flat(spec, flat, off,
                                                       max_l=MAX_L),
                         "CachedSource.reduce_flat"))
+    # the host tier's flat form, whose bound is the stream's length: a
+    # staging arena whose row 0 is ROW0 and no arena row's slot
+    staging = _row0_table(gen, STAGING + 1, arena.shape[1])
+    slot_of = (torch.arange(arena.shape[0], device="cuda") * 7919
+               % (STAGING - 1) + 1).int()
+    slot_of[spec.null_row] = STAGING
+    tier = HostTier(staging=staging, slot_of=slot_of)
+    n = flat.shape[0]
+    p = eg_k.sls_plan(off.numel() - 1, n, staging.shape[1],
+                      _build.sm_count(off.device))
+    got = check(staging, slot_of[flat], off, n, STAGING,
+                f"host tier, max_l = {n}: {_plan(p)}")
+    flat_form = tier.reduce_flat(spec, flat, off, max_l=MAX_L)
+    dense = se.ragged_dense_ids(flat, off, max_l=MAX_L, fill=spec.null_row)
+    torch.cuda.synchronize()
+    if not (torch.equal(flat_form, got)
+            and torch.equal(flat_form, tier.reduce_dense(spec, dense))):
+        fail(f"{name}: HostTier.reduce_flat differs from its kernel call or "
+             "from reduce_dense")
+    print(f"  {name:24s} {'HostTier.reduce_flat':34s} equal to its "
+          "reduce_dense (torch.equal)")
     return max(errs), rows
 
 

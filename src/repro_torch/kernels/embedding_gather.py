@@ -8,12 +8,20 @@ embedding stage of the fixed (B, T, L) layout (``FpArena.reduce_fixed``).
 ``sparse_lengths_sum`` replaces ``:125 sparse_lengths_sum`` (body
 ``_ragged_kernel``, :103): the ragged reduction over an (indices,
 offsets) stream, the ``reduce_flat`` half of the source protocol. Both
-are bound by bytes, one gathered row per step; their CUDA kernels
-(``csrc/embedding_bag.cu``, ``csrc/sparse_lengths_sum.cu``) give each bag
-one warp with lanes over D and sum in order of position, as
-``fused_segment_sum`` does, so every form of one bag gives the same bits.
-Each kernel has its own launch counter, so a run can show which of the
-embedding kernels a path went through.
+are bound by bytes, one gathered row per step, and at the serving
+path's sizes by the issue of the reads. Their CUDA kernels
+(``csrc/embedding_bag.cu``, ``csrc/sparse_lengths_sum.cu``) take
+``fused_segment_sum``'s walk: a warp a bag with lanes over D, the bag in
+chunks whose reads are all in flight before the first add, reads past
+the bag's end on row 0 and never added, the sum in order of position
+from 0.f. So every form of one bag gives the same bits. ``bag_plan`` and
+``sls_plan`` size the chunk and the blocks through
+``fused_dispatch.segment_plan``: ``gather_rows`` gets a depth of one,
+and ``sparse_lengths_sum`` sizes its chunk by ``min(max_l,
+SLS_DEPTH)``, since ``max_l`` may be a loose bound (the host tier passes
+the stream's length) and the wrapper never reads the offsets to learn
+the longest bag. Each kernel has its own launch counter, so a run can
+show which of the embedding kernels a path went through.
 
 ``sls_grad_table`` replaces ``:188 sls_grad_table`` (body
 ``_grad_kernel``, :164): the table gradient of every gather-reduce. On
@@ -47,11 +55,13 @@ tensors to the plain versions in ``kernels.ref``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fused_dispatch as _fd
 
 # launches of each CUDA kernel in this process (not of the plain
 # version): sls_grad_table, embedding_bag (gather_rows included),
@@ -61,11 +71,50 @@ bag_launches = 0
 sls_launches = 0
 
 _ARGS = (*(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 12)
-_BAG_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int)
-_SLS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int)
+# the pointers, the sizes, then the plan (blocks, warps a block, depth)
+_BAG_ARGS = (*(ctypes.c_void_p,) * 3, *(ctypes.c_int,) * 6)
+_SLS_ARGS = (*(ctypes.c_void_p,) * 4, *(ctypes.c_int,) * 7)
+
+# the deepest chunk sparse_lengths_sum's plan sizes, and the deepest its
+# kernel is built for: a chunk of min(max_l, SLS_DEPTH) rows, since max_l
+# may be far above the bags. At the host tier's bound (the stream's
+# length) over the serving path's bags (mean 20, max 40), a chunk of 40
+# beat one of 64 on the card at 160 and at 10,240 bags (PERF.md,
+# section 6)
+SLS_DEPTH = 40
+
+
+# blocks of single-row bags: a warp reads one row and leaves, so at many
+# rows the blocks' own launch, not the reads, is what fewer blocks save
+GATHER_WARPS_PER_BLOCK = 8
+
+
+# the plans are asked for on every call and depend on a few ints alone:
+# on the H100's host a plan took 1.5-4.1 us a call and 0.5-1.2 through
+# the cache, of a wrapper's 20-41 us (examples/torch_sls_bag_check.py,
+# plan_us against plan_cached_us; PERF.md, section 6)
+@functools.lru_cache(maxsize=256)
+def bag_plan(n_bags: int, n_l: int, dim: int, sms: int) -> _fd.SegmentPlan:
+    """``embedding_bag``'s launch: ``segment_plan``'s, but single-row bags
+    (``gather_rows``) take a depth of their own, one read a bag, where the
+    smallest chunk of eight would issue seven reads a row to no use, and
+    blocks of up to GATHER_WARPS_PER_BLOCK warps."""
+    if n_l != 1:
+        return _fd.segment_plan(n_bags, n_l, dim, sms)
+    n = max(1, n_bags)
+    per_block = min(GATHER_WARPS_PER_BLOCK, -(-n // sms))
+    return _fd.SegmentPlan(blocks=-(-n // per_block),
+                           warps_per_block=per_block, depth=1)
+
+
+@functools.lru_cache(maxsize=256)
+def sls_plan(n_bags: int, max_l: int, dim: int, sms: int) -> _fd.SegmentPlan:
+    """``sparse_lengths_sum``'s launch: ``segment_plan``'s for bags of at
+    most ``min(max_l, SLS_DEPTH)`` rows. The kernel stops each bag at its
+    own length, so a longer bag takes more chunks; the cap keeps a loose
+    bound (the host tier's, the stream's length) from sizing a chunk far
+    past the bags."""
+    return _fd.segment_plan(n_bags, min(max_l, SLS_DEPTH), dim, sms)
 
 
 def _fp32_rows(table: torch.Tensor) -> None:
@@ -75,12 +124,18 @@ def _fp32_rows(table: torch.Tensor) -> None:
                          "for a CPU tensor, keeps any dtype)")
 
 
+def _has_row_zero(table: torch.Tensor) -> None:
+    # the kernels' reads past a bag's end fall on row 0, a real row here
+    if table.shape[0] == 0:
+        raise ValueError("an empty table has no row for the ids")
+
+
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Fixed-lookup SparseLengthsSum: ``out[b] = sum_l table[indices[b,
     l]]``, summed in order of l.
 
-    table (V, D) f32; indices (B, L) int32, any in-range row (no null-row
-    assumption). Returns (B, D) in the table's dtype (f32);
+    table (V, D) f32, V >= 1; indices (B, L) int32, any in-range row (no
+    null-row assumption). Returns (B, D) in the table's dtype (f32);
     L == 0 gives zeros.
     """
     global bag_launches
@@ -98,16 +153,19 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
         return out
     if n_l == 0:
         return out.zero_()
+    _has_row_zero(table)
     fn = _build.function("embedding_bag", "embedding_bag_f32", _BAG_ARGS)
+    p = bag_plan(b, n_l, d, _build.sm_count(table.device))
     _build.launch(fn, "embedding_bag", table.device, table.data_ptr(),
-                  indices.data_ptr(), out.data_ptr(), b, n_l, d)
+                  indices.data_ptr(), out.data_ptr(), b, n_l, d, p.blocks,
+                  p.warps_per_block, p.depth)
     bag_launches += 1
     return out
 
 
 def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Plain row gather: ``out[t] = table[indices[t]]``, the L = 1 bags of
-    ``embedding_bag`` (one launch of its kernel)."""
+    ``embedding_bag`` (one launch of its kernel, at depth 1)."""
     _build.require(indices, "indices", dtype=torch.int32, ndim=1)
     return embedding_bag(table, indices[:, None])
 
@@ -117,10 +175,10 @@ def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
     """Ragged SparseLengthsSum: bag b sums ``table[indices[p]]`` over its
     first ``min(offsets[b+1] - offsets[b], max_l)`` positions, in order.
 
-    table (V, D) f32; indices (N,) int32, padded past offsets[-1] (never
-    read); offsets (B+1,) int32. Returns (B, D) in the table's dtype
-    (f32); an empty bag sums to zeros. The kernel reads the offsets on
-    the card, so the wrapper never waits for the stream to check them.
+    table (V, D) f32, V >= 1; indices (N,) int32, padded past offsets[-1]
+    (never read); offsets (B+1,) int32. Returns (B, D) in the table's
+    dtype (f32); an empty bag sums to zeros. The kernel reads the offsets
+    on the card, so the wrapper never waits for the stream to check them.
     """
     global sls_launches
     _fp32_rows(table)
@@ -142,11 +200,14 @@ def sparse_lengths_sum(table: torch.Tensor, indices: torch.Tensor,
         return out
     if n == 0 or max_l == 0:
         return out.zero_()
+    _has_row_zero(table)
+    max_l = min(int(max_l), 2 ** 31 - 1)
     fn = _build.function("sparse_lengths_sum", "sparse_lengths_sum_f32",
                          _SLS_ARGS)
+    p = sls_plan(n_bags, max_l, d, _build.sm_count(table.device))
     _build.launch(fn, "sparse_lengths_sum", table.device, table.data_ptr(),
                   indices.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
-                  n_bags, min(int(max_l), 2 ** 31 - 1), d)
+                  n_bags, max_l, d, p.blocks, p.warps_per_block, p.depth)
     sls_launches += 1
     return out
 

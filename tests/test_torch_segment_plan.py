@@ -38,12 +38,18 @@ H100_PCIE_SMS = 114
 # max_l 40, D 32), the hot tier and staging shapes, no rows, one row,
 # bags longer than one tile (65, 70, 80, 97, 130, 200), widths past 32
 # columns and not a multiple of 4; the cached and int4 kernels run the
-# same plan
+# same plan. Then embedding_bag's (bag_plan: segment_plan for L > 1) at
+# DLRM(1)'s fixed bags (L = 20) at batch 32 and 2048, DLRM(3)'s L = 80
+# and long bags, and sparse_lengths_sum's (sls_plan: segment_plan at
+# min(max_l, 40)) at short and one-row bounds
 PATH_SHAPES = [(160, 40, 32), (10_240, 40, 32), (9, 7, 16), (1, 200, 32),
                (300, 45, 48), (2_112, 40, 32), (2_113, 40, 32), (1, 1, 1),
                (5, 0, 32), (100_000, 40, 32), (3_000, 80, 6), (0, 40, 32),
                (9, 1, 32), (7, 200, 32), (37, 45, 6), (3, 64, 33),
-               (64, 65, 32), (3_000, 70, 6), (7, 130, 31), (64, 97, 32)]
+               (64, 65, 32), (3_000, 70, 6), (7, 130, 31), (64, 97, 32),
+               (160, 20, 32), (10_240, 20, 32), (2_113, 20, 32),
+               (0, 20, 32), (160, 80, 32), (9, 45, 48), (37, 200, 32),
+               (3_000, 130, 6), (6, 5, 48), (160, 1, 32)]
 
 
 def owned_bags(plan) -> np.ndarray:
