@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py [--out FILE]
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.
+On the card every ``RecEngine`` micro-batch replays the captured CUDA
+graph of its (path, bucket) pair, which runs no Python: the kernel
+wrappers count the forwards of ``warmup()`` (an eager pass and a capture
+a pair), and a replayed micro-batch's kernels are taken by name from the
+profiler's trace of the card and held equal to those counts of one
+forward. Each serving phase zeroes the counts just before its engine's
+``warmup()``, and fails if serving its requests moves them.
 
 1. Card: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` and print the build
@@ -57,7 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Serve: DLRM(1) at full size (5 x 200,000 x 32 fp32 arena, MLPs
    13-512-256-32 and 47-512-256-1) from a seeded generator, served by
    ``RecEngine(max_l=40, max_batch=32)`` for 512 requests. Every serving
-   kernel must have launched on that run, the probabilities must be
+   kernel must have launched on that run (warmup's passes and captures,
+   each kernel's count per forward times two per pair), a replayed
+   micro-batch must run the same kernels (profiler), the probabilities
+   must be
    finite in (0, 1) and equal, within tolerance, those of the port's CPU
    path on a CPU copy of the same params. Then a few more micro-batches
    say where the time goes: device time per kernel group and the
@@ -92,7 +102,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``RecEngine(source="cached", cache_k=4096)``. Every probability must
    equal the fp plan's of phase 3 bit for bit and the CPU path's within
    tolerance, the hit rate must equal a numpy recount of the served ids,
-   and each micro-batch must launch ``fused_cached_segment_sum`` once,
+   and each forward must launch ``fused_cached_segment_sum`` once,
    through its stage entry, and ``fused_segment_sum`` never; then host
    and device time and the kernels on the card per micro-batch. Then the
    int8 cold arena (``quantize_cold=True``).
@@ -103,10 +113,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward on the trainer's params bit for bit; three steps later,
    unsynced, it must still serve the forward as of the sync; a stale
    artifact must be refused; a fresh engine adopting
-   ``publish_source()`` must serve the live forward.
+   ``publish_source()`` must serve the live forward. No swap recaptures:
+   the engine's graphs of warmup serve every batch.
 7. Fixed serving and the hybrid pipeline: 512 fixed-L requests (L = 20)
    through ``RecEngine(source="fixed")``: one ``embedding_bag`` launch
-   per micro-batch (``bag_plan``: 160 bags of 20 rows, one chunk of 24)
+   per forward (``bag_plan``: 160 bags of 20 rows, one chunk of 24)
    and no ``fused_segment_sum``, probabilities within tolerance of the
    CPU path and equal bit for bit to the ragged fp plan's on the same
    bags. The flat route: the phase 3 requests served through a source
@@ -162,7 +173,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``DecodeEngine`` serves 8 requests in waves of 4 slots (16-token
    prompts, 16 new tokens; latency, tokens/s, launches per decode step),
    then the serve launcher serves smollm-360m at full width.
-11. Report: one JSON line of the kernels, then the device line, which is
+11. Graphed serving, every plan (fp, cached, int8 cold, fixed, the flat
+   route through a registered ``reduce_flat``-only source, tiered int4,
+   tiered host) on an engine of buckets 16 and 32: ``warmup()`` captures
+   one graph a pair (and, on the fp plan after ``enable_downgrade``, the
+   downgrade path's); 512 requests in micro-batches of 9 to 32 through
+   ``dispatch``/``settle``, two in flight, every probability equal bit
+   for bit to the eager serve step (``dlrm.make_ragged_serve_step`` /
+   ``make_serve_step``) on the same padded batch; no capture, cold
+   dispatch or wrapper launch after ``warmup()``; a replayed
+   micro-batch's kernels by name (profiler) equal to one forward's
+   counts at capture; per plan the host ms a micro-batch, p50/p95/p99
+   at depth 2, device busy ms, idle share, kernels a replay and the
+   graph pool's bytes. Then a params assignment, ``update_source`` and
+   ``update_cache`` (where the plan has them): no capture, and a few
+   micro-batches equal bit for bit to the eager step on the new params
+   and source. The downgrade path: bit for bit against the eager step
+   over the int8 source and within 0.05 of the primary path, its
+   source re-quantized in place after the params assignment. Last,
+   ``retune_buckets`` after traffic of one size: the new bucket's graph
+   captured, the dropped one's freed, none cold after.
+12. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -170,6 +201,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -884,15 +916,43 @@ def _same_bits(name: str, a, b, what: str) -> None:
     print(f"  {name:24s} {what:34s} equal (torch.equal)")
 
 
+STAGE_CALLS = 3                    # counted calls in a trace of one stage
+
+
 def _stage_kernels(fn) -> int:
-    """Kernels on the card of one call of fn (profiler)."""
+    """Kernels on the card of one call of fn (profiler, copies and fills
+    apart). The trace holds a lead-in call and STAGE_CALLS counted ones,
+    each followed by a device synchronize; a call's kernels are those whose
+    CUPTI correlation id falls between its synchronizes (the profiler adds
+    one more when it stops). The lead-in takes
+    the place of the records that the first call of a trace can lose, and
+    a trace whose counted calls disagree, or show none, lost records and
+    is taken again, at most TRACE_TAKES times (as in `trace_replays`)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _kernel_count(prof)
+    for _ in range(TRACE_TAKES):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(STAGE_CALLS + 1):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        syncs = sorted(e.correlation_id() for e in events
+                       if e.name() == "cudaDeviceSynchronize")
+        counts = [0] * (STAGE_CALLS + 1)
+        for e in events:
+            low = e.name().lower()
+            if e.device_type() == torch.autograd.DeviceType.CUDA \
+                    and "memcpy" not in low and "memset" not in low:
+                call = bisect.bisect_left(syncs, e.correlation_id())
+                if call < len(counts):
+                    counts[call] += 1
+        counted = counts[1:]
+        if len(syncs) >= STAGE_CALLS + 1 and len(set(counted)) == 1 \
+                and counted[0]:
+            return counted[0]
+    fail(f"{TRACE_TAKES} traces of {STAGE_CALLS} calls lost records: "
+         f"kernels a call {counted}, {len(syncs)} synchronizes")
 
 
 def check_interaction(cfg, gen) -> tuple:
@@ -1325,14 +1385,18 @@ def serve(cfg, params, device: str, batch=None, **plan):
     poisson ``served_batch``), sent by the client 32 at a time: each group
     is stamped when it is sent and served by one engine step. ``plan``
     goes to the engine (source, cache_k, ...). On the card the launch
-    counts are zeroed just before the requests."""
+    counts are zeroed just before ``warmup()``, which captures every
+    (path, bucket) pair's graph (an eager pass and a capture, each
+    counted), and must not move while the requests are served: every
+    micro-batch replays its pair's graph, which runs no wrapper."""
     engine = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
                        device=device, **plan)
-    engine.warmup()
-    reqs = requests_from_ragged_batch(
-        served_batch(cfg) if batch is None else batch, cfg.n_tables)
     if device == "cuda":
         reset_counts()
+    engine.warmup()
+    warm = launch_counts()
+    reqs = requests_from_ragged_batch(
+        served_batch(cfg) if batch is None else batch, cfg.n_tables)
     for i in range(0, len(reqs), BUCKET):
         sent = time.monotonic()
         for r in reqs[i:i + BUCKET]:
@@ -1340,6 +1404,10 @@ def serve(cfg, params, device: str, batch=None, **plan):
             engine.submit(r)
         engine.step()
     engine.drain()
+    if device == "cuda" and launch_counts() != warm:
+        fail(f"served micro-batches ran the kernel wrappers ("
+             f"{launch_counts()} after warmup's {warm}); on the card each "
+             f"must replay its pair's graph")
     return engine, np.array([r.prob for r in reqs], np.float64)
 
 
@@ -1376,19 +1444,18 @@ def profile_serve(engine, cfg, n_batches: int = 4,
                   batch_fn=poisson_batch) -> dict:
     """Where a served micro-batch's time goes. Three passes of n_batches
     micro-batches of 32: plain (host clock), under torch.profiler tracing
-    the card (device time per kernel group), and tracing the host (time
-    inside each stage's record_function span). The device's idle share is
-    1 - device time / plain host time per batch. The profiled passes run
-    slower than the plain one; their times are for shares, not totals."""
-    activities = (None, torch.profiler.ProfilerActivity.CUDA,
-                  torch.profiler.ProfilerActivity.CPU)
-    walls, traces = [], []
-    for seed, activity in zip((8, 9, 10), activities):
+    the card (device time per kernel group; see `trace_replays`), and
+    tracing the host (time inside each stage's record_function span). The
+    device's idle share is 1 - device time / plain host time per batch.
+    The profiled passes run slower than the plain one; their times are for
+    shares, not totals."""
+    walls = []
+
+    def serve(seed: int):
         reqs = requests_from_ragged_batch(
             batch_fn(cfg, n_batches * BUCKET, seed), cfg.n_tables)
-        torch.cuda.synchronize()
-        with (torch.profiler.profile(activities=[activity])
-              if activity is not None else contextlib.nullcontext()) as prof:
+
+        def run() -> None:
             t0 = time.perf_counter()
             for i in range(0, len(reqs), BUCKET):
                 for r in reqs[i:i + BUCKET]:
@@ -1396,23 +1463,142 @@ def profile_serve(engine, cfg, n_batches: int = 4,
                 engine.step()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3 / n_batches)
-        traces.append(prof)
-    by_name = _kernel_times_us(traces[1])
-    groups = {}
-    for name, us in by_name.items():
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + us / 1e3 / n_batches
-    busy = sum(groups.values())
+        return run
+
+    lead_in = requests_from_ragged_batch(batch_fn(cfg, BUCKET, 11),
+                                         cfg.n_tables)
+
+    def lead() -> None:
+        for r in lead_in:
+            engine.submit(r)
+        engine.step()
+    torch.cuda.synchronize()
+    serve(8)()
+    device = trace_replays(serve(9), n_batches, lead)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as host_prof:
+        serve(10)()
+    stats = _record_stats(device["records"], n_batches)
+    busy = stats["device_busy_ms_per_batch"]
     host = {e.key: e.cpu_time_total / 1e3 / n_batches
-            for e in traces[2].key_averages() if e.key in STAGES}
+            for e in host_prof.key_averages() if e.key in STAGES}
     return {"batches": n_batches, "wall_ms_per_batch": walls[0],
-            "device_traced_wall_ms_per_batch": walls[1],
-            "host_traced_wall_ms_per_batch": walls[2],
-            "device_ms_per_batch": groups, "device_busy_ms_per_batch": busy,
-            "kernels_per_batch": _kernel_count(traces[1]) / n_batches,
+            "device_traced_wall_ms_per_batch": walls[-2],
+            "host_traced_wall_ms_per_batch": walls[-1], **stats,
+            "kernels_by_replay": device["by_replay"],
+            "trace_takes": device["takes"],
             "device_idle_share": (1.0 - busy / walls[0]) if busy else None,
-            "host_stage_ms_per_batch": host,
-            "device_us_by_kernel": by_name}
+            "host_stage_ms_per_batch": host}
+
+
+TRACE_TAKES = 5                    # takes of a trace that lost records
+
+
+def trace_replays(run, n_batches: int, lead_in) -> dict:
+    """Trace the card while ``lead_in()`` serves one micro-batch and then
+    ``run()`` serves ``n_batches``, each one replay of the same graph, and
+    join each replay's kernels to its cudaGraphLaunch by CUPTI correlation
+    id. The lead-in's replay is not counted: once LM serving (phase 10) has
+    run in the process, the first replay of every trace lacks its first
+    kernels' records (whatever the idle time before it), and no other
+    record carries them. The trace is whole when it holds ``n_batches``
+    more launches that ran the same kernels: one graph runs the same nodes
+    at every replay, so a replay that shows fewer is a trace that lost
+    records, not a replay that ran fewer, and a replay that shows none is
+    a trace that lost them all. CUPTI also now and then loses whole
+    replays, or every device record, of a trace; such a trace is taken
+    again, at most TRACE_TAKES times in all. ``by_replay`` is one replay's kernels per
+    kernel group, ``records`` the device records (name, us) of ``run()``."""
+    for take in range(1, TRACE_TAKES + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        split = _lead_in_end(events)
+        replays = [] if split is None else _replays(events, split)
+        kinds = {}
+        for r in replays:
+            key = tuple(sorted(r.items()))
+            kinds[key] = kinds.get(key, 0) + 1
+        if len(replays) == n_batches and len(kinds) == 1 and replays[0]:
+            return {"by_replay": _by_group(replays[0]),
+                    "takes": take, "records": [
+                        (e.name(), e.duration_ns() / 1e3) for e in events
+                        if e.device_type() == torch.autograd.DeviceType.CUDA
+                        and e.correlation_id() > split]}
+        common = max(kinds, key=kinds.get) if kinds else ()
+        print(f"  trace take {take}: {len(replays)} graph launches of "
+              f"{n_batches} after the lead-in; kernel sets (replays: "
+              f"kernels against the commonest set) "
+              f"{[(n, _diff(dict(k), dict(common))) for k, n in kinds.items()]}")
+    fail(f"{TRACE_TAKES} traces of {n_batches} replayed micro-batches lost "
+         f"records: the last held {len(replays)} graph launches after the "
+         f"lead-in with {len(kinds)} different kernel sets")
+
+
+def _diff(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def _by_group(replay: dict) -> dict:
+    out = {}
+    for name, n in replay.items():
+        g = _kernel_group(name)
+        out[g] = out.get(g, 0) + n
+    return out
+
+
+def _lead_in_end(events):
+    """The correlation id that ends the lead-in: CUPTI's ids grow with the
+    API calls, and the lead-in ends at the first cudaDeviceSynchronize
+    after its graph launch (the engine itself waits on events alone).
+    None when the trace holds no such launch or synchronize."""
+    launches = [e.correlation_id() for e in events
+                if e.name().startswith("cudaGraphLaunch")]
+    if not launches:
+        return None
+    syncs = [e.correlation_id() for e in events
+             if e.name() == "cudaDeviceSynchronize"
+             and e.correlation_id() > min(launches)]
+    return min(syncs) if syncs else None
+
+
+def _replays(events, split: int) -> list:
+    """Each cudaGraphLaunch after ``split``: its kernels by name, joined by
+    CUPTI correlation id (a graph's kernels carry its launch's)."""
+    launches = {e.correlation_id(): {} for e in events
+                if e.name().startswith("cudaGraphLaunch")
+                and e.correlation_id() > split}
+    for e in events:
+        got = launches.get(e.correlation_id())
+        if got is not None \
+                and e.device_type() == torch.autograd.DeviceType.CUDA:
+            got[e.name()] = got.get(e.name(), 0) + 1
+    return list(launches.values())
+
+
+def _record_stats(records: list, n_batches: int) -> dict:
+    """Device time per kernel name and group, and kernels (copies and
+    fills apart) and records per group, per micro-batch, of a trace's
+    device records."""
+    by_name, groups, counts, kernels = {}, {}, {}, 0
+    for name, us in records:
+        g = _kernel_group(name)
+        by_name[name] = by_name.get(name, 0.0) + us
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / n_batches
+        counts[g] = counts.get(g, 0) + 1 / n_batches
+        low = name.lower()
+        kernels += "memcpy" not in low and "memset" not in low
+    return {"device_us_by_kernel": by_name, "device_ms_per_batch": groups,
+            "device_busy_ms_per_batch": sum(groups.values()),
+            "kernels_per_batch": kernels / n_batches,
+            "kernels_by_group": counts}
 
 
 def _cpu(params) -> dict:
@@ -1444,12 +1630,8 @@ def phase_serve(cfg, params) -> tuple:
     print(f"  stats {stats}")
     if engine.served != N_REQUESTS:
         fail(f"served {engine.served} of {N_REQUESTS} requests")
-    for name, k in KERNELS.items():
-        want = k["per_forward"] * engine.batches
-        if launches[name] != want or (k["per_forward"] and not want):
-            fail(f"{name} launched {launches[name]} times on the main path; "
-                 f"{k['per_forward']} per forward x {engine.batches} "
-                 f"forwards = {want}")
+    _check_launches(launches, "per_forward", 2 * engine.captures,
+                    "fp plan")
     if not (np.isfinite(probs).all() and (probs > 0).all()
             and (probs < 1).all()):
         fail("probabilities outside (0, 1) or not finite")
@@ -1460,6 +1642,7 @@ def phase_serve(cfg, params) -> tuple:
         fail(f"card probabilities differ from the CPU path by {err}")
     prof = profile_serve(engine, cfg)
     _print_profile(prof, "fp plan")
+    _check_replay(prof, "per_forward", "fp plan")
     return {"launches": launches, "stats": stats, "batches": engine.batches,
             "serve_s": serve_s, "prob_max_abs_err": err,
             "prob_range": [float(probs.min()), float(probs.max())],
@@ -1912,11 +2095,32 @@ def phase_train(cfg, gen) -> dict:
 # ---------------------------------------------------------------- phase 5
 
 def _check_launches(launches: dict, per: str, n: int, what: str) -> None:
+    """The wrappers' counts of a served run on the card: ``n`` forwards
+    through them, two for each captured (path, bucket) pair (its eager
+    pass and its capture); the served micro-batches replay graphs."""
     for name, k in KERNELS.items():
         want = k[per] * n
         if launches[name] != want or (k[per] and not want):
             fail(f"{what}: {name} launched {launches[name]} times; "
-                 f"{k[per]} per micro-batch x {n} = {want}")
+                 f"{k[per]} per forward x {n} forwards (an eager pass and "
+                 f"a capture for each pair) = {want}")
+
+
+def _check_replay(prof: dict, per, what: str) -> None:
+    """Every replayed micro-batch's kernels, by name from the profiler's
+    trace of the card (joined to their graph launch, `trace_replays`),
+    against the wrappers' counts of one forward at capture (``per``: a
+    KERNELS column, or {kernel: count})."""
+    got = prof["kernels_by_replay"]
+    for name, k in KERNELS.items():
+        want = k[per] if isinstance(per, str) else per.get(name, 0)
+        if got.get(name, 0) != want:
+            fail(f"{what}: each replayed micro-batch ran {got.get(name, 0)} "
+                 f"{name} kernels (profiler), its capture {want}")
+    print(f"  {what}: each replayed micro-batch's kernels by name "
+          f"(profiler, trace taken {prof['trace_takes']}x) equal its "
+          f"capture's counts: "
+          f"{ {n: v for n, v in got.items() if n in KERNELS} }")
 
 
 def recount_hit_rate(cfg, cache) -> float:
@@ -1944,15 +2148,15 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
     print(f"  stats {stats}")
     if engine.served != N_REQUESTS:
         fail(f"cached: served {engine.served} of {N_REQUESTS} requests")
-    _check_launches(launches, "per_cached_forward", engine.batches,
+    _check_launches(launches, "per_cached_forward", 2 * engine.captures,
                     "cached plan")
     # the kernel through its stage entry: the split made inside it
-    if fd_k.cached_stage_launches != engine.batches:
+    if fd_k.cached_stage_launches != 2 * engine.captures:
         fail(f"cached plan: the stage entry launched "
-             f"{fd_k.cached_stage_launches} times in {engine.batches} "
-             f"micro-batches")
+             f"{fd_k.cached_stage_launches} times in "
+             f"{2 * engine.captures} forwards")
     print(f"  cached plan: {fd_k.cached_stage_launches} launches of the "
-          f"stage entry, one a micro-batch")
+          f"stage entry, one a forward")
     if not np.array_equal(probs, fp_probs):
         fail(f"cached plan differs from the fp plan by "
              f"{np.abs(probs - fp_probs).max()} (must be equal)")
@@ -1970,6 +2174,7 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
              f"{recount}")
     prof = profile_serve(engine, cfg)
     _print_profile(prof, "cached plan")
+    _check_replay(prof, "per_cached_forward", "cached plan")
     print(f"  cached plan: {prof['kernels_per_batch']:.1f} kernels a "
           f"micro-batch on the card (profiler), the hit split inside the "
           f"gather")
@@ -1981,8 +2186,9 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
     plan["quantize_cold"] = True
     engine, probs = serve(cfg, params, "cuda", **plan)
     launches = launch_counts()
-    want = {n: (k["per_cached_forward"] if n in ("gemm", "interaction")
-                else 0) * engine.batches for n, k in KERNELS.items()}
+    per_int8 = {n: (k["per_cached_forward"] if n in ("gemm", "interaction")
+                    else 0) for n, k in KERNELS.items()}
+    want = {n: c * 2 * engine.captures for n, c in per_int8.items()}
     if launches != want or fd_k.cached_stage_launches:
         fail(f"int8 cold: launches {launches}, expected {want}; stage "
              f"entry {fd_k.cached_stage_launches}")
@@ -1996,6 +2202,7 @@ def phase_serve_cached(cfg, params, fp_probs) -> dict:
         fail(f"int8 cold: {err} from the CPU path, {err_fp} from fp")
     prof8 = profile_serve(engine, cfg)
     _print_profile(prof8, "int8 cold")
+    _check_replay(prof8, per_int8, "int8 cold")
     out["int8"] = {"launches": launches, "stats": engine.stats(),
                    "prob_max_abs_err": err, "prob_max_abs_err_vs_fp": err_fp,
                    "profile": prof8}
@@ -2031,17 +2238,18 @@ def phase_online(cfg) -> dict:
     trainer = OnlineTrainer(cfg, p0, max_l=MAX_L, device="cuda",
                             cache_cfg=OnlineCacheConfig(k=CACHE_K,
                                                         refresh_every=REFRESH))
+    reset_counts()
     engine = RecEngine(cfg, trainer.params, source="cached", cache_k=CACHE_K,
                        cache_trace=np.ones(spec.total_rows), max_l=MAX_L,
                        max_batch=BUCKET, device="cuda")
     engine.warmup()
+    captures = engine.captures
     train = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
                                max_l=MAX_L, drift_per_batch=DRIFT, seed=3)
     traffic = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=20,
                                  max_l=MAX_L, drift_per_batch=DRIFT, seed=4)
     step_ms, checks, first_blob, at_sync = [], [], None, None
     served_batches = 0
-    reset_counts()
     for step in range(1, ONLINE_STEPS + 1):
         batch, live = next(train), next(traffic)
         torch.cuda.synchronize()
@@ -2096,17 +2304,21 @@ def phase_online(cfg) -> dict:
               f"{checks[-1]['hit_rate']}")
     launches = launch_counts()
     n_steps = ONLINE_STEPS
+    if engine.captures != captures:
+        fail(f"online: the swaps recaptured ({engine.captures} captures, "
+             f"{captures} after warmup)")
     for name, k in KERNELS.items():
         want = k["per_step"] * n_steps \
-            + k["per_cached_forward"] * served_batches
+            + k["per_cached_forward"] * 2 * captures
         on_path = k["per_step"] or k["per_cached_forward"]
         if launches[name] != want or (on_path and not launches[name]):
             fail(f"online: {name} launched {launches[name]} times; "
                  f"{k['per_step']} x {n_steps} steps + "
-                 f"{k['per_cached_forward']} x {served_batches} served = "
-                 f"{want}")
-    print(f"  online launches {launches} ({n_steps} steps, {served_batches} "
-          f"served micro-batches)")
+                 f"{k['per_cached_forward']} x {2 * captures} forwards of "
+                 f"warmup's captures = {want}")
+    print(f"  online launches {launches} ({n_steps} steps; {served_batches} "
+          f"served micro-batches replayed the {captures} graphs of warmup, "
+          f"none recaptured)")
     # a stale artifact is refused
     old = VersionedHotCache.deserialize(first_blob, device="cuda")
     if old.apply(engine):
@@ -2370,7 +2582,7 @@ def phase_serve_fixed(cfg, params, fp_probs) -> dict:
     print(f"  stats {stats}")
     if engine.served != N_REQUESTS:
         fail(f"fixed: served {engine.served} of {N_REQUESTS} requests")
-    _check_launches(launches, "per_fixed_forward", engine.batches,
+    _check_launches(launches, "per_fixed_forward", 2 * engine.captures,
                     "fixed plan")
     if not (np.isfinite(probs).all() and (probs > 0).all()
             and (probs < 1).all()):
@@ -2390,6 +2602,7 @@ def phase_serve_fixed(cfg, params, fp_probs) -> dict:
           "the same bags (np.array_equal)")
     prof = profile_serve(engine, cfg, batch_fn=fixed_batch)
     _print_profile(prof, "fixed plan")
+    _check_replay(prof, "per_fixed_forward", "fixed plan")
     out = {"launches": launches, "stats": stats, "batches": engine.batches,
            "serve_s": serve_s, "prob_max_abs_err": err, "profile": prof}
     out["flat"] = serve_flat(cfg, params, fp_probs)
@@ -2737,7 +2950,7 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
           f"launches {launches}")
     if engine.served != N_REQUESTS or stats["path"] != "tiered":
         fail(f"tiered int4: served {engine.served}, path {stats['path']}")
-    _check_launches(launches, "per_tiered_forward", engine.batches,
+    _check_launches(launches, "per_tiered_forward", 2 * engine.captures,
                     "tiered int4 plan")
     _, cpu_probs = serve(cfg, _cpu(params), "cpu", **plan)
     err = float(np.abs(probs - cpu_probs).max())
@@ -2773,6 +2986,7 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
           f"{es.source_bytes(es.FpArena(params['arena']))}")
     prof = profile_serve(engine, cfg)
     _print_profile(prof, "tiered int4")
+    _check_replay(prof, "per_tiered_forward", "tiered int4")
     out["int4"] = {"launches": launches, "stats": stats, "serve_s": serve_s,
                    "batches": engine.batches, "prob_max_abs_err": err,
                    "prob_max_abs_err_vs_fp": err_fp,
@@ -2792,7 +3006,7 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
     print(f"  host cold: served {engine.served} requests in {engine.batches}"
           f" batches ({serve_s:.2f} s with warmup); launches {launches}; "
           f"prefetch {pre}")
-    _check_launches(launches, "per_host_forward", engine.batches,
+    _check_launches(launches, "per_host_forward", 2 * engine.captures,
                     "tiered host plan")
     err_fp = float(np.abs(probs - fp_probs).max())
     print(f"  host cold: against the fp plan max |prob diff| {err_fp:.3e} "
@@ -2861,6 +3075,7 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
     print(f"  host cold: tier bytes {tb}")
     prof = profile_serve(engine, cfg)
     _print_profile(prof, "tiered host")
+    _check_replay(prof, "per_host_forward", "tiered host")
     out["host"] = {"launches": launches, "stats": stats,
                    "serve_s": serve_s, "batches": engine.batches,
                    "prob_max_abs_err_vs_fp": err_fp,
@@ -2882,10 +3097,12 @@ def online_tiered(cfg, counts) -> dict:
     trainer = OnlineTrainer(cfg, p0, max_l=MAX_L, device="cuda",
                             cache_cfg=OnlineCacheConfig(
                                 k=0, tiers=pol, refresh_every=REFRESH))
+    reset_counts()
     engine = RecEngine(cfg, trainer.params, source=es.SourceSpec(tiers=pol),
                        cache_trace=counts, max_l=MAX_L, max_batch=BUCKET,
                        device="cuda")
     engine.warmup()
+    captures = engine.captures
     own = engine.source
     ptrs = [t.data_ptr() for t in es.source_structure(own)[1]] \
         + [t.data_ptr() for t in tree_leaves(engine.params)]
@@ -2895,7 +3112,6 @@ def online_tiered(cfg, counts) -> dict:
                                  max_l=MAX_L, drift_per_batch=DRIFT, seed=4)
     step_fn = dlrm.make_ragged_serve_step(cfg, max_l=MAX_L)
     step_ms, migrations, served = [], [], 0
-    reset_counts()
     for i in range(1, ONLINE_STEPS + 1):
         batch = next(train)
         torch.cuda.synchronize()
@@ -2945,15 +3161,21 @@ def online_tiered(cfg, counts) -> dict:
               f"; served batch equal to the forward over the trainer's "
               f"source (bit for bit); engine tensors at fixed addresses")
     launches = launch_counts()
+    if engine.captures != captures:
+        fail(f"online tiered: the syncs recaptured ({engine.captures} "
+             f"captures, {captures} after warmup)")
     for name, k in KERNELS.items():
-        want = k["per_step"] * ONLINE_STEPS + k["per_tiered_forward"] * served
+        want = k["per_step"] * ONLINE_STEPS \
+            + k["per_tiered_forward"] * 2 * captures
         on_path = k["per_step"] or k["per_tiered_forward"]
         if launches[name] != want or (on_path and not launches[name]):
             fail(f"online tiered: {name} launched {launches[name]} times; "
                  f"{k['per_step']} x {ONLINE_STEPS} steps + "
-                 f"{k['per_tiered_forward']} x {served} served = {want}")
-    print(f"  online tiered launches {launches} ({ONLINE_STEPS} steps, "
-          f"{served} served micro-batches)")
+                 f"{k['per_tiered_forward']} x {2 * captures} forwards of "
+                 f"warmup's captures = {want}")
+    print(f"  online tiered launches {launches} ({ONLINE_STEPS} steps; "
+          f"{served} served micro-batches replayed the {captures} graphs of "
+          f"warmup, none recaptured)")
     # the migration's own cost: host wall (synchronised) and device time
     dirty = np.zeros(spec.total_rows, bool)
     dirty[np.unique(next(train)["indices"])] = True
@@ -3005,6 +3227,344 @@ def phase_tiered(cfg, params, fp_probs, gen) -> tuple:
     print("  -- online tier migration")
     online = online_tiered(cfg, counts)
     return {"max_abs_err": err, "rows": rows}, served, online
+
+
+# ---------------------------------------------------------------- phase 11
+
+GRAPH_BUCKETS = (16, 32)           # phase 11's engines: two buckets
+DEPTH = 2                          # micro-batches in flight
+SWAP_BATCHES = 4                   # served after the swaps, both buckets
+RETUNE_SIZE = 24                   # the one size of the retune's traffic
+GRAPH_PLAN_BUDGET_S = 20.0         # phase 11's time budget for each plan
+
+es.register_source(FlatArena, ("arena",), ())
+
+
+def mixed_sizes(n: int, seed: int) -> list:
+    """Micro-batch sizes of 9 to 32 summing to n: both of phase 11's
+    buckets serve."""
+    rng = np.random.RandomState(seed)
+    out = []
+    while sum(out) < n:
+        out.append(int(min(rng.randint(9, BUCKET + 1), n - sum(out))))
+    return out
+
+
+def graph_pool_bytes(engine):
+    """Device bytes of the engine's graph memory pool (its segments in the
+    caching allocator's snapshot), None if the snapshot does not say."""
+    pool = tuple(engine._pool)
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == pool]
+    return sum(s["total_size"] for s in segs) if segs else None
+
+
+def eager_step(cfg, fixed: bool):
+    """The eager serve step an engine's graphs capture, over the batch the
+    engine pads ``reqs`` to; its launches do not count."""
+    step = (dlrm.make_serve_step(cfg) if fixed
+            else dlrm.make_ragged_serve_step(cfg, max_l=MAX_L))
+
+    def run(engine, reqs, bucket, params, source):
+        with uncounted():
+            batch, _ = engine._assemble(reqs, bucket)
+            return (step(params, batch) if fixed
+                    else step(params, batch, source))
+    return run
+
+
+def pipelined(engine, reqs, sizes, reference=None, downgraded=False):
+    """Serve ``reqs`` in micro-batches of ``sizes`` through dispatch and
+    settle, DEPTH in flight. ``reference(mb, bucket)`` is the eager serve
+    step's device result on the same batch, enqueued right after the
+    micro-batch's dispatch (so a host tier's staging is as the graph read
+    it); each settled batch must equal it bit for bit. Returns the
+    buckets served."""
+    inflight, bad, i, buckets = [], [], 0, set()
+
+    def settle_one():
+        ib, want = inflight.pop(0)
+        engine.settle(ib)
+        if want is not None:
+            got = np.array([r.prob for r in ib.reqs], np.float32)
+            ref_ = want.cpu().numpy()[:len(ib.reqs)]
+            if not np.array_equal(got, ref_):
+                bad.append((ib.bucket, float(np.abs(got - ref_).max())))
+    for n in sizes:
+        mb = reqs[i:i + n]
+        i += n
+        sent = time.monotonic()
+        for r in mb:
+            r.submitted_mono = sent
+        ib = engine.dispatch(mb, downgraded=downgraded)
+        buckets.add(ib.bucket)
+        inflight.append((ib, None if reference is None
+                         else reference(mb, ib.bucket)))
+        if len(inflight) == DEPTH:
+            settle_one()
+    while inflight:
+        settle_one()
+    if bad:
+        fail(f"graphed serving: {len(bad)} micro-batches differ from the "
+             f"eager serve step (bucket, max |diff|): {bad[:4]}")
+    return sorted(buckets)
+
+
+def _plan_requests(cfg, fixed: bool, n: int, seed: int) -> list:
+    batch = fixed_batch(cfg, n, seed) if fixed else poisson_batch(cfg, n,
+                                                                  seed)
+    return requests_from_ragged_batch(batch, cfg.n_tables)
+
+
+def _capture_counts(engine, what: str) -> dict:
+    """The wrappers' counts of one forward at capture, from warmup's run
+    (an eager pass and a capture per pair), for the pairs warmup just
+    captured."""
+    counts, pairs = launch_counts(), engine.captures
+    per = {}
+    for n, c in counts.items():
+        if c % (2 * pairs):
+            fail(f"{what}: {n} counted {c} in warmup's {pairs} captures")
+        per[n] = c // (2 * pairs)
+    return per
+
+
+def graphed_plan(cfg, params, name: str, plan: dict, counts) -> dict:
+    """One plan of phase 11: warmup's captures, 512 requests at depth 2
+    over both buckets bit for bit against the eager serve step, where the
+    time goes, then the three swaps with no recapture."""
+    fixed = name == "fixed"
+    spec = dlrm.arena_spec(cfg)
+    step = eager_step(cfg, fixed)
+    reset_counts()
+    engine = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                       buckets=GRAPH_BUCKETS, device="cuda", **plan)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    pairs = len(GRAPH_BUCKETS)
+    if engine.captures != pairs or engine.cold_compiles:
+        fail(f"{name}: warmup made {engine.captures} captures for {pairs} "
+             f"pairs, {engine.cold_compiles} cold")
+    per = _capture_counts(engine, name)
+    launches = launch_counts()
+    pool = graph_pool_bytes(engine)
+    # 512 requests, both buckets, two in flight, each batch held bit for
+    # bit against the eager serve step on the same padded batch
+    reqs = _plan_requests(cfg, fixed, N_REQUESTS, 7)
+    sizes = mixed_sizes(N_REQUESTS, 5)
+    n_mb = len(sizes)
+    buckets = pipelined(engine, reqs, sizes, lambda mb, b: step(
+        engine, mb, b, engine.params, engine.source))
+    if buckets != list(GRAPH_BUCKETS):
+        fail(f"{name}: the mixed traffic served buckets {buckets}")
+    if engine.captures != pairs or engine.cold_compiles \
+            or launch_counts() != launches:
+        fail(f"{name}: dispatches after warmup captured or ran the "
+             f"wrappers ({engine.captures} captures, {engine.cold_compiles}"
+             f" cold, launches {launch_counts()})")
+    # request latency at depth 2 (the client sends each micro-batch as it
+    # is dispatched), without the checks
+    timed = _plan_requests(cfg, fixed, N_REQUESTS, 12)
+    engine._lat_ms.clear()
+    t0 = time.perf_counter()
+    pipelined(engine, timed, mixed_sizes(N_REQUESTS, 6))
+    pipe_s = time.perf_counter() - t0
+    stats = engine.stats()
+    prof = profile_serve(engine, cfg, n_batches=16,
+                         batch_fn=fixed_batch if fixed else poisson_batch)
+    _check_replay(prof, per, name)
+    row = {"captures": engine.captures, "warmup_s": warmup_s,
+           "graph_pool_bytes": pool, "micro_batches_checked": n_mb,
+           "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
+           "p99_ms": stats["p99_ms"],
+           "depth2_ms_per_batch": pipe_s * 1e3 / len(mixed_sizes(
+               N_REQUESTS, 6)),
+           "host_ms_per_batch": prof["wall_ms_per_batch"],
+           "device_busy_ms": prof["device_busy_ms_per_batch"],
+           "idle_share": prof["device_idle_share"],
+           "kernels_per_replay": prof["kernels_per_batch"],
+           "kernels_by_group": prof["kernels_by_group"],
+           "capture_counts": per}
+    if name == "fp":
+        row["downgrade"] = graphed_downgrade(cfg, engine, step)
+        launches = launch_counts()       # with the downgrade's captures
+        pairs = engine.captures
+    # the three swaps: params, the whole source, the hot cache
+    p2 = tree_map(lambda t: t * 1.5, params)
+    ref_src = None
+    engine.params = p2
+    if not fixed:
+        rolled = np.roll(counts, 7)
+        if engine.plan is not None and engine.plan.tiers is not None:
+            ref_src = st.build_tiered(p2["arena"], spec, engine.plan.tiers,
+                                      rolled)
+        elif engine.plan is not None:
+            ref_src = engine.plan.build(p2["arena"], spec, rolled)
+        else:
+            ref_src = FlatArena(p2["arena"])
+        engine.update_source(ref_src, version=1)
+        if engine.cache is not None:
+            fresh = se.build_hot_cache(p2["arena"], spec, np.roll(counts, 3),
+                                       CACHE_K)
+            engine.update_cache(fresh, version=2)
+            ref_src = es.with_hot_cache(ref_src, fresh)
+        if es.hot_cache_of(engine.source) is None \
+                and st.host_stores_of(engine.source):
+            # the handed host store stages nothing: the engine's own copy
+            # of its rows, staged as the graph read them, is the reference
+            ref_src = engine.source
+    after = _plan_requests(cfg, fixed, SWAP_BATCHES * BUCKET, 13)
+    pipelined(engine, after, [BUCKET, 11] * (SWAP_BATCHES // 2),
+              lambda mb, b: step(engine, mb, b, p2, ref_src))
+    if engine.captures != pairs or engine.cold_compiles \
+            or launch_counts() != launches:
+        fail(f"{name}: the swaps recaptured or ran the wrappers")
+    if name == "fp":
+        row["downgrade_after_swap"] = graphed_downgrade(cfg, engine, step,
+                                                        p2)
+    print(f"  {name:12s} captures {engine.captures} "
+          f"({warmup_s:.3f} s, graph pool {pool} bytes); {n_mb} micro-"
+          f"batches of 512 requests at depth {DEPTH} over buckets "
+          f"{GRAPH_BUCKETS} equal to the eager serve step bit for bit, "
+          f"none cold; after a params assignment"
+          f"{'' if fixed else ', update_source'}"
+          f"{', update_cache' if engine.cache is not None else ''}: no "
+          f"capture, {SWAP_BATCHES} micro-batches equal to the eager step "
+          f"on the new {'params' if fixed else 'source'}")
+    print(f"  {name:12s} per micro-batch of {BUCKET}: host "
+          f"{row['host_ms_per_batch']:.4f} ms, device busy "
+          f"{row['device_busy_ms']:.4f} ms, idle share "
+          f"{row['idle_share']:.3f}, {row['kernels_per_replay']:.0f} "
+          f"kernels a replay; depth {DEPTH}: {row['depth2_ms_per_batch']:.4f}"
+          f" ms a micro-batch, p50 {row['p50_ms']:.4f} p95 "
+          f"{row['p95_ms']:.4f} p99 {row['p99_ms']:.4f} ms")
+    row["launches"] = launches
+    return row
+
+
+def graphed_downgrade(cfg, engine, step, params=None) -> dict:
+    """The int8 downgrade path's own pairs: captured by warmup once
+    ``enable_downgrade`` has run, held bit for bit against the eager step
+    over the downgrade source and within the reference's bound of the
+    primary path's eager step; after a params assignment the source is the
+    re-quantized arena."""
+    params = engine.params if params is None else params
+    first = engine.downgrade_source is None
+    if first:
+        before = launch_counts()
+        engine.enable_downgrade()
+        captures = engine.captures
+        engine.warmup()
+        if engine.captures != captures + len(GRAPH_BUCKETS):
+            fail(f"downgrade: warmup made {engine.captures - captures} "
+                 f"captures")
+        added = {n: c - before[n] for n, c in launch_counts().items()}
+    down = engine.downgrade_source
+    requant = es.QuantizedArena.from_arena(params["arena"])
+    if not (torch.equal(down.q, requant.q)
+            and torch.equal(down.scales, requant.scales)):
+        fail("downgrade: the source is not the quantized arena")
+    reqs = _plan_requests(cfg, False, 4 * BUCKET, 14)
+    primary = [step(engine, reqs[i:i + BUCKET], BUCKET, params,
+                    engine.source).cpu().numpy()
+               for i in range(0, len(reqs), BUCKET)]
+    pipelined(engine, reqs, [BUCKET] * 4, lambda mb, b: step(
+        engine, mb, b, params, down), downgraded=True)
+    got = np.array([r.prob for r in reqs], np.float32)
+    err = float(np.abs(got - np.concatenate(primary)).max())
+    if err > INT8_PROB_ATOL or not all(r.downgraded for r in reqs):
+        fail(f"downgrade: {err} from the primary path (bound "
+             f"{INT8_PROB_ATOL})")
+    out = {"max_abs_err_vs_primary": err}
+    if first:
+        prof = profile_serve_downgraded(engine, cfg)
+        per = {n: c // (2 * len(GRAPH_BUCKETS)) for n, c in added.items()}
+        _check_replay(prof, per, "downgrade")
+        out.update(kernels_per_replay=prof["kernels_per_batch"],
+                   device_busy_ms=prof["device_busy_ms_per_batch"])
+    print(f"  downgrade (int8 arena): {4} micro-batches equal to the eager "
+          f"step over the downgrade source bit for bit, within {err:.3e} of "
+          f"the primary path (bound {INT8_PROB_ATOL})")
+    return out
+
+
+def profile_serve_downgraded(engine, cfg, n_batches: int = 8) -> dict:
+    """Kernels by name of downgraded micro-batches (profiler, the card)."""
+    reqs = _plan_requests(cfg, False, (n_batches + 1) * BUCKET, 15)
+
+    def serve(i: int) -> None:
+        engine.settle(engine.dispatch(reqs[i:i + BUCKET], downgraded=True))
+
+    def run() -> None:
+        for i in range(BUCKET, len(reqs), BUCKET):
+            serve(i)
+    device = trace_replays(run, n_batches, lambda: serve(0))
+    stats = _record_stats(device["records"], n_batches)
+    return {"kernels_by_group": stats["kernels_by_group"],
+            "kernels_by_replay": device["by_replay"],
+            "trace_takes": device["takes"],
+            "kernels_per_batch": stats["kernels_per_batch"],
+            "device_busy_ms_per_batch": stats["device_busy_ms_per_batch"]}
+
+
+def graphed_retune(cfg, params) -> dict:
+    """retune_buckets after traffic of one size: the new bucket's graph
+    captured, the dropped one's freed, no cold dispatch after."""
+    step = eager_step(cfg, False)
+    engine = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                       buckets=GRAPH_BUCKETS, device="cuda")
+    engine.warmup()
+    reqs = _plan_requests(cfg, False, 8 * RETUNE_SIZE, 16)
+    pipelined(engine, reqs, [RETUNE_SIZE] * 8)
+    buckets = engine.retune_buckets()
+    want = tuple(sorted({RETUNE_SIZE, BUCKET}))
+    if buckets != want or set(engine._graphs) != {
+            ("primary", b) for b in want} or engine.captures != 3:
+        fail(f"retune: buckets {buckets}, graphs {sorted(engine._graphs)}, "
+             f"{engine.captures} captures")
+    reqs = _plan_requests(cfg, False, 4 * RETUNE_SIZE, 17)
+    pipelined(engine, reqs, [RETUNE_SIZE] * 4, lambda mb, b: step(
+        engine, mb, b, engine.params, engine.source))
+    if engine.cold_compiles or engine.captures != 3:
+        fail(f"retune: {engine.cold_compiles} cold dispatches, "
+             f"{engine.captures} captures")
+    print(f"  retune_buckets after {8} micro-batches of {RETUNE_SIZE}: "
+          f"buckets {GRAPH_BUCKETS} -> {buckets}, bucket "
+          f"{GRAPH_BUCKETS[0]}'s graph freed, {RETUNE_SIZE}'s captured; "
+          f"4 micro-batches of {RETUNE_SIZE} equal to the eager step, none "
+          f"cold")
+    return {"buckets": list(buckets), "captures": engine.captures}
+
+
+def phase_graphed(cfg, params) -> dict:
+    counts = warm_counts(cfg)
+    plans = {
+        "fp": {"source": "ragged"},
+        "cached": {"source": "cached", "cache_k": CACHE_K,
+                   "cache_trace": counts},
+        "int8": {"source": "cached", "cache_k": CACHE_K,
+                 "cache_trace": counts, "quantize_cold": True},
+        "fixed": {"source": "fixed"},
+        "flat": {"source": FlatArena(params["arena"])},
+        "tiered_int4": {"source": es.SourceSpec(tiers=int4_policy()),
+                        "cache_trace": counts},
+        "tiered_host": {"source": es.SourceSpec(tiers=host_policy()),
+                        "cache_trace": counts}}
+    out, launches = {}, {n: 0 for n in KERNELS}
+    for name, plan in plans.items():
+        t0 = time.perf_counter()
+        out[name] = graphed_plan(cfg, params, name, plan, counts)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        if out[name]["phase_s"] > GRAPH_PLAN_BUDGET_S:
+            fail(f"{name}: phase 11 took {out[name]['phase_s']:.1f} s, over "
+                 f"its budget of {GRAPH_PLAN_BUDGET_S} s")
+        for n in KERNELS:
+            launches[n] += out[name]["launches"][n]
+    out["retune"] = graphed_retune(cfg, params)
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3473,35 +4033,47 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         TRACE_DIR = args.out.parent
 
+    clock = [time.perf_counter()]
+
+    def phase(title: str) -> None:
+        """Print how long the phase before took, then the next header."""
+        now = time.perf_counter()
+        print(f"   (the phase before took {now - clock[0]:.1f} s)")
+        clock[0] = now
+        print(f"== {title}")
+
     print("== phase 1: card")
     card = phase_card()
     cfg = DLRM_CONFIGS["dlrm1"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = dlrm.init(gen, cfg, device="cuda")
-    print("== phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     kernels = phase_kernels(cfg, params, gen)
-    print("== phase 3: serve DLRM(1) at full size")
+    phase("phase 3: serve DLRM(1) at full size")
     served, fp_probs = phase_serve(cfg, params)
-    print("== phase 4: train DLRM(1) at full size")
+    phase("phase 4: train DLRM(1) at full size")
     trained = phase_train(cfg, gen)
     kernels["sls_grad_table"] = trained["sls_grad_table"]
     kernels["gemm"]["max_abs_err"] = max(
         kernels["gemm"]["max_abs_err"], trained["gemm_backward_max_abs_err"])
     kernels["gemm"]["backward_rows"] = trained["gemm_backward_rows"]
-    print("== phase 5: serve DLRM(1) on the cached plan")
+    phase("phase 5: serve DLRM(1) on the cached plan")
     cached = phase_serve_cached(cfg, params, fp_probs)
-    print("== phase 6: online refresh of the hot cache on the card")
+    phase("phase 6: online refresh of the hot cache on the card")
     online = phase_online(cfg)
-    print("== phase 7: fixed-L serving and the hybrid pipeline")
+    phase("phase 7: fixed-L serving and the hybrid pipeline")
     fixed = phase_serve_fixed(cfg, params, fp_probs)
-    print("== phase 8: fixed-L training")
+    phase("phase 8: fixed-L training")
     trained_fixed = phase_train_fixed(cfg)
-    print("== phase 9: tiered storage on DLRM(1)")
+    phase("phase 9: tiered storage on DLRM(1)")
     kernels["fused_int4_segment_sum"], tiered, online_t = phase_tiered(
         cfg, params, fp_probs, gen)
-    del params
-    print("== phase 10: LM serving, smollm-360m at full width")
+    phase("phase 10: LM serving, smollm-360m at full width")
     kernels["flash_attention"], lm = phase_lm(gen)
+    phase("phase 11: graphed serving, every plan")
+    graphed = phase_graphed(cfg, params)
+    del params
+    phase("phase 12: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -3518,6 +4090,7 @@ def main() -> None:
                    "serve_tiered_int4": tiered["int4"]["launches"][name],
                    "serve_tiered_host": tiered["host"]["launches"][name],
                    "online_tiered": online_t["launches"][name],
+                   "graphed": graphed["launches"][name],
                    "lm_prefill": lm["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
@@ -3552,7 +4125,7 @@ def main() -> None:
              "serve_cached": cached, "train": trained, "online": online,
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
-             "lm": lm},
+             "graphed": graphed, "lm": lm},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -44,10 +44,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
-           "SourceSpec", "VersionedSource", "describe_source", "fmt_bytes",
-           "hot_cache_of", "lookup_bags", "lookup_fixed", "rebind_arena",
-           "register_meta_type", "register_source", "source_bytes",
-           "source_structure", "with_hot_cache"]
+           "SourceSpec", "VersionedSource", "adopt_source", "clone_source",
+           "describe_source", "fmt_bytes", "hot_cache_of", "lookup_bags",
+           "lookup_fixed", "rebind_arena", "register_meta_type",
+           "register_source", "source_bytes", "source_structure",
+           "with_hot_cache"]
 
 
 class EmbeddingSource:
@@ -435,6 +436,50 @@ def source_structure(source) -> Tuple[tuple, List[torch.Tensor]]:
                 tuple(walk(getattr(obj, f)) for f in data))
 
     return walk(source), leaves
+
+
+# ---------------------------------------------------------------------------
+# The snapshot rule: an engine's own copy of a source, swapped in place
+# ---------------------------------------------------------------------------
+
+def clone_source(source):
+    """A copy of ``source`` that shares no tensor with it, and no host
+    store: what a serving engine holds, so that a swap copied into it
+    never writes a tensor the engine was handed. A source type with its
+    own host state supplies ``_clone`` (the host tier: a new store over
+    copies of the rows and mapping, nothing staged yet)."""
+    if isinstance(source, torch.Tensor):
+        return source.detach().clone()
+    if hasattr(source, "_clone"):
+        return source._clone()
+    entry = _registered(type(source).__name__)
+    if entry is None or entry[0] is not type(source):
+        raise TypeError(f"{type(source).__name__} is not a source type of "
+                        f"the port ({sorted(_SOURCE_REGISTRY)})")
+    return dataclasses.replace(source, **{f: clone_source(getattr(source, f))
+                                          for f in entry[1]})
+
+
+def adopt_source(dst, src) -> None:
+    """Copy ``src`` into ``dst``'s own tensors, in place, so that every
+    tensor of ``dst`` keeps its address: a forward captured over ``dst``
+    serves ``src``'s values from then on. A source type with host state
+    supplies ``_adopt`` (the host tier's store adopts ``src``'s rows,
+    ``HostStore.adopt``). The two must have the same structure and
+    tensor shapes (``source_structure``); a leaf that already is
+    ``src``'s is left alone."""
+    def walk(d, s):
+        if isinstance(d, torch.Tensor):
+            if d.data_ptr() != s.data_ptr():
+                d.copy_(s)
+        elif hasattr(d, "_adopt"):
+            d._adopt(s)
+        else:
+            for f in _SOURCE_REGISTRY[type(d).__name__][1]:
+                walk(getattr(d, f), getattr(s, f))
+
+    with torch.no_grad():
+        walk(dst, src)
 
 
 # ---------------------------------------------------------------------------

@@ -29,21 +29,34 @@ dtypes. Hit accounting runs on the device and is read only by
 
 The engine never aliases tensors that a trainer updates in place: the
 params it is given, or assigned through ``engine.params = ...``, are
-copied into its own tensors (in place when the shapes match, so their
-addresses stay fixed). A tiered source is the engine's own copy too:
-a swap copies into its tensors and adopts a host tier's rows into the
-engine's own ``HostStore``, never the trainer's.
+copied into its own tensors (in place when the shapes match), and the
+source it serves is its own (built from its params, or a clone of a
+built source it was handed). Every swap copies into those tensors in
+place (``es.adopt_source``; a host tier's rows go into the engine's own
+``HostStore``), so their addresses never move and nothing the engine
+was handed is ever written.
+
+On the card every micro-batch replays a captured CUDA graph of its
+(path, bucket) pair (``serve_graph.ServeGraph``), the counterpart of the
+reference's one ``jax.jit`` executable per bucket: ``warmup()`` captures
+every pair off the SLA clock (the warm pool), a pair's first dispatch
+otherwise (``cold_compiles`` counts those), and a swap of the same
+structure and shapes is never a recapture. ``dispatch``/``settle`` split
+a micro-batch into its enqueue and its one host wait (continuous
+batching; ``step`` is both), ``tune_buckets``/``retune_buckets`` re-pick
+the buckets from the observed batch sizes, and ``enable_downgrade``
+builds the int8 source that overloaded batches serve from. On the CPU
+the same calls run the serve step eagerly through the plain versions.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the sharded plans, table groups, telemetry, dispatch/settle, the
-int8 downgrade path and CUDA-graph capture.
+item: the sharded plans, table groups and telemetry.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +68,7 @@ from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.core.embedding_source import SourceSpec
 from repro_torch.optim import tree_leaves, tree_map
+from repro_torch.serving.serve_graph import ServeGraph, Slot
 from repro_torch.storage import tiered as st
 
 
@@ -70,6 +84,7 @@ class RecRequest:
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
     prob: Optional[float] = None        # predicted CTR, set when served
+    downgraded: bool = False            # served on the int8 downgrade path
     # (per-table ids, table) streams, extracted at admission when the
     # engine serves a host cold tier
     cold_streams: Optional[tuple] = None
@@ -112,6 +127,44 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def tune_buckets(sizes: Sequence[int], max_batch: int,
+                 n_buckets: int = 6) -> tuple:
+    """Pick pad-bucket boundaries from an observed micro-batch-size
+    histogram instead of fixed powers of two.
+
+    Boundaries are the ceil-quantiles of the observed sizes (equal traffic
+    mass per bucket), deduplicated, with max_batch always present as the
+    catch-all. Fewer distinct observed sizes than n_buckets simply yields
+    fewer buckets — each observed size then pads to itself (zero waste).
+    Observed sizes above max_batch clip to it: the batcher never releases
+    more than max_batch, so a larger bucket would only be compiled, never
+    hit.
+    """
+    if len(sizes) == 0:
+        return tuple(sorted({1, max_batch}))
+    arr = np.sort(np.minimum(np.asarray(sizes, np.int64), max_batch))
+    qs = [arr[min(len(arr) - 1, int(np.ceil((i + 1) / n_buckets * len(arr)))
+                 - 1)] for i in range(n_buckets)]
+    out = sorted({int(q) for q in qs if q >= 1} | {max_batch})
+    return tuple(out)
+
+
+@dataclass
+class InflightBatch:
+    """A dispatched, unsettled micro-batch: its result, not yet waited
+    for, and the host context to account for it at settle time. On the
+    card ``probs`` is the ring slot of the pair's graph (pinned output and
+    the event after its copy back); on the CPU the probabilities."""
+    reqs: List[RecRequest]
+    probs: Union[Slot, torch.Tensor]
+    bucket: int
+    downgraded: bool
+    dispatched_mono: float
+
+
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+
+
 def _own_copy(tree: Dict) -> Dict:
     return tree_map(lambda t: t.detach().clone(), tree)
 
@@ -133,13 +186,16 @@ class RecEngine:
     ``quantize_cold``), a ``SourceSpec`` built against the engine's copy
     of ``params["arena"]`` (a tiered plan ranks its tiers by
     ``cache_trace``), or a built ``EmbeddingSource``, served as it is on
-    the ragged layout (a ``TieredSource`` as the engine's own copy). A
-    fixed-layout engine serves ``params["arena"]`` and takes requests
-    whose every bag holds exactly ``cfg.lookups_per_table`` ids.
+    the ragged layout, as the engine's own copy. A fixed-layout engine
+    serves ``params["arena"]`` and takes requests whose every bag holds
+    exactly ``cfg.lookups_per_table`` ids. ``auto_tune_after`` retunes
+    the buckets once, after that many micro-batches.
 
-    ``device`` defaults to the card; pass ``device="cpu"`` (with params
-    on the CPU) to serve through the plain PyTorch path. Latencies are
-    kept over a bounded ring of the last ``LATENCY_RING`` requests.
+    ``device`` defaults to the card, where every micro-batch replays the
+    captured graph of its (path, bucket) pair; pass ``device="cpu"``
+    (with params on the CPU) to serve eagerly through the plain PyTorch
+    path. Latencies are kept over a bounded ring of the last
+    ``LATENCY_RING`` requests.
     """
 
     LATENCY_RING = 4096
@@ -152,6 +208,7 @@ class RecEngine:
                  buckets: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  cache_k: int = 0, cache_trace=None,
                  quantize_cold: bool = False,
+                 auto_tune_after: Optional[int] = None,
                  mesh: Optional[object] = None,
                  telemetry: Optional[object] = None,
                  device: Optional[Union[str, torch.device]] = None):
@@ -160,6 +217,7 @@ class RecEngine:
                 "serving telemetry needs the port's copy of repro.obs, not "
                 "ported yet (ROADMAP Queue 1, item 6)")
         self.device = resolve_device(device)
+        self._graphed = self.device.type == "cuda"
         for name in ("bottom", "top"):
             for w, b in params[name]:
                 self._check_device(w, f"params[{name!r}]")
@@ -167,6 +225,18 @@ class RecEngine:
         self._check_device(params["arena"], "params['arena']")
         self.cfg = cfg
         self.source: Optional[es.EmbeddingSource] = None
+        self._down_source: Optional[es.QuantizedArena] = None
+        # the warm pool: (path kind, bucket) pairs whose serve entry has
+        # been triggered (warmup() or a first dispatch), as the
+        # reference's; on the card the captured graphs of the live
+        # buckets, one memory pool for all, and the captures so far
+        self._warm: set = set()
+        self._graphs: Dict[tuple, ServeGraph] = {}
+        self._pool = None
+        self.captures = 0
+        # dispatches that found their pair cold: zero after warmup() is
+        # the warm-pool claim (the reference's rec_cold_compiles_total)
+        self.cold_compiles = 0
         self._params: Optional[Dict] = None
         self.params = params
         self.spec = dlrm.arena_spec(cfg)
@@ -174,6 +244,12 @@ class RecEngine:
         self.batcher = RecBatcher(max_batch, max_wait_ms)
         self.max_batch = max_batch
         self.buckets = tuple(sorted(set(buckets) | {max_batch}))
+        self.auto_tune_after = auto_tune_after
+        self._retuned = False
+        # the tuner never reads more than this many batch sizes
+        self._batch_ring: deque = deque(
+            maxlen=max(1024, auto_tune_after or 0))
+        self._batches_seen = 0
         self.served = 0
         self.batches = 0
         self.source_version = 0
@@ -186,6 +262,8 @@ class RecEngine:
                 source, cache_k=cache_k, quantize_cold=quantize_cold,
                 mesh=mesh)
             self.path = self.plan.path_name()
+            # built over the engine's own arena: every tensor is new or
+            # the engine's
             self.source = self.plan.build(self._params["arena"], self.spec,
                                           cache_trace)
         elif isinstance(source, es.EmbeddingSource):
@@ -199,9 +277,7 @@ class RecEngine:
                 self._check_device(t, "source")
             self.plan = None
             self.path = es.describe_source(source)
-            self.source = (st.clone_tiered(source)
-                           if isinstance(source, st.TieredSource)
-                           else source)
+            self.source = es.clone_source(source)
         else:
             raise TypeError(f"source must be a path string, a SourceSpec or "
                             f"an EmbeddingSource, got {type(source)}")
@@ -211,13 +287,23 @@ class RecEngine:
             self._serve = dlrm.make_serve_step(cfg)
         else:
             self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
-        self._reset_hit_counters()
+        # hits accumulate on the device, in place (a probe captured in a
+        # graph keeps its address), and are read only by stats(); the
+        # lookups are counted on the host from the numpy offsets
+        self._hits = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._lookups = 0
         self._bind_host_stores()
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
         if t.device.type != self.device.type:
             raise ValueError(f"{what} on {t.device}, engine on "
                              f"{self.device}")
+
+    @property
+    def batch_sizes(self) -> List[int]:
+        """The most recent micro-batch sizes (a ring of max(1024,
+        auto_tune_after): all the tuner reads)."""
+        return list(self._batch_ring)
 
     # -- the swap boundary --------------------------------------------------
 
@@ -227,31 +313,30 @@ class RecEngine:
 
     @params.setter
     def params(self, params: Dict) -> None:
-        """Copy ``params`` into the engine's own tensors (in place when
-        the layout matches, so their addresses stay fixed) and rebind the
-        source's fp-arena leaf to the engine's arena. A trainer that then
-        steps in place does not reach what the engine serves until the
-        next assignment."""
+        """Copy ``params`` into the engine's own tensors and the served
+        source's fp-arena leaves, in place when the layout matches, so
+        every address stays fixed and no graph is recaptured; the
+        downgrade source is re-quantized into its own tensors. A trainer
+        that then steps in place does not reach what the engine serves
+        until the next assignment. Params of another layout are copied
+        into new tensors, and every captured graph is dropped."""
         if self._params is not None and _same_layout(self._params, params):
             with torch.no_grad():
                 for mine, new in zip(tree_leaves(self._params),
                                      tree_leaves(params)):
                     mine.copy_(new)
+            if self.source is not None:
+                es.adopt_source(self.source, es.rebind_arena(
+                    self.source, self._params["arena"]))
         else:
             self._params = _own_copy(params)
-        if self.source is not None:
-            self._set_source(es.rebind_arena(self.source,
-                                             self._params["arena"]))
-
-    def _set_source(self, source: es.EmbeddingSource) -> None:
-        """Serve ``source``; a tiered one is copied into the engine's own
-        tiered source (the snapshot rule), whose tensors keep their
-        addresses."""
-        if isinstance(source, st.TieredSource) \
-                and isinstance(self.source, st.TieredSource):
-            st.adopt_tiered(self.source, source)
-        else:
-            self.source = source
+            self._graphs.clear()
+            if self.source is not None:
+                self.source = es.rebind_arena(self.source,
+                                              self._params["arena"])
+        if self._down_source is not None:
+            es.adopt_source(self._down_source, es.QuantizedArena.from_arena(
+                self._params["arena"]))
 
     @property
     def cache(self) -> Optional[se.HotRowCache]:
@@ -264,22 +349,24 @@ class RecEngine:
         return self.source_version
 
     def _reset_hit_counters(self) -> None:
-        # hits accumulate on the device and are read only by stats(); the
-        # lookups are counted on the host from the numpy offsets
-        self._hits = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._hits.zero_()
         self._lookups = 0
 
     def update_source(self, source: es.EmbeddingSource,
                       version: Optional[int] = None) -> None:
         """Swap the served source atomically (hot cache, int8 cold arena,
-        fp arena: any component).
+        fp arena: any component), by copying it into the engine's own
+        source in place: the captured graphs serve it from their next
+        replay, with no recapture.
 
         A version below the served one is refused (a reordered broadcast
         would roll rows back); an equal one is a republish. The new
         source must have the old one's structure and tensors of the same
-        shapes, dtypes and devices: the serve step, and later a captured
-        CUDA graph, are shaped for it. A version bump resets the hit
-        counters, so the reported rate is the live cache's.
+        shapes, dtypes and devices: the serve step and its captured
+        graphs are shaped for it. A version bump resets the hit counters,
+        so the reported rate is the live cache's. On the plans built over
+        the fp arena the served arena is ``params["arena"]``, which a swap
+        of the fp arena therefore rewrites too.
         """
         if self.layout == "fixed":
             raise ValueError(
@@ -305,7 +392,7 @@ class RecEngine:
                     f"cache_k and arena shapes equal")
         new_version = (version if version is not None
                        else self.source_version + 1)
-        self._set_source(source)
+        es.adopt_source(self.source, source)
         self._bind_host_stores()
         if new_version > self.source_version:
             self._reset_hit_counters()
@@ -320,24 +407,35 @@ class RecEngine:
         self.update_source(es.with_hot_cache(self.source, cache),
                            version=version)
 
-    def enable_downgrade(self):
-        raise NotImplementedError(
-            "the int8 downgrade path is not ported yet (ROADMAP Queue 1, "
-            "item 8)")
+    # -- the int8 downgrade path --------------------------------------------
 
-    def dispatch(self, reqs, *, downgraded: bool = False):
-        raise NotImplementedError(
-            "dispatch/settle is not ported yet (ROADMAP Queue 1, item 6)")
+    @property
+    def downgrade_source(self) -> Optional[es.QuantizedArena]:
+        """The int8 source overloaded batches serve from (None until
+        ``enable_downgrade``)."""
+        return self._down_source
 
-    def settle(self, inflight):
-        raise NotImplementedError(
-            "dispatch/settle is not ported yet (ROADMAP Queue 1, item 6)")
+    def enable_downgrade(self) -> es.QuantizedArena:
+        """Build (once) the int8 downgrade source,
+        ``QuantizedArena.from_arena(params["arena"])``, served through the
+        same ragged serve step as its own path: ``warmup()`` captures its
+        pairs too, and a params assignment re-quantizes into its tensors.
+        Table-group sources, whose downgrade is per member, are not
+        ported (ROADMAP Queue 1, item 8)."""
+        if self.layout == "fixed":
+            raise ValueError(
+                "the downgrade path serves through the ragged lookup_bags "
+                "step; the fixed layout reads params['arena'] directly")
+        if self._down_source is None:
+            self._down_source = es.QuantizedArena.from_arena(
+                self._params["arena"])
+        return self._down_source
 
     # -- host cold tier: staging and prefetch --------------------------------
 
     def _bind_host_stores(self) -> None:
         """The host stores behind the served source: the engine's own
-        (see ``_set_source``), staged before every forward."""
+        (see ``update_source``), staged before every primary forward."""
         self._host_stores: List = ([] if self.layout == "fixed"
                                    else st.host_stores_of(self.source))
         self._stream_cache = None
@@ -379,9 +477,10 @@ class RecEngine:
         arrives, its rows are already resident and its extraction done.
         That is the prefetcher: misses become hits one step ahead of
         their batch. The copies and scatters are enqueued on the serving
-        stream before the forward, with no host synchronisation, into the
-        tensors the served source holds (the reference refreshes its
-        source's snapshot here; the port's stores update in place).
+        stream before the forward (outside its graph), with no host
+        synchronisation, into the tensors the served source holds, whose
+        addresses stay fixed (the reference refreshes its source's
+        snapshot here; the port's stores update in place).
         """
         if not self._host_stores or not reqs:
             return
@@ -415,26 +514,93 @@ class RecEngine:
         this is for lookahead the queue cannot see yet."""
         self._stage_batch(reqs, ahead=True)
 
-    # -- request plumbing ---------------------------------------------------
+    # -- the warm pool: one serve entry per (path, bucket) -------------------
+
+    def _forward(self, kind: str) -> Callable[[Dict], torch.Tensor]:
+        """The eager serve step of one path over a batch dict: what the
+        card captures as the pair's graph and the CPU runs. The primary
+        path of a cached source adds its hit probe after the forward, on
+        the device, so that it adds no host wait."""
+        if kind == "downgrade":
+            return lambda batch: self._serve(self._params, batch,
+                                             self._down_source)
+        if self.layout == "fixed":
+            return lambda batch: self._serve(self._params, batch)
+        cache = self.cache
+        if cache is None:
+            return lambda batch: self._serve(self._params, batch,
+                                             self.source)
+
+        def primary(batch: Dict) -> torch.Tensor:
+            probs = self._serve(self._params, batch, self.source)
+            self._hits += se.cache_hits(cache, self.spec, batch["indices"],
+                                        batch["offsets"])
+            return probs
+        return primary
+
+    def _input_shapes(self, bucket: int) -> Dict[str, tuple]:
+        """A bucket's static input shapes and dtypes."""
+        t = self.cfg.n_tables
+        out = {"dense": ((bucket, self.cfg.dense_features), torch.float32)}
+        if self.layout == "fixed":
+            out["indices"] = ((bucket, t, self.cfg.lookups_per_table),
+                              torch.int32)
+        else:
+            out["indices"] = ((bucket * t * self.max_l,), torch.int32)
+            out["offsets"] = ((bucket * t + 1,), torch.int32)
+        return out
+
+    def _graph(self, kind: str, bucket: int) -> ServeGraph:
+        """The captured graph of a pair, captured now if it has none (the
+        largest bucket first keeps the shared pool one size)."""
+        g = self._graphs.get((kind, bucket))
+        if g is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[(kind, bucket)] = ServeGraph(
+                self._forward(kind), self._input_shapes(bucket),
+                self.device, self._pool)
+            self.captures += 1
+        return g
 
     def warmup(self) -> None:
-        """Serve one dummy request through every bucket, off the SLA
-        clock: the first call builds and loads the kernels, and every
-        host store runs one flush at each chunk size."""
+        """Trigger every (path, bucket) pair's serve entry off the SLA
+        clock, the warm pool: on the card capture each pair's graph (the
+        primary path's, and the downgrade path's once ``enable_downgrade``
+        has run), largest bucket first; on the CPU serve one dummy
+        request through each. Every host store first runs one flush at
+        each chunk size."""
         n_l = self.cfg.lookups_per_table if self.layout == "fixed" else 0
         dummy = [RecRequest(
             rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
             sparse_ids=[np.zeros(n_l, np.int32)] * self.cfg.n_tables)]
+        kinds = ("primary",) + (("downgrade",) if self._down_source
+                                is not None else ())
         for store in self._host_stores:
             store.warm_compile()
-        for bucket in self.buckets:
-            batch, _ = self._assemble(dummy, bucket)
-            self._run_serve(batch).cpu()
+        for bucket in sorted(self.buckets, reverse=True):
+            for kind in kinds:
+                if self._graphed:
+                    self._graph(kind, bucket)
+                else:
+                    batch, _ = self._assemble(dummy, bucket)
+                    self._forward(kind)(batch)
+                self._warm.add((kind, bucket))
 
-    def _run_serve(self, batch: Dict) -> torch.Tensor:
-        if self.layout == "fixed":
-            return self._serve(self._params, batch)
-        return self._serve(self._params, batch, self.source)
+    def retune_buckets(self, n_buckets: int = 6,
+                       warmup: bool = True) -> tuple:
+        """Re-pick the buckets from the observed batch sizes
+        (``tune_buckets``), free the graphs of the buckets dropped, and
+        (``warmup``) capture the new ones."""
+        self.buckets = tune_buckets(self.batch_sizes, self.max_batch,
+                                    n_buckets)
+        self._graphs = {p: g for p, g in self._graphs.items()
+                        if p[1] in self.buckets}
+        if warmup:
+            self.warmup()
+        return self.buckets
+
+    # -- request plumbing ---------------------------------------------------
 
     def submit(self, req: RecRequest) -> None:
         if len(req.sparse_ids) != self.cfg.n_tables:
@@ -444,76 +610,140 @@ class RecEngine:
             self._req_streams(req)       # admission-time extraction
         self.batcher.submit(req)
 
-    def _assemble(self, reqs: List[RecRequest], bucket: int):
-        """Pad a micro-batch to its bucket's static shapes, on the
-        engine's device. Returns (batch, n_valid): n_valid, the real
-        index count, comes from the numpy offsets, so hit accounting never
-        reads a device tensor to learn it."""
-        t = self.cfg.n_tables
-        dense = np.zeros((bucket, self.cfg.dense_features), np.float32)
-        for i, r in enumerate(reqs):
-            dense[i] = r.dense
+    def _fill(self, reqs: List[RecRequest], arrays: Dict[str, np.ndarray]
+              ) -> int:
+        """Pad a micro-batch into its bucket's host arrays, in place (the
+        padding rows zero, their bags empty). Returns the real index
+        count, from the numpy offsets, so hit accounting never reads a
+        device tensor to learn it. The bags of a micro-batch, in (sample,
+        table) order, are its flat id stream."""
+        n, t = len(reqs), self.cfg.n_tables
+        dense = arrays["dense"]
+        np.stack([r.dense for r in reqs], out=dense[:n])
+        dense[n:] = 0.0
+        bags = [ids for r in reqs for ids in r.sparse_ids]
+        lens = np.fromiter(map(len, bags), np.int32, count=n * t)
+        idx = arrays["indices"]
         if self.layout == "fixed":
             n_l = self.cfg.lookups_per_table
-            idx = np.zeros((bucket, t, n_l), np.int32)
-            for i, r in enumerate(reqs):
-                for j, ids in enumerate(r.sparse_ids):
-                    if len(ids) != n_l:
-                        raise ValueError(
-                            f"request {r.rid} table {j}: the fixed layout "
-                            f"takes bags of exactly {n_l} ids, got "
-                            f"{len(ids)}")
-                    idx[i, j] = ids
+            bad = np.flatnonzero(lens != n_l)
+            if bad.size:
+                i, j = divmod(int(bad[0]), t)
+                raise ValueError(
+                    f"request {reqs[i].rid} table {j}: the fixed layout "
+                    f"takes bags of exactly {n_l} ids, got {lens[bad[0]]}")
             # padding rows gather row 0: harmless, their outputs are
             # dropped, and every kernel computes each row on its own
-            return {k: torch.from_numpy(v).to(self.device)
-                    for k, v in (("dense", dense), ("indices", idx))}, 0
-        lens = np.zeros(bucket * t, np.int32)
-        for i, r in enumerate(reqs):
-            for j, ids in enumerate(r.sparse_ids):
-                if len(ids) > self.max_l:
-                    raise ValueError(f"request {r.rid} table {j}: bag of "
-                                     f"{len(ids)} > max_l {self.max_l}")
-                lens[i * t + j] = len(ids)
-        offsets = np.zeros(bucket * t + 1, np.int32)
-        np.cumsum(lens, out=offsets[1:])
-        flat = np.zeros(bucket * t * self.max_l, np.int32)  # static cap
-        for i, r in enumerate(reqs):
-            for j, ids in enumerate(r.sparse_ids):
-                o = offsets[i * t + j]
-                flat[o:o + len(ids)] = ids
-        batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in (("dense", dense), ("indices", flat),
-                              ("offsets", offsets))}
-        return batch, int(offsets[-1])
-
-    def step(self, force: bool = False) -> int:
-        """Serve one micro-batch; returns the number of requests served."""
-        reqs = self.batcher.take(force=force)
-        if not reqs:
+            idx[:n] = np.concatenate(bags).reshape(n, t, n_l)
+            idx[n:] = 0
             return 0
-        now = time.time()
+        bad = np.flatnonzero(lens > self.max_l)
+        if bad.size:
+            i, j = divmod(int(bad[0]), t)
+            raise ValueError(f"request {reqs[i].rid} table {j}: bag of "
+                             f"{lens[bad[0]]} > max_l {self.max_l}")
+        offsets = arrays["offsets"]
+        offsets[0] = 0
+        np.cumsum(lens, out=offsets[1:n * t + 1])
+        n_valid = int(offsets[n * t])
+        offsets[n * t + 1:] = n_valid
+        if n_valid:
+            np.concatenate(bags, out=idx[:n_valid], casting="same_kind")
+        idx[n_valid:] = 0                 # the static cap's padded tail
+        return n_valid
+
+    def _assemble(self, reqs: List[RecRequest], bucket: int):
+        """A micro-batch padded to its bucket's static shapes, as a batch
+        dict on the engine's device, and its real index count."""
+        arrays = {k: np.empty(s, _NUMPY[dt])
+                  for k, (s, dt) in self._input_shapes(bucket).items()}
+        n_valid = self._fill(reqs, arrays)
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}, n_valid
+
+    # -- serving: dispatch / settle -----------------------------------------
+
+    def dispatch(self, reqs: List[RecRequest], *,
+                 downgraded: bool = False) -> InflightBatch:
+        """Stage, pad and enqueue one micro-batch without waiting for it.
+
+        On the card the forward is the pair's graph replay, and the
+        result stays in flight (its ring slot and event), so the caller
+        can assemble the next micro-batch while this one computes:
+        continuous batching with in-flight refill. ``downgraded=True``
+        serves from the int8 downgrade source (``enable_downgrade``
+        first), its own pair of graphs. A pair not yet warm is captured
+        here and counted in ``cold_compiles``."""
+        return self._dispatch(reqs, downgraded, count_cold=True)
+
+    def _dispatch(self, reqs: List[RecRequest], downgraded: bool, *,
+                  count_cold: bool) -> InflightBatch:
+        if not reqs:
+            raise ValueError("dispatch needs a non-empty micro-batch")
+        if downgraded and self._down_source is None:
+            raise ValueError("call enable_downgrade() before dispatching a "
+                             "downgraded micro-batch")
+        # retune before the SLA clocks start: capturing the new buckets
+        # must not land on this micro-batch's latency
+        if self.auto_tune_after is not None and not self._retuned \
+                and self._batches_seen >= self.auto_tune_after:
+            self._retuned = True
+            self.retune_buckets()
+        now, now_m = time.time(), time.monotonic()
+        self._batches_seen += 1
+        self._batch_ring.append(len(reqs))
+        bucket = _bucket(len(reqs), self.buckets)
+        kind = "downgrade" if downgraded else "primary"
+        pair = (kind, bucket)
+        if count_cold and pair not in (self._graphs if self._graphed
+                                       else self._warm):
+            self.cold_compiles += 1
+        self._warm.add(pair)
         for r in reqs:
             r.started_at = now
-        self._stage_batch(reqs)          # host-cold residency guarantee
-        batch, n_valid = self._assemble(reqs, _bucket(len(reqs),
-                                                      self.buckets))
-        probs = self._run_serve(batch).cpu().numpy()  # host sync
+            r.downgraded = downgraded
+        if not downgraded:
+            self._stage_batch(reqs)      # host-cold residency guarantee
+        if self._graphed:
+            graph = self._graph(kind, bucket)
+            probs = graph.acquire()
+            n_valid = self._fill(reqs, probs.arrays)
+            graph.replay(probs)
+        else:
+            batch, n_valid = self._assemble(reqs, bucket)
+            probs = self._forward(kind)(batch)
+        if not downgraded and self.cache is not None:
+            self._lookups += n_valid
+        return InflightBatch(reqs=reqs, probs=probs, bucket=bucket,
+                             downgraded=downgraded, dispatched_mono=now_m)
+
+    def settle(self, ib: InflightBatch) -> int:
+        """Wait for an in-flight micro-batch's probabilities and respond:
+        the one host wait of the dispatch/settle pair, a read by then in a
+        pipeline deep enough. Records each request's latency on the
+        monotonic clock."""
+        if isinstance(ib.probs, Slot):
+            probs = ib.probs.result()
+        else:
+            probs = ib.probs.numpy()
         done, done_m = time.time(), time.monotonic()
-        for i, r in enumerate(reqs):
+        for i, r in enumerate(ib.reqs):
             r.prob = float(probs[i])
             r.finished_at = done
             self._lat_ms.append((done_m - r.submitted_mono) * 1e3)
-        self.served += len(reqs)
+        if isinstance(ib.probs, Slot):
+            ib.probs.release()
+        self.served += len(ib.reqs)
         self.batches += 1
-        cache = self.cache
-        if cache is not None and n_valid:
-            # enqueued after the response, read only by stats(): the
-            # probe adds no host sync and no latency to this batch
-            self._hits += se.cache_hits(cache, self.spec, batch["indices"],
-                                        batch["offsets"])
-            self._lookups += n_valid
-        return len(reqs)
+        return len(ib.reqs)
+
+    def step(self, force: bool = False) -> int:
+        """Serve one micro-batch (dispatch, then settle); returns the
+        number of requests served."""
+        reqs = self.batcher.take(force=force)
+        if not reqs:
+            return 0
+        return self.settle(self._dispatch(reqs, False, count_cold=False))
 
     def drain(self) -> int:
         """Serve everything still queued (end-of-stream flush)."""

@@ -133,6 +133,31 @@ class HostTier(es.EmbeddingSource):
         return (int(self.store.host_rows.nbytes)
                 if self.store is not None else 0)
 
+    def _clone(self) -> "HostTier":
+        """``es.clone_source``'s hook: a tier of a new store over copies
+        of the rows and mapping, nothing staged yet."""
+        if self.store is None:
+            return HostTier(staging=self.staging.clone(),
+                            slot_of=self.slot_of.clone())
+        st = self.store
+        mine = HostStore(st.host_rows, staging_rows=st.staging_rows,
+                         compact_of=st.compact_of,
+                         max_stage_per_batch=st.max_stage, device=st.device)
+        mine._origin = st.generation
+        return mine.tier()
+
+    def _adopt(self, src: "HostTier") -> None:
+        """``es.adopt_source``'s hook: ``src``'s rows and mapping into this
+        tier's store, whose staging arena and slot map keep their
+        addresses; a storeless tier copies its snapshot."""
+        if self.store is not None:
+            self.store.adopt(src.store)
+            return
+        for mine, new in ((self.staging, src.staging),
+                          (self.slot_of, src.slot_of)):
+            if mine.data_ptr() != new.data_ptr():
+                mine.copy_(new)
+
 
 class HostStore:
     """Host-side owner of a cold-row block and its staging residency.

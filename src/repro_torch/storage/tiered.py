@@ -37,9 +37,8 @@ from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import ops
 from repro_torch.storage.host_store import HostStore, HostTier, _no_telemetry
 
-__all__ = ["Int4Arena", "TierPolicy", "TieredSource", "adopt_tiered",
-           "build_tiered", "clone_tiered", "host_stores_of", "migrate",
-           "refresh_host_tiers", "tier_bytes"]
+__all__ = ["Int4Arena", "TierPolicy", "TieredSource", "build_tiered",
+           "host_stores_of", "migrate", "refresh_host_tiers", "tier_bytes"]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -431,59 +430,6 @@ def tier_bytes(source: TieredSource) -> dict:
             else 0)
     return {"hot": hot, "warm": warm, "cold": cold, "maps": maps,
             "host": host, "device_total": hot + warm + cold + maps}
-
-
-# ---------------------------------------------------------------------------
-# The snapshot rule: an engine's own copy of a tiered source
-# ---------------------------------------------------------------------------
-
-def _clone_cold(cold):
-    if isinstance(cold, HostTier):
-        if cold.store is None:
-            return HostTier(staging=cold.staging.clone(),
-                            slot_of=cold.slot_of.clone())
-        st = cold.store
-        mine = HostStore(st.host_rows, staging_rows=st.staging_rows,
-                         compact_of=st.compact_of,
-                         max_stage_per_batch=st.max_stage, device=st.device)
-        mine._origin = st.generation
-        return mine.tier()
-    return Int4Arena(packed=cold.packed.clone(), scales=cold.scales.clone(),
-                     dim=cold.dim)
-
-
-def clone_tiered(source: TieredSource) -> TieredSource:
-    """A copy that shares no tensor and no host store with ``source``: a
-    host cold tier gets a new store over copies of the rows and mapping,
-    with nothing staged yet."""
-    return TieredSource(
-        hot_rows=source.hot_rows.clone(), tier_slot=source.tier_slot.clone(),
-        hot_ids=source.hot_ids.clone(),
-        warm=es.QuantizedArena(q=source.warm.q.clone(),
-                               scales=source.warm.scales.clone()),
-        cold=_clone_cold(source.cold))
-
-
-def adopt_tiered(dst: TieredSource, src: TieredSource) -> None:
-    """Copy ``src`` into ``dst``'s own tensors, in place, so their
-    addresses stay fixed; a host cold tier adopts ``src``'s rows and
-    mapping into ``dst``'s store (``HostStore.adopt``). The two must have
-    the same structure and shapes (``es.source_structure``)."""
-    pairs = [(dst.hot_rows, src.hot_rows), (dst.tier_slot, src.tier_slot),
-             (dst.hot_ids, src.hot_ids), (dst.warm.q, src.warm.q),
-             (dst.warm.scales, src.warm.scales)]
-    if isinstance(dst.cold, Int4Arena):
-        pairs += [(dst.cold.packed, src.cold.packed),
-                  (dst.cold.scales, src.cold.scales)]
-    elif dst.cold.store is None:
-        pairs += [(dst.cold.staging, src.cold.staging),
-                  (dst.cold.slot_of, src.cold.slot_of)]
-    else:
-        dst.cold.store.adopt(src.cold.store)
-    with torch.no_grad():
-        for mine, new in pairs:
-            if mine.data_ptr() != new.data_ptr():
-                mine.copy_(new)
 
 
 es.register_source(Int4Arena, ("packed", "scales"), ("dim",))

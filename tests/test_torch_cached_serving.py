@@ -247,13 +247,15 @@ def test_source_spec_plan_is_accepted(params, counts):
     assert engine.cache.k == 8
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda e: e.enable_downgrade(), "Queue 1, item 8"),
-    (lambda e: e.dispatch([]), "Queue 1, item 6"),
-    (lambda e: e.settle(None), "Queue 1, item 6")])
-def test_unported_engine_parts_name_their_item(params, call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(_engine(params))
+@pytest.mark.parametrize("source,call,match", [
+    ("fixed", lambda e: e.enable_downgrade(), "fixed layout"),
+    ("ragged", lambda e: e.dispatch([]), "non-empty"),
+    ("ragged", lambda e: e.dispatch(t_requests(_batch(2), CFG.n_tables),
+                                    downgraded=True), "enable_downgrade")])
+def test_engine_parts_refuse_what_they_cannot_serve(params, source, call,
+                                                    match):
+    with pytest.raises(ValueError, match=match):
+        call(_engine(params, source=source))
 
 
 def test_unported_engine_arguments_name_their_item(params):

@@ -217,7 +217,11 @@ def test_sync_engine_follows_every_step_and_copies():
         trainer.train_step(next(gen))
         if trainer.sync_engine(engine):
             synced += 1
-            assert engine.cache is trainer.cache
+            # the engine's own cache, at its own addresses, holds the
+            # trainer's rows
+            for a, b in zip(es.source_structure(engine.cache)[1],
+                            es.source_structure(trainer.cache)[1]):
+                assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
             for a, b in zip(tree_leaves(engine.params),
                             tree_leaves(trainer.params)):
                 assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()

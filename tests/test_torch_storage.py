@@ -46,7 +46,6 @@ from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import fused_dispatch as t_fd
 from repro_torch.kernels import ops, ref
-from repro_torch.storage import tiered as t_tiered
 
 torch.set_num_threads(1)
 
@@ -568,14 +567,14 @@ def test_clone_and_adopt_keep_the_snapshot_rule():
     for cold in ("int4", "host"):
         src, _, a = _both(spec, cold, rng.rand(spec.total_rows), hot=8,
                           warm=20)
-        mine = t_tiered.clone_tiered(src)
+        mine = es.clone_source(src)
         ptrs = [t.data_ptr() for t in es.source_structure(mine)[1]]
         assert not set(ptrs) & {t.data_ptr()
                                 for t in es.source_structure(src)[1]}
         pol, _ = _policy(cold, hot=8, warm=20)
         mig, _ = t_st.migrate(src, _t(a) + 1.0, spec, pol,
                               rng.rand(spec.total_rows))
-        t_tiered.adopt_tiered(mine, mig)
+        es.adopt_source(mine, mig)
         assert [t.data_ptr() for t in es.source_structure(mine)[1]] == ptrs
         for x, y in zip(es.source_structure(mine)[1][:5],
                         es.source_structure(mig)[1][:5]):
