@@ -193,7 +193,33 @@ forward. Each serving phase zeroes the counts just before its engine's
    source re-quantized in place after the params assignment. Last,
    ``retune_buckets`` after traffic of one size: the new bucket's graph
    captured, the dropped one's freed, none cold after.
-12. Report: one JSON line of the kernels, then the device line, which is
+12. Table groups: ``dlrm_het2`` at full size (26 tables of 2,307 to
+   223,260 rows, dims 8/16/32/64, 104.2 MB of fp32 rows; poisson bags of
+   mean 38, max 76; batch 32; seeded weights). (a) The kernels at the
+   shapes the group sends them: ``fused_segment_sum`` and the cached stage
+   over members of width 8, 16, 32 and 64, against their plain versions
+   and bit for bit against the in-order loop, with device ms a call;
+   ``interaction`` at F = 27 both ways; ``sls_grad_table``'s table
+   gradient on the smallest table and a 64-wide one, bit for bit against
+   the CPU. (b) Two plans on buckets 16 and 32: the fp group
+   (``dlrm.group_source``) and the mixed plan (``dlrm.table_plans``: the
+   13 tables of highest alpha cached, K = min(2048, rows / 4) ranked by a
+   4-batch ``group_trace_counts``, the three of over 100,000 rows int8,
+   ten plain fp). Each: ``warmup()`` captures one graph a pair and a
+   forward launches one kernel a member as its plan says; the grouped
+   lookup equals ``lookup_bags_per_table`` bit for bit; 512 requests at
+   depth 2 bit for bit against the eager serve step and within 1e-5 of
+   the CPU path; per-table hits and lookups equal a numpy recount; no
+   capture, cold dispatch or wrapper launch after ``warmup()`` or a
+   ``replace_member`` swap; a replay's kernels by name equal its
+   capture's; host ms, p50/p95/p99, device busy, idle share, kernels and
+   device ms by group a micro-batch; on the fp plan the downgrade group
+   (one int8 member a table) within 0.05 of the primary path. (c) Four
+   sparse and four dense-gradient group steps at batch 32, card against
+   CPU from the same state under phase 4's laws (touched rows exact a
+   table, the tables' budget a table), the wrappers' launches a step by
+   name, step ms, kernels and device ms by group.
+13. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -220,7 +246,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.configs.dlrm import DLRM_CONFIGS  # noqa: E402
+from repro_torch.configs.dlrm import (DLRM_CONFIGS,  # noqa: E402
+                                      DLRM_HET_CONFIGS)
 from repro_torch.core import dlrm  # noqa: E402
 from repro_torch.core import embedding_source as es  # noqa: E402
 from repro_torch.core import hybrid  # noqa: E402
@@ -4021,6 +4048,475 @@ def phase_lm(gen) -> dict:
         "agree": agree, "serve": served}
 
 
+# ---------------------------------------------------------------- phase 12
+
+HET_CFG = "dlrm_het2"
+HET_MAX_L = 76                     # 2 x lookups_per_table, as served
+HET_TRACE = 4                      # micro-batches of 32 in the trace that
+                                   # ranks the mixed plan's hot rows
+HET_HOT_TABLES = 13                # the tables of highest alpha get a
+HET_K = 2048                       # cache of min(HET_K, rows // 4) rows
+HET_QUANTIZE_ABOVE = 100_000       # int8 the tables of more rows
+HET_DIMS = (8, 16, 32, 64)         # row widths held; 32 as every path before
+HET_TIMED = 5                      # train steps per timing trial
+
+
+def het_batch(cfg, n: int, seed: int, pad: bool = False) -> dict:
+    return DLRMSynthetic(cfg, seed=seed).ragged_batch(
+        n, dist="poisson", max_l=HET_MAX_L,
+        pad_to=n * cfg.n_tables * HET_MAX_L if pad else None)
+
+
+def het_plans(cfg) -> tuple:
+    """The mixed plan of phase 12 and the per-table trace histograms that
+    rank its hot rows (HET_TRACE micro-batches of a seed of their own)."""
+    trace = het_batch(cfg, HET_TRACE * BUCKET, seed=31)
+    counts = es.group_trace_counts(dlrm.member_specs(cfg), trace["indices"],
+                                   trace["offsets"])
+    hot = set(np.argsort(-np.asarray(cfg.table_alphas),
+                         kind="stable")[:HET_HOT_TABLES].tolist())
+    k = [min(HET_K, r // 4) if t in hot else 0
+         for t, r in enumerate(cfg.table_rows)]
+    return dlrm.table_plans(cfg, cache_k=k,
+                            quantize_rows_above=HET_QUANTIZE_ABOVE), counts
+
+
+def het_member_ids(cfg, batch: dict) -> list:
+    """Each member's (B, max_l) id matrix as the group hands it over: the
+    interleaved stream relayouted once, the -1 slots sent to the member's
+    null row."""
+    idx = torch.from_numpy(batch["indices"]).cuda()
+    off = torch.from_numpy(batch["offsets"]).cuda()
+    dense = se.ragged_dense_ids(idx, off, max_l=HET_MAX_L, fill=-1)
+    dense = dense.reshape(-1, cfg.n_tables, HET_MAX_L)
+    return [torch.where(dense[:, t] >= 0, dense[:, t], sp.null_row)
+            for t, sp in enumerate(dlrm.member_specs(cfg))]
+
+
+def check_het_kernels(cfg, params, counts, gen) -> dict:
+    """The kernels at the shapes the group sends them: fused_segment_sum
+    and the cached stage over members of row width 8, 16, 32 and 64 at 32
+    samples, against the plain version and bit for bit against the
+    in-order loop (a coherent cache: the hot/cold law), with device ms a
+    call; interaction at F = 27 (the TPU kernel's form, and the stage both
+    ways); the dense group step's table gradient (sls_grad_table) on the
+    smallest table (32-byte rows) and a 64-wide one, bit for bit against
+    the CPU plain version."""
+    specs = dlrm.member_specs(cfg)
+    ids = het_member_ids(cfg, het_batch(cfg, BUCKET, seed=32))
+    errs = {"fused_segment_sum": [], "fused_cached_segment_sum": [],
+            "interaction": [], "sls_grad_table": []}
+    rows = []
+    for d in HET_DIMS:
+        t = cfg.table_dims.index(d)
+        table, sp, dense = params["tables"][t], specs[t], ids[t]
+        what = f"table {t}: {sp.rows_per_table} x {d}"
+        got = fd_k.fused_segment_sum(table, dense)
+        errs["fused_segment_sum"].append(compare(
+            "fused_segment_sum", got, ref.fused_segment_sum(table, dense),
+            what))
+        cache = se.build_hot_cache(table, sp, counts[t],
+                                   min(HET_K, sp.rows_per_table // 4))
+        stage = fd_k.fused_cached_segment_stage(cache.hot_rows, cache.slot_of,
+                                                table, dense)
+        errs["fused_cached_segment_sum"].append(compare(
+            "fused_cached_segment_sum", stage,
+            ref.fused_cached_segment_stage(cache.hot_rows, cache.slot_of,
+                                           table, dense, sp.null_row),
+            what + " stage"))
+        want = in_order(table, dense)
+        torch.cuda.synchronize()
+        for name, out in (("fused_segment_sum", got),
+                          ("fused_cached_segment_sum", stage)):
+            if not torch.equal(out, want):
+                fail(f"{name} {what}: differs from the in-order loop by "
+                     f"{(out - want).abs().max().item()}")
+        print(f"  {'both':24s} {what:34s} equal to the in-order loop "
+              f"(torch.equal)")
+        b, l = dense.shape
+        touched = torch.unique(dense).numel()
+        rows.append({
+            "table": t, "rows": sp.rows_per_table, "dim": d,
+            "shape": [b, l, d], "k": cache.k,
+            "fused_segment_sum_device_ms": device_ms(
+                lambda: fd_k.fused_segment_sum(table, dense)),
+            "cached_stage_device_ms": device_ms(
+                lambda: fd_k.fused_cached_segment_stage(
+                    cache.hot_rows, cache.slot_of, table, dense)),
+            "bound_ms": bound(4 * (b * l + touched * d + b * d),
+                              b * l * d)[0]})
+    f, dim = cfg.n_interact_features, cfg.emb_dim
+    x = torch.randn((BUCKET, f, dim), generator=gen, device="cuda")
+    errs["interaction"].append(compare("interaction", fi_k.interaction(x),
+                                       ref.interaction(x),
+                                       f"x {(BUCKET, f, dim)}"))
+    bot = torch.randn((BUCKET, dim), generator=gen, device="cuda")
+    emb = torch.randn((BUCKET, cfg.n_tables, dim), generator=gen,
+                      device="cuda")
+    g = torch.randn((BUCKET, dim + f * (f - 1) // 2), generator=gen,
+                    device="cuda")
+    got = fi_k.feature_interaction(bot, emb)
+    want = ref.feature_interaction(bot, emb)
+    errs["interaction"].append(compare("interaction", got[0], want[0],
+                                       f"stage B {BUCKET}, F {f} out"))
+    _same_bits("interaction", got[1:], want[1:], f"stage F {f} feats")
+    for got_d, want_d in zip(
+            fi_k.feature_interaction_backward(g, None, bot, emb),
+            ref.feature_interaction_backward(g, None, bot, emb)):
+        errs["interaction"].append(compare(
+            "interaction", got_d, want_d, f"stage F {f} bwd",
+            TOL["interaction_backward"]))
+    for t in (int(np.argmin(cfg.table_rows)), cfg.table_dims.index(64)):
+        sp, dense = specs[t], ids[t]
+        b, l = dense.shape
+        off = torch.arange(b + 1, dtype=torch.int32, device="cuda") * l
+        gt = torch.randn((b, sp.dim), generator=gen, device="cuda")
+        got = eg_k.sls_grad_table(gt, dense.reshape(-1), off,
+                                  n_rows=sp.total_rows, skip_row=sp.null_row)
+        cpu = ref.sls_grad_table(gt.cpu(), dense.reshape(-1).cpu(),
+                                 off.cpu(), sp.total_rows)
+        cpu[sp.null_row] = 0.0
+        if not torch.equal(got.cpu(), cpu):
+            fail(f"sls_grad_table table {t} ({sp.total_rows} x {sp.dim}): "
+                 f"differs from the CPU plain version by "
+                 f"{(got.cpu() - cpu).abs().max().item()}")
+        errs["sls_grad_table"].append(0.0)
+        print(f"  {'sls_grad_table':24s} table {t}: {sp.total_rows} x "
+              f"{sp.dim}, {dense.numel()} positions: equal to the CPU plain "
+              f"version (torch.equal)")
+    for r in rows:
+        print(f"  dim {r['dim']:2d} (table {r['table']}, {r['rows']} rows, "
+              f"ids {r['shape'][:2]}, K {r['k']}): device ms a call "
+              f"fused_segment_sum {_fmt(r['fused_segment_sum_device_ms'])}, "
+              f"cached stage {_fmt(r['cached_stage_device_ms'])}, bound "
+              f"{r['bound_ms']:.5f}")
+    return {"rows": rows, "max_abs_err": {k: max(v) for k, v in errs.items()}}
+
+
+def het_eager(cfg):
+    """The eager serve step a group engine's graphs capture, over the
+    batch the engine pads ``reqs`` to; its launches do not count."""
+    step = dlrm.make_ragged_serve_step(cfg, max_l=HET_MAX_L)
+
+    def run(engine, reqs, bucket, params, source):
+        with uncounted():
+            batch, _ = engine._assemble(reqs, bucket)
+            return step(params, batch, source)
+    return run
+
+
+def het_recount(engine, reqs) -> None:
+    """The engine's hits and lookups, table by table, against a numpy
+    recount of the served ids."""
+    snap = engine._hit_snapshot()["per_table"]
+    for t, m in enumerate(engine.source.members):
+        ids = np.concatenate([r.sparse_ids[t] for r in reqs])
+        cache = es.hot_cache_of(m)
+        hits = 0 if cache is None else int(
+            (cache.slot_of.cpu().numpy()[ids] < cache.k).sum())
+        if snap[str(t)] != (float(hits), float(ids.size)):
+            fail(f"table {t}: the engine counted {snap[str(t)]} (hits, "
+                 f"lookups), the served ids {hits}, {ids.size}")
+
+
+def het_serve(cfg, params, name: str, plan, counts) -> dict:
+    """One plan of phase 12 on buckets 16 and 32: warmup's captures and
+    the kernels a forward launches, the grouped lookup against the
+    per-table streams, 512 requests at depth 2 bit for bit against the
+    eager serve step and within PROB_ATOL of the CPU path, the per-table
+    hits recounted, where the time goes, the downgrade (fp plan) and a
+    one-member swap with no capture."""
+    spec, specs = dlrm.arena_spec(cfg), dlrm.member_specs(cfg)
+    step = het_eager(cfg)
+    reset_counts()
+    engine = RecEngine(cfg, params, source=(
+        dlrm.group_source(params, cfg) if plan is None
+        else es.SourceSpec(tables=plan)),
+        cache_trace=None if plan is None else counts, max_l=HET_MAX_L,
+        max_batch=BUCKET, buckets=GRAPH_BUCKETS, device="cuda")
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    if engine.captures != len(GRAPH_BUCKETS) or engine.cold_compiles:
+        fail(f"{name}: warmup made {engine.captures} captures, "
+             f"{engine.cold_compiles} cold")
+    per = _capture_counts(engine, name)
+    kinds = es.describe_source(engine.source)[len("group["):-1].split(",")
+    want = {n: c for n, c in (
+        ("gemm", 6), ("interaction", 1),
+        ("fused_segment_sum", kinds.count("fp")),
+        ("fused_cached_segment_sum", kinds.count("cached(fp)"))) if c}
+    if {n: c for n, c in per.items() if c} != want:
+        fail(f"{name}: a forward launched {per}, the plan {want}")
+    launches = launch_counts()
+    pool = graph_pool_bytes(engine)
+    # the grouped lookup against the per-table streams, on the card
+    rb = het_batch(cfg, BUCKET, seed=33)
+    with uncounted():
+        idx_t, off_t = DLRMSynthetic.ragged_per_table(rb, cfg.n_tables)
+        grouped = es.lookup_bags(engine.source, spec,
+                                 torch.from_numpy(rb["indices"]).cuda(),
+                                 torch.from_numpy(rb["offsets"]).cuda(),
+                                 max_l=HET_MAX_L)
+        loop = es.lookup_bags_per_table(
+            engine.source, [torch.from_numpy(i).cuda() for i in idx_t],
+            [torch.from_numpy(o).cuda() for o in off_t], max_l=HET_MAX_L)
+    _same_bits(name, [grouped], [loop], "grouped == per-table streams")
+    # 512 requests at depth 2 over both buckets, each micro-batch bit for
+    # bit against the eager serve step
+    batch = het_batch(cfg, N_REQUESTS, seed=7)
+    reqs = requests_from_ragged_batch(batch, cfg.n_tables)
+    sizes = mixed_sizes(N_REQUESTS, 5)
+    buckets = pipelined(engine, reqs, sizes, lambda mb, b: step(
+        engine, mb, b, engine.params, engine.source))
+    probs = np.array([r.prob for r in reqs], np.float64)
+    if buckets != list(GRAPH_BUCKETS) or engine.captures != len(
+            GRAPH_BUCKETS) or engine.cold_compiles \
+            or launch_counts() != launches:
+        fail(f"{name}: served buckets {buckets}, {engine.captures} "
+             f"captures, {engine.cold_compiles} cold, launches "
+             f"{launch_counts()} after warmup's {launches}")
+    if any(es.hot_cache_of(m) is not None for m in engine.source.members):
+        het_recount(engine, reqs)
+        rates = {t: round(r, 3) for t, r in
+                 engine.stats()["cache_hit_rate"].items() if r is not None}
+        print(f"  {name:6s} per-table hits and lookups equal a numpy recount "
+              f"of the served ids; hit rates {rates}")
+    cpu_params = _copy(params, "cpu")
+    cpu = RecEngine(cfg, cpu_params, source=(
+        dlrm.group_source(cpu_params, cfg) if plan is None
+        else es.SourceSpec(tables=plan)),
+        cache_trace=None if plan is None else counts, max_l=HET_MAX_L,
+        max_batch=BUCKET, buckets=GRAPH_BUCKETS, device="cpu")
+    cpu_reqs = requests_from_ragged_batch(batch, cfg.n_tables)
+    pipelined(cpu, cpu_reqs, sizes)
+    err = float(np.abs(probs - np.array([r.prob for r in cpu_reqs])).max())
+    if err > PROB_ATOL or not (np.isfinite(probs).all() and (probs > 0).all()
+                               and (probs < 1).all()):
+        fail(f"{name}: card probabilities {err} from the CPU path")
+    # request latency at depth 2, without the checks
+    timed = requests_from_ragged_batch(het_batch(cfg, N_REQUESTS, seed=12),
+                                       cfg.n_tables)
+    engine._lat_ms.clear()
+    t0 = time.perf_counter()
+    pipelined(engine, timed, mixed_sizes(N_REQUESTS, 6))
+    pipe_s = time.perf_counter() - t0
+    stats = engine.stats()
+    prof = profile_serve(engine, cfg, n_batches=16, batch_fn=het_batch)
+    _check_replay(prof, per, name)
+    row = {"source": stats["source"], "captures": engine.captures,
+           "warmup_s": warmup_s, "graph_pool_bytes": pool,
+           "capture_counts": per, "prob_max_abs_err_vs_cpu": err,
+           "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
+           "p99_ms": stats["p99_ms"],
+           "depth2_ms_per_batch": pipe_s * 1e3 / len(mixed_sizes(
+               N_REQUESTS, 6)),
+           "host_ms_per_batch": prof["wall_ms_per_batch"],
+           "device_busy_ms": prof["device_busy_ms_per_batch"],
+           "device_ms_by_group": prof["device_ms_per_batch"],
+           "idle_share": prof["device_idle_share"],
+           "kernels_per_replay": prof["kernels_per_batch"],
+           "kernels_by_group": prof["kernels_by_group"],
+           "device_us_by_kernel": prof["device_us_by_kernel"],
+           "cache_hit_rate": stats["cache_hit_rate"]}
+    if plan is None:
+        row["downgrade"] = het_downgrade(cfg, engine, step)
+        launches = launch_counts()
+    # one member swapped: the fp plan's first arena, the mixed plan's
+    # first cached member's hot cache; copied in place, no capture
+    t = next((i for i, m in enumerate(engine.source.members)
+              if es.hot_cache_of(m) is not None), 0)
+    m = engine.source.members[t]
+    if es.hot_cache_of(m) is None:
+        new = es.FpArena(params["tables"][t] * 1.5)
+    else:
+        new = es.with_hot_cache(m, se.build_hot_cache(
+            params["tables"][t], specs[t], np.roll(counts[t], 7), m.k))
+    swapped = es.replace_member(engine.source, t, new)
+    captures = engine.captures
+    engine.update_source(swapped, version=1)
+    after = requests_from_ragged_batch(het_batch(cfg, 4 * BUCKET, seed=13),
+                                       cfg.n_tables)
+    pipelined(engine, after, [BUCKET, 11] * 2, lambda mb, b: step(
+        engine, mb, b, engine.params, swapped))
+    if engine.captures != captures or engine.cold_compiles \
+            or launch_counts() != launches:
+        fail(f"{name}: the member swap recaptured or ran the wrappers")
+    print(f"  {name:6s} {row['source'][:48]}...: captures {captures} "
+          f"({warmup_s:.3f} s, graph pool {pool} bytes), a forward "
+          f"{want}; {len(sizes)} micro-batches at depth {DEPTH} over "
+          f"{GRAPH_BUCKETS} equal to the eager step bit for bit, within "
+          f"{err:.2e} of the CPU path; after replace_member({t}): no "
+          f"capture, 4 micro-batches equal")
+    print(f"  {name:6s} per micro-batch of {BUCKET}: host "
+          f"{row['host_ms_per_batch']:.4f} ms, device busy "
+          f"{row['device_busy_ms']:.4f} ms "
+          f"{ {k: round(v, 5) for k, v in row['device_ms_by_group'].items()} }"
+          f", idle share {row['idle_share']:.3f}, "
+          f"{row['kernels_per_replay']:.0f} kernels a replay; depth {DEPTH}: "
+          f"{row['depth2_ms_per_batch']:.4f} ms a micro-batch, p50 "
+          f"{row['p50_ms']:.4f} p95 {row['p95_ms']:.4f} p99 "
+          f"{row['p99_ms']:.4f} ms")
+    row["launches"] = launches
+    return row
+
+
+def het_downgrade(cfg, engine, step) -> dict:
+    """The group's int8 downgrade, one int8 member a table: captured by
+    warmup, bit for bit against the eager step over it and within the
+    reference's bound of the primary path."""
+    engine.enable_downgrade()
+    captures = engine.captures
+    engine.warmup()
+    if engine.captures != captures + len(GRAPH_BUCKETS):
+        fail(f"downgrade: warmup made {engine.captures - captures} captures")
+    down = engine.downgrade_source
+    for m, a in zip(down.members, engine.params["tables"]):
+        q = es.QuantizedArena.from_arena(a)
+        if not (torch.equal(m.q, q.q) and torch.equal(m.scales, q.scales)):
+            fail("downgrade: a member is not its quantized arena")
+    reqs = requests_from_ragged_batch(het_batch(cfg, 4 * BUCKET, seed=14),
+                                      cfg.n_tables)
+    primary = [step(engine, reqs[i:i + BUCKET], BUCKET, engine.params,
+                    engine.source).cpu().numpy()
+               for i in range(0, len(reqs), BUCKET)]
+    pipelined(engine, reqs, [BUCKET] * 4, lambda mb, b: step(
+        engine, mb, b, engine.params, down), downgraded=True)
+    got = np.array([r.prob for r in reqs], np.float32)
+    err = float(np.abs(got - np.concatenate(primary)).max())
+    if err > INT8_PROB_ATOL or not all(r.downgraded for r in reqs):
+        fail(f"downgrade: {err} from the primary path")
+    print(f"  downgrade (26 int8 members): 4 micro-batches equal to the "
+          f"eager step bit for bit, within {err:.3e} of the primary path "
+          f"(bound {INT8_PROB_ATOL})")
+    return {"max_abs_err_vs_primary": err}
+
+
+def het_train(cfg) -> dict:
+    """TRAIN_STEPS steps of each group step at batch 32, each on the card
+    and on the CPU path from a copy of the card's state before it, under
+    phase 4's laws (the tables' budget, table by table: the rows of two
+    samples' bags); the wrappers' launches by name a step; then ms and
+    kernels a step, device ms by group."""
+    p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(5), cfg,
+                   device="cuda")
+    specs = dlrm.member_specs(cfg)
+    batches = [het_batch(cfg, BUCKET, seed=41 + i, pad=True)
+               for i in range(TRAIN_STEPS)]
+    head = ("bottom", "top", "proj")
+    p_max = max(w.abs().max().item() for k in head
+                for w in tree_leaves(p0[k]))
+    want = {"gemm": 17, "interaction": 2, "fused_segment_sum": cfg.n_tables,
+            "sls_grad_table": cfg.n_tables}
+    out = {}
+    for sparse, mode in ((True, "sparse"), (False, "dense")):
+        opt, step = dlrm.make_train_step_ragged(cfg, max_l=HET_MAX_L,
+                                                sparse=sparse)
+        params = _copy(p0, "cuda")
+        state = opt.init(params)
+        reset_counts()
+        steps = []
+        for i, b in enumerate(batches):
+            cpu_params, cpu_state = _copy(params, "cpu"), _copy(state, "cpu")
+            params, state, loss, rows = step(params, state, {
+                k: torch.from_numpy(b[k]).cuda() for k in TRAIN_KEYS})
+            cpu_params, cpu_state, cpu_loss, cpu_rows = step(
+                cpu_params, cpu_state,
+                {k: torch.from_numpy(b[k]) for k in TRAIN_KEYS})
+            rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+            if rel > LOSS_RTOL:
+                fail(f"het {mode} step {i}: loss {float(loss)} on the card, "
+                     f"{float(cpu_loss)} on the CPU")
+            if not all(torch.equal(r.cpu(), c)
+                       for r, c in zip(rows, cpu_rows)):
+                fail(f"het {mode} step {i}: touched rows differ")
+            mlp_card, mlp_cpu = (torch.cat([t.reshape(-1) for k in head
+                                            for t in tree_leaves(p[k])])
+                                 for p in (params, cpu_params))
+            mlp = _beyond(mlp_card, mlp_cpu,
+                          int(MLP_SHARE * mlp_cpu.numel()),
+                          2 * LR * (1.01 + 0.01 * p_max),
+                          f"het {mode} step {i} MLP and projections")
+            beyond, worst = 0, 0.0
+            for t, (sp, r) in enumerate(zip(specs, rows)):
+                touched = r[r != sp.null_row].long()
+                tab = _beyond(params["tables"][t][touched],
+                              cpu_params["tables"][t][touched.cpu()],
+                              ARENA_SAMPLES * HET_MAX_L,
+                              2 * 10 * LR * sp.dim ** 0.5,
+                              f"het {mode} step {i} table {t} rows")
+                beyond += tab["beyond"]
+                worst = max(worst, tab["max_abs_err"])
+                if params["tables"][t][sp.null_row].any():
+                    fail(f"het {mode} step {i}: table {t}'s null row moved")
+            steps.append({"loss_card": float(loss), "loss_cpu":
+                          float(cpu_loss), "loss_rel_err": rel, "mlp": mlp,
+                          "table_rows_beyond": beyond,
+                          "table_rows_max_abs_err": worst})
+            print(f"  het {mode:6s} step {i}: loss {float(loss):.6f} (card vs "
+                  f"CPU rel {rel:.1e}); touched rows equal on "
+                  f"{cfg.n_tables} tables; MLPs and projections "
+                  f"{mlp['beyond']} of {mlp['of']} beyond {PARAM_ATOL} (max "
+                  f"{mlp['max_abs_err']:.1e}), touched table rows {beyond} "
+                  f"(max {worst:.1e})")
+        launches = launch_counts()
+        for n in KERNELS:
+            if launches[n] != want.get(n, 0) * TRAIN_STEPS:
+                fail(f"het {mode}: {n} launched {launches[n]} times in "
+                     f"{TRAIN_STEPS} steps; {want.get(n, 0)} a step")
+        batch = {k: torch.from_numpy(batches[0][k]).cuda()
+                 for k in TRAIN_KEYS}
+        tp = _copy(p0, "cuda")
+        ts = [opt.init(tp)]
+
+        def one():
+            _, ts[0], _, _ = step(tp, ts[0], batch)
+        ms = time_ms(one, reps=HET_TIMED, trials=3)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(HET_TIMED):
+                one()
+            torch.cuda.synchronize()
+        groups, by_kernel = {}, _kernel_times_us(prof)
+        for kname, us in by_kernel.items():
+            g = _kernel_group(kname)
+            groups[g] = groups.get(g, 0.0) + us / 1e3 / HET_TIMED
+        busy = sum(groups.values())
+        out[mode] = {"steps": steps, "launches": launches,
+                     "device_us_by_kernel": by_kernel,
+                     "launches_per_step": want, "ms_per_step": ms,
+                     "kernels_per_step": _kernel_count(prof) / HET_TIMED,
+                     "device_ms_per_step": groups,
+                     "device_busy_ms_per_step": busy,
+                     "device_idle_share": (1.0 - busy / ms) if busy
+                     else None}
+        print(f"  het {mode:6s} per step of {BUCKET}: {ms:.4f} ms (CUDA "
+              f"events), {out[mode]['kernels_per_step']:.0f} kernels on the "
+              f"card, device {busy:.4f} ms "
+              f"{ {k: round(v, 5) for k, v in groups.items()} }, idle share "
+              f"{out[mode]['device_idle_share']}; wrapper launches a step "
+              f"{want}")
+    return out
+
+
+def phase_het(gen) -> dict:
+    """Phase 12: dlrm_het2 at full size on the card."""
+    cfg = DLRM_HET_CONFIGS[HET_CFG]
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(3), cfg,
+                       device="cuda")
+    print(f"  {HET_CFG}: {cfg.n_tables} tables of {min(cfg.table_rows)}-"
+          f"{max(cfg.table_rows)} rows, dims {sorted(set(cfg.table_dims))}, "
+          f"{cfg.table_bytes / 1e6:.1f} MB of fp32 rows, max_l {HET_MAX_L}, "
+          f"batch {BUCKET}")
+    mixed, counts = het_plans(cfg)
+    out = {"kernels": check_het_kernels(cfg, params, counts, gen)}
+    for name, plan in (("fp", None), ("mixed", mixed)):
+        out[name] = het_serve(cfg, params, name, plan, counts)
+    out["train"] = het_train(cfg)
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -4073,7 +4569,11 @@ def main() -> None:
     phase("phase 11: graphed serving, every plan")
     graphed = phase_graphed(cfg, params)
     del params
-    phase("phase 12: report")
+    phase("phase 12: table groups, dlrm_het2 at full size")
+    het = phase_het(gen)
+    for name, err in het["kernels"]["max_abs_err"].items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    phase("phase 13: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -4091,7 +4591,11 @@ def main() -> None:
                    "serve_tiered_host": tiered["host"]["launches"][name],
                    "online_tiered": online_t["launches"][name],
                    "graphed": graphed["launches"][name],
-                   "lm_prefill": lm["launches"][name]}
+                   "lm_prefill": lm["launches"][name],
+                   "serve_het_fp": het["fp"]["launches"][name],
+                   "serve_het_mixed": het["mixed"]["launches"][name],
+                   **{f"train_het_{m}": het["train"][m]["launches"][name]
+                      for m in ("sparse", "dense")}}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -4125,7 +4629,7 @@ def main() -> None:
              "serve_cached": cached, "train": trained, "online": online,
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
-             "graphed": graphed, "lm": lm},
+             "graphed": graphed, "lm": lm, "het": het},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

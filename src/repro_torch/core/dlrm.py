@@ -5,18 +5,25 @@ Topology: dense features -> bottom MLP ─┐
           gather+reduce (sparse engine) ─┘         -> sigmoid -> CTR
 
 Parameters are the reference's nested dict, ``{"bottom": [(w, b), ...],
-"top": [(w, b), ...], "arena": T}``; ``params_from_numpy`` carries the
-reference's weights across. Ported on the uniform, replicated arena:
+"top": [(w, b), ...], "arena": T}``; on a heterogeneous config
+``"tables"`` (one (vocab_t + 1, dim_t) arena a table) and ``"proj"``
+(one (dim_t, emb_dim) projection a table) take the arena's place.
+``params_from_numpy`` carries the reference's weights across. Ported,
+replicated:
 
 * the fixed (B, T, L) layout: ``forward``, ``loss_fn``, the
   dense-gradient ``make_train_step`` and ``make_serve_step``;
 * the ragged layout: ``forward_ragged``, the ragged serve step and the
   ragged train step, both the row-wise sparse step and the
-  dense-gradient baseline.
+  dense-gradient baseline;
+* heterogeneous table groups on both layouts: the group source over
+  ``params["tables"]`` (``group_source``, or any ``TableGroupSource``),
+  each table's bag projected into the interaction width
+  (``project_tables``), per-table streams, and the group train steps.
 
-Both train steps put row-wise Adagrad on the arena and AdamW on the
-MLPs. The heterogeneous table groups are ROADMAP Queue 1, item 8;
-sharding (a ``mesh``) is item 13.
+Every train step puts row-wise Adagrad on the arena (one accumulator a
+table on a group) and AdamW on the rest. Sharding (a ``mesh``) is ROADMAP
+Queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -36,18 +43,39 @@ from repro_torch.optim import (Optimizer, adamw, partitioned,
                                rowwise_adagrad, tree_map)
 
 
-def _uniform_only(cfg: DLRMConfig) -> None:
-    if cfg.heterogeneous:
-        raise NotImplementedError(
-            "heterogeneous table groups are not ported yet "
-            "(ROADMAP Queue 1, item 8)")
-
-
 def arena_spec(cfg: DLRMConfig) -> se.ArenaSpec:
-    """The uniform ArenaSpec of a config."""
-    _uniform_only(cfg)
+    """The uniform ArenaSpec, or on a heterogeneous config the group's
+    envelope (n_tables, the largest vocab, the largest dim), of which the
+    entry points read only n_tables and dim."""
+    if cfg.heterogeneous:
+        return se.ArenaSpec(cfg.n_tables, max(cfg.table_rows),
+                            max(cfg.table_dims), cfg.dtype)
     return se.ArenaSpec(cfg.n_tables, cfg.rows_per_table, cfg.emb_dim,
                         cfg.dtype)
+
+
+def member_specs(cfg: DLRMConfig) -> tuple:
+    """The per-table single-table ArenaSpecs of a config."""
+    return tuple(se.ArenaSpec(1, r, d, cfg.dtype)
+                 for r, d in zip(cfg.resolved_table_rows,
+                                 cfg.resolved_table_dims))
+
+
+def table_plans(cfg: DLRMConfig, *, cache_k: Union[int, tuple, list] = 0,
+                quantize_rows_above: Optional[int] = None) -> tuple:
+    """The per-table composition of a config, the ``TablePlan`` tuple a
+    ``SourceSpec(tables=...)`` takes: ``cache_k`` (one K, or one a table;
+    0: no hot cache) pins the skewed tables, ``quantize_rows_above``
+    int8-quantizes every table whose vocab exceeds it."""
+    rows = cfg.resolved_table_rows
+    dims = cfg.resolved_table_dims
+    if not isinstance(cache_k, (tuple, list)):
+        cache_k = (cache_k,) * cfg.n_tables
+    return tuple(es.TablePlan(
+        rows=r, dim=d, cache_k=int(k),
+        quantize=(quantize_rows_above is not None
+                  and r > quantize_rows_above))
+        for r, d, k in zip(rows, dims, cache_k))
 
 
 def top_mlp_in_dim(cfg: DLRMConfig) -> int:
@@ -66,33 +94,73 @@ def init(generator: torch.Generator, cfg: DLRMConfig, *,
     if cfg.bottom_mlp[-1] != cfg.emb_dim:
         raise ValueError("bottom MLP must end at emb_dim so its output "
                          "joins the interaction")
-    spec = arena_spec(cfg)
-    return {
+    params = {
         "bottom": de.init_mlp(generator,
                               (cfg.dense_features,) + cfg.bottom_mlp),
         "top": de.init_mlp(generator, (top_mlp_in_dim(cfg),) + cfg.top_mlp),
-        "arena": se.init_arena(generator, spec),
     }
+    if cfg.heterogeneous:
+        specs = member_specs(cfg)
+        params["tables"] = tuple(se.init_arena(generator, sp)
+                                 for sp in specs)
+        # table t's reduced (dim_t,) bag joins the interaction as an
+        # (emb_dim,) vector
+        params["proj"] = tuple(
+            (torch.randn((sp.dim, cfg.emb_dim), generator=generator,
+                         dtype=torch.float32, device=device)
+             / sp.dim ** 0.5).to(getattr(torch, cfg.dtype))
+            for sp in specs)
+    else:
+        params["arena"] = se.init_arena(generator, arena_spec(cfg))
+    return params
 
 
 def params_from_numpy(tree: Dict, device: Optional[Union[str, torch.device]]
                       = None) -> Dict:
     """The reference's params as a numpy tree
     (``jax.tree.map(np.asarray, repro.core.dlrm.init(key, cfg))``) -> the
-    port's params on ``device`` (the card unless told otherwise)."""
-    if "arena" not in tree:
-        raise NotImplementedError(
-            "only uniform-arena params are ported yet (ROADMAP Queue 1, "
-            "item 8)")
+    port's params on ``device`` (the card unless told otherwise): the
+    uniform arena, or a heterogeneous config's per-table arenas and
+    projections."""
     device = resolve_device(device)
 
     def t(a) -> torch.Tensor:
         # np.array copies: the reference's arrays may be read-only views
         return torch.from_numpy(np.array(a)).to(device)
 
-    return {"bottom": [(t(w), t(b)) for w, b in tree["bottom"]],
-            "top": [(t(w), t(b)) for w, b in tree["top"]],
-            "arena": t(tree["arena"])}
+    out = {"bottom": [(t(w), t(b)) for w, b in tree["bottom"]],
+           "top": [(t(w), t(b)) for w, b in tree["top"]]}
+    if "tables" in tree:
+        out["tables"] = tuple(t(a) for a in tree["tables"])
+        out["proj"] = tuple(t(p) for p in tree["proj"])
+    else:
+        out["arena"] = t(tree["arena"])
+    return out
+
+
+def group_source(params: Dict, cfg: DLRMConfig,
+                 mesh: Any = None) -> es.TableGroupSource:
+    """The default serving group of a heterogeneous config: one fp member
+    a table arena."""
+    if not cfg.heterogeneous:
+        raise ValueError("group_source needs a heterogeneous config")
+    return es.TableGroupSource.from_arenas(params["tables"],
+                                           member_specs(cfg), mesh)
+
+
+def project_tables(proj, emb: torch.Tensor) -> torch.Tensor:
+    """Per-table output projections: (B, T, dmax) padded group embeddings
+    -> (B, T, emb_dim) interaction features. Table t reads only its
+    leading dim_t lanes. One matmul a table, as the reference's plain
+    ``@`` (no Pallas kernel there)."""
+    cols = [emb[:, t, :p.shape[0]].to(p.dtype) @ p
+            for t, p in enumerate(proj)]
+    return torch.stack(cols, dim=1)
+
+
+def _default_source(params: Dict, cfg: DLRMConfig) -> es.EmbeddingSource:
+    return (group_source(params, cfg) if cfg.heterogeneous
+            else es.FpArena(params["arena"]))
 
 
 def head_logits(mlp_params: Dict, dense: torch.Tensor,
@@ -119,21 +187,26 @@ def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     int32 per-table ids -> logits (B,).
 
     The sparse stage is ``lookup_fixed`` over `source` (default: the fp
-    arena in `params`, one ``embedding_bag`` launch for all tables); the
-    head is the one the ragged path runs.
+    arena in `params`, one ``embedding_bag`` launch for all tables, or on
+    a heterogeneous config the group over ``params["tables"]``, whose
+    bags are projected through ``params["proj"]``); the head is the one
+    the ragged path runs.
     """
     _no_mesh(mesh)
     spec = arena_spec(cfg)
     if source is None:
-        source = es.FpArena(params["arena"])
+        source = _default_source(params, cfg)
     with record_function("sparse_lookup"):
         emb = es.lookup_fixed(source, spec, indices)
+        if cfg.heterogeneous:
+            emb = project_tables(params["proj"], emb)
     return head_logits(params, dense, emb)
 
 
 def make_serve_step(cfg: DLRMConfig, mesh: Any = None):
     """Serve step over fixed-L batches ({dense, indices} -> CTR), run
-    under ``torch.inference_mode``, from the fp arena in `params`."""
+    under ``torch.inference_mode``, from the fp arena (or tables) in
+    `params`."""
     _no_mesh(mesh)
 
     def serve_step(params: Dict, batch: Dict) -> torch.Tensor:
@@ -154,20 +227,34 @@ def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     (N,) int32, possibly padded; offsets: (B*T+1,) int32 ragged bag
     boundaries in (sample, table) row-major order; max_l: per-bag length
     bound. The embedding stage is ``lookup_bags`` over `source` (default:
-    the fp arena in `params`). Returns logits (B,).
+    the fp arena in `params`, or on a heterogeneous config the group over
+    ``params["tables"]``). Returns logits (B,).
+
+    Per-table streams: with a ``TableGroupSource``, `indices` / `offsets`
+    may instead be sequences, table t's own flat stream and (B+1,)
+    offsets (``lookup_bags_per_table``; `max_l` may be one a table). A
+    heterogeneous config projects each table's bag into the interaction
+    width through ``params["proj"]``.
     """
     spec = arena_spec(cfg)
     if source is None:
-        source = es.FpArena(params["arena"])
+        source = _default_source(params, cfg)
     with record_function("sparse_lookup"):
-        emb = es.lookup_bags(source, spec, indices, offsets, max_l=max_l)
+        if isinstance(indices, (tuple, list)):
+            emb = es.lookup_bags_per_table(source, indices, offsets,
+                                           max_l=max_l)
+        else:
+            emb = es.lookup_bags(source, spec, indices, offsets,
+                                 max_l=max_l)
+        if cfg.heterogeneous:
+            emb = project_tables(params["proj"], emb)
     return head_logits(params, dense, emb)
 
 
 def make_ragged_serve_step(cfg: DLRMConfig, *, max_l: int):
     """Serve step over ragged batches ({dense, indices, offsets} -> CTR),
     run under ``torch.inference_mode``. The source is a per-call argument
-    (default: the fp arena in `params`)."""
+    (default: the fp arena in `params`, or the group over its tables)."""
     def serve_step(params: Dict, batch: Dict,
                    source: Optional[es.EmbeddingSource] = None
                    ) -> torch.Tensor:
@@ -206,8 +293,8 @@ def loss_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
 
 
 def make_optimizer(cfg: DLRMConfig, lr: float = 1e-3) -> Optimizer:
-    _uniform_only(cfg)
-    return partitioned({"arena": rowwise_adagrad(lr * 10)}, adamw(lr))
+    key = "tables" if cfg.heterogeneous else "arena"
+    return partitioned({key: rowwise_adagrad(lr * 10)}, adamw(lr))
 
 
 def _tracked(tree: Any) -> Any:
@@ -220,9 +307,10 @@ def make_train_step(cfg: DLRMConfig, optimizer: Optional[Optimizer] = None,
     """Train step over fixed-L batches {dense, indices (B, T, L),
     labels}: the dense-gradient step of the reference, autograd through
     the whole model (the arena's gradient is ``embedding_bag``'s
-    backward, the ``sls_grad_table`` scatter-add into a (V, D) table),
+    backward, the ``sls_grad_table`` scatter-add into a (V, D) table; on
+    a heterogeneous config, the group's, one table gradient a member),
     then ``optimizer`` (default ``make_optimizer``: row-wise Adagrad on
-    the arena, AdamW on the MLPs).
+    the arena or tables, AdamW on the rest).
 
     Returns (opt, step) where step(params, opt_state, batch) ->
     (new_params, new_opt_state, loss), loss a 0-dim tensor on the
@@ -267,8 +355,10 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
     and returns the same tensors (new_params is a new dict over them):
     keep a copy of whatever must survive the step.
 
-    Sharded training (``sharded=True`` or a mesh) is ROADMAP Queue 1,
-    item 13; heterogeneous table groups are item 8.
+    On a heterogeneous config the step is the group's
+    (``_make_train_step_group``): touched_rows is then a tuple, one
+    array a table. Sharded training (``sharded=True`` or a mesh) is
+    ROADMAP Queue 1, item 13.
     """
     from repro_torch.training import sparse_optim as so
 
@@ -276,6 +366,9 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
         raise NotImplementedError(
             "sharded training is not ported yet (ROADMAP Queue 1, item 13)")
     spec = arena_spec(cfg)
+    if cfg.heterogeneous:
+        return _make_train_step_group(cfg, spec, max_l=max_l, lr=lr,
+                                      sparse=sparse)
 
     if not sparse:
         opt = make_optimizer(cfg, lr)
@@ -334,5 +427,93 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
         new_params["arena"] = new_arena
         return new_params, {"arena": arena_state, "mlp": mlp_state}, \
             loss.detach(), rows
+
+    return Optimizer(init, None), step
+
+
+def _make_train_step_group(cfg: DLRMConfig, spec: se.ArenaSpec, *,
+                           max_l: int, lr: float, sparse: bool):
+    """The heterogeneous (table-group) ragged train step.
+
+    sparse=True: the group lookup runs outside autograd, the head
+    (projections and MLPs) backpropagates, and
+    ``sparse_optim.group_row_grads`` turns the padded bag gradient into
+    one (rows, grads) pair a table (one ``sls_grad_table`` call a table),
+    which per-table row-wise Adagrad applies in O(index stream) a table.
+    sparse=False: the dense-gradient baseline, autograd through the group
+    (each member arena's table gradient, one ``sls_grad_table`` a table)
+    and partitioned row-wise Adagrad.
+
+    step(params, opt_state, batch) -> (new_params, new_opt_state, loss,
+    touched), `touched` one array of touched rows a table (padded with
+    that table's null row). Both update in place, as the uniform steps.
+    """
+    from repro_torch.training import sparse_optim as so
+
+    specs = member_specs(cfg)
+
+    def touched_rows(batch):
+        idx = batch["indices"]
+        table, valid = se.ragged_position_tables(batch["offsets"],
+                                                 idx.shape[0], cfg.n_tables)
+        return tuple(so.unique_padded(
+            torch.where(valid & (table == t), idx, sp.null_row),
+            sp.null_row)[0] for t, sp in enumerate(specs))
+
+    if not sparse:
+        opt = make_optimizer(cfg, lr)
+
+        def dense_step(params, opt_state, batch):
+            live = _tracked(params)
+            loss = loss_ragged(live, cfg, batch["dense"], batch["indices"],
+                               batch["offsets"], batch["labels"],
+                               max_l=max_l)
+            with record_function("backward"):
+                loss.backward()
+            with torch.no_grad(), record_function("optimizer"):
+                grads = tree_map(lambda t: t.grad, live)
+                new_params, new_state = opt.update(grads, opt_state, params)
+                rows = touched_rows(batch)
+            return new_params, new_state, loss.detach(), rows
+
+        return opt, dense_step
+
+    arena_opt = so.group_rowwise_adagrad(lr * 10)
+    mlp_opt = adamw(lr)
+
+    def init(params):
+        return {"tables": arena_opt.init(params["tables"]),
+                "mlp": mlp_opt.init({k: v for k, v in params.items()
+                                     if k != "tables"})}
+
+    def step(params, opt_state, batch):
+        n_bags = batch["offsets"].shape[0] - 1
+        with torch.no_grad(), record_function("sparse_lookup"):
+            group = es.TableGroupSource(
+                members=tuple(es.FpArena(a) for a in params["tables"]),
+                specs=specs)
+            emb = es.lookup_bags(group, spec, batch["indices"],
+                                 batch["offsets"], max_l=max_l)
+        emb.requires_grad_()
+        head_params = {k: v for k, v in params.items() if k != "tables"}
+        live = _tracked(head_params)
+        loss = _bce(head_logits(live, batch["dense"],
+                                project_tables(live["proj"], emb)),
+                    batch["labels"])
+        with record_function("backward"):
+            loss.backward()
+        with torch.no_grad(), record_function("optimizer"):
+            d_bags = emb.grad.reshape(n_bags, spec.dim)
+            per_table = so.group_row_grads(specs, d_bags, batch["indices"],
+                                           batch["offsets"], max_l=max_l)
+            new_tables, tables_state = arena_opt.update(
+                params["tables"], opt_state["tables"], per_table)
+            new_head, mlp_state = mlp_opt.update(
+                tree_map(lambda t: t.grad, live), opt_state["mlp"],
+                head_params)
+        new_params = dict(new_head)
+        new_params["tables"] = new_tables
+        return new_params, {"tables": tables_state, "mlp": mlp_state}, \
+            loss.detach(), tuple(rows for rows, _ in per_table)
 
     return Optimizer(init, None), step

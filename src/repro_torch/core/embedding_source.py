@@ -10,10 +10,13 @@ Every way of materialising a reduced embedding bag is an
 
 Ported sources::
 
-    FpArena(arena)                 full-precision row arena
-    QuantizedArena(q, scales)      int8 rows + per-row f32 scale
-    CachedSource(hot, cold)        replicated top-K hot rows + any of
-                                   these as the cold source
+    FpArena(arena)                     full-precision row arena
+    QuantizedArena(q, scales)          int8 rows + per-row f32 scale
+    CachedSource(hot, cold)            replicated top-K hot rows + any of
+                                       these as the cold source
+    TableGroupSource(members, specs)   heterogeneous per-table members
+                                       (own vocab + dim each), composed
+                                       per table through ``TablePlan``
 
 and, registered by ``repro_torch.storage``, the tiered sources
 (``TieredSource``, ``Int4Arena``, ``HostTier``), with the declarative
@@ -21,18 +24,21 @@ plan that builds them (``SourceSpec``) and the versioned broadcast
 artifact (``VersionedSource``, the reference's
 ``CSA1`` layout, so a blob written by either package decodes in the
 other). The hot/cold law holds bit for bit: a coherent ``CachedSource``
-over an ``FpArena`` reduces to exactly the ``FpArena`` lookup.
+over an ``FpArena`` reduces to exactly the ``FpArena`` lookup; and a
+``TableGroupSource`` lookup is, table by table, its members' own lookups
+(``lookup_bags_per_table``).
 
 Not ported yet, each refused naming its ROADMAP item: sharded sources
-(Queue 1, item 13) and table groups and ``TablePlan`` (item 8).
+(Queue 1, item 13) and tiered members of a table group (item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,10 +50,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
-           "SourceSpec", "VersionedSource", "adopt_source", "clone_source",
-           "describe_source", "fmt_bytes", "hot_cache_of", "lookup_bags",
-           "lookup_fixed", "rebind_arena", "register_meta_type",
-           "register_source", "source_bytes", "source_structure",
+           "SourceSpec", "TableGroupSource", "TablePlan", "VersionedSource",
+           "adopt_source", "clone_source", "describe_source", "fmt_bytes",
+           "group_hit_counts", "group_trace_counts", "hot_cache_of",
+           "lookup_bags", "lookup_bags_per_table", "lookup_fixed",
+           "rebind_arena", "register_meta_type", "register_source",
+           "replace_member", "source_bytes", "source_structure",
            "with_hot_cache"]
 
 
@@ -64,7 +72,8 @@ class EmbeddingSource:
     implementing ``reduce_flat``; the built-in sources override it with
     their fused forms. ``reduce_bags`` and ``reduce_fixed_ids`` are the
     per-table-id halves of the two entry points, flattening against the
-    uniform arena layout.
+    uniform arena layout; only ``TableGroupSource``, whose tables share no
+    layout, overrides them.
     """
 
     @property
@@ -235,11 +244,117 @@ class CachedSource(EmbeddingSource):
         return hot + cold.reduce_dense(spec, cold_ids)
 
 
+_NO_LAYOUT = ("TableGroupSource has no shared arena layout to reduce over: "
+              "call lookup_bags / lookup_fixed (per-table ids) or "
+              "lookup_bags_per_table (per-table streams) instead")
+
+
+@dataclass(frozen=True)
+class TableGroupSource(EmbeddingSource):
+    """Heterogeneous per-table sources behind the one entry point: the
+    workload Centaur characterizes, where vocab sizes and access skew vary
+    by orders of magnitude per table, so each table is its own
+    gather-reduce stream over its own arena.
+
+    ``members[t]`` is any ported source (``FpArena``, ``QuantizedArena``,
+    ``CachedSource``) over table t's private arena ``(vocab_t + 1,
+    dim_t)`` (its own trailing null row); ``specs[t]`` is its single-table
+    ``ArenaSpec(1, vocab_t, dim_t)``.
+
+    The grouped reduction relayouts the one interleaved (sample, table)
+    row-major stream once, with -1 in the short and padded slots, and
+    hands each member its own (B, max_l) bag slice with those slots
+    redirected to the member's always-zero null row. Each result is
+    rounded through the member's dtype, as its own ``lookup_bags`` would,
+    and padded with zeros to ``dmax = max(dim_t)``: table t's slice
+    ``[:, t, :dim_t]`` is bit for bit the member's own lookup.
+    """
+    members: Tuple[EmbeddingSource, ...]
+    specs: Tuple[se.ArenaSpec, ...]
+
+    @property
+    def dmax(self) -> int:
+        return max(sp.dim for sp in self.specs)
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return functools.reduce(torch.promote_types,
+                                [m.out_dtype for m in self.members])
+
+    @property
+    def envelope_spec(self) -> se.ArenaSpec:
+        """The uniform ArenaSpec a group serves under: n_tables tables, the
+        largest vocab and the largest dim (the entry points read only
+        n_tables and dim of it)."""
+        return se.ArenaSpec(len(self.members),
+                            max(sp.rows_per_table for sp in self.specs),
+                            self.dmax)
+
+    @classmethod
+    def from_arenas(cls, arenas: Sequence[torch.Tensor],
+                    specs: Sequence[se.ArenaSpec],
+                    mesh: Optional[object] = None) -> "TableGroupSource":
+        """The default group over raw per-table arenas: one fp member a
+        table."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded members are not ported yet (ROADMAP Queue 1, "
+                "item 13)")
+        if len(arenas) != len(specs):
+            raise ValueError(f"{len(arenas)} arenas for {len(specs)} specs")
+        return cls(members=tuple(FpArena(a) for a in arenas),
+                   specs=tuple(specs))
+
+    def reduce_bags(self, spec, indices, offsets, *, max_l):
+        t_count = len(self.members)
+        if spec.n_tables != t_count or spec.dim != self.dmax:
+            raise ValueError(f"spec of {spec.n_tables} tables of dim "
+                             f"{spec.dim} for a group of {t_count} tables "
+                             f"of dmax {self.dmax}")
+        n_bags = offsets.shape[0] - 1
+        if n_bags % t_count:
+            raise ValueError(
+                f"lookup_bags over a TableGroupSource needs the bag count "
+                f"to cover whole (sample, table) rows: got n_bags={n_bags} "
+                f"bags for t_count={t_count} tables (n_bags % t_count == "
+                f"{n_bags % t_count}). Pass offsets with B*t_count+1 "
+                f"entries (one bag per sample per table, row-major).")
+        b = n_bags // t_count
+        # one relayout of the interleaved stream; each member reduces only
+        # its own (B, max_l) slice, with the -1 slots sent to its own null
+        # row
+        dense = se.ragged_dense_ids(indices, offsets, max_l=max_l, fill=-1)
+        dense = dense.reshape(b, t_count, max_l)
+        cols = []
+        for t, (m, sp) in enumerate(zip(self.members, self.specs)):
+            ids_t = dense[:, t, :]
+            ids_t = torch.where(ids_t >= 0, ids_t, sp.null_row)
+            red = m.reduce_dense(sp, ids_t).to(m.out_dtype).float()
+            if sp.dim < spec.dim:
+                red = torch.nn.functional.pad(red, (0, spec.dim - sp.dim))
+            cols.append(red)
+        return torch.stack(cols, dim=1).reshape(n_bags, spec.dim)
+
+    def reduce_fixed_ids(self, spec, indices):
+        b, t, l = indices.shape
+        offsets = torch.arange(b * t + 1, dtype=torch.int32,
+                               device=indices.device) * l
+        return self.reduce_bags(spec, indices.reshape(-1), offsets, max_l=l)
+
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        raise TypeError(_NO_LAYOUT)
+
+    def reduce_dense(self, spec, dense):
+        raise TypeError(_NO_LAYOUT)
+
+
 def lookup_bags(source: EmbeddingSource, spec: se.ArenaSpec,
                 indices: torch.Tensor, offsets: torch.Tensor, *,
                 max_l: int) -> torch.Tensor:
     """The ragged sparse stage: flat per-table ids + offsets -> (B, T, D)
-    in the source's dtype."""
+    in the source's dtype. For a ``TableGroupSource`` D is the group's
+    ``dmax``, and table t's slice ``[..., :dim_t]`` holds its bags (the
+    tail is zero)."""
     with record_function("emb_lookup"):
         n_bags = offsets.shape[0] - 1
         out = source.reduce_bags(spec, indices, offsets, max_l=max_l)
@@ -255,6 +370,38 @@ def lookup_fixed(source: EmbeddingSource, spec: se.ArenaSpec,
         b, t, _ = indices.shape
         out = source.reduce_fixed_ids(spec, indices)
         return out.reshape(b, t, spec.dim).to(source.out_dtype)
+
+
+def lookup_bags_per_table(source: TableGroupSource,
+                          indices: Sequence[torch.Tensor],
+                          offsets: Sequence[torch.Tensor], *,
+                          max_l: Union[int, Sequence[int]]) -> torch.Tensor:
+    """The per-table-stream sibling of ``lookup_bags`` for table groups.
+
+    ``indices[t]`` / ``offsets[t]`` are table t's own flat id stream and
+    (B+1,) bag boundaries (``DLRMSynthetic.ragged_per_table``); ``max_l``
+    is one bound or one a table. Returns (B, T, dmax), bit for bit
+    ``lookup_bags`` over the interleaved stream of the same bags: each
+    member reduces the same per-bag id runs in the same order either way.
+    """
+    if not isinstance(source, TableGroupSource):
+        raise TypeError(f"lookup_bags_per_table needs a TableGroupSource, "
+                        f"got {type(source).__name__}")
+    t_count = len(source.members)
+    if len(indices) != t_count or len(offsets) != t_count:
+        raise ValueError(f"{len(indices)} id streams and {len(offsets)} "
+                         f"offsets for {t_count} tables")
+    if not isinstance(max_l, (tuple, list)):
+        max_l = (max_l,) * t_count
+    dmax = source.dmax
+    cols = []
+    for t, (m, sp) in enumerate(zip(source.members, source.specs)):
+        out = lookup_bags(m, sp, indices[t], offsets[t], max_l=max_l[t])
+        out = out.reshape(-1, sp.dim).float()
+        if sp.dim < dmax:
+            out = torch.nn.functional.pad(out, (0, dmax - sp.dim))
+        cols.append(out)
+    return torch.stack(cols, dim=1).to(source.out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +423,31 @@ def with_hot_cache(source: CachedSource,
                         coherent=source.coherent)
 
 
-def rebind_arena(source: EmbeddingSource,
-                 arena: torch.Tensor) -> EmbeddingSource:
-    """``source`` with every fp-arena leaf replaced by ``arena``. A
-    quantized arena is a frozen representation of some arena version and
-    is left alone (rebuild it with ``quantize_rows`` / ``from_arena``)."""
+def replace_member(source: TableGroupSource, t: int,
+                   member: EmbeddingSource) -> TableGroupSource:
+    """Same group, member t swapped: the per-table refresh (a new hot
+    cache for one skewed table, a re-quantized arena for one huge table).
+    Of the same structure when ``member`` has the old one's, so
+    ``RecEngine.update_source`` copies it in place and captures
+    nothing."""
+    members = list(source.members)
+    members[t] = member
+    return TableGroupSource(members=tuple(members), specs=source.specs)
+
+
+def rebind_arena(source: EmbeddingSource, arena) -> EmbeddingSource:
+    """``source`` with every fp-arena leaf replaced by ``arena`` (for a
+    ``TableGroupSource``, the sequence of per-table arenas). A quantized
+    arena is a frozen representation of some arena version and is left
+    alone (rebuild it with ``quantize_rows`` / ``from_arena``)."""
+    if isinstance(source, TableGroupSource):
+        if len(arena) != len(source.members):
+            raise ValueError(f"{len(arena)} arenas for a group of "
+                             f"{len(source.members)} tables")
+        return TableGroupSource(
+            members=tuple(rebind_arena(m, a)
+                          for m, a in zip(source.members, arena)),
+            specs=source.specs)
     if isinstance(source, FpArena):
         return FpArena(arena)
     if isinstance(source, CachedSource):
@@ -317,9 +484,10 @@ def source_bytes(source) -> int:
 
 def describe_source(source, *, multiline: bool = False) -> str:
     """Stats label: 'fp', 'int8', 'int4', 'cached(fp)', 'cached(int8)',
-    'tiered(int4)', 'tiered(host)'. With
+    'tiered(int4)', 'tiered(host)', 'group[...]'. With
     ``multiline=True`` every nested source renders on its own indented
-    line with its dtype and byte size."""
+    line with its dtype and byte size (a group: one line a table with its
+    vocab and dim, then its member's)."""
     if multiline:
         return "\n".join(_describe_lines(source, 0))
     if isinstance(source, FpArena):
@@ -328,6 +496,9 @@ def describe_source(source, *, multiline: bool = False) -> str:
         return "int8"
     if isinstance(source, CachedSource):
         return f"cached({describe_source(source.cold)})"
+    if isinstance(source, TableGroupSource):
+        inner = ",".join(describe_source(m) for m in source.members)
+        return f"group[{inner}]"
     if hasattr(source, "_describe"):
         # the hook of the sources registered from outside this module
         return source._describe()
@@ -354,6 +525,15 @@ def _describe_lines(source, depth: int) -> List[str]:
                 f"{str(hot.hot_rows.dtype).replace('torch.', '')}, "
                 f"{fmt_bytes(nb)})"] \
             + _describe_lines(source.cold, depth + 1)
+    if isinstance(source, TableGroupSource):
+        lines = [f"{pad}group ({len(source.members)} tables, "
+                 f"dmax={source.dmax}, "
+                 f"{fmt_bytes(source_bytes(source))} on device)"]
+        for t, (m, sp) in enumerate(zip(source.members, source.specs)):
+            lines.append(f"{pad}  table[{t}] vocab={sp.rows_per_table} "
+                         f"dim={sp.dim}")
+            lines += _describe_lines(m, depth + 2)
+        return lines
     if hasattr(source, "_describe_lines"):
         return source._describe_lines(depth)
     return [f"{pad}{type(source).__name__}"]
@@ -371,12 +551,12 @@ _SOURCE_REGISTRY = {
     "QuantizedArena": (QuantizedArena, ("q", "scales"), ()),
     "CachedSource": (CachedSource, ("hot", "cold"), ("coherent",)),
     "HotRowCache": (se.HotRowCache, ("hot_rows", "slot_of", "hot_ids"), ()),
+    "TableGroupSource": (TableGroupSource, ("members",), ("specs",)),
 }
 
 # reference source types the codec refuses, and the ROADMAP item of each
 _UNPORTED_TYPES = {
     "ShardedArena": "sharded sources (ROADMAP Queue 1, item 13)",
-    "TableGroupSource": "table groups (ROADMAP Queue 1, item 8)",
 }
 
 # frozen dataclasses that may sit in a source's meta fields and round-trip
@@ -417,16 +597,18 @@ def _meta_key(obj, field: str):
 
 def source_structure(source) -> Tuple[tuple, List[torch.Tensor]]:
     """(structure, tensors): the nesting of source types with their meta
-    fields, and the tensors in order. Two sources with equal structures
-    and tensors of equal shape, dtype and device can replace each other
-    on a live engine without changing what the serve step is shaped
-    for."""
+    fields (a group's members as a sequence), and the tensors in order.
+    Two sources with equal structures and tensors of equal shape, dtype
+    and device can replace each other on a live engine without changing
+    what the serve step is shaped for."""
     leaves: List[torch.Tensor] = []
 
     def walk(obj):
         if isinstance(obj, torch.Tensor):
             leaves.append(obj)
             return "tensor"
+        if isinstance(obj, (tuple, list)):
+            return ("seq", tuple(walk(x) for x in obj))
         name = type(obj).__name__
         if _SOURCE_REGISTRY.get(name, (None,))[0] is not type(obj):
             raise TypeError(f"{name} is not a source type of the port "
@@ -450,6 +632,8 @@ def clone_source(source):
     copies of the rows and mapping, nothing staged yet)."""
     if isinstance(source, torch.Tensor):
         return source.detach().clone()
+    if isinstance(source, (tuple, list)):
+        return type(source)(clone_source(x) for x in source)
     if hasattr(source, "_clone"):
         return source._clone()
     entry = _registered(type(source).__name__)
@@ -472,6 +656,9 @@ def adopt_source(dst, src) -> None:
         if isinstance(d, torch.Tensor):
             if d.data_ptr() != s.data_ptr():
                 d.copy_(s)
+        elif isinstance(d, (tuple, list)):
+            for a, b in zip(d, s):
+                walk(a, b)
         elif hasattr(d, "_adopt"):
             d._adopt(s)
         else:
@@ -483,14 +670,96 @@ def adopt_source(dst, src) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Group accounting: per-table hit counts and trace histograms
+# ---------------------------------------------------------------------------
+
+def group_hit_counts(source: TableGroupSource, indices: torch.Tensor,
+                     offsets: torch.Tensor, *, max_l: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-table (hits, lookups) over one interleaved ragged batch: two
+    (T,) int32 tensors, computed on the device with no host wait. A table
+    whose member serves no hot cache reports 0 hits. With ``max_l`` (the
+    lookup's bound) the stream is relayouted once and each table scans
+    only its own (B, max_l) slice, as the lookup does; without it every
+    table walks the whole stream."""
+    t_count = len(source.members)
+    if max_l is not None:
+        n_bags = offsets.shape[0] - 1
+        dense = se.ragged_dense_ids(indices, offsets, max_l=max_l, fill=-1)
+        dense = dense.reshape(n_bags // t_count, t_count, max_l)
+        mine = dense >= 0
+        looks = mine.sum(dim=(0, 2))
+        ids, owned = dense.unbind(1), mine.unbind(1)
+    else:
+        table, valid = se.ragged_position_tables(offsets, indices.shape[0],
+                                                 t_count)
+        owned = [valid & (table == t) for t in range(t_count)]
+        looks = torch.stack([m.sum() for m in owned])
+        ids = [indices] * t_count
+    zero = torch.zeros((), dtype=looks.dtype, device=looks.device)
+    hits = []
+    for m, ids_t, mine_t in zip(source.members, ids, owned):
+        cache = hot_cache_of(m)
+        if cache is None:
+            hits.append(zero)
+            continue
+        slots = cache.slot_of[torch.where(mine_t, ids_t, 0)]
+        hits.append((mine_t & (slots < cache.k)).sum())
+    return torch.stack(hits).to(torch.int32), looks.to(torch.int32)
+
+
+def group_trace_counts(specs: Sequence[se.ArenaSpec], indices,
+                       offsets) -> List[np.ndarray]:
+    """Per-table row-touch histograms of an interleaved ragged trace
+    (host numpy; the group sibling of ``se.trace_row_counts``): the hot
+    rankings of a group plan."""
+    idx = np.asarray(indices)
+    off = np.asarray(offsets)
+    t_count = len(specs)
+    n_valid = int(off[-1])
+    seg = np.searchsorted(off[1:], np.arange(n_valid), side="right")
+    table = seg % t_count
+    return [np.bincount(idx[:n_valid][table == t], minlength=sp.total_rows)
+            for t, sp in enumerate(specs)]
+
+
+# ---------------------------------------------------------------------------
 # SourceSpec: the declarative serving plan
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TablePlan:
+    """One table of a group plan: its shape and its own composition, a
+    hot cache for the skewed tables (``cache_k``), int8 for the huge ones
+    (``quantize``), tiers for the ones bigger than memory (``tiers``, a
+    ``storage.TierPolicy``; not ported for a group member yet, ROADMAP
+    Queue 1, item 8). A tuple of these in ``SourceSpec.tables`` declares a
+    ``TableGroupSource``."""
+    rows: int                            # vocab (real rows, null excluded)
+    dim: int
+    cache_k: int = 0                     # >0: pin this table's top-K hot
+    quantize: bool = False               # int8 this table's (cold) arena
+    tiers: Optional[object] = None       # storage.TierPolicy
+
+    def __post_init__(self):
+        if self.tiers is not None and (self.cache_k or self.quantize):
+            raise ValueError(
+                "a tiered table is its own caching and quantization: "
+                "TierPolicy.hot replaces cache_k and the warm/cold tiers "
+                "replace quantize; drop cache_k/quantize on this TablePlan")
+
+    @property
+    def arena_spec(self) -> se.ArenaSpec:
+        return se.ArenaSpec(1, self.rows, self.dim)
 
 @dataclass(frozen=True)
 class SourceSpec:
     """Declarative serving plan: which source to build, not how. A
     ``RecEngine`` takes one and calls ``build(arena, spec, counts)``. The
-    path strings map onto plans through ``from_path``."""
+    path strings map onto plans through ``from_path``. With ``tables`` (a
+    tuple of ``TablePlan``) the plan is a table group: ``build`` takes the
+    sequence of per-table arenas and of per-table trace histograms, and
+    composes each member on its own."""
     layout: str = "ragged"               # 'ragged' | 'fixed' batch layout
     cache_k: int = 0                     # >0: pin top-K rows hot
     quantize_cold: bool = False          # int8 cold/uncached arena
@@ -518,10 +787,11 @@ class SourceSpec:
             raise NotImplementedError(
                 "sharded sources are not ported yet (ROADMAP Queue 1, "
                 "item 13)")
-        if self.tables is not None:
-            raise NotImplementedError(
-                "table-group plans are not ported yet (ROADMAP Queue 1, "
-                "item 8)")
+        if self.tables is not None and (self.cache_k or self.quantize_cold
+                                        or self.tiers is not None):
+            raise ValueError(
+                "a table-group plan carries cache_k/quantize/tiers on each "
+                "TablePlan; the top-level knobs would apply to no table")
         if self.tiers is not None and (self.cache_k or self.quantize_cold):
             raise ValueError(
                 "a tiered plan is its own caching and quantization: "
@@ -557,21 +827,28 @@ class SourceSpec:
 
     @property
     def cached(self) -> bool:
+        if self.tables is not None:
+            return any(tp.cache_k > 0 for tp in self.tables)
         return self.cache_k > 0
 
     def path_name(self) -> str:
         """The nearest path string (for stats labels)."""
+        if self.tables is not None:
+            return "grouped"
         if self.tiers is not None:
             return "tiered"
         if self.layout == "fixed":
             return "fixed"
         return "cached" if self.cached else "ragged"
 
-    def build(self, arena: torch.Tensor, spec: se.ArenaSpec,
+    def build(self, arena, spec: Optional[se.ArenaSpec],
               counts=None) -> EmbeddingSource:
         """Materialise the plan for an arena; ``counts`` is the trace
         histogram that ranks the hot rows, or the tiers (uniform when
-        omitted)."""
+        omitted). A group plan takes the sequence of per-table arenas and
+        the list of per-table histograms instead, and no ``spec``."""
+        if self.tables is not None:
+            return self._build_group(arena, counts)
         if self.tiers is not None:
             return self.tiers.build_source(arena, spec, counts)
         cold: EmbeddingSource = (QuantizedArena.from_arena(arena)
@@ -585,15 +862,44 @@ class SourceSpec:
         # coherence
         return CachedSource(hot=hot, cold=cold, coherent=True)
 
+    def _build_group(self, arenas, counts=None) -> TableGroupSource:
+        if len(arenas) != len(self.tables):
+            raise ValueError(f"{len(arenas)} arenas for "
+                             f"{len(self.tables)} table plans")
+        if counts is None:
+            counts = [None] * len(self.tables)
+        members, specs = [], []
+        for tp, arena, c in zip(self.tables, arenas, counts):
+            if tp.tiers is not None:
+                raise NotImplementedError(
+                    "tiered members of a table group are not ported yet "
+                    "(ROADMAP Queue 1, item 8)")
+            sp = tp.arena_spec
+            member: EmbeddingSource = (QuantizedArena.from_arena(arena)
+                                       if tp.quantize else FpArena(arena))
+            if tp.cache_k > 0:
+                if c is None:
+                    c = np.ones(sp.total_rows)
+                hot = se.build_hot_cache(arena, sp, c, tp.cache_k)
+                member = CachedSource(hot=hot, cold=member, coherent=True)
+            members.append(member)
+            specs.append(sp)
+        return TableGroupSource(members=tuple(members), specs=tuple(specs))
+
 
 # ---------------------------------------------------------------------------
 # Versioned broadcast artifact: any source + a monotone version
 # ---------------------------------------------------------------------------
 
 def _encode_meta(v):
-    """A meta value as JSON: plain scalars pass through, registered
-    dataclasses and sequences get the reference's self-describing
-    wrappers."""
+    """A meta value as JSON: plain scalars pass through, arena specs,
+    table plans, registered dataclasses and sequences get the reference's
+    self-describing wrappers."""
+    if isinstance(v, se.ArenaSpec):
+        return {"__arena_spec__": dataclasses.asdict(v)}
+    if isinstance(v, TablePlan):
+        return {"__table_plan__": {f.name: _encode_meta(getattr(v, f.name))
+                                   for f in dataclasses.fields(v)}}
     if type(v).__name__ in _META_TYPES:
         return {"__meta_dc__": type(v).__name__,
                 "fields": {f.name: _encode_meta(getattr(v, f.name))
@@ -604,6 +910,11 @@ def _encode_meta(v):
 
 
 def _decode_meta(v):
+    if isinstance(v, dict) and "__arena_spec__" in v:
+        return se.ArenaSpec(**v["__arena_spec__"])
+    if isinstance(v, dict) and "__table_plan__" in v:
+        return TablePlan(**{k: _decode_meta(x)
+                            for k, x in v["__table_plan__"].items()})
     if isinstance(v, dict) and "__meta_dc__" in v:
         name = v["__meta_dc__"]
         if name not in _META_TYPES:

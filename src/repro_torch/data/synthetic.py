@@ -2,12 +2,14 @@
 
 Zipfian sparse index streams (production embedding access skew), gaussian
 dense features, bernoulli click labels correlated with a hidden linear
-model. The draws are numpy's and follow the reference generator call for
-call, so one seed gives bit-identical batches in both packages.
+model. On a heterogeneous config table t draws Zipf(table_alphas[t]) ids
+folded into its own [0, table_rows[t]). The draws are numpy's and follow
+the reference generator call for call, so one seed gives bit-identical
+batches in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -16,10 +18,6 @@ from repro_torch.configs.base import DLRMConfig
 
 class DLRMSynthetic:
     def __init__(self, cfg: DLRMConfig, seed: int = 0, alpha: float = 1.05):
-        if cfg.heterogeneous:
-            raise NotImplementedError(
-                "heterogeneous table inventories are not ported yet "
-                "(ROADMAP Queue 1, item 8)")
         self.cfg = cfg
         self.alpha = alpha
         self.rng = np.random.RandomState(seed)
@@ -35,11 +33,23 @@ class DLRMSynthetic:
         """Fixed-length batch: {dense, indices (B, T, L), labels}."""
         c = self.cfg
         dense = self.rng.randn(batch_size, c.dense_features).astype(np.float32)
-        raw = self.rng.zipf(self.alpha, size=(batch_size, c.n_tables,
-                                              c.lookups_per_table))
-        indices = ((raw - 1) % c.rows_per_table).astype(np.int32)
+        if c.heterogeneous:
+            indices = np.empty((batch_size, c.n_tables,
+                                c.lookups_per_table), np.int32)
+            for t in range(c.n_tables):
+                raw = self.rng.zipf(self._alpha_of(t),
+                                    size=(batch_size, c.lookups_per_table))
+                indices[:, t, :] = (raw - 1) % c.resolved_table_rows[t]
+        else:
+            raw = self.rng.zipf(self.alpha, size=(batch_size, c.n_tables,
+                                                  c.lookups_per_table))
+            indices = ((raw - 1) % c.rows_per_table).astype(np.int32)
         return {"dense": dense, "indices": indices,
                 "labels": self._labels(dense)}
+
+    def _alpha_of(self, t: int) -> float:
+        alphas = self.cfg.table_alphas
+        return self.alpha if alphas is None else alphas[t]
 
     def ragged_batch(self, batch_size: int, dist: str = "poisson",
                      mean_l: Optional[int] = None,
@@ -77,8 +87,18 @@ class DLRMSynthetic:
         offsets = np.zeros(n_bags + 1, np.int32)
         np.cumsum(lens, out=offsets[1:])
         n = int(offsets[-1])
-        raw = self.rng.zipf(self.alpha, size=n)
-        indices = ((raw - 1) % c.rows_per_table).astype(np.int32)
+        if c.heterogeneous:
+            # position p belongs to bag seg(p), of table seg(p) % T
+            seg = np.searchsorted(offsets[1:], np.arange(n), side="right")
+            table = seg % c.n_tables
+            indices = np.empty(n, np.int32)
+            for t in range(c.n_tables):
+                m = table == t
+                raw = self.rng.zipf(self._alpha_of(t), size=int(m.sum()))
+                indices[m] = (raw - 1) % c.resolved_table_rows[t]
+        else:
+            raw = self.rng.zipf(self.alpha, size=n)
+            indices = ((raw - 1) % c.rows_per_table).astype(np.int32)
         if pad_to is not None:
             if pad_to < n:
                 raise ValueError(f"pad_to {pad_to} is below the {n} ids")
@@ -90,3 +110,38 @@ class DLRMSynthetic:
         return {"dense": dense, "indices": indices, "offsets": offsets,
                 "lengths": lens, "labels": self._labels(dense),
                 "max_l": max_l}
+
+    @staticmethod
+    def ragged_per_table(batch: Dict[str, np.ndarray], n_tables: int,
+                         pad_to: Union[None, int, Sequence[int]] = None
+                         ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """Split one interleaved ragged batch into per-table streams.
+
+        Returns (indices_list, offsets_list): table t's flat id stream
+        (its bags in sample order) and its own (B+1,) offsets, the layout
+        ``lookup_bags_per_table`` and the per-table ``forward_ragged``
+        consume. `pad_to` (an int or one per table) pads each stream with
+        zeros to a static size.
+        """
+        off = batch["offsets"]
+        idx = batch["indices"]
+        n_bags = len(off) - 1
+        idx_t, off_t = [], []
+        for t in range(n_tables):
+            bags = [idx[off[k]:off[k + 1]]
+                    for k in range(t, n_bags, n_tables)]
+            o = np.zeros(len(bags) + 1, np.int32)
+            np.cumsum([len(x) for x in bags], out=o[1:])
+            stream = (np.concatenate(bags).astype(np.int32) if o[-1]
+                      else np.zeros(0, np.int32))
+            if pad_to is not None:
+                p = pad_to[t] if isinstance(pad_to, (tuple, list)) \
+                    else pad_to
+                if p < o[-1]:
+                    raise ValueError(f"table {t}: pad_to {p} is below its "
+                                     f"{int(o[-1])} ids")
+                stream = np.concatenate(
+                    [stream, np.zeros(p - len(stream), np.int32)])
+            idx_t.append(stream)
+            off_t.append(o)
+        return idx_t, off_t

@@ -17,15 +17,18 @@ Which source serves is a plan: ``source=`` takes a path string
 (``"ragged"``, the fp arena; ``"fixed"``, the fp arena on the fixed
 layout; ``"cached"``, the hot-row cache over an fp or int8 cold arena),
 a ``SourceSpec`` (``SourceSpec(tiers=TierPolicy(...))`` is the tiered
-plan: hot fp, warm int8 and an int4 or host-resident cold tier) or a
-built ``EmbeddingSource``. With a host cold tier the engine stages each
-micro-batch's cold rows into its staging arena before the forward, and
+plan: hot fp, warm int8 and an int4 or host-resident cold tier;
+``SourceSpec(tables=dlrm.table_plans(cfg, ...))`` the table group of a
+heterogeneous config over ``params["tables"]``, each table's member
+composed on its own) or a built ``EmbeddingSource``. With a host cold
+tier the engine stages each micro-batch's cold rows into its staging
+arena before the forward, and
 the admission queue's next micro-batch in the same flush (the
 prefetcher); ``stats()["prefetch"]`` counts the hits and misses.
 ``update_source``/``update_cache`` swap it atomically under a monotone
 version, refusing stale versions and any change of structure, shapes or
 dtypes. Hit accounting runs on the device and is read only by
-``stats()``.
+``stats()``; a group's is per table (``es.group_hit_counts``).
 
 The engine never aliases tensors that a trainer updates in place: the
 params it is given, or assigned through ``engine.params = ...``, are
@@ -49,7 +52,7 @@ builds the int8 source that overloaded batches serve from. On the CPU
 the same calls run the serve step eagerly through the plain versions.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the sharded plans, table groups and telemetry.
+item: the sharded plans and telemetry.
 """
 from __future__ import annotations
 
@@ -185,11 +188,14 @@ class RecEngine:
     ``"cached"``; the last takes ``cache_k``, ``cache_trace`` and
     ``quantize_cold``), a ``SourceSpec`` built against the engine's copy
     of ``params["arena"]`` (a tiered plan ranks its tiers by
-    ``cache_trace``), or a built ``EmbeddingSource``, served as it is on
-    the ragged layout, as the engine's own copy. A fixed-layout engine
-    serves ``params["arena"]`` and takes requests whose every bag holds
-    exactly ``cfg.lookups_per_table`` ids. ``auto_tune_after`` retunes
-    the buckets once, after that many micro-batches.
+    ``cache_trace``; a table-group plan is built against
+    ``params["tables"]``, its ``cache_trace`` one histogram a table), or a
+    built ``EmbeddingSource``, served as it is on the ragged layout, as
+    the engine's own copy. A heterogeneous config serves a table group.
+    A fixed-layout engine serves ``params["arena"]`` and takes requests
+    whose every bag holds exactly ``cfg.lookups_per_table`` ids.
+    ``auto_tune_after`` retunes the buckets once, after that many
+    micro-batches.
 
     ``device`` defaults to the card, where every micro-batch replays the
     captured graph of its (path, bucket) pair; pass ``device="cpu"``
@@ -218,14 +224,12 @@ class RecEngine:
                 "ported yet (ROADMAP Queue 1, item 6)")
         self.device = resolve_device(device)
         self._graphed = self.device.type == "cuda"
-        for name in ("bottom", "top"):
-            for w, b in params[name]:
-                self._check_device(w, f"params[{name!r}]")
-                self._check_device(b, f"params[{name!r}]")
-        self._check_device(params["arena"], "params['arena']")
+        for name, tree in params.items():
+            for t in tree_leaves(tree):
+                self._check_device(t, f"params[{name!r}]")
         self.cfg = cfg
         self.source: Optional[es.EmbeddingSource] = None
-        self._down_source: Optional[es.QuantizedArena] = None
+        self._down_source: Optional[es.EmbeddingSource] = None
         # the warm pool: (path kind, bucket) pairs whose serve entry has
         # been triggered (warmup() or a first dispatch), as the
         # reference's; on the card the captured graphs of the live
@@ -262,10 +266,16 @@ class RecEngine:
                 source, cache_k=cache_k, quantize_cold=quantize_cold,
                 mesh=mesh)
             self.path = self.plan.path_name()
-            # built over the engine's own arena: every tensor is new or
-            # the engine's
-            self.source = self.plan.build(self._params["arena"], self.spec,
-                                          cache_trace)
+            if cfg.heterogeneous != (self.plan.tables is not None):
+                raise ValueError(
+                    "a heterogeneous config serves a table-group plan "
+                    "(SourceSpec(tables=dlrm.table_plans(cfg))) or a built "
+                    "TableGroupSource, and a table-group plan needs one")
+            # built over the engine's own arena (or per-table arenas):
+            # every tensor is new or the engine's
+            self.source = self.plan.build(
+                self._params["arena" if self.plan.tables is None
+                             else "tables"], self.spec, cache_trace)
         elif isinstance(source, es.EmbeddingSource):
             if cache_k or cache_trace is not None or quantize_cold \
                     or mesh is not None:
@@ -289,10 +299,23 @@ class RecEngine:
             self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
         # hits accumulate on the device, in place (a probe captured in a
         # graph keeps its address), and are read only by stats(); the
-        # lookups are counted on the host from the numpy offsets
-        self._hits = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._lookups = 0
+        # lookups are counted on the host from the numpy bag lengths. A
+        # group counts both per table.
+        shape = (len(self.source.members),) if self.grouped else ()
+        self._hits = torch.zeros(shape, dtype=torch.int64,
+                                 device=self.device)
+        self._lookups = np.zeros(shape, np.int64) if self.grouped else 0
         self._bind_host_stores()
+
+    @property
+    def grouped(self) -> bool:
+        """Serving a heterogeneous ``TableGroupSource``?"""
+        return isinstance(self.source, es.TableGroupSource)
+
+    def _served_arenas(self):
+        """What the served source's fp leaves are rebound to: the arena,
+        or a group's per-table arenas."""
+        return self._params["tables" if self.grouped else "arena"]
 
     def _check_device(self, t: torch.Tensor, what: str) -> None:
         if t.device.type != self.device.type:
@@ -314,12 +337,13 @@ class RecEngine:
     @params.setter
     def params(self, params: Dict) -> None:
         """Copy ``params`` into the engine's own tensors and the served
-        source's fp-arena leaves, in place when the layout matches, so
-        every address stays fixed and no graph is recaptured; the
-        downgrade source is re-quantized into its own tensors. A trainer
-        that then steps in place does not reach what the engine serves
-        until the next assignment. Params of another layout are copied
-        into new tensors, and every captured graph is dropped."""
+        source's fp-arena leaves (a group's, member by member), in place
+        when the layout matches, so every address stays fixed and no graph
+        is recaptured; the downgrade source is re-quantized into its own
+        tensors. A trainer that then steps in place does not reach what
+        the engine serves until the next assignment. Params of another
+        layout are copied into new tensors, and every captured graph is
+        dropped."""
         if self._params is not None and _same_layout(self._params, params):
             with torch.no_grad():
                 for mine, new in zip(tree_leaves(self._params),
@@ -327,16 +351,16 @@ class RecEngine:
                     mine.copy_(new)
             if self.source is not None:
                 es.adopt_source(self.source, es.rebind_arena(
-                    self.source, self._params["arena"]))
+                    self.source, self._served_arenas()))
         else:
             self._params = _own_copy(params)
             self._graphs.clear()
             if self.source is not None:
                 self.source = es.rebind_arena(self.source,
-                                              self._params["arena"])
+                                              self._served_arenas())
         if self._down_source is not None:
-            es.adopt_source(self._down_source, es.QuantizedArena.from_arena(
-                self._params["arena"]))
+            es.adopt_source(self._down_source,
+                            self._build_downgrade_source())
 
     @property
     def cache(self) -> Optional[se.HotRowCache]:
@@ -350,7 +374,19 @@ class RecEngine:
 
     def _reset_hit_counters(self) -> None:
         self._hits.zero_()
-        self._lookups = 0
+        self._lookups = np.zeros_like(self._lookups) if self.grouped else 0
+
+    def _hit_snapshot(self) -> Dict:
+        """Host numbers of the live version's hit accounting: totals, and
+        on a group (hits, lookups) per table. Reads the device counter."""
+        hits = self._hits.cpu().numpy()
+        if self.grouped:
+            return {"hits": float(hits.sum()),
+                    "lookups": float(self._lookups.sum()),
+                    "per_table": {str(t): (float(hits[t]),
+                                           float(self._lookups[t]))
+                                  for t in range(len(hits))}}
+        return {"hits": float(hits), "lookups": float(self._lookups)}
 
     def update_source(self, source: es.EmbeddingSource,
                       version: Optional[int] = None) -> None:
@@ -365,8 +401,10 @@ class RecEngine:
         shapes, dtypes and devices: the serve step and its captured
         graphs are shaped for it. A version bump resets the hit counters,
         so the reported rate is the live cache's. On the plans built over
-        the fp arena the served arena is ``params["arena"]``, which a swap
-        of the fp arena therefore rewrites too.
+        the fp arena the served arena is ``params["arena"]`` (a group's,
+        ``params["tables"]``), which a swap of the fp arena therefore
+        rewrites too. A group swap of one member (``es.replace_member``)
+        copies that member alone: the others are the engine's own.
         """
         if self.layout == "fixed":
             raise ValueError(
@@ -410,26 +448,32 @@ class RecEngine:
     # -- the int8 downgrade path --------------------------------------------
 
     @property
-    def downgrade_source(self) -> Optional[es.QuantizedArena]:
+    def downgrade_source(self) -> Optional[es.EmbeddingSource]:
         """The int8 source overloaded batches serve from (None until
         ``enable_downgrade``)."""
         return self._down_source
 
-    def enable_downgrade(self) -> es.QuantizedArena:
+    def enable_downgrade(self) -> es.EmbeddingSource:
         """Build (once) the int8 downgrade source,
-        ``QuantizedArena.from_arena(params["arena"])``, served through the
-        same ragged serve step as its own path: ``warmup()`` captures its
-        pairs too, and a params assignment re-quantizes into its tensors.
-        Table-group sources, whose downgrade is per member, are not
-        ported (ROADMAP Queue 1, item 8)."""
+        ``QuantizedArena.from_arena(params["arena"])`` (on a group, one
+        such member a table arena), served through the same ragged serve
+        step as its own path: ``warmup()`` captures its pairs too, and a
+        params assignment re-quantizes into its tensors."""
         if self.layout == "fixed":
             raise ValueError(
                 "the downgrade path serves through the ragged lookup_bags "
                 "step; the fixed layout reads params['arena'] directly")
         if self._down_source is None:
-            self._down_source = es.QuantizedArena.from_arena(
-                self._params["arena"])
+            self._down_source = self._build_downgrade_source()
         return self._down_source
+
+    def _build_downgrade_source(self) -> es.EmbeddingSource:
+        if self.grouped:
+            return es.TableGroupSource(
+                members=tuple(es.QuantizedArena.from_arena(a)
+                              for a in self._params["tables"]),
+                specs=self.source.specs)
+        return es.QuantizedArena.from_arena(self._params["arena"])
 
     # -- host cold tier: staging and prefetch --------------------------------
 
@@ -519,13 +563,24 @@ class RecEngine:
     def _forward(self, kind: str) -> Callable[[Dict], torch.Tensor]:
         """The eager serve step of one path over a batch dict: what the
         card captures as the pair's graph and the CPU runs. The primary
-        path of a cached source adds its hit probe after the forward, on
-        the device, so that it adds no host wait."""
+        path of a cached source (a group with a cached member) adds its
+        hit probe after the forward, on the device, so that it adds no
+        host wait."""
         if kind == "downgrade":
             return lambda batch: self._serve(self._params, batch,
                                              self._down_source)
         if self.layout == "fixed":
             return lambda batch: self._serve(self._params, batch)
+        if self.grouped and any(es.hot_cache_of(m) is not None
+                                for m in self.source.members):
+            def grouped(batch: Dict) -> torch.Tensor:
+                probs = self._serve(self._params, batch, self.source)
+                hits, _ = es.group_hit_counts(
+                    self.source, batch["indices"], batch["offsets"],
+                    max_l=self.max_l)
+                self._hits += hits
+                return probs
+            return grouped
         cache = self.cache
         if cache is None:
             return lambda batch: self._serve(self._params, batch,
@@ -611,12 +666,12 @@ class RecEngine:
         self.batcher.submit(req)
 
     def _fill(self, reqs: List[RecRequest], arrays: Dict[str, np.ndarray]
-              ) -> int:
+              ) -> np.ndarray:
         """Pad a micro-batch into its bucket's host arrays, in place (the
-        padding rows zero, their bags empty). Returns the real index
-        count, from the numpy offsets, so hit accounting never reads a
-        device tensor to learn it. The bags of a micro-batch, in (sample,
-        table) order, are its flat id stream."""
+        padding rows zero, their bags empty). Returns the real bags'
+        lengths in (sample, table) order, so hit accounting never reads a
+        device tensor to learn the lookups. The bags of a micro-batch, in
+        that order, are its flat id stream."""
         n, t = len(reqs), self.cfg.n_tables
         dense = arrays["dense"]
         np.stack([r.dense for r in reqs], out=dense[:n])
@@ -636,7 +691,7 @@ class RecEngine:
             # dropped, and every kernel computes each row on its own
             idx[:n] = np.concatenate(bags).reshape(n, t, n_l)
             idx[n:] = 0
-            return 0
+            return lens
         bad = np.flatnonzero(lens > self.max_l)
         if bad.size:
             i, j = divmod(int(bad[0]), t)
@@ -650,16 +705,16 @@ class RecEngine:
         if n_valid:
             np.concatenate(bags, out=idx[:n_valid], casting="same_kind")
         idx[n_valid:] = 0                 # the static cap's padded tail
-        return n_valid
+        return lens
 
     def _assemble(self, reqs: List[RecRequest], bucket: int):
         """A micro-batch padded to its bucket's static shapes, as a batch
-        dict on the engine's device, and its real index count."""
+        dict on the engine's device, and its bags' lengths (``_fill``)."""
         arrays = {k: np.empty(s, _NUMPY[dt])
                   for k, (s, dt) in self._input_shapes(bucket).items()}
-        n_valid = self._fill(reqs, arrays)
+        lens = self._fill(reqs, arrays)
         return {k: torch.from_numpy(v).to(self.device)
-                for k, v in arrays.items()}, n_valid
+                for k, v in arrays.items()}, lens
 
     # -- serving: dispatch / settle -----------------------------------------
 
@@ -707,13 +762,17 @@ class RecEngine:
         if self._graphed:
             graph = self._graph(kind, bucket)
             probs = graph.acquire()
-            n_valid = self._fill(reqs, probs.arrays)
+            lens = self._fill(reqs, probs.arrays)
             graph.replay(probs)
         else:
-            batch, n_valid = self._assemble(reqs, bucket)
+            batch, lens = self._assemble(reqs, bucket)
             probs = self._forward(kind)(batch)
-        if not downgraded and self.cache is not None:
-            self._lookups += n_valid
+        if not downgraded:
+            if self.grouped:
+                self._lookups += lens.reshape(-1, self.cfg.n_tables).sum(
+                    axis=0)
+            elif self.cache is not None:
+                self._lookups += int(lens.sum())
         return InflightBatch(reqs=reqs, probs=probs, bucket=bucket,
                              downgraded=downgraded, dispatched_mono=now_m)
 
@@ -755,7 +814,8 @@ class RecEngine:
     def stats(self) -> Dict:
         """Requests served, latency percentiles over the ring, the source,
         the live cache version's hit rate (None without a cache or before
-        its first lookup, never a fake 0.0) and buckets."""
+        its first lookup, never a fake 0.0; on a group one a table, None
+        for the members without a cache) and buckets."""
         if not self._lat_ms:
             return {"n": 0}
         lat = np.fromiter(self._lat_ms, np.float64, count=len(self._lat_ms))
@@ -766,11 +826,20 @@ class RecEngine:
                "p95_ms": float(np.percentile(lat, 95)),
                "p99_ms": float(np.percentile(lat, 99)),
                "mean_ms": float(lat.mean())}
-        if self.cache is None:
+        if self.grouped:
+            snap = self._hit_snapshot()["per_table"]
+            out["cache_hit_rate"] = {
+                t: (snap[str(t)][0] / snap[str(t)][1]
+                    if snap[str(t)][1] else None)
+                if es.hot_cache_of(m) is not None else None
+                for t, m in enumerate(self.source.members)}
+            out["cache_version"] = self.source_version
+        elif self.cache is None:
             out["cache_hit_rate"] = None
         else:
-            out["cache_hit_rate"] = (int(self._hits) / self._lookups
-                                     if self._lookups else None)
+            snap = self._hit_snapshot()
+            out["cache_hit_rate"] = (snap["hits"] / snap["lookups"]
+                                     if snap["lookups"] else None)
             out["cache_version"] = self.source_version
         out["buckets"] = self.buckets
         if self._host_stores:

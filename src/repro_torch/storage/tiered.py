@@ -21,8 +21,8 @@ rows within their quantization bounds, and gradients reach the hot rows
 through the fused op the fp path trains with.
 
 The port of ``repro/storage/tiered.py``; the walks cover the sources the
-port has (table groups and sharded sources are ROADMAP Queue 1, items 8
-and 13).
+port has (tiered members of a table group and sharded sources are ROADMAP
+Queue 1, items 8 and 13).
 """
 from __future__ import annotations
 

@@ -6,12 +6,14 @@ from repro_torch.training.online import (OnlineCacheConfig, OnlineTrainer,
                                          VersionedHotCache,
                                          make_drifting_zipf)
 from repro_torch.training.sparse_optim import (SparseOptimizer,
+                                               group_row_grads,
+                                               group_rowwise_adagrad,
                                                ragged_row_grads,
                                                source_row_grads,
                                                sparse_rowwise_adagrad,
                                                unique_padded)
 
 __all__ = ["OnlineCacheConfig", "OnlineTrainer", "SparseOptimizer",
-           "VersionedHotCache", "VersionedSource", "make_drifting_zipf",
-           "ragged_row_grads", "source_row_grads", "sparse_rowwise_adagrad",
-           "unique_padded"]
+           "VersionedHotCache", "VersionedSource", "group_row_grads",
+           "group_rowwise_adagrad", "make_drifting_zipf", "ragged_row_grads",
+           "source_row_grads", "sparse_rowwise_adagrad", "unique_padded"]

@@ -24,8 +24,8 @@ rebuild cadence becomes a tier migration (``retier``, an incremental
 The train step works in place, so the port's sync copies: an engine never
 aliases a tensor the trainer updates (``RecEngine.params``), nor shares
 the trainer's host store. Not ported yet: telemetry, which needs the
-port's copy of ``repro.obs`` (ROADMAP Queue 1, item 9); the per-table
-group trainer (item 8).
+port's copy of ``repro.obs``, and the per-table ``OnlineGroupTrainer`` of
+heterogeneous table groups (both ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -177,6 +177,11 @@ class OnlineTrainer:
             raise NotImplementedError(
                 "trainer telemetry needs the port's copy of repro.obs, "
                 "not ported yet (ROADMAP Queue 1, item 9)")
+        if cfg.heterogeneous:
+            raise NotImplementedError(
+                "online training of a heterogeneous table group is the "
+                "reference's OnlineGroupTrainer, not ported yet (ROADMAP "
+                "Queue 1, item 9)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = dlrm.arena_spec(cfg)

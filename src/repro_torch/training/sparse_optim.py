@@ -17,12 +17,14 @@ each row's positions in ascending order without float atomics and
 writes the unused slots' zeros (``index_add_`` on the card would add in
 an order that changes from run to run). Nothing here syncs the host.
 
-The per-table group optimizer and the shard projection wait for ROADMAP
-Queue 1, items 8 and 13.
+A table group trains per table: ``group_row_grads`` gives one (rows,
+grads) pair a table, one ``sls_grad_table`` call each, and
+``group_rowwise_adagrad`` keeps one accumulator a table. The shard
+projection waits for ROADMAP Queue 1, item 13.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -94,6 +96,71 @@ def source_row_grads(spec: se.ArenaSpec, d_bags: torch.Tensor,
     per-table ragged batch exactly as passed to ``lookup_bags``."""
     flat = se.flatten_ragged_indices(spec, indices, offsets)
     return ragged_row_grads(d_bags, flat, offsets, fill_row=spec.null_row)
+
+
+def group_row_grads(specs, d_bags: torch.Tensor, indices: torch.Tensor,
+                    offsets: torch.Tensor, *, max_l: Optional[int] = None
+                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-table row gradients of a ``TableGroupSource`` lookup.
+
+    `specs` are the group's per-table ArenaSpecs, `d_bags` (n_bags, dmax)
+    d loss / d padded bag output, `indices`/`offsets` the interleaved
+    ragged batch as passed to ``lookup_bags``. Returns one (rows, grads
+    (rows.shape + (dim_t,))) pair a table: table t's touched rows in its
+    own arena and their summed gradients (only the leading dim_t lanes of
+    `d_bags` reach table t). Fill slots go to table t's null row, whose
+    gradient ``ragged_row_grads`` forces to zero.
+
+    With ``max_l`` (the lookup's bound) the stream is relayouted once and
+    each table walks only its own (B, max_l) slice: rows are (B*max_l,) a
+    table. Without it each table walks the whole N-position stream (rows
+    (N,) a table).
+    """
+    t_count = len(specs)
+    if max_l is None:
+        table, valid = se.ragged_position_tables(offsets, indices.shape[0],
+                                                 t_count)
+        out = []
+        for t, sp in enumerate(specs):
+            idx_t = torch.where(valid & (table == t), indices, sp.null_row)
+            out.append(ragged_row_grads(d_bags[:, :sp.dim], idx_t, offsets,
+                                        fill_row=sp.null_row))
+        return out
+    n_bags = offsets.shape[0] - 1
+    b = n_bags // t_count
+    dense = se.ragged_dense_ids(indices, offsets, max_l=max_l, fill=-1)
+    dense = dense.reshape(b, t_count, max_l)
+    uni = torch.arange(b + 1, dtype=torch.int32,
+                       device=offsets.device) * max_l
+    out = []
+    for t, sp in enumerate(specs):
+        ids_t = torch.where(dense[:, t, :] >= 0, dense[:, t, :],
+                            sp.null_row)
+        # bag (s, t) sits at row s * t_count + t of the interleaved batch
+        out.append(ragged_row_grads(d_bags[t::t_count, :sp.dim],
+                                    ids_t.reshape(-1), uni,
+                                    fill_row=sp.null_row))
+    return out
+
+
+def group_rowwise_adagrad(lr: float, eps: float = 1e-8) -> SparseOptimizer:
+    """``sparse_rowwise_adagrad`` over a tuple of per-table arenas: one
+    accumulator a table, each updated from its (rows_t, grads_t) pair of
+    ``group_row_grads``; in place, as the single-arena optimizer."""
+    leaf = sparse_rowwise_adagrad(lr, eps)
+
+    def init(arenas):
+        return tuple(leaf.init(a) for a in arenas)
+
+    def update(arenas, states, per_table):
+        new_arenas, new_states = [], []
+        for a, s, (rows, grads) in zip(arenas, states, per_table):
+            na, ns = leaf.update(a, s, rows, grads)
+            new_arenas.append(na)
+            new_states.append(ns)
+        return tuple(new_arenas), tuple(new_states)
+
+    return SparseOptimizer(init, update)
 
 
 def sparse_rowwise_adagrad(lr: float, eps: float = 1e-8) -> SparseOptimizer:

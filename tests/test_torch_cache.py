@@ -30,6 +30,7 @@ from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import fused_dispatch as t_fd
 from repro_torch.kernels import ops, ref
+from repro_torch.storage import TierPolicy
 
 torch.set_num_threads(1)
 
@@ -385,10 +386,13 @@ def test_source_spec_matches_jax(case, path, kw):
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "Queue 1, item 13"),
     ({"require_mesh": True}, "Queue 1, item 13"),
-    ({"tables": ()}, "Queue 1, item 8")])
+    # a table group is ported; a tiered member of one is not
+    ({"tables": (es.TablePlan(rows=10, dim=4,
+                              tiers=TierPolicy(hot=2, warm=4)),)},
+     "Queue 1, item 8")])
 def test_source_spec_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        es.SourceSpec(**kw)
+        es.SourceSpec(**kw).build([torch.zeros(11, 4)], None)
 
 
 def test_source_spec_from_path_refusals():

@@ -26,12 +26,14 @@ from repro.core import sparse_engine as j_se
 from repro.data import DLRMSynthetic
 from repro.serving import RecEngine as JRecEngine
 from repro.serving import requests_from_ragged_batch as j_requests
+from repro_torch.configs.dlrm import DLRM_HET_SMOKE
 from repro_torch.configs.dlrm import DLRM_SMOKE as CFG
 from repro_torch.core import dlrm as t_dlrm
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.serving import RecEngine
 from repro_torch.serving import requests_from_ragged_batch as t_requests
+from repro_torch.storage import TierPolicy
 
 torch.set_num_threads(1)
 
@@ -263,8 +265,16 @@ def test_unported_engine_arguments_name_their_item(params):
         _engine(params, telemetry=object())
     with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
         _engine(params, mesh=object())
+    # a table-group plan is ported; a tiered member of one is not
+    het = DLRM_HET_SMOKE
+    tiered = tuple(es.TablePlan(rows=tp.rows, dim=tp.dim,
+                                tiers=TierPolicy(hot=2, warm=4))
+                   for tp in t_dlrm.table_plans(het))
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        _engine(params, source=es.SourceSpec(tables=()))
+        RecEngine(het, t_dlrm.init(torch.Generator().manual_seed(0), het,
+                                   device="cpu"),
+                  source=es.SourceSpec(tables=tiered), max_l=MAX_L,
+                  device="cpu")
 
 
 def test_reference_hot_rows_serve_in_the_port(np_params, params, counts):

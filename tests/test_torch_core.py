@@ -126,12 +126,26 @@ def test_feature_interaction_width_is_d_plus_pairs():
 
 
 def test_heterogeneous_configs_are_refused():
+    """Heterogeneous configs are ported; what the port still refuses of
+    them names its ROADMAP item: sharded members (13) and tiered members
+    (8). The envelope spec is the reference's."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
+    j_het = dataclasses.replace(j_cfgs.DLRM_SMOKE, table_rows=(10, 20, 30),
+                                table_dims=(4, 8, 16))
+    assert dataclasses.astuple(t_dlrm.arena_spec(het)) == \
+        dataclasses.astuple(j_dlrm.arena_spec(j_het))
+    arenas = [torch.zeros(sp.total_rows, sp.dim)
+              for sp in t_dlrm.member_specs(het)]
+    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+        t_es.TableGroupSource.from_arenas(arenas, t_dlrm.member_specs(het),
+                                          mesh=object())
+    from repro_torch.storage import TierPolicy
+    plans = tuple(t_es.TablePlan(rows=tp.rows, dim=tp.dim,
+                                 tiers=TierPolicy(hot=1, warm=2))
+                  for tp in t_dlrm.table_plans(het))
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        TSynthetic(het)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        t_dlrm.arena_spec(het)
+        t_es.SourceSpec(tables=plans).build(arenas, None)
 
 
 # ---------------------------------------------------------------------------

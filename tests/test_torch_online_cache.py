@@ -377,12 +377,15 @@ def test_source_blobs_decode_across_packages():
 
 
 def test_unported_sources_in_a_blob_name_their_item():
+    # table groups decode since they are ported; a sharded source names
+    # its item
+    from repro.launch.mesh import make_mesh
     arena = jnp.zeros((11, 4))
-    group = j_es.TableGroupSource(members=(j_es.FpArena(arena),),
-                                  specs=(j_se.ArenaSpec(1, 10, 4),))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    sharded = j_es.ShardedArena(j_es.FpArena(arena),
+                                make_mesh((1,), ("model",)))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
         VersionedSource.deserialize(
-            j_es.VersionedSource(group, 1).serialize(), device="cpu")
+            j_es.VersionedSource(sharded, 1).serialize(), device="cpu")
     with pytest.raises(ValueError, match="artifact"):
         VersionedSource.deserialize(b"junk", device="cpu")
 

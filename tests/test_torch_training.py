@@ -358,11 +358,18 @@ def test_sharded_training_is_refused(kw, item):
 
 
 def test_heterogeneous_training_is_refused():
+    """Group train steps are ported; sharded group training (item 13) and
+    the online group trainer (item 9) are refused naming their items."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     for sparse in (True, False):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            t_dlrm.make_train_step_ragged(het, max_l=MAX_L, sparse=sparse)
+        with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+            t_dlrm.make_train_step_ragged(het, max_l=MAX_L, sparse=sparse,
+                                          mesh=object())
+    params = t_dlrm.init(torch.Generator().manual_seed(0), het,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+        OnlineTrainer(het, params, max_l=MAX_L, device="cpu")
 
 
 # ---------------------------------------------------------------------------
