@@ -219,7 +219,40 @@ forward. Each serving phase zeroes the counts just before its engine's
    CPU from the same state under phase 4's laws (touched rows exact a
    table, the tables' budget a table), the wrappers' launches a step by
    name, step ms, kernels and device ms by group.
-13. Report: one JSON line of the kernels, then the device line, which is
+13. The serving plane, every check a hard one: (a) on DLRM(1)'s fp and
+   cached plans, a ``Telemetry()`` and a ``Telemetry.disabled()`` engine
+   serve the same 512 requests in turns through dispatch and settle:
+   probabilities equal bit for bit, ``rec_requests_total`` 512,
+   ``rec_batches_total`` 16, ``rec_cold_compiles_total`` 0, the latency
+   histogram's count 512 and its p50/p99 equal to ``np.percentile`` over
+   its samples, nothing recorded by the disabled engine, host ms a
+   micro-batch of each and their ratio; a replay's kernels by name, the
+   disabled cached one's the instrumented one's minus the hit probe's.
+   (b) On the cached plan, a cache swap's event carries the outgoing
+   version's hits and lookups (a numpy recount), ``since_swap`` restarts,
+   a stale broadcast is refused with a ``stale_rejected`` event, and no
+   capture follows. (c) ``Telemetry(device_stages=True)`` serves the 512
+   requests through the three stages, bit for bit the graph replay's,
+   with ``stats()["stages"] == live_fig5()``, printed beside phase 3's
+   profiler split. (d) The reference's open-loop scenario at full size:
+   ``t_batch`` the median of 10 full-bucket dispatch + settle calls,
+   ``sla_ms`` 3 t_batch, 3,000 Poisson arrivals (seed 17) at twice the
+   capacity through the synchronous loop and through ``SlaScheduler``
+   (max_queue 128, depth 2), then a diurnal drifting-Zipf trace near
+   capacity: served + shed = n, one shed event and flag a shed request,
+   the primary path within 1e-6 of the synchronous loop (bit equality
+   printed), downgraded requests within 0.05; nominal and achieved qps,
+   p50/p99 of both loops, the tightening, shed and downgrade fractions,
+   queue waits. (e) ``dlrm_het2``'s mixed plan under the scheduler, 800
+   Poisson requests at 1.5 x its capacity: exact accounting, downgraded
+   micro-batches from the per-member int8 source, per-table hits after
+   ``drain()`` equal to a numpy recount. (f) In phases 6 and 9: the
+   trainer's counters and events, the host store's ``rec_prefetch_*``
+   counters against ``stats()["prefetch"]``, snapshots through
+   ``json.dumps``. The launch counts are zeroed before (a) and read after
+   (e). Phases 3 to 7 run with ``obs.enable_stage_annotations(True)``,
+   whose host spans they print.
+14. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -259,12 +292,14 @@ from repro_torch.kernels import feature_interaction as fi_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import fused_dispatch as fd_k  # noqa: E402
 from repro_torch.kernels import gemm as gm_k  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
-                                 Request, requests_from_ragged_batch)
+                                 Request, SlaPolicy, SlaScheduler, loadgen,
+                                 requests_from_ragged_batch)
 from repro_torch.storage import tiered as st  # noqa: E402
 from repro_torch.storage.host_store import HostTier  # noqa: E402
 from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
@@ -375,6 +410,19 @@ KERNELS = {
 
 def launch_counts() -> dict:
     return {n: getattr(k["module"], k["counter"]) for n, k in KERNELS.items()}
+
+
+def cold_compiles(engine) -> int:
+    """Dispatches that found their (path, bucket) pair cold."""
+    return int(engine.telemetry.registry.counter(
+        "rec_cold_compiles_total").value)
+
+
+def recent_latency(engine, n: int) -> dict:
+    """p50/p95/p99 of an engine's last n request latencies, exact: they
+    lie in its latency histogram's ring."""
+    lat = engine._lat_hist.ring_values()[-n:]
+    return {f"p{q}_ms": float(np.percentile(lat, q)) for q in (50, 95, 99)}
 
 
 def reset_counts() -> None:
@@ -1554,6 +1602,7 @@ def trace_replays(run, n_batches: int, lead_in) -> dict:
             kinds[key] = kinds.get(key, 0) + 1
         if len(replays) == n_batches and len(kinds) == 1 and replays[0]:
             return {"by_replay": _by_group(replays[0]),
+                    "by_name": replays[0],
                     "takes": take, "records": [
                         (e.name(), e.duration_ns() / 1e3) for e in events
                         if e.device_type() == torch.autograd.DeviceType.CUDA
@@ -2258,13 +2307,40 @@ def _uncached(cfg, engine, params, reqs) -> np.ndarray:
         return step(params, batch).cpu().numpy()
 
 
+def trainer_telemetry(trainer, steps: int, rebuilds: int) -> dict:
+    """Phase 13(f), on phase 6's trainer: its counters against the steps
+    and rebuilds it took, one ``hot_cache_rebuild`` and one ``publish``
+    event a rebuild, and its snapshot through ``json.dumps``."""
+    tel = trainer.telemetry
+    reg = tel.registry
+    got = {"train_steps_total": reg.counter("train_steps_total").value,
+           "train_rebuilds_total": reg.counter("train_rebuilds_total").value,
+           "hot_cache_rebuild": len(tel.events.query("hot_cache_rebuild")),
+           "publish": len(tel.events.query("publish"))}
+    want = {"train_steps_total": steps, "train_rebuilds_total": rebuilds,
+            "hot_cache_rebuild": rebuilds, "publish": rebuilds}
+    if got != want:
+        fail(f"online: the trainer's telemetry reads {got}, the run {want}")
+    snap = tel.snapshot()
+    if json.loads(json.dumps(snap)) != snap:
+        fail("online: the trainer's telemetry snapshot does not round-trip "
+             "through json")
+    print(f"  13(f) trainer telemetry: {got} for {steps} steps and "
+          f"{rebuilds} rebuilds; train_loss gauge "
+          f"{reg.gauge('train_loss').value:.6f}; the snapshot round-trips "
+          f"through json ({len(json.dumps(snap))} bytes)")
+    return got
+
+
 def phase_online(cfg) -> dict:
     spec = dlrm.arena_spec(cfg)
     p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(2), cfg,
                    device="cuda")
+    tel = obs.Telemetry()
     trainer = OnlineTrainer(cfg, p0, max_l=MAX_L, device="cuda",
                             cache_cfg=OnlineCacheConfig(k=CACHE_K,
-                                                        refresh_every=REFRESH))
+                                                        refresh_every=REFRESH),
+                            telemetry=tel)
     reset_counts()
     engine = RecEngine(cfg, trainer.params, source="cached", cache_k=CACHE_K,
                        cache_trace=np.ones(spec.total_rows), max_l=MAX_L,
@@ -2331,6 +2407,7 @@ def phase_online(cfg) -> dict:
               f"{checks[-1]['hit_rate']}")
     launches = launch_counts()
     n_steps = ONLINE_STEPS
+    telemetry = trainer_telemetry(trainer, n_steps, ONLINE_STEPS // REFRESH)
     if engine.captures != captures:
         fail(f"online: the swaps recaptured ({engine.captures} captures, "
              f"{captures} after warmup)")
@@ -2408,7 +2485,8 @@ def phase_online(cfg) -> dict:
           f"{costs['observe_host_ms_median']:.3f} ms, hot-cache blob "
           f"{costs['publish_bytes']} bytes")
     return {"launches": launches, "served_batches": served_batches,
-            "checks": checks, "costs": costs, "losses": trainer.losses}
+            "checks": checks, "costs": costs, "losses": trainer.losses,
+            "telemetry": telemetry}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3067,9 +3145,10 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
           "equal to the fp plan (np.array_equal)")
     # the prefetcher with a queue to look into: all 512 requests admitted
     # first, so each step stages its own batch and the next one's rows
+    tel = obs.Telemetry()
     with uncounted():
         ahead = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
-                          device="cuda", **plan)
+                          telemetry=tel, device="cuda", **plan)
         ahead.warmup()
         for r in requests_from_ragged_batch(served_batch(cfg),
                                             cfg.n_tables):
@@ -3078,6 +3157,17 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
     pre_q = ahead.stats()["prefetch"]
     if pre_q["hits"] + pre_q["misses"] != pre_q["touches"]:
         fail(f"tiered host, queued: hits + misses != touches: {pre_q}")
+    store_counts = {k: tel.registry.counter(name).value for k, name in (
+        ("hits", "rec_prefetch_hit"), ("misses", "rec_prefetch_miss"))}
+    snap = tel.snapshot()
+    if store_counts != {k: pre_q[k] for k in ("hits", "misses")} \
+            or json.loads(json.dumps(snap)) != snap:
+        fail(f"tiered host: rec_prefetch_hit/miss {store_counts} against "
+             f"stats()['prefetch'] {pre_q}, or a snapshot that does not "
+             f"round-trip through json")
+    print(f"  13(f) host store telemetry: rec_prefetch_hit/miss "
+          f"{store_counts} equal stats()['prefetch']; the snapshot "
+          f"round-trips through json")
     print(f"  host cold, all 512 requests queued first (the lookahead sees "
           f"the next micro-batch): prefetch {pre_q}")
     del ahead
@@ -3108,6 +3198,7 @@ def serve_tiered(cfg, params, fp_probs, counts) -> dict:
                    "prob_max_abs_err_vs_fp": err_fp,
                    "largest_unique_cold": largest,
                    "prefetch_queued": pre_q,
+                   "store_telemetry": store_counts,
                    "staging_runtime_calls": calls,
                    "step_runtime_calls": step_calls, "tier_bytes": tb,
                    "profile": prof}
@@ -3371,9 +3462,9 @@ def graphed_plan(cfg, params, name: str, plan: dict, counts) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     pairs = len(GRAPH_BUCKETS)
-    if engine.captures != pairs or engine.cold_compiles:
+    if engine.captures != pairs or cold_compiles(engine):
         fail(f"{name}: warmup made {engine.captures} captures for {pairs} "
-             f"pairs, {engine.cold_compiles} cold")
+             f"pairs, {cold_compiles(engine)} cold")
     per = _capture_counts(engine, name)
     launches = launch_counts()
     pool = graph_pool_bytes(engine)
@@ -3386,19 +3477,20 @@ def graphed_plan(cfg, params, name: str, plan: dict, counts) -> dict:
         engine, mb, b, engine.params, engine.source))
     if buckets != list(GRAPH_BUCKETS):
         fail(f"{name}: the mixed traffic served buckets {buckets}")
-    if engine.captures != pairs or engine.cold_compiles \
+    if engine.captures != pairs or cold_compiles(engine) \
             or launch_counts() != launches:
         fail(f"{name}: dispatches after warmup captured or ran the "
-             f"wrappers ({engine.captures} captures, {engine.cold_compiles}"
+             f"wrappers ({engine.captures} captures, {cold_compiles(engine)}"
              f" cold, launches {launch_counts()})")
     # request latency at depth 2 (the client sends each micro-batch as it
     # is dispatched), without the checks
     timed = _plan_requests(cfg, fixed, N_REQUESTS, 12)
-    engine._lat_ms.clear()
+    mark = engine._lat_hist.count
     t0 = time.perf_counter()
     pipelined(engine, timed, mixed_sizes(N_REQUESTS, 6))
     pipe_s = time.perf_counter() - t0
     stats = engine.stats()
+    stats.update(recent_latency(engine, engine._lat_hist.count - mark))
     prof = profile_serve(engine, cfg, n_batches=16,
                          batch_fn=fixed_batch if fixed else poisson_batch)
     _check_replay(prof, per, name)
@@ -3445,7 +3537,7 @@ def graphed_plan(cfg, params, name: str, plan: dict, counts) -> dict:
     after = _plan_requests(cfg, fixed, SWAP_BATCHES * BUCKET, 13)
     pipelined(engine, after, [BUCKET, 11] * (SWAP_BATCHES // 2),
               lambda mb, b: step(engine, mb, b, p2, ref_src))
-    if engine.captures != pairs or engine.cold_compiles \
+    if engine.captures != pairs or cold_compiles(engine) \
             or launch_counts() != launches:
         fail(f"{name}: the swaps recaptured or ran the wrappers")
     if name == "fp":
@@ -3554,8 +3646,8 @@ def graphed_retune(cfg, params) -> dict:
     reqs = _plan_requests(cfg, False, 4 * RETUNE_SIZE, 17)
     pipelined(engine, reqs, [RETUNE_SIZE] * 4, lambda mb, b: step(
         engine, mb, b, engine.params, engine.source))
-    if engine.cold_compiles or engine.captures != 3:
-        fail(f"retune: {engine.cold_compiles} cold dispatches, "
+    if cold_compiles(engine) or engine.captures != 3:
+        fail(f"retune: {cold_compiles(engine)} cold dispatches, "
              f"{engine.captures} captures")
     print(f"  retune_buckets after {8} micro-batches of {RETUNE_SIZE}: "
           f"buckets {GRAPH_BUCKETS} -> {buckets}, bucket "
@@ -4238,9 +4330,9 @@ def het_serve(cfg, params, name: str, plan, counts) -> dict:
     engine.warmup()
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
-    if engine.captures != len(GRAPH_BUCKETS) or engine.cold_compiles:
+    if engine.captures != len(GRAPH_BUCKETS) or cold_compiles(engine):
         fail(f"{name}: warmup made {engine.captures} captures, "
-             f"{engine.cold_compiles} cold")
+             f"{cold_compiles(engine)} cold")
     per = _capture_counts(engine, name)
     kinds = es.describe_source(engine.source)[len("group["):-1].split(",")
     want = {n: c for n, c in (
@@ -4272,10 +4364,10 @@ def het_serve(cfg, params, name: str, plan, counts) -> dict:
         engine, mb, b, engine.params, engine.source))
     probs = np.array([r.prob for r in reqs], np.float64)
     if buckets != list(GRAPH_BUCKETS) or engine.captures != len(
-            GRAPH_BUCKETS) or engine.cold_compiles \
+            GRAPH_BUCKETS) or cold_compiles(engine) \
             or launch_counts() != launches:
         fail(f"{name}: served buckets {buckets}, {engine.captures} "
-             f"captures, {engine.cold_compiles} cold, launches "
+             f"captures, {cold_compiles(engine)} cold, launches "
              f"{launch_counts()} after warmup's {launches}")
     if any(es.hot_cache_of(m) is not None for m in engine.source.members):
         het_recount(engine, reqs)
@@ -4298,11 +4390,12 @@ def het_serve(cfg, params, name: str, plan, counts) -> dict:
     # request latency at depth 2, without the checks
     timed = requests_from_ragged_batch(het_batch(cfg, N_REQUESTS, seed=12),
                                        cfg.n_tables)
-    engine._lat_ms.clear()
+    mark = engine._lat_hist.count
     t0 = time.perf_counter()
     pipelined(engine, timed, mixed_sizes(N_REQUESTS, 6))
     pipe_s = time.perf_counter() - t0
     stats = engine.stats()
+    stats.update(recent_latency(engine, engine._lat_hist.count - mark))
     prof = profile_serve(engine, cfg, n_batches=16, batch_fn=het_batch)
     _check_replay(prof, per, name)
     row = {"source": stats["source"], "captures": engine.captures,
@@ -4340,7 +4433,7 @@ def het_serve(cfg, params, name: str, plan, counts) -> dict:
                                        cfg.n_tables)
     pipelined(engine, after, [BUCKET, 11] * 2, lambda mb, b: step(
         engine, mb, b, engine.params, swapped))
-    if engine.captures != captures or engine.cold_compiles \
+    if engine.captures != captures or cold_compiles(engine) \
             or launch_counts() != launches:
         fail(f"{name}: the member swap recaptured or ran the wrappers")
     print(f"  {name:6s} {row['source'][:48]}...: captures {captures} "
@@ -4517,6 +4610,560 @@ def phase_het(gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+PLANE_N = 3000                     # 13(d): requests of each open-loop trace
+PLANE_SEED = 17                    # the reference's trace seed
+PLANE_BUCKETS = (BUCKET // 4, BUCKET)   # the reference's (8, 32)
+PLANE_WAIT_MS = 1.0
+PLANE_OVERLOAD = 2.0               # the Poisson trace, x capacity
+DIURNAL_TROUGH = 0.6               # the diurnal trace, x capacity at t = 0
+DIURNAL_PEAK = 2.5                 # its peak, x the trough
+CAL_CALLS = 10                     # full-bucket calls that set t_batch
+HET_PLANE_N = 800                  # 13(e): requests of dlrm_het2's trace
+HET_PLANE_OVERLOAD = 1.5
+PLANE_EXACT = 1e-6                 # the primary path against the sync loop
+                                   # (every kernel computes a row on its
+                                   # own: equal bits expected)
+
+
+def _plane_engine(cfg, params, telemetry=None, **kw):
+    return RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                     telemetry=telemetry, device="cuda", **kw)
+
+
+def _probe_kernels(engine, cfg) -> dict:
+    """The hit probe's kernels by name, run eagerly over one padded
+    micro-batch under the profiler (it adds to the engine's counter).
+    Each trace opens with an uncounted lead-in call, ended by a
+    synchronize: once phase 10 has run, a trace's first records go
+    missing (see ``trace_replays``). Traces are taken until two agree, at
+    most TRACE_TAKES."""
+    probe = engine._hit_probe()
+    reqs = requests_from_ragged_batch(poisson_batch(cfg, BUCKET, 13),
+                                      cfg.n_tables)
+    batch, _ = engine._assemble(reqs, BUCKET)
+    taken = []
+    for _ in range(TRACE_TAKES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            probe(batch)
+            torch.cuda.synchronize()
+            probe(batch)
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        split = min((e.correlation_id() for e in events
+                     if e.name() == "cudaDeviceSynchronize"), default=None)
+        out = {}
+        for e in events:
+            if split is not None and e.correlation_id() > split \
+                    and e.device_type() == torch.autograd.DeviceType.CUDA:
+                out[e.name()] = out.get(e.name(), 0) + 1
+        if out and out in taken:
+            return out
+        taken.append(out)
+    fail(f"13(a): {TRACE_TAKES} traces of the hit probe disagreed: "
+         f"{[sum(t.values()) for t in taken]} kernels")
+
+
+def _replay_kernels(engine, cfg) -> dict:
+    """One served micro-batch's kernels by name, from the profiler's
+    trace of graph replays (``trace_replays``)."""
+    def batches(seed: int, n: int):
+        reqs = requests_from_ragged_batch(poisson_batch(cfg, n * BUCKET,
+                                                        seed), cfg.n_tables)
+
+        def run() -> None:
+            for i in range(0, len(reqs), BUCKET):
+                for r in reqs[i:i + BUCKET]:
+                    engine.submit(r)
+                engine.step()
+        return run
+    return trace_replays(batches(14, 4), 4, batches(15, 1))["by_name"]
+
+
+def _without_copies(names: dict) -> dict:
+    return {n: c for n, c in names.items() if _kernel_group(n) != "copies"}
+
+
+def plane_overhead(cfg, params, counts) -> tuple:
+    """13(a): a Telemetry() and a Telemetry.disabled() engine of each plan
+    serve the same 512 requests, micro-batch by micro-batch in turns,
+    through dispatch and settle."""
+    out, engines, batch = {}, {}, served_batch(cfg)
+    plans = (("fp", {}), ("cached", {"source": "cached", "cache_k": CACHE_K,
+                                     "cache_trace": counts}))
+    for name, plan in plans:
+        pair = {tag: _plane_engine(cfg, params, tel, buckets=(BUCKET,),
+                                   **plan)
+                for tag, tel in (("on", obs.Telemetry()),
+                                 ("off", obs.Telemetry.disabled()))}
+        for eng in pair.values():
+            eng.warmup()
+        reqs = {tag: requests_from_ragged_batch(batch, cfg.n_tables)
+                for tag in pair}
+        host_ms = {tag: [] for tag in pair}
+        bound_ms = []                      # each micro-batch's client wait
+        for i, lo in enumerate(range(0, N_REQUESTS, BUCKET)):
+            for tag in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                mb = reqs[tag][lo:lo + BUCKET]
+                sent = time.monotonic()
+                for r in mb:
+                    r.submitted_mono = sent
+                t0 = time.perf_counter()
+                pair[tag].settle(pair[tag].dispatch(mb))
+                host_ms[tag].append((time.perf_counter() - t0) * 1e3)
+                if tag == "on":
+                    bound_ms.append((time.monotonic() - sent) * 1e3)
+        probs = {tag: np.array([r.prob for r in reqs[tag]]) for tag in pair}
+        if not np.array_equal(probs["on"], probs["off"]):
+            fail(f"13(a) {name}: instrumented and disabled probabilities "
+                 f"differ by {np.abs(probs['on'] - probs['off']).max()}")
+        on, off = pair["on"], pair["off"]
+        reg = on.telemetry.registry
+        got = {k: reg.counter(k).value for k in (
+            "rec_requests_total", "rec_batches_total",
+            "rec_cold_compiles_total")}
+        want = {"rec_requests_total": N_REQUESTS,
+                "rec_batches_total": N_REQUESTS // BUCKET,
+                "rec_cold_compiles_total": 0}
+        if got != want:
+            fail(f"13(a) {name}: counters {got}, the run {want}")
+        h, st = on._lat_hist, on.stats()
+        lat = h.ring_values()
+        pct = {q: float(np.percentile(lat, q)) for q in (50, 99)}
+        if h.count != N_REQUESTS or st["p50_ms"] != pct[50] \
+                or st["p99_ms"] != pct[99]:
+            fail(f"13(a) {name}: latency count {h.count}, p50/p99 "
+                 f"{st['p50_ms']}/{st['p99_ms']} against np.percentile "
+                 f"{pct}")
+        if (lat < 0).any() or (lat.reshape(-1, BUCKET)
+                               > np.array(bound_ms)[:, None]).any():
+            fail(f"13(a) {name}: a latency outside [0, the client's wait]")
+        off_reg = off.telemetry.registry.snapshot()
+        if off.stats() != {"n": 0} or len(off.telemetry.events) \
+                or any(off_reg["counters"].values()) \
+                or any(v["count"] for v in off_reg["histograms"].values()) \
+                or off._lookups:
+            fail(f"13(a) {name}: the disabled engine recorded {off_reg}")
+        med = {tag: float(np.median(host_ms[tag])) for tag in pair}
+        ratio = med["on"] / med["off"]
+        print(f"  13(a) {name:6s}: 512 requests in 16 micro-batches each, "
+              f"in turns; probabilities equal bit for bit; counters {got}; "
+              f"latency count {h.count}, p50 {pct[50]:.4f} ms, p99 "
+              f"{pct[99]:.4f} ms (= np.percentile); host ms a micro-batch "
+              f"(dispatch + settle, median) instrumented {med['on']:.4f}, "
+              f"disabled {med['off']:.4f}, ratio {ratio:.4f}")
+        out[name] = {"host_ms_on": med["on"], "host_ms_off": med["off"],
+                     "ratio": ratio, "p50_ms": pct[50], "p99_ms": pct[99],
+                     "counters": got}
+        engines[name] = (pair, reqs["on"])
+    return out, engines
+
+
+def plane_kernels(cfg, engines) -> dict:
+    """13(a): a replay's kernels by name; the disabled cached replay's are
+    the instrumented one's minus the hit probe's, and the fp plan's are
+    the same both ways."""
+    out = {}
+    for name, (pair, _) in engines.items():
+        on, off = (_without_copies(_replay_kernels(pair[t], cfg))
+                   for t in ("on", "off"))
+        probe = (_without_copies(_probe_kernels(pair["on"], cfg))
+                 if name == "cached" else {})
+        diff = {k: on.get(k, 0) - off.get(k, 0) for k in set(on) | set(off)
+                if on.get(k, 0) != off.get(k, 0)}
+        if diff != probe:
+            fail(f"13(a) {name}: instrumented replay minus disabled replay "
+                 f"{diff}, the hit probe's kernels {probe}")
+        print(f"  13(a) {name:6s}: a replay runs {sum(on.values())} kernels "
+              f"instrumented, {sum(off.values())} disabled; the difference "
+              f"is the hit probe's {sum(probe.values())} "
+              f"({sorted(_kernel_group(k) for k in probe)})")
+        out[name] = {"kernels_on": sum(on.values()),
+                     "kernels_off": sum(off.values()),
+                     "probe_kernels": probe}
+    return out
+
+
+def _arena_ids(cfg, reqs) -> np.ndarray:
+    return np.concatenate([ids.astype(np.int64) + t * cfg.rows_per_table
+                           for r in reqs for t, ids in
+                           enumerate(r.sparse_ids)])
+
+
+def plane_versions(cfg, engines) -> dict:
+    """13(b): the instrumented cached engine's outgoing version attributed
+    at a cache swap, the since-swap window, a stale broadcast refused; no
+    capture."""
+    (pair, served), (fp_pair, _) = engines["cached"], engines["fp"]
+    eng, spec = pair["on"], dlrm.arena_spec(cfg)
+    captures = eng.captures
+    cache = eng.cache
+    ids = _arena_ids(cfg, served)
+    hits = int((cache.slot_of.cpu().numpy()[ids] < cache.k).sum())
+    warm = poisson_batch(cfg, WARM, 23)
+    fresh = se.build_hot_cache(eng.params["arena"], spec,
+                               se.trace_row_counts(spec, warm["indices"],
+                                                   warm["offsets"]), CACHE_K)
+    eng.update_cache(fresh, version=1)
+    evs = eng.telemetry.events.query("cache_swap")
+    if len(evs) != 1 or evs[0].version != 1 \
+            or (evs[0].attrs["hits"], evs[0].attrs["lookups"]) \
+            != (float(hits), float(ids.size)) \
+            or eng.telemetry.events.hit_rate_by_version() != {
+                0: hits / ids.size}:
+        fail(f"13(b): cache_swap events {evs} against the recount of the "
+             f"outgoing version's {ids.size} lookups, {hits} hits")
+    more = {tag: requests_from_ragged_batch(poisson_batch(cfg, 2 * BUCKET,
+                                                          24), cfg.n_tables)
+            for tag in ("cached", "fp")}
+    for tag, e in (("cached", eng), ("fp", fp_pair["on"])):
+        for lo in (0, BUCKET):
+            e.settle(e.dispatch(more[tag][lo:lo + BUCKET]))
+    got = np.array([r.prob for r in more["cached"]])
+    if not np.array_equal(got, np.array([r.prob for r in more["fp"]])):
+        fail("13(b): the swapped cache serves other bits than the fp plan")
+    st = eng.stats()
+    new_ids = _arena_ids(cfg, more["cached"])
+    rate = float((eng.cache.slot_of.cpu().numpy()[new_ids]
+                  < CACHE_K).sum()) / new_ids.size
+    if st["since_swap"]["n"] != 2 * BUCKET \
+            or st["n"] != N_REQUESTS + 2 * BUCKET \
+            or st["cache_hit_rate"] != rate:
+        fail(f"13(b): since_swap n {st['since_swap']['n']}, n {st['n']}, "
+             f"hit rate {st['cache_hit_rate']} (recount {rate})")
+    try:
+        eng.update_cache(cache, version=0)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("13(b): a stale cache broadcast was adopted")
+    stale = eng.telemetry.events.query("stale_rejected")
+    if eng.telemetry.registry.counter("rec_stale_rejected_total").value != 1 \
+            or len(stale) != 1 or eng.captures != captures:
+        fail(f"13(b): stale events {stale}, {eng.captures} captures "
+             f"({captures} before the swap)")
+    print(f"  13(b) cache_swap v0 -> v1 carries hits {hits} of {ids.size} "
+          f"lookups (= the numpy recount; hit_rate_by_version "
+          f"{hits / ids.size:.4f}); since_swap n {st['since_swap']['n']} of "
+          f"n {st['n']}; the new version's hit rate {rate:.4f} (recount); "
+          f"served bits equal the fp plan; stale v0 refused ({refused}) "
+          f"with a stale_rejected event; no capture after the swap")
+    return {"outgoing_hits": hits, "outgoing_lookups": int(ids.size),
+            "new_hit_rate": rate, "since_swap_n": st["since_swap"]["n"]}
+
+
+def plane_fig5(cfg, params, engines, served) -> dict:
+    """13(c): the live Fig-5 mode on the fp plan, against the graphed
+    engine's bits on the same micro-batches."""
+    eng = _plane_engine(cfg, params, obs.Telemetry(device_stages=True),
+                        buckets=(BUCKET,))
+    eng.warmup()
+    reqs = requests_from_ragged_batch(served_batch(cfg), cfg.n_tables)
+    for lo in range(0, N_REQUESTS, BUCKET):
+        for r in reqs[lo:lo + BUCKET]:
+            eng.submit(r)
+        eng.step()
+    eng.drain()
+    graphed = np.array([r.prob for r in engines["fp"][1]])
+    got = np.array([r.prob for r in reqs])
+    if not np.array_equal(got, graphed):
+        fail(f"13(c): the staged forward differs from the graph replay by "
+             f"{np.abs(got - graphed).max()}")
+    fig5, st = eng.live_fig5(), eng.stats()
+    if st["stages"] != fig5 or not 0.0 < fig5["emb_frac"] < 1.0:
+        fail(f"13(c): stats()['stages'] {st['stages']}, live_fig5 {fig5}")
+    split = served["profile"]["device_ms_per_batch"]
+    busy = served["profile"]["device_busy_ms_per_batch"]
+    emb3 = split.get("fused_segment_sum", 0.0) / busy if busy else None
+    print(f"  13(c) live Fig-5 over 16 micro-batches of 32 (CUDA events "
+          f"between the stages, a synchronize after each): "
+          f"{ {k: round(v, 4) for k, v in fig5.items()} }; probabilities "
+          f"equal the graph replay's bit for bit")
+    print(f"  13(c) beside phase 3's profiler split of a replay (device ms "
+          f"by kernel group): { {k: round(v, 4) for k, v in split.items()} }"
+          f", embedding share {emb3}")
+    return {**fig5, "phase3_device_ms_by_group": split,
+            "phase3_emb_frac": emb3}
+
+
+def _t_batch(call, n: int = CAL_CALLS) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _check_open_loop(what: str, sched, reqs, want: dict,
+                     down_want: dict) -> dict:
+    """Accounting and answers of one scheduled trace: served + shed = n,
+    one shed event and one flag a shed request; the primary path within
+    PLANE_EXACT of ``want`` (rid -> prob), downgraded requests within
+    INT8_PROB_ATOL of it (and within PLANE_EXACT of ``down_want`` where
+    given)."""
+    n = len(reqs)
+    events = len(sched.telemetry.events.query("shed"))
+    flagged = sum(r.shed for r in reqs)
+    if sched.served + sched.shed != n or events != sched.shed \
+            or flagged != sched.shed:
+        fail(f"{what}: served {sched.served} + shed {sched.shed} of {n}, "
+             f"{events} shed events, {flagged} flagged")
+    prim = [r for r in reqs if not r.shed and not r.downgraded]
+    down = [r for r in reqs if not r.shed and r.downgraded]
+    if any(r.prob is not None for r in reqs if r.shed):
+        fail(f"{what}: a shed request was served")
+    d_prim = np.array([abs(r.prob - want[r.rid]) for r in prim])
+    d_down = np.array([abs(r.prob - want[r.rid]) for r in down])
+    if len(d_prim) and d_prim.max() > PLANE_EXACT:
+        fail(f"{what}: the primary path lies {d_prim.max()} from the "
+             f"reference")
+    if len(d_down) and d_down.max() > INT8_PROB_ATOL:
+        fail(f"{what}: a downgraded request lies {d_down.max()} from the "
+             f"primary path")
+    d_own = np.array([abs(r.prob - down_want[r.rid]) for r in down
+                      if r.rid in down_want])
+    if len(d_own) and d_own.max() > PLANE_EXACT:
+        fail(f"{what}: the downgrade path lies {d_own.max()} from the int8 "
+             f"source's eager forward")
+    return {"primary": len(prim), "downgraded": len(down),
+            "primary_bit_equal": bool(len(d_prim) == 0 or d_prim.max() == 0),
+            "primary_max_abs_diff": float(d_prim.max()) if len(d_prim)
+            else 0.0,
+            "downgrade_max_abs_diff": float(d_down.max()) if len(d_down)
+            else 0.0}
+
+
+def _loop_row(what: str, stats: dict, secs: float, n: int) -> dict:
+    row = {"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "replay_s": secs, "achieved_qps": n / secs,
+           **{k: stats[k] for k in ("shed_frac", "downgrade_frac",
+                                     "queue_wait_p50_ms",
+                                     "queue_wait_p99_ms") if k in stats}}
+    print(f"  {what}: p50 {row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms"
+          f", replayed in {secs:.4f} s (achieved {row['achieved_qps']:.0f} "
+          f"qps)" + "".join(f", {k} {row[k]:.4f}" for k in (
+              "shed_frac", "downgrade_frac", "queue_wait_p50_ms",
+              "queue_wait_p99_ms") if k in row))
+    return row
+
+
+def plane_open_loop(cfg, params) -> dict:
+    """13(d): the reference's open-loop scenario (bench_paper.py
+    bench_serve_open_loop) on DLRM(1)'s ragged fp plan at full size."""
+    mean_l = cfg.lookups_per_table
+
+    def engine():
+        return _plane_engine(cfg, params, obs.Telemetry(),
+                             buckets=PLANE_BUCKETS,
+                             max_wait_ms=PLANE_WAIT_MS)
+
+    def trace(**kw):
+        return loadgen.make_trace(cfg, PLANE_N, mean_l=mean_l, max_l=MAX_L,
+                                  seed=PLANE_SEED, **kw)
+
+    cal = engine()
+    cal.enable_downgrade()
+    cal.warmup()
+    cal_reqs = loadgen.zipf_requests(cfg, BUCKET, mean_l=mean_l, max_l=MAX_L,
+                                     seed=3)
+    cal.settle(cal.dispatch(cal_reqs))
+    t_batch = _t_batch(lambda: cal.settle(cal.dispatch(cal_reqs)))
+    capacity = BUCKET / t_batch
+    sla_ms = 3.0 * t_batch * 1e3
+    rate = PLANE_OVERLOAD * capacity
+    print(f"  13(d) t_batch {t_batch * 1e3:.4f} ms (median of {CAL_CALLS} "
+          f"full-bucket dispatch + settle), capacity {capacity:.0f} qps, "
+          f"sla_ms {sla_ms:.4f}, Poisson at {PLANE_OVERLOAD} x capacity = "
+          f"{rate:.0f} qps nominal, n {PLANE_N}, seed {PLANE_SEED}")
+    # the synchronous loop: serves everything, its p99 is the backlog
+    sync = engine()
+    sync.warmup()
+    tr_sync = trace(kind="poisson", rate_qps=rate)
+    secs = loadgen.replay(tr_sync, sync.submit, sync.step)
+    sync.drain()
+    s_sync = sync.stats()
+    if s_sync["n"] != PLANE_N:
+        fail(f"13(d): the synchronous loop served {s_sync['n']}")
+    want = {r.rid: r.prob for r in tr_sync.requests}
+    out = {"t_batch_ms": t_batch * 1e3, "capacity_qps": capacity,
+           "sla_ms": sla_ms, "nominal_qps": rate,
+           "sync": _loop_row("13(d) synchronous loop", s_sync, secs,
+                             PLANE_N)}
+    # the SLA scheduler on the same trace: the slice's main path. Its
+    # launches are warmup's captures (each counted at its eager pass and
+    # its capture); the replay runs no wrapper.
+    base = launch_counts()
+    eng = engine()
+    sched = SlaScheduler(eng, SlaPolicy(
+        sla_ms=sla_ms, default_service_ms=t_batch * 1e3,
+        max_queue=4 * BUCKET), pipeline_depth=2)
+    sched.warmup()
+    warm = _diff(launch_counts(), base)
+    tr = trace(kind="poisson", rate_qps=rate)
+    secs = loadgen.replay(tr, sched.submit, sched.pump)
+    sched.drain()
+    launches = {n: launch_counts()[n] - base[n] for n in KERNELS}
+    pairs = 2 * len(PLANE_BUCKETS)
+    if eng.captures != pairs or _diff(launches, {}) != warm \
+            or cold_compiles(eng) != 0:
+        fail(f"13(d): {eng.captures} captures ({pairs} pairs), "
+             f"{cold_compiles(eng)} cold, launches {launches} after "
+             f"warmup's {warm}")
+    for name, k in KERNELS.items():
+        # the int8 downgrade graphs gather with torch ops
+        n_want = k["per_forward"] * 2 * (
+            len(PLANE_BUCKETS) if name == "fused_segment_sum" else pairs)
+        if launches[name] != n_want:
+            fail(f"13(d): {name} launched {launches[name]} times in the "
+                 f"scheduler's warmup, {n_want} expected (2 a capture, "
+                 f"{pairs} captures, the int8 path's gather in torch ops)")
+    s = sched.stats()
+    out["sla"] = _loop_row("13(d) SLA scheduler", s, secs, PLANE_N)
+    out["sla"]["answers"] = _check_open_loop("13(d) Poisson", sched,
+                                             tr.requests, want, {})
+    out["tightening"] = s_sync["p99_ms"] / s["p99_ms"]
+    out["launches"] = launches
+    print(f"  13(d) p99 tightening (sync / scheduler) "
+          f"{out['tightening']:.3f} (the reference's smoke target >= 2); "
+          f"answers {out['sla']['answers']}; launches {launches} (warmup's "
+          f"captures; the replay ran no wrapper)")
+    # a diurnal drifting-Zipf trace near capacity: downgrades absorb peaks
+    peak = engine()
+    psched = SlaScheduler(peak, SlaPolicy(
+        sla_ms=sla_ms, downgrade_margin=0.5,
+        default_service_ms=t_batch * 1e3, max_queue=4 * BUCKET),
+        pipeline_depth=2)
+    psched.warmup()
+    kw = dict(kind="diurnal", rate_qps=DIURNAL_TROUGH * capacity,
+              peak_ratio=DIURNAL_PEAK, period_s=PLANE_N / rate,
+              drift_per_chunk=64)
+    tr = trace(**kw)
+    secs = loadgen.replay(tr, psched.submit, psched.pump)
+    psched.drain()
+    # its reference: the same bodies through the calibration engine's
+    # graphs, full micro-batches, both paths
+    ref_reqs = trace(**kw).requests
+    ref, down_ref = {}, {}
+    for downgraded, into in ((False, ref), (True, down_ref)):
+        for lo in range(0, PLANE_N, BUCKET):
+            mb = ref_reqs[lo:lo + BUCKET]
+            cal.settle(cal.dispatch(mb, downgraded=downgraded))
+            into.update((r.rid, r.prob) for r in mb)
+    out["diurnal"] = _loop_row("13(d) diurnal", psched.stats(), secs,
+                               PLANE_N)
+    out["diurnal"]["offered_qps"] = tr.offered_qps
+    out["diurnal"]["answers"] = _check_open_loop(
+        "13(d) diurnal", psched, tr.requests, ref, down_ref)
+    print(f"  13(d) diurnal: trough {DIURNAL_TROUGH} x capacity, peak ratio "
+          f"{DIURNAL_PEAK}, period {PLANE_N / rate:.4f} s, trace offers "
+          f"{tr.offered_qps:.0f} qps; answers {out['diurnal']['answers']}")
+    return out
+
+
+def plane_het(gen_seed: int = 3) -> dict:
+    """13(e): dlrm_het2's mixed plan (phase 12's) under the scheduler, a
+    Poisson trace at HET_PLANE_OVERLOAD x its measured capacity."""
+    cfg = DLRM_HET_CONFIGS[HET_CFG]
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(gen_seed),
+                       cfg, device="cuda")
+    mixed, counts = het_plans(cfg)
+    eng = RecEngine(cfg, params, source=es.SourceSpec(tables=mixed),
+                    cache_trace=counts, max_l=HET_MAX_L, max_batch=BUCKET,
+                    max_wait_ms=PLANE_WAIT_MS, buckets=PLANE_BUCKETS,
+                    telemetry=obs.Telemetry(), device="cuda")
+    eng.enable_downgrade()
+    eng.warmup()
+    # capacity from full-bucket replays, which touch no counter
+    # (RecEngine._serve_once)
+    cal = requests_from_ragged_batch(het_batch(cfg, BUCKET, 40),
+                                     cfg.n_tables)
+    eng._serve_once("primary", BUCKET, cal)
+    t_batch = _t_batch(lambda: eng._serve_once("primary", BUCKET, cal))
+    capacity = BUCKET / t_batch
+    rate = HET_PLANE_OVERLOAD * capacity
+    sla_ms = 3.0 * t_batch * 1e3
+    sched = SlaScheduler(eng, SlaPolicy(
+        sla_ms=sla_ms, default_service_ms=t_batch * 1e3,
+        max_queue=4 * BUCKET), pipeline_depth=2)
+    sched.warmup()
+    reqs = requests_from_ragged_batch(het_batch(cfg, HET_PLANE_N, 41),
+                                      cfg.n_tables)
+    tr = loadgen.OpenLoopTrace(
+        kind="poisson", requests=reqs,
+        arrivals_s=loadgen.poisson_arrivals(rate, HET_PLANE_N,
+                                            seed=PLANE_SEED))
+    secs = loadgen.replay(tr, sched.submit, sched.pump)
+    sched.drain()
+    down = eng.downgrade_source
+    if not (isinstance(down, es.TableGroupSource) and all(
+            isinstance(m, es.QuantizedArena) for m in down.members)):
+        fail(f"13(e): the downgrade source is {es.describe_source(down)}")
+    # answers against the eager serve step of each path, 32 at a time
+    step = het_eager(cfg)
+    want, down_want = {}, {}
+    for lo in range(0, HET_PLANE_N, BUCKET):
+        mb = reqs[lo:lo + BUCKET]
+        for source, into in ((eng.source, want), (down, down_want)):
+            p = step(eng, mb, BUCKET, eng.params, source).cpu().numpy()
+            into.update((r.rid, float(p[i])) for i, r in enumerate(mb))
+    answers = _check_open_loop("13(e) dlrm_het2", sched, reqs, want,
+                               down_want)
+    het_recount(eng, [r for r in reqs if not r.shed and not r.downgraded])
+    s = sched.stats()
+    rates = {t: round(v, 4) for t, v in s["cache_hit_rate"].items()
+             if v is not None}
+    print(f"  13(e) {HET_CFG} mixed plan: t_batch {t_batch * 1e3:.4f} ms "
+          f"(median of {CAL_CALLS} full-bucket replays), capacity "
+          f"{capacity:.0f} qps, sla_ms {sla_ms:.4f}, Poisson at "
+          f"{HET_PLANE_OVERLOAD} x = {rate:.0f} qps nominal, n "
+          f"{HET_PLANE_N}; answers {answers}; downgraded micro-batches "
+          f"served from {es.describe_source(down)}; per-table hits and "
+          f"lookups after drain() equal the numpy recount; hit rates {rates}")
+    return {"t_batch_ms": t_batch * 1e3, "capacity_qps": capacity,
+            "sla_ms": sla_ms, "nominal_qps": rate,
+            "loop": _loop_row("13(e) dlrm_het2 scheduler", s, secs,
+                              HET_PLANE_N),
+            "answers": answers, "hit_rates": rates}
+
+
+PLANE_KERNELS = ("fused_segment_sum", "gemm", "interaction",
+                 "fused_cached_segment_sum")
+
+
+def phase_plane(cfg, served, online, tiered) -> dict:
+    """Phase 13: the serving plane on the card. The launch counts are
+    zeroed before (a) and read after (e): every kernel of the slice's
+    path must have launched."""
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(5), cfg,
+                       device="cuda")
+    out = {}
+    reset_counts()
+    out["overhead"], engines = plane_overhead(cfg, params, warm_counts(cfg))
+    out["versions"] = plane_versions(cfg, engines)
+    out["fig5"] = plane_fig5(cfg, params, engines, served)
+    with uncounted():
+        out["replay_kernels"] = plane_kernels(cfg, engines)
+    del engines
+    out["open_loop"] = plane_open_loop(cfg, params)
+    del params
+    out["het"] = plane_het()
+    out["launches"] = launch_counts()
+    idle = [n for n in PLANE_KERNELS if not out["launches"][n]]
+    if idle:
+        fail(f"13: {idle} never launched on the serving plane's path "
+             f"({out['launches']})")
+    out["trainer_telemetry"] = online["telemetry"]
+    out["store_telemetry"] = tiered["host"]["store_telemetry"]
+    print(f"  13 launches {out['launches']}; 13(f) checked in phases 6 "
+          f"(trainer {out['trainer_telemetry']}) and 9 (host store "
+          f"{out['store_telemetry']})")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -4545,6 +5192,8 @@ def main() -> None:
     params = dlrm.init(gen, cfg, device="cuda")
     phase("phase 2: kernels against their plain versions")
     kernels = phase_kernels(cfg, params, gen)
+    # phases 3 to 7 read the model's stage annotations in host traces
+    obs.enable_stage_annotations(True)
     phase("phase 3: serve DLRM(1) at full size")
     served, fp_probs = phase_serve(cfg, params)
     phase("phase 4: train DLRM(1) at full size")
@@ -4559,6 +5208,7 @@ def main() -> None:
     online = phase_online(cfg)
     phase("phase 7: fixed-L serving and the hybrid pipeline")
     fixed = phase_serve_fixed(cfg, params, fp_probs)
+    obs.enable_stage_annotations(False)
     phase("phase 8: fixed-L training")
     trained_fixed = phase_train_fixed(cfg)
     phase("phase 9: tiered storage on DLRM(1)")
@@ -4573,7 +5223,10 @@ def main() -> None:
     het = phase_het(gen)
     for name, err in het["kernels"]["max_abs_err"].items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
-    phase("phase 13: report")
+    phase("phase 13: the serving plane: telemetry, live Fig-5, the SLA "
+          "scheduler under open-loop load")
+    plane = phase_plane(cfg, served, online, tiered)
+    phase("phase 14: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -4595,7 +5248,8 @@ def main() -> None:
                    "serve_het_fp": het["fp"]["launches"][name],
                    "serve_het_mixed": het["mixed"]["launches"][name],
                    **{f"train_het_{m}": het["train"][m]["launches"][name]
-                      for m in ("sparse", "dense")}}
+                      for m in ("sparse", "dense")},
+                   "serving_plane": plane["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -4629,7 +5283,7 @@ def main() -> None:
              "serve_cached": cached, "train": trained, "online": online,
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
-             "graphed": graphed, "lm": lm, "het": het},
+             "graphed": graphed, "lm": lm, "het": het, "plane": plane},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -32,13 +32,13 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dense_engine as de
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
+from repro_torch.obs.tracing import stage as obs_stage
 from repro_torch.optim import (Optimizer, adamw, partitioned,
                                rowwise_adagrad, tree_map)
 
@@ -166,11 +166,13 @@ def _default_source(params: Dict, cfg: DLRMConfig) -> es.EmbeddingSource:
 def head_logits(mlp_params: Dict, dense: torch.Tensor,
                 emb: torch.Tensor) -> torch.Tensor:
     """The DLRM head: reduced embeddings (B, T, D) + dense features ->
-    logits (B,). The stage names are the reference's trace names."""
-    with record_function("interaction"):
+    logits (B,). The stage names are the reference's trace names; the
+    ``obs_stage`` annotations are off unless
+    ``obs.enable_stage_annotations`` turned them on."""
+    with obs_stage("interaction"):
         bot = de.mlp_apply(mlp_params["bottom"], dense)
         x, _ = de.feature_interaction(bot, emb.to(bot.dtype))
-    with record_function("mlp"):
+    with obs_stage("mlp"):
         return de.mlp_apply(mlp_params["top"], x)[:, 0]
 
 
@@ -196,7 +198,7 @@ def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     spec = arena_spec(cfg)
     if source is None:
         source = _default_source(params, cfg)
-    with record_function("sparse_lookup"):
+    with obs_stage("sparse_lookup"):
         emb = es.lookup_fixed(source, spec, indices)
         if cfg.heterogeneous:
             emb = project_tables(params["proj"], emb)
@@ -239,7 +241,7 @@ def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     spec = arena_spec(cfg)
     if source is None:
         source = _default_source(params, cfg)
-    with record_function("sparse_lookup"):
+    with obs_stage("sparse_lookup"):
         if isinstance(indices, (tuple, list)):
             emb = es.lookup_bags_per_table(source, indices, offsets,
                                            max_l=max_l)
@@ -263,6 +265,50 @@ def make_ragged_serve_step(cfg: DLRMConfig, *, max_l: int):
                 params, cfg, batch["dense"], batch["indices"],
                 batch["offsets"], max_l=max_l, source=source))
     return serve_step
+
+
+def make_ragged_serve_stages(cfg: DLRMConfig, *, max_l: int):
+    """The ragged serve step split at its pipeline-stage boundaries: the
+    live Fig-5 mode, in which the serving engine synchronizes after each
+    stage and attributes device time to the embedding stage against the
+    dense stages.
+
+    Returns ``(sparse_stage, interact_stage, top_stage)``, each run under
+    ``torch.inference_mode``; composed they run the very ops of
+    ``make_ragged_serve_step``:
+
+      * ``sparse_stage(params, batch, source)`` -> (B, T, D) reduced bags
+        (projected through ``params["proj"]`` on a heterogeneous config,
+        the scope ``obs_stage("sparse_lookup")`` covers in the fused
+        step);
+      * ``interact_stage(params, batch, emb)`` -> interaction features
+        (bottom MLP and feature interaction);
+      * ``top_stage(params, x)`` -> CTR probabilities (top MLP and
+        sigmoid).
+    """
+    spec = arena_spec(cfg)
+
+    def sparse_stage(params: Dict, batch: Dict,
+                     source: es.EmbeddingSource) -> torch.Tensor:
+        with torch.inference_mode(), obs_stage("sparse_lookup"):
+            emb = es.lookup_bags(source, spec, batch["indices"],
+                                 batch["offsets"], max_l=max_l)
+            if cfg.heterogeneous:
+                emb = project_tables(params["proj"], emb)
+        return emb
+
+    def interact_stage(params: Dict, batch: Dict,
+                       emb: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode(), obs_stage("interaction"):
+            bot = de.mlp_apply(params["bottom"], batch["dense"])
+            x, _ = de.feature_interaction(bot, emb.to(bot.dtype))
+        return x
+
+    def top_stage(params: Dict, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode(), obs_stage("mlp"):
+            return torch.sigmoid(de.mlp_apply(params["top"], x)[:, 0])
+
+    return sparse_stage, interact_stage, top_stage
 
 
 # ---------------------------------------------------------------------------
@@ -325,9 +371,9 @@ def make_train_step(cfg: DLRMConfig, optimizer: Optional[Optimizer] = None,
         live = _tracked(params)
         loss = loss_fn(live, cfg, batch["dense"], batch["indices"],
                        batch["labels"])
-        with record_function("backward"):
+        with obs_stage("backward"):
             loss.backward()
-        with torch.no_grad(), record_function("optimizer"):
+        with torch.no_grad(), obs_stage("optimizer"):
             grads = tree_map(lambda t: t.grad, live)
             new_params, new_state = opt.update(grads, opt_state, params)
         return new_params, new_state, loss.detach()
@@ -378,9 +424,9 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
             loss = loss_ragged(live, cfg, batch["dense"], batch["indices"],
                                batch["offsets"], batch["labels"],
                                max_l=max_l)
-            with record_function("backward"):
+            with obs_stage("backward"):
                 loss.backward()
-            with torch.no_grad(), record_function("optimizer"):
+            with torch.no_grad(), obs_stage("optimizer"):
                 grads = tree_map(lambda t: t.grad, live)
                 new_params, new_state = opt.update(grads, opt_state, params)
                 flat = se.flatten_ragged_indices(spec, batch["indices"],
@@ -404,7 +450,7 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
         # gradient w.r.t. the arena is a pure scatter of the bag
         # gradients, which the row-wise update applies directly, so the
         # update stays O(N).
-        with torch.no_grad(), record_function("sparse_lookup"):
+        with torch.no_grad(), obs_stage("sparse_lookup"):
             emb = es.lookup_bags(es.FpArena(params["arena"]), spec,
                                  batch["indices"], batch["offsets"],
                                  max_l=max_l)
@@ -412,9 +458,9 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
         mlp_params = {k: v for k, v in params.items() if k != "arena"}
         live = _tracked(mlp_params)
         loss = _bce(head_logits(live, batch["dense"], emb), batch["labels"])
-        with record_function("backward"):
+        with obs_stage("backward"):
             loss.backward()
-        with torch.no_grad(), record_function("optimizer"):
+        with torch.no_grad(), obs_stage("optimizer"):
             d_bags = emb.grad.reshape(n_bags, spec.dim)
             rows, row_g = so.source_row_grads(spec, d_bags, batch["indices"],
                                               batch["offsets"])
@@ -468,9 +514,9 @@ def _make_train_step_group(cfg: DLRMConfig, spec: se.ArenaSpec, *,
             loss = loss_ragged(live, cfg, batch["dense"], batch["indices"],
                                batch["offsets"], batch["labels"],
                                max_l=max_l)
-            with record_function("backward"):
+            with obs_stage("backward"):
                 loss.backward()
-            with torch.no_grad(), record_function("optimizer"):
+            with torch.no_grad(), obs_stage("optimizer"):
                 grads = tree_map(lambda t: t.grad, live)
                 new_params, new_state = opt.update(grads, opt_state, params)
                 rows = touched_rows(batch)
@@ -488,7 +534,7 @@ def _make_train_step_group(cfg: DLRMConfig, spec: se.ArenaSpec, *,
 
     def step(params, opt_state, batch):
         n_bags = batch["offsets"].shape[0] - 1
-        with torch.no_grad(), record_function("sparse_lookup"):
+        with torch.no_grad(), obs_stage("sparse_lookup"):
             group = es.TableGroupSource(
                 members=tuple(es.FpArena(a) for a in params["tables"]),
                 specs=specs)
@@ -500,9 +546,9 @@ def _make_train_step_group(cfg: DLRMConfig, spec: se.ArenaSpec, *,
         loss = _bce(head_logits(live, batch["dense"],
                                 project_tables(live["proj"], emb)),
                     batch["labels"])
-        with record_function("backward"):
+        with obs_stage("backward"):
             loss.backward()
-        with torch.no_grad(), record_function("optimizer"):
+        with torch.no_grad(), obs_stage("optimizer"):
             d_bags = emb.grad.reshape(n_bags, spec.dim)
             per_table = so.group_row_grads(specs, d_bags, batch["indices"],
                                            batch["offsets"], max_l=max_l)

@@ -42,12 +42,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.tracing import stage as obs_stage
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
            "SourceSpec", "TableGroupSource", "TablePlan", "VersionedSource",
@@ -355,7 +355,7 @@ def lookup_bags(source: EmbeddingSource, spec: se.ArenaSpec,
     in the source's dtype. For a ``TableGroupSource`` D is the group's
     ``dmax``, and table t's slice ``[..., :dim_t]`` holds its bags (the
     tail is zero)."""
-    with record_function("emb_lookup"):
+    with obs_stage("emb_lookup"):
         n_bags = offsets.shape[0] - 1
         out = source.reduce_bags(spec, indices, offsets, max_l=max_l)
         return out.reshape(n_bags // spec.n_tables, spec.n_tables,
@@ -366,7 +366,7 @@ def lookup_fixed(source: EmbeddingSource, spec: se.ArenaSpec,
                  indices: torch.Tensor) -> torch.Tensor:
     """The fixed-L sparse stage: (B, T, L) per-table ids -> (B, T, D) in
     the source's dtype."""
-    with record_function("emb_lookup"):
+    with obs_stage("emb_lookup"):
         b, t, _ = indices.shape
         out = source.reduce_fixed_ids(spec, indices)
         return out.reshape(b, t, spec.dim).to(source.out_dtype)

@@ -3,6 +3,9 @@
     python -m repro_torch.launch.train --arch dlrm1 --steps 200
     python -m repro_torch.launch.train --arch dlrm1 --ragged --steps 200
     python -m repro_torch.launch.train --arch dlrm1 --ragged --dense-grads
+    python -m repro_torch.launch.train --arch dlrm1 --ragged --online-cache \
+        [--cache-k 2048 --cache-refresh 50 --quantize-cold] \
+        [--metrics-json metrics.json] [--trace]
     python -m repro_torch.launch.train --smoke --device cpu
 
 Runs on the card unless ``--device cpu``. Without ``--ragged`` it trains
@@ -10,26 +13,30 @@ the fixed-L layout (``DLRMSynthetic.batch``, every bag
 ``lookups_per_table`` long) with the dense-gradient step
 (``dlrm.make_train_step``); ``--ragged`` trains on ragged
 SparseLengthsSum batches with the row-wise sparse optimizer, or with
-``--dense-grads`` the dense-gradient baseline. Not offered yet, each with
-the ROADMAP item it waits for: LM training (Queue 1, item 16),
-``--online-cache``/``--quantize-cold`` (item 9), ``--shards``/``--mesh``
-(item 13), ``--ckpt-dir``/``--resume`` and the straggler monitor
-(item 14), ``--trace`` and ``--metrics-json`` (the ``repro.obs`` copy,
-item 9).
+``--dense-grads`` the dense-gradient baseline. With ``--ragged``:
+``--online-cache`` keeps a live hot-row cache (``--cache-k`` rows,
+rebuilt every ``--cache-refresh`` steps, with ``--quantize-cold`` an
+int8 cold arena kept incrementally), ``--metrics-json`` writes the
+trainer's telemetry snapshot (counters, gauges, histograms and events) at
+exit, and ``--trace`` collects host spans and turns the profiler's stage
+annotations on. Not offered yet, each with the ROADMAP item it waits
+for: LM training (Queue 1, item 16), ``--shards``/``--mesh`` (item 13),
+``--ckpt-dir``/``--resume`` and the straggler monitor (item 14).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Optional, Sequence
 
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, obs
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.data import DLRMSynthetic
-from repro_torch.training import OnlineTrainer
+from repro_torch.training import OnlineCacheConfig, OnlineTrainer
 
 
 def _setup(args):
@@ -63,11 +70,22 @@ def train_dlrm(args) -> float:
 
 def train_dlrm_ragged(args) -> float:
     """Online ragged training with the row-wise sparse optimizer (or the
-    dense-gradient baseline); returns the last step's loss."""
+    dense-gradient baseline), and optionally a live hot-row cache that
+    re-ranks itself from the decayed histogram; returns the last step's
+    loss."""
     cfg, device, params = _setup(args)
     max_l = 2 * cfg.lookups_per_table
+    cache_cfg = None
+    if args.online_cache:
+        cache_cfg = OnlineCacheConfig(k=args.cache_k,
+                                      refresh_every=args.cache_refresh,
+                                      quantize_cold=args.quantize_cold)
+    telemetry = obs.Telemetry(tracing=args.trace)
+    if args.trace:
+        obs.enable_stage_annotations(True)
     trainer = OnlineTrainer(cfg, params, max_l=max_l,
-                            sparse=not args.dense_grads, device=device)
+                            sparse=not args.dense_grads, cache_cfg=cache_cfg,
+                            telemetry=telemetry, device=device)
     data = DLRMSynthetic(cfg, seed=args.seed)
     pad_to = args.batch_size * cfg.n_tables * max_l
     loss = float("nan")
@@ -77,9 +95,15 @@ def train_dlrm_ragged(args) -> float:
                                   pad_to=pad_to)
         loss = trainer.train_step(batch)
         if step % args.log_every == 0:
+            extra = (f" cache v{trainer.version}" if args.online_cache
+                     else "")
             print(f"step {step:5d} loss {loss:.4f} "
-                  f"({time.time() - t0:.3f}s)")
+                  f"({time.time() - t0:.3f}s){extra}")
     print(f"final loss {loss:.4f}")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(telemetry.snapshot(), f, indent=2, default=str)
+        print(f"metrics snapshot -> {args.metrics_json}")
     return loss
 
 
@@ -100,6 +124,22 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     p.add_argument("--dense-grads", action="store_true",
                    help="with --ragged: densified-gradient baseline "
                         "instead of the row-wise sparse optimizer")
+    p.add_argument("--online-cache", action="store_true",
+                   help="with --ragged: maintain a live versioned hot-row "
+                        "cache from the decayed trace histogram")
+    p.add_argument("--cache-k", type=int, default=2048)
+    p.add_argument("--cache-refresh", type=int, default=50)
+    p.add_argument("--quantize-cold", action="store_true",
+                   help="with --online-cache: maintain an int8 cold "
+                        "arena incrementally (only rows touched since "
+                        "the last rebuild are re-quantized)")
+    p.add_argument("--metrics-json", default=None,
+                   help="with --ragged: write the telemetry registry "
+                        "snapshot (counters/gauges/histograms + swap "
+                        "events) to this path at exit")
+    p.add_argument("--trace", action="store_true",
+                   help="with --ragged: collect host spans and enable the "
+                        "profiler's stage annotations")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None,
@@ -110,6 +150,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     if args.ckpt_dir is not None or args.resume:
         p.error("checkpoints (--ckpt-dir/--resume) are not ported yet "
                 "(ROADMAP Queue 1, item 14)")
+    if (args.online_cache or args.quantize_cold or args.metrics_json
+            or args.trace) and not args.ragged:
+        p.error("--online-cache, --quantize-cold, --metrics-json and "
+                "--trace go with --ragged")
+    if args.quantize_cold and not args.online_cache:
+        p.error("--quantize-cold goes with --online-cache")
     if args.ragged:
         return train_dlrm_ragged(args)
     if args.dense_grads:

@@ -43,16 +43,31 @@ On the card every micro-batch replays a captured CUDA graph of its
 (path, bucket) pair (``serve_graph.ServeGraph``), the counterpart of the
 reference's one ``jax.jit`` executable per bucket: ``warmup()`` captures
 every pair off the SLA clock (the warm pool), a pair's first dispatch
-otherwise (``cold_compiles`` counts those), and a swap of the same
-structure and shapes is never a recapture. ``dispatch``/``settle`` split
-a micro-batch into its enqueue and its one host wait (continuous
-batching; ``step`` is both), ``tune_buckets``/``retune_buckets`` re-pick
-the buckets from the observed batch sizes, and ``enable_downgrade``
-builds the int8 source that overloaded batches serve from. On the CPU
-the same calls run the serve step eagerly through the plain versions.
+otherwise (``rec_cold_compiles_total`` counts those), and a swap of the
+same structure and shapes is never a recapture. ``dispatch``/``settle``
+split a micro-batch into its enqueue and its one host wait (continuous
+batching, driven by ``serving.scheduler.SlaScheduler``),
+``tune_buckets``/``retune_buckets`` re-pick the buckets from the observed
+batch sizes, and ``enable_downgrade`` builds the int8 source that
+overloaded batches serve from. On the CPU the same calls run the serve
+step eagerly through the plain versions.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the sharded plans and telemetry.
+Telemetry is the port's ``repro_torch.obs`` bundle, as the reference's:
+bounded latency, queue-wait and batch-size histograms (cumulative
+percentiles exact while the stream fits the ring, a bucket estimate
+after, plus the ``since_swap`` and ``rolling`` windows), the reference's
+counters and gauges, spans (``enqueue``; ``serve_step`` over ``batch``,
+``bucket_pad``, ``forward`` and ``respond``; ``dispatch`` over
+``bucket_pad``; ``settle``) and the swap events, each carrying the
+outgoing version's hits and lookups. ``Telemetry.disabled()`` records
+nothing and counts no lookups, and its graphs are captured without the
+hit probe. ``Telemetry(device_stages=True)`` is the live Fig-5 mode:
+``step()`` serves through the three stages of
+``dlrm.make_ragged_serve_stages`` eagerly, not through a graph, with a
+synchronize after each, and ``live_fig5()`` reports the split.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+the sharded plans.
 """
 from __future__ import annotations
 
@@ -64,7 +79,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm
 from repro_torch.core import embedding_source as es
@@ -87,6 +102,7 @@ class RecRequest:
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
     prob: Optional[float] = None        # predicted CTR, set when served
+    shed: bool = False                  # dropped at admission (SLA)
     downgraded: bool = False            # served on the int8 downgrade path
     # (per-table ids, table) streams, extracted at admission when the
     # engine serves a host cold tier
@@ -166,6 +182,7 @@ class InflightBatch:
 
 
 _NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+_STAGE_NAMES = ("sparse_lookup", "interaction", "mlp")
 
 
 def _own_copy(tree: Dict) -> Dict:
@@ -197,11 +214,15 @@ class RecEngine:
     ``auto_tune_after`` retunes the buckets once, after that many
     micro-batches.
 
+    ``telemetry`` is the ``repro_torch.obs.Telemetry`` bundle (default:
+    metrics on, tracing off); ``obs.Telemetry.disabled()`` serves
+    uninstrumented. The latency histogram keeps the last ``LATENCY_RING``
+    raw samples.
+
     ``device`` defaults to the card, where every micro-batch replays the
-    captured graph of its (path, bucket) pair; pass ``device="cpu"``
-    (with params on the CPU) to serve eagerly through the plain PyTorch
-    path. Latencies are kept over a bounded ring of the last
-    ``LATENCY_RING`` requests.
+    captured graph of its (path, bucket) pair (eagerly, through the
+    stages, under ``device_stages``); pass ``device="cpu"`` (with params
+    on the CPU) to serve eagerly through the plain PyTorch path.
     """
 
     LATENCY_RING = 4096
@@ -216,14 +237,14 @@ class RecEngine:
                  quantize_cold: bool = False,
                  auto_tune_after: Optional[int] = None,
                  mesh: Optional[object] = None,
-                 telemetry: Optional[object] = None,
+                 telemetry: Optional[obs.Telemetry] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "serving telemetry needs the port's copy of repro.obs, not "
-                "ported yet (ROADMAP Queue 1, item 6)")
         self.device = resolve_device(device)
-        self._graphed = self.device.type == "cuda"
+        self.telemetry = (telemetry if telemetry is not None
+                          else obs.Telemetry())
+        # the live Fig-5 mode serves eagerly, stage by stage
+        self._graphed = (self.device.type == "cuda"
+                         and not self.telemetry.device_stages)
         for name, tree in params.items():
             for t in tree_leaves(tree):
                 self._check_device(t, f"params[{name!r}]")
@@ -238,9 +259,7 @@ class RecEngine:
         self._graphs: Dict[tuple, ServeGraph] = {}
         self._pool = None
         self.captures = 0
-        # dispatches that found their pair cold: zero after warmup() is
-        # the warm-pool claim (the reference's rec_cold_compiles_total)
-        self.cold_compiles = 0
+        self._init_metrics()
         self._params: Optional[Dict] = None
         self.params = params
         self.spec = dlrm.arena_spec(cfg)
@@ -257,7 +276,6 @@ class RecEngine:
         self.served = 0
         self.batches = 0
         self.source_version = 0
-        self._lat_ms: deque = deque(maxlen=self.LATENCY_RING)
 
         if source is None:
             source = "ragged"
@@ -297,6 +315,14 @@ class RecEngine:
             self._serve = dlrm.make_serve_step(cfg)
         else:
             self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
+        self._staged = None
+        if self.telemetry.device_stages:
+            if self.layout == "fixed":
+                raise ValueError(
+                    "device_stages (live Fig-5) characterizes the ragged "
+                    "pipeline; the fixed layout has no staged serve path")
+            self._staged = dlrm.make_ragged_serve_stages(cfg,
+                                                         max_l=self.max_l)
         # hits accumulate on the device, in place (a probe captured in a
         # graph keeps its address), and are read only by stats(); the
         # lookups are counted on the host from the numpy bag lengths. A
@@ -306,6 +332,40 @@ class RecEngine:
                                  device=self.device)
         self._lookups = np.zeros(shape, np.int64) if self.grouped else 0
         self._bind_host_stores()
+        self._g_version.set(self.source_version)
+
+    def _init_metrics(self) -> None:
+        """The reference's instruments, by its names, in the bundle's
+        registry."""
+        reg = self.telemetry.registry
+        self._lat_hist = reg.histogram(
+            "rec_request_latency_ms", "end-to-end request latency",
+            lo=1e-3, hi=1e5, ring=self.LATENCY_RING)
+        self._batch_hist = reg.histogram(
+            "rec_batch_size", "released micro-batch sizes",
+            lo=1.0, hi=4096.0, growth=1.25, ring=256)
+        self._c_served = reg.counter("rec_requests_total",
+                                     "requests served")
+        self._c_batches = reg.counter("rec_batches_total",
+                                      "micro-batches served")
+        self._c_swaps = reg.counter("rec_source_swaps_total",
+                                    "accepted source/cache swaps")
+        self._c_stale = reg.counter("rec_stale_rejected_total",
+                                    "rejected stale broadcasts")
+        self._g_version = reg.gauge("rec_source_version",
+                                    "currently served source version")
+        self._g_queue = reg.gauge("rec_queue_depth",
+                                  "admission-queue depth (set on enqueue "
+                                  "and after every serve/drain)")
+        self._qwait_hist = reg.histogram(
+            "rec_queue_wait_ms", "admission-to-dispatch queue wait",
+            lo=1e-3, hi=1e5, ring=4096)
+        self._c_cold = reg.counter(
+            "rec_cold_compiles_total",
+            "dispatches that hit a cold (path, bucket) compile-cache "
+            "entry — zero after warmup() is the warm-pool claim")
+        # rec_service_ms{path=...}, registered at a path's first settle
+        self._service_hist: Dict[str, obs.Histogram] = {}
 
     @property
     def grouped(self) -> bool:
@@ -327,6 +387,12 @@ class RecEngine:
         """The most recent micro-batch sizes (a ring of max(1024,
         auto_tune_after): all the tuner reads)."""
         return list(self._batch_ring)
+
+    @property
+    def latencies(self) -> List[float]:
+        """The most recent per-request latencies in seconds (the latency
+        histogram's ring)."""
+        return [v / 1e3 for v in self._lat_hist.ring_values()]
 
     # -- the swap boundary --------------------------------------------------
 
@@ -378,7 +444,9 @@ class RecEngine:
 
     def _hit_snapshot(self) -> Dict:
         """Host numbers of the live version's hit accounting: totals, and
-        on a group (hits, lookups) per table. Reads the device counter."""
+        on a group (hits, lookups) per table. Reads the device counter,
+        a copy that the engine's stream orders after every replay
+        enqueued before it."""
         hits = self._hits.cpu().numpy()
         if self.grouped:
             return {"hits": float(hits.sum()),
@@ -396,22 +464,42 @@ class RecEngine:
         replay, with no recapture.
 
         A version below the served one is refused (a reordered broadcast
-        would roll rows back); an equal one is a republish. The new
-        source must have the old one's structure and tensors of the same
-        shapes, dtypes and devices: the serve step and its captured
-        graphs are shaped for it. A version bump resets the hit counters,
-        so the reported rate is the live cache's. On the plans built over
-        the fp arena the served arena is ``params["arena"]`` (a group's,
+        would roll rows back) with a ``stale_rejected`` event; an equal
+        one is a republish. The new source must have the old one's
+        structure and tensors of the same shapes, dtypes and devices: the
+        serve step and its captured graphs are shaped for it. A version
+        bump resets the hit counters, so the reported rate is the live
+        cache's: the outgoing version's hits and lookups, read before the
+        copy, go into the swap event (``hit_rate_by_version``), and the
+        since-swap latency window restarts. On the plans built over the
+        fp arena the served arena is ``params["arena"]`` (a group's,
         ``params["tables"]``), which a swap of the fp arena therefore
         rewrites too. A group swap of one member (``es.replace_member``)
         copies that member alone: the others are the engine's own.
         """
+        self._swap(source, version, "source_swap")
+
+    def update_cache(self, cache: se.HotRowCache,
+                     version: Optional[int] = None) -> None:
+        """Swap only the hot cache, keeping the cold source (the online
+        refresh; see ``update_source`` for the rules)."""
+        if not isinstance(self.source, es.CachedSource):
+            raise TypeError("update_cache needs a cached source")
+        self._swap(es.with_hot_cache(self.source, cache), version,
+                   "cache_swap")
+
+    def _swap(self, source: es.EmbeddingSource, version: Optional[int],
+              kind: str) -> None:
         if self.layout == "fixed":
             raise ValueError(
                 "a fixed-layout engine serves params['arena'] and never "
                 "reads engine.source; a swap would bump the version while "
                 "serving the old embeddings")
+        tel = self.telemetry
         if version is not None and version < self.source_version:
+            self._c_stale.inc()
+            tel.emit("stale_rejected", version=version,
+                     served_version=self.source_version, swap_kind=kind)
             raise ValueError(
                 f"stale source broadcast: version {version} < served "
                 f"version {self.source_version}; refusing to roll the "
@@ -430,20 +518,23 @@ class RecEngine:
                     f"cache_k and arena shapes equal")
         new_version = (version if version is not None
                        else self.source_version + 1)
+        bump = new_version > self.source_version
+        # the outgoing version's hits: read after every replay enqueued
+        # so far (they served it) and before the copy below
+        snap = self._hit_snapshot() if bump and tel.enabled else None
         es.adopt_source(self.source, source)
         self._bind_host_stores()
-        if new_version > self.source_version:
+        if bump:
+            if snap is not None:
+                tel.emit(kind, version=new_version,
+                         prev_version=self.source_version, **snap)
+                self._lat_hist.reset_window()
+            self._c_swaps.inc()
             self._reset_hit_counters()
+        else:
+            tel.emit(kind, version=new_version, republish=True)
         self.source_version = new_version
-
-    def update_cache(self, cache: se.HotRowCache,
-                     version: Optional[int] = None) -> None:
-        """Swap only the hot cache, keeping the cold source (the online
-        refresh; see ``update_source`` for the rules)."""
-        if not isinstance(self.source, es.CachedSource):
-            raise TypeError("update_cache needs a cached source")
-        self.update_source(es.with_hot_cache(self.source, cache),
-                           version=version)
+        self._g_version.set(new_version)
 
     # -- the int8 downgrade path --------------------------------------------
 
@@ -479,9 +570,12 @@ class RecEngine:
 
     def _bind_host_stores(self) -> None:
         """The host stores behind the served source: the engine's own
-        (see ``update_source``), staged before every primary forward."""
+        (see ``update_source``), staged before every primary forward and
+        bound to the engine's telemetry."""
         self._host_stores: List = ([] if self.layout == "fixed"
                                    else st.host_stores_of(self.source))
+        for store in self._host_stores:
+            store.bind_telemetry(self.telemetry)
         self._stream_cache = None
 
     def _req_streams(self, r: RecRequest) -> tuple:
@@ -560,36 +654,47 @@ class RecEngine:
 
     # -- the warm pool: one serve entry per (path, bucket) -------------------
 
+    def _hit_probe(self) -> Optional[Callable[[Dict], None]]:
+        """The primary path's hit probe over a batch dict: adds the
+        micro-batch's hot-cache hits (a group's, per table) to the device
+        counter, with no host wait. None without a hot cache, or with
+        telemetry off, whose graphs are captured without it."""
+        if not self.telemetry.enabled or self.layout == "fixed":
+            return None
+        if self.grouped:
+            if all(es.hot_cache_of(m) is None for m in self.source.members):
+                return None
+
+            def grouped(batch: Dict) -> None:
+                hits, _ = es.group_hit_counts(
+                    self.source, batch["indices"], batch["offsets"],
+                    max_l=self.max_l)
+                self._hits += hits
+            return grouped
+        cache = self.cache
+        if cache is None:
+            return None
+
+        def probe(batch: Dict) -> None:
+            self._hits += se.cache_hits(cache, self.spec, batch["indices"],
+                                        batch["offsets"])
+        return probe
+
     def _forward(self, kind: str) -> Callable[[Dict], torch.Tensor]:
         """The eager serve step of one path over a batch dict: what the
         card captures as the pair's graph and the CPU runs. The primary
-        path of a cached source (a group with a cached member) adds its
-        hit probe after the forward, on the device, so that it adds no
-        host wait."""
+        path adds its hit probe after the forward (``_hit_probe``)."""
         if kind == "downgrade":
             return lambda batch: self._serve(self._params, batch,
                                              self._down_source)
         if self.layout == "fixed":
             return lambda batch: self._serve(self._params, batch)
-        if self.grouped and any(es.hot_cache_of(m) is not None
-                                for m in self.source.members):
-            def grouped(batch: Dict) -> torch.Tensor:
-                probs = self._serve(self._params, batch, self.source)
-                hits, _ = es.group_hit_counts(
-                    self.source, batch["indices"], batch["offsets"],
-                    max_l=self.max_l)
-                self._hits += hits
-                return probs
-            return grouped
-        cache = self.cache
-        if cache is None:
-            return lambda batch: self._serve(self._params, batch,
-                                             self.source)
+        probe = self._hit_probe()
 
         def primary(batch: Dict) -> torch.Tensor:
             probs = self._serve(self._params, batch, self.source)
-            self._hits += se.cache_hits(cache, self.spec, batch["indices"],
-                                        batch["offsets"])
+            if probe is not None:
+                probe(batch)
             return probs
         return primary
 
@@ -618,17 +723,23 @@ class RecEngine:
             self.captures += 1
         return g
 
+    def _dummy(self) -> List[RecRequest]:
+        """One request of empty bags (the fixed layout's: of id 0): it
+        looks up no row, and a hit probe over it adds nothing."""
+        n_l = self.cfg.lookups_per_table if self.layout == "fixed" else 0
+        return [RecRequest(
+            rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
+            sparse_ids=[np.zeros(n_l, np.int32)] * self.cfg.n_tables)]
+
     def warmup(self) -> None:
         """Trigger every (path, bucket) pair's serve entry off the SLA
         clock, the warm pool: on the card capture each pair's graph (the
         primary path's, and the downgrade path's once ``enable_downgrade``
-        has run), largest bucket first; on the CPU serve one dummy
-        request through each. Every host store first runs one flush at
-        each chunk size."""
-        n_l = self.cfg.lookups_per_table if self.layout == "fixed" else 0
-        dummy = [RecRequest(
-            rid=-1, dense=np.zeros(self.cfg.dense_features, np.float32),
-            sparse_ids=[np.zeros(n_l, np.int32)] * self.cfg.n_tables)]
+        has run), largest bucket first; on the CPU, and under
+        ``device_stages``, serve one dummy request through each (the
+        stages, untimed, on the primary path). Every host store first
+        runs one flush at each chunk size."""
+        dummy = self._dummy()
         kinds = ("primary",) + (("downgrade",) if self._down_source
                                 is not None else ())
         for store in self._host_stores:
@@ -639,18 +750,47 @@ class RecEngine:
                     self._graph(kind, bucket)
                 else:
                     batch, _ = self._assemble(dummy, bucket)
-                    self._forward(kind)(batch)
+                    if self._staged is not None and kind == "primary":
+                        self._run_stages(batch, timed=False)
+                    else:
+                        self._forward(kind)(batch)
                 self._warm.add((kind, bucket))
+
+    def _serve_once(self, kind: str, bucket: int,
+                    reqs: List[RecRequest]) -> None:
+        """Serve ``reqs`` once on a warm (path, bucket) pair and wait: the
+        scheduler's calibration probe. On the card it acquires a ring
+        slot of the pair's graph, fills it, replays, waits and releases
+        it. It touches no counter, histogram, ring or request, as the
+        reference's probes bypass dispatch/settle: the hits that the
+        primary graph's probe adds are taken back, in stream order."""
+        if self._graphed:
+            graph = self._graph(kind, bucket)
+            slot = graph.acquire()
+            self._fill(reqs, slot.arrays)
+            hits = self._hits.clone()
+            graph.replay(slot)
+            self._hits.copy_(hits)
+            slot.result()
+            slot.release()
+            return
+        batch, _ = self._assemble(reqs, bucket)
+        source = self._down_source if kind == "downgrade" else self.source
+        self._serve(self._params, batch, source).cpu()
 
     def retune_buckets(self, n_buckets: int = 6,
                        warmup: bool = True) -> tuple:
         """Re-pick the buckets from the observed batch sizes
-        (``tune_buckets``), free the graphs of the buckets dropped, and
-        (``warmup``) capture the new ones."""
+        (``tune_buckets``), free the graphs of the buckets dropped, emit
+        a ``retune`` event, and (``warmup``) capture the new ones."""
+        old = self.buckets
         self.buckets = tune_buckets(self.batch_sizes, self.max_batch,
                                     n_buckets)
         self._graphs = {p: g for p, g in self._graphs.items()
                         if p[1] in self.buckets}
+        self.telemetry.emit("retune", version=self.source_version,
+                            old_buckets=list(old),
+                            new_buckets=list(self.buckets))
         if warmup:
             self.warmup()
         return self.buckets
@@ -661,9 +801,13 @@ class RecEngine:
         if len(req.sparse_ids) != self.cfg.n_tables:
             raise ValueError(f"request {req.rid} has {len(req.sparse_ids)} "
                              f"id lists for {self.cfg.n_tables} tables")
-        if self._host_stores:
-            self._req_streams(req)       # admission-time extraction
-        self.batcher.submit(req)
+        with self.telemetry.span("enqueue", {"rid": req.rid}):
+            if self._host_stores:
+                self._req_streams(req)   # admission-time extraction
+            self.batcher.submit(req)
+        if self.telemetry.enabled:
+            # live on enqueue: a stalled serve loop shows its backlog
+            self._g_queue.set(len(self.batcher))
 
     def _fill(self, reqs: List[RecRequest], arrays: Dict[str, np.ndarray]
               ) -> np.ndarray:
@@ -716,7 +860,146 @@ class RecEngine:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in arrays.items()}, lens
 
-    # -- serving: dispatch / settle -----------------------------------------
+    # -- serving: step, dispatch / settle ------------------------------------
+
+    def _admit(self, reqs: List[RecRequest], kind: str, *,
+               count_cold: bool) -> tuple:
+        """The host bookkeeping of a released micro-batch, before its SLA
+        clocks start: the one-off retune, the batch-size ring, its bucket,
+        the warm pool (a cold pair counted in ``rec_cold_compiles_total``
+        when ``count_cold``), each request's start stamp and queue wait.
+        Returns (bucket, the monotonic start)."""
+        # retune before the SLA clocks start: capturing the new buckets
+        # must not land on this micro-batch's latency
+        if self.auto_tune_after is not None and not self._retuned \
+                and self._batches_seen >= self.auto_tune_after:
+            self._retuned = True
+            self.retune_buckets()
+        tel = self.telemetry
+        now, now_m = time.time(), time.monotonic()
+        self._batches_seen += 1
+        self._batch_ring.append(len(reqs))
+        bucket = _bucket(len(reqs), self.buckets)
+        pair = (kind, bucket)
+        if count_cold and tel.enabled and pair not in (
+                self._graphs if self._graphed else self._warm):
+            self._c_cold.inc()
+        self._warm.add(pair)
+        for r in reqs:
+            r.started_at = now
+            r.downgraded = kind == "downgrade"
+        if tel.enabled:
+            self._qwait_hist.record_many(
+                (now_m - self._submitted(reqs)) * 1e3)
+        return bucket, now_m
+
+    @staticmethod
+    def _submitted(reqs: List[RecRequest]) -> np.ndarray:
+        return np.array([r.submitted_mono for r in reqs], np.float64)
+
+    def _pad(self, reqs: List[RecRequest], kind: str, bucket: int):
+        """The micro-batch padded into its bucket's inputs, and its bags'
+        lengths: on the card a ring slot of the pair's graph, filled in
+        place; else a batch dict on the engine's device."""
+        if self._graphed:
+            graph = self._graph(kind, bucket)
+            slot = graph.acquire()
+            return (graph, slot), self._fill(reqs, slot.arrays)
+        return self._assemble(reqs, bucket)
+
+    def _run(self, kind: str, padded) -> Union[Slot, torch.Tensor]:
+        """Enqueue the forward of a padded micro-batch without waiting:
+        on the card the pair's graph replay, whose result is the slot."""
+        if self._graphed:
+            graph, slot = padded
+            graph.replay(slot)
+            return slot
+        return self._forward(kind)(padded)
+
+    @staticmethod
+    def _result(probs: Union[Slot, torch.Tensor]) -> np.ndarray:
+        """Wait for a forward's probabilities (a slot's: a view of its
+        pinned output, valid until ``release``)."""
+        if isinstance(probs, Slot):
+            return probs.result()
+        return probs.cpu().numpy()
+
+    def _count_lookups(self, lens: np.ndarray) -> None:
+        """Add a primary micro-batch's lookups (a group's, per table) to
+        the host counter of a cached source, from the numpy lengths."""
+        if not self.telemetry.enabled:
+            return
+        if self.grouped:
+            self._lookups += lens.reshape(-1, self.cfg.n_tables).sum(axis=0)
+        elif self.cache is not None:
+            self._lookups += int(lens.sum())
+
+    def _respond(self, reqs: List[RecRequest], probs: np.ndarray) -> float:
+        """Hand each request its probability and record the latencies on
+        the monotonic clock, all in one pass. Returns the monotonic
+        time of the response."""
+        done, done_m = time.time(), time.monotonic()
+        for r, p in zip(reqs, probs[:len(reqs)].tolist()):
+            r.prob = p
+            r.finished_at = done
+        if self.telemetry.enabled:
+            self._lat_hist.record_many((done_m - self._submitted(reqs))
+                                       * 1e3)
+        return done_m
+
+    def _account(self, n: int) -> None:
+        self.served += n
+        self.batches += 1
+        if self.telemetry.enabled:
+            self._c_served.inc(n)
+            self._c_batches.inc()
+            self._batch_hist.record(n)
+
+    def step(self, force: bool = False) -> int:
+        """Serve one micro-batch from the batcher, waiting for it; returns
+        the number of requests served. Under ``device_stages`` the
+        forward runs through the three stages, each timed."""
+        tel = self.telemetry
+        t_take0 = time.perf_counter()
+        reqs = self.batcher.take(force=force)
+        t_take1 = time.perf_counter()
+        if not reqs:
+            return 0
+        bucket, _ = self._admit(reqs, "primary", count_cold=False)
+        with tel.span("serve_step", {"batch_size": len(reqs),
+                                     "bucket": bucket}):
+            tel.tracer.record("batch", t_take0, t_take1)
+            self._stage_batch(reqs)      # host-cold residency guarantee
+            with tel.span("bucket_pad"):
+                padded, lens = self._pad(reqs, "primary", bucket)
+            self._count_lookups(lens)
+            if self._staged is not None:
+                # the stages' spans stand in for "forward", as the
+                # reference's do
+                probs = out = self._run_stages(padded, timed=True)
+            else:
+                with tel.span("forward"):
+                    out = self._run("primary", padded)
+                    probs = self._result(out)
+            with tel.span("respond"):
+                self._respond(reqs, probs)
+                if isinstance(out, Slot):
+                    out.release()
+        self._account(len(reqs))
+        if tel.enabled:
+            self._g_queue.set(len(self.batcher))
+        return len(reqs)
+
+    def drain(self) -> int:
+        """Serve everything still queued (end-of-stream flush)."""
+        n = 0
+        while len(self.batcher):
+            n += self.step(force=True)
+        if self.telemetry.enabled:
+            self._g_queue.set(len(self.batcher))
+        self.telemetry.emit("drain", version=self.source_version,
+                            served=n, queue_depth=len(self.batcher))
+        return n
 
     def dispatch(self, reqs: List[RecRequest], *,
                  downgraded: bool = False) -> InflightBatch:
@@ -728,104 +1011,142 @@ class RecEngine:
         continuous batching with in-flight refill. ``downgraded=True``
         serves from the int8 downgrade source (``enable_downgrade``
         first), its own pair of graphs. A pair not yet warm is captured
-        here and counted in ``cold_compiles``."""
-        return self._dispatch(reqs, downgraded, count_cold=True)
-
-    def _dispatch(self, reqs: List[RecRequest], downgraded: bool, *,
-                  count_cold: bool) -> InflightBatch:
+        here and counted in ``rec_cold_compiles_total``. Refused under
+        ``device_stages``, which synchronizes between stages."""
         if not reqs:
             raise ValueError("dispatch needs a non-empty micro-batch")
+        if self._staged is not None:
+            raise ValueError(
+                "device_stages (live Fig-5) synchronizes between stages, "
+                "which defeats in-flight refill; characterize through "
+                "step()")
         if downgraded and self._down_source is None:
             raise ValueError("call enable_downgrade() before dispatching a "
                              "downgraded micro-batch")
-        # retune before the SLA clocks start: capturing the new buckets
-        # must not land on this micro-batch's latency
-        if self.auto_tune_after is not None and not self._retuned \
-                and self._batches_seen >= self.auto_tune_after:
-            self._retuned = True
-            self.retune_buckets()
-        now, now_m = time.time(), time.monotonic()
-        self._batches_seen += 1
-        self._batch_ring.append(len(reqs))
-        bucket = _bucket(len(reqs), self.buckets)
+        tel = self.telemetry
         kind = "downgrade" if downgraded else "primary"
-        pair = (kind, bucket)
-        if count_cold and pair not in (self._graphs if self._graphed
-                                       else self._warm):
-            self.cold_compiles += 1
-        self._warm.add(pair)
-        for r in reqs:
-            r.started_at = now
-            r.downgraded = downgraded
-        if not downgraded:
-            self._stage_batch(reqs)      # host-cold residency guarantee
-        if self._graphed:
-            graph = self._graph(kind, bucket)
-            probs = graph.acquire()
-            lens = self._fill(reqs, probs.arrays)
-            graph.replay(probs)
-        else:
-            batch, lens = self._assemble(reqs, bucket)
-            probs = self._forward(kind)(batch)
-        if not downgraded:
-            if self.grouped:
-                self._lookups += lens.reshape(-1, self.cfg.n_tables).sum(
-                    axis=0)
-            elif self.cache is not None:
-                self._lookups += int(lens.sum())
+        bucket, now_m = self._admit(reqs, kind, count_cold=True)
+        with tel.span("dispatch", {"batch_size": len(reqs),
+                                   "bucket": bucket, "path": kind}):
+            if not downgraded:
+                self._stage_batch(reqs)  # host-cold residency guarantee
+            with tel.span("bucket_pad"):
+                padded, lens = self._pad(reqs, kind, bucket)
+            probs = self._run(kind, padded)
+            if not downgraded:
+                self._count_lookups(lens)
         return InflightBatch(reqs=reqs, probs=probs, bucket=bucket,
                              downgraded=downgraded, dispatched_mono=now_m)
 
     def settle(self, ib: InflightBatch) -> int:
         """Wait for an in-flight micro-batch's probabilities and respond:
         the one host wait of the dispatch/settle pair, a read by then in a
-        pipeline deep enough. Records each request's latency on the
-        monotonic clock."""
-        if isinstance(ib.probs, Slot):
-            probs = ib.probs.result()
-        else:
-            probs = ib.probs.numpy()
-        done, done_m = time.time(), time.monotonic()
-        for i, r in enumerate(ib.reqs):
-            r.prob = float(probs[i])
-            r.finished_at = done
-            self._lat_ms.append((done_m - r.submitted_mono) * 1e3)
-        if isinstance(ib.probs, Slot):
-            ib.probs.release()
-        self.served += len(ib.reqs)
-        self.batches += 1
+        pipeline deep enough. Records each request's latency and the
+        dispatch-to-settle service time of its path on the monotonic
+        clock."""
+        tel = self.telemetry
+        with tel.span("settle", {"batch_size": len(ib.reqs)}):
+            done_m = self._respond(ib.reqs, self._result(ib.probs))
+            if isinstance(ib.probs, Slot):
+                ib.probs.release()
+        self._account(len(ib.reqs))
+        if tel.enabled:
+            path = "downgrade" if ib.downgraded else "primary"
+            hist = self._service_hist.get(path)
+            if hist is None:
+                hist = self._service_hist[path] = tel.registry.histogram(
+                    "rec_service_ms", "dispatch-to-settle service time",
+                    labels={"path": path})
+            hist.record((done_m - ib.dispatched_mono) * 1e3)
         return len(ib.reqs)
 
-    def step(self, force: bool = False) -> int:
-        """Serve one micro-batch (dispatch, then settle); returns the
-        number of requests served."""
-        reqs = self.batcher.take(force=force)
-        if not reqs:
-            return 0
-        return self.settle(self._dispatch(reqs, False, count_cold=False))
+    # -- the live Fig-5 mode ---------------------------------------------------
 
-    def drain(self) -> int:
-        """Serve everything still queued (end-of-stream flush)."""
-        n = 0
-        while len(self.batcher):
-            n += self.step(force=True)
-        return n
+    def _mark(self):
+        """A stage boundary: on the card an event recorded on the engine's
+        stream and waited for, else the host clock."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ev.synchronize()
+        return ev
+
+    @staticmethod
+    def _between_ms(a, b) -> float:
+        return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) \
+            else (b - a) * 1e3
+
+    def _run_stages(self, batch: Dict, *, timed: bool) -> np.ndarray:
+        """The primary forward through the three stages, eagerly, with a
+        synchronize after each (the reference syncs there); ``timed``
+        records each stage's time between its boundaries on the engine's
+        stream (the device's, on the card) into ``rec_stage_ms``. The
+        hit probe follows, untimed."""
+        sp, it, tp = self._staged
+        tel = self.telemetry
+        t0 = self._mark()
+        with tel.span("sparse_lookup"):
+            emb = sp(self._params, batch, self.source)
+            t1 = self._mark()
+        with tel.span("interaction"):
+            x = it(self._params, batch, emb)
+            t2 = self._mark()
+        with tel.span("mlp"):
+            probs = tp(self._params, x)
+            t3 = self._mark()
+        probe = self._hit_probe()
+        if probe is not None:
+            probe(batch)
+        if timed:
+            reg = tel.registry
+            for name, a, b in zip(_STAGE_NAMES, (t0, t1, t2), (t1, t2, t3)):
+                reg.histogram("rec_stage_ms", "per-stage device time",
+                              labels={"stage": name}).record(
+                                  self._between_ms(a, b))
+        return probs.cpu().numpy()
+
+    def live_fig5(self) -> Dict[str, float]:
+        """The live Fig-5 characterization: mean time of each stage and
+        the embedding fraction, from the traffic served. Needs
+        ``Telemetry(device_stages=True)``."""
+        if self._staged is None:
+            raise ValueError("live_fig5 needs Telemetry(device_stages=True)")
+        reg = self.telemetry.registry
+        means = {n: reg.histogram("rec_stage_ms",
+                                  labels={"stage": n}).mean
+                 for n in _STAGE_NAMES}
+        total = sum(means.values())
+        return {**{f"{n}_ms": means[n] for n in _STAGE_NAMES},
+                "total_ms": total,
+                "emb_frac": (means["sparse_lookup"] / total
+                             if total else 0.0)}
+
+    # -- reporting ----------------------------------------------------------
 
     def stats(self) -> Dict:
-        """Requests served, latency percentiles over the ring, the source,
-        the live cache version's hit rate (None without a cache or before
-        its first lookup, never a fake 0.0; on a group one a table, None
-        for the members without a cache) and buckets."""
-        if not self._lat_ms:
+        """Requests served and their latency percentiles from the latency
+        histogram (cumulative: exact while the stream fits its ring, a
+        bucket estimate after; ``since_swap`` since the last version bump;
+        ``rolling`` over the ring), the source (``source_tree`` one line a
+        nested source), the live cache version's hit rate (None without a
+        cache or before its first lookup, never a fake 0.0; on a group one
+        a table, None for the members without a cache), buckets, a host
+        tier's prefetch counts and, under ``device_stages``,
+        ``live_fig5()``. ``{"n": 0}`` before the first recorded request,
+        and always with telemetry off."""
+        h = self._lat_hist
+        if h.count == 0:
             return {"n": 0}
-        lat = np.fromiter(self._lat_ms, np.float64, count=len(self._lat_ms))
-        out = {"n": self.served,
+        out = {"n": h.count,
                "path": self.path,
                "source": es.describe_source(self.source),
-               "p50_ms": float(np.percentile(lat, 50)),
-               "p95_ms": float(np.percentile(lat, 95)),
-               "p99_ms": float(np.percentile(lat, 99)),
-               "mean_ms": float(lat.mean())}
+               "source_tree": es.describe_source(self.source,
+                                                 multiline=True),
+               "p50_ms": h.percentile(50),
+               "p95_ms": h.percentile(95),
+               "p99_ms": h.percentile(99),
+               "mean_ms": h.mean}
         if self.grouped:
             snap = self._hit_snapshot()["per_table"]
             out["cache_hit_rate"] = {
@@ -853,6 +1174,16 @@ class RecEngine:
                 "hit_rate": hits / touches if touches else 1.0,
                 "staged_resident": sum(s["resident"] for s in hs),
                 "host_bytes": sum(s["host_bytes"] for s in hs)}
+        out["since_swap"] = {"n": h.window_count,
+                             "p50_ms": h.percentile(50, "window"),
+                             "p95_ms": h.percentile(95, "window"),
+                             "p99_ms": h.percentile(99, "window")}
+        out["rolling"] = {"n": min(h.count, h.ring_size),
+                          "p50_ms": h.percentile(50, "rolling"),
+                          "p95_ms": h.percentile(95, "rolling"),
+                          "p99_ms": h.percentile(99, "rolling")}
+        if self._staged is not None:
+            out["stages"] = self.live_fig5()
         return out
 
 

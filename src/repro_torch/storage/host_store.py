@@ -51,7 +51,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import embedding_source as es
 from repro_torch.kernels import ops
 
@@ -60,13 +60,6 @@ __all__ = ["HostStore", "HostTier"]
 # pinned chunk buffers per chunk size: a flush refills one only after the
 # copy out of it has completed (its event)
 _RING = 2
-
-
-def _no_telemetry(telemetry) -> None:
-    if telemetry is not None:
-        raise NotImplementedError(
-            "storage telemetry needs the port's copy of repro.obs, not "
-            "ported yet (ROADMAP Queue 1, item 6)")
 
 
 @dataclass(frozen=True)
@@ -170,9 +163,9 @@ class HostStore:
 
     def __init__(self, host_rows: np.ndarray, *, staging_rows: int,
                  compact_of: Optional[np.ndarray] = None,
-                 max_stage_per_batch: int = 64, telemetry=None,
+                 max_stage_per_batch: int = 64,
+                 telemetry: Optional[obs.Telemetry] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        _no_telemetry(telemetry)
         host_rows = np.ascontiguousarray(host_rows, np.float32)
         if host_rows.ndim != 2:
             raise ValueError(f"host_rows must be (C, D), got "
@@ -222,11 +215,25 @@ class HostStore:
         # token of the store whose rows it adopted
         self.generation = object()
         self._origin = self.generation
+        self.bind_telemetry(telemetry if telemetry is not None
+                            else obs.Telemetry())
 
     def _signature(self) -> tuple:
         """What the serve step is shaped by: two stores with equal
         signatures can replace each other in a served source."""
         return (tuple(self.host_rows.shape), self.staging_rows)
+
+    def bind_telemetry(self, telemetry: obs.Telemetry) -> None:
+        """Adopt a consumer's telemetry bundle (the engine rebinds the
+        stores it discovers in its source; registration is idempotent)."""
+        self.telemetry = telemetry
+        reg = telemetry.registry
+        self._c_hit = reg.counter(
+            "rec_prefetch_hit",
+            "cold rows already staged when their batch arrived")
+        self._c_miss = reg.counter(
+            "rec_prefetch_miss",
+            "cold rows staged on demand at batch-stage time")
 
     def retarget(self, host_rows: np.ndarray,
                  compact_of: np.ndarray) -> None:
@@ -338,6 +345,11 @@ class HostStore:
         self._flush(*self._plan(want, min_required=len(need)))
         self.hits += hits
         self.misses += len(need)
+        if self.telemetry.enabled:
+            if hits:
+                self._c_hit.inc(hits)
+            if len(need):
+                self._c_miss.inc(len(need))
         return hits, len(need)
 
     def prefetch(self, comp_ids: np.ndarray) -> int:

@@ -35,7 +35,7 @@ import torch
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.kernels import ops
-from repro_torch.storage.host_store import HostStore, HostTier, _no_telemetry
+from repro_torch.storage.host_store import HostStore, HostTier
 
 __all__ = ["Int4Arena", "TierPolicy", "TieredSource", "build_tiered",
            "host_stores_of", "migrate", "refresh_host_tiers", "tier_bytes"]
@@ -251,8 +251,8 @@ def build_tiered(arena: torch.Tensor, spec: se.ArenaSpec,
                  telemetry=None) -> TieredSource:
     """Partition ``arena`` by ``counts`` under ``policy`` into a
     ``TieredSource`` on the arena's device. A host cold tier gets a new
-    ``HostStore``, or retargets ``store`` in place."""
-    _no_telemetry(telemetry)
+    ``HostStore`` bound to ``telemetry``, or retargets ``store`` in
+    place."""
     total, d = arena.shape
     if counts is None:
         counts = np.ones(total)
@@ -277,7 +277,7 @@ def build_tiered(arena: torch.Tensor, spec: se.ArenaSpec,
             store = HostStore(host_rows, staging_rows=policy.staging_rows,
                               compact_of=compact_of,
                               max_stage_per_batch=policy.max_stage_per_batch,
-                              device=arena.device)
+                              telemetry=telemetry, device=arena.device)
         else:
             store.retarget(host_rows, compact_of)
         cold = store.tier()

@@ -23,9 +23,15 @@ rebuild cadence becomes a tier migration (``retier``, an incremental
 
 The train step works in place, so the port's sync copies: an engine never
 aliases a tensor the trainer updates (``RecEngine.params``), nor shares
-the trainer's host store. Not ported yet: telemetry, which needs the
-port's copy of ``repro.obs``, and the per-table ``OnlineGroupTrainer`` of
-heterogeneous table groups (both ROADMAP Queue 1, item 9).
+the trainer's host store.
+
+Telemetry is a ``repro_torch.obs.Telemetry`` bundle, as the reference's:
+the gauges ``train_loss``, ``train_cache_version``, ``train_rebuild_hot_k``
+and ``train_requant_rows`` (and ``rec_tier_bytes`` a tier when tiered),
+the counters ``train_steps_total`` and ``train_rebuilds_total``, and the
+events ``hot_cache_rebuild``, ``quantized_refresh``, ``tier_migration``
+and ``publish``. Not ported yet: the per-table ``OnlineGroupTrainer`` of
+heterogeneous table groups (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ from typing import Any, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dlrm
 from repro_torch.core import embedding_source as es
@@ -171,18 +177,30 @@ class OnlineTrainer:
     def __init__(self, cfg: DLRMConfig, params: Dict, *, max_l: int,
                  lr: float = 1e-3, sparse: bool = True,
                  cache_cfg: Optional[OnlineCacheConfig] = None,
-                 mesh: Any = None, telemetry: Optional[Any] = None,
+                 mesh: Any = None,
+                 telemetry: Optional[obs.Telemetry] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "trainer telemetry needs the port's copy of repro.obs, "
-                "not ported yet (ROADMAP Queue 1, item 9)")
         if cfg.heterogeneous:
             raise NotImplementedError(
                 "online training of a heterogeneous table group is the "
                 "reference's OnlineGroupTrainer, not ported yet (ROADMAP "
                 "Queue 1, item 9)")
         self.device = resolve_device(device)
+        self.telemetry = (telemetry if telemetry is not None
+                          else obs.Telemetry())
+        reg = self.telemetry.registry
+        self._g_loss = reg.gauge("train_loss", "last optimizer-step loss")
+        self._g_version = reg.gauge("train_cache_version",
+                                    "last published rebuild version")
+        self._g_hot_k = reg.gauge("train_rebuild_hot_k",
+                                  "hot rows pinned by the last rebuild")
+        self._g_requant = reg.gauge(
+            "train_requant_rows",
+            "rows re-quantized by the last incremental refresh")
+        self._c_steps = reg.counter("train_steps_total",
+                                    "optimizer steps taken")
+        self._c_rebuilds = reg.counter("train_rebuilds_total",
+                                       "hot-cache rebuilds")
         self.cfg = cfg
         self.spec = dlrm.arena_spec(cfg)
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -211,10 +229,22 @@ class OnlineTrainer:
         self.tiered: Optional[st.TieredSource] = None
         self.last_migration: Optional[dict] = None   # migrate's stats
         if cache_cfg is not None and cache_cfg.tiers is not None:
-            self.tiered = cache_cfg.tiers.build_source(self.params["arena"],
-                                                       self.spec, None)
+            self.tiered = cache_cfg.tiers.build_source(
+                self.params["arena"], self.spec, None,
+                telemetry=self.telemetry)
             self._dirty_q = torch.zeros(self.params["arena"].shape[0],
                                         dtype=torch.bool, device=self.device)
+            self._g_tier_bytes = {
+                tier: reg.gauge("rec_tier_bytes",
+                                "device bytes held by this storage tier",
+                                labels={"tier": tier})
+                for tier in ("hot", "warm", "cold", "maps", "host")}
+            self._set_tier_gauges()
+
+    def _set_tier_gauges(self) -> None:
+        for tier, nb in st.tier_bytes(self.tiered).items():
+            if tier in self._g_tier_bytes:
+                self._g_tier_bytes[tier].set(nb)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
@@ -259,6 +289,9 @@ class OnlineTrainer:
             self.rebuild_cache()
         loss = float(loss)
         self.losses.append(loss)
+        if self.telemetry.enabled:
+            self._c_steps.inc()
+            self._g_loss.set(loss)
         return loss
 
     def train(self, batches: Iterable[Dict]) -> list:
@@ -276,6 +309,8 @@ class OnlineTrainer:
             raise ValueError("no cache_cfg configured")
         if self.tiered is not None:
             self.version += 1
+            self._c_rebuilds.inc()
+            self._g_version.set(self.version)
             self.retier()
             # tiered serving has no hot-cache artifact: publish_source()
             # is the blob
@@ -285,6 +320,11 @@ class OnlineTrainer:
         if self.cold_q is not None:
             self.refresh_quantized()
         self.version += 1
+        self._c_rebuilds.inc()
+        self._g_version.set(self.version)
+        self._g_hot_k.set(self.cache_cfg.k)
+        self.telemetry.emit("hot_cache_rebuild", version=self.version,
+                            step=self.steps, k=self.cache_cfg.k)
         return self.snapshot()
 
     def refresh_quantized(self) -> es.QuantizedArena:
@@ -300,6 +340,9 @@ class OnlineTrainer:
             self.cold_q = self.cold_q.quantize_rows(self.params["arena"],
                                                     rows)
             self._dirty_q.zero_()
+        self._g_requant.set(rows.numel())
+        self.telemetry.emit("quantized_refresh", version=self.version,
+                            step=self.steps, rows=rows.numel())
         return self.cold_q
 
     def retier(self) -> st.TieredSource:
@@ -315,6 +358,11 @@ class OnlineTrainer:
             self.tiered, self.params["arena"], self.spec,
             self.cache_cfg.tiers, self.hist, self._dirty_q.cpu().numpy())
         self._dirty_q.zero_()
+        self._set_tier_gauges()
+        stats = self.last_migration
+        self._g_requant.set(stats["warm_requant"] + stats["cold_requant"])
+        self.telemetry.emit("tier_migration", version=self.version,
+                            step=self.steps, **stats)
         return self.tiered
 
     def snapshot(self) -> Optional[VersionedHotCache]:
@@ -348,18 +396,26 @@ class OnlineTrainer:
         staged snapshot, its store being process-local."""
         if self.cache is None and self.tiered is None:
             return None
-        return VersionedSource(source=self.serving_source(),
+        blob = VersionedSource(source=self.serving_source(),
                                version=self.version,
                                head=({k: self.params[k]
                                       for k in ("bottom", "top")}
                                      if include_head else None)).serialize()
+        self.telemetry.emit("publish", version=self.version,
+                            artifact="source", bytes=len(blob))
+        return blob
 
     def publish(self) -> Optional[bytes]:
         """The current hot cache as a broadcast blob (None before the
         first rebuild): every replica calls
         ``VersionedHotCache.deserialize(blob).apply(engine)``."""
         snap = self.snapshot()
-        return None if snap is None else snap.serialize()
+        if snap is None:
+            return None
+        blob = snap.serialize()
+        self.telemetry.emit("publish", version=snap.version,
+                            artifact="hot_cache", bytes=len(blob))
+        return blob
 
     def sync_engine(self, engine) -> bool:
         """Publish the trained state into a RecEngine if it is behind;

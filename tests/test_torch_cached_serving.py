@@ -261,8 +261,6 @@ def test_engine_parts_refuse_what_they_cannot_serve(params, source, call,
 
 
 def test_unported_engine_arguments_name_their_item(params):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        _engine(params, telemetry=object())
     with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
         _engine(params, mesh=object())
     # a table-group plan is ported; a tiered member of one is not

@@ -339,6 +339,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.models.embedding\n"
             "import repro_torch.models.transformer\n"
             "import repro_torch.serving.engine\n"
+            "import repro_torch.obs, repro_torch.serving.scheduler\n"
+            "import repro_torch.serving.loadgen\n"
             "from repro_torch.configs import (smollm_360m, h2o_danube_1_8b,\n"
             "    qwen1_5_4b)\n"
             "from repro_torch.training import (OnlineCacheConfig,\n"

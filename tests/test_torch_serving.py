@@ -151,7 +151,7 @@ def test_latency_ring_is_bounded(params, monkeypatch):
     engine = _engine(params)
     _serve(engine, t_requests(_batch(9, seed=7), CFG.n_tables), False)
     assert engine.stats()["n"] == 9
-    assert len(engine._lat_ms) == 4
+    assert len(engine._lat_hist.ring_values()) == len(engine.latencies) == 4
 
 
 @pytest.mark.parametrize("plan,item", [("sharded", "item 13")])

@@ -1,7 +1,7 @@
 """The port's continuous-batching engine parts against the JAX RecEngine:
 ``dispatch``/``settle`` and ``InflightBatch``, the int8 downgrade source,
 ``tune_buckets``, ``retune_buckets`` and ``auto_tune_after``, the warm
-pool (``_warm`` and the cold-compile count), two micro-batches in flight
+pool (``_warm`` and ``rec_cold_compiles_total``), two micro-batches in flight
 settled out of order, and the snapshot rule of every swap: the engine
 copies into its own tensors, whose addresses never move (what a captured
 CUDA graph needs), and never writes a tensor it was handed.
@@ -213,7 +213,7 @@ def test_warm_pool_and_cold_count_match_the_reference(np_params, params,
         call(j_eng, j_reqs)
         call(t_eng, t_reqs)
         assert t_eng._warm == j_eng._warm
-        assert t_eng.cold_compiles == j_eng._c_cold.value
+        assert t_eng._c_cold.value == j_eng._c_cold.value
         assert t_eng.buckets == j_eng.buckets
 
     both(lambda e, r: e.settle(e.dispatch(r[:2])))        # cold: (p, 2)
@@ -221,12 +221,12 @@ def test_warm_pool_and_cold_count_match_the_reference(np_params, params,
     both(lambda e, r: e.settle(e.dispatch(r[7:9])))       # warm
     both(lambda e, r: e.enable_downgrade())
     both(lambda e, r: e.settle(e.dispatch(r[9:11], downgraded=True)))
-    assert t_eng.cold_compiles == 3
+    assert t_eng._c_cold.value == 3
     both(lambda e, r: e.retune_buckets(n_buckets=2))      # (2, 5, 8)
     assert t_eng.buckets == (2, 5, 8)
     both(lambda e, r: e.settle(e.dispatch(r[11:16])))     # warm: (p, 5)
     both(lambda e, r: e.settle(e.dispatch(r[16:21], downgraded=True)))
-    assert t_eng.cold_compiles == 3
+    assert t_eng._c_cold.value == 3
     # step() triggers a pair without counting it, as the reference's does
 
     def step3(e, reqs):
@@ -237,7 +237,7 @@ def test_warm_pool_and_cold_count_match_the_reference(np_params, params,
     both(lambda e, r: e.retune_buckets(warmup=False))     # (2, 3, 5, 8)
     assert t_eng.buckets == (2, 3, 5, 8)
     both(lambda e, r: step3(e, r[:3]))
-    assert ("primary", 3) in t_eng._warm and t_eng.cold_compiles == 3
+    assert ("primary", 3) in t_eng._warm and t_eng._c_cold.value == 3
 
 
 def test_cold_count_is_zero_after_warmup_and_one_without(np_params, params,
@@ -253,7 +253,7 @@ def test_cold_count_is_zero_after_warmup_and_one_without(np_params, params,
                 ("primary", 8), ("downgrade", 8)}
         t_eng.settle(t_eng.dispatch(t_requests(rb, CFG.n_tables)[:8]))
         j_eng.settle(j_eng.dispatch(j_requests(rb, J_CFG.n_tables)[:8]))
-        assert t_eng.cold_compiles == j_eng._c_cold.value == (0 if warm
+        assert t_eng._c_cold.value == j_eng._c_cold.value == (0 if warm
                                                               else 1)
 
 

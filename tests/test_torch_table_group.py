@@ -722,7 +722,7 @@ def test_group_engine_serves_with_per_table_hit_stats():
     with pytest.raises(ValueError, match="structure"):
         engine.update_source(es.replace_member(
             engine.source, 0, engine.source.members[0].cold), version=3)
-    assert engine.captures == 0 and engine.cold_compiles == 0
+    assert engine.captures == 0 and engine._c_cold.value == 0
 
 
 def test_member_swap_equals_a_fresh_engine():

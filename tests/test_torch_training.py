@@ -38,6 +38,7 @@ from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 from repro.training import make_drifting_zipf
 from repro.training import sparse_optim as j_so
+from repro_torch.configs.dlrm import DLRM_HET_SMOKE
 from repro_torch.configs.dlrm import DLRM_SMOKE as CFG
 from repro_torch.core import dlrm as t_dlrm
 from repro_torch.core import embedding_source as t_es
@@ -400,12 +401,14 @@ def test_online_trainer_matches_the_train_step():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("kw", [{"telemetry": object()}])
+@pytest.mark.parametrize("kw", [{"cfg": DLRM_HET_SMOKE}])
 def test_online_trainer_refuses_what_is_not_ported(kw):
-    """Telemetry."""
-    params = t_dlrm.params_from_numpy(_np_params(), "cpu")
+    """The reference's OnlineGroupTrainer, of a heterogeneous table group
+    (telemetry, once refused here, is ported: tests/test_torch_obs.py)."""
+    cfg = kw["cfg"]
+    params = t_dlrm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        OnlineTrainer(CFG, params, max_l=MAX_L, device="cpu", **kw)
+        OnlineTrainer(cfg, params, max_l=MAX_L, device="cpu")
 
 
 def test_trainer_and_launcher_run_on_the_card_unless_asked(monkeypatch):
