@@ -252,7 +252,30 @@ forward. Each serving phase zeroes the counts just before its engine's
    ``json.dumps``. The launch counts are zeroed before (a) and read after
    (e). Phases 3 to 7 run with ``obs.enable_stage_annotations(True)``,
    whose host spans they print.
-14. Report: one JSON line of the kernels, then the device line, which is
+14. The fleet, ``dlrm_het2`` at full width: (a) ``FleetRunner`` (one
+   ``OnlineGroupTrainer`` with a K = 512 hot cache a table and a rebuild
+   every 4 steps at batch 32, poisson bags of mean 38 and max 76; two
+   replicas of an A and a B engine each and two reference engines, all
+   graphed on bucket 32; a ``CheckpointManager`` in a temporary
+   directory) runs six rounds through the reference bench's chaos plan
+   (``FaultPlan(seed=6, drop=0.3, dup=0.3, delay=0.6, max_delay=3)``):
+   stale deliveries injected == refused, drops and dups above 0, the
+   ``hit_dip`` beside each engine's hit rate by version; ``recover(k=3)``
+   bit for bit on both models within 3 bumps and no capture after
+   ``warmup()``; replica 0 restarted from ``restore_source`` and exact
+   again; ``run_trainer_with_crash(extra_steps=6, fail_after=3,
+   ckpt_every=2)`` whose params equal bit for bit an uninterrupted
+   control trainer's on the same step-seeded batches; per round train,
+   serialize, ``save_source`` and deliver ms and the blob's bytes,
+   ``recovery_s``, a checkpoint's save and restore ms and bytes, the
+   wrappers' launches from the fleet's construction to the resume. (b)
+   The group trainer with phase 12's mixed plan, its two largest tables
+   tiered (host and int4 cold), 4 steps on the card against the CPU path
+   from the card's params and optimizer state (histograms, hot sets,
+   tier maps and dirty masks exact, hot rows under phase 4's budget),
+   its group served through one graph synced after every step, bit for
+   bit against the eager step, with the engine's own host store.
+15. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -286,6 +309,7 @@ from repro_torch.core import embedding_source as es  # noqa: E402
 from repro_torch.core import hybrid  # noqa: E402
 from repro_torch.core import sparse_engine as se  # noqa: E402
 from repro_torch.data import DLRMSynthetic  # noqa: E402
+from repro_torch.fleet import FaultPlan, FleetRunner  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg_k  # noqa: E402
 from repro_torch.kernels import feature_interaction as fi_k  # noqa: E402
@@ -302,7 +326,8 @@ from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
                                  requests_from_ragged_batch)
 from repro_torch.storage import tiered as st  # noqa: E402
 from repro_torch.storage.host_store import HostTier  # noqa: E402
-from repro_torch.training import (OnlineCacheConfig, OnlineTrainer,  # noqa: E402
+from repro_torch.training import (OnlineCacheConfig,  # noqa: E402
+                                  OnlineGroupTrainer, OnlineTrainer,
                                   VersionedHotCache, VersionedSource,
                                   make_drifting_zipf, unique_padded)
 
@@ -5164,6 +5189,316 @@ def phase_plane(cfg, served, online, tiered) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+FLEET_K = 512                      # hot rows a table (every table of
+#                                    dlrm_het2 has at least 2,000 rows)
+FLEET_MEAN_L = 38                  # dlrm_het2's lookups_per_table
+FLEET_REFRESH = 4                  # train steps a version
+FLEET_REPLICAS = 2
+FLEET_ROUNDS = 6                   # chaos rounds before recovery
+FLEET_BUMPS = 3                    # recovery within this many versions
+# the reference bench's plan (bench_paper.py:1108): drops, duplicates and
+# reorders on every replica
+FLEET_PLAN = FaultPlan(seed=6, drop=0.3, dup=0.3, delay=0.6, max_delay=3)
+FLEET_CRASH = dict(extra_steps=6, fail_after=3, ckpt_every=2)
+FLEET_KERNELS = ("fused_segment_sum", "fused_cached_segment_sum", "gemm",
+                 "interaction", "sls_grad_table")
+GROUP_STEPS = 4                    # 14(b): group trainer steps, card vs CPU
+GROUP_REFRESH = 2                  # a rebuild and a migration every 2
+GROUP_HOT, GROUP_WARM = 2048, 16_384   # 14(b)'s two tiered tables
+GROUP_STAGING, GROUP_STAGE = 8192, 2048
+
+
+def _dir_bytes(path: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def fleet_checkpoint(fr) -> dict:
+    """One save and one restore of the trainer's (params, optimizer
+    state) through the fleet's CheckpointManager: ms (synchronized) and
+    bytes on disk."""
+    t = fr.trainer
+    step = fr.next_step - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = fr.ckpt.save(step, (t.params, t.opt_state))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    (params, _), _ = fr.ckpt.restore((t.params, t.opt_state), step=step)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(t.params))):
+        fail("fleet: a checkpoint's restore differs from what was saved")
+    src = fr.ckpt.dir / f"src_{fr.ckpt.latest_source_step()}"
+    return {"save_ms": save_ms, "restore_ms": restore_ms,
+            "bytes": _dir_bytes(path), "source_bytes": _dir_bytes(src)}
+
+
+def fleet_rounds(fr) -> list:
+    """Each round's parts in ms and its blob's bytes, read from its spans
+    on the trainer's telemetry (host times: the train step ends on its
+    loss and the serialize on its copy to the host, both waiting for the
+    card)."""
+    out = []
+    for spans in fr.trainer.telemetry.tracer.traces().values():
+        root = next(x for x in spans if x.name == "fleet_round")
+        ms = {}
+        for x in spans:
+            ms.setdefault(x.name, []).append(x.duration_ms)
+        out.append({**root.attrs, "train_ms": ms["fleet_train"][0],
+                    "serialize_ms": ms["fleet_serialize"][0],
+                    "save_source_ms": ms["fleet_save_source"][0],
+                    "deliver_ms": ms["fleet_deliver"]})
+    if len(out) != fr.rounds:
+        fail(f"fleet: {len(out)} traced rounds, {fr.rounds} run")
+    return out
+
+
+def fleet_hit_dip(fr) -> float:
+    """The deepest per-version hit-rate shortfall of a chaos-fed replica
+    below the reference engine at the same version (the bench's
+    ``hit_dip``)."""
+    dip = 0.0
+    for model in ("a", "b"):
+        want = fr.ref[model].telemetry.events.hit_rate_by_version()
+        for rep in fr.replicas:
+            for v, rate in rep.hit_rate_by_version(model).items():
+                if rate is not None and want.get(v) is not None:
+                    dip = max(dip, want[v] - rate)
+    return dip
+
+
+def _recovered(rec: dict, what: str) -> None:
+    exact = all(all(v) for v in rec["exact"].values())
+    captures = [n for per in rec["recompiles"] for n in per.values()]
+    if not exact or rec["bumps"] > FLEET_BUMPS or any(captures):
+        fail(f"fleet {what}: exact {rec['exact']} after {rec['bumps']} "
+             f"bumps (at most {FLEET_BUMPS}), captures since warmup "
+             f"{rec['recompiles']}")
+
+
+def fleet_run(cfg, ckpt_dir) -> dict:
+    """14(a): the fleet, its launches counted from its construction to the
+    trainer's resume."""
+    reset_counts()
+    t0 = time.perf_counter()
+    fr = FleetRunner(cfg, n_replicas=FLEET_REPLICAS, plan=FLEET_PLAN,
+                     seed=0, cache_k=FLEET_K, refresh_every=FLEET_REFRESH,
+                     batch_size=BUCKET, max_l=HET_MAX_L,
+                     mean_l=FLEET_MEAN_L, ckpt_dir=ckpt_dir, device="cuda")
+    setup_s = time.perf_counter() - t0
+    fr.trainer.telemetry.tracer.enabled = True     # the rounds' spans
+    t0 = time.perf_counter()
+    for _ in range(FLEET_ROUNDS):
+        fr.round()
+    chaos_s = time.perf_counter() - t0
+    inj = [r.stale_injected for r in fr.replicas]
+    rej = [r.stale_rejections() for r in fr.replicas]
+    drops = [r.channel.dropped for r in fr.replicas]
+    dups = [r.channel.duplicated for r in fr.replicas]
+    print(f"  {FLEET_ROUNDS} chaos rounds in {chaos_s:.2f} s (set-up "
+          f"{setup_s:.2f} s): stale injected {inj}, rejected {rej}, "
+          f"dropped {drops}, duplicated {dups}")
+    if inj != rej or not sum(inj) or not sum(drops) or not sum(dups):
+        fail(f"fleet: stale injected {inj} against rejected {rej}, drops "
+             f"{drops}, dups {dups}: the plan must drop, duplicate and "
+             f"reorder, and every stale delivery be refused")
+    dip = fleet_hit_dip(fr)
+    hrv = {f"replica{i}_{m}": rep.hit_rate_by_version(m)
+           for i, rep in enumerate(fr.replicas) for m in ("a", "b")}
+    hrv.update({f"ref_{m}": e.telemetry.events.hit_rate_by_version()
+                for m, e in fr.ref.items()})
+    print(f"  hit_dip {dip:.4f}; hit_rate_by_version {hrv}")
+    t0 = time.perf_counter()
+    rec = fr.recover(k=FLEET_BUMPS)
+    recovery_s = time.perf_counter() - t0
+    _recovered(rec, "recovery")
+    print(f"  recovery: {rec['bumps']} bumps in {recovery_s:.2f} s, exact "
+          f"{rec['exact']}, captures since warmup {rec['recompiles']}")
+    rep = fr.crash_replica(0)
+    exact_now = fr.exactness()
+    rec_restart = fr.recover(k=FLEET_BUMPS)
+    _recovered(rec_restart, "replica restart")
+    print(f"  replica 0 restarted from src_{fr.ckpt.latest_source_step()} "
+          f"(version {rep.versions()}): exact at once {exact_now}, after "
+          f"{rec_restart['bumps']} bumps {rec_restart['exact']}")
+    start = fr.next_step
+    res = fr.run_trainer_with_crash(**FLEET_CRASH)
+    launches = launch_counts()
+    for n in FLEET_KERNELS:
+        if not launches[n]:
+            fail(f"fleet: {n} never launched on the fleet's path")
+    print(f"  trainer crash at step {start + FLEET_CRASH['fail_after']}, "
+          f"resumed ({res['restarts']} restart, "
+          f"{res['resume_events']} trainer_resume event) through step "
+          f"{fr.next_step - 1} in {res['wall_s']:.2f} s, version "
+          f"{res['version']}")
+    with uncounted():
+        ctl = OnlineGroupTrainer(
+            cfg, dlrm.init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda"),
+            max_l=HET_MAX_L, plans=dlrm.table_plans(cfg, cache_k=FLEET_K),
+            refresh_every=FLEET_REFRESH, device="cuda")
+        for step in range(fr.next_step):
+            ctl.train_step(fr.batch_fn(step))
+        got, want = tree_leaves(fr.trainer.params), tree_leaves(ctl.params)
+        same = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        if not same:
+            fail("fleet: the resumed trainer's params differ from the "
+                 "uninterrupted control trainer's")
+        print(f"  resumed params equal the control trainer's bit for bit "
+              f"({len(got)} tensors, {fr.next_step} steps)")
+        rec_crash = fr.recover(k=FLEET_BUMPS)
+        _recovered(rec_crash, "after the trainer's resume")
+        ckpt = fleet_checkpoint(fr)
+    print(f"  checkpoint of the trainer: save {ckpt['save_ms']:.1f} ms, "
+          f"restore {ckpt['restore_ms']:.1f} ms, {ckpt['bytes']} bytes; a "
+          f"source artifact {ckpt['source_bytes']} bytes")
+    rounds = fleet_rounds(fr)
+    for t in rounds:
+        print(f"  round v{t['version']} ({'chaos' if t['chaos'] else 'clean'}"
+              f"): train {t['train_ms']:.1f} ms, serialize "
+              f"{t['serialize_ms']:.1f} ms, blob {t['blob_bytes']} bytes, "
+              f"save_source {t['save_source_ms']:.1f} ms, deliver ms a "
+              f"replica {[round(x, 2) for x in t['deliver_ms']]}")
+    print(f"  recovery_s {recovery_s:.3f}; launches {launches}")
+    return {"stale_injected": inj, "stale_rejected": rej, "dropped": drops,
+            "duplicated": dups, "hit_dip": dip, "hit_rate_by_version": hrv,
+            "recovery": {"bumps": rec["bumps"], "exact": rec["exact"],
+                         "recompiles": rec["recompiles"],
+                         "recovery_s": recovery_s},
+            "restart": {"exact_at_once": exact_now,
+                        "bumps": rec_restart["bumps"],
+                        "exact": rec_restart["exact"]},
+            "crash": {**res, "params_equal_control": same,
+                      "bumps_after": rec_crash["bumps"]},
+            "checkpoint": ckpt, "rounds": rounds, "chaos_s": chaos_s,
+            "setup_s": setup_s, "launches": launches}
+
+
+def group_plans(cfg) -> tuple:
+    """Phase 12's mixed plan with its two largest int8 tables tiered: the
+    largest with a host cold tier, the next with an int4 one."""
+    mixed, _ = het_plans(cfg)
+    plans = list(mixed)
+    big = sorted((t for t, p in enumerate(plans) if p.quantize),
+                 key=lambda t: -plans[t].rows)
+    for t, cold in zip(big[:2], ("host", "int4")):
+        plans[t] = es.TablePlan(rows=plans[t].rows, dim=plans[t].dim,
+                                tiers=st.TierPolicy(
+                                    hot=GROUP_HOT, warm=GROUP_WARM,
+                                    cold=cold, staging_rows=GROUP_STAGING,
+                                    max_stage_per_batch=GROUP_STAGE))
+    return tuple(plans)
+
+
+def group_trainer(cfg) -> dict:
+    """14(b): OnlineGroupTrainer with cached, int8, fp and tiered members
+    on the card against the CPU path, each step from the card's params and
+    optimizer state; then its group served through a graph, synced after
+    every step, bit for bit against the eager step."""
+    plans = group_plans(cfg)
+    p0 = dlrm.init(torch.Generator(device="cuda").manual_seed(7), cfg,
+                   device="cuda")
+    mk = dict(max_l=HET_MAX_L, plans=plans, refresh_every=GROUP_REFRESH)
+    card = OnlineGroupTrainer(cfg, _copy(p0, "cuda"), device="cuda", **mk)
+    cpu = OnlineGroupTrainer(cfg, _copy(p0, "cpu"), device="cpu", **mk)
+    specs = dlrm.member_specs(cfg)
+    gen = make_drifting_zipf(cfg, batch_size=BUCKET, mean_l=FLEET_MEAN_L,
+                             max_l=HET_MAX_L, drift_per_batch=DRIFT, seed=5)
+    batches = [next(gen) for _ in range(GROUP_STEPS + 2)]
+    reset_counts()
+    engine = RecEngine(cfg, card.params, source=card.serving_source(),
+                       max_l=HET_MAX_L, max_batch=BUCKET, buckets=(BUCKET,),
+                       device="cuda")
+    engine.warmup()
+    warm = launch_counts()
+    if not warm["fused_int4_segment_sum"]:
+        fail("group trainer: the int4-tiered member's forward launched no "
+             "fused_int4_segment_sum")
+    step = het_eager(cfg)
+    steps, step_ms = [], []
+    for i, b in enumerate(batches[:GROUP_STEPS]):
+        cpu.params, cpu.opt_state = (_copy(card.params, "cpu"),
+                                     _copy(card.opt_state, "cpu"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = card.train_step(b)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with uncounted():
+            cpu_loss = cpu.train_step(b)
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        if rel > LOSS_RTOL or card.version != cpu.version:
+            fail(f"group trainer step {i}: loss {loss} / {cpu_loss}, "
+                 f"versions {card.version} / {cpu.version}")
+        budget = ARENA_SAMPLES * HET_MAX_L * (i + 1)
+        worst, beyond = 0.0, 0
+        for t, sp in enumerate(specs):
+            if not np.array_equal(card.hists[t], cpu.hists[t]):
+                fail(f"group trainer step {i}: table {t}'s histogram")
+            d_card, d_cpu = card._dirty_q[t], cpu._dirty_q[t]
+            if d_card is not None and not torch.equal(d_card.cpu(), d_cpu):
+                fail(f"group trainer step {i}: table {t}'s dirty mask")
+            hot, hot_cpu = ((card.caches[t], cpu.caches[t])
+                            if card.caches[t] is not None
+                            else (card.tiered[t], cpu.tiered[t]))
+            if hot is None:
+                continue
+            if not torch.equal(hot.hot_ids.cpu(), hot_cpu.hot_ids):
+                fail(f"group trainer step {i}: table {t}'s hot set")
+            if card.tiered[t] is not None and not torch.equal(
+                    card.tiered[t].tier_slot.cpu(),
+                    cpu.tiered[t].tier_slot):
+                fail(f"group trainer step {i}: table {t}'s tier map")
+            rows = _beyond(hot.hot_rows, hot_cpu.hot_rows, budget,
+                           2 * 10 * LR * sp.dim ** 0.5 * (i + 1),
+                           f"group trainer step {i} table {t} hot rows")
+            worst = max(worst, rows["max_abs_err"])
+            beyond += rows["beyond"]
+        engine_synced = card.sync_engine(engine)
+        reqs = requests_from_ragged_batch(batches[GROUP_STEPS + i % 2],
+                                          cfg.n_tables)
+        pipelined(engine, reqs, [BUCKET],
+                  reference=lambda mb, bucket: step(
+                      engine, mb, bucket, engine.params, engine.source))
+        steps.append({"loss_card": loss, "loss_cpu": cpu_loss,
+                      "loss_rel_err": rel, "version": card.version,
+                      "hot_rows_beyond": beyond,
+                      "hot_rows_max_abs_err": worst,
+                      "synced": engine_synced})
+        print(f"  group trainer step {i}: loss {loss:.6f} (CPU rel "
+              f"{rel:.1e}), v{card.version}, hot sets and tier maps "
+              f"equal, hot rows {beyond} beyond {PARAM_ATOL} (max "
+              f"{worst:.1e}); served v{engine.source_version} bit for bit "
+              f"against the eager step")
+    if engine.captures != 1:
+        fail(f"group trainer: the engine captured {engine.captures} graphs; "
+             f"warmup's one must serve every sync")
+    ev = [e.attrs for e in card.telemetry.events.query("tier_migration")]
+    store = engine._host_stores[0].stats()
+    if store["hits"] + store["misses"] != store["touches"]:
+        fail(f"group trainer: host store hits + misses != touches {store}")
+    launches = launch_counts()
+    print(f"  card step ms {[round(x, 1) for x in step_ms]}; migrations "
+          f"{len(ev)}; the engine's host store {store}; launches "
+          f"(warmup and steps) {launches}")
+    return {"steps": steps, "step_ms": step_ms, "launches": launches,
+            "migrations": ev, "host_store": store}
+
+
+def phase_fleet() -> dict:
+    """Phase 14: the fleet on dlrm_het2 at full width, then the group
+    trainer's tiered members against the CPU path."""
+    cfg = DLRM_HET_CONFIGS[HET_CFG]
+    with tempfile.TemporaryDirectory() as d:
+        fleet = fleet_run(cfg, d)
+    fleet["group_trainer"] = group_trainer(cfg)
+    return fleet
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -5226,7 +5561,9 @@ def main() -> None:
     phase("phase 13: the serving plane: telemetry, live Fig-5, the SLA "
           "scheduler under open-loop load")
     plane = phase_plane(cfg, served, online, tiered)
-    phase("phase 14: report")
+    phase("phase 14: the fleet, dlrm_het2 at full width")
+    fleet = phase_fleet()
+    phase("phase 15: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -5249,7 +5586,10 @@ def main() -> None:
                    "serve_het_mixed": het["mixed"]["launches"][name],
                    **{f"train_het_{m}": het["train"][m]["launches"][name]
                       for m in ("sparse", "dense")},
-                   "serving_plane": plane["launches"][name]}
+                   "serving_plane": plane["launches"][name],
+                   "fleet": fleet["launches"][name],
+                   "fleet_group_trainer":
+                       fleet["group_trainer"]["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -5283,7 +5623,8 @@ def main() -> None:
              "serve_cached": cached, "train": trained, "online": online,
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
-             "graphed": graphed, "lm": lm, "het": het, "plane": plane},
+             "graphed": graphed, "lm": lm, "het": het, "plane": plane,
+             "fleet": fleet},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

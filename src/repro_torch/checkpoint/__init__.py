@@ -1,0 +1,5 @@
+"""Checkpoints in the reference's on-disk layout (``manager``)."""
+from repro_torch.checkpoint.manager import (CheckpointManager,
+                                            reshard_checkpoint)
+
+__all__ = ["CheckpointManager", "reshard_checkpoint"]

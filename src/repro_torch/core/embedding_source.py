@@ -28,8 +28,9 @@ over an ``FpArena`` reduces to exactly the ``FpArena`` lookup; and a
 ``TableGroupSource`` lookup is, table by table, its members' own lookups
 (``lookup_bags_per_table``).
 
-Not ported yet, each refused naming its ROADMAP item: sharded sources
-(Queue 1, item 13) and tiered members of a table group (item 8).
+A table group's member may be any of these, a tiered source included.
+Not ported yet, refused naming its ROADMAP item: sharded sources (Queue
+1, item 13).
 """
 from __future__ import annotations
 
@@ -257,7 +258,7 @@ class TableGroupSource(EmbeddingSource):
     gather-reduce stream over its own arena.
 
     ``members[t]`` is any ported source (``FpArena``, ``QuantizedArena``,
-    ``CachedSource``) over table t's private arena ``(vocab_t + 1,
+    ``CachedSource``, ``storage.TieredSource``) over table t's private arena ``(vocab_t + 1,
     dim_t)`` (its own trailing null row); ``specs[t]`` is its single-table
     ``ArenaSpec(1, vocab_t, dim_t)``.
 
@@ -732,9 +733,8 @@ class TablePlan:
     """One table of a group plan: its shape and its own composition, a
     hot cache for the skewed tables (``cache_k``), int8 for the huge ones
     (``quantize``), tiers for the ones bigger than memory (``tiers``, a
-    ``storage.TierPolicy``; not ported for a group member yet, ROADMAP
-    Queue 1, item 8). A tuple of these in ``SourceSpec.tables`` declares a
-    ``TableGroupSource``."""
+    ``storage.TierPolicy``). A tuple of these in ``SourceSpec.tables``
+    declares a ``TableGroupSource``."""
     rows: int                            # vocab (real rows, null excluded)
     dim: int
     cache_k: int = 0                     # >0: pin this table's top-K hot
@@ -870,11 +870,11 @@ class SourceSpec:
             counts = [None] * len(self.tables)
         members, specs = [], []
         for tp, arena, c in zip(self.tables, arenas, counts):
-            if tp.tiers is not None:
-                raise NotImplementedError(
-                    "tiered members of a table group are not ported yet "
-                    "(ROADMAP Queue 1, item 8)")
             sp = tp.arena_spec
+            if tp.tiers is not None:
+                members.append(tp.tiers.build_source(arena, sp, c))
+                specs.append(sp)
+                continue
             member: EmbeddingSource = (QuantizedArena.from_arena(arena)
                                        if tp.quantize else FpArena(arena))
             if tp.cache_k > 0:

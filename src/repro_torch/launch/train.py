@@ -6,6 +6,8 @@
     python -m repro_torch.launch.train --arch dlrm1 --ragged --online-cache \
         [--cache-k 2048 --cache-refresh 50 --quantize-cold] \
         [--metrics-json metrics.json] [--trace]
+    python -m repro_torch.launch.train --arch dlrm1 --ragged --steps 200 \
+        --ckpt-dir ckpt [--ckpt-every 50] [--resume]
     python -m repro_torch.launch.train --smoke --device cpu
 
 Runs on the card unless ``--device cpu``. Without ``--ragged`` it trains
@@ -19,9 +21,12 @@ rebuilt every ``--cache-refresh`` steps, with ``--quantize-cold`` an
 int8 cold arena kept incrementally), ``--metrics-json`` writes the
 trainer's telemetry snapshot (counters, gauges, histograms and events) at
 exit, and ``--trace`` collects host spans and turns the profiler's stage
-annotations on. Not offered yet, each with the ROADMAP item it waits
-for: LM training (Queue 1, item 16), ``--shards``/``--mesh`` (item 13),
-``--ckpt-dir``/``--resume`` and the straggler monitor (item 14).
+annotations on. In either layout ``--ckpt-dir`` saves (params, optimizer
+state) every ``--ckpt-every`` steps with ``CheckpointManager.save_async``
+and ``--resume`` restarts after the latest checkpoint there; a
+``StragglerMonitor`` times every step and the run prints its count of
+flagged steps. Not offered yet, each with the ROADMAP item it waits for:
+LM training (Queue 1, item 16), ``--shards``/``--mesh`` (item 13).
 """
 from __future__ import annotations
 
@@ -33,9 +38,11 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import default_device, obs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.data import DLRMSynthetic
+from repro_torch.distributed import StragglerMonitor
 from repro_torch.training import OnlineCacheConfig, OnlineTrainer
 
 
@@ -47,24 +54,57 @@ def _setup(args):
     return cfg, device, dlrm_mod.init(gen, cfg, device=device)
 
 
+def _checkpoints(args, device, state):
+    """The run's CheckpointManager (None without ``--ckpt-dir``), the
+    state to start from and the first step: after the latest checkpoint
+    with ``--resume``, else step 0."""
+    if not args.ckpt_dir:
+        return None, state, 0
+    ckpt = CheckpointManager(args.ckpt_dir, device=device)
+    latest = ckpt.latest_step()
+    if not args.resume or latest is None:
+        return ckpt, state, 0
+    state, _ = ckpt.restore(state, step=latest)
+    print(f"resumed from step {latest}")
+    return ckpt, state, latest + 1
+
+
+def _after_step(args, ckpt, mon, step: int, seconds: float, state) -> None:
+    """The straggler monitor's record, and the periodic async save."""
+    mon.record(step, seconds)
+    if ckpt is not None and (step + 1) % args.ckpt_every == 0:
+        ckpt.save_async(step, state)
+
+
+def _finish(ckpt, mon, loss: float) -> None:
+    if ckpt is not None:
+        ckpt.wait()
+    print(f"straggler events: {len(mon.events)}")
+    print(f"final loss {loss:.4f}")
+
+
 def train_dlrm(args) -> float:
     """Fixed-L training with the dense-gradient step; returns the last
     step's loss."""
     cfg, device, params = _setup(args)
     opt, step_fn = dlrm_mod.make_train_step(cfg)
-    opt_state = opt.init(params)
+    ckpt, (params, opt_state), start = _checkpoints(
+        args, device, (params, opt.init(params)))
+    mon = StragglerMonitor()
     data = DLRMSynthetic(cfg, seed=args.seed)
     loss = float("nan")
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         t0 = time.time()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch(args.batch_size).items()}
         params, opt_state, loss_t = step_fn(params, opt_state, batch)
         loss = float(loss_t)
+        _after_step(args, ckpt, mon, step, time.time() - t0,
+                    (params, opt_state))
         if step % args.log_every == 0:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"({time.time() - t0:.3f}s)")
-    print(f"final loss {loss:.4f}")
+    _finish(ckpt, mon, loss)
     return loss
 
 
@@ -86,20 +126,25 @@ def train_dlrm_ragged(args) -> float:
     trainer = OnlineTrainer(cfg, params, max_l=max_l,
                             sparse=not args.dense_grads, cache_cfg=cache_cfg,
                             telemetry=telemetry, device=device)
+    ckpt, (trainer.params, trainer.opt_state), start = _checkpoints(
+        args, device, (trainer.params, trainer.opt_state))
+    mon = StragglerMonitor()
     data = DLRMSynthetic(cfg, seed=args.seed)
     pad_to = args.batch_size * cfg.n_tables * max_l
     loss = float("nan")
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         t0 = time.time()
         batch = data.ragged_batch(args.batch_size, max_l=max_l,
                                   pad_to=pad_to)
         loss = trainer.train_step(batch)
+        _after_step(args, ckpt, mon, step, time.time() - t0,
+                    (trainer.params, trainer.opt_state))
         if step % args.log_every == 0:
             extra = (f" cache v{trainer.version}" if args.online_cache
                      else "")
             print(f"step {step:5d} loss {loss:.4f} "
                   f"({time.time() - t0:.3f}s){extra}")
-    print(f"final loss {loss:.4f}")
+    _finish(ckpt, mon, loss)
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(telemetry.snapshot(), f, indent=2, default=str)
@@ -143,13 +188,17 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1, item 14)")
+                   help="save (params, optimizer state) here every "
+                        "--ckpt-every steps, in the background")
+    p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1, item 14)")
+                   help="with --ckpt-dir: start after its latest "
+                        "checkpoint")
     args = p.parse_args(argv)
-    if args.ckpt_dir is not None or args.resume:
-        p.error("checkpoints (--ckpt-dir/--resume) are not ported yet "
-                "(ROADMAP Queue 1, item 14)")
+    if args.resume and not args.ckpt_dir:
+        p.error("--resume goes with --ckpt-dir")
+    if args.ckpt_every < 1:
+        p.error("--ckpt-every must be at least 1")
     if (args.online_cache or args.quantize_cold or args.metrics_json
             or args.trace) and not args.ragged:
         p.error("--online-cache, --quantize-cold, --metrics-json and "

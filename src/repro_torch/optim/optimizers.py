@@ -19,7 +19,7 @@ schedules come with LM training (ROADMAP Queue 1, item 16).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,22 @@ def tree_leaves(tree) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_paths(tree, path: str = "") -> List[Tuple[str, Any]]:
+    """(keystr path, leaf) pairs in ``jax.tree_util.tree_flatten``'s
+    order: dict keys sorted, lists and tuples in order, ``None`` an empty
+    subtree, everything else a leaf. Two trees that hold the same keys in
+    another order give the same paths in the same order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree)
+                for pl in tree_paths(x, f"{path}[{i}]")]
+    return [(path, tree)]
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,

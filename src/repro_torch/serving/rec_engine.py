@@ -36,8 +36,8 @@ copied into its own tensors (in place when the shapes match), and the
 source it serves is its own (built from its params, or a clone of a
 built source it was handed). Every swap copies into those tensors in
 place (``es.adopt_source``; a host tier's rows go into the engine's own
-``HostStore``), so their addresses never move and nothing the engine
-was handed is ever written.
+``HostStore``, one a tiered member of a group), so their addresses never
+move and nothing the engine was handed is ever written.
 
 On the card every micro-batch replays a captured CUDA graph of its
 (path, bucket) pair (``serve_graph.ServeGraph``), the counterpart of the
@@ -74,7 +74,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,7 +85,7 @@ from repro_torch.core import dlrm
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.core.embedding_source import SourceSpec
-from repro_torch.optim import tree_leaves, tree_map
+from repro_torch.optim import tree_leaves, tree_map, tree_paths
 from repro_torch.serving.serve_graph import ServeGraph, Slot
 from repro_torch.storage import tiered as st
 
@@ -189,12 +189,22 @@ def _own_copy(tree: Dict) -> Dict:
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def _same_layout(a: Dict, b: Dict) -> bool:
-    """Same tree, and tensors of equal shape, dtype and device."""
-    la, lb = tree_leaves(a), tree_leaves(b)
-    return (set(a) == set(b) and len(la) == len(lb)
-            and all(x.shape == y.shape and x.dtype == y.dtype
-                    and x.device == y.device for x, y in zip(la, lb)))
+def _paired_leaves(a: Dict, b: Dict) -> Optional[list]:
+    """(a's tensor, b's tensor) pairs matched by tree path, dict keys
+    sorted at every level, so the order in which either tree holds its
+    keys does not matter (a group train step returns its head before its
+    tables); ``None`` if the two trees' paths differ."""
+    pa, pb = tree_paths(a), tree_paths(b)
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        return None
+    return [(x, y) for (_, x), (_, y) in zip(pa, pb)]
+
+
+def _same_layout(pairs: Optional[list]) -> bool:
+    """Paired trees, and tensors of equal shape, dtype and device."""
+    return pairs is not None and all(
+        x.shape == y.shape and x.dtype == y.dtype and x.device == y.device
+        for x, y in pairs)
 
 
 class RecEngine:
@@ -410,10 +420,11 @@ class RecEngine:
         the engine serves until the next assignment. Params of another
         layout are copied into new tensors, and every captured graph is
         dropped."""
-        if self._params is not None and _same_layout(self._params, params):
+        pairs = (None if self._params is None
+                 else _paired_leaves(self._params, params))
+        if _same_layout(pairs):
             with torch.no_grad():
-                for mine, new in zip(tree_leaves(self._params),
-                                     tree_leaves(params)):
+                for mine, new in pairs:
                     mine.copy_(new)
             if self.source is not None:
                 es.adopt_source(self.source, es.rebind_arena(
@@ -571,9 +582,18 @@ class RecEngine:
     def _bind_host_stores(self) -> None:
         """The host stores behind the served source: the engine's own
         (see ``update_source``), staged before every primary forward and
-        bound to the engine's telemetry."""
-        self._host_stores: List = ([] if self.layout == "fixed"
-                                   else st.host_stores_of(self.source))
+        bound to the engine's telemetry. A group keeps each member's
+        stores beside the member's table (``_host_tables``): such a store
+        stages its table's own ids."""
+        self._host_stores: List = []
+        self._host_tables: List[Optional[int]] = []
+        if self.layout != "fixed":
+            members = (enumerate(self.source.members) if self.grouped
+                       else [(None, self.source)])
+            for t, m in members:
+                for store in st.host_stores_of(m):
+                    self._host_stores.append(store)
+                    self._host_tables.append(t)
         for store in self._host_stores:
             store.bind_telemetry(self.telemetry)
         self._stream_cache = None
@@ -593,16 +613,29 @@ class RecEngine:
             s = r.cold_streams = (per_id, tbl)
         return s
 
+    def _streams(self, reqs: List[RecRequest]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """A micro-batch's (per-table id, table) streams, the requests'
+        numpy streams end to end: staging never reads a device tensor."""
+        parts = [self._req_streams(r) for r in reqs]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
     def _host_ids(self, reqs: List[RecRequest]) -> np.ndarray:
-        """The arena row ids of a micro-batch (per-table id + table base),
-        from the requests' numpy streams: staging never reads a device
-        tensor."""
+        """The arena row ids of a micro-batch (per-table id + table
+        base)."""
         if not reqs:
             return np.zeros(0, np.int64)
-        parts = [self._req_streams(r) for r in reqs]
-        per_id = np.concatenate([p[0] for p in parts])
-        tbl = np.concatenate([p[1] for p in parts])
+        per_id, tbl = self._streams(reqs)
         return per_id + tbl * self.spec.rows_per_table
+
+    def _store_ids(self, reqs: List[RecRequest]) -> List[np.ndarray]:
+        """Each host store's row ids of a micro-batch: its table's own ids
+        for a group member's store, the arena row ids otherwise."""
+        if not self.grouped:
+            return [self._host_ids(reqs)] * len(self._host_stores)
+        per_id, tbl = self._streams(reqs)
+        return [per_id[tbl == t] for t in self._host_tables]
 
     def _stage_batch(self, reqs: List[RecRequest], *,
                      ahead: bool = False) -> None:
@@ -623,21 +656,20 @@ class RecEngine:
         if not self._host_stores or not reqs:
             return
         if ahead:
-            ids = self._host_ids(reqs)
-            for store in self._host_stores:
+            for store, ids in zip(self._host_stores, self._store_ids(reqs)):
                 store.prefetch_arena(ids)
             return
         cache, self._stream_cache = self._stream_cache, None
         if cache is not None and cache[0] == [r.rid for r in reqs]:
             cur_cold = cache[1]
         else:
-            ids = self._host_ids(reqs)
-            cur_cold = [store.cold_ids_of(ids) for store in self._host_stores]
+            cur_cold = [store.cold_ids_of(ids) for store, ids in
+                        zip(self._host_stores, self._store_ids(reqs))]
         nxt = list(self.batcher._queue[:self.max_batch])
         nxt_cold = None
         if nxt:
-            ids = self._host_ids(nxt)
-            nxt_cold = [store.cold_ids_of(ids) for store in self._host_stores]
+            nxt_cold = [store.cold_ids_of(ids) for store, ids in
+                        zip(self._host_stores, self._store_ids(nxt))]
         for i, store in enumerate(self._host_stores):
             store.stage(cur_cold[i],
                         ahead=None if nxt_cold is None else nxt_cold[i])

@@ -21,8 +21,8 @@ rows within their quantization bounds, and gradients reach the hot rows
 through the fused op the fp path trains with.
 
 The port of ``repro/storage/tiered.py``; the walks cover the sources the
-port has (tiered members of a table group and sharded sources are ROADMAP
-Queue 1, items 8 and 13).
+port has, a table group's tiered members included (sharded sources are
+ROADMAP Queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -392,6 +392,9 @@ def host_stores_of(source) -> List[HostStore]:
             if s.store is not None and id(s.store) not in seen:
                 seen.add(id(s.store))
                 out.append(s.store)
+        elif isinstance(s, es.TableGroupSource):
+            for m in s.members:
+                walk(m)
         elif isinstance(s, es.CachedSource):
             walk(s.cold)
 
@@ -412,6 +415,11 @@ def refresh_host_tiers(source):
     if isinstance(source, (TieredSource, es.CachedSource)):
         cold = refresh_host_tiers(source.cold)
         return source if cold is source.cold else replace(source, cold=cold)
+    if isinstance(source, es.TableGroupSource):
+        members = tuple(refresh_host_tiers(m) for m in source.members)
+        return (source if all(a is b for a, b in
+                              zip(members, source.members))
+                else replace(source, members=members))
     return source
 
 

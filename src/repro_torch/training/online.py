@@ -30,15 +30,19 @@ the gauges ``train_loss``, ``train_cache_version``, ``train_rebuild_hot_k``
 and ``train_requant_rows`` (and ``rec_tier_bytes`` a tier when tiered),
 the counters ``train_steps_total`` and ``train_rebuilds_total``, and the
 events ``hot_cache_rebuild``, ``quantized_refresh``, ``tier_migration``
-and ``publish``. Not ported yet: the per-table ``OnlineGroupTrainer`` of
-heterogeneous table groups (ROADMAP Queue 1, item 9).
+and ``publish``.
+
+``OnlineGroupTrainer`` is the same protocol per table for a heterogeneous
+table group: one decayed histogram, hot cache, int8 mirror or tiered
+source a table, as its ``TablePlan`` says, and one version for the whole
+group, published as one ``VersionedSource`` of the ``TableGroupSource``.
 """
 from __future__ import annotations
 
 import dataclasses
 import io
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -53,6 +57,15 @@ from repro_torch.optim import tree_map
 from repro_torch.storage import tiered as st
 
 _BATCH_KEYS = ("dense", "indices", "offsets", "labels")
+
+
+def _dense_head(params: Dict) -> Optional[Dict]:
+    """The dense-stage parameters a broadcast artifact ships beside the
+    sparse source: the bottom and top MLPs and, on a heterogeneous model,
+    the per-table projections. The artifact codec keeps their container
+    types, so an engine adopts the decoded head in place."""
+    head = {k: params[k] for k in ("bottom", "top", "proj") if k in params}
+    return head or None
 
 
 @dataclass(frozen=True)
@@ -127,6 +140,12 @@ class VersionedHotCache:
         return True
 
 
+def _batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A numpy batch's training keys as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+            for k in _BATCH_KEYS}
+
+
 def _patch_hot_rows(cache: se.HotRowCache, arena: torch.Tensor,
                     null_row: int, rows: torch.Tensor) -> se.HotRowCache:
     """Write-through: a new cache whose hot copies of ``rows`` are
@@ -181,10 +200,9 @@ class OnlineTrainer:
                  telemetry: Optional[obs.Telemetry] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if cfg.heterogeneous:
-            raise NotImplementedError(
-                "online training of a heterogeneous table group is the "
-                "reference's OnlineGroupTrainer, not ported yet (ROADMAP "
-                "Queue 1, item 9)")
+            raise ValueError(
+                "a heterogeneous config trains its table group through "
+                "OnlineGroupTrainer, one plan a table")
         self.device = resolve_device(device)
         self.telemetry = (telemetry if telemetry is not None
                           else obs.Telemetry())
@@ -247,8 +265,7 @@ class OnlineTrainer:
                 self._g_tier_bytes[tier].set(nb)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                for k in _BATCH_KEYS}
+        return _batch_to(batch, self.device)
 
     # -- histogram ---------------------------------------------------------
 
@@ -474,6 +491,217 @@ class OnlineTrainer:
                                    cold=cold_like(engine_source.cold),
                                    coherent=engine_source.coherent)
         return cold_like(engine_source)
+
+
+class OnlineGroupTrainer:
+    """Per-table online trainer of a heterogeneous table group.
+
+    The group sibling of ``OnlineTrainer``: every piece of protocol state
+    is per table. One decayed row histogram a table; a hot cache for the
+    tables whose ``TablePlan.cache_k`` > 0, an int8 mirror for the
+    ``quantize`` tables and a ``TieredSource`` for the tiered ones; one
+    row-wise Adagrad accumulator a table arena (inside the group train
+    step). Publication is one ``VersionedSource`` of the whole
+    ``TableGroupSource`` under one version, so a replica adopts every
+    table's refresh in one swap.
+
+    Caches, int8 mirrors and tiered sources are built at construction
+    (uniform histogram), so ``serving_source()`` has one structure from
+    step 0 and a swap into an engine never recaptures a graph.
+
+    The train step works in place, and ``serving_source()`` aliases the
+    trainer's tensors: every consumer copies (``VersionedSource.serialize``,
+    ``RecEngine.update_source``) or is the trainer itself. Dirty masks
+    stay on the device, so marking a step's rows costs no host copy.
+    Runs on the card unless ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: DLRMConfig, params: Dict, *, max_l: int,
+                 plans, lr: float = 1e-3, refresh_every: int = 50,
+                 decay: float = 0.98,
+                 telemetry: Optional[obs.Telemetry] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        if not cfg.heterogeneous:
+            raise ValueError("OnlineGroupTrainer needs a heterogeneous "
+                             "config; a uniform one trains through "
+                             "OnlineTrainer")
+        if len(plans) != cfg.n_tables:
+            raise ValueError(f"{len(plans)} table plans for "
+                             f"{cfg.n_tables} tables")
+        self.device = resolve_device(device)
+        self.telemetry = (telemetry if telemetry is not None
+                          else obs.Telemetry())
+        reg = self.telemetry.registry
+        self._g_loss = reg.gauge("train_loss", "last optimizer-step loss")
+        self._g_version = reg.gauge("train_cache_version",
+                                    "last published rebuild version")
+        self._c_steps = reg.counter("train_steps_total",
+                                    "optimizer steps taken")
+        self._c_rebuilds = reg.counter("train_rebuilds_total",
+                                       "hot-cache rebuilds")
+        self.cfg = cfg
+        self.spec = dlrm.arena_spec(cfg)
+        self.specs = dlrm.member_specs(cfg)
+        self.plans = tuple(plans)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.max_l = max_l
+        self.refresh_every = refresh_every
+        self.decay = decay
+        opt, self._step = dlrm.make_train_step_ragged(cfg, max_l=max_l,
+                                                      lr=lr, sparse=True)
+        self.opt_state = opt.init(self.params)
+        self.hists = [np.zeros(sp.total_rows, np.float64)
+                      for sp in self.specs]
+        self.steps = 0
+        self.version = 0
+        self.losses: list = []
+        self.caches: List[Optional[se.HotRowCache]] = []
+        self.cold_q: List[Optional[es.QuantizedArena]] = []
+        self.tiered: List[Optional[st.TieredSource]] = []
+        self._dirty_q: List[Optional[torch.Tensor]] = []
+        for plan, sp, arena in zip(self.plans, self.specs,
+                                   self.params["tables"]):
+            self.caches.append(
+                se.build_hot_cache(arena, sp, np.ones(sp.total_rows),
+                                   plan.cache_k)
+                if plan.cache_k > 0 else None)
+            self.cold_q.append(es.QuantizedArena.from_arena(arena)
+                               if plan.quantize else None)
+            self.tiered.append(
+                plan.tiers.build_source(arena, sp, None,
+                                        telemetry=self.telemetry)
+                if plan.tiers is not None else None)
+            self._dirty_q.append(
+                torch.zeros(arena.shape[0], dtype=torch.bool,
+                            device=self.device)
+                if plan.quantize or plan.tiers is not None else None)
+
+    # -- histogram ---------------------------------------------------------
+
+    def observe(self, batch: Dict) -> None:
+        """Fold one interleaved batch into the per-table histograms, on
+        the host from the numpy batch."""
+        counts = es.group_trace_counts(self.specs, batch["indices"],
+                                       batch["offsets"])
+        for t, c in enumerate(counts):
+            self.hists[t] = self.decay * self.hists[t] + c
+
+    # -- training ----------------------------------------------------------
+
+    def train_step(self, batch: Dict) -> float:
+        """One optimizer step on a numpy batch; the per-table
+        write-through and dirty marks ride along."""
+        self.observe(batch)
+        self.params, self.opt_state, loss, touched = self._step(
+            self.params, self.opt_state, _batch_to(batch, self.device))
+        self.steps += 1
+        tables = self.params["tables"]
+        for t, rows in enumerate(touched):
+            if self._dirty_q[t] is not None:
+                self._dirty_q[t][rows] = True
+            if self.caches[t] is not None:
+                self.caches[t] = _patch_hot_rows(
+                    self.caches[t], tables[t], self.specs[t].null_row, rows)
+            if self.tiered[t] is not None:
+                self.tiered[t] = _patch_tiered_hot(
+                    self.tiered[t], tables[t], self.specs[t].null_row, rows)
+        if self.steps % self.refresh_every == 0:
+            self.rebuild()
+        loss = float(loss)
+        self.losses.append(loss)
+        if self.telemetry.enabled:
+            self._c_steps.inc()
+            self._g_loss.set(loss)
+        return loss
+
+    def train(self, batches: Iterable[Dict]) -> list:
+        for batch in batches:
+            self.train_step(batch)
+        return self.losses
+
+    # -- publication -------------------------------------------------------
+
+    def rebuild(self) -> int:
+        """Re-rank every cached table from its histogram, re-quantize the
+        rows of each int8 mirror dirtied since the last rebuild, migrate
+        each tiered table, and bump one version for the whole group:
+        tables refresh together or not at all. Reads each dirty count on
+        the host, once a rebuild."""
+        requant, migrated = {}, {}
+        tables = self.params["tables"]
+        for t, (plan, sp) in enumerate(zip(self.plans, self.specs)):
+            if plan.cache_k > 0:
+                self.caches[t] = se.build_hot_cache(
+                    tables[t], sp, self.hists[t], plan.cache_k)
+            if self.cold_q[t] is not None:
+                rows = self._dirty_q[t].nonzero().reshape(-1).to(
+                    torch.int32)
+                requant[str(t)] = int(rows.numel())
+                if rows.numel():
+                    self.cold_q[t] = self.cold_q[t].quantize_rows(tables[t],
+                                                                  rows)
+                    self._dirty_q[t].zero_()
+            if self.tiered[t] is not None:
+                self.tiered[t], stats = st.migrate(
+                    self.tiered[t], tables[t], sp, plan.tiers,
+                    self.hists[t], self._dirty_q[t].cpu().numpy())
+                self._dirty_q[t].zero_()
+                migrated[str(t)] = stats
+        self.version += 1
+        self._c_rebuilds.inc()
+        self._g_version.set(self.version)
+        self.telemetry.emit(
+            "hot_cache_rebuild", version=self.version, step=self.steps,
+            cached_tables=[t for t, c in enumerate(self.caches)
+                           if c is not None],
+            requant_rows=requant)
+        if migrated:
+            self.telemetry.emit("tier_migration", version=self.version,
+                                step=self.steps, tables=migrated)
+        return self.version
+
+    def serving_source(self) -> es.TableGroupSource:
+        """The group a replica should serve now, of the same structure at
+        every step. It aliases the trainer's tensors (the class
+        docstring's rule)."""
+        members = []
+        for t in range(len(self.plans)):
+            if self.tiered[t] is not None:
+                members.append(self.tiered[t])
+                continue
+            cold = (self.cold_q[t] if self.cold_q[t] is not None
+                    else es.FpArena(self.params["tables"][t]))
+            members.append(es.CachedSource(hot=self.caches[t], cold=cold,
+                                           coherent=True)
+                           if self.caches[t] is not None else cold)
+        return es.TableGroupSource(members=tuple(members),
+                                   specs=self.specs)
+
+    def publish_source(self, include_head: bool = False) -> bytes:
+        """One ``VersionedSource`` blob of every table's sparse state
+        under the group's one version; ``include_head=True`` adds the
+        dense head (MLPs and projections), so a remote replica adopts
+        everything it serves from the blob."""
+        blob = VersionedSource(source=self.serving_source(),
+                               version=self.version,
+                               head=(_dense_head(self.params)
+                                     if include_head else None)
+                               ).serialize()
+        self.telemetry.emit("publish", version=self.version,
+                            artifact="group_source", bytes=len(blob))
+        return blob
+
+    def sync_engine(self, engine) -> bool:
+        """Push the live group into a RecEngine if it is behind (the
+        step gate of ``OnlineTrainer.sync_engine``); params and source
+        are copied into the engine's own tensors together."""
+        if getattr(engine, "_trainer_step", -1) >= self.steps \
+                and engine.source_version >= self.version:
+            return False
+        engine.params = self.params
+        engine.update_source(self.serving_source(), version=self.version)
+        engine._trainer_step = self.steps
+        return True
 
 
 def make_drifting_zipf(cfg: DLRMConfig, *, batch_size: int, mean_l: int,

@@ -385,14 +385,26 @@ def test_source_spec_matches_jax(case, path, kw):
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "Queue 1, item 13"),
-    ({"require_mesh": True}, "Queue 1, item 13"),
-    # a table group is ported; a tiered member of one is not
-    ({"tables": (es.TablePlan(rows=10, dim=4,
-                              tiers=TierPolicy(hot=2, warm=4)),)},
-     "Queue 1, item 8")])
+    ({"require_mesh": True}, "Queue 1, item 13")])
 def test_source_spec_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         es.SourceSpec(**kw).build([torch.zeros(11, 4)], None)
+
+
+def test_source_spec_builds_a_tiered_group_member():
+    """A table group's tiered member, once refused, is built by its
+    ``TierPolicy`` as a lone table's tiered plan is."""
+    arena = torch.arange(44.0).reshape(11, 4)
+    arena[-1] = 0
+    src = es.SourceSpec(tables=(es.TablePlan(
+        rows=10, dim=4, tiers=TierPolicy(hot=2, warm=4)),)).build(
+        [arena], None)
+    own = TierPolicy(hot=2, warm=4).build_source(
+        arena, es.TablePlan(rows=10, dim=4).arena_spec)
+    assert isinstance(src, es.TableGroupSource)
+    for a, b in zip(es.source_structure(src.members[0])[1],
+                    es.source_structure(own)[1]):
+        assert torch.equal(a, b)
 
 
 def test_source_spec_from_path_refusals():

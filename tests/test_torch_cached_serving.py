@@ -263,16 +263,19 @@ def test_engine_parts_refuse_what_they_cannot_serve(params, source, call,
 def test_unported_engine_arguments_name_their_item(params):
     with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
         _engine(params, mesh=object())
-    # a table-group plan is ported; a tiered member of one is not
+    # a table-group plan is ported, and so are its tiered members: the
+    # engine builds one TieredSource a table
     het = DLRM_HET_SMOKE
     tiered = tuple(es.TablePlan(rows=tp.rows, dim=tp.dim,
                                 tiers=TierPolicy(hot=2, warm=4))
                    for tp in t_dlrm.table_plans(het))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        RecEngine(het, t_dlrm.init(torch.Generator().manual_seed(0), het,
-                                   device="cpu"),
-                  source=es.SourceSpec(tables=tiered), max_l=MAX_L,
-                  device="cpu")
+    engine = RecEngine(het, t_dlrm.init(torch.Generator().manual_seed(0),
+                                        het, device="cpu"),
+                       source=es.SourceSpec(tables=tiered), max_l=MAX_L,
+                       device="cpu")
+    assert engine.path == "grouped"
+    assert all(type(m).__name__ == "TieredSource"
+               for m in engine.source.members)
 
 
 def test_reference_hot_rows_serve_in_the_port(np_params, params, counts):

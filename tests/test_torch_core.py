@@ -127,8 +127,8 @@ def test_feature_interaction_width_is_d_plus_pairs():
 
 def test_heterogeneous_configs_are_refused():
     """Heterogeneous configs are ported; what the port still refuses of
-    them names its ROADMAP item: sharded members (13) and tiered members
-    (8). The envelope spec is the reference's."""
+    them names its ROADMAP item: sharded members (13). Tiered members are
+    built. The envelope spec is the reference's."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     j_het = dataclasses.replace(j_cfgs.DLRM_SMOKE, table_rows=(10, 20, 30),
@@ -144,8 +144,8 @@ def test_heterogeneous_configs_are_refused():
     plans = tuple(t_es.TablePlan(rows=tp.rows, dim=tp.dim,
                                  tiers=TierPolicy(hot=1, warm=2))
                   for tp in t_dlrm.table_plans(het))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        t_es.SourceSpec(tables=plans).build(arenas, None)
+    group = t_es.SourceSpec(tables=plans).build(arenas, None)
+    assert [type(m).__name__ for m in group.members] == ["TieredSource"] * 3
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +341,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.serving.engine\n"
             "import repro_torch.obs, repro_torch.serving.scheduler\n"
             "import repro_torch.serving.loadgen\n"
+            "import repro_torch.fleet, repro_torch.checkpoint\n"
+            "import repro_torch.distributed, repro_torch.fleet.chaos\n"
+            "from repro_torch.training import OnlineGroupTrainer\n"
             "from repro_torch.configs import (smollm_360m, h2o_danube_1_8b,\n"
             "    qwen1_5_4b)\n"
             "from repro_torch.training import (OnlineCacheConfig,\n"

@@ -575,8 +575,12 @@ def test_train_launcher_trains_the_fixed_layout_on_cpu():
     assert lines[-1] == f"final loss {loss:.4f}" and np.isfinite(loss)
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--resume"]])
+@pytest.mark.parametrize("argv", [["--ckpt-dir", "x", "--ckpt-every", "0"],
+                                  ["--resume"]])
 def test_train_launcher_refuses_checkpoints(argv):
+    """Checkpoints are ported (tests/test_torch_checkpoint.py); what the
+    launcher refuses of them is a save cadence below one step and
+    ``--resume`` without ``--ckpt-dir``."""
     err = io.StringIO()
     with pytest.raises(SystemExit), redirect_stdout(err):
         t_train.main(["--smoke", "--device", "cpu", *argv])

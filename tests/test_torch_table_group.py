@@ -53,8 +53,8 @@ from repro_torch.data import DLRMSynthetic as TSynthetic
 from repro_torch.optim import tree_leaves
 from repro_torch.serving import RecEngine
 from repro_torch.serving import requests_from_ragged_batch as t_requests
-from repro_torch.training import (OnlineTrainer, VersionedSource,
-                                  group_row_grads)
+from repro_torch.training import (OnlineGroupTrainer, OnlineTrainer,
+                                  VersionedSource, group_row_grads)
 
 torch.set_num_threads(1)
 
@@ -605,12 +605,15 @@ def test_fixed_train_step_on_a_group_matches_reference():
 
 
 def test_online_group_trainer_is_refused():
-    """The reference's OnlineGroupTrainer (its test_online_group_trainer_
-    protocol) is ROADMAP Queue 1, item 9 in the port."""
+    """A heterogeneous config trains online through the port's
+    OnlineGroupTrainer (tests/test_torch_group_online.py): OnlineTrainer
+    refuses it, naming the class to use."""
     params = t_dlrm.init(torch.Generator().manual_seed(0), HET, device="cpu")
-    with pytest.raises(NotImplementedError, match="OnlineGroupTrainer.*"
-                                                  "Queue 1, item 9"):
+    with pytest.raises(ValueError, match="OnlineGroupTrainer"):
         OnlineTrainer(HET, params, max_l=MAX_L, device="cpu")
+    tr = OnlineGroupTrainer(HET, params, max_l=MAX_L,
+                            plans=t_dlrm.table_plans(HET), device="cpu")
+    assert isinstance(tr.serving_source(), es.TableGroupSource)
 
 
 def test_sharded_members_are_refused():

@@ -359,8 +359,9 @@ def test_sharded_training_is_refused(kw, item):
 
 
 def test_heterogeneous_training_is_refused():
-    """Group train steps are ported; sharded group training (item 13) and
-    the online group trainer (item 9) are refused naming their items."""
+    """Group train steps are ported; sharded group training is refused
+    naming its item (13), and OnlineTrainer refuses a group, naming
+    OnlineGroupTrainer, which trains one."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     for sparse in (True, False):
@@ -369,7 +370,7 @@ def test_heterogeneous_training_is_refused():
                                           mesh=object())
     params = t_dlrm.init(torch.Generator().manual_seed(0), het,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(ValueError, match="OnlineGroupTrainer"):
         OnlineTrainer(het, params, max_l=MAX_L, device="cpu")
 
 
@@ -403,11 +404,13 @@ def test_online_trainer_matches_the_train_step():
 
 @pytest.mark.parametrize("kw", [{"cfg": DLRM_HET_SMOKE}])
 def test_online_trainer_refuses_what_is_not_ported(kw):
-    """The reference's OnlineGroupTrainer, of a heterogeneous table group
-    (telemetry, once refused here, is ported: tests/test_torch_obs.py)."""
+    """A heterogeneous table group trains through OnlineGroupTrainer
+    (tests/test_torch_group_online.py), which OnlineTrainer names when it
+    refuses one (telemetry, once refused here, is ported:
+    tests/test_torch_obs.py)."""
     cfg = kw["cfg"]
     params = t_dlrm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(ValueError, match="OnlineGroupTrainer"):
         OnlineTrainer(cfg, params, max_l=MAX_L, device="cpu")
 
 
