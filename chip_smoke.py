@@ -275,7 +275,33 @@ forward. Each serving phase zeroes the counts just before its engine's
    tier maps and dirty masks exact, hot rows under phase 4's budget),
    its group served through one graph synced after every step, bit for
    bit against the eager step, with the engine's own host store.
-15. Report: one JSON line of the kernels, then the device line, which is
+15. LM training, smollm-360m at full width: (a) the flash op's backward
+   (a recompute through ``models.layers._sdpa_chunked``, no kernel of its
+   own) at smollm-360m's heads at S = 2048 and 4096: equal bit for bit to
+   autograd through ``_sdpa_chunked`` on the same inputs and upstream
+   gradient, two backward passes equal, the forward within phase 10's
+   tolerance of the plain version; the backward's and the op's forward +
+   backward times beside ``F.scaled_dot_product_attention``'s forward +
+   backward and the bound (five bf16 products a pair of the band). (b)
+   Two layers at full width, one ``make_train_step`` step on one
+   ``LMSynthetic`` batch of 2,048 tokens on the card and on the CPU path
+   (bf16 and fp32) from copies of the card's params: loss, grad norm and
+   every leaf's clipped gradient and update within twice the CPU bf16
+   step's own error against the fp32 step (budgets printed). (c) The main
+   path: the full 32-layer model, ``layerwise(adamw(3e-4))``, grad clip
+   1.0, fed by a ``Prefetcher`` of ``LMSynthetic`` batches placed on the
+   card by ``make_placer``: 3 timed steps and a profiled one at 2,048 x 4
+   and at 4,096 x 2 in two micro-batches, each step launching the flash
+   kernel 2 x 32 times a micro-batch (forward and remat) and nothing else
+   of the port, losses finite, every param moved; a gradient pass with
+   remat off launches it 32 times and gives the first step's loss bit for
+   bit; step ms (CUDA events), tokens/s, peak memory, kernels, device ms
+   by group (flash forward, the backward's recompute, matmul, other) and
+   the idle share. (d) The training launcher at full width (``--arch
+   smollm-360m --seq-len 2048``): 3 steps uninterrupted against 2 steps
+   with a checkpoint and a ``--resume`` run of the third, final params and
+   optimizer state equal bit for bit.
+16. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -308,7 +334,8 @@ from repro_torch.core import dlrm  # noqa: E402
 from repro_torch.core import embedding_source as es  # noqa: E402
 from repro_torch.core import hybrid  # noqa: E402
 from repro_torch.core import sparse_engine as se  # noqa: E402
-from repro_torch.data import DLRMSynthetic  # noqa: E402
+from repro_torch.data import (DLRMSynthetic, LMSynthetic,  # noqa: E402
+                              Prefetcher, make_placer)
 from repro_torch.fleet import FaultPlan, FleetRunner  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg_k  # noqa: E402
@@ -320,7 +347,9 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
-from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.optim import (Optimizer, global_norm,  # noqa: E402
+                               tree_leaves, tree_map, tree_paths)
 from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
                                  Request, SlaPolicy, SlaScheduler, loadgen,
                                  requests_from_ragged_batch)
@@ -5499,6 +5528,456 @@ def phase_fleet() -> dict:
     return fleet
 
 
+# ---------------------------------------------------------------- phase 15
+
+LM_BWD_S = (2048, 4096)            # 15(a): the op's backward at these S
+LM_TRAIN_CPU_S = 2048              # 15(b): card against CPU, 2 layers, B 1
+LM_TRAIN_RUNS = ((2048, 4, 1), (4096, 2, 2))   # 15(c): (S, batch, micro-
+LM_TRAIN_STEPS = 3                 # batches); timed steps of each, then one
+                                   # profiled step
+LM_TRAIN_CLIP = 1.0
+LM_LAUNCH_S = 2048                 # 15(d): the launcher's sequences, batch 1
+LM_LAUNCH_STEPS = 3
+# 15(b): card against the CPU path, one train step of 2 layers at full
+# width. The bar is phase 10(c)'s: the card within LM_FLOOR_FACTOR x the
+# CPU bf16 path's own error against an fp32 CPU step from the same
+# weights. For the loss (a mean over tokens) that error is the mean
+# |bf16 - fp32| next-token loss over the batch's tokens, which bounds the
+# error of the mean of any path as accurate; for the grad norm it is the
+# norm of the (unclipped) gradient's difference, which bounds the
+# difference of the norms. Gradients and updates per leaf by their
+# largest element. AdamW's first step moves a param by ~lr * sign(g):
+# an element whose gradient is within rounding of zero may step the other
+# way on either bf16 path, so a leaf's update floor is at least 2 lr
+# (1 + wd |p|) (phase 4's rule; |p| < 1 here).
+LM_LR = 3e-4                       # default_optimizer's AdamW
+
+
+def flash_backward_bound(b, s, h, kh, d, causal, window):
+    """The backward's least time: q, k, v and the output's gradient read,
+    dq, dk and dv written (bf16), and five products of 2 d flops a (q, k)
+    pair of the band a head (S recomputed, dP, dV, dQ, dK), as a flash
+    backward does them, on the bf16 tensor cores."""
+    n_bytes = 2 * b * s * d * (2 * h + 2 * kh) * 2
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (10 * d * attention_pairs(s, causal, window) * h * b
+             / BF16_FLOPS_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash_backward(gen) -> tuple:
+    """15(a): the op's backward (the recompute through the chunked path)
+    at smollm-360m's heads, causal, at each of LM_BWD_S: equal bit for
+    bit to autograd through ``layers._sdpa_chunked`` on the same inputs
+    and upstream gradient, two backward passes equal, the forward within
+    phase 10's tolerance of the plain version; times of the backward, of
+    the op's forward + backward, and of F.scaled_dot_product_attention's
+    forward + backward (a yardstick the port never calls)."""
+    name = "flash_attention"
+    errs, rows = [], []
+    b, h, kh, d = 1, 15, 5, 64
+    for s in LM_BWD_S:
+        q = torch.randn((b, s, h, d), generator=gen,
+                        device="cuda").bfloat16().requires_grad_()
+        k, v = (torch.randn((b, s, kh, d), generator=gen,
+                            device="cuda").bfloat16().requires_grad_()
+                for _ in range(2))
+        g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        with uncounted():
+            out = ops.flash_attention_gqa(q, k, v)
+            errs.append(compare(name, out.detach(), ref.flash_attention_gqa(
+                q.detach(), k.detach(), v.detach(), bq=512, bk=512),
+                f"forward before backward, S = {s}"))
+            got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+            again = torch.autograd.grad(ops.flash_attention_gqa(q, k, v),
+                                        (q, k, v), g)
+        pos = torch.arange(s, device="cuda")
+        c = lm_layers.pick_chunk(s, lm_layers.Q_CHUNK)
+        chunked = lm_layers._sdpa_chunked(q.reshape(b, s, kh, h // kh, d), k,
+                                          v, pos, pos, True, None, c, c)
+        want = torch.autograd.grad(chunked.reshape(b, s, h, d), (q, k, v), g)
+        torch.cuda.synchronize()
+        for what, x, y, z in zip("qkv", got, again, want):
+            if not torch.equal(x, z):
+                fail(f"{name} backward S = {s}: d{what} differs from "
+                     f"autograd through _sdpa_chunked by "
+                     f"{float((x.float() - z.float()).abs().max())}")
+            if not torch.equal(x, y):
+                fail(f"{name} backward S = {s}: two backward passes differ "
+                     f"in d{what}")
+        qt = q.detach().transpose(1, 2).requires_grad_()
+        kt, vt = (t.detach().transpose(1, 2).repeat_interleave(h // kh, 1)
+                  .requires_grad_() for t in (k, v))
+        gt = g.transpose(1, 2)
+
+        def backward():
+            return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+        def forward_backward():
+            return torch.autograd.grad(ops.flash_attention_gqa(q, k, v),
+                                       (q, k, v), g)
+
+        def library():
+            return torch.autograd.grad(F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), (qt, kt, vt), gt)
+
+        with uncounted():
+            bound_ms, by = flash_backward_bound(b, s, h, kh, d, True, None)
+            fwd_ms, _ = flash_bound(b, s, h, kh, d, True, None)
+            row = {"shape": [b, s, h, kh, d], "causal": True,
+                   "ms": time_ms(backward, reps=2, trials=5),
+                   "device_ms": device_ms(backward, reps=2),
+                   "forward_backward_ms": time_ms(forward_backward, reps=2,
+                                                  trials=5),
+                   "forward_backward_device_ms": device_ms(forward_backward,
+                                                           reps=2),
+                   "library_ms": time_ms(library, reps=10, trials=10),
+                   "library_device_ms": device_ms(library, reps=10),
+                   "bound_ms": bound_ms, "bound_by": by,
+                   "forward_backward_bound_ms": bound_ms + fwd_ms,
+                   "bit_equal_to_chunked_autograd": True,
+                   "deterministic": True}
+        rows.append(row)
+        print(f"  {name} backward (recompute) S = {s}, {b}x{s}x{h}/{kh}x{d}: "
+              f"{row['ms']:.3f} ms ({_fmt(row['device_ms'])} device); "
+              f"forward + backward {row['forward_backward_ms']:.3f} "
+              f"({_fmt(row['forward_backward_device_ms'])}); library "
+              f"forward + backward {row['library_ms']:.3f} "
+              f"({_fmt(row['library_device_ms'])}); bound {bound_ms:.5f} "
+              f"({by}), forward + backward {row['forward_backward_bound_ms']:.5f}"
+              f"; equal to autograd through _sdpa_chunked, two passes equal")
+        del out, got, again, want, chunked
+    return max(errs), rows
+
+
+def _token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token loss a position, (B, S - 1), fp32."""
+    lg = logits[:, :-1].float()
+    m = lg.amax(-1, keepdim=True)
+    logz = m[..., 0] + torch.log(torch.exp(lg - m).sum(-1))
+    return logz - torch.gather(lg, -1, tokens[:, 1:].long()[..., None])[..., 0]
+
+
+def _spied_step(cfg):
+    """make_train_step with the default optimizer, whose update records
+    the (clipped) gradients it is handed."""
+    name, opt = lm_api.default_optimizer(cfg)
+    seen = {}
+
+    def update(grads, state, params):
+        seen["grads"] = tree_map(lambda t: t.detach().clone(), grads)
+        return opt.update(grads, state, params)
+    _, opt2, step = lm_api.make_train_step(
+        cfg, optimizer=(name, Optimizer(opt.init, update)),
+        grad_clip=LM_TRAIN_CLIP)
+    return opt2, step, seen
+
+
+def _one_step(cfg, params, batch) -> dict:
+    """One train step from ``params`` (copied first): loss, grad norm, the
+    clipped gradients, the unclipped ones (divided by the clip's scale)
+    and each leaf's update, all fp32 on the CPU."""
+    before = tree_map(lambda t: t.detach().float().cpu(), params)
+    opt, step, seen = _spied_step(cfg)
+    p = tree_map(lambda t: t.detach().clone(), params)
+    p, _, m = step(p, opt.init(p), batch)
+    gn = float(m["grad_norm"])
+    scale = min(1.0, LM_TRAIN_CLIP / (gn + 1e-9))
+    clipped = tree_map(lambda t: t.float().cpu(), seen["grads"])
+    return {"loss": float(m["loss"]), "grad_norm": gn, "grads": clipped,
+            "raw": tree_map(lambda t: t / scale, clipped),
+            "update": tree_map(lambda a, b_: a.float().cpu() - b_, p, before)}
+
+
+def lm_train_card_vs_cpu(cfg) -> dict:
+    """15(b): smollm-360m at full width, 2 layers, one train step from one
+    set of params on one LMSynthetic batch at S = LM_TRAIN_CPU_S, on the
+    card and on the CPU path (bf16 and fp32) from copies of the card's
+    params; loss, grad norm, each leaf's clipped gradient and update."""
+    shallow = cfg.replace(n_layers=LM_CPU_LAYERS)
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(15),
+                         shallow, device="cuda")
+    toks = torch.from_numpy(LMSynthetic(shallow, seed=15).batch(
+        1, LM_TRAIN_CPU_S)["tokens"])
+    with uncounted():
+        card = _one_step(shallow, params, {"tokens": toks.cuda()})
+    t0 = time.perf_counter()
+    cpu16 = tree_map(lambda t: t.detach().cpu(), params)
+    cpu32 = tree_map(lambda t: t.float(), cpu16)
+    f32 = shallow.replace(dtype="float32")
+    nll16 = _token_nll(lm_api.forward(cpu16, shallow, {"tokens": toks})[0],
+                       toks)
+    nll32 = _token_nll(lm_api.forward(cpu32, f32, {"tokens": toks})[0], toks)
+    c16 = _one_step(shallow, cpu16, {"tokens": toks})
+    c32 = _one_step(f32, cpu32, {"tokens": toks})
+    cpu_s = time.perf_counter() - t0
+
+    def diff_norm(a, b_):
+        return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(
+            tree_leaves(a), tree_leaves(b_)))))
+
+    out = {"cpu_s": cpu_s, "steps": {}}
+    checks = [("loss", abs(card["loss"] - c32["loss"]),
+               float((nll16 - nll32).abs().mean())),
+              ("grad_norm", abs(card["grad_norm"] - c32["grad_norm"]),
+               diff_norm(c16["raw"], c32["raw"]))]
+    for what in ("grads", "update"):
+        for (path, a), (_, b16), (_, b32) in zip(
+                tree_paths(card[what]), tree_paths(c16[what]),
+                tree_paths(c32[what])):
+            floor = float((b16 - b32).abs().max())
+            if what == "update":
+                floor = max(floor, 2 * LM_LR * 1.01)
+            checks.append((f"{what} {path}", float((a - b32).abs().max()),
+                           floor))
+    worst = 0.0
+    for what, err, floor in checks:
+        bound = LM_FLOOR_FACTOR * floor
+        out["steps"][what] = {"err": err, "floor": floor, "bound": bound}
+        worst = max(worst, err / bound if bound else float("inf"))
+        if err > bound:
+            fail(f"lm train step, card against CPU: {what} {err} from the "
+                 f"fp32 step, bound {bound} (floor {floor})")
+    for k in ("loss", "grad_norm"):
+        out[k] = {"card": card[k], "cpu_bf16": c16[k], "cpu_fp32": c32[k]}
+    out["worst_err_over_bound"] = worst
+    print(f"  {LM_CPU_LAYERS} layers, S = {LM_TRAIN_CPU_S}: loss card "
+          f"{card['loss']:.6f} / CPU bf16 {c16['loss']:.6f} / fp32 "
+          f"{c32['loss']:.6f} (|card - fp32| {checks[0][1]:.3e}, bound "
+          f"{LM_FLOOR_FACTOR * checks[0][2]:.3e}); grad norm "
+          f"{card['grad_norm']:.5f} / {c16['grad_norm']:.5f} / "
+          f"{c32['grad_norm']:.5f} (|card - fp32| {checks[1][1]:.3e}, bound "
+          f"{LM_FLOOR_FACTOR * checks[1][2]:.3e}); {len(checks) - 2} "
+          f"leaf gradients and updates each within {LM_FLOOR_FACTOR}x the "
+          f"CPU bf16 step's error (worst error / bound {worst:.3f}); "
+          f"{cpu_s:.1f} s on the CPU")
+    for what in ("grads", "update"):
+        for path, r in out["steps"].items():
+            if path.startswith(what):
+                print(f"    {path:40s} err {r['err']:.3e} floor "
+                      f"{r['floor']:.3e}")
+    return out
+
+
+def _train_groups(prof) -> tuple:
+    """(device ms by group, kernels) of a profiled train step: the flash
+    kernel, the backward's recompute (every kernel launched under
+    ``ops.RECOMPUTE_SPAN``), matmul, copies, other; kernels that the
+    profiler linked to no op are "unlinked"."""
+    groups, inside = {}, {}
+    n = 0
+
+    def recompute(e):
+        if id(e) not in inside:
+            p = e.cpu_parent
+            inside[id(e)] = (e.name == ops.RECOMPUTE_SPAN
+                             or (p is not None and recompute(p)))
+        return inside[id(e)]
+    events = prof.events()
+    for e in events:
+        for k in e.kernels:
+            g = "recompute" if recompute(e) else _lm_group(k.name)
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+            n += g != "copies"
+    # the device's kernels and copies; a span's device-side annotation
+    # covers its kernels and the gaps between them
+    total = sum(e.device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation
+                and e.name != ops.RECOMPUTE_SPAN) / 1e3
+    if total > sum(groups.values()):
+        groups["unlinked"] = total - sum(groups.values())
+    return groups, n
+
+
+def lm_train_run(cfg, params, opt_state, s: int, b: int, mb: int,
+                 seed: int) -> dict:
+    """LM_TRAIN_STEPS timed steps and one profiled step of ``b`` x ``s``
+    tokens in ``mb`` micro-batches through a Prefetcher of LMSynthetic
+    batches placed on the card: the flash wrapper's launches a step (2 x
+    n_layers a micro-batch under remat, nothing else of the port), the
+    loss finite, step ms (CUDA events), tokens/s, peak memory, kernels and
+    device ms by group a step (profiler), the idle share."""
+    _, _, step = lm_api.make_train_step(cfg, grad_clip=LM_TRAIN_CLIP,
+                                        microbatches=mb)
+    data = LMSynthetic(cfg, seed=seed)
+    pf = Prefetcher((data.batch(b, s) for _ in range(LM_TRAIN_STEPS + 1)),
+                    place=make_placer("cuda"))
+    want = 2 * cfg.n_layers * mb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    for i, batch in enumerate(pf):
+        before = launch_counts()
+        profiled = i == LM_TRAIN_STEPS
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with prof if profiled else contextlib.nullcontext():
+            start.record()
+            params, opt_state, m = step(params, opt_state, batch)
+            end.record()
+            end.synchronize()
+        if not profiled:
+            times.append(start.elapsed_time(end))
+        after = launch_counts()
+        delta = {n: after[n] - before[n] for n in after}
+        if delta["flash_attention"] != want or any(
+                c for n, c in delta.items() if n != "flash_attention"):
+            fail(f"lm train S = {s} x {b}, {mb} micro-batches, step {i}: "
+                 f"launches {delta}, expected flash_attention x {want} only")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not np.isfinite(losses[-1]) or not np.isfinite(norms[-1]):
+            fail(f"lm train S = {s}: step {i} loss {losses[-1]}, grad norm "
+                 f"{norms[-1]}")
+    pf.close()
+    peak = torch.cuda.max_memory_allocated()
+    groups, kernels = _train_groups(prof)
+    busy = sum(groups.values()) or None
+    ms = float(np.median(times))
+    out = {"seq_len": s, "batch": b, "microbatches": mb,
+           "step_ms": ms, "steps_ms": times, "tokens_per_s": b * s / ms * 1e3,
+           "peak_memory_bytes": peak, "launches_per_step": want,
+           "kernels_per_step": kernels, "device_ms": groups,
+           "device_busy_ms": busy,
+           "device_idle_share": None if busy is None else 1.0 - busy / ms,
+           "recompute_share_of_busy": (
+               None if busy is None else groups.get("recompute", 0.0) / busy),
+           "losses": losses, "grad_norms": norms}
+    print(f"  train S = {s} x batch {b}, {mb} micro-batch(es): step "
+          f"{ms:.1f} ms (steps {[round(t, 1) for t in times]}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, flash_attention x {want} a step, "
+          f"{kernels} kernels in the profiled step; device "
+          f"{_fmt(busy)} ms { {k: round(v, 2) for k, v in groups.items()} }, "
+          f"idle share {out['device_idle_share']}, recompute share "
+          f"{out['recompute_share_of_busy']} of device time; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}")
+    return out, params, opt_state
+
+
+def lm_train_main(cfg) -> dict:
+    """15(c): the full smollm-360m, layerwise AdamW, grad clip 1.0. First
+    a gradient pass with remat off (n_layers launches) against the first
+    train step's loss on the same batch (the same bits); then the runs of
+    LM_TRAIN_RUNS through a Prefetcher, every param moved."""
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(16),
+                         cfg, device="cuda")
+    first = torch.from_numpy(LMSynthetic(cfg, seed=LM_TRAIN_RUNS[0][0])
+                             .batch(LM_TRAIN_RUNS[0][1],
+                                    LM_TRAIN_RUNS[0][0])["tokens"]).cuda()
+    reset_counts()
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss_nr = lm_api.loss(leaves, cfg, {"tokens": first}, remat=False)
+    it = iter(torch.autograd.grad(loss_nr, tree_leaves(leaves)))
+    loss_nr = loss_nr.detach()
+    # the train step's norm: the same leaves summed in the same order
+    norm_nr = global_norm(tree_map(lambda _: next(it), leaves))
+    del leaves, it
+    torch.cuda.synchronize()
+    n_nr = launch_counts()["flash_attention"]
+    if n_nr != cfg.n_layers:
+        fail(f"lm gradient pass with remat off: {n_nr} flash launches, "
+             f"expected {cfg.n_layers}")
+    start = {p: t.clone() for p, t in tree_paths(params)}
+    opt_state = lm_api.default_optimizer(cfg)[1].init(params)
+    reset_counts()
+    runs = []
+    for s, b, mb in LM_TRAIN_RUNS:
+        run, params, opt_state = lm_train_run(cfg, params, opt_state, s, b,
+                                              mb, seed=s)
+        runs.append(run)
+    launches = launch_counts()
+    first = (runs[0]["losses"][0], runs[0]["grad_norms"][0])
+    if first != (float(loss_nr), float(norm_nr)):
+        fail(f"lm train: the remat step's loss and grad norm {first} differ "
+             f"from the remat-off pass's {float(loss_nr)!r}, "
+             f"{float(norm_nr)!r} on the same batch")
+    moved = [p for p, t in tree_paths(params) if not torch.equal(t, start[p])]
+    if len(moved) != len(start):
+        fail(f"lm train: params that did not move: "
+             f"{sorted(set(start) - set(moved))}")
+    print(f"  remat off: flash_attention x {n_nr}, loss {float(loss_nr)!r} "
+          f"and grad norm {float(norm_nr)!r} equal to the remat step's bit "
+          f"for bit; all {len(moved)} param leaves moved; launches "
+          f"{launches}")
+    return {"runs": runs, "launches": launches,
+            "remat_off": {"launches": n_nr, "loss": float(loss_nr),
+                          "grad_norm": float(norm_nr)}}
+
+
+def lm_launcher() -> dict:
+    """15(d): the training launcher at full width, LM_LAUNCH_STEPS steps
+    uninterrupted against a run of all but the last step that saves a
+    checkpoint after the step before, and a ``--resume`` run of the last:
+    the same final params and optimizer state, bit for bit."""
+    base = ["--arch", LM_ARCH, "--seq-len", str(LM_LAUNCH_S),
+            "--batch-size", "1", "--log-every", "1"]
+    n = LM_LAUNCH_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, want = train_launcher.train_lm(train_launcher.parse_args(
+        base + ["--steps", str(n)]))
+    plain_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--ckpt-dir", d, "--ckpt-every", str(n - 1)]
+        t0 = time.perf_counter()
+        train_launcher.train_lm(train_launcher.parse_args(
+            base + ck + ["--steps", str(n - 1)]))
+        saved_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss2, got = train_launcher.train_lm(train_launcher.parse_args(
+            base + ck + ["--steps", str(n), "--resume"]))
+        resumed_s = time.perf_counter() - t0
+    launches = launch_counts()
+    # 2n steps of one micro-batch, each 2 launches a layer under remat
+    n_layers = registry.get_arch(LM_ARCH).n_layers
+    if launches["flash_attention"] != 2 * n * 2 * n_layers or any(
+            c for k, c in launches.items() if k != "flash_attention"):
+        fail(f"lm launcher: launches {launches}, expected flash_attention "
+             f"x {2 * n * 2 * n_layers} only")
+    same = [torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+    if loss2 != loss or not all(same):
+        fail(f"lm launcher: the resumed run's loss {loss2!r} against "
+             f"{loss!r}, {same.count(False)} of {len(same)} leaves differ")
+    print(f"  launcher {' '.join(base)}: {n} steps in {plain_s:.1f} s; "
+          f"{n - 1} steps and a checkpoint in {saved_s:.1f} s; resumed for "
+          f"the last in {resumed_s:.1f} s: loss {loss2:.4f} and all "
+          f"{len(same)} param and optimizer-state leaves equal to the "
+          f"uninterrupted run's bit for bit; launches {launches}")
+    return {"loss": loss, "plain_s": plain_s, "saved_s": saved_s,
+            "resumed_s": resumed_s, "leaves_equal": len(same),
+            "launches": launches}
+
+
+def phase_lm_train(gen) -> tuple:
+    clock = [time.perf_counter()]
+
+    def took(part: str) -> float:
+        now = time.perf_counter()
+        s, clock[0] = now - clock[0], now
+        print(f"   (15({part}) took {s:.1f} s)")
+        return s
+
+    err, rows = check_flash_backward(gen)
+    seconds = {"a": took("a")}
+    cfg = registry.get_arch(LM_ARCH)
+    agree = lm_train_card_vs_cpu(cfg)
+    seconds["b"] = took("b")
+    main = lm_train_main(cfg)
+    seconds["c"] = took("c")
+    launcher = lm_launcher()
+    seconds["d"] = took("d")
+    return {"max_abs_err": err, "recompute_rows": rows}, {
+        "card_vs_cpu": agree, **main, "launcher": launcher,
+        "seconds": seconds}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -5563,7 +6042,12 @@ def main() -> None:
     plane = phase_plane(cfg, served, online, tiered)
     phase("phase 14: the fleet, dlrm_het2 at full width")
     fleet = phase_fleet()
-    phase("phase 15: report")
+    phase("phase 15: LM training, smollm-360m at full width")
+    flash_bwd, lm_train = phase_lm_train(gen)
+    kernels["flash_attention"]["max_abs_err"] = max(
+        kernels["flash_attention"]["max_abs_err"], flash_bwd["max_abs_err"])
+    kernels["flash_attention"]["recompute_rows"] = flash_bwd["recompute_rows"]
+    phase("phase 16: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -5589,7 +6073,8 @@ def main() -> None:
                    "serving_plane": plane["launches"][name],
                    "fleet": fleet["launches"][name],
                    "fleet_group_trainer":
-                       fleet["group_trainer"]["launches"][name]}
+                       fleet["group_trainer"]["launches"][name],
+                   "lm_train": lm_train["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -5616,7 +6101,16 @@ def main() -> None:
                   "composition_device_ms": r["library_device_ms"]}
                for r in kernels[name]["rows"]
                if r.get("what", "").startswith("stage")
-               and r["samples"] == BUCKET}})
+               and r["samples"] == BUCKET},
+            # flash_attention: the op's backward, a recompute through the
+            # chunked attention (no kernel of its own), at each length
+            **({"backward": [{k: r[k] for k in (
+                "shape", "ms", "device_ms", "forward_backward_ms",
+                "forward_backward_device_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by",
+                "forward_backward_bound_ms")}
+                for r in kernels[name]["recompute_rows"]]}
+               if "recompute_rows" in kernels[name] else {})})
     if args.out is not None:
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
@@ -5624,7 +6118,7 @@ def main() -> None:
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
              "graphed": graphed, "lm": lm, "het": het, "plane": plane,
-             "fleet": fleet},
+             "fleet": fleet, "lm_train": lm_train},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

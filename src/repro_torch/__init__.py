@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of the Centaur reproduction: the DLRM side and the
-serving path of the dense LM decoders.
+serving and training paths of the dense LM decoders.
 
 A second package beside the JAX reference ``repro``: each module sits at
 the same relative path as its JAX counterpart and keeps its public names.

@@ -158,6 +158,23 @@ def shape_applicable(model: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"          # sgd | adamw | adafactor
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # row-wise adagrad for DLRM embedding tables (paper-standard)
+    embedding_opt: str = "rowwise_adagrad"
+
+
+# ---------------------------------------------------------------------------
 # DLRM (the paper's own model family, Table I)
 # ---------------------------------------------------------------------------
 

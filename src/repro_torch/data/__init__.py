@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import DLRMSynthetic
+from repro_torch.data.pipeline import Prefetcher, make_placer
+from repro_torch.data.synthetic import DLRMSynthetic, LMSynthetic
 
-__all__ = ["DLRMSynthetic"]
+__all__ = ["DLRMSynthetic", "LMSynthetic", "Prefetcher", "make_placer"]

@@ -1,11 +1,15 @@
-"""Synthetic DLRM traffic (deterministic, seeded).
+"""Synthetic data generators (deterministic, seeded).
 
-Zipfian sparse index streams (production embedding access skew), gaussian
-dense features, bernoulli click labels correlated with a hidden linear
-model. On a heterogeneous config table t draws Zipf(table_alphas[t]) ids
-folded into its own [0, table_rows[t]). The draws are numpy's and follow
-the reference generator call for call, so one seed gives bit-identical
-batches in both packages.
+DLRM: Zipfian sparse index streams (production embedding access skew),
+gaussian dense features, bernoulli click labels correlated with a hidden
+linear model. On a heterogeneous config table t draws Zipf(table_alphas[t])
+ids folded into its own [0, table_rows[t]).
+
+LM: token streams with a power-law unigram distribution plus a bank of
+repeated 8-token phrases, so cross-entropy falls during training.
+
+The draws are numpy's and follow the reference generators call for call,
+so one seed gives bit-identical batches in both packages.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 
 
 class DLRMSynthetic:
@@ -145,3 +149,40 @@ class DLRMSynthetic:
             idx_t.append(stream)
             off_t.append(o)
         return idx_t, off_t
+
+
+class LMSynthetic:
+    """Token batches of a decoder LM (the reference's ``LMSynthetic``; the
+    encoder-decoder and VLM inputs wait for their models, ROADMAP Queue
+    1, item 15b)."""
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0):
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+        v = cfg.vocab_size
+        # power-law unigram distribution
+        p = 1.0 / np.arange(1, v + 1) ** 1.1
+        self._p = p / p.sum()
+        # a small bank of "phrases" injected for learnable structure
+        self._phrases = [
+            self.rng.choice(v, size=8, p=self._p) for _ in range(32)]
+
+    def tokens(self, batch: int, seq: int) -> np.ndarray:
+        out = self.rng.choice(self.cfg.vocab_size, size=(batch, seq),
+                              p=self._p)
+        # inject phrases at random offsets (~25% of tokens)
+        n_inject = max(1, seq // 32)
+        for b in range(batch):
+            for _ in range(n_inject):
+                ph = self._phrases[self.rng.randint(len(self._phrases))]
+                off = self.rng.randint(0, max(1, seq - len(ph)))
+                out[b, off:off + len(ph)] = ph
+        return out.astype(np.int32)
+
+    def batch(self, batch: int, seq: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        if cfg.is_encdec or cfg.family == "vlm":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.family} inputs are not ported yet "
+                "(ROADMAP Queue 1, item 15b)")
+        return {"tokens": self.tokens(batch, seq)}

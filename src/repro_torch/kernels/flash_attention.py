@@ -1,5 +1,6 @@
 """Causal / windowed flash attention on Hopper: the ``flash_attention``
-kernel (forward only).
+kernel, the forward (``kernels/ops.py``'s op recomputes its backward
+through the model's chunked attention).
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py:77
 flash_attention`` (body ``_flash_kernel``, :31) and its GQA wrapper

@@ -28,9 +28,12 @@ the kept triangle (its einsum sits outside any Pallas kernel, but on
 eager CUDA its scatter, transpose-add, ``bmm`` and pass-through adds
 would each be a launch) plus the pass-throughs. ``interaction``, the
 TPU kernel's full (B, F, F), keeps its (G + G^T) X backward in plain
-torch. ``flash_attention`` and ``flash_attention_gqa`` are forward-only,
-as the reference's kernel is: their backward raises.
-Serving runs them under ``torch.inference_mode``, which records nothing.
+torch. ``flash_attention`` and ``flash_attention_gqa`` run the kernel
+forward and recompute backward through the model's chunked attention
+(``models.layers._sdpa_chunked``), as the reference's kernel docstring
+promises and as ``jax.grad`` differentiates off the TPU; the recompute
+runs in a profiler span, ``RECOMPUTE_SPAN``. Serving runs them under
+``torch.inference_mode``, which records nothing.
 """
 from __future__ import annotations
 
@@ -466,9 +469,15 @@ def feature_interaction(bottom_out: torch.Tensor, reduced_embs: torch.Tensor
                                      reduced_embs.contiguous())
 
 
+# the profiler span around the flash op's backward recompute
+RECOMPUTE_SPAN = "flash_attention_recompute"
+
+
 class _FlashAttentionGQA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
         if _on_cuda(q, k, v):
             return _fa.flash_attention_gqa(q, k, v, causal=causal,
                                            window=window)
@@ -477,13 +486,25 @@ class _FlashAttentionGQA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # the reference's kernel has no VJP either (its jax.grad raises
-        # inside pallas_call); the recompute through the chunked path
-        # comes with LM training
-        raise NotImplementedError(
-            "flash_attention has no backward yet: LM training, with a "
-            "recompute through the chunked attention, is ROADMAP Queue 1, "
-            "item 16")
+        # the recompute the reference's kernel docstring promises (its
+        # pallas_call has no VJP): autograd through the chunked path, what
+        # jax.grad differentiates off the TPU (models.layers imports this
+        # module, so it is imported here)
+        from repro_torch.models import layers
+        q, k, v = ctx.saved_tensors
+        b, s, h, hd = q.shape
+        kh = k.shape[2]
+        with torch.enable_grad(), \
+                torch.profiler.record_function(RECOMPUTE_SPAN):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            pos = torch.arange(s, device=q.device)
+            chunk = layers.pick_chunk(s, layers.Q_CHUNK)
+            out = layers._sdpa_chunked(
+                q.reshape(b, s, kh, h // kh, hd), k, v, pos, pos, ctx.causal,
+                ctx.window, chunk, layers.pick_chunk(s, layers.KV_CHUNK))
+            dq, dk, dv = torch.autograd.grad(out.reshape(b, s, h, hd),
+                                             (q, k, v), g)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -491,7 +512,9 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None) -> torch.Tensor:
     """Causal or windowed online-softmax attention, GQA form: q (B, S, H,
     hd), k/v (B, S, KH, hd) -> (B, S, H, hd) in q.dtype, query head h on
-    kv head h // (H / KH). Forward only."""
+    kv head h // (H / KH). Masks by sequence index. The backward
+    recomputes through ``models.layers._sdpa_chunked`` (on either
+    device; no kernel of its own)."""
     return _FlashAttentionGQA.apply(q, k, v, bool(causal), window)
 
 

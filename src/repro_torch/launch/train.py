@@ -1,4 +1,4 @@
-"""Training launcher: DLRM, the paper's workload.
+"""Training launcher: DLRM (the paper's workload) and the ported LM archs.
 
     python -m repro_torch.launch.train --arch dlrm1 --steps 200
     python -m repro_torch.launch.train --arch dlrm1 --ragged --steps 200
@@ -9,9 +9,13 @@
     python -m repro_torch.launch.train --arch dlrm1 --ragged --steps 200 \
         --ckpt-dir ckpt [--ckpt-every 50] [--resume]
     python -m repro_torch.launch.train --smoke --device cpu
+    python -m repro_torch.launch.train --arch smollm-360m --seq-len 2048 \
+        --batch-size 4 --steps 50 [--ckpt-dir ckpt --resume]
+    python -m repro_torch.launch.train --arch smollm-360m --smoke \
+        --device cpu
 
-Runs on the card unless ``--device cpu``. Without ``--ragged`` it trains
-the fixed-L layout (``DLRMSynthetic.batch``, every bag
+Runs on the card unless ``--device cpu``. DLRM: without ``--ragged`` it
+trains the fixed-L layout (``DLRMSynthetic.batch``, every bag
 ``lookups_per_table`` long) with the dense-gradient step
 (``dlrm.make_train_step``); ``--ragged`` trains on ragged
 SparseLengthsSum batches with the row-wise sparse optimizer, or with
@@ -21,35 +25,47 @@ rebuilt every ``--cache-refresh`` steps, with ``--quantize-cold`` an
 int8 cold arena kept incrementally), ``--metrics-json`` writes the
 trainer's telemetry snapshot (counters, gauges, histograms and events) at
 exit, and ``--trace`` collects host spans and turns the profiler's stage
-annotations on. In either layout ``--ckpt-dir`` saves (params, optimizer
-state) every ``--ckpt-every`` steps with ``CheckpointManager.save_async``
-and ``--resume`` restarts after the latest checkpoint there; a
-``StragglerMonitor`` times every step and the run prints its count of
-flagged steps. Not offered yet, each with the ROADMAP item it waits for:
-LM training (Queue 1, item 16), ``--shards``/``--mesh`` (item 13).
+annotations on. LM (smollm-360m, h2o-danube-1.8b, qwen1.5-4b; the
+reference's other seven archs are refused, ROADMAP Queue 1, item 15b):
+seeded random weights, ``LMSynthetic`` batches of ``--batch-size`` x
+``--seq-len`` tokens, ``api.make_train_step`` with the default
+``layerwise(adamw)`` and global-norm clipping at 1.0. Either way
+``--ckpt-dir`` saves (params, optimizer state) every ``--ckpt-every``
+steps with ``CheckpointManager.save_async`` and ``--resume`` restarts
+after the latest checkpoint there (an LM run draws past the batches of
+the steps it skips, so it trains on the batches an uninterrupted run
+would); a ``StragglerMonitor`` times every step and the run prints its
+count of flagged steps. Not offered yet: ``--shards``/``--mesh``
+(ROADMAP Queue 1, item 13).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import default_device, obs
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
-from repro_torch.data import DLRMSynthetic
+from repro_torch.data import DLRMSynthetic, LMSynthetic
 from repro_torch.distributed import StragglerMonitor
+from repro_torch.models import api
 from repro_torch.training import OnlineCacheConfig, OnlineTrainer
+
+
+def _device(args) -> torch.device:
+    return (default_device() if args.device == "cuda"
+            else torch.device(args.device))
 
 
 def _setup(args):
     cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
-    device = (default_device() if args.device == "cuda"
-              else torch.device(args.device))
+    device = _device(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return cfg, device, dlrm_mod.init(gen, cfg, device=device)
 
@@ -152,14 +168,55 @@ def train_dlrm_ragged(args) -> float:
     return loss
 
 
-def main(argv: Optional[Sequence[str]] = None) -> float:
+def train_lm(args) -> Tuple[float, Any]:
+    """LM training with ``api.make_train_step``; returns the last step's
+    loss and the final (params, optimizer state)."""
+    cfg = (registry.get_smoke if args.smoke else registry.get_arch)(args.arch)
+    device = _device(args)
+    params = api.init(torch.Generator(device=device).manual_seed(args.seed),
+                      cfg, device=device)
+    _, opt, step_fn = api.make_train_step(cfg)
+    ckpt, (params, opt_state), start = _checkpoints(
+        args, device, (params, opt.init(params)))
+    mon = StragglerMonitor()
+    data = LMSynthetic(cfg, seed=args.seed)
+    for _ in range(start):
+        data.batch(args.batch_size, args.seq_len)
+    loss = float("nan")
+    for step in range(start, args.steps):
+        t0 = time.time()
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(args.batch_size,
+                                        args.seq_len).items()}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        _after_step(args, ckpt, mon, step, time.time() - t0,
+                    (params, opt_state))
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"({time.time() - t0:.3f}s)")
+    _finish(ckpt, mon, loss)
+    return loss, (params, opt_state)
+
+
+DLRM_ONLY = ("ragged", "dense_grads", "online_cache", "quantize_cold",
+             "metrics_json", "trace")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The launcher's arguments, checked (``SystemExit`` on a bad
+    combination)."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", default="dlrm1", choices=sorted(DLRM_CONFIGS),
-                   help="a DLRM of paper Table I")
+    p.add_argument("--arch", default="dlrm1",
+                   help=f"a DLRM of paper Table I ({', '.join(DLRM_CONFIGS)})"
+                        f" or an LM ({', '.join(registry.ARCH_IDS)})")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced config (CPU-runnable)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--seq-len", type=int, default=64,
+                   help="LM: tokens a sequence")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--ragged", action="store_true",
@@ -199,17 +256,34 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         p.error("--resume goes with --ckpt-dir")
     if args.ckpt_every < 1:
         p.error("--ckpt-every must be at least 1")
+    if args.arch not in DLRM_CONFIGS:
+        try:
+            registry.get_arch(args.arch)
+        except (NotImplementedError, KeyError) as e:
+            p.error(str(e))
+        if any(getattr(args, f) for f in DLRM_ONLY):
+            p.error("--" + ", --".join(f.replace("_", "-") for f in DLRM_ONLY)
+                    + " are DLRM options")
+        return args
     if (args.online_cache or args.quantize_cold or args.metrics_json
             or args.trace) and not args.ragged:
         p.error("--online-cache, --quantize-cold, --metrics-json and "
                 "--trace go with --ragged")
     if args.quantize_cold and not args.online_cache:
         p.error("--quantize-cold goes with --online-cache")
-    if args.ragged:
-        return train_dlrm_ragged(args)
-    if args.dense_grads:
+    if args.dense_grads and not args.ragged:
         p.error("--dense-grads picks the baseline of --ragged; the fixed-L "
                 "step is the dense-gradient step")
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    """Train as the arguments say; returns the last step's loss."""
+    args = parse_args(argv)
+    if args.arch not in DLRM_CONFIGS:
+        return train_lm(args)[0]
+    if args.ragged:
+        return train_dlrm_ragged(args)
     return train_dlrm(args)
 
 

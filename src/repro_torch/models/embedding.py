@@ -1,5 +1,5 @@
-"""Token embedding and LM head, the counterpart of the reference's
-``repro/models/embedding.py`` on one card.
+"""Token embedding, LM head and the next-token loss, the counterpart of
+the reference's ``repro/models/embedding.py`` on one card.
 
 The reference shards the (padded) vocab table's rows over its 'model'
 mesh axis and gathers with a masked local gather and a psum; on one card
@@ -55,3 +55,18 @@ def lm_head_untied(x: torch.Tensor, w: torch.Tensor,
                    vocab: int) -> torch.Tensor:
     """x (B, S, D) @ w (D, Vpad) -> fp32 logits, pads -1e30."""
     return _mask_pad(torch.matmul(x.float(), w.float()), vocab)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Mean masked next-token CE. logits (B, S, V) f32, labels (B, S)
+    int, mask (B, S) f32; ``logz`` from the max as a constant, as the
+    reference's ``stop_gradient``. The reference picks the gold logit by a
+    one-hot masked sum over the vocab (gather-free for its sharded vocab
+    dim); ``torch.gather`` gives the same bits, since that sum adds only
+    zeros to the gold logit, without a (B, S, V) boolean."""
+    m = logits.amax(-1, keepdim=True).detach()
+    logz = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

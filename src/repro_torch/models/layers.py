@@ -7,9 +7,10 @@ Attention has two full-sequence paths and a decode path:
   * flash: at S >= ``CHUNKED_THRESHOLD``, ``ops.flash_attention_gqa`` on
     every device, the hand-written kernel on the card and its plain
     version on the CPU (the reference takes its Pallas kernel on the TPU
-    there, and its chunked path elsewhere; the chunked path comes with LM
-    training, ROADMAP Queue 1, item 16, whose backward recomputes
-    through it);
+    there, and its chunked path elsewhere). The op's backward recomputes
+    through the chunked path, ``_sdpa_chunked``: online softmax over
+    (``Q_CHUNK``, ``KV_CHUNK``) blocks, each kv step checkpointed, so the
+    gradient is the one ``jax.grad`` takes off the TPU;
   * decode: one query token against a linear or ring-buffered KV cache.
 
 The reference's sharding constraints (``constrain``, ``head_constrain``)
@@ -27,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
@@ -149,8 +151,62 @@ def _sdpa_direct(q, k, v, qpos, kpos, causal, window):
     return torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype), v)
 
 
-# Sequences at or beyond this length take the flash kernel.
+def _sdpa_chunked(q, k, v, qpos, kpos, causal, window, q_chunk: int,
+                  kv_chunk: int):
+    """Online-softmax attention over (q_chunk, kv_chunk) blocks, the
+    reference's chunked path; same signature as ``_sdpa_direct``, the
+    output in q.dtype. Scores are fp32 from the widened operands, masked
+    entries -1e30, P is rounded to v.dtype before the PV product and the
+    running state is fp32. Every kv step runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
+    backward keeps one block's scores at a time; the bits are the
+    same."""
+    b_, sq, kh, g, hd = q.shape
+    hv = v.shape[-1]
+    sk = k.shape[1]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, sk)
+    if sq % q_chunk or sk % kv_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) do not divide "
+                         f"({sq}, {sk})")
+    scale = hd ** -0.5
+
+    def kv_step(acc, m, den, qc, qp, kc, vc, kp):
+        s = torch.einsum("bqkgh,bckh->bkgqc", qc.float(), kc.float()) * scale
+        s = torch.where(_mask(qp, kp, causal, window)[None, None, None], s,
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den_new = den * corr + p.sum(-1)
+        pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vc.dtype), vc)
+        return acc * corr[..., None] + pv.float(), m_new, den_new
+
+    outs = []
+    for i in range(0, sq, q_chunk):
+        qc, qp = q[:, i:i + q_chunk], qpos[i:i + q_chunk]
+        acc = torch.zeros((b_, kh, g, q_chunk, hv), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b_, kh, g, q_chunk), float("-inf"),
+                       dtype=torch.float32, device=q.device)
+        den = torch.zeros((b_, kh, g, q_chunk), dtype=torch.float32,
+                          device=q.device)
+        for j in range(0, sk, kv_chunk):
+            acc, m, den = checkpoint(kv_step, acc, m, den, qc, qp,
+                                     k[:, j:j + kv_chunk],
+                                     v[:, j:j + kv_chunk],
+                                     kpos[j:j + kv_chunk],
+                                     use_reentrant=False)
+        out = acc / torch.clamp(den[..., None], min=1e-30)
+        outs.append(torch.einsum("bkgqh->bqkgh", out).to(q.dtype))
+    return torch.cat(outs, 1)
+
+
+# Sequences at or beyond this length take the flash kernel; its backward
+# recomputes through the chunked path at these block sizes.
 CHUNKED_THRESHOLD = 2048
+Q_CHUNK = 1024
+KV_CHUNK = 1024
 
 
 def pick_chunk(s: int, target: int) -> int:

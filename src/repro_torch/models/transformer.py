@@ -6,21 +6,25 @@ Parameters keep the reference's tree: ``"embed"`` (padded vocab, D),
 ``"ln_f"`` and, untied, ``"unembed"``; the decode cache is
 ``{"layers": {"k", "v", "slot_pos"}}``, stacked the same way. The
 reference scans the stacked layers with ``lax.scan``; here a Python loop
-indexes them. MoE, MLA, the recurrent and hybrid families and the
-frontends are ROADMAP Queue 1, item 15b.
+indexes them. Training (``loss_fn``) runs ``forward`` with each layer
+under ``torch.utils.checkpoint`` when ``remat``, as the reference's
+``jax.checkpoint`` of the scan body: a layer's activations are
+recomputed in the backward, so its attention forward runs twice. MoE,
+MLA, the recurrent and hybrid families and the frontends are ROADMAP
+Queue 1, item 15b.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers
 from repro_torch.models.params import Builder, stack_layers
-
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -39,6 +43,16 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The n per-layer trees of a stacked tree: views, one ``unbind`` a
+    leaf, whose backward is one stack a leaf (indexing layer by layer
+    would add n full-size gradients a leaf)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def n_layers(params) -> int:
@@ -96,14 +110,37 @@ def _head(params, cfg: ModelConfig, x):
     return emb.lm_head_untied(x, params["unembed"], cfg.vocab_size)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Teacher-forced forward -> (logits (B, S, Vpad) f32, aux 0.0)."""
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True):
+    """Teacher-forced forward -> (logits (B, S, Vpad) f32, aux 0.0). With
+    ``remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint``."""
     check_ported(cfg)
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(n_layers(params)):
-        x = _attn_block_full(_layer(params["layers"], i), cfg, x, positions)
+    remat = remat and torch.is_grad_enabled()
+    for p_l in _unstack(params["layers"], n_layers(params)):
+        if remat:
+            x = checkpoint(_attn_block_full, p_l, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _attn_block_full(p_l, cfg, x, positions)
     return _head(params, cfg, x), 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` (B, S), fp32;
+    plus the MoE aux loss, 0 here."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:]
+    lg = logits[:, :-1]
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    ce = emb.cross_entropy(lg, labels, mask)
+    coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+    return ce + coef * aux
 
 
 # ---------------------------------------------------------------------------

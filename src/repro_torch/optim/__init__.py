@@ -1,7 +1,12 @@
-"""Optimizers: the DLRM subset of the reference's ``repro.optim``."""
-from repro_torch.optim.optimizers import (Optimizer, adamw, partitioned,
-                                          rowwise_adagrad, tree_leaves,
-                                          tree_map, tree_paths)
+"""Optimizers, the counterpart of the reference's ``repro.optim``."""
+from repro_torch.optim.optimizers import (Optimizer, adafactor, adamw,
+                                          clip_by_global_norm, from_config,
+                                          global_norm, layerwise,
+                                          partitioned, rowwise_adagrad, sgd,
+                                          tree_leaves, tree_map, tree_paths,
+                                          warmup_cosine)
 
-__all__ = ["Optimizer", "adamw", "partitioned", "rowwise_adagrad",
-           "tree_leaves", "tree_map", "tree_paths"]
+__all__ = ["Optimizer", "adafactor", "adamw", "clip_by_global_norm",
+           "from_config", "global_norm", "layerwise", "partitioned",
+           "rowwise_adagrad", "sgd", "tree_leaves", "tree_map", "tree_paths",
+           "warmup_cosine"]

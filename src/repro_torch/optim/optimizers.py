@@ -1,4 +1,4 @@
-"""Minimal optax-style optimizers, the DLRM subset of the reference's
+"""Minimal optax-style optimizers, the counterpart of the reference's
 ``repro/optim/optimizers.py``.
 
 An optimizer is a pair of functions:
@@ -9,20 +9,31 @@ over a tree of tensors (dicts, lists and tuples), as in the reference.
 Unlike the reference's pure functions, ``update`` works **in place**: it
 rewrites the parameter tensors and the state's tensors and returns the
 same objects, so a (V, D) embedding arena is never copied per step. A
-caller that needs the old values keeps its own copy. The step count is a
-Python int, so no update reads the device.
+caller that needs the old values keeps its own copy.
 
-Ported: ``adamw`` (the MLPs), ``rowwise_adagrad`` (the embedding arena)
-and ``partitioned`` (one rule per top-level key), at a constant learning
-rate. ``sgd``, ``adafactor``, ``layerwise``, global-norm clipping and the
-schedules come with LM training (ROADMAP Queue 1, item 16).
+The step count is a Python int and learning-rate schedules are evaluated
+on the host in float32, as the reference evaluates them in f32, so no
+update reads the device. Every update computes a parameter's new value
+in float32 from ``p.float()`` and writes it back rounded once to the
+parameter's dtype, as the reference's ``(p.astype(f32) - lr *
+step).astype(p.dtype)``; on a float32 leaf that is an in-place
+subtraction of the same bits.
+
+Provided: ``sgd`` (momentum), ``adamw``, ``adafactor`` (factored second
+moments), ``rowwise_adagrad`` (the DLRM embedding tables), ``partitioned``
+(one rule per top-level key), ``layerwise`` (the update one layer of a
+stacked subtree at a time), global-norm clipping, ``warmup_cosine`` and
+``from_config``. ``state_logical_specs`` is a dry-run sharding helper of
+the reference and is not carried over (ROADMAP Queue 1, items 13, 15b).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+F32 = np.float32
 
 
 class Optimizer(NamedTuple):
@@ -32,7 +43,8 @@ class Optimizer(NamedTuple):
 
 def tree_map(f, tree, *rest):
     """Apply ``f`` leaf by leaf over trees of one structure (dicts, lists,
-    tuples; every other object is a leaf)."""
+    tuples; every other object is a leaf). ``tree`` sets the structure:
+    where it holds a leaf, ``f`` gets the other trees' subtrees whole."""
     if isinstance(tree, dict):
         return {k: tree_map(f, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
@@ -62,8 +74,96 @@ def tree_paths(tree, path: str = "") -> List[Tuple[str, Any]]:
     return [(path, tree)]
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+def _write(p: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """p <- p - delta, computed in float32 and rounded once to p's dtype,
+    in place."""
+    if p.dtype == torch.float32:
+        return p.sub_(delta)
+    return p.copy_(p.float().sub_(delta))
+
+
+# ---------------------------------------------------------------------------
+# Clipping
+# ---------------------------------------------------------------------------
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf in float32, the leaves
+    summed in the reference's leaf order (``tree_paths``). A 0-dim tensor
+    on the leaves' device."""
+    return torch.sqrt(sum(x.float().square().sum()
+                          for _, x in tree_paths(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm): new
+    tensors of the grads' dtypes. The scale stays on the device."""
+    norm = global_norm(grads)
+    scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
+                        max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+# ---------------------------------------------------------------------------
+# Schedules, evaluated on the host in float32
+# ---------------------------------------------------------------------------
+
+def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
+                  min_ratio: float = 0.1) -> Callable[[int], np.float32]:
+    def schedule(step):
+        step = F32(step)
+        warm = step / F32(max(1.0, warmup_steps))
+        prog = (step - F32(warmup_steps)) / F32(
+            max(1.0, total_steps - warmup_steps))
+        prog = np.clip(prog, F32(0.0), F32(1.0))
+        cos = F32(min_ratio) + F32((1 - min_ratio) * 0.5) * (
+            F32(1.0) + np.cos(F32(np.pi) * prog))
+        return F32(base_lr) * (warm if step < warmup_steps else cos)
+    return schedule
+
+
+def _as_schedule(lr):
+    return lr if callable(lr) else (lambda step: F32(lr))
+
+
+def _lr(sched, step: int) -> float:
+    """The learning rate at ``step`` as a float32 value."""
+    return float(F32(sched(step)))
+
+
+# ---------------------------------------------------------------------------
+# SGD + momentum
+# ---------------------------------------------------------------------------
+
+def sgd(lr, momentum: float = 0.9) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return {"mu": tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32), params), "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr(sched, step)
+
+        def upd(p, g, mu):
+            mu.mul_(momentum).add_(g.float())
+            return _write(p, lr_t * mu)
+
+        return (tree_map(upd, params, grads, state["mu"]),
+                {"mu": state["mu"], "step": step})
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
+    sched = _as_schedule(lr)
+
     def init(params):
         return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                               params),
@@ -74,10 +174,11 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
+        lr_t = _lr(sched, step)
         # the bias corrections in f32, as the reference computes them
-        t = np.float32(step)
-        c1 = float(np.float32(1) - np.float32(b1) ** t)
-        c2 = float(np.float32(1) - np.float32(b2) ** t)
+        t = F32(step)
+        c1 = float(F32(1) - F32(b1) ** t)
+        c2 = float(F32(1) - F32(b2) ** t)
 
         def upd(p, g, m, v):
             g32 = g.float()
@@ -85,8 +186,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             v.mul_(b2).add_((1 - b2) * g32.square())
             step_ = (m / c1) / (torch.sqrt(v / c2) + eps) \
                 + weight_decay * p.float()
-            p.sub_((lr * step_).to(p.dtype))
-            return p
+            return _write(p, lr_t * step_)
 
         new_params = tree_map(upd, params, grads, state["m"], state["v"])
         return new_params, {"m": state["m"], "v": state["v"], "step": step}
@@ -94,9 +194,65 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments; state ~ O(P/D) for matrices)
+# ---------------------------------------------------------------------------
+
+def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def _factored(shape):
+        return len(shape) >= 2
+
+    def init(params):
+        def per_leaf(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], **z),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+        return {"fac": tree_map(per_leaf, params), "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr(sched, step)
+        beta = F32(1.0) - F32(step) ** F32(-decay)
+        keep = float(F32(1.0) - beta)
+
+        def per_leaf(p, g, st):
+            g32 = g.float()
+            g2 = g32.square() + eps
+            if _factored(p.shape):
+                vr = st["vr"].mul_(float(beta)).add_(keep * g2.mean(-1))
+                vc = st["vc"].mul_(float(beta)).add_(keep * g2.mean(-2))
+                denom = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
+                                       min=eps))
+                upd = g32 / torch.sqrt(denom + eps)
+            else:
+                v = st["v"].mul_(float(beta)).add_(keep * g2)
+                upd = g32 / torch.sqrt(v + eps)
+            rms = torch.sqrt(upd.square().mean() + eps)
+            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+            return _write(p, lr_t * upd)
+
+        return (tree_map(per_leaf, params, grads, state["fac"]),
+                {"fac": state["fac"], "step": step})
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Row-wise Adagrad (DLRM embedding tables)
+# ---------------------------------------------------------------------------
+
+def rowwise_adagrad(lr, eps: float = 1e-8) -> Optimizer:
     """One adaptive accumulator scalar per table *row* (paper-standard for
     embedding tables: state is rows x 1 instead of rows x dim)."""
+    sched = _as_schedule(lr)
+
     def init(params):
         return {"acc": tree_map(
             lambda p: torch.zeros(p.shape[:-1] + (1,), dtype=torch.float32,
@@ -105,17 +261,23 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr(sched, step)
+
         def upd(p, g, a):
             g32 = g.float()
             a.add_(g32.square().mean(dim=-1, keepdim=True))
-            p.sub_((lr * g32 / (torch.sqrt(a) + eps)).to(p.dtype))
-            return p
+            return _write(p, lr_t * g32 / (torch.sqrt(a) + eps))
 
         return (tree_map(upd, params, grads, state["acc"]),
-                {"acc": state["acc"], "step": state["step"] + 1})
+                {"acc": state["acc"], "step": step})
 
     return Optimizer(init, update)
 
+
+# ---------------------------------------------------------------------------
+# Partitioned and layerwise optimizers
+# ---------------------------------------------------------------------------
 
 def partitioned(rules: dict, default: Optimizer) -> Optimizer:
     """Apply a different optimizer to top-level keys named in `rules`;
@@ -133,3 +295,69 @@ def partitioned(rules: dict, default: Optimizer) -> Optimizer:
         return new_p, new_s
 
     return Optimizer(init, update)
+
+
+def _stacked_dim(subtree, min_layers: int) -> Optional[int]:
+    """The layer count of a layer stack: a subtree of two or more leaves
+    that all share a leading dim in [min_layers, 256] (a single big array,
+    such as the vocab embedding, is never one)."""
+    leaves = [x for _, x in tree_paths(subtree)]
+    if len(leaves) < 2:
+        return None
+    dims = {x.shape[0] if getattr(x, "ndim", 0) > 0 else None
+            for x in leaves}
+    d = dims.pop() if len(dims) == 1 else None
+    return d if (d is not None and min_layers <= d <= 256) else None
+
+
+def layerwise(opt: Optimizer, min_layers: int = 8) -> Optimizer:
+    """Apply `opt`'s update one layer at a time over stacked-layer
+    subtrees, as the reference's ``lax.scan`` over the layer dim: a
+    Python loop over views of layer i of the params, grads and state,
+    updated in place. Top-level subtrees whose leaves (and whose grads'
+    and state's leaves) all share a leading dim in [min_layers, 256] are
+    taken a layer at a time; the rest update directly. That matters where
+    an update reduces over a leaf: Adafactor clips by the RMS of its
+    update, per layer under this rule. Leaf-wise optimizers only (adamw,
+    sgd, adafactor, rowwise_adagrad)."""
+    def init(params):
+        return opt.init(params)
+
+    def update(grads, state, params):
+        if not isinstance(params, dict):
+            return opt.update(grads, state, params)
+        step = state.get("step")
+        # state trees mirror params one level down inside each state field
+        fields = [k for k in state if k != "step"]
+        for key, p_sub in params.items():
+            g_sub = grads[key]
+            s_sub = {f: state[f][key] for f in fields}
+            n = _stacked_dim(p_sub, min_layers)
+            if n is not None and _stacked_dim(g_sub, min_layers) == n and all(
+                    _stacked_dim(s_sub[f], min_layers) == n for f in fields):
+                for i in range(n):
+                    def layer(tree, i=i):
+                        return tree_map(lambda t: t[i], tree)
+                    st_l = {f: layer(s_sub[f]) for f in fields}
+                    st_l["step"] = step
+                    opt.update(layer(g_sub), st_l, layer(p_sub))
+            else:
+                st = dict(s_sub)
+                st["step"] = step
+                opt.update(g_sub, st, p_sub)
+        new_s = {f: state[f] for f in fields}
+        new_s["step"] = step + 1
+        return params, new_s
+
+    return Optimizer(init, update)
+
+
+def from_config(cfg) -> Optimizer:
+    """Build from ``configs.base.OptimizerConfig``."""
+    if cfg.name == "sgd":
+        return sgd(cfg.lr)
+    if cfg.name == "adamw":
+        return adamw(cfg.lr, cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay)
+    if cfg.name == "adafactor":
+        return adafactor(cfg.lr)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -343,6 +343,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.serving.loadgen\n"
             "import repro_torch.fleet, repro_torch.checkpoint\n"
             "import repro_torch.distributed, repro_torch.fleet.chaos\n"
+            "import repro_torch.data.pipeline, repro_torch.optim.optimizers\n"
+            "import repro_torch.launch.train\n"
             "from repro_torch.training import OnlineGroupTrainer\n"
             "from repro_torch.configs import (smollm_360m, h2o_danube_1_8b,\n"
             "    qwen1_5_4b)\n"

@@ -1,6 +1,6 @@
 """The port's flash attention (its plain version, as a CPU tensor runs it)
 against the reference's Pallas kernel in interpret mode, on the same
-numpy inputs; the forward-only op; and the wrapper's guards.
+numpy inputs; the op's backward by recompute; and the wrapper's guards.
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there.
@@ -82,15 +82,33 @@ def test_flash_attention_gqa_matches_reference_wrapper(h, kh, window, dtype):
     _close(got, want, _TOL[dtype])
 
 
-def test_flash_attention_op_is_forward_only():
-    """The reference's kernel has no backward; the port's op refuses one,
-    naming the ROADMAP item that brings it."""
-    q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(0),
-                    requires_grad=True)
-    out = ops.flash_attention_gqa(q, q.detach()[:, :, :1],
-                                  q.detach()[:, :, :1])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        out.sum().backward()
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_attention_op_backward_recomputes_through_the_chunked_path(
+        window):
+    """The reference's kernel has no backward; the port's op recomputes
+    through ``models.layers._sdpa_chunked`` (what ``jax.grad`` takes off
+    the TPU): its gradients equal autograd through that path bit for bit,
+    in both forms of the op."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 8, h, 16, generator=gen).requires_grad_()
+               for h in (2, 1, 1))
+    g = torch.randn(1, 8, 2, 16, generator=gen)
+    got = torch.autograd.grad(
+        ops.flash_attention_gqa(q, k, v, window=window), (q, k, v), g)
+    pos = torch.arange(8)
+    ref_out = layers._sdpa_chunked(q.reshape(1, 8, 1, 2, 16), k, v, pos, pos,
+                                   True, window, 8, 8)
+    want = torch.autograd.grad(ref_out.reshape(1, 8, 2, 16), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the (BH, S, d) form: one head a row
+    x = q[0].transpose(0, 1).detach().requires_grad_()
+    (dx,) = torch.autograd.grad(ops.flash_attention(x, x, x).sum(), (x,))
+    ref_x = layers._sdpa_chunked(x[:, :, None, None], x[:, :, None],
+                                 x[:, :, None], pos, pos, True, None, 8, 8)
+    (want_x,) = torch.autograd.grad(ref_x.sum(), (x,))
+    assert torch.equal(dx, want_x)
 
 
 def test_reference_flash_kernel_has_no_gradient():
