@@ -301,7 +301,43 @@ forward. Each serving phase zeroes the counts just before its engine's
    smollm-360m --seq-len 2048``): 3 steps uninterrupted against 2 steps
    with a checkpoint and a ``--resume`` run of the third, final params and
    optimizer state equal bit for bit.
-16. Report: one JSON line of the kernels, then the device line, which is
+16. The row-sharded path, DLRM(1) at full width (its 1,000,001 arena
+   rows padded to 1,000,002 and 1,000,004), on 2 and 4 gloo ranks that
+   share the card (``distributed.spawn``; NCCL refuses two ranks on one
+   device), each rank's block its rows and a zero sentinel row: (a) in
+   this process, ``fused_segment_sum`` and ``embedding_bag`` over the
+   first and the last rank's block with every id the rank does not own on
+   the sentinel, against their plain versions (and the in-order loop,
+   ``fused_segment_sum``, bit for bit), the sharded step's row gradients
+   (``sls_grad_table``) bit for bit against the CPU and projected by
+   ``shard_local_rows``, ``gemm`` and the interaction stage at the head's
+   batch-32 shapes; then in the ranks, with the launch counts zeroed
+   first and read after (b) and (c): (b) the phase 3 requests through
+   ``RecEngine(source="sharded")`` and ``source="cached"`` (K = 2,048 over
+   a ``ShardedArena`` cold), and 128 fixed-L requests through
+   ``source="fixed"`` and (their bags) the sharded ragged plan: every
+   rank's probabilities bit for bit the others', within 1e-5 of phase 3's
+   (and of each other), served eagerly by construction (no capture, no
+   cold dispatch, ``stats()`` saying why), and both pipelined forms on the
+   mesh at bucket 32 (lookups and their all-reduces on the side stream)
+   within 1e-5 of the single-shot sharded forwards; (c) 4 sharded sparse steps,
+   rank 0 holding the replicated sparse step on the card from the same
+   state before each: touched rows equal, loss within rtol 1e-5, params
+   under phase 4's budget rule, every rank's MLP leaves bit for bit the
+   others', the sentinels zero; (d) the 4 ranks save their state
+   (``CheckpointManager.save(shardings=)``, unsharded on disk) and take a
+   5th step; the 2 ranks restore it (rows bit for bit) and take the same
+   step: within (c)'s bounds. (e) ``launch/train.py --ragged --shards 2
+   --backend gloo`` for 3 steps, and ``launch/serve.py --shards 2
+   --backend gloo`` for 4 batches of 32 (the ranks' probabilities bit
+   for bit, the launcher checks). (f) One rank over nccl: its all-reduce
+   and broadcast, a served batch through a one-shard ``ShardedArena`` and
+   the step on a mesh of one, exact against the replicated path; at one
+   rank the port's collectives make no call, so this exercises the NCCL
+   communicator only, not the port's collectives over it. The
+   times (ms a micro-batch and a step, host clock) are gloo collectives
+   through host memory: agreement runs, not the sharded path's speed.
+17. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -344,6 +380,9 @@ from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import fused_dispatch as fd_k  # noqa: E402
 from repro_torch.kernels import gemm as gm_k  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
+                                    row_shardings)
+from repro_torch.distributed import collectives, spawn  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
@@ -359,6 +398,7 @@ from repro_torch.training import (OnlineCacheConfig,  # noqa: E402
                                   OnlineGroupTrainer, OnlineTrainer,
                                   VersionedHotCache, VersionedSource,
                                   make_drifting_zipf, unique_padded)
+from repro_torch.training import sparse_optim as so  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -5980,6 +6020,539 @@ def phase_lm_train(gen) -> tuple:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 16
+
+SHARD_COUNTS = (2, 4)              # gloo ranks sharing the one card
+SHARD_CACHE_K = 2048               # the reference bench's sharded_cached K
+SHARD_STEPS = 4                    # sharded sparse steps against replicated
+SHARD_TIMEOUT_S = 300              # a start's process group and join limit
+SHARD_KERNELS = ("fused_segment_sum", "embedding_bag", "sls_grad_table",
+                 "gemm", "interaction")
+
+
+def _rank_params(cfg, shards: int, rank: int) -> tuple:
+    """Phase 3's params (the same seeded draw) with the arena as rank
+    ``rank``'s block of it padded for ``shards`` ranks (the padding rows
+    zero, as ``dlrm.init(..., shards)`` makes them), and the whole
+    arena."""
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       device="cuda")
+    full = params["arena"]
+    vlocal = dlrm.arena_spec(cfg).padded_rows(shards) // shards
+    params["arena"] = se.shard_block(full, rank, shards, vlocal)
+    return params, full
+
+
+def _mlp_flat(params) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for k in ("bottom", "top")
+                      for t in tree_leaves(params[k])])
+
+
+def check_sharded_kernels(cfg, params, gen) -> dict:
+    """16(a): the path's kernels at a rank's shapes, against their plain
+    versions: ``fused_segment_sum`` and ``embedding_bag`` over the first
+    and the last rank's block at 2 and 4 ranks (the last holds the null
+    row and the padding), every id the rank does not own on the zero
+    sentinel; the sharded step's row gradients (the replicated step's
+    ``sls_grad_table`` call, then ``shard_local_rows``); ``gemm`` and the
+    interaction stage at the head's batch-32 shapes."""
+    spec = dlrm.arena_spec(cfg)
+    errs = {n: 0.0 for n in SHARD_KERNELS}
+    dense = serving_dense_ids(cfg, BUCKET, seed=11)
+    fixed = fixed_ids(cfg, BUCKET, seed=21)
+    rows = []
+    for n in SHARD_COUNTS:
+        vlocal = spec.padded_rows(n) // n
+        for r in (0, n - 1):
+            block = se.shard_block(params["arena"], r, n, vlocal)
+            for name, ids in (("fused_segment_sum", dense),
+                              ("embedding_bag", fixed)):
+                local = se.shard_local_ids(ids, r * vlocal, vlocal,
+                                           spec.null_row)
+                what = f"{n} ranks, rank {r}, {tuple(local.shape)}"
+                if name == "fused_segment_sum":
+                    got = fd_k.fused_segment_sum(block, local)
+                    want = ref.fused_segment_sum(block, local)
+                else:
+                    got = eg_k.embedding_bag(block, local)
+                    want = ref.embedding_bag(block, local)
+                errs[name] = max(errs[name], compare(name, got, want, what))
+                if name == "fused_segment_sum":
+                    if not torch.equal(got, in_order(block, local)):
+                        fail(f"{name} {what}: differs from the in-order loop")
+                else:
+                    _same_as_fused(name, got, block, local, what)
+                on_sentinel = float((local == vlocal).float().mean())
+                print(f"  {name:24s} {what:34s} {on_sentinel:.3f} of ids on "
+                      f"the sentinel")
+            local = se.shard_local_ids(dense, r * vlocal, vlocal,
+                                       spec.null_row)
+            touched = torch.unique(local).numel()
+            d = block.shape[1]
+            b_ms, by = bound(4 * (local.numel() + touched * d
+                                  + local.shape[0] * d), local.numel() * d)
+            rows.append({"ranks": n, "rank": r, "block_rows": block.shape[0],
+                         "shape": list(local.shape),
+                         "ms": time_ms(lambda: fd_k.fused_segment_sum(
+                             block, local)),
+                         "plain_ms": time_ms(lambda: ref.fused_segment_sum(
+                             block, local)),
+                         "bound_ms": b_ms, "bound_by": by})
+    # the row gradients: every rank computes the replicated step's, and
+    # keeps the rows it owns
+    b = train_batches(cfg, 1, seed=31)[0]
+    idx, off = (torch.from_numpy(b[k]) for k in ("indices", "offsets"))
+    d_bags = torch.randn((off.shape[0] - 1, spec.dim), generator=gen,
+                         device="cuda")
+    r_rows, r_g = so.source_row_grads(spec, d_bags, idx.cuda(), off.cuda())
+    c_rows, c_g = so.source_row_grads(spec, d_bags.cpu(), idx, off)
+    torch.cuda.synchronize()
+    if not (torch.equal(r_rows.cpu(), c_rows) and torch.equal(r_g.cpu(),
+                                                              c_g)):
+        fail("sls_grad_table: the sharded step's row gradients differ from "
+             "the plain version on the CPU")
+    print(f"  {'sls_grad_table':24s} {'row gradients ' + str(tuple(r_g.shape)):34s}"
+          f" equal to the CPU plain version (torch.equal)")
+    for n in SHARD_COUNTS:
+        vlocal = spec.padded_rows(n) // n
+        owned = 0
+        for r in range(n):
+            lrows, lg = so.shard_local_rows(r_rows, r_g, lo=r * vlocal,
+                                            vlocal=vlocal,
+                                            null_row=spec.null_row)
+            owned += int((lg.abs().sum(dim=1) > 0).sum())
+        want = int((r_g.abs().sum(dim=1) > 0).sum())
+        if owned != want:
+            fail(f"shard_local_rows at {n} ranks: {owned} owned rows with a "
+                 f"gradient, {want} in all")
+    # the head at batch 32
+    for w, _ in params["bottom"] + params["top"]:
+        h = torch.randn((BUCKET, w.shape[0]), generator=gen, device="cuda")
+        errs["gemm"] = max(errs["gemm"], compare(
+            "gemm", gm_k.gemm(h, w), ref.gemm(h, w),
+            f"head {tuple(h.shape)} x {tuple(w.shape)}"))
+    bot = torch.randn((BUCKET, spec.dim), generator=gen, device="cuda")
+    emb = torch.randn((BUCKET, cfg.n_tables, spec.dim), generator=gen,
+                      device="cuda")
+    errs["interaction"] = compare(
+        "interaction", fi_k.feature_interaction(bot, emb)[0],
+        ref.feature_interaction(bot, emb)[0],
+        f"stage {tuple(emb.shape)}")
+    for row in rows:
+        print(f"  fused_segment_sum over rank {row['rank']} of "
+              f"{row['ranks']}'s block ({row['block_rows']} rows): "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']})")
+    return {"max_abs_err": errs, "rows": rows}
+
+
+def _shard_serve(cfg, params, mesh, counts) -> dict:
+    """16(b), one rank: the phase 3 requests through the sharded, the
+    cached-over-sharded and (their bags) the fixed plan, and the fixed
+    requests' bags through the sharded ragged plan. Every rank serves the
+    same micro-batches, in the same order."""
+    out = {}
+    for name, batch, plan in (
+            ("sharded", served_batch(cfg), dict(source="sharded")),
+            ("cached", served_batch(cfg),
+             dict(source="cached", cache_k=SHARD_CACHE_K, cache_trace=counts)),
+            ("fixed", fixed_batch(cfg, N_REQUESTS // 4, seed=23),
+             dict(source="fixed")),
+            ("fixed_bags_ragged", fixed_batch(cfg, N_REQUESTS // 4, seed=23),
+             dict(source="sharded"))):
+        eng = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                        mesh=mesh, device="cuda", **plan)
+        eng.warmup()
+        reqs = _requests(batch, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = _served(eng, reqs)
+        secs = time.perf_counter() - t0
+        st = eng.stats()
+        out[name] = {"probs": probs,
+                     "ms_per_micro_batch": secs * 1e3 / (len(reqs) // BUCKET),
+                     "captures": eng.captures,
+                     "cold_dispatches": cold_compiles(eng),
+                     "graphed": st["graphed"], "why": st["why"],
+                     "source": st["source"],
+                     "hit_rate": st["cache_hit_rate"]}
+    return out
+
+
+def _shard_pipelines(cfg, params, mesh) -> dict:
+    """16(b), one rank: both pipelined forms (N_MICRO micro-batches, the
+    lookups and their all-reduces on the side stream) over the mesh at
+    bucket 32, against the single-shot sharded forwards on the same
+    inputs; returns each form's largest difference."""
+    fb = DLRMSynthetic(cfg, seed=41).batch(BUCKET)
+    rb = poisson_batch(cfg, BUCKET, 41)
+    f = {k: torch.from_numpy(fb[k]).cuda() for k in ("dense", "indices")}
+    r = {k: torch.from_numpy(rb[k]).cuda()
+         for k in ("dense", "indices", "offsets")}
+    out = {}
+    with torch.inference_mode():
+        for kind, single, piped in (
+                ("fixed",
+                 lambda: dlrm.forward(params, cfg, f["dense"], f["indices"],
+                                      mesh),
+                 lambda: hybrid.pipelined_forward(
+                     params, cfg, f["dense"], f["indices"], N_MICRO, mesh)),
+                ("ragged",
+                 lambda: dlrm.forward_ragged(params, cfg, r["dense"],
+                                             r["indices"], r["offsets"],
+                                             max_l=MAX_L, mesh=mesh),
+                 lambda: hybrid.pipelined_forward_ragged(
+                     params, cfg, r["dense"], r["indices"], r["offsets"],
+                     max_l=MAX_L, n_micro=N_MICRO, mesh=mesh))):
+            want = single()
+            got = piped()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or err > PIPE_ATOL:
+                fail(f"16(b) pipelined {kind} on {mesh.size('model')} ranks:"
+                     f" {err} from the single-shot sharded forward")
+            out[kind] = {"logits": got, "err_vs_single": err}
+    return out
+
+
+def _shard_train(cfg, params, full, mesh, batches, budget) -> tuple:
+    """16(c), one rank: SHARD_STEPS sharded sparse steps; rank 0 holds the
+    replicated sparse step, on the card, from the same state before each
+    (the touched rows, accumulator rows and MLP state copied over), under
+    phase 4's laws. Returns the sharded state and the record."""
+    spec = dlrm.arena_spec(cfg)
+    r = mesh.rank("model")
+    opt, step = dlrm.make_train_step_ragged(cfg, max_l=MAX_L, mesh=mesh)
+    state = opt.init(params)
+    if r == 0:
+        r_opt, r_step = dlrm.make_train_step_ragged(cfg, max_l=MAX_L)
+        rp = {"arena": full}
+        rs = {"arena": r_opt.init(rp)["arena"]}
+    rec = {"losses": [], "step_ms": [], "mlp": [], "cmp": []}
+    for i, b in enumerate(batches):
+        tb = {k: torch.from_numpy(b[k]).cuda() for k in TRAIN_KEYS}
+        if r == 0:
+            for k in ("bottom", "top"):
+                rp[k] = _copy(params[k], "cuda")
+            rs["mlp"] = _copy(state["mlp"], "cuda")
+            rs["arena"]["step"] = state["arena"]["step"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, rows = step(params, state, tb)
+        loss = float(loss)
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(loss)
+        rec["mlp"].append(_mlp_flat(params).cpu().numpy())
+        touched = rows[rows != spec.null_row].long()
+        got_rows = collectives.gather_rows(params["arena"], touched, mesh)
+        got_acc = collectives.gather_rows(state["arena"]["acc"], touched,
+                                          mesh)
+        if params["arena"][-1].any() or state["arena"]["acc"][-1].any():
+            fail(f"sharded step {i}: rank {r}'s sentinel moved")
+        if r != 0:
+            continue
+        with uncounted():
+            rp, rs, r_loss, r_rows = r_step(rp, rs, tb)
+        r_loss = float(r_loss)
+        rel = abs(loss - r_loss) / abs(r_loss)
+        if not torch.equal(rows, r_rows):
+            fail(f"sharded step {i}: touched rows differ from the "
+                 f"replicated step's")
+        if rel > LOSS_RTOL:
+            fail(f"sharded step {i}: loss {loss}, replicated {r_loss}")
+        mlp = _beyond(_mlp_flat(params), _mlp_flat(rp).cpu(),
+                      int(MLP_SHARE * _mlp_flat(rp).numel()), budget,
+                      f"sharded step {i} MLP")
+        arena = _beyond(got_rows, rp["arena"][touched].cpu(),
+                        ARENA_SAMPLES * cfg.n_tables * MAX_L,
+                        2 * 10 * LR * spec.dim ** 0.5,
+                        f"sharded step {i} arena rows")
+        if rp["arena"][spec.null_row].any():
+            fail(f"sharded step {i}: the null row moved")
+        # the replicated state follows the sharded one into the next step
+        rp["arena"][touched] = got_rows
+        rs["arena"]["acc"][touched] = got_acc
+        rec["cmp"].append({"loss_rel_err": rel, "mlp": mlp, "arena": arena})
+        print(f"  {mesh.size('model')} ranks, step {i}: loss {loss:.6f} "
+              f"(replicated rel {rel:.1e}); touched rows equal; MLP "
+              f"{mlp['beyond']} of {mlp['of']} beyond {PARAM_ATOL}, touched "
+              f"arena rows {arena['beyond']} of {arena['of']} (max "
+              f"{arena['max_abs_err']:.1e}); {rec['step_ms'][-1]:.2f} ms")
+    return params, state, opt, step, rec
+
+
+def _probe_rows(cfg, batch) -> torch.Tensor:
+    """The arena rows a batch touches (the rows a restore is checked on)."""
+    spec = dlrm.arena_spec(cfg)
+    flat = se.flatten_ragged_indices(spec, torch.from_numpy(batch["indices"]),
+                                     torch.from_numpy(batch["offsets"]))
+    return torch.unique(flat[flat != spec.null_row]).long().cuda()
+
+
+def _shard_rank(mesh, save_dir, restore_dir) -> dict:
+    """One gloo rank of phase 16 on the shared card: (b) and (c) with the
+    launch counts zeroed before and read after; then (d): with
+    ``save_dir`` the state after (c) is saved and one more step taken,
+    with ``restore_dir`` the 4-rank checkpoint is restored onto this mesh
+    and that step taken from it."""
+    cfg = DLRM_CONFIGS["dlrm1"]
+    n, r = mesh.size("model"), mesh.rank("model")
+    params, full = _rank_params(cfg, n, r)
+    if r != 0:
+        del full
+        full = None
+    p_max = max(w.abs().max().item() for w in tree_leaves(
+        {k: params[k] for k in ("bottom", "top")}))
+    budget = 2 * LR * (1.01 + 0.01 * p_max)
+    batches = train_batches(cfg, SHARD_STEPS + 1, seed=41)
+    reset_counts()
+    served = _shard_serve(cfg, params, mesh, warm_counts(cfg))
+    piped = _shard_pipelines(cfg, params, mesh)
+    params, state, opt, step, trained = _shard_train(
+        cfg, params, full, mesh, batches[:SHARD_STEPS], budget)
+    out = {"serve": served, "pipelined": piped, "train": trained,
+           "launches": launch_counts(),
+           "block_bytes": params["arena"].numel() * 4,
+           "acc_bytes": state["arena"]["acc"].numel() * 4,
+           "allreduce_bytes": BUCKET * cfg.n_tables * cfg.emb_dim * 4}
+    probe = _probe_rows(cfg, batches[SHARD_STEPS - 1])
+    tree = (params, state)
+    if save_dir is not None:
+        t0 = time.perf_counter()
+        CheckpointManager(save_dir, device="cuda").save(
+            SHARD_STEPS - 1, tree, shardings=row_shardings(tree, mesh))
+        out["save_s"] = time.perf_counter() - t0
+    if restore_dir is not None:
+        t0 = time.perf_counter()
+        tree, _ = CheckpointManager(restore_dir, device="cuda").restore(
+            tree, shardings=row_shardings(tree, mesh))
+        out["restore_s"] = time.perf_counter() - t0
+        params, state = tree
+    out["probe"] = collectives.gather_rows(params["arena"], probe, mesh)
+    out["probe_acc"] = collectives.gather_rows(state["arena"]["acc"], probe,
+                                               mesh)
+    if save_dir is not None or restore_dir is not None:
+        with uncounted():
+            params, state, loss, rows = step(params, state, {
+                k: torch.from_numpy(batches[SHARD_STEPS][k]).cuda()
+                for k in TRAIN_KEYS})
+        touched = rows[rows != dlrm.arena_spec(cfg).null_row].long()
+        out["next"] = {"loss": float(loss), "rows": rows,
+                       "mlp": _mlp_flat(params),
+                       "arena": collectives.gather_rows(params["arena"],
+                                                        touched, mesh),
+                       "budget": budget}
+    return out
+
+
+def _nccl_rank(mesh) -> dict:
+    """16(f): one rank over nccl (the one NCCL run one card allows): the
+    communicator's all-reduce and broadcast on a card tensor, a served
+    batch through a ``ShardedArena`` of one shard and the step on a mesh
+    of one, each exact against the replicated path. At one rank the
+    port's collectives (``psum``, ``pmean_``, ``gather_rows``) return
+    without a call, so this exercises the communicator, not them: they
+    reach NCCL only across cards."""
+    cfg = DLRM_CONFIGS["dlrm1"]
+    if mesh.backend != "nccl":
+        fail(f"16(f) runs over {mesh.backend}, not nccl")
+    x = torch.arange(8.0, device="cuda")
+    torch.distributed.all_reduce(x)
+    torch.distributed.broadcast(x, 0)
+    if not torch.equal(x, torch.arange(8.0, device="cuda")):
+        fail("nccl all_reduce/broadcast over one rank changed a tensor")
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       device="cuda")
+    reqs = _requests(served_batch(cfg), cfg)[:4 * BUCKET]
+    probs = {}
+    for name, src in (("sharded", es.ShardedArena(es.FpArena(
+            params["arena"]), mesh)), ("replicated", "ragged")):
+        eng = RecEngine(cfg, params, source=src, max_l=MAX_L,
+                        max_batch=BUCKET, device="cuda")
+        probs[name] = _served(eng, [dataclasses.replace(q) for q in reqs])
+    if not np.array_equal(probs["sharded"], probs["replicated"]):
+        fail("16(f): the one-shard source served other bits")
+    b = train_batches(cfg, 1, seed=43)[0]
+    tb = {k: torch.from_numpy(b[k]).cuda() for k in TRAIN_KEYS}
+    losses = {}
+    for name, kw in (("sharded", dict(mesh=mesh, sharded=True)),
+                     ("replicated", {})):
+        p = _copy(params, "cuda")
+        opt, step = dlrm.make_train_step_ragged(cfg, max_l=MAX_L, **kw)
+        p, _, loss, _ = step(p, opt.init(p), tb)
+        losses[name] = (float(loss), _mlp_flat(p), p["arena"])
+    if losses["sharded"][0] != losses["replicated"][0] or not (
+            torch.equal(losses["sharded"][1], losses["replicated"][1])
+            and torch.equal(losses["sharded"][2], losses["replicated"][2])):
+        fail("16(f): the step on a mesh of one differs from the replicated")
+    return {"loss": losses["sharded"][0], "served": len(reqs)}
+
+
+def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
+    """Phase 16: the row-sharded path on the card (see the docstring);
+    rendezvous files and the 4-rank checkpoint go under ``tmp``."""
+    t_phase = time.perf_counter()
+    params = dlrm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       device="cuda")
+    out = {"kernels": check_sharded_kernels(cfg, params, gen)}
+    del params
+    counts = {n: 0 for n in KERNELS}
+    ranks = {}
+    for n in sorted(SHARD_COUNTS, reverse=True):      # 4 saves, 2 restores
+        t0 = time.perf_counter()
+        ranks[n] = spawn(
+            _shard_rank, n, backend="gloo",
+            init_file=str(tmp / f"rendezvous{n}"),
+            args=(str(tmp / "ckpt") if n == 4 else None,
+                  str(tmp / "ckpt") if n == 2 else None),
+            timeout_s=SHARD_TIMEOUT_S, join_timeout_s=SHARD_TIMEOUT_S)
+        print(f"  {n} gloo ranks on one card: {time.perf_counter() - t0:.1f}"
+              f" s with their start")
+    for n, res in ranks.items():
+        for rr in res:
+            for k, v in rr["launches"].items():
+                counts[k] += v
+        first = res[0]
+        for name, s in first["serve"].items():
+            for rr in res[1:]:
+                if not np.array_equal(rr["serve"][name]["probs"], s["probs"]):
+                    fail(f"16(b) {n} ranks, {name}: the ranks served other "
+                         f"bits")
+            if s["captures"] or s["cold_dispatches"] or s["graphed"] \
+                    is not False or s["why"] != "sharded source":
+                fail(f"16(b) {n} ranks, {name}: captures {s['captures']}, "
+                     f"cold dispatches {s['cold_dispatches']}, graphed "
+                     f"{s['graphed']} ({s['why']})")
+        for name in ("sharded", "cached"):
+            err = float(np.abs(first["serve"][name]["probs"]
+                               - fp_probs).max())
+            if err > PROB_ATOL:
+                fail(f"16(b) {n} ranks, {name}: {err} from phase 3's fp "
+                     f"probabilities")
+            first["serve"][name]["err_vs_phase3"] = err
+        for a, b in (("cached", "sharded"), ("fixed", "fixed_bags_ragged")):
+            err = float(np.abs(first["serve"][a]["probs"]
+                               - first["serve"][b]["probs"]).max())
+            if err > PROB_ATOL:
+                fail(f"16(b) {n} ranks: {a} {err} from {b}")
+            first["serve"][a][f"err_vs_{b}"] = err
+        for kind, pp in first["pipelined"].items():
+            for rr in res[1:]:
+                if not np.array_equal(rr["pipelined"][kind]["logits"],
+                                      pp["logits"]):
+                    fail(f"16(b) {n} ranks, pipelined {kind}: the ranks "
+                         f"computed other bits")
+        for i in range(SHARD_STEPS):
+            for rr in res[1:]:
+                if not np.array_equal(rr["train"]["mlp"][i],
+                                      first["train"]["mlp"][i]):
+                    fail(f"16(c) {n} ranks, step {i}: the ranks' MLP "
+                         f"leaves differ")
+                if rr["train"]["losses"][i] != first["train"]["losses"][i]:
+                    fail(f"16(c) {n} ranks, step {i}: the ranks' losses "
+                         f"differ")
+        s = first["serve"]
+        print(f"  {n} ranks: every rank's probabilities the same bits; "
+              f"from phase 3's: sharded "
+              f"{s['sharded']['err_vs_phase3']:.2e}, cached "
+              f"{s['cached']['err_vs_phase3']:.2e} (cached from sharded "
+              f"{s['cached']['err_vs_sharded']:.2e}, fixed from its bags "
+              f"ragged {s['fixed']['err_vs_fixed_bags_ragged']:.2e}); "
+              f"pipelined from single-shot: fixed "
+              f"{first['pipelined']['fixed']['err_vs_single']:.2e}, ragged "
+              f"{first['pipelined']['ragged']['err_vs_single']:.2e}; no "
+              f"capture, no cold dispatch, graphed {s['sharded']['graphed']}"
+              f" ({s['sharded']['why']})")
+        print(f"  {n} ranks: ms a micro-batch (host clock, eager, gloo "
+              f"through host memory): sharded "
+              f"{s['sharded']['ms_per_micro_batch']:.3f}, cached "
+              f"{s['cached']['ms_per_micro_batch']:.3f} (hit rate "
+              f"{s['cached']['hit_rate']:.3f}), fixed "
+              f"{s['fixed']['ms_per_micro_batch']:.3f}; step ms "
+              f"{np.median(first['train']['step_ms']):.2f} (median of "
+              f"{SHARD_STEPS}); bytes a rank: block {first['block_bytes']}, "
+              f"accumulator {first['acc_bytes']}, all-reduce "
+              f"{first['allreduce_bytes']} a micro-batch")
+    # 16(d): the 4-rank checkpoint restored at 2 ranks
+    saved, back = ranks[4][0], ranks[2][0]
+    if not (np.array_equal(saved["probe"], back["probe"])
+            and np.array_equal(saved["probe_acc"], back["probe_acc"])):
+        fail("16(d): the restored rows differ from the saved ones")
+    nxt4, nxt2 = saved["next"], back["next"]
+    if not np.array_equal(nxt4["rows"], nxt2["rows"]):
+        fail("16(d): the step after the restore touched other rows")
+    rel = abs(nxt4["loss"] - nxt2["loss"]) / abs(nxt4["loss"])
+    if rel > LOSS_RTOL:
+        fail(f"16(d): loss {nxt2['loss']} at 2 ranks, {nxt4['loss']} at 4")
+    mlp_d = _beyond(torch.from_numpy(nxt2["mlp"]), torch.from_numpy(
+        nxt4["mlp"]), int(MLP_SHARE * nxt4["mlp"].size), nxt4["budget"],
+        "16(d) MLP")
+    arena_d = _beyond(torch.from_numpy(nxt2["arena"]), torch.from_numpy(
+        nxt4["arena"]), ARENA_SAMPLES * cfg.n_tables * MAX_L,
+        2 * 10 * LR * cfg.emb_dim ** 0.5, "16(d) arena rows")
+    print(f"  16(d): saved at 4 ranks in {saved['save_s']:.2f} s, restored "
+          f"at 2 in {back['restore_s']:.2f} s, rows bit for bit; the next "
+          f"step's loss rel {rel:.1e}, MLP {mlp_d['beyond']} beyond, arena "
+          f"rows {arena_d['beyond']} beyond")
+    # 16(e): the launcher
+    t0 = time.perf_counter()
+    loss = train_launcher.main(["--arch", "dlrm1", "--ragged", "--shards",
+                                "2", "--backend", "gloo", "--steps", "3",
+                                "--rendezvous", str(tmp / "launcher"),
+                                "--timeout", str(SHARD_TIMEOUT_S)])
+    if not np.isfinite(loss):
+        fail(f"16(e): the sharded launcher's loss {loss}")
+    launcher_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = serve_launcher.main(["--arch", "dlrm1", "--shards", "2",
+                                  "--backend", "gloo", "--requests",
+                                  str(4 * BUCKET), "--batch-size",
+                                  str(BUCKET), "--rendezvous",
+                                  str(tmp / "serve_launcher"), "--timeout",
+                                  str(SHARD_TIMEOUT_S)])
+    if not np.isfinite(served["last_probs"]).all():
+        fail("16(e): the sharded serve launcher's probabilities are not "
+             "finite")
+    serve_launcher_s = time.perf_counter() - t0
+    # 16(f): nccl at world size 1
+    nccl = spawn(_nccl_rank, 1, backend="nccl",
+                 init_file=str(tmp / "rendezvous_nccl"),
+                 timeout_s=SHARD_TIMEOUT_S,
+                 join_timeout_s=SHARD_TIMEOUT_S)[0]
+    missing = [k for k in SHARD_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"phase 16's path launched no {missing}")
+    out.update({
+        "launches": counts,
+        # rank 0's record, without the arrays the ranks were held on
+        "ranks": {n: {"serve": {name: {k: v for k, v in s.items()
+                                       if k != "probs"}
+                                for name, s in res[0]["serve"].items()},
+                      "train": {k: res[0]["train"][k]
+                                for k in ("losses", "step_ms", "cmp")},
+                      "pipelined_err": {k: v["err_vs_single"] for k, v
+                                        in res[0]["pipelined"].items()},
+                      **{k: res[0][k] for k in ("block_bytes", "acc_bytes",
+                                                "allreduce_bytes")}}
+                  for n, res in ranks.items()},
+        "restore": {"loss_rel_err": rel, "mlp": mlp_d, "arena": arena_d,
+                    "save_s": saved["save_s"],
+                    "restore_s": back["restore_s"]},
+        "launcher": {"loss": loss, "s": launcher_s,
+                     "serve_p50_ms": served["p50_ms"],
+                     "serve_s": serve_launcher_s},
+        "nccl": nccl, "s": time.perf_counter() - t_phase})
+    print(f"  {card['nvidia_smi']}: the collectives are gloo through host "
+          f"memory (ranks sharing one card): agreement, not the sharded "
+          f"path's speed; launches by kernel {counts}; launcher 3 steps "
+          f"{launcher_s:.1f} s, serve launcher 4 batches "
+          f"{serve_launcher_s:.1f} s (p50 {served['p50_ms']:.2f} ms); nccl "
+          f"communicator at one rank exact (the port's collectives make no "
+          f"call at one rank); phase "
+          f"{out['s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path,
@@ -6047,7 +6620,13 @@ def main() -> None:
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_bwd["max_abs_err"])
     kernels["flash_attention"]["recompute_rows"] = flash_bwd["recompute_rows"]
-    phase("phase 16: report")
+    phase("phase 16: the row-sharded path, DLRM(1) on 2 and 4 gloo ranks "
+          "sharing the card")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        sharded = phase_sharded(cfg, fp_probs, gen, card, pathlib.Path(tmp))
+    for name, err in sharded["kernels"]["max_abs_err"].items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    phase("phase 17: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -6074,7 +6653,8 @@ def main() -> None:
                    "fleet": fleet["launches"][name],
                    "fleet_group_trainer":
                        fleet["group_trainer"]["launches"][name],
-                   "lm_train": lm_train["launches"][name]}
+                   "lm_train": lm_train["launches"][name],
+                   "sharded": sharded["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -6118,7 +6698,7 @@ def main() -> None:
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
              "graphed": graphed, "lm": lm, "het": het, "plane": plane,
-             "fleet": fleet, "lm_train": lm_train},
+             "fleet": fleet, "lm_train": lm_train, "sharded": sharded},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

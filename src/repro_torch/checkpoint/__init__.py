@@ -1,5 +1,5 @@
 """Checkpoints in the reference's on-disk layout (``manager``)."""
 from repro_torch.checkpoint.manager import (CheckpointManager,
-                                            reshard_checkpoint)
+                                            reshard_checkpoint, row_shardings)
 
-__all__ = ["CheckpointManager", "reshard_checkpoint"]
+__all__ = ["CheckpointManager", "reshard_checkpoint", "row_shardings"]

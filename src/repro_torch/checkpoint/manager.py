@@ -20,9 +20,19 @@ The port's train steps update their tensors in place, so ``save_async``
 copies every leaf to host memory before it returns: a step taken while
 the background write runs cannot reach the checkpoint.
 
-``restore(..., shardings=...)`` and ``reshard_checkpoint`` place a
-checkpoint onto a mesh: sharding is ROADMAP Queue 1, item 13, and both
-refuse it naming that item.
+Row-sharded state (a ``launch.mesh.Mesh`` of more than one rank, one
+process a rank) stays unsharded on disk, so a checkpoint is readable by
+either package at any shard count. ``shardings`` is a tree of the
+state's structure whose leaves are a ``Mesh`` (the leaf is this rank's
+block of a row-sharded arena, ``se.shard_block``: its rows, then a zero
+sentinel) or ``None`` (replicated); ``row_shardings`` marks a train
+state's arena leaves. ``save(..., shardings=)`` is collective: every
+rank's block is brought to the writer (the axis' rank 0) through host
+memory by per-owner broadcasts, the sentinels left out, and that one
+rank writes. ``restore(..., shardings=)`` slices each rank's block of
+the saved arena for the mesh it is given (``reshard_checkpoint``: an
+elastic rescale, 4 ranks to 2 say): padding rows that the new shard
+count does not need must be zero, and missing ones are zero.
 """
 from __future__ import annotations
 
@@ -34,12 +44,52 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.optim import tree_paths
+from repro_torch.core import sparse_engine as se
+from repro_torch.launch.mesh import Mesh
+from repro_torch.optim import tree_map, tree_paths
 
-_SHARDING = ("placing a checkpoint onto a mesh is sharding, not ported yet "
-             "(ROADMAP Queue 1, item 13)")
+
+def row_shardings(state, mesh: Mesh):
+    """The ``shardings`` tree of a row-sharded train state: ``mesh`` at
+    every tensor leaf under an ``['arena']`` path (the arena and its
+    accumulator), ``None`` elsewhere."""
+    flat = tree_paths(state)
+    marks = [mesh if isinstance(x, torch.Tensor) and "['arena']" in p
+             else None for p, x in flat]
+    return _unflatten(state, marks)
+
+
+class _Mark:
+    """A sharding (None included) held as a leaf: ``tree_paths`` would
+    drop a None."""
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+
+def _marked(state, shardings):
+    """``state``'s structure with a ``_Mark`` a leaf; ``shardings`` may be
+    a prefix of it (a leaf of it applies to the whole subtree)."""
+    if not isinstance(shardings, (dict, list, tuple)):
+        return tree_map(lambda t: None if t is None else _Mark(shardings),
+                        state)
+    if isinstance(state, dict):
+        return {k: _marked(state[k], shardings[k]) for k in state}
+    return type(state)(_marked(a, b) for a, b in zip(state, shardings))
+
+
+def _sharding_leaves(state, shardings) -> List[Optional[Mesh]]:
+    """One sharding a leaf of ``state``, in ``tree_paths`` order: the
+    ``Mesh`` of a row-sharded leaf of more than one rank, else None."""
+    marks = [x.mesh for _, x in tree_paths(_marked(state, shardings))]
+    for m in marks:
+        if m is not None and not isinstance(m, Mesh):
+            raise TypeError(f"a sharding is a repro_torch Mesh (row-"
+                            f"sharded) or None, got {type(m).__name__}")
+    return [m if m is not None and m.size("model") > 1 else None
+            for m in marks]
 
 
 def _unflatten(template, leaves: List[Any]):
@@ -122,18 +172,46 @@ class CheckpointManager:
         self._gc()
         return final
 
-    def save(self, step: int, state, meta: Optional[Dict] = None) -> Path:
+    def _host_leaves(self, state, shardings):
+        """(host copies of the leaves, their paths, whether this rank
+        writes): a row-sharded leaf whole, gathered from every rank."""
+        # imported here: repro_torch.distributed imports this module
+        from repro_torch.distributed import collectives
         flat = tree_paths(state)
-        return self._write(step, [_to_host(x) for _, x in flat],
-                           [p for p, _ in flat], meta)
+        host, writer = [], True
+        for (_, x), mesh in zip(flat, _sharding_leaves(state, shardings)):
+            if mesh is None:
+                host.append(_to_host(x))
+                continue
+            writer = mesh.rank("model") == 0
+            host.append(_to_host(collectives.gather_blocks(x, mesh)))
+        return host, [p for p, _ in flat], writer
 
-    def save_async(self, step: int, state, meta: Optional[Dict] = None):
+    def save(self, step: int, state, meta: Optional[Dict] = None,
+             shardings=None) -> Path:
+        """Write ``state`` at ``step``. With ``shardings`` (a tree of
+        ``Mesh``/None, see the module docstring) every rank calls this
+        together; the axis' rank 0 writes, and all return once it has."""
+        host, paths, writer = self._host_leaves(state, shardings)
+        final = self.dir / f"step_{step}"
+        if writer:
+            final = self._write(step, host, paths, meta)
+        meshes = [m for m in _sharding_leaves(state, shardings)
+                  if m is not None]
+        if meshes:
+            # the other ranks return once the writer has published
+            dist.barrier(group=meshes[0].group("model"))
+        return final
+
+    def save_async(self, step: int, state, meta: Optional[Dict] = None,
+                   shardings=None):
         """Copy every leaf to host memory now (a blocking copy from the
-        card), write in the background."""
+        card; with ``shardings`` a collective that gathers the sharded
+        leaves), write in the background (on the writer alone)."""
         self.wait()
-        flat = tree_paths(state)
-        host = [_to_host(x) for _, x in flat]
-        paths = [p for p, _ in flat]
+        host, paths, writer = self._host_leaves(state, shardings)
+        if not writer:
+            return
 
         def _write():
             try:
@@ -233,9 +311,10 @@ class CheckpointManager:
                 shardings=None):
         """Restore into the structure of ``template``: new tensors of the
         template's dtypes on the manager's device, ints where it holds
-        ints. Returns (tree, manifest)."""
-        if shardings is not None:
-            raise NotImplementedError(_SHARDING)
+        ints. With ``shardings`` a leaf marked with a ``Mesh`` is this
+        rank's block: the template gives its shape (vlocal + 1 rows), and
+        the rank's rows are sliced from the saved arena (module
+        docstring). Returns (tree, manifest)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -249,7 +328,10 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(leaves)} leaves, template "
                 f"{len(t_leaves)}: structure mismatch")
-        for a, t in zip(leaves, t_leaves):
+        marks = _sharding_leaves(template, shardings)
+        for i, (a, t, mesh) in enumerate(zip(leaves, t_leaves, marks)):
+            if mesh is not None:
+                leaves[i] = a = _rank_block(a, t, mesh)
             shape = tuple(t.shape) if hasattr(t, "shape") else ()
             if tuple(a.shape) != shape:
                 raise ValueError(f"shape mismatch {a.shape} vs {shape}")
@@ -259,7 +341,25 @@ class CheckpointManager:
             manifest
 
 
+def _rank_block(a: np.ndarray, like, mesh: Mesh) -> np.ndarray:
+    """This rank's block (its rows, then a zero sentinel) of a saved
+    unsharded arena, for a template block of ``like``'s shape. Saved rows
+    past the new shard count's must be zero: they are padding."""
+    n, vlocal = mesh.size("model"), like.shape[0] - 1
+    if tuple(a.shape[1:]) != tuple(like.shape[1:]):
+        raise ValueError(f"shape mismatch {a.shape} vs a block of "
+                         f"{tuple(like.shape)}")
+    if np.any(a[n * vlocal:]):
+        raise ValueError(f"the saved arena has {a.shape[0]} rows, and rows "
+                         f"past {n * vlocal} are not zero padding")
+    return se.shard_block(torch.from_numpy(np.array(a)), mesh.rank("model"),
+                          n, vlocal).numpy()
+
+
 def reshard_checkpoint(src_dir, template, new_shardings,
-                       step: Optional[int] = None):
-    """Elastic rescale onto a new mesh: ROADMAP Queue 1, item 13."""
-    raise NotImplementedError(_SHARDING)
+                       step: Optional[int] = None, *,
+                       device: Optional[Union[str, torch.device]] = None):
+    """Elastic rescale: restore a checkpoint onto a new mesh (this rank's
+    blocks of it; ``restore(..., shardings=)``), on ``device``."""
+    mgr = CheckpointManager(src_dir, keep_n=0, device=device)
+    return mgr.restore(template, step=step, shardings=new_shardings)

@@ -22,8 +22,17 @@ replicated:
   (``project_tables``), per-table streams, and the group train steps.
 
 Every train step puts row-wise Adagrad on the arena (one accumulator a
-table on a group) and AdamW on the rest. Sharding (a ``mesh``) is ROADMAP
-Queue 1, item 13.
+table on a group) and AdamW on the rest.
+
+Row sharding: with a ``mesh`` (``launch.mesh.make_mesh((n,), ("model",))``,
+one process a rank) of more than one shard, ``params["arena"]`` (a group's
+``params["tables"]``) is this rank's block of the arena padded to
+``spec.padded_rows(n)`` rows (``init(..., shards=n)`` then
+``shard_params``), the forwards and serve steps look up through a
+``ShardedArena``, and ``make_train_step_ragged``'s sparse step updates
+the rank's block. Every rank runs the
+same batch. A group serves sharded but trains replicated, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -38,9 +47,10 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import dense_engine as de
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
+from repro_torch.distributed import collectives
 from repro_torch.obs.tracing import stage as obs_stage
 from repro_torch.optim import (Optimizer, adamw, partitioned,
-                               rowwise_adagrad, tree_map)
+                               rowwise_adagrad, tree_leaves, tree_map)
 
 
 def arena_spec(cfg: DLRMConfig) -> se.ArenaSpec:
@@ -83,10 +93,13 @@ def top_mlp_in_dim(cfg: DLRMConfig) -> int:
     return cfg.emb_dim + f * (f - 1) // 2
 
 
-def init(generator: torch.Generator, cfg: DLRMConfig, *,
+def init(generator: torch.Generator, cfg: DLRMConfig, shards: int = 1, *,
          device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Random params drawn from ``generator``, on the card unless
-    ``device="cpu"``; the generator must live on that device type."""
+    ``device="cpu"``; the generator must live on that device type. Each
+    arena is padded for ``shards`` row-shards (``se.init_arena``), as the
+    reference's ``init(key, cfg, shards)``; ``shard_params`` then takes a
+    rank's block."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params asked "
@@ -101,7 +114,7 @@ def init(generator: torch.Generator, cfg: DLRMConfig, *,
     }
     if cfg.heterogeneous:
         specs = member_specs(cfg)
-        params["tables"] = tuple(se.init_arena(generator, sp)
+        params["tables"] = tuple(se.init_arena(generator, sp, shards)
                                  for sp in specs)
         # table t's reduced (dim_t,) bag joins the interaction as an
         # (emb_dim,) vector
@@ -111,8 +124,34 @@ def init(generator: torch.Generator, cfg: DLRMConfig, *,
              / sp.dim ** 0.5).to(getattr(torch, cfg.dtype))
             for sp in specs)
     else:
-        params["arena"] = se.init_arena(generator, arena_spec(cfg))
+        params["arena"] = se.init_arena(generator, arena_spec(cfg), shards)
     return params
+
+
+def shard_params(params: Dict, mesh: Any) -> Dict:
+    """This rank's params on a row-sharded mesh: the arena (a group's
+    tables) replaced by the rank's block (``se.shard_block``: its rows,
+    then the zero sentinel), every other leaf as it was. The arenas must
+    be padded for the mesh (``init(..., shards=n)``). With one shard the
+    params are returned as they are."""
+    n = se.mesh_shards(mesh)
+    if n == 1:
+        return params
+    rank = mesh.rank()
+
+    def block(a: torch.Tensor) -> torch.Tensor:
+        if a.shape[0] % n:
+            raise ValueError(f"arena of {a.shape[0]} rows does not divide "
+                             f"into {n} shards: pad it (init(..., "
+                             f"shards={n}))")
+        return se.shard_block(a, rank, n)
+
+    out = dict(params)
+    if "tables" in params:
+        out["tables"] = tuple(block(a) for a in params["tables"])
+    else:
+        out["arena"] = block(params["arena"])
+    return out
 
 
 def params_from_numpy(tree: Dict, device: Optional[Union[str, torch.device]]
@@ -141,7 +180,8 @@ def params_from_numpy(tree: Dict, device: Optional[Union[str, torch.device]]
 def group_source(params: Dict, cfg: DLRMConfig,
                  mesh: Any = None) -> es.TableGroupSource:
     """The default serving group of a heterogeneous config: one fp member
-    a table arena."""
+    a table arena, row-sharded when a mesh of more than one shard is
+    given."""
     if not cfg.heterogeneous:
         raise ValueError("group_source needs a heterogeneous config")
     return es.TableGroupSource.from_arenas(params["tables"],
@@ -158,9 +198,10 @@ def project_tables(proj, emb: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def _default_source(params: Dict, cfg: DLRMConfig) -> es.EmbeddingSource:
-    return (group_source(params, cfg) if cfg.heterogeneous
-            else es.FpArena(params["arena"]))
+def _default_source(params: Dict, cfg: DLRMConfig,
+                    mesh: Any = None) -> es.EmbeddingSource:
+    return (group_source(params, cfg, mesh) if cfg.heterogeneous
+            else es.resolve_source(params["arena"], mesh))
 
 
 def head_logits(mlp_params: Dict, dense: torch.Tensor,
@@ -176,12 +217,6 @@ def head_logits(mlp_params: Dict, dense: torch.Tensor,
         return de.mlp_apply(mlp_params["top"], x)[:, 0]
 
 
-def _no_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sources are not ported yet (ROADMAP Queue 1, item 13)")
-
-
 def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
             indices: torch.Tensor, mesh: Any = None, *,
             source: Optional[es.EmbeddingSource] = None) -> torch.Tensor:
@@ -189,15 +224,14 @@ def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     int32 per-table ids -> logits (B,).
 
     The sparse stage is ``lookup_fixed`` over `source` (default: the fp
-    arena in `params`, one ``embedding_bag`` launch for all tables, or on
-    a heterogeneous config the group over ``params["tables"]``, whose
-    bags are projected through ``params["proj"]``); the head is the one
-    the ragged path runs.
+    arena in `params`, one ``embedding_bag`` launch for all tables,
+    row-sharded when a mesh is given, or on a heterogeneous config the
+    group over ``params["tables"]``, whose bags are projected through
+    ``params["proj"]``); the head is the one the ragged path runs.
     """
-    _no_mesh(mesh)
     spec = arena_spec(cfg)
     if source is None:
-        source = _default_source(params, cfg)
+        source = _default_source(params, cfg, mesh)
     with obs_stage("sparse_lookup"):
         emb = es.lookup_fixed(source, spec, indices)
         if cfg.heterogeneous:
@@ -208,21 +242,21 @@ def forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
 def make_serve_step(cfg: DLRMConfig, mesh: Any = None):
     """Serve step over fixed-L batches ({dense, indices} -> CTR), run
     under ``torch.inference_mode``, from the fp arena (or tables) in
-    `params`."""
-    _no_mesh(mesh)
+    `params`, row-sharded over `mesh` when given."""
+    se.mesh_shards(mesh)
 
     def serve_step(params: Dict, batch: Dict) -> torch.Tensor:
         with torch.inference_mode():
             return torch.sigmoid(forward(params, cfg, batch["dense"],
-                                         batch["indices"]))
+                                         batch["indices"], mesh))
     return serve_step
 
 
 def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
                    indices: torch.Tensor, offsets: torch.Tensor, *,
                    max_l: int,
-                   source: Optional[es.EmbeddingSource] = None
-                   ) -> torch.Tensor:
+                   source: Optional[es.EmbeddingSource] = None,
+                   mesh: Any = None) -> torch.Tensor:
     """Ragged-bag forward: the production SparseLengthsSum path.
 
     dense: (B, dense_features); indices: flat per-table row-id stream
@@ -230,7 +264,8 @@ def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     boundaries in (sample, table) row-major order; max_l: per-bag length
     bound. The embedding stage is ``lookup_bags`` over `source` (default:
     the fp arena in `params`, or on a heterogeneous config the group over
-    ``params["tables"]``). Returns logits (B,).
+    ``params["tables"]``, row-sharded when a mesh is given). Returns
+    logits (B,).
 
     Per-table streams: with a ``TableGroupSource``, `indices` / `offsets`
     may instead be sequences, table t's own flat stream and (B+1,)
@@ -240,7 +275,7 @@ def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     """
     spec = arena_spec(cfg)
     if source is None:
-        source = _default_source(params, cfg)
+        source = _default_source(params, cfg, mesh)
     with obs_stage("sparse_lookup"):
         if isinstance(indices, (tuple, list)):
             emb = es.lookup_bags_per_table(source, indices, offsets,
@@ -253,17 +288,20 @@ def forward_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
     return head_logits(params, dense, emb)
 
 
-def make_ragged_serve_step(cfg: DLRMConfig, *, max_l: int):
+def make_ragged_serve_step(cfg: DLRMConfig, *, max_l: int, mesh: Any = None):
     """Serve step over ragged batches ({dense, indices, offsets} -> CTR),
     run under ``torch.inference_mode``. The source is a per-call argument
-    (default: the fp arena in `params`, or the group over its tables)."""
+    (default: the fp arena in `params`, or the group over its tables,
+    row-sharded over `mesh` when given)."""
+    se.mesh_shards(mesh)
+
     def serve_step(params: Dict, batch: Dict,
                    source: Optional[es.EmbeddingSource] = None
                    ) -> torch.Tensor:
         with torch.inference_mode():
             return torch.sigmoid(forward_ragged(
                 params, cfg, batch["dense"], batch["indices"],
-                batch["offsets"], max_l=max_l, source=source))
+                batch["offsets"], max_l=max_l, source=source, mesh=mesh))
     return serve_step
 
 
@@ -330,11 +368,13 @@ def loss_fn(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
 
 def loss_ragged(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
                 indices: torch.Tensor, offsets: torch.Tensor,
-                labels: torch.Tensor, *, max_l: int) -> torch.Tensor:
+                labels: torch.Tensor, *, max_l: int,
+                mesh: Any = None) -> torch.Tensor:
     """BCE over the ragged production path; differentiable through the
-    kernels' backward passes (``kernels.ops``)."""
+    kernels' backward passes (``kernels.ops``) and, on a mesh, the
+    all-reduce's identity backward."""
     logits = forward_ragged(params, cfg, dense, indices, offsets,
-                            max_l=max_l)
+                            max_l=max_l, mesh=mesh)
     return _bce(logits, labels)
 
 
@@ -362,15 +402,18 @@ def make_train_step(cfg: DLRMConfig, optimizer: Optional[Optimizer] = None,
     (new_params, new_opt_state, loss), loss a 0-dim tensor on the
     params' device. The step updates the parameters and the optimizer
     state **in place** and returns the same tensors: keep a copy of
-    whatever must survive the step.
+    whatever must survive the step. With a mesh the arena is this rank's
+    block and its gradient the rank's rows of the whole one (the
+    sentinel's pinned to zero); the MLP gradients are equal on every
+    rank, the batch being.
     """
-    _no_mesh(mesh)
+    se.mesh_shards(mesh)
     opt = optimizer or make_optimizer(cfg)
 
     def train_step(params, opt_state, batch):
         live = _tracked(params)
         loss = loss_fn(live, cfg, batch["dense"], batch["indices"],
-                       batch["labels"])
+                       batch["labels"], mesh)
         with obs_stage("backward"):
             loss.backward()
         with torch.no_grad(), obs_stage("optimizer"):
@@ -403,18 +446,49 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
 
     On a heterogeneous config the step is the group's
     (``_make_train_step_group``): touched_rows is then a tuple, one
-    array a table. Sharded training (``sharded=True`` or a mesh) is
-    ROADMAP Queue 1, item 13.
+    array a table; a group does not train sharded.
+
+    On a mesh of more than one shard the sparse step is the row-sharded
+    one (sharded=None or True; sharded=False is refused, since a
+    replicated sparse step would train a copy of the arena a rank): the
+    arena and its Adagrad accumulator are this rank's blocks
+    (``shard_params``), the forward reduces the rank's partial bags over
+    its block (``ShardedArena``: one ``fused_segment_sum``, one
+    all-reduce of reduced D-vectors), the MLP gradients are all-reduced
+    and divided by N (the reference's ``pmean``: equal gradients, so
+    exact for N a power of two), and ``shard_local_rows`` keeps the row
+    gradients the rank owns for its row-wise Adagrad. Row gradients
+    never leave their rank; ``touched_rows`` is the global sorted unique
+    rows, equal on every rank. At one shard each of these three is the
+    identity, and the step is the replicated one. The dense-gradient
+    baseline on a mesh differentiates through the sharded source.
     """
     from repro_torch.training import sparse_optim as so
 
-    if sharded or mesh is not None:
-        raise NotImplementedError(
-            "sharded training is not ported yet (ROADMAP Queue 1, item 13)")
     spec = arena_spec(cfg)
+    shards = se.mesh_shards(mesh)
     if cfg.heterogeneous:
+        if sharded or shards > 1:
+            raise ValueError(
+                "sharded TRAINING of a heterogeneous table group is not "
+                "supported yet: serve groups sharded (ShardedArena "
+                "members) and train replicated")
         return _make_train_step_group(cfg, spec, max_l=max_l, lr=lr,
                                       sparse=sparse)
+    if sharded is None:
+        sharded = sparse and shards > 1
+    if sharded:
+        if not sparse:
+            raise ValueError("sharded=True is the sparse-optimizer path; "
+                             "the dense-grad baseline threads the mesh "
+                             "through the default sharded source instead")
+        if mesh is None or "model" not in mesh.axis_names:
+            raise ValueError("sharded=True needs a mesh with axis 'model'")
+    elif sparse and shards > 1:
+        raise ValueError(
+            "sparse ragged training on a mesh must be sharded: the "
+            "replicated sparse branch would silently train a per-rank "
+            "arena copy; pass sharded=True (or leave sharded=None)")
 
     if not sparse:
         opt = make_optimizer(cfg, lr)
@@ -423,7 +497,7 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
             live = _tracked(params)
             loss = loss_ragged(live, cfg, batch["dense"], batch["indices"],
                                batch["offsets"], batch["labels"],
-                               max_l=max_l)
+                               max_l=max_l, mesh=mesh)
             with obs_stage("backward"):
                 loss.backward()
             with torch.no_grad(), obs_stage("optimizer"):
@@ -438,6 +512,7 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
 
     arena_opt = so.sparse_rowwise_adagrad(lr * 10)
     mlp_opt = adamw(lr)
+    shard = mesh.rank() if shards > 1 else 0
 
     def init(params):
         return {"arena": arena_opt.init(params["arena"]),
@@ -446,12 +521,13 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
 
     def step(params, opt_state, batch):
         n_bags = batch["offsets"].shape[0] - 1
+        arena = params["arena"]
         # The sparse stage runs forward once, outside autograd; its
         # gradient w.r.t. the arena is a pure scatter of the bag
         # gradients, which the row-wise update applies directly, so the
         # update stays O(N).
         with torch.no_grad(), obs_stage("sparse_lookup"):
-            emb = es.lookup_bags(es.FpArena(params["arena"]), spec,
+            emb = es.lookup_bags(es.resolve_source(arena, mesh), spec,
                                  batch["indices"], batch["offsets"],
                                  max_l=max_l)
         emb.requires_grad_()
@@ -461,14 +537,21 @@ def make_train_step_ragged(cfg: DLRMConfig, *, max_l: int, lr: float = 1e-3,
         with obs_stage("backward"):
             loss.backward()
         with torch.no_grad(), obs_stage("optimizer"):
+            d_mlp = tree_map(lambda t: t.grad, live)
+            collectives.pmean_(tree_leaves(d_mlp), mesh)
             d_bags = emb.grad.reshape(n_bags, spec.dim)
             rows, row_g = so.source_row_grads(spec, d_bags, batch["indices"],
                                               batch["offsets"])
+            local_rows, local_g = rows, row_g
+            if shards > 1:
+                lo, vlocal = se.shard_row_range(arena, shard)
+                local_rows, local_g = so.shard_local_rows(
+                    rows, row_g, lo=lo, vlocal=vlocal,
+                    null_row=spec.null_row)
             new_arena, arena_state = arena_opt.update(
-                params["arena"], opt_state["arena"], rows, row_g)
-            new_mlp, mlp_state = mlp_opt.update(
-                tree_map(lambda t: t.grad, live), opt_state["mlp"],
-                mlp_params)
+                arena, opt_state["arena"], local_rows, local_g)
+            new_mlp, mlp_state = mlp_opt.update(d_mlp, opt_state["mlp"],
+                                                mlp_params)
         new_params = dict(new_mlp)
         new_params["arena"] = new_arena
         return new_params, {"arena": arena_state, "mlp": mlp_state}, \

@@ -12,6 +12,11 @@ Ported sources::
 
     FpArena(arena)                     full-precision row arena
     QuantizedArena(q, scales)          int8 rows + per-row f32 scale
+    ShardedArena(inner, mesh, axis)    either of those two row-sharded
+                                       over a mesh axis: ``inner`` holds
+                                       this rank's block, and one
+                                       all-reduce of reduced D-vectors
+                                       combines the ranks' partials
     CachedSource(hot, cold)            replicated top-K hot rows + any of
                                        these as the cold source
     TableGroupSource(members, specs)   heterogeneous per-table members
@@ -26,11 +31,15 @@ artifact (``VersionedSource``, the reference's
 other). The hot/cold law holds bit for bit: a coherent ``CachedSource``
 over an ``FpArena`` reduces to exactly the ``FpArena`` lookup; and a
 ``TableGroupSource`` lookup is, table by table, its members' own lookups
-(``lookup_bags_per_table``).
+(``lookup_bags_per_table``). A ``ShardedArena`` agrees with the
+replicated lookup within rounding (a bag whose rows lie on several ranks
+is summed in another association), exactly at one shard, where bags lie
+on one rank, and between ranks (one all-reduce hands every rank the same
+bits).
 
 A table group's member may be any of these, a tiered source included.
-Not ported yet, refused naming its ROADMAP item: sharded sources (Queue
-1, item 13).
+Not ported yet, refused naming ROADMAP Queue 1, item 13b: sharded tiered
+sources and a two-dimensional (data, model) mesh.
 """
 from __future__ import annotations
 
@@ -46,17 +55,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import sparse_engine as se
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.obs.tracing import stage as obs_stage
 
 __all__ = ["CachedSource", "EmbeddingSource", "FpArena", "QuantizedArena",
-           "SourceSpec", "TableGroupSource", "TablePlan", "VersionedSource",
-           "adopt_source", "clone_source", "describe_source", "fmt_bytes",
-           "group_hit_counts", "group_trace_counts", "hot_cache_of",
-           "lookup_bags", "lookup_bags_per_table", "lookup_fixed",
-           "rebind_arena", "register_meta_type", "register_source",
-           "replace_member", "source_bytes", "source_structure",
+           "ShardedArena", "SourceSpec", "TableGroupSource", "TablePlan",
+           "VersionedSource", "adopt_source", "clone_source",
+           "describe_source", "fmt_bytes", "group_hit_counts",
+           "group_trace_counts", "hot_cache_of", "lookup_bags",
+           "lookup_bags_per_table", "lookup_fixed", "rebind_arena",
+           "register_meta_type", "register_source", "replace_member",
+           "resolve_source", "source_bytes", "source_structure",
            "with_hot_cache"]
 
 
@@ -74,7 +85,10 @@ class EmbeddingSource:
     their fused forms. ``reduce_bags`` and ``reduce_fixed_ids`` are the
     per-table-id halves of the two entry points, flattening against the
     uniform arena layout; only ``TableGroupSource``, whose tables share no
-    layout, overrides them.
+    layout, overrides them. The shard-local hooks (``shard_reduce_flat``,
+    ``shard_reduce_dense``, ``shard_reduce_fixed``) are asked only of the
+    sources that can sit inside ``ShardedArena``: each returns rank
+    ``shard``'s f32 partials over its block, before the all-reduce.
     """
 
     @property
@@ -121,6 +135,28 @@ class EmbeddingSource:
         already a dense id matrix, so this is the fused hook."""
         return self.reduce_dense(spec, flat)
 
+    def _not_shardable(self):
+        return NotImplementedError(
+            f"{type(self).__name__} cannot be row-sharded; wrap a leaf "
+            f"source (FpArena / QuantizedArena) in ShardedArena instead")
+
+    def shard_reduce_flat(self, spec: se.ArenaSpec, flat: torch.Tensor,
+                          offsets: torch.Tensor, shard: int, *,
+                          max_l: int) -> torch.Tensor:
+        """Shard-local half of ``reduce_flat`` (the source holds rank
+        ``shard``'s block): f32 (n_bags, D) partials."""
+        raise self._not_shardable()
+
+    def shard_reduce_dense(self, spec: se.ArenaSpec, dense: torch.Tensor,
+                           shard: int) -> torch.Tensor:
+        """Shard-local half of ``reduce_dense``."""
+        raise self._not_shardable()
+
+    def shard_reduce_fixed(self, spec: se.ArenaSpec, flat: torch.Tensor,
+                           shard: int) -> torch.Tensor:
+        """Shard-local half of ``reduce_fixed``."""
+        raise self._not_shardable()
+
 
 @dataclass(frozen=True)
 class FpArena(EmbeddingSource):
@@ -144,6 +180,18 @@ class FpArena(EmbeddingSource):
         # one embedding_bag pass over all tables: the fixed layout has no
         # fill slots, so no null row to pin
         return ops.embedding_bag(self.arena, flat).float()
+
+    def shard_reduce_flat(self, spec, flat, offsets, shard, *, max_l):
+        return se.ragged_partial_reduce(self.arena, flat, offsets, shard,
+                                        max_l=max_l)
+
+    def shard_reduce_dense(self, spec, dense, shard):
+        return se.dense_partial_reduce(self.arena, dense, shard,
+                                       null_row=spec.null_row)
+
+    def shard_reduce_fixed(self, spec, flat, shard):
+        return se.fixed_partial_reduce(self.arena, flat, shard,
+                                       null_row=spec.null_row)
 
 
 @dataclass(frozen=True)
@@ -188,6 +236,75 @@ class QuantizedArena(EmbeddingSource):
     def reduce_dense(self, spec, dense):
         rows = self.q[dense].float() * self.scales[dense]
         return rows.sum(dim=1)
+
+    def shard_reduce_flat(self, spec, flat, offsets, shard, *, max_l):
+        return se.ragged_partial_reduce_q(self.q, self.scales, flat, offsets,
+                                          shard, max_l=max_l)
+
+    def shard_reduce_dense(self, spec, dense, shard):
+        return se.dense_partial_reduce_q(self.q, self.scales, dense, shard,
+                                         null_row=spec.null_row)
+
+    def shard_reduce_fixed(self, spec, flat, shard):
+        return self.shard_reduce_dense(spec, flat, shard)
+
+
+@dataclass(frozen=True)
+class ShardedArena(EmbeddingSource):
+    """A leaf source (``FpArena`` / ``QuantizedArena``) row-sharded over
+    ``axis`` of ``mesh``: the port's form of the reference's
+    ``shard_map``. ``inner`` holds this rank's block (its rows, then the
+    zero sentinel; ``se.shard_block``), which is what ``shard_map`` hands
+    the reference's body.
+
+    Each reduce runs the inner source's shard-local half over the block
+    (ids the rank does not own, and the null row, sit on the sentinel)
+    and sums the ranks' f32 (n_bags, D) partials with one all-reduce
+    (``collectives.psum``, whose backward is the identity): only reduced
+    vectors cross ranks, never raw rows. The sum is rounded through the
+    inner dtype and back to f32, as the reference's is. With one shard
+    the inner source reduces on its own. Every rank calls each reduce
+    with the same batch (the batch is replicated over the row axis).
+    """
+    inner: EmbeddingSource
+    mesh: object
+    axis: str = "model"
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return self.inner.out_dtype
+
+    @property
+    def n_shards(self) -> int:
+        return se.mesh_shards(self.mesh, self.axis)
+
+    @property
+    def shard(self) -> int:
+        return self.mesh.rank(self.axis) if self.n_shards > 1 else 0
+
+    def _combine(self, part: torch.Tensor) -> torch.Tensor:
+        return collectives.psum(part, self.mesh, self.axis) \
+            .to(self.inner.out_dtype).float()
+
+    def reduce_flat(self, spec, flat, offsets, *, max_l):
+        if self.n_shards == 1:
+            return self.inner.reduce_flat(spec, flat, offsets, max_l=max_l)
+        return self._combine(self.inner.shard_reduce_flat(
+            spec, flat, offsets, self.shard, max_l=max_l))
+
+    def reduce_dense(self, spec, dense):
+        if self.n_shards == 1:
+            return self.inner.reduce_dense(spec, dense)
+        return self._combine(self.inner.shard_reduce_dense(spec, dense,
+                                                           self.shard))
+
+    def reduce_fixed(self, spec, flat):
+        if self.n_shards == 1:
+            return self.inner.reduce_fixed(spec, flat)
+        # one row axis: the fixed-L batch is replicated over it (the
+        # reference's batch partition over data axes is item 13b)
+        return self._combine(self.inner.shard_reduce_fixed(spec, flat,
+                                                           self.shard))
 
 
 @dataclass(frozen=True)
@@ -258,9 +375,11 @@ class TableGroupSource(EmbeddingSource):
     gather-reduce stream over its own arena.
 
     ``members[t]`` is any ported source (``FpArena``, ``QuantizedArena``,
-    ``CachedSource``, ``storage.TieredSource``) over table t's private arena ``(vocab_t + 1,
-    dim_t)`` (its own trailing null row); ``specs[t]`` is its single-table
-    ``ArenaSpec(1, vocab_t, dim_t)``.
+    ``ShardedArena``, ``CachedSource``, ``storage.TieredSource``) over
+    table t's private arena ``(vocab_t + 1, dim_t)`` (its own trailing
+    null row); ``specs[t]`` is its single-table ``ArenaSpec(1, vocab_t,
+    dim_t)``. Sharded members serve; the group train steps refuse a mesh,
+    as the reference's do.
 
     The grouped reduction relayouts the one interleaved (sample, table)
     row-major stream once, with -1 in the short and padded slots, and
@@ -296,14 +415,11 @@ class TableGroupSource(EmbeddingSource):
                     specs: Sequence[se.ArenaSpec],
                     mesh: Optional[object] = None) -> "TableGroupSource":
         """The default group over raw per-table arenas: one fp member a
-        table."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded members are not ported yet (ROADMAP Queue 1, "
-                "item 13)")
+        table, row-sharded when a mesh of more than one shard is given
+        (each arena then being this rank's block of its table)."""
         if len(arenas) != len(specs):
             raise ValueError(f"{len(arenas)} arenas for {len(specs)} specs")
-        return cls(members=tuple(FpArena(a) for a in arenas),
+        return cls(members=tuple(resolve_source(a, mesh) for a in arenas),
                    specs=tuple(specs))
 
     def reduce_bags(self, spec, indices, offsets, *, max_l):
@@ -409,6 +525,17 @@ def lookup_bags_per_table(source: TableGroupSource,
 # Construction helpers
 # ---------------------------------------------------------------------------
 
+def resolve_source(arena: torch.Tensor, mesh: Optional[object] = None,
+                   axis: str = "model") -> EmbeddingSource:
+    """The default source for a raw arena: replicated fp, row-sharded
+    over ``axis`` when a mesh of more than one shard is given (``arena``
+    then being this rank's block)."""
+    src: EmbeddingSource = FpArena(arena)
+    if se.mesh_shards(mesh, axis) > 1:
+        src = ShardedArena(src, mesh, axis)
+    return src
+
+
 def hot_cache_of(source) -> Optional[se.HotRowCache]:
     """The hot cache a source serves from, or None (non-cached source)."""
     return source.hot if isinstance(source, CachedSource) else None
@@ -451,6 +578,9 @@ def rebind_arena(source: EmbeddingSource, arena) -> EmbeddingSource:
             specs=source.specs)
     if isinstance(source, FpArena):
         return FpArena(arena)
+    if isinstance(source, ShardedArena):
+        return ShardedArena(rebind_arena(source.inner, arena), source.mesh,
+                            source.axis)
     if isinstance(source, CachedSource):
         return CachedSource(source.hot, rebind_arena(source.cold, arena),
                             coherent=source.coherent)
@@ -484,8 +614,8 @@ def source_bytes(source) -> int:
 
 
 def describe_source(source, *, multiline: bool = False) -> str:
-    """Stats label: 'fp', 'int8', 'int4', 'cached(fp)', 'cached(int8)',
-    'tiered(int4)', 'tiered(host)', 'group[...]'. With
+    """Stats label: 'fp', 'int8', 'int4', 'sharded(4,fp)', 'cached(fp)',
+    'cached(int8)', 'tiered(int4)', 'tiered(host)', 'group[...]'. With
     ``multiline=True`` every nested source renders on its own indented
     line with its dtype and byte size (a group: one line a table with its
     vocab and dim, then its member's)."""
@@ -495,6 +625,8 @@ def describe_source(source, *, multiline: bool = False) -> str:
         return "fp"
     if isinstance(source, QuantizedArena):
         return "int8"
+    if isinstance(source, ShardedArena):
+        return f"sharded({source.n_shards},{describe_source(source.inner)})"
     if isinstance(source, CachedSource):
         return f"cached({describe_source(source.cold)})"
     if isinstance(source, TableGroupSource):
@@ -518,6 +650,10 @@ def _describe_lines(source, depth: int) -> List[str]:
         nb = _nbytes(source.q) + _nbytes(source.scales)
         return [f"{pad}int8 arena ({r}x{d} + f32 row scales, "
                 f"{fmt_bytes(nb)})"]
+    if isinstance(source, ShardedArena):
+        return [f"{pad}sharded over {source.n_shards} x '{source.axis}' "
+                f"(this rank's block)"] \
+            + _describe_lines(source.inner, depth + 1)
     if isinstance(source, CachedSource):
         hot = source.hot
         nb = _nbytes(hot.hot_rows) + _nbytes(hot.slot_of) \
@@ -550,14 +686,10 @@ def _describe_lines(source, depth: int) -> List[str]:
 _SOURCE_REGISTRY = {
     "FpArena": (FpArena, ("arena",), ()),
     "QuantizedArena": (QuantizedArena, ("q", "scales"), ()),
+    "ShardedArena": (ShardedArena, ("inner",), ("mesh", "axis")),
     "CachedSource": (CachedSource, ("hot", "cold"), ("coherent",)),
     "HotRowCache": (se.HotRowCache, ("hot_rows", "slot_of", "hot_ids"), ()),
     "TableGroupSource": (TableGroupSource, ("members",), ("specs",)),
-}
-
-# reference source types the codec refuses, and the ROADMAP item of each
-_UNPORTED_TYPES = {
-    "ShardedArena": "sharded sources (ROADMAP Queue 1, item 13)",
 }
 
 # frozen dataclasses that may sit in a source's meta fields and round-trip
@@ -759,7 +891,10 @@ class SourceSpec:
     path strings map onto plans through ``from_path``. With ``tables`` (a
     tuple of ``TablePlan``) the plan is a table group: ``build`` takes the
     sequence of per-table arenas and of per-table trace histograms, and
-    composes each member on its own."""
+    composes each member on its own. With a ``mesh`` of more than one
+    shard on ``axis`` every arena handed to ``build`` is this rank's
+    block, and the (cold) arenas are row-sharded; ``require_mesh`` (the
+    'sharded' path) refuses to build without one."""
     layout: str = "ragged"               # 'ragged' | 'fixed' batch layout
     cache_k: int = 0                     # >0: pin top-K rows hot
     quantize_cold: bool = False          # int8 cold/uncached arena
@@ -783,10 +918,21 @@ class SourceSpec:
                 "step and cannot take a cached/quantized/grouped/tiered "
                 "source; drop cache_k/quantize_cold/tables/tiers or use "
                 "the ragged layout")
-        if self.mesh is not None or self.require_mesh:
+        if self.axis != "model":
             raise NotImplementedError(
-                "sharded sources are not ported yet (ROADMAP Queue 1, "
-                "item 13)")
+                f"axis {self.axis!r}: only the 'model' row axis is ported; "
+                "other axes are ROADMAP Queue 1, item 13b")
+        if self.tiers is not None and (self.mesh is not None
+                                       or self.require_mesh):
+            raise NotImplementedError(
+                "a tiered source does not row-shard (its staging and slot "
+                "protocol is replicated); sharded tiered sources are "
+                "ROADMAP Queue 1, item 13b")
+        if self.require_mesh and se.mesh_shards(self.mesh, self.axis) < 2:
+            raise ValueError(
+                "require_mesh=True (path 'sharded') needs a mesh with a "
+                f">1 {self.axis!r} axis: a misconfigured replica must not "
+                "silently fall back to the replicated arena")
         if self.tables is not None and (self.cache_k or self.quantize_cold
                                         or self.tiers is not None):
             raise ValueError(
@@ -839,25 +985,32 @@ class SourceSpec:
             return "tiered"
         if self.layout == "fixed":
             return "fixed"
-        return "cached" if self.cached else "ragged"
+        if self.cached:
+            return "cached"
+        return "sharded" if self.require_mesh else "ragged"
 
     def build(self, arena, spec: Optional[se.ArenaSpec],
               counts=None) -> EmbeddingSource:
         """Materialise the plan for an arena; ``counts`` is the trace
         histogram that ranks the hot rows, or the tiers (uniform when
         omitted). A group plan takes the sequence of per-table arenas and
-        the list of per-table histograms instead, and no ``spec``."""
+        the list of per-table histograms instead, and no ``spec``. On a
+        sharded plan every rank builds together (the hot rows come from
+        their owners) with the same ``counts``."""
         if self.tables is not None:
             return self._build_group(arena, counts)
         if self.tiers is not None:
             return self.tiers.build_source(arena, spec, counts)
         cold: EmbeddingSource = (QuantizedArena.from_arena(arena)
                                  if self.quantize_cold else FpArena(arena))
+        if se.mesh_shards(self.mesh, self.axis) > 1:
+            cold = ShardedArena(cold, self.mesh, self.axis)
         if not self.cached:
             return cold
         if counts is None:
             counts = np.ones(spec.total_rows)
-        hot = se.build_hot_cache(arena, spec, counts, self.cache_k)
+        hot = se.build_hot_cache(arena, spec, counts, self.cache_k,
+                                 mesh=self.mesh)
         # built from the live arena right here, so the plan declares
         # coherence
         return CachedSource(hot=hot, cold=cold, coherent=True)
@@ -868,19 +1021,28 @@ class SourceSpec:
                              f"{len(self.tables)} table plans")
         if counts is None:
             counts = [None] * len(self.tables)
+        sharded = se.mesh_shards(self.mesh, self.axis) > 1
         members, specs = [], []
         for tp, arena, c in zip(self.tables, arenas, counts):
             sp = tp.arena_spec
             if tp.tiers is not None:
+                if sharded:
+                    raise NotImplementedError(
+                        "a tiered member does not row-shard: drop the "
+                        "mesh or this table's tiers (sharded tiered "
+                        "sources are ROADMAP Queue 1, item 13b)")
                 members.append(tp.tiers.build_source(arena, sp, c))
                 specs.append(sp)
                 continue
             member: EmbeddingSource = (QuantizedArena.from_arena(arena)
                                        if tp.quantize else FpArena(arena))
+            if sharded:
+                member = ShardedArena(member, self.mesh, self.axis)
             if tp.cache_k > 0:
                 if c is None:
                     c = np.ones(sp.total_rows)
-                hot = se.build_hot_cache(arena, sp, c, tp.cache_k)
+                hot = se.build_hot_cache(arena, sp, c, tp.cache_k,
+                                         mesh=self.mesh)
                 member = CachedSource(hot=hot, cold=member, coherent=True)
             members.append(member)
             specs.append(sp)
@@ -926,7 +1088,21 @@ def _decode_meta(v):
     return v
 
 
+def _unsharded(source: ShardedArena) -> EmbeddingSource:
+    """The inner source of a ``ShardedArena`` with each block replaced by
+    the whole arena, gathered through host memory from every rank (a
+    collective): a blob holds the unsharded rows, as the reference's
+    does."""
+    inner = source.inner
+    return dataclasses.replace(inner, **{
+        f: collectives.gather_blocks(getattr(inner, f), source.mesh,
+                                     source.axis)
+        for f in _SOURCE_REGISTRY[type(inner).__name__][1]})
+
+
 def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
+    if isinstance(obj, ShardedArena) and obj.n_shards > 1:
+        obj = dataclasses.replace(obj, inner=_unsharded(obj))
     if isinstance(obj, torch.Tensor):
         key = f"a{counter[0]}"
         counter[0] += 1
@@ -955,7 +1131,11 @@ def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
     for f in data_fields:
         node["fields"][f] = _encode(getattr(obj, f), arrays, counter)
     for f in meta_fields:
-        if f in getattr(obj, "__ephemeral_meta__", ()):
+        if isinstance(obj, ShardedArena) and f == "mesh":
+            # a mesh is the process's topology, not state: the consumer
+            # binds its own at deserialize time
+            node["fields"][f] = {"kind": "mesh"}
+        elif f in getattr(obj, "__ephemeral_meta__", ()):
             # host-process state (a HostStore): the consumer binds its
             # own; the decoded source serves its staged snapshot
             node["fields"][f] = {"kind": "ephemeral"}
@@ -965,23 +1145,21 @@ def _encode(obj, arrays: Dict[str, np.ndarray], counter: list):
     return node
 
 
-def _decode(node, z, device: torch.device):
+def _decode(node, z, device: torch.device, mesh):
     kind = node["kind"]
     if kind == "array":
         return torch.from_numpy(np.array(z[node["key"]])).to(device)
     if kind == "seq":
-        items = [_decode(x, z, device) for x in node["items"]]
+        items = [_decode(x, z, device, mesh) for x in node["items"]]
         return items if node.get("list") else tuple(items)
     if kind == "dict":
-        return {k: _decode(v, z, device) for k, v in node["items"].items()}
+        return {k: _decode(v, z, device, mesh)
+                for k, v in node["items"].items()}
     if kind == "none":
         return None
     if kind != "node":
         raise ValueError(f"unknown node kind {kind!r}")
     name = node["type"]
-    if name in _UNPORTED_TYPES:
-        raise NotImplementedError(f"{name}: {_UNPORTED_TYPES[name]} "
-                                  "is not ported yet")
     if _registered(name) is None:
         raise ValueError(f"unknown source type {name!r}")
     cls, data_fields, meta_fields = _SOURCE_REGISTRY[name]
@@ -989,15 +1167,23 @@ def _decode(node, z, device: torch.device):
     for f in data_fields + meta_fields:
         sub = node["fields"][f]
         if sub["kind"] == "mesh":
-            raise NotImplementedError(
-                f"{name}.{f} is the mesh of a sharded source, not ported "
-                "yet (ROADMAP Queue 1, item 13)")
-        if sub["kind"] == "ephemeral":
+            kw[f] = mesh
+        elif sub["kind"] == "ephemeral":
             kw[f] = None
         elif sub["kind"] == "meta":
             kw[f] = _decode_meta(sub["value"])
         else:
-            kw[f] = _decode(sub, z, device)
+            kw[f] = _decode(sub, z, device, mesh)
+    if cls is ShardedArena:
+        shards = se.mesh_shards(mesh, kw["axis"])
+        if shards == 1:
+            # no mesh on the consumer: serve the inner source replicated
+            return kw["inner"]
+        inner = kw["inner"]
+        rank = mesh.rank(kw["axis"])
+        kw["inner"] = dataclasses.replace(inner, **{
+            f: se.shard_block(getattr(inner, f), rank, shards)
+            for f in _SOURCE_REGISTRY[type(inner).__name__][1]})
     return cls(**kw)
 
 
@@ -1033,27 +1219,27 @@ class VersionedSource:
         return buf.getvalue()
 
     @staticmethod
-    def deserialize(blob: bytes, *,
+    def deserialize(blob: bytes, mesh: Optional[object] = None, *,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> "VersionedSource":
         """Rebuild the artifact's tensors on ``device`` (the card unless
-        told otherwise). Sources the port lacks raise
-        ``NotImplementedError`` naming their ROADMAP item."""
+        told otherwise). A recorded ``ShardedArena`` gives this rank its
+        block of ``mesh`` (``se.shard_block``), or unwraps to its
+        replicated inner source when ``mesh`` has one shard or is None."""
         device = resolve_device(device)
         try:
             with np.load(io.BytesIO(blob)) as z:
                 if z["magic"].tobytes() != VersionedSource.MAGIC:
                     raise ValueError("bad magic")
                 tree = json.loads(z["structure"].tobytes().decode())
-                source = _decode(tree, z, device)
+                source = _decode(tree, z, device, mesh)
                 head = None
                 if "head_structure" in z:
                     head = _decode(json.loads(
-                        z["head_structure"].tobytes().decode()), z, device)
+                        z["head_structure"].tobytes().decode()), z, device,
+                        mesh)
                 return VersionedSource(source=source,
                                        version=int(z["version"]), head=head)
-        except NotImplementedError:
-            raise
         except Exception as e:
             raise ValueError(
                 f"not a versioned-source artifact: {e}") from e

@@ -145,16 +145,16 @@ def pipelined_forward(params: Dict, cfg: DLRMConfig, dense: torch.Tensor,
 
     The last micro-batch has no successor: its "next" lookup reduces
     ``se.null_indices``, ids that all flatten to the zero null row, so
-    the tail gathers one cache-resident row and no real traffic.
+    the tail gathers one cache-resident row and no real traffic. With a
+    mesh of more than one shard, ``params["arena"]`` is this rank's block
+    and each lookup is the sharded one (its all-reduce enqueued with it,
+    in the same order on every rank).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sources are not ported yet (ROADMAP Queue 1, item 13)")
     spec = dlrm_mod.arena_spec(cfg)
     mb = _split(dense.shape[0], n_micro)
     dense_s = dense.reshape(n_micro, mb, -1)
     idx_s = indices.reshape(n_micro, mb, spec.n_tables, -1)
-    src = es.FpArena(params["arena"])
+    src = es.resolve_source(params["arena"], mesh)
 
     def lookup(i: int) -> torch.Tensor:
         ids = (idx_s[i] if i < n_micro else
@@ -212,11 +212,9 @@ def pipelined_forward_ragged(params: Dict, cfg: DLRMConfig,
                              mesh: Any = None) -> torch.Tensor:
     """Stage-skewed pipeline over ragged micro-batches: the structure of
     ``pipelined_forward`` with the ragged production lookup
-    (``lookup_bags``) as the sparse stage. The tail dummy is a stream of
-    all-empty bags (offsets all zero), the cheapest no-op pass."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sources are not ported yet (ROADMAP Queue 1, item 13)")
+    (``lookup_bags``) as the sparse stage, sharded over `mesh` as in
+    ``pipelined_forward``. The tail dummy is a stream of all-empty bags
+    (offsets all zero), the cheapest no-op pass."""
     spec = dlrm_mod.arena_spec(cfg)
     mb = _split(dense.shape[0], n_micro)
     if offsets.shape[0] - 1 != dense.shape[0] * spec.n_tables:
@@ -225,7 +223,7 @@ def pipelined_forward_ragged(params: Dict, cfg: DLRMConfig,
     dense_s = dense.reshape(n_micro, mb, -1)
     idx_s, off_s = split_ragged_microbatches(indices, offsets, n_micro,
                                              max_l)
-    src = es.FpArena(params["arena"])
+    src = es.resolve_source(params["arena"], mesh)
 
     def lookup(i: int) -> torch.Tensor:
         if i < n_micro:

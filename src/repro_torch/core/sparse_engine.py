@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import Mesh
 
 
 @dataclass(frozen=True)
@@ -49,16 +50,22 @@ class ArenaSpec:
     def null_row(self) -> int:
         return self.n_tables * self.rows_per_table
 
+    def padded_rows(self, shards: int) -> int:
+        """Arena rows padded so the row dim divides the model axis."""
+        r = self.total_rows
+        return ((r + shards - 1) // shards) * shards
 
-def init_arena(generator: torch.Generator, spec: ArenaSpec,
+
+def init_arena(generator: torch.Generator, spec: ArenaSpec, shards: int = 1,
                scale: float = 0.01) -> torch.Tensor:
-    """Arena of all tables with the null row zeroed, drawn from
-    ``generator`` on its device. (Row padding for shards comes with the
-    sharded sources, ROADMAP Queue 1, item 13.)"""
-    arena = torch.randn((spec.total_rows, spec.dim), generator=generator,
-                        dtype=torch.float32, device=generator.device)
+    """Arena of all tables, drawn from ``generator`` on its device, with
+    the null row and the padding rows for ``shards`` row-shards zero
+    (``spec.padded_rows(shards)`` rows)."""
+    arena = torch.randn((spec.padded_rows(shards), spec.dim),
+                        generator=generator, dtype=torch.float32,
+                        device=generator.device)
     arena.mul_(scale)
-    arena[spec.null_row] = 0.0
+    arena[spec.null_row:] = 0.0
     return arena.to(getattr(torch, spec.dtype))
 
 
@@ -165,6 +172,162 @@ def flatten_ragged_indices(spec: ArenaSpec, indices: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The row-sharded arena (a one-dimensional "model" mesh axis of N ranks).
+# Rank r owns the contiguous rows [r * vlocal, (r + 1) * vlocal) of the
+# arena padded to ``spec.padded_rows(N)`` rows, and holds them as its
+# *block*: those rows, then one always-zero sentinel row (local row
+# vlocal). A shard-local reduce redirects every id it does not own (and
+# the null row) to the sentinel, so the port's gather kernels run over the
+# block unmasked, and each bag still sums in order of j from 0.f; the
+# rank's f32 partials are then summed over the axis by one all-reduce
+# (``distributed.collectives.psum``), which the halves here leave to
+# their caller. The sentinel's gradient is pinned to zero, it is never
+# trained and never saved.
+# ---------------------------------------------------------------------------
+
+def mesh_shards(mesh, axis: str = "model") -> int:
+    """Number of row shards a (mesh, axis) pair implies (1 = replicated).
+    A ``mesh`` that is not the port's ``launch.mesh.Mesh`` is refused."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh "
+                        f"(make_mesh), got {type(mesh).__name__}")
+    if axis not in mesh.axis_names:
+        return 1
+    return mesh.size(axis)
+
+
+def shard_block(arena: torch.Tensor, shard: int, shards: int,
+                vlocal: Optional[int] = None) -> torch.Tensor:
+    """Rank ``shard``'s block of an unsharded arena (any rows x ...): its
+    ``vlocal`` rows (default ceil(rows / shards)), zero past the arena's
+    end, then the zero sentinel row; a new tensor."""
+    rows = arena.shape[0]
+    if vlocal is None:
+        vlocal = -(-rows // shards)
+    lo = shard * vlocal
+    block = arena.new_zeros((vlocal + 1,) + tuple(arena.shape[1:]))
+    mine = arena[lo:min(lo + vlocal, rows)]
+    block[:mine.shape[0]] = mine
+    return block
+
+
+def shard_row_range(block: torch.Tensor, shard: int) -> Tuple[int, int]:
+    """(lo, vlocal) of the contiguous row block rank ``shard`` owns."""
+    vlocal = block.shape[0] - 1
+    return shard * vlocal, vlocal
+
+
+def shard_local_ids(ids: torch.Tensor, lo: int, vlocal: int,
+                    null_row: Optional[int] = None) -> torch.Tensor:
+    """Global arena row ids -> the block's local ids: an owned row keeps
+    its offset from ``lo``, anything else (a foreign row, a -1 fill slot
+    and, when given, the null row) points at the sentinel ``vlocal``."""
+    rel = ids - lo
+    mine = (rel >= 0) & (rel < vlocal)
+    if null_row is not None:
+        mine = mine & (ids != null_row)
+    # a Python scalar, not a device tensor: copying one to the card
+    # would wait for the stream
+    return torch.where(mine, rel, vlocal).to(torch.int32)
+
+
+def dense_partial_reduce(block: torch.Tensor, dense: torch.Tensor,
+                         shard: int, *,
+                         null_row: Optional[int] = None) -> torch.Tensor:
+    """Shard-local half of the fused dense reduce: rank ``shard``'s f32
+    (n_bags, D) partials of a (n_bags, max_l) global id matrix, one
+    ``fused_segment_sum`` over the block with every id the rank does not
+    own on the sentinel (whose gradient is pinned to zero). Pass
+    ``null_row`` so the always-zero null row the relayout's fill slots
+    point at goes to the sentinel too: the forward is the same (the row
+    is zero), and its gradient is then zero on the rank that owns it."""
+    lo, vlocal = shard_row_range(block, shard)
+    local = shard_local_ids(dense, lo, vlocal, null_row)
+    return ops.fused_segment_sum(block, local, null_row=vlocal)
+
+
+def fixed_partial_reduce(block: torch.Tensor, flat: torch.Tensor,
+                         shard: int, *,
+                         null_row: Optional[int] = None) -> torch.Tensor:
+    """Shard-local half of the fixed-L reduce: rank ``shard``'s f32
+    (B*T, D) partials of (B*T, L) global ids, one ``embedding_bag`` over
+    the block with foreign ids (and ``null_row``) on the sentinel, whose
+    gradient is pinned to zero."""
+    lo, vlocal = shard_row_range(block, shard)
+    local = shard_local_ids(flat, lo, vlocal, null_row)
+    return ops.embedding_bag(block, local, null_row=vlocal).float()
+
+
+def ragged_partial_reduce(block: torch.Tensor, flat: torch.Tensor,
+                          offsets: torch.Tensor, shard: int, *,
+                          max_l: int) -> torch.Tensor:
+    """Shard-local half of a ragged reduce over flattened arena row ids:
+    the stream relayouted once (``max_l`` bounds every bag; the fill
+    slots are -1, foreign to every rank), then ``dense_partial_reduce``.
+    Returns rank ``shard``'s f32 (n_bags, D) partials."""
+    dense = ragged_dense_ids(flat, offsets, max_l=max_l, fill=-1)
+    return dense_partial_reduce(block, dense, shard)
+
+
+def dense_partial_reduce_q(q_block: torch.Tensor, scales_block: torch.Tensor,
+                           dense: torch.Tensor, shard: int, *,
+                           null_row: Optional[int] = None) -> torch.Tensor:
+    """``dense_partial_reduce`` over an int8 block: owned rows are
+    dequantized on the rank (rows x per-row scale) and summed per bag, so
+    raw int8 rows never leave it. The sentinel's zero scale keeps every
+    redirect inert. Torch ops, as the replicated int8 reduce: the
+    reference has no Pallas kernel for it."""
+    lo, vlocal = shard_row_range(q_block, shard)
+    local = shard_local_ids(dense, lo, vlocal, null_row)
+    return (q_block[local].float() * scales_block[local]).sum(dim=1)
+
+
+def ragged_partial_reduce_q(q_block: torch.Tensor,
+                            scales_block: torch.Tensor, flat: torch.Tensor,
+                            offsets: torch.Tensor, shard: int, *,
+                            max_l: int) -> torch.Tensor:
+    """``ragged_partial_reduce`` over an int8 block."""
+    dense = ragged_dense_ids(flat, offsets, max_l=max_l, fill=-1)
+    return dense_partial_reduce_q(q_block, scales_block, dense, shard)
+
+
+def _masked_partial_reduce(gather_f32, lo: int, vlocal: int,
+                           flat: torch.Tensor,
+                           offsets: torch.Tensor) -> torch.Tensor:
+    """The reference's ownership protocol over a flat stream, without its
+    psum: foreign rows gathered as local row 0 and zero-masked, partial
+    bags segment-summed. ``gather_f32(local_rows)`` loads rows as f32.
+    The plain version the sentinel redirect is held against; its
+    ``index_add_`` adds with float atomics on the card."""
+    n = flat.shape[0]
+    n_bags = offsets.shape[0] - 1
+    seg = ragged_segment_ids(offsets, n)
+    rel = flat - lo
+    mine = (rel >= 0) & (rel < vlocal) & (seg < n_bags)
+    rows = torch.where(mine[:, None], gather_f32(torch.where(mine, rel, 0)),
+                       0.0)
+    out = rows.new_zeros((n_bags, rows.shape[1]))
+    return out.index_add_(0, torch.clamp(seg, max=n_bags - 1), rows)
+
+
+def _masked_fixed_partial_reduce(gather_f32, lo: int, vlocal: int,
+                                 flat: torch.Tensor, *,
+                                 null_row: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Fixed-L sibling of ``_masked_partial_reduce`` over (B*T, L) ids
+    (the reference's, without its psum), the null row masked too when
+    given. Returns f32 (B*T, D)."""
+    rel = flat - lo
+    mine = (rel >= 0) & (rel < vlocal)
+    if null_row is not None:
+        mine = mine & (flat != null_row)
+    rows = gather_f32(torch.where(mine, rel, 0))
+    return torch.where(mine[..., None], rows, 0.0).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Hot-row cache: the top-K rows by trace frequency pinned in a small
 # replicated arena (K + 1 rows, slot K the zero miss slot). A lookup
 # splits into hot slots (misses -> slot K) and cold ids (hits -> the null
@@ -203,19 +366,29 @@ def trace_row_counts(spec: ArenaSpec, indices, offsets=None,
 
 
 def build_hot_cache(arena: torch.Tensor, spec: ArenaSpec, counts,
-                    k: int) -> HotRowCache:
+                    k: int, *, mesh=None) -> HotRowCache:
     """Pin the top-k arena rows by trace frequency. The ranking runs on
     the host exactly as the reference's (among equal counts the highest
     row id comes first); the hot copies are gathered on the arena's
-    device."""
+    device. With a mesh of N > 1 shards ``arena`` is this rank's block,
+    the hot copies are brought from their owners by broadcast
+    (``collectives.gather_rows``, bit for bit; every rank calls this with
+    the same counts), and ``slot_of`` covers the N * vlocal global
+    rows."""
     counts = np.asarray(counts)[:spec.null_row]     # real rows only
     k = int(min(k, counts.size))
     hot_ids = np.argsort(counts, kind="stable")[::-1][:k].astype(np.int32)
-    slot_of = np.full((arena.shape[0],), k, np.int32)
+    shards = mesh_shards(mesh)
+    rows = arena.shape[0] if shards == 1 else shards * (arena.shape[0] - 1)
+    slot_of = np.full((rows,), k, np.int32)
     slot_of[hot_ids] = np.arange(k, dtype=np.int32)
     ids = torch.from_numpy(hot_ids).to(arena.device)
-    hot_rows = torch.cat([arena[ids],
-                          arena.new_zeros((1, arena.shape[1]))])
+    if shards == 1:
+        pinned = arena[ids]
+    else:
+        from repro_torch.distributed import collectives
+        pinned = collectives.gather_rows(arena, ids, mesh)
+    hot_rows = torch.cat([pinned, arena.new_zeros((1, arena.shape[1]))])
     return HotRowCache(hot_rows=hot_rows,
                        slot_of=torch.from_numpy(slot_of).to(arena.device),
                        hot_ids=ids)

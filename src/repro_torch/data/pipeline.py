@@ -6,8 +6,8 @@ double-buffered through a bounded queue, and places each one on the
 device, so a step takes an already-resident batch. The reference places
 onto a JAX mesh; here ``make_placer`` copies into pinned host memory and
 then to the card with ``non_blocking`` copies, which the step's kernels
-on the same stream wait for. Placing onto a mesh is sharding, not ported
-yet (ROADMAP Queue 1, item 13).
+on the same stream wait for. Placing onto a mesh (``make_placer(mesh)``)
+is not ported yet (ROADMAP Queue 1, item 13b).
 """
 from __future__ import annotations
 
@@ -74,8 +74,8 @@ def make_placer(device=None, mesh=None) -> Callable:
     arrays."""
     if mesh is not None:
         raise NotImplementedError(
-            "placing a batch onto a mesh is sharding, not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+            "placing a batch onto a mesh is not ported yet (ROADMAP Queue "
+            "1, item 13b)")
     device = resolve_device(device)
 
     def place(batch):

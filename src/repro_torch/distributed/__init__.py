@@ -1,8 +1,12 @@
-"""Fault tolerance: the straggler monitor and the checkpoint/restart
-trainer (``fault_tolerance``). Sharding and gradient compression are
-ROADMAP Queue 1, item 13."""
+"""The distributed substrate: the straggler monitor and the
+checkpoint/restart trainer (``fault_tolerance``), N ranks of one SPMD
+program over ``torch.distributed`` (``spawn``), the collectives of the
+row-sharded path (``collectives``) and gradient compression
+(``compression``)."""
 from repro_torch.distributed.fault_tolerance import (ResilientTrainer,
                                                      SimulatedFailure,
                                                      StragglerMonitor)
+from repro_torch.distributed.spawn import spawn
 
-__all__ = ["ResilientTrainer", "SimulatedFailure", "StragglerMonitor"]
+__all__ = ["ResilientTrainer", "SimulatedFailure", "StragglerMonitor",
+           "spawn"]

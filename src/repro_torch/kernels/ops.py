@@ -140,10 +140,11 @@ def _dense_grad_table(g: torch.Tensor, dense_ids: torch.Tensor, n_rows: int,
 
 class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, indices):
+    def forward(ctx, table, indices, null_row):
         ctx.save_for_backward(indices)
         ctx.n_rows = table.shape[0]
         ctx.table_dtype = table.dtype
+        ctx.null_row = null_row
         if _on_cuda(table, indices):
             return _eg.embedding_bag(table, indices)
         return _ref.embedding_bag(table, indices)
@@ -152,19 +153,23 @@ class _EmbeddingBag(torch.autograd.Function):
     def backward(ctx, g):
         # the reference's _bag_bwd (kernels/ops.py:92-99) scatter-adds
         # every position's bag gradient, with no row pinned: a fixed bag
-        # has no fill slots. A (B, L) matrix is a uniform-offset stream,
-        # so it is sls_grad_table's deterministic walk, not index_add_'s
-        # float atomics on the card.
+        # has no fill slots (a shard's block pins its sentinel). A (B, L)
+        # matrix is a uniform-offset stream, so it is sls_grad_table's
+        # deterministic walk, not index_add_'s float atomics on the card.
         (indices,) = ctx.saved_tensors
-        d = _dense_grad_table(g, indices, ctx.n_rows, None)
-        return d.to(ctx.table_dtype), None
+        d = _dense_grad_table(g, indices, ctx.n_rows, ctx.null_row)
+        return d.to(ctx.table_dtype), None, None
 
 
-def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
+                  null_row: Optional[int] = None) -> torch.Tensor:
     """Fixed-lookup SparseLengthsSum: out[b] = sum_l table[indices[b, l]];
     table (V, D), indices (B, L) int32 -> (B, D) in the table's dtype,
-    accumulated in f32. Differentiable w.r.t. the table."""
-    return _EmbeddingBag.apply(table, indices)
+    accumulated in f32. Differentiable w.r.t. the table; ``null_row``'s
+    gradient is pinned to zero (a row-sharded block's sentinel, on which
+    the ids the rank does not own sit)."""
+    return _EmbeddingBag.apply(table, indices,
+                               None if null_row is None else int(null_row))
 
 
 def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

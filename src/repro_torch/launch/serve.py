@@ -5,6 +5,8 @@ decode through the slot-pooled decode engine.
     python -m repro_torch.launch.serve --arch dlrm1 --pipelined \\
         --microbatches 4 --batch-size 32
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --arch dlrm1 --shards 2 \
+        --backend gloo|nccl [--rendezvous FILE]
     python -m repro_torch.launch.serve --arch smollm-360m --smoke --device cpu
 
 DLRM: serves fixed-L batches (``DLRMSynthetic.batch``) with random
@@ -16,9 +18,13 @@ left out. LM (smollm-360m, h2o-danube-1.8b, qwen1.5-4b): seeded random
 weights, ``--requests`` random prompts of ``--prompt-len`` tokens
 decoded for ``--new-tokens`` tokens by a ``DecodeEngine`` of
 ``--batch-size`` slots and a ``--max-len`` cache, and prints the
-engine's latency stats. Runs on the card unless ``--device cpu``. Not
-offered yet: a ``--mesh`` other than ``none`` (ROADMAP Queue 1, item
-13) and the other LM architectures (item 15b).
+engine's latency stats. Runs on the card unless ``--device cpu``. DLRM
+``--shards N`` serves row-sharded over an N-way "model" mesh of N ranks
+started over ``--backend`` (``nccl``: a card a rank; ``gloo``: CPU ranks
+or ranks sharing a card; no default), each serving the same batches;
+the ranks' probabilities must agree bit for bit. Not offered yet: a
+``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13b) and the other
+LM architectures (item 15b).
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.core.hybrid import make_pipelined_serve_step
 from repro_torch.data import DLRMSynthetic
+from repro_torch.distributed.spawn import (add_shard_args, check_shard_args,
+                                           spawn_launcher)
 from repro_torch.models import api
 from repro_torch.serving import Batcher, DecodeEngine, Request
 
@@ -44,13 +52,14 @@ def _device(args) -> torch.device:
             else torch.device(args.device))
 
 
-def serve_dlrm(args) -> Dict[str, float]:
+def serve_dlrm(args, mesh=None) -> Dict[str, float]:
     cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
     device = _device(args)
-    params = dlrm_mod.init(torch.Generator(device=device).manual_seed(0),
-                           cfg, device=device)
-    serve = (make_pipelined_serve_step(cfg, args.microbatches)
-             if args.pipelined else dlrm_mod.make_serve_step(cfg))
+    params = dlrm_mod.shard_params(
+        dlrm_mod.init(torch.Generator(device=device).manual_seed(0), cfg,
+                      args.shards, device=device), mesh)
+    serve = (make_pipelined_serve_step(cfg, args.microbatches, mesh)
+             if args.pipelined else dlrm_mod.make_serve_step(cfg, mesh))
     data = DLRMSynthetic(cfg, seed=1)
     lat = []
     for _ in range(max(1, args.requests // args.batch_size)):
@@ -68,10 +77,31 @@ def serve_dlrm(args) -> Dict[str, float]:
     out = {"p50_ms": float(np.percentile(arr, 50) * 1e3),
            "p99_ms": float(np.percentile(arr, 99) * 1e3),
            "steps": len(lat)}
-    print(f"dlrm serve: {args.requests} reqs, batch {args.batch_size}"
-          f"{f', pipelined x{args.microbatches}' if args.pipelined else ''}"
-          f", p50 {out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms")
+    if mesh is None or mesh.rank("model") == 0:
+        print(f"dlrm serve: {args.requests} reqs, batch {args.batch_size}"
+              f"{f', pipelined x{args.microbatches}' if args.pipelined else ''}"
+              f"{f', {args.shards} shards' if mesh is not None else ''}"
+              f", p50 {out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms")
+    if mesh is not None:
+        out["last_probs"] = probs.cpu().numpy()
     return out
+
+
+def _serve_rank(mesh, args) -> Dict[str, float]:
+    """One rank of a ``--shards`` run."""
+    return serve_dlrm(args, mesh)
+
+
+def serve_sharded(args) -> Dict[str, float]:
+    """Start ``--shards`` ranks over ``--backend``, each serving the same
+    batches; returns rank 0's stats (its last batch's probabilities under
+    ``"last_probs"``) once every rank's agree bit for bit."""
+    outs = spawn_launcher(_serve_rank, args)
+    first = outs[0]["last_probs"]
+    for o in outs[1:]:
+        if not np.array_equal(o["last_probs"], first):
+            raise RuntimeError("the ranks served different probabilities")
+    return outs[0]
 
 
 def serve_lm(args) -> Dict[str, float]:
@@ -122,10 +152,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    add_shard_args(p, "DLRM: serve row-sharded over an N-way 'model' mesh "
+                      "of N ranks")
     args = p.parse_args(argv)
     if args.mesh != "none":
-        p.error("sharded serving (--mesh) is not ported yet (ROADMAP "
-                "Queue 1, item 13)")
+        p.error("the production meshes (--mesh) are not ported yet "
+                "(ROADMAP Queue 1, item 13b); --shards N builds an N-way "
+                "'model' mesh")
+    check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
     if args.arch in registry.ARCHS:
         return serve_lm(args)
     if args.arch in registry.NOT_PORTED:
@@ -134,6 +168,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     if args.arch not in DLRM_CONFIGS:
         p.error(f"unknown arch {args.arch!r}; DLRMs: {sorted(DLRM_CONFIGS)}"
                 f", LMs: {sorted(registry.ARCHS)}")
+    if args.shards > 1:
+        return serve_sharded(args)
     return serve_dlrm(args)
 
 

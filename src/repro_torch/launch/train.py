@@ -9,6 +9,8 @@
     python -m repro_torch.launch.train --arch dlrm1 --ragged --steps 200 \
         --ckpt-dir ckpt [--ckpt-every 50] [--resume]
     python -m repro_torch.launch.train --smoke --device cpu
+    python -m repro_torch.launch.train --arch dlrm1 --ragged --shards 2 \
+        --backend gloo|nccl [--rendezvous FILE]
     python -m repro_torch.launch.train --arch smollm-360m --seq-len 2048 \
         --batch-size 4 --steps 50 [--ckpt-dir ckpt --resume]
     python -m repro_torch.launch.train --arch smollm-360m --smoke \
@@ -35,8 +37,18 @@ steps with ``CheckpointManager.save_async`` and ``--resume`` restarts
 after the latest checkpoint there (an LM run draws past the batches of
 the steps it skips, so it trains on the batches an uninterrupted run
 would); a ``StragglerMonitor`` times every step and the run prints its
-count of flagged steps. Not offered yet: ``--shards``/``--mesh``
-(ROADMAP Queue 1, item 13).
+count of flagged steps.
+
+DLRM ``--shards N`` row-shards the arena over an N-way "model" mesh: the
+launcher starts N ranks (``distributed.spawn``, one process a rank) over
+the backend ``--backend`` names (``nccl`` when each rank has its own
+card, ``gloo`` for CPU ranks or ranks that share one card; there is no
+default), joined over the file ``--rendezvous`` (a fresh temporary file
+when not given). Every rank trains on the same batches: ``--ragged``
+with the sharded sparse step, else the fixed-L dense-gradient step
+through the sharded source; checkpoints are collective and unsharded on
+disk. Rank 0 prints; the ranks' losses must agree bit for bit. The
+production (data, model) meshes are ROADMAP Queue 1, item 13b.
 """
 from __future__ import annotations
 
@@ -48,12 +60,14 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import default_device, obs
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import CheckpointManager, row_shardings
 from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.data import DLRMSynthetic, LMSynthetic
 from repro_torch.distributed import StragglerMonitor
+from repro_torch.distributed.spawn import (add_shard_args, check_shard_args,
+                                           spawn_launcher)
 from repro_torch.models import api
 from repro_torch.training import OnlineCacheConfig, OnlineTrainer
 
@@ -63,49 +77,60 @@ def _device(args) -> torch.device:
             else torch.device(args.device))
 
 
-def _setup(args):
+def _log(mesh, *text) -> None:
+    """Print on rank 0 (every rank of a sharded run trains the same)."""
+    if mesh is None or mesh.rank("model") == 0:
+        print(*text)
+
+
+def _setup(args, mesh=None):
+    """(config, device, params): on a mesh the rank's params, its block
+    of the arena padded for the shard count."""
     cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
     device = _device(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return cfg, device, dlrm_mod.init(gen, cfg, device=device)
+    params = dlrm_mod.init(gen, cfg, args.shards, device=device)
+    return cfg, device, dlrm_mod.shard_params(params, mesh)
 
 
-def _checkpoints(args, device, state):
+def _checkpoints(args, device, state, mesh=None):
     """The run's CheckpointManager (None without ``--ckpt-dir``), the
-    state to start from and the first step: after the latest checkpoint
-    with ``--resume``, else step 0."""
+    state to start from, the first step (after the latest checkpoint with
+    ``--resume``, else step 0) and the state's shardings on a mesh."""
+    shardings = (row_shardings(state, mesh) if args.shards > 1 else None)
     if not args.ckpt_dir:
-        return None, state, 0
+        return None, state, 0, shardings
     ckpt = CheckpointManager(args.ckpt_dir, device=device)
     latest = ckpt.latest_step()
     if not args.resume or latest is None:
-        return ckpt, state, 0
-    state, _ = ckpt.restore(state, step=latest)
-    print(f"resumed from step {latest}")
-    return ckpt, state, latest + 1
+        return ckpt, state, 0, shardings
+    state, _ = ckpt.restore(state, step=latest, shardings=shardings)
+    _log(mesh, f"resumed from step {latest}")
+    return ckpt, state, latest + 1, shardings
 
 
-def _after_step(args, ckpt, mon, step: int, seconds: float, state) -> None:
+def _after_step(args, ckpt, mon, step: int, seconds: float, state,
+                shardings=None) -> None:
     """The straggler monitor's record, and the periodic async save."""
     mon.record(step, seconds)
     if ckpt is not None and (step + 1) % args.ckpt_every == 0:
-        ckpt.save_async(step, state)
+        ckpt.save_async(step, state, shardings=shardings)
 
 
-def _finish(ckpt, mon, loss: float) -> None:
+def _finish(ckpt, mon, loss: float, mesh=None) -> None:
     if ckpt is not None:
         ckpt.wait()
-    print(f"straggler events: {len(mon.events)}")
-    print(f"final loss {loss:.4f}")
+    _log(mesh, f"straggler events: {len(mon.events)}")
+    _log(mesh, f"final loss {loss:.4f}")
 
 
-def train_dlrm(args) -> float:
-    """Fixed-L training with the dense-gradient step; returns the last
-    step's loss."""
-    cfg, device, params = _setup(args)
-    opt, step_fn = dlrm_mod.make_train_step(cfg)
-    ckpt, (params, opt_state), start = _checkpoints(
-        args, device, (params, opt.init(params)))
+def train_dlrm(args, mesh=None) -> float:
+    """Fixed-L training with the dense-gradient step (through the sharded
+    source on a mesh); returns the last step's loss."""
+    cfg, device, params = _setup(args, mesh)
+    opt, step_fn = dlrm_mod.make_train_step(cfg, mesh=mesh)
+    ckpt, (params, opt_state), start, shardings = _checkpoints(
+        args, device, (params, opt.init(params)), mesh)
     mon = StragglerMonitor()
     data = DLRMSynthetic(cfg, seed=args.seed)
     loss = float("nan")
@@ -116,20 +141,20 @@ def train_dlrm(args) -> float:
         params, opt_state, loss_t = step_fn(params, opt_state, batch)
         loss = float(loss_t)
         _after_step(args, ckpt, mon, step, time.time() - t0,
-                    (params, opt_state))
+                    (params, opt_state), shardings)
         if step % args.log_every == 0:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"({time.time() - t0:.3f}s)")
-    _finish(ckpt, mon, loss)
+            _log(mesh, f"step {step:5d} loss {loss:.4f} "
+                 f"({time.time() - t0:.3f}s)")
+    _finish(ckpt, mon, loss, mesh)
     return loss
 
 
-def train_dlrm_ragged(args) -> float:
-    """Online ragged training with the row-wise sparse optimizer (or the
-    dense-gradient baseline), and optionally a live hot-row cache that
-    re-ranks itself from the decayed histogram; returns the last step's
-    loss."""
-    cfg, device, params = _setup(args)
+def train_dlrm_ragged(args, mesh=None) -> float:
+    """Online ragged training with the row-wise sparse optimizer (the
+    sharded one on a mesh) or the dense-gradient baseline, and optionally
+    a live hot-row cache that re-ranks itself from the decayed histogram;
+    returns the last step's loss."""
+    cfg, device, params = _setup(args, mesh)
     max_l = 2 * cfg.lookups_per_table
     cache_cfg = None
     if args.online_cache:
@@ -141,9 +166,10 @@ def train_dlrm_ragged(args) -> float:
         obs.enable_stage_annotations(True)
     trainer = OnlineTrainer(cfg, params, max_l=max_l,
                             sparse=not args.dense_grads, cache_cfg=cache_cfg,
-                            telemetry=telemetry, device=device)
-    ckpt, (trainer.params, trainer.opt_state), start = _checkpoints(
-        args, device, (trainer.params, trainer.opt_state))
+                            mesh=mesh, telemetry=telemetry, device=device)
+    ckpt, (trainer.params, trainer.opt_state), start, shardings = \
+        _checkpoints(args, device, (trainer.params, trainer.opt_state),
+                     mesh)
     mon = StragglerMonitor()
     data = DLRMSynthetic(cfg, seed=args.seed)
     pad_to = args.batch_size * cfg.n_tables * max_l
@@ -154,14 +180,14 @@ def train_dlrm_ragged(args) -> float:
                                   pad_to=pad_to)
         loss = trainer.train_step(batch)
         _after_step(args, ckpt, mon, step, time.time() - t0,
-                    (trainer.params, trainer.opt_state))
+                    (trainer.params, trainer.opt_state), shardings)
         if step % args.log_every == 0:
             extra = (f" cache v{trainer.version}" if args.online_cache
                      else "")
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"({time.time() - t0:.3f}s){extra}")
-    _finish(ckpt, mon, loss)
-    if args.metrics_json:
+            _log(mesh, f"step {step:5d} loss {loss:.4f} "
+                 f"({time.time() - t0:.3f}s){extra}")
+    _finish(ckpt, mon, loss, mesh)
+    if args.metrics_json and (mesh is None or mesh.rank("model") == 0):
         with open(args.metrics_json, "w") as f:
             json.dump(telemetry.snapshot(), f, indent=2, default=str)
         print(f"metrics snapshot -> {args.metrics_json}")
@@ -176,7 +202,7 @@ def train_lm(args) -> Tuple[float, Any]:
     params = api.init(torch.Generator(device=device).manual_seed(args.seed),
                       cfg, device=device)
     _, opt, step_fn = api.make_train_step(cfg)
-    ckpt, (params, opt_state), start = _checkpoints(
+    ckpt, (params, opt_state), start, _ = _checkpoints(
         args, device, (params, opt.init(params)))
     mon = StragglerMonitor()
     data = LMSynthetic(cfg, seed=args.seed)
@@ -201,7 +227,7 @@ def train_lm(args) -> Tuple[float, Any]:
 
 
 DLRM_ONLY = ("ragged", "dense_grads", "online_cache", "quantize_cold",
-             "metrics_json", "trace")
+             "metrics_json", "trace", "backend", "rendezvous")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -251,7 +277,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true",
                    help="with --ckpt-dir: start after its latest "
                         "checkpoint")
+    add_shard_args(p, "DLRM: row-shard the embedding arena over an N-way "
+                      "'model' mesh of N ranks (with --ragged the sparse "
+                      "optimizer applies shard-local row updates)")
     args = p.parse_args(argv)
+    check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
     if args.resume and not args.ckpt_dir:
         p.error("--resume goes with --ckpt-dir")
     if args.ckpt_every < 1:
@@ -277,11 +307,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def _train_rank(mesh, args) -> float:
+    """One rank of a ``--shards`` run."""
+    if args.ragged:
+        return train_dlrm_ragged(args, mesh)
+    return train_dlrm(args, mesh)
+
+
+def train_sharded(args) -> float:
+    """Start ``--shards`` ranks over ``--backend`` and train on each;
+    returns the last loss, which every rank must have computed alike."""
+    losses = spawn_launcher(_train_rank, args)
+    if len({repr(x) for x in losses}) != 1:
+        raise RuntimeError(f"the ranks' losses differ: {losses}")
+    return losses[0]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> float:
     """Train as the arguments say; returns the last step's loss."""
     args = parse_args(argv)
     if args.arch not in DLRM_CONFIGS:
         return train_lm(args)[0]
+    if args.shards > 1:
+        return train_sharded(args)
     if args.ragged:
         return train_dlrm_ragged(args)
     return train_dlrm(args)

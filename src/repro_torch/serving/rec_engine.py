@@ -66,8 +66,19 @@ hit probe. ``Telemetry(device_stages=True)`` is the live Fig-5 mode:
 ``dlrm.make_ragged_serve_stages`` eagerly, not through a graph, with a
 synchronize after each, and ``live_fig5()`` reports the split.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-the sharded plans.
+Sharded plans: with ``mesh`` (``launch.mesh.make_mesh((n,), ("model",))``,
+one process a rank) the engine is one rank of an SPMD server. Its params'
+arena is the rank's block (``dlrm.shard_params``); ``source="sharded"``
+(the mesh is required, no silent fallback) serves a ``ShardedArena``, and
+``"cached"``/``"ragged"``/``"fixed"`` with a mesh shard their (cold)
+arena the same way, the hot rows replicated. Every rank must serve the
+same request stream, micro-batch for micro-batch: each sharded lookup is
+one all-reduce that all ranks join, and all ranks get the same
+probabilities. A CUDA graph cannot capture a gloo collective, so an
+engine over a sharded source serves eagerly on the card too, decided when
+it is built, never after a failed capture; ``stats()`` says so
+(``"graphed": False, "why": "sharded source"``). Swaps copy into the
+rank's own block.
 """
 from __future__ import annotations
 
@@ -252,7 +263,8 @@ class RecEngine:
         self.device = resolve_device(device)
         self.telemetry = (telemetry if telemetry is not None
                           else obs.Telemetry())
-        # the live Fig-5 mode serves eagerly, stage by stage
+        # the live Fig-5 mode serves eagerly, stage by stage (and so does
+        # a sharded source, below)
         self._graphed = (self.device.type == "cuda"
                          and not self.telemetry.device_stages)
         for name, tree in params.items():
@@ -321,8 +333,20 @@ class RecEngine:
                             f"an EmbeddingSource, got {type(source)}")
         self.layout = ("fixed" if self.plan is not None
                        and self.plan.layout == "fixed" else "ragged")
+        if self.plan is not None:
+            self._sharding = ((self.plan.mesh, self.plan.axis)
+                              if se.mesh_shards(self.plan.mesh,
+                                                self.plan.axis) > 1
+                              else None)
+        else:
+            self._sharding = _sharding_of(self.source)
+        self.sharded = self._sharding is not None
+        if self.sharded:
+            # a gloo all-reduce cannot be captured in a CUDA graph: serve
+            # eagerly, by construction
+            self._graphed = False
         if self.layout == "fixed":
-            self._serve = dlrm.make_serve_step(cfg)
+            self._serve = dlrm.make_serve_step(cfg, self.plan.mesh)
         else:
             self._serve = dlrm.make_ragged_serve_step(cfg, max_l=self.max_l)
         self._staged = None
@@ -570,12 +594,17 @@ class RecEngine:
         return self._down_source
 
     def _build_downgrade_source(self) -> es.EmbeddingSource:
+        def int8(arena: torch.Tensor) -> es.EmbeddingSource:
+            q = es.QuantizedArena.from_arena(arena)
+            if self.sharded:
+                q = es.ShardedArena(q, *self._sharding)
+            return q
+
         if self.grouped:
             return es.TableGroupSource(
-                members=tuple(es.QuantizedArena.from_arena(a)
-                              for a in self._params["tables"]),
+                members=tuple(int8(a) for a in self._params["tables"]),
                 specs=self.source.specs)
-        return es.QuantizedArena.from_arena(self._params["arena"])
+        return int8(self._params["arena"])
 
     # -- host cold tier: staging and prefetch --------------------------------
 
@@ -1195,6 +1224,9 @@ class RecEngine:
                                      if snap["lookups"] else None)
             out["cache_version"] = self.source_version
         out["buckets"] = self.buckets
+        if self.sharded:
+            out["graphed"] = False
+            out["why"] = "sharded source"
         if self._host_stores:
             hs = [store.stats() for store in self._host_stores]
             hits = sum(s["hits"] for s in hs)
@@ -1217,6 +1249,21 @@ class RecEngine:
         if self._staged is not None:
             out["stages"] = self.live_fig5()
         return out
+
+
+def _sharding_of(source) -> Optional[tuple]:
+    """(mesh, axis) of the first arena a built source row-shards over
+    more than one rank, or None."""
+    if isinstance(source, es.ShardedArena):
+        return (source.mesh, source.axis) if source.n_shards > 1 else None
+    if isinstance(source, es.CachedSource):
+        return _sharding_of(source.cold)
+    if isinstance(source, es.TableGroupSource):
+        for m in source.members:
+            found = _sharding_of(m)
+            if found is not None:
+                return found
+    return None
 
 
 def requests_from_ragged_batch(batch: Dict[str, np.ndarray], n_tables: int,

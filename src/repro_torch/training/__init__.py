@@ -11,6 +11,7 @@ from repro_torch.training.sparse_optim import (SparseOptimizer,
                                                group_row_grads,
                                                group_rowwise_adagrad,
                                                ragged_row_grads,
+                                               shard_local_rows,
                                                source_row_grads,
                                                sparse_rowwise_adagrad,
                                                unique_padded)
@@ -19,4 +20,4 @@ __all__ = ["OnlineCacheConfig", "OnlineGroupTrainer", "OnlineTrainer",
            "SparseOptimizer",
            "VersionedHotCache", "VersionedSource", "group_row_grads",
            "group_rowwise_adagrad", "make_drifting_zipf", "ragged_row_grads",
-           "source_row_grads", "sparse_rowwise_adagrad", "unique_padded"]
+           "shard_local_rows", "source_row_grads", "sparse_rowwise_adagrad", "unique_padded"]

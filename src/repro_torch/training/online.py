@@ -25,6 +25,16 @@ The train step works in place, so the port's sync copies: an engine never
 aliases a tensor the trainer updates (``RecEngine.params``), nor shares
 the trainer's host store.
 
+With ``mesh`` (one process a rank, every rank fed the same batches) the
+trainer is one rank of a row-sharded run: ``params`` are the rank's
+(``dlrm.shard_params``), the step is the sharded sparse one, the
+histogram and the touched rows are global and equal on every rank, the
+hot copies of rows other ranks own come from their owners by broadcast
+(``collectives.gather_rows``, bit for bit), the int8 mirror is the
+rank's block, and the published source is the cached one over a
+``ShardedArena`` cold. A tiered trainer does not shard (ROADMAP Queue 1,
+item 13b).
+
 Telemetry is a ``repro_torch.obs.Telemetry`` bundle, as the reference's:
 the gauges ``train_loss``, ``train_cache_version``, ``train_rebuild_hot_k``
 and ``train_requant_rows`` (and ``rec_tier_bytes`` a tier when tiered),
@@ -53,6 +63,7 @@ from repro_torch.core import dlrm
 from repro_torch.core import embedding_source as es
 from repro_torch.core import sparse_engine as se
 from repro_torch.core.embedding_source import VersionedSource
+from repro_torch.distributed import collectives
 from repro_torch.optim import tree_map
 from repro_torch.storage import tiered as st
 
@@ -147,10 +158,13 @@ def _batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def _patch_hot_rows(cache: se.HotRowCache, arena: torch.Tensor,
-                    null_row: int, rows: torch.Tensor) -> se.HotRowCache:
+                    null_row: int, rows: torch.Tensor, *,
+                    mesh: Any = None) -> se.HotRowCache:
     """Write-through: a new cache whose hot copies of ``rows`` are
     refreshed from ``arena``; the one given is left as it was, so an
-    engine serving it keeps its version.
+    engine serving it keeps its version. With a sharded ``mesh``,
+    ``arena`` is this rank's block and the rows come from their owners
+    (``collectives.gather_rows``: a collective, bit for bit).
 
     Rows that are not pinned map to the miss slot K, whose source is
     forced to the always-zero null row, so slot K is only ever rewritten
@@ -163,7 +177,9 @@ def _patch_hot_rows(cache: se.HotRowCache, arena: torch.Tensor,
     slots = cache.slot_of[rows]
     src = torch.where(slots < k, rows, null_row)
     hot_rows = cache.hot_rows.clone()
-    hot_rows[slots] = arena[src].to(hot_rows.dtype)
+    fresh = (arena[src] if se.mesh_shards(mesh) == 1
+             else collectives.gather_rows(arena, src, mesh))
+    hot_rows[slots] = fresh.to(hot_rows.dtype)
     return se.HotRowCache(hot_rows=hot_rows, slot_of=cache.slot_of,
                           hot_ids=cache.hot_ids)
 
@@ -190,7 +206,9 @@ class OnlineTrainer:
     with ``cache_cfg``, keep the serving hot cache live and exact.
 
     The train step works in place: ``params`` is moved to ``device`` once
-    and from then on the trainer's tensors are updated step by step.
+    and from then on the trainer's tensors are updated step by step. With
+    a ``mesh`` of more than one shard, ``params`` are this rank's (the
+    module docstring says how a sharded trainer runs).
     """
 
     def __init__(self, cfg: DLRMConfig, params: Dict, *, max_l: int,
@@ -221,6 +239,13 @@ class OnlineTrainer:
                                        "hot-cache rebuilds")
         self.cfg = cfg
         self.spec = dlrm.arena_spec(cfg)
+        self.mesh = mesh
+        self.sharded = se.mesh_shards(mesh) > 1
+        if self.sharded and cache_cfg is not None \
+                and cache_cfg.tiers is not None:
+            raise NotImplementedError(
+                "a tiered trainer does not row-shard; sharded tiered "
+                "sources are ROADMAP Queue 1, item 13b")
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_l = max_l
         self.cache_cfg = cache_cfg
@@ -290,12 +315,14 @@ class OnlineTrainer:
         self.steps += 1
         if self._dirty_q is not None:
             # the null row rides along harmlessly: re-quantizing a zero
-            # row is an exact no-op
-            self._dirty_q[rows] = True
+            # row is an exact no-op (so is the sentinel of a block, where
+            # the rows other ranks own land)
+            self._dirty_q[self._local(rows)] = True
         if self.cache is not None:
             # values never go stale: refresh the touched hot copies
             self.cache = _patch_hot_rows(self.cache, self.params["arena"],
-                                         self.spec.null_row, rows)
+                                         self.spec.null_row, rows,
+                                         mesh=self.mesh)
         if self.tiered is not None:
             # the same for the fp hot tier; warm and cold rows wait for
             # the migration, dirty-masked
@@ -316,6 +343,15 @@ class OnlineTrainer:
             self.train_step(batch)
         return self.losses
 
+    def _local(self, rows: torch.Tensor) -> torch.Tensor:
+        """Global arena rows -> rows of the trainer's arena (a sharded
+        rank's block: rows it does not own on its sentinel)."""
+        if not self.sharded:
+            return rows
+        lo, vlocal = se.shard_row_range(self.params["arena"],
+                                        self.mesh.rank("model"))
+        return se.shard_local_ids(rows, lo, vlocal)
+
     # -- cache publication -------------------------------------------------
 
     def rebuild_cache(self) -> VersionedHotCache:
@@ -333,7 +369,8 @@ class OnlineTrainer:
             # is the blob
             return self.snapshot()
         self.cache = se.build_hot_cache(self.params["arena"], self.spec,
-                                        self.hist, self.cache_cfg.k)
+                                        self.hist, self.cache_cfg.k,
+                                        mesh=self.mesh)
         if self.cold_q is not None:
             self.refresh_quantized()
         self.version += 1
@@ -393,11 +430,14 @@ class OnlineTrainer:
         trainer's fp arena). Its structure is the same at every version.
         It aliases the trainer's arena: serialize it or hand it to
         ``sync_engine``, which copies. A tiered trainer serves its
-        ``TieredSource``."""
+        ``TieredSource``; a sharded one a ``ShardedArena`` cold, the
+        structure of ``RecEngine(source="cached", mesh=...)``."""
         if self.tiered is not None:
             return self.tiered
         cold = (self.cold_q if self.cold_q is not None
                 else es.FpArena(self.params["arena"]))
+        if self.sharded:
+            cold = es.ShardedArena(cold, self.mesh)
         if self.cache is None:
             return cold
         # published at a write-through or rebuild boundary, where the hot
@@ -410,7 +450,9 @@ class OnlineTrainer:
         ``include_head=True`` adds the dense MLP head, so a remote replica
         adopts everything it serves from one blob. A tiered trainer's blob
         carries the whole ``TieredSource``: a host cold tier ships its
-        staged snapshot, its store being process-local."""
+        staged snapshot, its store being process-local. A sharded
+        trainer's holds the unsharded cold arena, gathered from every
+        rank: every rank calls this together."""
         if self.cache is None and self.tiered is None:
             return None
         blob = VersionedSource(source=self.serving_source(),
@@ -476,6 +518,8 @@ class OnlineTrainer:
                          cache: se.HotRowCache) -> es.EmbeddingSource:
         """The engine's source shape, rebuilt from live trainer state."""
         def cold_like(c):
+            if isinstance(c, es.ShardedArena):
+                return es.ShardedArena(cold_like(c.inner), c.mesh, c.axis)
             if isinstance(c, es.QuantizedArena):
                 if self.cold_q is None:
                     raise ValueError(

@@ -19,8 +19,13 @@ an order that changes from run to run). Nothing here syncs the host.
 
 A table group trains per table: ``group_row_grads`` gives one (rows,
 grads) pair a table, one ``sls_grad_table`` call each, and
-``group_rowwise_adagrad`` keeps one accumulator a table. The shard
-projection waits for ROADMAP Queue 1, item 13.
+``group_rowwise_adagrad`` keeps one accumulator a table.
+
+A row-sharded arena trains shard-locally: every rank computes the same
+global (rows, row_grads) pair, and ``shard_local_rows`` projects it onto
+the rank's block, the rows it does not own (and the null row) sent to
+local row 0 with a zero gradient, which row-wise Adagrad leaves exactly
+as it was.
 """
 from __future__ import annotations
 
@@ -161,6 +166,24 @@ def group_rowwise_adagrad(lr: float, eps: float = 1e-8) -> SparseOptimizer:
         return tuple(new_arenas), tuple(new_states)
 
     return SparseOptimizer(init, update)
+
+
+def shard_local_rows(rows: torch.Tensor, row_grads: torch.Tensor, *, lo: int,
+                     vlocal: int, null_row: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project a global (rows, row_grads) update onto one arena
+    row-shard: ``lo`` is the first global row the shard owns, ``vlocal``
+    its row count. Rows the shard does not own, and the null row, whose
+    always-zero invariant must survive training, are redirected to local
+    row 0 with a zero gradient: under ``sparse_rowwise_adagrad`` a zero
+    gradient adds zero to the accumulator and a zero delta to the row, an
+    exact no-op. Each shard so applies the updates of the rows it owns
+    and nothing else; the union over shards is the replicated update."""
+    rel = rows - lo
+    own = (rel >= 0) & (rel < vlocal) & (rows != null_row)
+    local = torch.where(own, rel, 0).to(torch.int32)
+    grads = torch.where(own[:, None], row_grads, 0.0)
+    return local, grads
 
 
 def sparse_rowwise_adagrad(lr: float, eps: float = 1e-8) -> SparseOptimizer:

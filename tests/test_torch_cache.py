@@ -387,8 +387,11 @@ def test_source_spec_matches_jax(case, path, kw):
     ({"mesh": object()}, "Queue 1, item 13"),
     ({"require_mesh": True}, "Queue 1, item 13")])
 def test_source_spec_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        es.SourceSpec(**kw).build([torch.zeros(11, 4)], None)
+    """Sharded plans are ported (item 13); a tiered one, by a mesh or by
+    the 'sharded' path's require_mesh, is item 13b."""
+    with pytest.raises(NotImplementedError, match=item + "b"):
+        es.SourceSpec(tiers=TierPolicy(hot=2, warm=4), **kw).build(
+            torch.zeros(11, 4), es.TablePlan(rows=10, dim=4).arena_spec)
 
 
 def test_source_spec_builds_a_tiered_group_member():
@@ -408,7 +411,8 @@ def test_source_spec_builds_a_tiered_group_member():
 
 
 def test_source_spec_from_path_refusals():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # 'sharded' needs a mesh of more than one shard: no silent fallback
+    with pytest.raises(ValueError, match="require_mesh"):
         es.SourceSpec.from_path("sharded")
     with pytest.raises(ValueError, match="cache_k"):
         es.SourceSpec.from_path("cached", cache_k=0)

@@ -272,12 +272,16 @@ def test_restore_refusals(tmp_path):
 
 
 def test_sharded_restores_name_their_item(tmp_path):
+    """Restoring onto a mesh is ported (item 13; tests/test_torch_sharded
+    and test_torch_sharded_dist.py): a sharding is the port's Mesh or
+    None, and anything else is refused."""
     ckpt = CheckpointManager(tmp_path, device="cpu")
     ckpt.save(0, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         ckpt.restore({"w": torch.zeros(2)}, shardings={"w": object()})
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        reshard_checkpoint(tmp_path, {"w": torch.zeros(2)}, object())
+    with pytest.raises(TypeError, match="Mesh"):
+        reshard_checkpoint(tmp_path, {"w": torch.zeros(2)}, object(),
+                           device="cpu")
 
 
 def test_restore_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

@@ -127,8 +127,8 @@ def test_feature_interaction_width_is_d_plus_pairs():
 
 def test_heterogeneous_configs_are_refused():
     """Heterogeneous configs are ported; what the port still refuses of
-    them names its ROADMAP item: sharded members (13). Tiered members are
-    built. The envelope spec is the reference's."""
+    them names its ROADMAP item: sharded tiered members (13b). Tiered
+    members are built. The envelope spec is the reference's."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     j_het = dataclasses.replace(j_cfgs.DLRM_SMOKE, table_rows=(10, 20, 30),
@@ -137,13 +137,14 @@ def test_heterogeneous_configs_are_refused():
         dataclasses.astuple(j_dlrm.arena_spec(j_het))
     arenas = [torch.zeros(sp.total_rows, sp.dim)
               for sp in t_dlrm.member_specs(het)]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        t_es.TableGroupSource.from_arenas(arenas, t_dlrm.member_specs(het),
-                                          mesh=object())
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.storage import TierPolicy
     plans = tuple(t_es.TablePlan(rows=tp.rows, dim=tp.dim,
                                  tiers=TierPolicy(hot=1, warm=2))
                   for tp in t_dlrm.table_plans(het))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 13b"):
+        t_es.SourceSpec(tables=plans, mesh=Mesh(
+            (("model", None, 0, 2),))).build(arenas, None)
     group = t_es.SourceSpec(tables=plans).build(arenas, None)
     assert [type(m).__name__ for m in group.members] == ["TieredSource"] * 3
 

@@ -377,15 +377,17 @@ def test_source_blobs_decode_across_packages():
 
 
 def test_unported_sources_in_a_blob_name_their_item():
-    # table groups decode since they are ported; a sharded source names
-    # its item
+    # table groups and sharded sources decode since they are ported: a
+    # reference ShardedArena blob holds the unsharded rows, and without a
+    # mesh the port serves its inner source replicated
     from repro.launch.mesh import make_mesh
-    arena = jnp.zeros((11, 4))
+    arena = jnp.arange(44.0).reshape(11, 4)
     sharded = j_es.ShardedArena(j_es.FpArena(arena),
                                 make_mesh((1,), ("model",)))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        VersionedSource.deserialize(
-            j_es.VersionedSource(sharded, 1).serialize(), device="cpu")
+    src = VersionedSource.deserialize(
+        j_es.VersionedSource(sharded, 1).serialize(), device="cpu").source
+    assert isinstance(src, es.FpArena)
+    np.testing.assert_array_equal(src.arena.numpy(), np.asarray(arena))
     with pytest.raises(ValueError, match="artifact"):
         VersionedSource.deserialize(b"junk", device="cpu")
 

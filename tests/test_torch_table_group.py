@@ -617,14 +617,17 @@ def test_online_group_trainer_is_refused():
 
 
 def test_sharded_members_are_refused():
-    """The reference's sharded members (shard_map over a mesh) are ROADMAP
-    Queue 1, item 13 in the port: the group, its plan and its training."""
+    """Sharded members serve (item 13, across ranks in
+    tests/test_torch_sharded_dist.py); what stays refused: a mesh that is
+    not the port's, and sharded group training, in the reference's
+    words."""
     params = t_dlrm.init(torch.Generator().manual_seed(0), HET, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         t_dlrm.group_source(params, HET, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        es.SourceSpec(tables=t_dlrm.table_plans(HET), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
+        es.SourceSpec(tables=t_dlrm.table_plans(HET), mesh=object()).build(
+            params["tables"], None)
+    with pytest.raises(ValueError, match="heterogeneous table group"):
         t_dlrm.make_train_step_ragged(HET, max_l=MAX_L, sharded=True)
 
 

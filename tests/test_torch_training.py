@@ -354,20 +354,27 @@ def test_train_step_updates_in_place():
 @pytest.mark.parametrize("kw,item", [({"sharded": True}, "item 13"),
                                      ({"mesh": object()}, "item 13")])
 def test_sharded_training_is_refused(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Sharded training is ported (item 13, across ranks in
+    tests/test_torch_sharded_dist.py); it is refused without a mesh, and
+    a mesh must be the port's ``launch.mesh.Mesh``."""
+    err, match = {"sharded": (ValueError, "needs a mesh"),
+                  "mesh": (TypeError, "Mesh")}[next(iter(kw))]
+    with pytest.raises(err, match=match):
         t_dlrm.make_train_step_ragged(CFG, max_l=MAX_L, **kw)
 
 
 def test_heterogeneous_training_is_refused():
     """Group train steps are ported; sharded group training is refused
-    naming its item (13), and OnlineTrainer refuses a group, naming
+    in the reference's words, and OnlineTrainer refuses a group, naming
     OnlineGroupTrainer, which trains one."""
+    from repro_torch.launch.mesh import Mesh
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     for sparse in (True, False):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-            t_dlrm.make_train_step_ragged(het, max_l=MAX_L, sparse=sparse,
-                                          mesh=object())
+        with pytest.raises(ValueError, match="heterogeneous table group"):
+            t_dlrm.make_train_step_ragged(
+                het, max_l=MAX_L, sparse=sparse,
+                mesh=Mesh((("model", None, 0, 2),)))
     params = t_dlrm.init(torch.Generator().manual_seed(0), het,
                          device="cpu")
     with pytest.raises(ValueError, match="OnlineGroupTrainer"):
