@@ -337,7 +337,40 @@ forward. Each serving phase zeroes the counts just before its engine's
    communicator only, not the port's collectives over it. The
    times (ms a micro-batch and a step, host clock) are gloo collectives
    through host memory: agreement runs, not the sharded path's speed.
-17. Report: one JSON line of the kernels, then the device line, which is
+17. The MoE, MLA and vision-prefix decoders at full width: (a)
+   ``flash_attention`` at kimi-k2's heads, 64 query and 8 kv heads of
+   112 (the wrapper pads them to depth 128), causal, at S = 2048 and
+   4096 (timed as in 10(a), with the three padding copies' device time
+   beside the kernel's) and at S = 100 and 2049, within 10(a)'s bound;
+   (b) kimi-k2-1t-a32b (d 7168, 384 experts of 2048, top-8, vocab
+   163,840 untied; seeded weights) at the most layers whose params and
+   prefill fit the card (2, else 1; printed): ``api.prefill`` at 2,048
+   launches the kernel once a layer and nothing else, gives finite
+   logits, and its tokens/s, peak memory, device time by group (flash,
+   matmul, the indexing of the MoE's dispatch and combine, other), the
+   top kernels and the idle share are printed; prefill against forward
+   (the same experts, logits within 2e-2) and decode after a prefill of
+   all but the last token against the forward (printed at 2,048, where
+   the forward's capacity drops choices; held within 5e-2 on 8 tokens,
+   where it cannot), each with its routing flips and drops counted; a
+   ``DecodeEngine`` serves 8 requests (10(d)'s waves), with the expert
+   bytes a decode step reads against the HBM rate; (c) 16 of kimi's
+   experts (top-8 kept), 2 layers: a 2,048-token prefill and a decode
+   after 2,047 on the card (the hd-112 kernel) against the CPU path's
+   fp32 logits within twice the CPU bf16 path's own error, and the
+   card's routing flips against the CPU fp32 path's at most twice the
+   CPU bf16 path's plus 1% of the (token, layer) pairs; (d) arctic-480b
+   (128 experts of 4864, top-2, beside its dense residual FFN), 2
+   layers: (b)'s prefill, laws and engine; (e) minicpm3-4b whole (62
+   layers of MLA, which runs no kernel: the chunked path at 2,048):
+   (b)'s prefill, laws and engine, layer 0's absorbed decode against
+   naive in fp32 at full width (1e-3, the reference's test), and (c)'s
+   check at 2 layers; (f) internvl2-2b whole (24 layers): 256 patch
+   embeddings and 1,792 tokens (the flash kernel at hd 128 once a
+   layer), (b)'s checks and (c)'s at 2 layers; (g) the serve launcher
+   with ``--arch minicpm3-4b`` at full width. The launch counts are
+   zeroed before and read after each prefill of (b), (d), (e) and (f).
+18. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -386,7 +419,12 @@ from repro_torch.distributed import collectives, spawn  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
+from repro_torch.models import embedding as lm_emb  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import mla as lm_mla  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import params as lm_params  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.optim import (Optimizer, global_norm,  # noqa: E402
                                tree_leaves, tree_map, tree_paths)
 from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
@@ -3877,18 +3915,39 @@ def single_call_ms(fn, cold: bool, reps: int = 10) -> float:
     return float(np.median(out))
 
 
-def check_flash(gen) -> tuple:
+def flash_split(fn, reps: int = 10) -> dict:
+    """Device ms a call of the wrapper on the pad route, split by the
+    profiler into the kernel and the rest (the three padding copies)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernel = pad = 0.0
+    for kname, us in _kernel_times_us(prof).items():
+        if "flash_attention_kernel" in kname:
+            kernel += us
+        else:
+            pad += us
+    return {"kernel_device_ms": kernel / 1e3 / reps,
+            "pad_device_ms": pad / 1e3 / reps}
+
+
+def check_flash(gen, shapes=FLASH_SHAPES, timed: int = FLASH_TIMED) -> tuple:
     """The kernel against its plain version at every listed shape, and
-    at the first FLASH_TIMED: two launches equal bit for bit, and times
+    at the first ``timed``: two launches equal bit for bit, and times
     of the kernel (warm and with a cold L2; its TFLOP/s over the band),
     the plain version and F.scaled_dot_product_attention (a yardstick
     the port never calls, on kv heads repeated before the timing; with a
     window it needs an explicit boolean mask, which takes it off its
-    flash backend)."""
+    flash backend). On the pad route (hd 20, 112) a timed row also
+    splits the wrapper's device time into the kernel and the padding
+    copies."""
     name = "flash_attention"
     errs, rows = [], []
-    for i, (what, b, s, h, kh, d, causal, window) in enumerate(
-            FLASH_SHAPES):
+    for i, (what, b, s, h, kh, d, causal, window) in enumerate(shapes):
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
         k = torch.randn((b, s, kh, d), generator=gen,
                         device="cuda").bfloat16()
@@ -3903,7 +3962,7 @@ def check_flash(gen) -> tuple:
         errs.append(compare(name, got, ref.flash_attention_gqa(
             q, k, v, causal=causal, window=window, bq=blk, bk=blk),
             f"{what}: {b}x{s}x{h}/{kh}x{d}"))
-        if i >= FLASH_TIMED:
+        if i >= timed:
             continue
         again = fa_k.flash_attention_gqa(q, k, v, causal=causal,
                                          window=window)
@@ -3950,6 +4009,11 @@ def check_flash(gen) -> tuple:
             ms = row[key]
             row[key.replace("ms", "tflops")] = (
                 None if ms is None else flops / ms / 1e9)
+        if fa_k.route(d) == "pad":
+            row.update(flash_split(kernel))
+            print(f"  {name:24s} {what}: pad route, depth {fa_k.depth(d)}: "
+                  f"kernel {row['kernel_device_ms']:.4f} device ms, the "
+                  f"three padding copies {row['pad_device_ms']:.4f}")
         rows.append(row)
         print(f"  {name:24s} {what}: ms per call (device ms): kernel "
               f"{row['ms']:.4f} ({_fmt(row['device_ms'])}; one call "
@@ -4067,12 +4131,12 @@ def _against_fp32(what: str, got: torch.Tensor, want32: torch.Tensor,
             "token": a, "fp32_token": b, "fp32_margin": margin}
 
 
-def _cpu_logits(params, cfg, tokens: torch.Tensor) -> tuple:
-    """Last-position logits of ``tokens`` on the CPU path, in the
+def _cpu_logits(params, cfg, batch: dict) -> tuple:
+    """Last-position logits of ``batch`` on the CPU path, in the
     working bf16 and in fp32 from the same weights, and the floor."""
     cpu = tree_map(lambda t: t.cpu(), params)
-    batch = {"tokens": tokens.cpu()}
-    s = tokens.shape[1]
+    batch = {k: t.cpu() for k, t in batch.items()}
+    s = sum(t.shape[1] for t in batch.values())
     c16, _ = lm_api.prefill(cpu, cfg, batch, s)
     c32, _ = lm_api.prefill(tree_map(lambda t: t.float(), cpu),
                             cfg.replace(dtype="float32"), batch, s)
@@ -4103,7 +4167,7 @@ def lm_agree(cfg, params) -> dict:
     card = {k: t.float().cpu() for k, t in card.items()}
     del full, cache
     t0 = time.perf_counter()
-    c16, c32, floor = _cpu_logits(params, cfg, toks)
+    c16, c32, floor = _cpu_logits(params, cfg, {"tokens": toks})
     print(f"  {cfg.n_layers} layers, S = {LM_AGREE_S}: CPU path bf16 vs "
           f"fp32 (floor) {floor:.3e}, |logits| <= "
           f"{float(c32.abs().max()):.3f} ({time.perf_counter() - t0:.1f} s "
@@ -4118,7 +4182,7 @@ def lm_agree(cfg, params) -> dict:
                                        params["layers"]))
     with uncounted():
         card2, _ = lm_api.prefill(sub, shallow, {"tokens": toks}, LM_AGREE_S)
-    c16, c32, floor2 = _cpu_logits(sub, shallow, toks)
+    c16, c32, floor2 = _cpu_logits(sub, shallow, {"tokens": toks})
     card2 = card2[0, :v].float().cpu()
     out["shallow"] = {"floor": floor2,
                       "card_vs_cpu_bf16": float((card2 - c16).abs().max())}
@@ -4131,10 +4195,24 @@ def lm_agree(cfg, params) -> dict:
 
 
 def lm_serve(cfg, params) -> dict:
+    """DecodeEngine at full width (``lm_engine``), then the serve
+    launcher at full width."""
+    out = lm_engine(cfg, params)
+    argv = ["--arch", LM_ARCH, "--requests", str(LM_SLOTS), "--batch-size",
+            str(LM_SLOTS), "--prompt-len", str(LM_PROMPT), "--new-tokens",
+            "8", "--max-len", str(LM_MAX_LEN)]
+    launcher = serve_launcher.main(argv)
+    if launcher.get("n") != LM_SLOTS:
+        fail(f"serve launcher: {launcher}")
+    print(f"  serve launcher {' '.join(argv)}: {launcher}")
+    return {"engine": out, "launcher": launcher}
+
+
+def lm_engine(cfg, params) -> dict:
     """DecodeEngine at full width: LM_REQUESTS requests of LM_PROMPT random
     tokens in waves of LM_SLOTS, LM_NEW new tokens each; p50/p99,
     generated tokens/s, ms and kernel launches per decode step (profiled
-    over one wave), then the serve launcher at full width."""
+    over one wave)."""
     rng = np.random.RandomState(9)
 
     def requests():
@@ -4194,14 +4272,7 @@ def lm_serve(cfg, params) -> dict:
           f"{out['ms_per_decode_step']:.2f} ms and "
           f"{out['launches_per_decode_step']:.0f} kernel launches per "
           f"decode step (device {out['device_ms_per_decode_step']:.3f} ms)")
-    argv = ["--arch", LM_ARCH, "--requests", str(LM_SLOTS), "--batch-size",
-            str(LM_SLOTS), "--prompt-len", str(LM_PROMPT), "--new-tokens",
-            "8", "--max-len", str(LM_MAX_LEN)]
-    launcher = serve_launcher.main(argv)
-    if launcher.get("n") != LM_SLOTS:
-        fail(f"serve launcher: {launcher}")
-    print(f"  serve launcher {' '.join(argv)}: {launcher}")
-    return {"engine": out, "launcher": launcher}
+    return out
 
 
 def phase_lm(gen) -> dict:
@@ -6553,6 +6624,553 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+
+# 17(a): the flash kernel at kimi-k2's heads (64 query and 8 kv heads of
+# 112, which the wrapper pads to depth 128), causal, at both prefill
+# lengths (timed) and at lengths that are no multiple of the tiles
+FLASH_112_SHAPES = (
+    ("kimi-k2 hd 112", 1, 2048, 64, 8, 112, True, None),
+    ("kimi-k2 hd 112", 1, 4096, 64, 8, 112, True, None),
+    ("kimi-k2 hd 112, ragged S = 100", 2, 100, 64, 8, 112, True, None),
+    ("kimi-k2 hd 112, ragged S = 2049", 1, 2049, 64, 8, 112, True, None),
+)
+FLASH_112_TIMED = 2
+FAM_S = 2048                       # positions of every prefill of phase 17
+FAM_HEADROOM = 8 << 30             # bytes kimi's prefill and forward need
+                                   # beside its params (its fp32 unembed
+                                   # copy alone is 4.7 GB)
+KIMI_CPU_EXPERTS = 16              # 17(c): the one cut of the CPU copy
+FAM_CPU_LAYERS = 2                 # depth of every card-against-CPU check
+ARCTIC_LAYERS = 2
+# routing flips. A token's top-k is decided by the ordering of its
+# router probabilities, and two paths that round differently (the card
+# and the CPU, decode and the forward) can order a near-tie either way;
+# a flip changes that token's FFN output by a whole expert's share, and
+# it moves the token-major ranks of every later choice of both experts,
+# so which choices the capacity drops changes too. So the expert sets
+# are compared pair by pair, (token, layer): the card's against the CPU
+# fp32 path's may differ in at most LM_FLOOR_FACTOR x as many pairs as
+# the CPU bf16 path's own, plus FLIP_SHARE of the pairs; and a logits
+# check of a position holds only where that position's experts and
+# drops agree in every layer (else the flip is printed and counted).
+FLIP_SHARE = 0.01
+# the prefill and decode laws (tests/test_models.py:61-84): prefill's
+# last logits against the forward's at 2,048 tokens, 2e-2 (rtol and
+# atol); decode after a prefill of all but the last token against the
+# forward's last on LAW_SHORT tokens (after a vlm model's patches), the
+# reference's own shape, where both paths attend directly and no expert
+# can get more choices than its capacity of at least 8: 5e-2, the
+# reference's at its smoke depth of 2 layers (kimi's and arctic's here);
+# deeper (minicpm3-4b, 62 layers: 8.0e-2 on 8 tokens) phase 10(c)'s bar
+# against an fp32 forward of the same weights on the card. At 2,048 the
+# decode law is printed, not held: a MoE's forward drops choices (the
+# first full-width run: 1,680 of kimi's 4,096 (token, layer) pairs lost
+# one), the last token's most likely, the decode path's flips cascade
+# through the drops (413 pairs), and at full depth the two attention
+# paths' roundings drift past 5e-2 (minicpm3-4b: 0.115)
+LAW_PREFILL = 2e-2
+LAW_DECODE = 5e-2
+LAW_SHORT = 8
+MLA_ATOL = 1e-3                    # absorbed == naive (tests/test_models.py
+                                   # :107), fp32 on the card at full width
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE layer's routing in call order, on the host: (its expert
+    choices (T, k) sorted, whether a token's choice was dropped (T,))."""
+    seen = []
+    inner = lm_moe._slots
+
+    def spy(idx, n_experts, capacity):
+        slot, valid = inner(idx, n_experts, capacity)
+        seen.append((torch.sort(idx, -1).values.cpu(),
+                     (~valid).view(idx.shape).any(-1).cpu()))
+        return slot, valid
+    lm_moe._slots = spy
+    try:
+        yield seen
+    finally:
+        lm_moe._slots = inner
+
+
+def route_flips(a: list, b: list) -> torch.Tensor:
+    """(T, layers) bool: where two runs' expert sets differ."""
+    return torch.stack([(x[0] != y[0]).any(-1) for x, y in zip(a, b)], -1)
+
+
+def dropped(r: list) -> torch.Tensor:
+    """(T, layers) bool: tokens with a choice past capacity."""
+    return torch.stack([x[1] for x in r], -1)
+
+
+def _fam_group(name: str) -> str:
+    """phase 10's groups, with the indexing kernels (the MoE's sort,
+    bincount, scatter into the dispatch buffer and gather out of it;
+    also the embedding gather and the cache writes) as their own."""
+    g = _lm_group(name)
+    low = name.lower()
+    if g == "other" and any(t in low for t in (
+            "index", "scatter", "gather", "sort", "bincount", "cumsum",
+            "radix")):
+        return "dispatch"
+    return g
+
+
+def fam_batch(cfg, s: int, seed: int, b: int = 1) -> dict:
+    """A prompt of ``s`` positions: tokens, and for a vlm model its
+    n_frontend_tokens patch embeddings (bf16, as the launchers cast
+    them) before s - P tokens."""
+    rng = np.random.RandomState(seed)
+    batch = {}
+    n_tok = s
+    if cfg.family == "vlm":
+        p = cfg.n_frontend_tokens
+        batch["patches"] = torch.from_numpy(rng.randn(
+            b, p, cfg.d_model).astype(np.float32)).cuda().bfloat16()
+        n_tok = s - p
+    batch["tokens"] = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (b, n_tok)).astype(np.int32)).cuda()
+    return batch
+
+
+def _param_bytes(cfg) -> int:
+    """Bytes of cfg's params, from the init's own leaf shapes."""
+    dtype = getattr(torch, cfg.dtype)
+    n = 0
+    for leaf in tree_leaves(lm_transformer._init_attn_block(
+            lm_params._Shapes(dtype), cfg)):
+        n += int(np.prod(leaf.shape)) * leaf.dtype.itemsize * cfg.n_layers
+    v = lm_emb.padded_vocab(cfg.vocab_size) * cfg.d_model
+    return n + v * dtype.itemsize * (1 if cfg.tie_embeddings else 2)
+
+
+def _describe(cfg, params) -> None:
+    a, m = cfg.attention, cfg.moe
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{a.kind} heads {a.n_heads}/{a.n_kv_heads}"
+          + (f" of {a.resolved_head_dim(cfg.d_model)}" if a.kind == "gqa"
+             else f" (qk {a.mla.qk_nope_head_dim}+{a.mla.qk_rope_head_dim},"
+             f" v {a.mla.v_head_dim}, kv rank {a.mla.kv_lora_rank})")
+          + (f", {m.n_experts} experts of {m.expert_ff} top-{m.top_k}"
+             + (f" + dense residual {m.dense_residual_ff}"
+                if m.dense_residual_ff else "") if m else
+             f", d_ff {cfg.d_ff}")
+          + f", vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
+          "card) from a seeded generator")
+
+
+def fam_prefill(cfg, params, batch: dict) -> dict:
+    """``api.prefill`` of the batch: flash_attention launched once a
+    layer (GQA at S >= 2048) or never (MLA), nothing else of the port;
+    finite logits; tokens/s (host clock around a synchronised prefill),
+    peak memory, device time by group and the device's idle share."""
+    s = sum(t.shape[1] for t in batch.values())
+    want = cfg.n_layers if (cfg.attention.kind == "gqa"
+                            and s >= lm_layers.CHUNKED_THRESHOLD) else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, cache = lm_api.prefill(params, cfg, batch, s)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    if launches["flash_attention"] != want or any(
+            n != "flash_attention" and c for n, c in launches.items()):
+        fail(f"{cfg.name} prefill S = {s}: launches {launches}, expected "
+             f"flash_attention x {want} only")
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        fail(f"{cfg.name} prefill S = {s}: non-finite logits")
+    walls = []
+    for _ in range(LM_TIMED):
+        t0 = time.perf_counter()
+        lm_api.prefill(params, cfg, batch, s)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lm_api.prefill(params, cfg, batch, s)
+        torch.cuda.synchronize()
+    groups, times = {}, _kernel_times_us(prof)
+    for kname, us in times.items():
+        g = _fam_group(kname)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+    out = {"s": s, "launches": launches, "ms": wall, "walls_ms": walls,
+           "top_kernels_ms": [[k[:90], us / 1e3] for k, us in top],
+           "tokens_per_s": s / wall * 1e3, "peak_gb": peak / 1e9,
+           "kernel_launches": _kernel_count(prof),
+           "device_ms": groups, "device_busy_ms": busy,
+           "device_idle_share": (1.0 - busy / wall) if busy else None,
+           "flash_device_ms_per_launch":
+               groups.get("flash", 0.0) / want if want else None}
+    print(f"  prefill S = {s}: {wall:.2f} ms ({out['tokens_per_s']:.0f} "
+          f"tokens/s), peak {out['peak_gb']:.1f} GB, device {busy:.3f} ms "
+          f"{ {g: round(v, 4) for g, v in groups.items()} }, idle share "
+          f"{out['device_idle_share']}, {out['kernel_launches']} kernel "
+          f"launches; launches {launches}")
+    for kname, ms in out["top_kernels_ms"]:
+        print(f"    {ms:9.4f} ms  {_fam_group(kname):8s} {kname}")
+    return out
+
+
+def _law(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+         agree: bool, hold: bool = True) -> dict:
+    """A law between two card results of one position: within tol
+    (rtol and atol) and the same greedy token, where the position's
+    experts agree in every layer and ``hold``; else printed."""
+    err = float((got - want).abs().max())
+    a, b = int(got.argmax()), int(want.argmax())
+    print(f"  {what}: max |diff| {err:.3e} (tol {tol}), greedy token "
+          f"{a} / {b}" + ("" if agree else "; the position's experts "
+                          "differ in a layer (a routing flip) or the "
+                          "forward dropped one of its choices")
+          + ("" if hold and agree else ": not held"))
+    if hold and agree and (not torch.allclose(got, want, rtol=tol, atol=tol)
+                           or a != b):
+        fail(f"{what}: {err} over {tol}, token {a} against {b}")
+    return {"max_abs_err": err, "tol": tol, "token": a, "want_token": b,
+            "experts_agree": agree}
+
+
+def _decode_law(cfg, params, batch: dict, full_last, r_full,
+                hold: bool = True, ref32=None) -> dict:
+    """Decode after a prefill of all but the last position against the
+    forward's last logits (``full_last``; ``r_full`` its routing): the
+    routing flips between the two paths and the forward's drops
+    counted; with ``hold``, the logits held where the last token's
+    experts agree in every layer and the forward dropped none of its
+    choices: within LAW_DECODE of the forward's, or with ``ref32`` =
+    (fp32 forward's last logits, the bf16 forward's error against them)
+    within LM_FLOOR_FACTOR x that error of the fp32 logits."""
+    v = cfg.vocab_size
+    s = sum(t.shape[1] for t in batch.values())
+    head = dict(batch, tokens=batch["tokens"][:, :-1])
+    with uncounted(), recorded_routes() as r_head:
+        _, cache = lm_api.prefill(params, cfg, head, s)
+    with uncounted(), recorded_routes() as r_dec:
+        dec, _ = lm_api.decode_step(params, cfg, cache,
+                                    batch["tokens"][:, -1], s - 1)
+    del cache
+    out, agree = {}, True
+    if cfg.moe is not None:
+        # decode's path: the head's prefill for positions < s - 1, the
+        # decode step for the last
+        dec_routes = [(torch.cat([h[0], d[0]]), torch.cat([h[1], d[1]]))
+                      for h, d in zip(r_head, r_dec)]
+        flips, drops = route_flips(dec_routes, r_full), dropped(r_full)
+        out.update(route_flips=int(flips.sum()), route_pairs=flips.numel(),
+                   forward_dropped_pairs=int(drops.sum()),
+                   last_token_flipped=bool(flips[-1].any()),
+                   last_token_dropped=bool(drops[-1].any()))
+        print(f"  S = {s}, decode path vs forward: {out['route_flips']} of "
+              f"{out['route_pairs']} (token, layer) pairs route to another "
+              f"expert set; the forward dropped a choice of "
+              f"{out['forward_dropped_pairs']} pairs (the last token's: "
+              f"{out['last_token_dropped']})")
+        agree = not (out["last_token_flipped"] or out["last_token_dropped"])
+    what = f"S = {s}, decode after prefill of S - 1 vs forward"
+    if ref32 is not None and hold and agree:
+        out.update(_against_fp32(
+            what + " (the card's fp32 forward for the CPU's)",
+            dec[0, :v].float(), ref32[0], ref32[1]))
+        out["fp32_floor"] = ref32[1]
+    else:
+        out.update(_law(what, dec[0, :v].float(), full_last, LAW_DECODE,
+                        agree, hold))
+    return out
+
+
+def fam_laws(cfg, params) -> dict:
+    """The reference's laws on the card at full width (see LAW_*): at
+    FAM_S prefill against the forward (the same expert choices in every
+    layer, exactly) and the decode law printed; at LAW_SHORT the decode
+    law held. ``fam_card_vs_cpu`` holds decode at 2,048 against the
+    CPU's fp32."""
+    v = cfg.vocab_size
+    batch = fam_batch(cfg, FAM_S, seed=5)
+    with uncounted(), recorded_routes() as r_pre:
+        pre, _ = lm_api.prefill(params, cfg, batch, FAM_S)
+    with uncounted(), recorded_routes() as r_full:
+        full, _ = lm_api.forward(params, cfg, batch)
+    full_last = full[0, -1, :v].float()
+    del full
+    if cfg.moe is not None and route_flips(r_pre, r_full).any():
+        fail(f"{cfg.name}: prefill and forward chose different experts")
+    out = {"prefill_vs_forward": _law(
+        f"S = {FAM_S}, prefill vs forward", pre[0, :v].float(), full_last,
+        LAW_PREFILL, True)}
+    out["decode_vs_forward"] = _decode_law(cfg, params, batch, full_last,
+                                           r_full, hold=False)
+    short = fam_batch(cfg, cfg.n_frontend_tokens + LAW_SHORT, seed=7)
+    with uncounted(), recorded_routes() as r_full:
+        full, _ = lm_api.forward(params, cfg, short)
+    full_last = full[0, -1, :v].float()
+    ref32 = None
+    if cfg.n_layers > FAM_CPU_LAYERS:
+        # past the reference's smoke depth the bar is phase 10(c)'s, on
+        # the card: the same weights in fp32 (no TF32; no kernel at this
+        # length, so the plain attention runs fp32)
+        with uncounted():
+            f32, _ = lm_api.forward(tree_map(lambda t: t.float(), params),
+                                    cfg.replace(dtype="float32"),
+                                    {k: t.float() if t.is_floating_point()
+                                     else t for k, t in short.items()})
+        f32_last = f32[0, -1, :v]
+        del f32
+        ref32 = (f32_last, float((full_last - f32_last).abs().max()))
+        print(f"  S = {LAW_SHORT + cfg.n_frontend_tokens}: the bf16 forward "
+              f"against the fp32 forward on the card (floor) {ref32[1]:.3e}")
+        _free()
+    out["short_decode_vs_forward"] = _decode_law(
+        cfg, params, short, full_last, r_full, ref32=ref32)
+    return out
+
+
+def fam_card_vs_cpu(cfg, params, batch: dict) -> dict:
+    """A prefill of ``batch`` on the card against the CPU path's fp32
+    logits from the same weights, within LM_FLOOR_FACTOR x the CPU bf16
+    path's own error (phase 10(c)'s bar), with the MoE's routing flips
+    under the budget: the card's against fp32 at most LM_FLOOR_FACTOR x
+    the CPU bf16 path's plus FLIP_SHARE of the pairs."""
+    v = cfg.vocab_size
+    s = sum(t.shape[1] for t in batch.values())
+    with uncounted(), recorded_routes() as r_card:
+        card, _ = lm_api.prefill(params, cfg, batch, s)
+    card = card[0, :v].float().cpu()
+    head = dict(batch, tokens=batch["tokens"][:, :-1])
+    with uncounted(), recorded_routes() as r_dec:
+        _, cache = lm_api.prefill(params, cfg, head, s)
+        dec, _ = lm_api.decode_step(params, cfg, cache,
+                                    batch["tokens"][:, -1], s - 1)
+    dec = dec[0, :v].float().cpu()
+    del cache
+    t0 = time.perf_counter()
+    with recorded_routes() as r_cpu:
+        c16, c32, floor = _cpu_logits(params, cfg, batch)
+    secs = time.perf_counter() - t0
+    out = {"floor": floor, "cpu_s": secs,
+           "card_vs_cpu_bf16": float((card - c16).abs().max())}
+    print(f"  {cfg.n_layers} layers, S = {s}: CPU path bf16 vs fp32 (floor) "
+          f"{floor:.3e} ({secs:.1f} s on the CPU); card vs CPU bf16 "
+          f"{out['card_vs_cpu_bf16']:.3e}")
+    agree = dec_agree = True
+    if cfg.moe is not None:
+        n = cfg.n_layers
+        r16, r32 = r_cpu[:n], r_cpu[n:]
+        r_dec = [(torch.cat([h[0], d[0]]), torch.cat([h[1], d[1]]))
+                 for h, d in zip(r_dec[:n], r_dec[n:])]
+        dec_flips = route_flips(r_dec, r32)
+        dec_agree = not bool(dec_flips[-1].any() or dropped(r32)[-1].any())
+        card_flips, cpu_flips = route_flips(r_card, r32), route_flips(r16, r32)
+        pairs = card_flips.numel()
+        budget = LM_FLOOR_FACTOR * int(cpu_flips.sum()) + FLIP_SHARE * pairs
+        out.update(card_route_flips=int(card_flips.sum()),
+                   cpu_bf16_route_flips=int(cpu_flips.sum()),
+                   route_pairs=pairs, flip_budget=budget)
+        print(f"  routing flips against CPU fp32: card {out['card_route_flips']}"
+              f", CPU bf16 {out['cpu_bf16_route_flips']} of {pairs} (token, "
+              f"layer) pairs; budget {budget:.1f}")
+        if out["card_route_flips"] > budget:
+            fail(f"{cfg.name}: {out['card_route_flips']} routing flips "
+                 f"against the CPU path, over {budget}")
+        agree = not bool(card_flips[-1].any() or (
+            dropped(r_card)[-1] != dropped(r32)[-1]).any())
+    for what, got, ok in (("prefill", card, agree),
+                          ("decode after prefill of S - 1", dec,
+                           dec_agree)):
+        if ok:
+            out[what] = _against_fp32(f"{what}, {cfg.n_layers} layers", got,
+                                      c32, floor)
+        else:
+            print(f"  {what}: the last position's experts or drops differ "
+                  "from the CPU fp32 path's in a layer: its logits not held")
+    return out
+
+
+def _shallow(cfg, params, n: int) -> tuple:
+    """The first n layers: views of the stacked leaves."""
+    return cfg.replace(n_layers=n), dict(params, layers=tree_map(
+        lambda t: t[:n], params["layers"]))
+
+
+def _free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def fam_engine(cfg, params) -> dict:
+    """lm_engine, and for a MoE the expert bytes a decode step reads (all
+    E C rows run, whatever the routing) against the HBM rate."""
+    out = lm_engine(cfg, params)
+    if cfg.moe is not None:
+        m = cfg.moe
+        n_bytes = cfg.n_layers * 3 * m.n_experts * cfg.d_model * m.expert_ff \
+            * getattr(torch, cfg.dtype).itemsize
+        out["expert_bytes_per_step"] = n_bytes
+        out["expert_bound_ms_per_step"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  decode step: {n_bytes / 1e9:.1f} GB of experts, "
+              f"{out['expert_bound_ms_per_step']:.2f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, against "
+              f"{out['device_ms_per_decode_step']:.2f} device ms a step")
+    return out
+
+
+def fam_kimi() -> dict:
+    """17(b) and (c): kimi-k2-1t-a32b at full width, as many layers as
+    its prefill fits (2, else 1); then 16 of its experts, 2 layers, card
+    against the CPU."""
+    full = registry.get_arch("kimi-k2-1t-a32b")
+    _free()
+    free, _ = torch.cuda.mem_get_info()
+    depth = 2 if _param_bytes(full.replace(n_layers=2)) + FAM_HEADROOM \
+        <= free else 1
+    cfg = full.replace(n_layers=depth)
+    print(f"  depth cut to {depth} of {full.n_layers} layers "
+          f"({_param_bytes(cfg) / 1e9:.1f} GB of params, "
+          f"{free / 1e9:.1f} GB free)")
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    _describe(cfg, params)
+    out = {"depth": depth, "prefill": fam_prefill(
+        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S))}
+    out["laws"] = fam_laws(cfg, params)
+    out["serve"] = fam_engine(cfg, params)
+    del params
+    _free()
+    m = cfg.moe
+    cut = full.replace(n_layers=FAM_CPU_LAYERS, moe=dataclasses.replace(
+        m, n_experts=KIMI_CPU_EXPERTS))
+    print(f"  17(c): {KIMI_CPU_EXPERTS} of {m.n_experts} experts "
+          f"(top-{m.top_k} kept), {FAM_CPU_LAYERS} layers")
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(1), cut,
+                         device="cuda")
+    reset_counts()
+    out["card_vs_cpu"] = fam_card_vs_cpu(cut, params,
+                                         fam_batch(cut, FAM_S, seed=6))
+    del params
+    _free()
+    return out
+
+
+def fam_model(arch: str, layers=None, seed: int = 0,
+              cpu: bool = True) -> dict:
+    """17(d)-(f): a model at full width (depth ``layers`` or its own):
+    prefill, the laws, the DecodeEngine, with ``cpu`` card against the
+    CPU path at FAM_CPU_LAYERS; for MLA, absorbed against naive
+    decode."""
+    cfg = registry.get_arch(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg, device="cuda")
+    _describe(cfg, params)
+    out = {"depth": cfg.n_layers, "prefill": fam_prefill(
+        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S))}
+    out["laws"] = fam_laws(cfg, params)
+    out["serve"] = fam_engine(cfg, params)
+    if cfg.attention.kind == "mla":
+        out["absorbed_vs_naive"] = mla_absorbed_vs_naive(cfg, params)
+    if cpu:
+        shallow, sub = _shallow(cfg, params, FAM_CPU_LAYERS)
+        out["card_vs_cpu"] = fam_card_vs_cpu(shallow, sub,
+                                             fam_batch(cfg, FAM_S, seed=6))
+        del sub
+    del params
+    _free()
+    return out
+
+
+def mla_absorbed_vs_naive(cfg, params) -> dict:
+    """Layer 0's MLA decode step at full width, absorbed against naive
+    on one cache (a 64-token prefill's latents, then the step at 64): in
+    fp32 within MLA_ATOL (the reference's test), and the working bf16's
+    difference printed."""
+    p = lm_transformer._layer(params["layers"], 0)["mla"]
+    acfg = cfg.attention
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((LM_SLOTS, 65, cfg.d_model), generator=g, device="cuda")
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        pd = p if dt == torch.bfloat16 else tree_map(lambda t: t.float(), p)
+        h = x.to(dt)
+        _, (c_kv, k_rope) = lm_mla.mla_full(
+            pd, acfg, h[:, :64], torch.arange(64, device="cuda"),
+            cfg.d_model, return_latent=True)
+        res = []
+        for absorbed in (True, False):
+            cache = lm_mla.cache_from_latent(acfg, c_kv, k_rope, 128, dt)
+            y, _ = lm_mla.mla_decode(pd, acfg, h[:, 64:], 64, cache,
+                                     cfg.d_model, absorbed=absorbed)
+            res.append(y.float())
+        out[str(dt).split(".")[-1]] = float((res[0] - res[1]).abs().max())
+        if dt == torch.float32 and not torch.allclose(
+                res[0], res[1], rtol=MLA_ATOL, atol=MLA_ATOL):
+            fail(f"MLA absorbed vs naive decode, fp32: "
+                 f"{out['float32']} over {MLA_ATOL}")
+    print(f"  MLA decode, layer 0, absorbed vs naive: fp32 "
+          f"{out['float32']:.3e} (tol {MLA_ATOL}), bf16 "
+          f"{out['bfloat16']:.3e}")
+    return out
+
+
+def fam_launcher() -> dict:
+    """17(g): the serve launcher at full width on minicpm3-4b."""
+    argv = ["--arch", "minicpm3-4b", "--requests", str(LM_SLOTS),
+            "--batch-size", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
+            "--new-tokens", "8", "--max-len", str(LM_MAX_LEN)]
+    launcher = serve_launcher.main(argv)
+    if launcher.get("n") != LM_SLOTS:
+        fail(f"serve launcher: {launcher}")
+    print(f"  serve launcher {' '.join(argv)}: {launcher}")
+    return launcher
+
+
+def phase_lm_families(gen) -> tuple:
+    clock = [time.perf_counter()]
+
+    def took(part: str) -> float:
+        now = time.perf_counter()
+        s, clock[0] = now - clock[0], now
+        print(f"   (17({part}) took {s:.1f} s)")
+        return s
+
+    print("  17(a): flash_attention at hd 112")
+    err, rows = check_flash(gen, FLASH_112_SHAPES, FLASH_112_TIMED)
+    seconds = {"a": took("a")}
+    print("  17(b), (c): kimi-k2-1t-a32b")
+    kimi = fam_kimi()
+    seconds["bc"] = took("b, c")
+    print("  17(d): arctic-480b")
+    # two layers of arctic are 55 GB of bf16: an fp32 copy on the host
+    # would not fit beside the bf16 one, so no CPU check here
+    arctic = fam_model("arctic-480b", layers=ARCTIC_LAYERS, cpu=False)
+    seconds["d"] = took("d")
+    print("  17(e): minicpm3-4b")
+    minicpm = fam_model("minicpm3-4b")
+    seconds["e"] = took("e")
+    print("  17(f): internvl2-2b")
+    internvl = fam_model("internvl2-2b")
+    seconds["f"] = took("f")
+    print("  17(g): the serve launcher")
+    launcher = fam_launcher()
+    seconds["g"] = took("g")
+    _free()
+    runs = {"kimi-k2-1t-a32b": kimi, "arctic-480b": arctic,
+            "minicpm3-4b": minicpm, "internvl2-2b": internvl}
+    launches = {n: sum(r["prefill"]["launches"][n] for r in runs.values())
+                for n in KERNELS}
+    return {"max_abs_err": err, "rows": rows}, {
+        **runs, "launcher": launcher, "launches": launches,
+        "seconds": seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path,
@@ -6626,7 +7244,12 @@ def main() -> None:
         sharded = phase_sharded(cfg, fp_probs, gen, card, pathlib.Path(tmp))
     for name, err in sharded["kernels"]["max_abs_err"].items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
-    phase("phase 17: report")
+    phase("phase 17: the MoE, MLA and vision-prefix decoders at full width")
+    flash_112, lm_fam = phase_lm_families(gen)
+    kernels["flash_attention"]["max_abs_err"] = max(
+        kernels["flash_attention"]["max_abs_err"], flash_112["max_abs_err"])
+    kernels["flash_attention"]["hd112_rows"] = flash_112["rows"]
+    phase("phase 18: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -6654,7 +7277,8 @@ def main() -> None:
                    "fleet_group_trainer":
                        fleet["group_trainer"]["launches"][name],
                    "lm_train": lm_train["launches"][name],
-                   "sharded": sharded["launches"][name]}
+                   "sharded": sharded["launches"][name],
+                   "lm_families": lm_fam["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -6690,7 +7314,16 @@ def main() -> None:
                 "library_device_ms", "bound_ms", "bound_by",
                 "forward_backward_bound_ms")}
                 for r in kernels[name]["recompute_rows"]]}
-               if "recompute_rows" in kernels[name] else {})})
+               if "recompute_rows" in kernels[name] else {}),
+            # flash_attention at kimi-k2's hd 112 (phase 17), padded to
+            # depth 128: its times and the padding copies'
+            **({"hd112": [{k: r.get(k) for k in (
+                "shape", "ms", "device_ms", "single_ms", "cold_l2_ms",
+                "device_tflops", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by",
+                "kernel_device_ms", "pad_device_ms")}
+                for r in kernels[name]["hd112_rows"]]}
+               if "hd112_rows" in kernels[name] else {})})
     if args.out is not None:
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
@@ -6698,7 +7331,8 @@ def main() -> None:
              "serve_fixed": fixed, "train_fixed": trained_fixed,
              "serve_tiered": tiered, "online_tiered": online_t,
              "graphed": graphed, "lm": lm, "het": het, "plane": plane,
-             "fleet": fleet, "lm_train": lm_train, "sharded": sharded},
+             "fleet": fleet, "lm_train": lm_train, "sharded": sharded,
+             "lm_families": lm_fam},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -43,8 +43,8 @@ class AttentionConfig:
 
 
 # ---------------------------------------------------------------------------
-# MoE and recurrent blocks (schema only: their models are ROADMAP Queue 1,
-# item 15b)
+# MoE and recurrent blocks (the recurrent ones schema only: their models
+# are ROADMAP Queue 1, item 15c)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)

@@ -152,9 +152,10 @@ class DLRMSynthetic:
 
 
 class LMSynthetic:
-    """Token batches of a decoder LM (the reference's ``LMSynthetic``; the
-    encoder-decoder and VLM inputs wait for their models, ROADMAP Queue
-    1, item 15b)."""
+    """Token batches of a decoder LM, and a ``vlm`` model's patch
+    embeddings before its tokens (the reference's ``LMSynthetic``; the
+    encoder-decoder inputs wait for their model, ROADMAP Queue 1, item
+    15c)."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         self.cfg = cfg
@@ -181,8 +182,14 @@ class LMSynthetic:
 
     def batch(self, batch: int, seq: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
-        if cfg.is_encdec or cfg.family == "vlm":
+        if cfg.is_encdec:
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.family} inputs are not ported yet "
-                "(ROADMAP Queue 1, item 15b)")
+                "(ROADMAP Queue 1, item 15c)")
+        if cfg.family == "vlm":
+            # the patches are drawn first, as the reference draws them
+            p = cfg.n_frontend_tokens
+            return {"patches": self.rng.randn(batch, p, cfg.d_model)
+                    .astype(np.float32),
+                    "tokens": self.tokens(batch, max(2, seq - p))}
         return {"tokens": self.tokens(batch, seq)}

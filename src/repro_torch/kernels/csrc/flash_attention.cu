@@ -62,8 +62,11 @@
 //    32, 128, 160 and 256 bytes) meet them for any head count; hd 20 (40
 //    bytes) does not, so the wrapper pads q, k and v to 32 with one copy
 //    each and passes the scale of 20; this kernel runs the depth-32
-//    instantiation and stores the first 20 columns only (d_out). The
-//    wrapper raises on an address off the 16-byte rule.
+//    instantiation and stores the first 20 columns only (d_out). Head
+//    dim 112 (the MoE decoders) takes the same route to depth 128 (see
+//    7.): the zero columns add exact zeros to every score and to O's
+//    last 16 columns, which are not stored. The wrapper raises on an
+//    address off the 16-byte rule.
 // 2. Swizzle and box widths: the head dim is cut into panels of 64, 32
 //    or 16 columns, each a TMA box whose rows are exactly its swizzle
 //    width (128, 64 or 32 bytes): 16 -> [16], 32 -> [32], 64 -> [64], 80
@@ -89,9 +92,10 @@
 //    A trap is a sticky error: it ends the whole CUDA context of the
 //    process, not only this launch, so the bound is far above any wait
 //    of a correct run (a tile's wait is microseconds).
-// 7. Head dims 16, 20 (as 32), 64, 80 and 128 are instantiated. 112
-//    would take three panels, [64, 32, 16], one more than the kernel
-//    has; 256 needs a 64-key kv tile (with 128 keys two stages of K and
+// 7. Head dims 16, 20 (as 32), 64, 80, 112 (as 128) and 128 are
+//    instantiated. 112 as itself would take three panels, [64, 32, 16],
+//    one more than the kernel has, so it runs padded at 128: 14% more
+//    MMA work and the wrapper's three copies; 256 needs a 64-key kv tile (with 128 keys two stages of K and
 //    V alone take 256 KB) and an O accumulator of 128 registers a
 //    thread, past C = 2's 168 with the score tile beside it.
 #include <cuda.h>
@@ -720,7 +724,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // q (batch, s_len, n_heads, depth), k, v (batch, s_len, n_kv_heads,
 // depth): bf16, contiguous, 16-byte aligned; out (batch, s_len, n_heads,
-// d_out), d_out <= depth (hd 20 runs at depth 32 with d_out 20).
+// d_out), d_out <= depth (hd 20 runs at depth 32 with d_out 20, hd 112
+// at 128 with d_out 112).
 // scale_log2 = d^-0.5 log2(e) of the true head dim; window <= 0 means no
 // window. Returns cudaGetLastError(), kEncodeError + the CUresult of a
 // tensor map that failed, or cudaErrorInvalidValue for a depth not

@@ -25,10 +25,12 @@ an exp2), -1e30 for masked entries, P rounded to bf16 before the PV
 product while the row sum adds the fp32 P, and acc / max(l, 1e-30).
 
 The wrapper's own decisions are pure functions here, so the CPU tests
-reach them: the depth each head dim runs at (TMA needs 16-byte strides:
-hd 20 is padded to 32 with one copy of q, k and v, and its 20 columns
-are stored), the 16-byte stride rule, and the scalars handed to the C
-entry. The tiling (q and kv tiles, TMA boxes, grid) is fixed per depth
+reach them: the depth each head dim runs at (the smallest instantiated
+depth at or above it: hd 20, whose 40-byte head stride breaks TMA's
+16-byte rule, is padded to 32, and the MoE decoders' hd 112, which
+would take a third panel, to 128, each with one copy of q, k and v; the
+kernel scales by the true head dim and stores its columns only), the
+16-byte stride rule, and the scalars handed to the C entry. The tiling (q and kv tiles, TMA boxes, grid) is fixed per depth
 in the C++ and held on the card by ``chip_smoke.py``.
 
 This wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors
@@ -48,8 +50,11 @@ from repro_torch.kernels import _build
 launches = 0
 
 # head dims the kernel takes: the smoke configs' 16 and 20, smollm-360m's
-# 64, h2o-danube's 80 and qwen1.5's 128
-HEAD_DIMS = (16, 20, 64, 80, 128)
+# 64, h2o-danube's 80, kimi-k2's 112, and qwen1.5's, arctic's and
+# internvl2's 128
+HEAD_DIMS = (16, 20, 64, 80, 112, 128)
+# the depths csrc/flash_attention.cu instantiates
+DEPTHS = (16, 32, 64, 80, 128)
 # TMA: the global address and every stride a multiple of 16 bytes
 TMA_ALIGN = 16
 # the C entry adds this to the CUresult of a tensor map that failed
@@ -65,9 +70,8 @@ def _check_head_dim(d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: head dim {d} is not instantiated (the kernel "
-            f"takes {HEAD_DIMS}); 112 (the MoE decoders) and 256 "
-            "(recurrentgemma) come with their models, ROADMAP Queue 1, "
-            "item 15b")
+            f"takes {HEAD_DIMS}); 256 (recurrentgemma) comes with its "
+            "model, ROADMAP Queue 1, item 15c")
 
 
 def tma_strides_ok(depth: int, heads: int) -> bool:
@@ -79,10 +83,11 @@ def tma_strides_ok(depth: int, heads: int) -> bool:
 
 
 def depth(d: int) -> int:
-    """The depth the kernel runs a head dim at: d itself where a head's
-    2d bytes meet TMA's 16-byte rule (then any head count does), else d
-    padded to a multiple of 16 (hd 20 -> 32)."""
-    return d if tma_strides_ok(d, 1) else -(-d // 16) * 16
+    """The depth the kernel runs a head dim at: the smallest instantiated
+    depth at or above d (hd 20 -> 32, whose 40-byte head stride breaks
+    TMA's rule; hd 112 -> 128, which would take a third panel); every
+    depth meets TMA's 16-byte rule for any head count."""
+    return min(dp for dp in DEPTHS if dp >= d)
 
 
 def route(d: int) -> str:
@@ -95,8 +100,8 @@ def c_args(d: int, causal: bool,
            window: Optional[int]) -> Tuple[int, int, float, int, int]:
     """The scalars the C entry takes for head dim ``d``: the depth it
     runs at, the columns it stores, d**-0.5 log2(e) of the true head dim
-    (hd 20 scales by 20**-0.5 at depth 32), causal as 0/1 and the window
-    (0: none)."""
+    (hd 20 scales by 20**-0.5 at depth 32, hd 112 by 112**-0.5 at 128),
+    causal as 0/1 and the window (0: none)."""
     return (depth(d), d, d ** -0.5 * LOG2E, int(bool(causal)),
             0 if window is None else int(window))
 

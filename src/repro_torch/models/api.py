@@ -11,11 +11,14 @@ reference's ``repro/models/api.py`` on one card:
 
 Params are built under ``torch.no_grad()``, so their leaves can take
 ``requires_grad_()``; serving (forward, prefill, decode, the cache) runs
-under ``torch.inference_mode()``, which records nothing. Training
-differentiates ``loss`` with autograd: through the flash op, whose
-backward recomputes through the chunked attention. Mesh arguments and
-the dry-run stand-ins are not ported (ROADMAP Queue 1, items 13 and
-15b).
+under ``torch.inference_mode()``, which records nothing. ``forward``
+returns (logits, aux) as the reference's does, aux the MoE load-balance
+loss summed over the layers (zero for a dense model), and ``loss``
+adds ``aux_loss_coef`` x aux. Training differentiates ``loss`` with
+autograd: through the flash op, whose backward recomputes through the
+chunked attention. Mesh arguments and the dry-run stand-ins are not
+ported (ROADMAP Queue 1, item 13b); the recurrent and encoder-decoder
+families are item 15c.
 """
 from __future__ import annotations
 

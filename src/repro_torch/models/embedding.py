@@ -4,9 +4,9 @@ the reference's ``repro/models/embedding.py`` on one card.
 The reference shards the (padded) vocab table's rows over its 'model'
 mesh axis and gathers with a masked local gather and a psum; on one card
 that is a plain gather, and the head a plain product (the LM side's
-sharding is ROADMAP Queue 1, items 13b and 15b). Logits are fp32 from bf16 operands, as the
-reference's ``preferred_element_type=float32``: both operands are
-widened, so each product is exact and the sum is fp32.
+sharding is ROADMAP Queue 1, item 13b). Logits are fp32 from bf16
+operands, as the reference's ``preferred_element_type=float32``: both
+operands are widened, so each product is exact and the sum is fp32.
 """
 from __future__ import annotations
 

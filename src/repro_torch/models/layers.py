@@ -14,7 +14,7 @@ Attention has two full-sequence paths and a decode path:
   * decode: one query token against a linear or ring-buffered KV cache.
 
 The reference's sharding constraints (``constrain``, ``head_constrain``)
-are identities on one card and are not carried over (items 13b, 15b).
+are identities on one card and are not carried over (item 13b).
 
 Numerics follow the reference: norms and RoPE compute in fp32 and cast
 back; attention scores are fp32 from the bf16 operands (both widened, so

@@ -46,7 +46,9 @@ def _close(got: torch.Tensor, want, tol: float):
                           (96, 32, False, None, 32, 32),
                           (128, 64, True, 32, 64, 32),
                           (100, 16, True, None, 64, 64),
-                          (128, 16, True, 16, 32, 32)])
+                          (128, 16, True, 16, 32, 32),
+                          (128, 112, True, None, 64, 64),
+                          (100, 112, True, 32, 64, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas_kernel(s, d, causal, window, bq, bk,
                                                dtype):
@@ -145,8 +147,8 @@ def test_op_refuses_devices_other_than_cpu_and_cuda(op):
     ("cpu", "CUDA device"),
     ("int64", "bfloat16"),
     ("float32", "bfloat16"),
-    ("d112", "item 15b"),
-    ("d256", "item 15b"),
+    ("d112", "CUDA device"),
+    ("d256", "item 15c"),
     ("d32", "not instantiated"),
     ("heads", "evenly"),
     ("window", "window"),
@@ -174,11 +176,13 @@ def test_wrapper_guards(case, match):
 
 
 def test_wrapper_instantiates_every_head_dim_the_configs_reach():
+    """Every GQA config's head dim (MLA attends through the chunked path,
+    never the kernel): kimi-k2's 112 with the MoE decoders."""
     from repro_torch.configs import registry
     dims = {c.attention.resolved_head_dim(c.d_model)
             for table in (registry.ARCHS, registry.SMOKE_ARCHS)
-            for c in table.values()}
-    assert dims == {16, 20, 64, 80, 128} == set(t_fa.HEAD_DIMS)
+            for c in table.values() if c.attention.kind == "gqa"}
+    assert dims == {16, 20, 64, 80, 112, 128} == set(t_fa.HEAD_DIMS)
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +203,12 @@ def _registry_heads():
 
 @pytest.mark.parametrize("d,route,depth", [
     (16, "tma", 16), (20, "pad", 32), (64, "tma", 64), (80, "tma", 80),
-    (128, "tma", 128)])
+    (112, "pad", 128), (128, "tma", 128)])
 def test_route_and_depth_per_head_dim(d, route, depth):
-    """hd 20 alone is padded (its 40-byte head stride breaks TMA's rule),
-    to the next multiple of 16; every other head dim runs as it is."""
+    """hd 20 is padded to 32 (its 40-byte head stride breaks TMA's rule)
+    and hd 112 to 128 (as itself it would take a third panel): the
+    smallest instantiated depth at or above; every other head dim runs as
+    it is."""
     assert d in t_fa.HEAD_DIMS
     assert t_fa.route(d) == route and t_fa.depth(d) == depth
 
@@ -217,7 +223,7 @@ def test_tma_stride_rule_holds_for_every_registry_config(hd, h, kh):
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 512)])
-@pytest.mark.parametrize("d", [16, 20, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 20, 64, 80, 112, 128])
 def test_c_entry_scalars_per_head_dim(d, causal, window):
     """The C entry runs at the padded depth, stores the true head dim's
     columns and scales by the true head dim (hd 20: 20**-0.5, not
@@ -249,6 +255,19 @@ def test_wrapper_refuses_inputs_off_tma_alignment(which, d):
     with pytest.raises(ValueError, match="16-byte aligned"):
         t_fa.flash_attention_gqa(args["q"], args["k"], args["v"])
     assert t_fa.launches == before
+
+
+def test_wrapper_pads_hd_112_to_depth_128_before_its_checks():
+    """hd 112 goes through the pad route too: a misaligned view is copied
+    to depth 128, so only the device check remains to refuse a CPU
+    tensor; the C entry stores 112 columns scaled by 112**-0.5."""
+    q, k, v = _qkv(d=112)
+    shifted = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_fa.flash_attention_gqa(shifted, k, v)
+    dp, d_out, scale_log2, _, _ = t_fa.c_args(112, True, None)
+    assert (dp, d_out) == (128, 112)
+    assert t_fa.tma_strides_ok(dp, 64) and t_fa.tma_strides_ok(dp, 8)
 
 
 def test_wrapper_pads_hd_20_before_its_checks():

@@ -458,8 +458,8 @@ def test_lm_synthetic_equals_reference(arch, smoke):
 
 
 def test_lm_synthetic_refuses_unported_inputs():
-    cfg = registry.get_smoke("smollm-360m").replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    cfg = registry.get_smoke("smollm-360m").replace(family="encdec")
+    with pytest.raises(NotImplementedError, match="item 15c"):
         LMSynthetic(cfg).batch(1, 8)
 
 
