@@ -3936,9 +3936,9 @@ def flash_split(fn, reps: int = 10) -> dict:
 
 
 def check_flash(gen, shapes=FLASH_SHAPES, timed: int = FLASH_TIMED) -> tuple:
-    """The kernel against its plain version at every listed shape, and
-    at the first ``timed``: two launches equal bit for bit, and times
-    of the kernel (warm and with a cold L2; its TFLOP/s over the band),
+    """The kernel against its plain version at every listed shape, two
+    launches equal bit for bit, and at the first ``timed`` the times of
+    the kernel (warm and with a cold L2; its TFLOP/s over the band),
     the plain version and F.scaled_dot_product_attention (a yardstick
     the port never calls, on kv heads repeated before the timing; with a
     window it needs an explicit boolean mask, which takes it off its
@@ -3962,12 +3962,12 @@ def check_flash(gen, shapes=FLASH_SHAPES, timed: int = FLASH_TIMED) -> tuple:
         errs.append(compare(name, got, ref.flash_attention_gqa(
             q, k, v, causal=causal, window=window, bq=blk, bk=blk),
             f"{what}: {b}x{s}x{h}/{kh}x{d}"))
-        if i >= timed:
-            continue
         again = fa_k.flash_attention_gqa(q, k, v, causal=causal,
                                          window=window)
         if not torch.equal(got, again):
             fail(f"{name} {what}: two launches on the same inputs differ")
+        if i >= timed:
+            continue
         qt = q.transpose(1, 2)
         kt, vt = (t.transpose(1, 2).repeat_interleave(h // kh, dim=1)
                   for t in (k, v))
@@ -4197,15 +4197,21 @@ def lm_agree(cfg, params) -> dict:
 def lm_serve(cfg, params) -> dict:
     """DecodeEngine at full width (``lm_engine``), then the serve
     launcher at full width."""
-    out = lm_engine(cfg, params)
-    argv = ["--arch", LM_ARCH, "--requests", str(LM_SLOTS), "--batch-size",
+    return {"engine": lm_engine(cfg, params),
+            "launcher": serve_launch(LM_ARCH)}
+
+
+def serve_launch(arch: str) -> dict:
+    """The serve launcher at full width: LM_SLOTS requests of LM_PROMPT
+    tokens, 8 new tokens each."""
+    argv = ["--arch", arch, "--requests", str(LM_SLOTS), "--batch-size",
             str(LM_SLOTS), "--prompt-len", str(LM_PROMPT), "--new-tokens",
             "8", "--max-len", str(LM_MAX_LEN)]
     launcher = serve_launcher.main(argv)
     if launcher.get("n") != LM_SLOTS:
         fail(f"serve launcher: {launcher}")
     print(f"  serve launcher {' '.join(argv)}: {launcher}")
-    return {"engine": out, "launcher": launcher}
+    return launcher
 
 
 def lm_engine(cfg, params) -> dict:
@@ -6628,47 +6634,56 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
 
 # 17(a): the flash kernel at kimi-k2's heads (64 query and 8 kv heads of
 # 112, which the wrapper pads to depth 128), causal, at both prefill
-# lengths (timed) and at lengths that are no multiple of the tiles
-FLASH_112_SHAPES = (
+# lengths (timed) and at lengths that are no multiple of the tiles; and
+# at the heads of phase 17's other GQA models at their prefill length:
+# arctic-480b's 56/8 of 128 (a group of 7) and internvl2-2b's 16/8
+FAM_FLASH_SHAPES = (
     ("kimi-k2 hd 112", 1, 2048, 64, 8, 112, True, None),
     ("kimi-k2 hd 112", 1, 4096, 64, 8, 112, True, None),
     ("kimi-k2 hd 112, ragged S = 100", 2, 100, 64, 8, 112, True, None),
     ("kimi-k2 hd 112, ragged S = 2049", 1, 2049, 64, 8, 112, True, None),
+    ("arctic-480b hd 128", 1, 2048, 56, 8, 128, True, None),
+    ("internvl2-2b hd 128", 1, 2048, 16, 8, 128, True, None),
 )
-FLASH_112_TIMED = 2
+FAM_FLASH_TIMED = 2
 FAM_S = 2048                       # positions of every prefill of phase 17
 FAM_HEADROOM = 8 << 30             # bytes kimi's prefill and forward need
                                    # beside its params (its fp32 unembed
                                    # copy alone is 4.7 GB)
-KIMI_CPU_EXPERTS = 16              # 17(c): the one cut of the CPU copy
+CPU_EXPERTS = 16                   # 17(c), (d): the one cut of kimi-k2's
+                                   # and arctic's copies on the CPU
 FAM_CPU_LAYERS = 2                 # depth of every card-against-CPU check
 ARCTIC_LAYERS = 2
-# routing flips. A token's top-k is decided by the ordering of its
-# router probabilities, and two paths that round differently (the card
-# and the CPU, decode and the forward) can order a near-tie either way;
-# a flip changes that token's FFN output by a whole expert's share, and
-# it moves the token-major ranks of every later choice of both experts,
-# so which choices the capacity drops changes too. So the expert sets
-# are compared pair by pair, (token, layer): the card's against the CPU
-# fp32 path's may differ in at most LM_FLOOR_FACTOR x as many pairs as
-# the CPU bf16 path's own, plus FLIP_SHARE of the pairs; and a logits
-# check of a position holds only where that position's experts and
-# drops agree in every layer (else the flip is printed and counted).
+# routing. A token's top-k is decided by the ordering of its router
+# probabilities, and two paths that round differently (the card and the
+# CPU, decode and the forward) can order a near-tie either way. A flip
+# changes that token's FFN output by a whole expert's share, moves the
+# token-major ranks of every later choice of both experts (so which
+# choices the capacity drops changes too) and, through attention, every
+# later position. So where two MoE paths' logits are held against each
+# other, the second runs with its expert choices pinned to the first's
+# (``pinned_routes``): its router still runs, its weights are its own
+# probabilities at the pinned experts, and the (token, layer) pairs
+# whose own top-k differs are counted. The card's count against the CPU
+# fp32 path's may be at most LM_FLOOR_FACTOR x the CPU bf16 path's, plus
+# FLIP_SHARE of the pairs.
 FLIP_SHARE = 0.01
-# the prefill and decode laws (tests/test_models.py:61-84): prefill's
-# last logits against the forward's at 2,048 tokens, 2e-2 (rtol and
-# atol); decode after a prefill of all but the last token against the
-# forward's last on LAW_SHORT tokens (after a vlm model's patches), the
-# reference's own shape, where both paths attend directly and no expert
-# can get more choices than its capacity of at least 8: 5e-2, the
-# reference's at its smoke depth of 2 layers (kimi's and arctic's here);
-# deeper (minicpm3-4b, 62 layers: 8.0e-2 on 8 tokens) phase 10(c)'s bar
-# against an fp32 forward of the same weights on the card. At 2,048 the
-# decode law is printed, not held: a MoE's forward drops choices (the
-# first full-width run: 1,680 of kimi's 4,096 (token, layer) pairs lost
-# one), the last token's most likely, the decode path's flips cascade
-# through the drops (413 pairs), and at full depth the two attention
-# paths' roundings drift past 5e-2 (minicpm3-4b: 0.115)
+# the prefill and decode laws (tests/test_models.py:61-84), on the card:
+# prefill's last logits against the forward's at 2,048 tokens, 2e-2
+# (rtol and atol); decode after a prefill of all but the last token
+# against the forward's last logits, the decode path's experts pinned to
+# the forward's. On LAW_SHORT tokens (after a vlm model's patches), the
+# reference's own shape, 5e-2, the reference's bar at its smoke depth of
+# 2 layers (kimi's and arctic's here). Deeper, and at 2,048 tokens for
+# the models without a MoE, phase 10(c)'s bar against an fp32 forward of
+# the same weights on the card (the first full-width run read 0.115
+# between minicpm3-4b's bf16 decode and forward at 2,048, over 5e-2). A
+# MoE's decode law at 2,048 is printed, not held: its forward drops
+# choices past capacity (that run: 1,680 of kimi's 4,096 (token, layer)
+# pairs lost one, the last token among them) where the decode step drops
+# none, and the fp32 forward that would set its bar does not fit the
+# card (2 layers of kimi are 146 GB in fp32). Decode at 2,048 at those
+# widths is held in 17(c) and (d), against the CPU.
 LAW_PREFILL = 2e-2
 LAW_DECODE = 5e-2
 LAW_SHORT = 8
@@ -6679,20 +6694,61 @@ MLA_ATOL = 1e-3                    # absorbed == naive (tests/test_models.py
 @contextlib.contextmanager
 def recorded_routes():
     """Every MoE layer's routing in call order, on the host: (its expert
-    choices (T, k) sorted, whether a token's choice was dropped (T,))."""
+    choices (T, k) sorted, whether a token's choice was dropped (T,),
+    the choices in the router's order (T, k))."""
     seen = []
     inner = lm_moe._slots
 
     def spy(idx, n_experts, capacity):
         slot, valid = inner(idx, n_experts, capacity)
         seen.append((torch.sort(idx, -1).values.cpu(),
-                     (~valid).view(idx.shape).any(-1).cpu()))
+                     (~valid).view(idx.shape).any(-1).cpu(), idx.cpu()))
         return slot, valid
     lm_moe._slots = spy
     try:
         yield seen
     finally:
         lm_moe._slots = inner
+
+
+@contextlib.contextmanager
+def pinned_routes(routes):
+    """Every MoE layer's expert choices, in call order, replaced by the
+    ones ``routes`` recorded on another path; the weights stay this
+    path's router probabilities at those experts, renormalised. Yields a
+    list that gets, a call, (T,) bool: the tokens whose own top-k
+    differs from the pinned one. With ``routes`` None, pins nothing."""
+    own = []
+    if routes is None:
+        yield own
+        return
+    inner, calls = lm_moe._route, iter(routes)
+
+    def pin(xf32, wr, mcfg):
+        _, idx, probs = inner(xf32, wr, mcfg)
+        want = next(calls, None)
+        if want is None:
+            fail(f"more MoE calls than the {len(routes)} recorded")
+        want = want[2].to(idx.device)
+        own.append((torch.sort(idx, -1).values
+                    != torch.sort(want, -1).values).any(-1).cpu())
+        w = torch.gather(probs, -1, want)
+        return (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), want,
+                probs)
+    lm_moe._route = pin
+    try:
+        yield own
+    finally:
+        lm_moe._route = inner
+    if len(own) != len(routes):
+        fail(f"{len(own)} MoE calls pinned to {len(routes)} recorded")
+
+
+def decode_routes(r_full: list) -> list:
+    """A forward's routes in the order a decode path calls its layers:
+    the prefill of all but the last token, then the step of the last."""
+    return ([tuple(t[:-1] for t in r) for r in r_full]
+            + [tuple(t[-1:] for t in r) for r in r_full])
 
 
 def route_flips(a: list, b: list) -> torch.Tensor:
@@ -6703,6 +6759,19 @@ def route_flips(a: list, b: list) -> torch.Tensor:
 def dropped(r: list) -> torch.Tensor:
     """(T, layers) bool: tokens with a choice past capacity."""
     return torch.stack([x[1] for x in r], -1)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The flash op as models.layers calls it routed to the kernel's plain
+    version, for the fp32 references on the card (the kernel takes bf16
+    only)."""
+    inner = ops.flash_attention_gqa
+    ops.flash_attention_gqa = ref.flash_attention_gqa
+    try:
+        yield
+    finally:
+        ops.flash_attention_gqa = inner
 
 
 def _fam_group(name: str) -> str:
@@ -6821,176 +6890,218 @@ def fam_prefill(cfg, params, batch: dict) -> dict:
 
 
 def _law(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
-         agree: bool, hold: bool = True) -> dict:
-    """A law between two card results of one position: within tol
-    (rtol and atol) and the same greedy token, where the position's
-    experts agree in every layer and ``hold``; else printed."""
+         hold: bool = True, why: str = "") -> dict:
+    """A law between two card results of one position: with ``hold``,
+    within tol (rtol and atol) and the same greedy token; else printed,
+    with ``why``."""
     err = float((got - want).abs().max())
     a, b = int(got.argmax()), int(want.argmax())
     print(f"  {what}: max |diff| {err:.3e} (tol {tol}), greedy token "
-          f"{a} / {b}" + ("" if agree else "; the position's experts "
-                          "differ in a layer (a routing flip) or the "
-                          "forward dropped one of its choices")
-          + ("" if hold and agree else ": not held"))
-    if hold and agree and (not torch.allclose(got, want, rtol=tol, atol=tol)
-                           or a != b):
+          f"{a} / {b}" + ("" if hold else f": not held ({why})"))
+    if hold and (not torch.allclose(got, want, rtol=tol, atol=tol)
+                 or a != b):
         fail(f"{what}: {err} over {tol}, token {a} against {b}")
     return {"max_abs_err": err, "tol": tol, "token": a, "want_token": b,
-            "experts_agree": agree}
+            "held": hold}
 
 
 def _decode_law(cfg, params, batch: dict, full_last, r_full,
-                hold: bool = True, ref32=None) -> dict:
+                ref32=None, hold: bool = True, why: str = "") -> dict:
     """Decode after a prefill of all but the last position against the
-    forward's last logits (``full_last``; ``r_full`` its routing): the
-    routing flips between the two paths and the forward's drops
-    counted; with ``hold``, the logits held where the last token's
-    experts agree in every layer and the forward dropped none of its
-    choices: within LAW_DECODE of the forward's, or with ``ref32`` =
-    (fp32 forward's last logits, the bf16 forward's error against them)
-    within LM_FLOOR_FACTOR x that error of the fp32 logits."""
+    forward's last logits (``full_last``; ``r_full`` its routing, to
+    which the decode path's experts are pinned, its own choices that
+    differ counted): within LAW_DECODE of the forward's, or with
+    ``ref32`` = (an fp32 forward's last logits, the bf16 forward's error
+    against them) within LM_FLOOR_FACTOR x that error of the fp32
+    logits. Fails where it is to be held and the forward dropped a
+    choice of the last token (which the decode step never drops, so the
+    two would compare nothing); with ``hold`` False, printed."""
     v = cfg.vocab_size
     s = sum(t.shape[1] for t in batch.values())
     head = dict(batch, tokens=batch["tokens"][:, :-1])
-    with uncounted(), recorded_routes() as r_head:
+    pin = decode_routes(r_full) if cfg.moe is not None else None
+    with uncounted(), pinned_routes(pin) as own:
         _, cache = lm_api.prefill(params, cfg, head, s)
-    with uncounted(), recorded_routes() as r_dec:
         dec, _ = lm_api.decode_step(params, cfg, cache,
                                     batch["tokens"][:, -1], s - 1)
     del cache
-    out, agree = {}, True
+    out = {}
     if cfg.moe is not None:
-        # decode's path: the head's prefill for positions < s - 1, the
-        # decode step for the last
-        dec_routes = [(torch.cat([h[0], d[0]]), torch.cat([h[1], d[1]]))
-                      for h, d in zip(r_head, r_dec)]
-        flips, drops = route_flips(dec_routes, r_full), dropped(r_full)
-        out.update(route_flips=int(flips.sum()), route_pairs=flips.numel(),
+        drops = dropped(r_full)
+        out.update(own_route_flips=sum(int(f.sum()) for f in own),
+                   route_pairs=sum(f.numel() for f in own),
                    forward_dropped_pairs=int(drops.sum()),
-                   last_token_flipped=bool(flips[-1].any()),
                    last_token_dropped=bool(drops[-1].any()))
-        print(f"  S = {s}, decode path vs forward: {out['route_flips']} of "
-              f"{out['route_pairs']} (token, layer) pairs route to another "
-              f"expert set; the forward dropped a choice of "
-              f"{out['forward_dropped_pairs']} pairs (the last token's: "
-              f"{out['last_token_dropped']})")
-        agree = not (out["last_token_flipped"] or out["last_token_dropped"])
+        print(f"  S = {s}, decode path pinned to the forward's experts: its "
+              f"own top-k differs in {out['own_route_flips']} of "
+              f"{out['route_pairs']} (token, layer) pairs; the forward "
+              f"dropped a choice of {out['forward_dropped_pairs']} pairs "
+              f"(the last token's: {out['last_token_dropped']})")
+        if hold and out["last_token_dropped"]:
+            fail(f"{cfg.name}, S = {s}: the forward dropped a choice of the "
+                 "last token, so its decode law compares nothing")
     what = f"S = {s}, decode after prefill of S - 1 vs forward"
-    if ref32 is not None and hold and agree:
+    if hold and ref32 is not None:
         out.update(_against_fp32(
             what + " (the card's fp32 forward for the CPU's)",
             dec[0, :v].float(), ref32[0], ref32[1]))
         out["fp32_floor"] = ref32[1]
     else:
         out.update(_law(what, dec[0, :v].float(), full_last, LAW_DECODE,
-                        agree, hold))
+                        hold, why))
     return out
+
+
+def _ref32(cfg, params, batch: dict, full_last) -> tuple:
+    """_decode_law's ``ref32``: the last logits of an fp32 forward of the
+    same weights on the card (no TF32; the attention through the flash
+    kernel's plain version), and the bf16 forward's (``full_last``)
+    error against them."""
+    v = cfg.vocab_size
+    with uncounted(), plain_attention():
+        f32, _ = lm_api.forward(tree_map(lambda t: t.float(), params),
+                                cfg.replace(dtype="float32"),
+                                {k: t.float() if t.is_floating_point()
+                                 else t for k, t in batch.items()})
+    last = f32[0, -1, :v].clone()
+    del f32
+    _free()
+    err = float((full_last - last).abs().max())
+    print(f"  S = {sum(t.shape[1] for t in batch.values())}: the bf16 "
+          f"forward against the fp32 forward on the card (floor) {err:.3e}")
+    return last, err
+
+
+def _forward_last(cfg, params, batch: dict) -> tuple:
+    """The forward's last logits in fp32, and its routing."""
+    with uncounted(), recorded_routes() as r_full:
+        full, _ = lm_api.forward(params, cfg, batch)
+    return full[0, -1, :cfg.vocab_size].float(), r_full
 
 
 def fam_laws(cfg, params) -> dict:
     """The reference's laws on the card at full width (see LAW_*): at
     FAM_S prefill against the forward (the same expert choices in every
-    layer, exactly) and the decode law printed; at LAW_SHORT the decode
-    law held. ``fam_card_vs_cpu`` holds decode at 2,048 against the
-    CPU's fp32."""
+    layer, exactly), and the decode law, held for the models without a
+    MoE; at LAW_SHORT the decode law held."""
     v = cfg.vocab_size
     batch = fam_batch(cfg, FAM_S, seed=5)
     with uncounted(), recorded_routes() as r_pre:
         pre, _ = lm_api.prefill(params, cfg, batch, FAM_S)
-    with uncounted(), recorded_routes() as r_full:
-        full, _ = lm_api.forward(params, cfg, batch)
-    full_last = full[0, -1, :v].float()
-    del full
+    full_last, r_full = _forward_last(cfg, params, batch)
     if cfg.moe is not None and route_flips(r_pre, r_full).any():
         fail(f"{cfg.name}: prefill and forward chose different experts")
     out = {"prefill_vs_forward": _law(
         f"S = {FAM_S}, prefill vs forward", pre[0, :v].float(), full_last,
-        LAW_PREFILL, True)}
-    out["decode_vs_forward"] = _decode_law(cfg, params, batch, full_last,
-                                           r_full, hold=False)
+        LAW_PREFILL)}
+    del pre
+    if cfg.moe is None:
+        out["decode_vs_forward"] = _decode_law(
+            cfg, params, batch, full_last, r_full,
+            ref32=_ref32(cfg, params, batch, full_last))
+    else:
+        out["decode_vs_forward"] = _decode_law(
+            cfg, params, batch, full_last, r_full, hold=False,
+            why="a MoE's forward drops choices its decode step does not; "
+            "held in the check against the CPU")
     short = fam_batch(cfg, cfg.n_frontend_tokens + LAW_SHORT, seed=7)
-    with uncounted(), recorded_routes() as r_full:
-        full, _ = lm_api.forward(params, cfg, short)
-    full_last = full[0, -1, :v].float()
-    ref32 = None
-    if cfg.n_layers > FAM_CPU_LAYERS:
-        # past the reference's smoke depth the bar is phase 10(c)'s, on
-        # the card: the same weights in fp32 (no TF32; no kernel at this
-        # length, so the plain attention runs fp32)
-        with uncounted():
-            f32, _ = lm_api.forward(tree_map(lambda t: t.float(), params),
-                                    cfg.replace(dtype="float32"),
-                                    {k: t.float() if t.is_floating_point()
-                                     else t for k, t in short.items()})
-        f32_last = f32[0, -1, :v]
-        del f32
-        ref32 = (f32_last, float((full_last - f32_last).abs().max()))
-        print(f"  S = {LAW_SHORT + cfg.n_frontend_tokens}: the bf16 forward "
-              f"against the fp32 forward on the card (floor) {ref32[1]:.3e}")
-        _free()
+    full_last, r_full = _forward_last(cfg, params, short)
+    ref32 = (_ref32(cfg, params, short, full_last)
+             if cfg.n_layers > FAM_CPU_LAYERS else None)
     out["short_decode_vs_forward"] = _decode_law(
         cfg, params, short, full_last, r_full, ref32=ref32)
     return out
 
 
-def fam_card_vs_cpu(cfg, params, batch: dict) -> dict:
-    """A prefill of ``batch`` on the card against the CPU path's fp32
-    logits from the same weights, within LM_FLOOR_FACTOR x the CPU bf16
-    path's own error (phase 10(c)'s bar), with the MoE's routing flips
-    under the budget: the card's against fp32 at most LM_FLOOR_FACTOR x
-    the CPU bf16 path's plus FLIP_SHARE of the pairs."""
+def _forward_and_decode(params, cfg, batch: dict, pin=None) -> tuple:
+    """A forward's logits at every position (S, V) and decode_step's
+    after a prefill of all but the last position (V,), fp32 on the host;
+    every MoE call's routing recorded and, given ``pin`` = (a forward's
+    routes, a decode path's), pinned to those: (forward, decode, (their
+    routes), the pinned calls' own flips)."""
     v = cfg.vocab_size
     s = sum(t.shape[1] for t in batch.values())
-    with uncounted(), recorded_routes() as r_card:
-        card, _ = lm_api.prefill(params, cfg, batch, s)
-    card = card[0, :v].float().cpu()
     head = dict(batch, tokens=batch["tokens"][:, :-1])
-    with uncounted(), recorded_routes() as r_dec:
+    pin_f, pin_d = pin if pin is not None else (None, None)
+    with uncounted(), recorded_routes() as r_f, \
+            pinned_routes(pin_f) as own_f:
+        full, _ = lm_api.forward(params, cfg, batch)
+    full = full[0, :, :v].cpu().float()
+    with uncounted(), recorded_routes() as r_d, \
+            pinned_routes(pin_d) as own_d:
         _, cache = lm_api.prefill(params, cfg, head, s)
         dec, _ = lm_api.decode_step(params, cfg, cache,
                                     batch["tokens"][:, -1], s - 1)
-    dec = dec[0, :v].float().cpu()
-    del cache
+    return full, dec[0, :v].cpu().float(), (r_f, r_d), own_f + own_d
+
+
+def _every_position(what: str, card: torch.Tensor, c16: torch.Tensor,
+                    c32: torch.Tensor) -> dict:
+    """Logits (S, V) of the card against the CPU path's fp32 at every
+    position, within LM_FLOOR_FACTOR x the CPU bf16 path's own largest
+    error, and each position's greedy token against fp32's (or a tie
+    within that)."""
+    floor = float((c16 - c32).abs().max())
+    bound = LM_FLOOR_FACTOR * floor
+    err = float((card - c32).abs().max())
+    a, b = card.argmax(-1), c32.argmax(-1)
+    margin = (c32.gather(-1, b[:, None]) - c32.gather(-1, a[:, None]))[:, 0]
+    other = int((a != b).sum())
+    beyond = int(((a != b) & (margin > bound)).sum())
+    print(f"  {what}, {card.shape[0]} positions: max |card - CPU fp32| "
+          f"{err:.3e} (bound {bound:.3e}, {LM_FLOOR_FACTOR:g} x the CPU "
+          f"bf16 path's {floor:.3e}); greedy token other than fp32's at "
+          f"{other} positions, by more than the bound at {beyond}")
+    if err > bound or beyond:
+        fail(f"{what}: {err} from the fp32 logits (bound {bound}), "
+             f"{beyond} greedy tokens beyond it")
+    return {"positions": card.shape[0], "max_abs_err_vs_fp32": err,
+            "floor": floor, "bound": bound, "other_tokens": other,
+            "tokens_beyond_bound": beyond}
+
+
+def fam_card_vs_cpu(cfg, params, batch: dict) -> dict:
+    """The card against the CPU path's fp32 from the same weights: a
+    forward of ``batch`` at every position, and decode after a prefill
+    of all but its last position, each within LM_FLOOR_FACTOR x the CPU
+    bf16 path's own error (phase 10(c)'s bar). Both bf16 paths run with
+    their experts pinned to the fp32 path's, so that every position is
+    held; their own routing flips are under the budget (see FLIP_SHARE).
+    """
+    s = sum(t.shape[1] for t in batch.values())
+    cpu = tree_map(lambda t: t.cpu(), params)
+    cbatch = {k: t.cpu() for k, t in batch.items()}
     t0 = time.perf_counter()
-    with recorded_routes() as r_cpu:
-        c16, c32, floor = _cpu_logits(params, cfg, batch)
+    c32f, c32d, r32, _ = _forward_and_decode(
+        tree_map(lambda t: t.float(), cpu), cfg.replace(dtype="float32"),
+        cbatch)
+    c16f, c16d, _, own16 = _forward_and_decode(cpu, cfg, cbatch, pin=r32)
     secs = time.perf_counter() - t0
-    out = {"floor": floor, "cpu_s": secs,
-           "card_vs_cpu_bf16": float((card - c16).abs().max())}
-    print(f"  {cfg.n_layers} layers, S = {s}: CPU path bf16 vs fp32 (floor) "
-          f"{floor:.3e} ({secs:.1f} s on the CPU); card vs CPU bf16 "
-          f"{out['card_vs_cpu_bf16']:.3e}")
-    agree = dec_agree = True
+    del cpu
+    card_f, card_d, _, own = _forward_and_decode(params, cfg, batch, pin=r32)
+    out = {"cpu_s": secs}
+    print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's forward and "
+          f"decode in fp32 and bf16 took {secs:.1f} s")
     if cfg.moe is not None:
-        n = cfg.n_layers
-        r16, r32 = r_cpu[:n], r_cpu[n:]
-        r_dec = [(torch.cat([h[0], d[0]]), torch.cat([h[1], d[1]]))
-                 for h, d in zip(r_dec[:n], r_dec[n:])]
-        dec_flips = route_flips(r_dec, r32)
-        dec_agree = not bool(dec_flips[-1].any() or dropped(r32)[-1].any())
-        card_flips, cpu_flips = route_flips(r_card, r32), route_flips(r16, r32)
-        pairs = card_flips.numel()
-        budget = LM_FLOOR_FACTOR * int(cpu_flips.sum()) + FLIP_SHARE * pairs
-        out.update(card_route_flips=int(card_flips.sum()),
-                   cpu_bf16_route_flips=int(cpu_flips.sum()),
+        pairs = sum(f.numel() for f in own)
+        flips, cpu_flips = (sum(int(f.sum()) for f in o) for o in (own, own16))
+        budget = LM_FLOOR_FACTOR * cpu_flips + FLIP_SHARE * pairs
+        out.update(card_route_flips=flips, cpu_bf16_route_flips=cpu_flips,
                    route_pairs=pairs, flip_budget=budget)
-        print(f"  routing flips against CPU fp32: card {out['card_route_flips']}"
-              f", CPU bf16 {out['cpu_bf16_route_flips']} of {pairs} (token, "
-              f"layer) pairs; budget {budget:.1f}")
-        if out["card_route_flips"] > budget:
-            fail(f"{cfg.name}: {out['card_route_flips']} routing flips "
-                 f"against the CPU path, over {budget}")
-        agree = not bool(card_flips[-1].any() or (
-            dropped(r_card)[-1] != dropped(r32)[-1]).any())
-    for what, got, ok in (("prefill", card, agree),
-                          ("decode after prefill of S - 1", dec,
-                           dec_agree)):
-        if ok:
-            out[what] = _against_fp32(f"{what}, {cfg.n_layers} layers", got,
-                                      c32, floor)
-        else:
-            print(f"  {what}: the last position's experts or drops differ "
-                  "from the CPU fp32 path's in a layer: its logits not held")
+        print(f"  experts pinned to the CPU fp32 path's; own top-k other "
+              f"than its: card {flips}, CPU bf16 {cpu_flips} of {pairs} "
+              f"(token, layer) pairs of the forward and the decode path; "
+              f"budget {budget:.1f}")
+        if flips > budget:
+            fail(f"{cfg.name}: {flips} routing flips against the CPU "
+                 f"path, over {budget}")
+    out["forward"] = _every_position(f"forward, {cfg.n_layers} layers",
+                                     card_f, c16f, c32f)
+    floor = float((c16d - c32d).abs().max())
+    out["decode"] = _against_fp32(
+        f"decode after prefill of S - 1, {cfg.n_layers} layers (CPU bf16 "
+        f"vs fp32 {floor:.3e})", card_d, c32d, floor)
+    out["decode"]["floor"] = floor
     return out
 
 
@@ -7022,10 +7133,26 @@ def fam_engine(cfg, params) -> dict:
     return out
 
 
+def fam_cut_vs_cpu(arch: str) -> dict:
+    """17(c), (d): a MoE model at full width cut to CPU_EXPERTS experts
+    (top-k kept) and FAM_CPU_LAYERS layers, card against the CPU."""
+    full = registry.get_arch(arch)
+    m = full.moe
+    cut = full.replace(n_layers=FAM_CPU_LAYERS, moe=dataclasses.replace(
+        m, n_experts=CPU_EXPERTS))
+    print(f"  {arch}: {CPU_EXPERTS} of {m.n_experts} experts (top-"
+          f"{m.top_k} kept), {FAM_CPU_LAYERS} layers, against the CPU")
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(1), cut,
+                         device="cuda")
+    out = fam_card_vs_cpu(cut, params, fam_batch(cut, FAM_S, seed=6))
+    del params
+    _free()
+    return out
+
+
 def fam_kimi() -> dict:
     """17(b) and (c): kimi-k2-1t-a32b at full width, as many layers as
-    its prefill fits (2, else 1); then 16 of its experts, 2 layers, card
-    against the CPU."""
+    its prefill fits (2, else 1); then its cut, card against the CPU."""
     full = registry.get_arch("kimi-k2-1t-a32b")
     _free()
     free, _ = torch.cuda.mem_get_info()
@@ -7044,27 +7171,15 @@ def fam_kimi() -> dict:
     out["serve"] = fam_engine(cfg, params)
     del params
     _free()
-    m = cfg.moe
-    cut = full.replace(n_layers=FAM_CPU_LAYERS, moe=dataclasses.replace(
-        m, n_experts=KIMI_CPU_EXPERTS))
-    print(f"  17(c): {KIMI_CPU_EXPERTS} of {m.n_experts} experts "
-          f"(top-{m.top_k} kept), {FAM_CPU_LAYERS} layers")
-    params = lm_api.init(torch.Generator(device="cuda").manual_seed(1), cut,
-                         device="cuda")
-    reset_counts()
-    out["card_vs_cpu"] = fam_card_vs_cpu(cut, params,
-                                         fam_batch(cut, FAM_S, seed=6))
-    del params
-    _free()
+    out["card_vs_cpu"] = fam_cut_vs_cpu("kimi-k2-1t-a32b")
     return out
 
 
-def fam_model(arch: str, layers=None, seed: int = 0,
-              cpu: bool = True) -> dict:
+def fam_model(arch: str, layers=None, seed: int = 0) -> dict:
     """17(d)-(f): a model at full width (depth ``layers`` or its own):
-    prefill, the laws, the DecodeEngine, with ``cpu`` card against the
-    CPU path at FAM_CPU_LAYERS; for MLA, absorbed against naive
-    decode."""
+    prefill, the laws, the DecodeEngine; without a MoE, card against the
+    CPU path at FAM_CPU_LAYERS (a MoE's own cut is ``fam_cut_vs_cpu``);
+    for MLA, absorbed against naive decode."""
     cfg = registry.get_arch(arch)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
@@ -7077,7 +7192,7 @@ def fam_model(arch: str, layers=None, seed: int = 0,
     out["serve"] = fam_engine(cfg, params)
     if cfg.attention.kind == "mla":
         out["absorbed_vs_naive"] = mla_absorbed_vs_naive(cfg, params)
-    if cpu:
+    if cfg.moe is None:
         shallow, sub = _shallow(cfg, params, FAM_CPU_LAYERS)
         out["card_vs_cpu"] = fam_card_vs_cpu(shallow, sub,
                                              fam_batch(cfg, FAM_S, seed=6))
@@ -7120,18 +7235,6 @@ def mla_absorbed_vs_naive(cfg, params) -> dict:
     return out
 
 
-def fam_launcher() -> dict:
-    """17(g): the serve launcher at full width on minicpm3-4b."""
-    argv = ["--arch", "minicpm3-4b", "--requests", str(LM_SLOTS),
-            "--batch-size", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
-            "--new-tokens", "8", "--max-len", str(LM_MAX_LEN)]
-    launcher = serve_launcher.main(argv)
-    if launcher.get("n") != LM_SLOTS:
-        fail(f"serve launcher: {launcher}")
-    print(f"  serve launcher {' '.join(argv)}: {launcher}")
-    return launcher
-
-
 def phase_lm_families(gen) -> tuple:
     clock = [time.perf_counter()]
 
@@ -7141,16 +7244,18 @@ def phase_lm_families(gen) -> tuple:
         print(f"   (17({part}) took {s:.1f} s)")
         return s
 
-    print("  17(a): flash_attention at hd 112")
-    err, rows = check_flash(gen, FLASH_112_SHAPES, FLASH_112_TIMED)
+    print("  17(a): flash_attention at hd 112, and at arctic's and "
+          "internvl2's heads")
+    err, rows = check_flash(gen, FAM_FLASH_SHAPES, FAM_FLASH_TIMED)
     seconds = {"a": took("a")}
     print("  17(b), (c): kimi-k2-1t-a32b")
     kimi = fam_kimi()
     seconds["bc"] = took("b, c")
     print("  17(d): arctic-480b")
-    # two layers of arctic are 55 GB of bf16: an fp32 copy on the host
-    # would not fit beside the bf16 one, so no CPU check here
-    arctic = fam_model("arctic-480b", layers=ARCTIC_LAYERS, cpu=False)
+    arctic = fam_model("arctic-480b", layers=ARCTIC_LAYERS)
+    # two full layers are 55 GB of bf16, too much for a host copy beside
+    # its fp32 one: the CPU check runs on the cut, as kimi's does
+    arctic["card_vs_cpu"] = fam_cut_vs_cpu("arctic-480b")
     seconds["d"] = took("d")
     print("  17(e): minicpm3-4b")
     minicpm = fam_model("minicpm3-4b")
@@ -7159,7 +7264,7 @@ def phase_lm_families(gen) -> tuple:
     internvl = fam_model("internvl2-2b")
     seconds["f"] = took("f")
     print("  17(g): the serve launcher")
-    launcher = fam_launcher()
+    launcher = serve_launch("minicpm3-4b")
     seconds["g"] = took("g")
     _free()
     runs = {"kimi-k2-1t-a32b": kimi, "arctic-480b": arctic,
