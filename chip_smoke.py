@@ -288,14 +288,15 @@ forward. Each serving phase zeroes the counts just before its engine's
    (bf16 and fp32) from copies of the card's params: loss, grad norm and
    every leaf's clipped gradient and update within twice the CPU bf16
    step's own error against the fp32 step (budgets printed). (c) The main
-   path: the full 32-layer model, ``layerwise(adamw(3e-4))``, grad clip
-   1.0, fed by a ``Prefetcher`` of ``LMSynthetic`` batches placed on the
-   card by ``make_placer``: 3 timed steps and a profiled one at 2,048 x 4
-   and at 4,096 x 2 in two micro-batches, each step launching the flash
-   kernel 2 x 32 times a micro-batch (forward and remat) and nothing else
-   of the port, losses finite, every param moved; a gradient pass with
-   remat off launches it 32 times and gives the first step's loss bit for
-   bit; step ms (CUDA events), tokens/s, peak memory, kernels, device ms
+   path: the model at full width, 16 of its 32 layers (the depth cut
+   keeps the whole script within its time limit),
+   ``layerwise(adamw(3e-4))``, grad clip 1.0, fed by a ``Prefetcher`` of
+   ``LMSynthetic`` batches placed on the card by ``make_placer``: 3 timed
+   steps and a profiled one at 2,048 x 4 and at 4,096 x 2 in two
+   micro-batches, each step launching the flash kernel 2 x 16 times a
+   micro-batch (forward and remat) and nothing else of the port, losses
+   finite, every param moved; a gradient pass with remat off launches it
+   16 times and gives the first step's loss bit for bit; step ms (CUDA events), tokens/s, peak memory, kernels, device ms
    by group (flash forward, the backward's recompute, matmul, other) and
    the idle share. (d) The training launcher at full width (``--arch
    smollm-360m --seq-len 2048``): 3 steps uninterrupted against 2 steps
@@ -361,8 +362,9 @@ forward. Each serving phase zeroes the counts just before its engine's
    card's routing flips against the CPU fp32 path's at most twice the
    CPU bf16 path's plus 1% of the (token, layer) pairs; (d) arctic-480b
    (128 experts of 4864, top-2, beside its dense residual FFN), 2
-   layers: (b)'s prefill, laws and engine; (e) minicpm3-4b whole (62
-   layers of MLA, which runs no kernel: the chunked path at 2,048):
+   layers: (b)'s prefill, laws and engine; (e) minicpm3-4b at 24 of
+   its 62 layers (MLA, which runs no kernel: the chunked path at 2,048;
+   the depth cut keeps the whole script within its time limit):
    (b)'s prefill, laws and engine, layer 0's absorbed decode against
    naive in fp32 at full width (1e-3, the reference's test), and (c)'s
    check at 2 layers; (f) internvl2-2b whole (24 layers): 256 patch
@@ -370,7 +372,40 @@ forward. Each serving phase zeroes the counts just before its engine's
    layer), (b)'s checks and (c)'s at 2 layers; (g) the serve launcher
    with ``--arch minicpm3-4b`` at full width. The launch counts are
    zeroed before and read after each prefill of (b), (d), (e) and (f).
-18. Report: one JSON line of the kernels, then the device line, which is
+18. The recurrent, RWKV and encoder-decoder LMs at full width: (a)
+   ``flash_attention`` at recurrentgemma-9b's heads, 16 query heads and
+   one kv head of 256 with its window of 2048, at S = 2048 and 4096
+   (timed as in 10(a); the library call takes is_causal at 2048, where
+   the window bounds nothing, and the band as a mask at 4096) and at S =
+   100 and 2049, and at seamless-m4t's encoder, 16/16 heads of 64 not
+   causal at its 3,200 frames (timed), each within 10(a)'s bound with
+   two launches equal; ptxas's report for depth 256, which must show no
+   spills; (b) recurrentgemma-9b whole (38 layers: 12 (rec, rec, attn)
+   groups and a tail of (rec, rec); seeded weights): ``api.prefill`` at
+   2,048 and 4,096 launches the kernel once an attention layer (12) and
+   nothing else, gives finite logits, and its tokens/s, peak memory,
+   device time by group (flash, matmul, the RG-LRU scan's span, other)
+   and the idle share are printed; prefill against the forward at 4,096
+   (2e-2), and decode after a 4,095-token prefill (its attention caches
+   rings of 2,048 slots, every position past the window) against the
+   fp32 logits of the same weights within twice the bf16 forward's own
+   distance from them; a ``DecodeEngine`` serves 8 requests (10(d)'s
+   waves), ms and launches a step printed; (c) its first group (3
+   layers), a 2,048-token prefill and decode after 2,047 on the card
+   against the CPU path's fp32 logits within twice the CPU bf16 path's
+   own error; (d) rwkv6-7b whole (32 layers): (b)'s checks at 2,048
+   (the prefill through the chunked WKV, whose span is its own group;
+   decode after 2,047 tokens, whose prefill takes the sequential form)
+   and (c)'s at 2 layers; (e) seamless-m4t-large-v2 whole (24 + 24
+   layers, 3,200 frames): the prefill at 2,048 tokens launches the
+   kernel 24 times not causal (the encoder) and 24 times causal (the
+   decoder's self-attention), cross-attention taking the chunked path;
+   (b)'s laws with the real memory, its engine (zero cross K/V, as the
+   reference's engine serves), and (c)'s check at 2 + 2 layers; (f) the
+   serve launcher with ``--arch seamless-m4t-large-v2`` at full width.
+   The launch counts are zeroed before and read after each counted
+   prefill of (b), (d) and (e).
+19. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -424,6 +459,8 @@ from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import mla as lm_mla  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import params as lm_params  # noqa: E402
+from repro_torch.models import rglru as lm_rglru  # noqa: E402
+from repro_torch.models import rwkv6 as lm_rwkv6  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.optim import (Optimizer, global_norm,  # noqa: E402
                                tree_leaves, tree_map, tree_paths)
@@ -3972,7 +4009,7 @@ def check_flash(gen, shapes=FLASH_SHAPES, timed: int = FLASH_TIMED) -> tuple:
         kt, vt = (t.transpose(1, 2).repeat_interleave(h // kh, dim=1)
                   for t in (k, v))
         mask = None
-        if window is not None:
+        if window is not None and s > window:
             pos = torch.arange(s, device="cuda")
             mask = ((pos[None, :] <= pos[:, None])
                     & (pos[None, :] > pos[:, None] - window))
@@ -4214,11 +4251,13 @@ def serve_launch(arch: str) -> dict:
     return launcher
 
 
-def lm_engine(cfg, params) -> dict:
+def lm_engine(cfg, params, profile_steps=None) -> dict:
     """DecodeEngine at full width: LM_REQUESTS requests of LM_PROMPT random
     tokens in waves of LM_SLOTS, LM_NEW new tokens each; p50/p99,
     generated tokens/s, ms and kernel launches per decode step (profiled
-    over one wave)."""
+    over one wave after a warm-up wave; with ``profile_steps``, no
+    warm-up wave, and the profile takes that many ``decode_step`` calls
+    of LM_SLOTS rows on a fresh cache, the work of an engine step)."""
     rng = np.random.RandomState(9)
 
     def requests():
@@ -4244,8 +4283,9 @@ def lm_engine(cfg, params) -> dict:
         return calls
 
     engine = DecodeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    run(engine, requests()[:LM_SLOTS])              # warm the allocator
-    engine.latencies.clear()
+    if profile_steps is None:
+        run(engine, requests()[:LM_SLOTS])          # warm the allocator
+        engine.latencies.clear()
     reqs = requests()
     reset_counts()
     t0 = time.perf_counter()
@@ -4260,9 +4300,22 @@ def lm_engine(cfg, params) -> dict:
             not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         fail(f"served {generated} tokens, expected {LM_REQUESTS * LM_NEW}")
     stats = engine.stats()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        prof_steps = run(engine, requests()[:LM_SLOTS])
+    if profile_steps is None:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prof_steps = run(engine, requests()[:LM_SLOTS])
+    else:
+        cache = lm_api.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device="cuda")
+        tok = torch.zeros((LM_SLOTS,), dtype=torch.int32, device="cuda")
+        lm_api.decode_step(params, cfg, cache, tok, 0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for pos in range(1, profile_steps + 1):
+                lm_api.decode_step(params, cfg, cache, tok, pos)
+            torch.cuda.synchronize()
+        prof_steps = profile_steps
+        del cache
     kernels = _kernel_count(prof)
     busy = sum(_kernel_times_us(prof).values()) / 1e3
     out = {**stats, "decode_steps": steps, "wall_s": wall,
@@ -5653,6 +5706,10 @@ LM_TRAIN_RUNS = ((2048, 4, 1), (4096, 2, 2))   # 15(c): (S, batch, micro-
 LM_TRAIN_STEPS = 3                 # batches); timed steps of each, then one
                                    # profiled step
 LM_TRAIN_CLIP = 1.0
+# 15(c) trains smollm-360m at 16 of its 32 layers (full width): whole,
+# 15(c) took 137 s of "final29b"'s 878 (the 4,096 x 2 steps host-bound
+# by ~120k launches a step), and the script grows with phase 18
+LM_TRAIN_LAYERS = 16
 LM_LAUNCH_S = 2048                 # 15(d): the launcher's sequences, batch 1
 LM_LAUNCH_STEPS = 3
 # 15(b): card against the CPU path, one train step of 2 layers at full
@@ -5978,7 +6035,8 @@ def lm_train_run(cfg, params, opt_state, s: int, b: int, mb: int,
 
 
 def lm_train_main(cfg) -> dict:
-    """15(c): the full smollm-360m, layerwise AdamW, grad clip 1.0. First
+    """15(c): smollm-360m at full width (LM_TRAIN_LAYERS deep), layerwise
+    AdamW, grad clip 1.0. First
     a gradient pass with remat off (n_layers launches) against the first
     train step's loss on the same batch (the same bits); then the runs of
     LM_TRAIN_RUNS through a Prefetcher, every param moved."""
@@ -6086,7 +6144,7 @@ def phase_lm_train(gen) -> tuple:
     cfg = registry.get_arch(LM_ARCH)
     agree = lm_train_card_vs_cpu(cfg)
     seconds["b"] = took("b")
-    main = lm_train_main(cfg)
+    main = lm_train_main(cfg.replace(n_layers=LM_TRAIN_LAYERS))
     seconds["c"] = took("c")
     launcher = lm_launcher()
     seconds["d"] = took("d")
@@ -6654,6 +6712,10 @@ CPU_EXPERTS = 16                   # 17(c), (d): the one cut of kimi-k2's
                                    # and arctic's copies on the CPU
 FAM_CPU_LAYERS = 2                 # depth of every card-against-CPU check
 ARCTIC_LAYERS = 2
+# minicpm3-4b at 24 of its 62 layers: whole, its 17(e) took 113 s of the
+# script's 1,200 ("final29b"), most of it the chunked MLA's host-bound
+# laws and decode steps, which phase 18's three models now need
+MINICPM_LAYERS = 24
 # routing. A token's top-k is decided by the ordering of its router
 # probabilities, and two paths that round differently (the card and the
 # CPU, decode and the forward) can order a near-tie either way. A flip
@@ -6817,34 +6879,51 @@ def _param_bytes(cfg) -> int:
 
 def _describe(cfg, params) -> None:
     a, m = cfg.attention, cfg.moe
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{a.kind} heads {a.n_heads}/{a.n_kv_heads}"
-          + (f" of {a.resolved_head_dim(cfg.d_model)}" if a.kind == "gqa"
-             else f" (qk {a.mla.qk_nope_head_dim}+{a.mla.qk_rope_head_dim},"
-             f" v {a.mla.v_head_dim}, kv rank {a.mla.kv_lora_rank})")
-          + (f", {m.n_experts} experts of {m.expert_ff} top-{m.top_k}"
-             + (f" + dense residual {m.dense_residual_ff}"
-                if m.dense_residual_ff else "") if m else
-             f", d_ff {cfg.d_ff}")
-          + f", vocab {cfg.vocab_size}, {cfg.dtype}, "
+    heads = (f"{a.n_heads}/{a.n_kv_heads} heads of "
+             f"{a.resolved_head_dim(cfg.d_model)}")
+    if cfg.family == "hybrid":
+        what = (f"RG-LRU width {cfg.rglru.lru_width}, pattern "
+                f"{cfg.rglru.block_pattern}, local attention {heads}, "
+                f"window {a.window}")
+    elif cfg.family == "ssm":
+        what = (f"RWKV-6 heads of {cfg.rwkv.head_dim}, chunk "
+                f"{cfg.rwkv.chunk_size}")
+    elif cfg.is_encdec:
+        what = (f"{cfg.enc_layers} + {cfg.dec_layers} layers, {heads}, "
+                f"{cfg.enc_memory_len} frames")
+    elif a.kind == "gqa":
+        what = f"gqa {heads}"
+    else:
+        what = (f"mla heads {a.n_heads} (qk {a.mla.qk_nope_head_dim}+"
+                f"{a.mla.qk_rope_head_dim}, v {a.mla.v_head_dim}, kv rank "
+                f"{a.mla.kv_lora_rank})")
+    ffn = (f"{m.n_experts} experts of {m.expert_ff} top-{m.top_k}"
+           + (f" + dense residual {m.dense_residual_ff}"
+              if m.dense_residual_ff else "") if m else f"d_ff {cfg.d_ff}")
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {what}, "
+          f"{ffn}, vocab {cfg.vocab_size}, {cfg.dtype}, "
           f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
           f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
           "card) from a seeded generator")
 
 
-def fam_prefill(cfg, params, batch: dict) -> dict:
-    """``api.prefill`` of the batch: flash_attention launched once a
-    layer (GQA at S >= 2048) or never (MLA), nothing else of the port;
-    finite logits; tokens/s (host clock around a synchronised prefill),
-    peak memory, device time by group and the device's idle share."""
-    s = sum(t.shape[1] for t in batch.values())
-    want = cfg.n_layers if (cfg.attention.kind == "gqa"
-                            and s >= lm_layers.CHUNKED_THRESHOLD) else 0
+def fam_prefill(cfg, params, batch: dict, span=None) -> dict:
+    """``api.prefill``: the flash kernel launched once an attention layer
+    whose length reaches the threshold, nothing else of the port (and
+    for the encoder-decoder, its encoder's launches not causal and its
+    decoder's causal); finite logits; tokens/s (host clock around a
+    synchronised prefill), peak memory, device time by group and the
+    idle share. ``span`` names the recurrence's profiler span, whose
+    device time is printed as its own group (taken out of "other" and
+    "matmul", where its kernels fall by name)."""
+    s = positions(batch)
+    want = attention_launches(cfg, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    logits, cache = lm_api.prefill(params, cfg, batch, s)
-    torch.cuda.synchronize()
+    with causal_flags() as flags:
+        logits, cache = lm_api.prefill(params, cfg, batch, s)
+        torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del cache
@@ -6852,6 +6931,12 @@ def fam_prefill(cfg, params, batch: dict) -> dict:
             n != "flash_attention" and c for n, c in launches.items()):
         fail(f"{cfg.name} prefill S = {s}: launches {launches}, expected "
              f"flash_attention x {want} only")
+    t = lm_layers.CHUNKED_THRESHOLD
+    if cfg.is_encdec and flags != (
+            [False] * cfg.enc_layers * (cfg.enc_memory_len >= t)
+            + [True] * cfg.dec_layers * (s >= t)):
+        fail(f"{cfg.name}: the kernel's causal flags {flags}, expected "
+             f"{cfg.enc_layers} not causal, then {cfg.dec_layers} causal")
     if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
         fail(f"{cfg.name} prefill S = {s}: non-finite logits")
     walls = []
@@ -6870,20 +6955,43 @@ def fam_prefill(cfg, params, batch: dict) -> dict:
         g = _fam_group(kname)
         groups[g] = groups.get(g, 0.0) + us / 1e3
     busy = sum(groups.values())
+    kernels = _kernel_count(prof)
+    if span is not None:
+        # the span's device time needs the host's ops in the trace (a
+        # second run: with them, key_averages counts a kernel under its
+        # op too). Its kernels are elementwise, cumsums or batched
+        # matmuls (the chunked WKV's): its total is taken from "other",
+        # "dispatch" and "matmul" in turn
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lm_api.prefill(params, cfg, batch, s)
+            torch.cuda.synchronize()
+        in_span = _span_ms(prof, span)
+        groups[span] = in_span
+        rest = in_span or 0.0
+        for g in ("other", "dispatch", "matmul"):
+            take = min(rest, groups.get(g, 0.0))
+            if take:
+                groups[g] -= take
+                rest -= take
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     out = {"s": s, "launches": launches, "ms": wall, "walls_ms": walls,
+           "causal_flags": {"causal": sum(flags),
+                            "not_causal": len(flags) - sum(flags)},
            "top_kernels_ms": [[k[:90], us / 1e3] for k, us in top],
            "tokens_per_s": s / wall * 1e3, "peak_gb": peak / 1e9,
-           "kernel_launches": _kernel_count(prof),
+           "kernel_launches": kernels,
            "device_ms": groups, "device_busy_ms": busy,
            "device_idle_share": (1.0 - busy / wall) if busy else None,
            "flash_device_ms_per_launch":
                groups.get("flash", 0.0) / want if want else None}
     print(f"  prefill S = {s}: {wall:.2f} ms ({out['tokens_per_s']:.0f} "
           f"tokens/s), peak {out['peak_gb']:.1f} GB, device {busy:.3f} ms "
-          f"{ {g: round(v, 4) for g, v in groups.items()} }, idle share "
-          f"{out['device_idle_share']}, {out['kernel_launches']} kernel "
-          f"launches; launches {launches}")
+          f"{ {g: None if v is None else round(v, 4) for g, v in groups.items()} }"
+          f", idle share {out['device_idle_share']}, "
+          f"{out['kernel_launches']} kernel launches; launches {launches}"
+          + (f" ({out['causal_flags']})" if cfg.is_encdec else ""))
     for kname, ms in out["top_kernels_ms"]:
         print(f"    {ms:9.4f} ms  {_fam_group(kname):8s} {kname}")
     return out
@@ -7106,7 +7214,17 @@ def fam_card_vs_cpu(cfg, params, batch: dict) -> dict:
 
 
 def _shallow(cfg, params, n: int) -> tuple:
-    """The first n layers: views of the stacked leaves."""
+    """The first n layers (a hybrid's whole groups; each stack of the
+    encoder-decoder's): views of the stacked leaves."""
+    if cfg.is_encdec:
+        return (cfg.replace(n_layers=2 * n, enc_layers=n, dec_layers=n),
+                dict(params, enc=tree_map(lambda t: t[:n], params["enc"]),
+                     dec=tree_map(lambda t: t[:n], params["dec"])))
+    if cfg.family == "hybrid":
+        g = n // len(cfg.rglru.block_pattern)
+        return cfg.replace(n_layers=n), dict(
+            params, groups=tree_map(lambda t: t[:g], params["groups"]),
+            tail=[])
     return cfg.replace(n_layers=n), dict(params, layers=tree_map(
         lambda t: t[:n], params["layers"]))
 
@@ -7257,8 +7375,8 @@ def phase_lm_families(gen) -> tuple:
     # its fp32 one: the CPU check runs on the cut, as kimi's does
     arctic["card_vs_cpu"] = fam_cut_vs_cpu("arctic-480b")
     seconds["d"] = took("d")
-    print("  17(e): minicpm3-4b")
-    minicpm = fam_model("minicpm3-4b")
+    print(f"  17(e): minicpm3-4b, {MINICPM_LAYERS} layers")
+    minicpm = fam_model("minicpm3-4b", layers=MINICPM_LAYERS)
     seconds["e"] = took("e")
     print("  17(f): internvl2-2b")
     internvl = fam_model("internvl2-2b")
@@ -7274,6 +7392,288 @@ def phase_lm_families(gen) -> tuple:
     return {"max_abs_err": err, "rows": rows}, {
         **runs, "launcher": launcher, "launches": launches,
         "seconds": seconds}
+
+
+# ---------------------------------------------------------------- phase 18
+
+# 18(a): the flash kernel at recurrentgemma-9b's heads (16 query heads and
+# one kv head of 256, causal, its window of 2048) at both prefill lengths
+# and at lengths that are no multiple of the depth's 64-row q tile and
+# 64-key kv tile, and at seamless-m4t's encoder (16/16 heads of 64, not
+# causal, its 3,200 frames); the first REC_FLASH_TIMED rows are timed as
+# in 10(a): at S = 2048 the window bounds nothing and the library call
+# takes is_causal, at S = 4096 the band as an explicit mask
+REC_FLASH_SHAPES = (
+    ("recurrentgemma-9b hd 256, window 2048", 1, 2048, 16, 1, 256, True,
+     2048),
+    ("recurrentgemma-9b hd 256, window 2048", 1, 4096, 16, 1, 256, True,
+     2048),
+    ("seamless-m4t encoder hd 64, not causal", 1, 3200, 16, 16, 64, False,
+     None),
+    ("recurrentgemma-9b hd 256, ragged S = 100", 2, 100, 16, 1, 256, True,
+     2048),
+    ("recurrentgemma-9b hd 256, ragged S = 2049", 1, 2049, 16, 1, 256, True,
+     2048),
+)
+REC_FLASH_TIMED = 3
+REC_PREFILL_S = (2048, 4096)       # 18(b): recurrentgemma's prefill rows
+REC_RING_S = 4096                  # 18(b): decode after 4,095 tokens, past
+                                   # the window of 2,048 (a ring of 2,048)
+REC_PROFILE_STEPS = 4              # 18(b, d, e): decode steps profiled
+REC_CPU_LAYERS = 3                 # 18(c): one (rec, rec, attn) group
+RWKV_CPU_LAYERS = 2                # 18(d)
+ENCDEC_CPU_LAYERS = 2              # 18(e): 2 encoder and 2 decoder layers
+LAUNCH_ARCH = "seamless-m4t-large-v2"  # 18(f)
+
+
+def rec_batch(cfg, s: int, seed: int) -> dict:
+    """``s`` target tokens, and for the encoder-decoder its
+    ``enc_memory_len`` frame embeddings (bf16, as the launchers cast
+    them), drawn first."""
+    rng = np.random.RandomState(seed)
+    batch = {}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.randn(
+            1, cfg.enc_memory_len, cfg.d_model).astype(np.float32)
+        ).cuda().bfloat16()
+    batch["tokens"] = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (1, s)).astype(np.int32)).cuda()
+    return batch
+
+
+def positions(batch: dict) -> int:
+    """A batch's positions: a vlm model's patches and its tokens, an
+    encoder-decoder's target tokens (its frames are the encoder's)."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                       if "patches" in batch else 0)
+
+
+def attention_launches(cfg, s: int) -> int:
+    """Flash launches of a prefill of ``s`` positions: one a GQA
+    attention layer whose length reaches the kernel's threshold (the
+    encoder's frames and the decoder's tokens counted apart; MLA and
+    cross-attention never take the kernel; RWKV has no attention)."""
+    t = lm_layers.CHUNKED_THRESHOLD
+    if cfg.is_encdec:
+        return (cfg.enc_layers * (cfg.enc_memory_len >= t)
+                + cfg.dec_layers * (s >= t))
+    if cfg.family == "ssm" or cfg.attention.kind != "gqa" or s < t:
+        return 0
+    if cfg.family != "hybrid":
+        return cfg.n_layers
+    groups, tail = lm_transformer._hybrid_layout(cfg)
+    return groups * cfg.rglru.block_pattern.count("attn") + tail.count("attn")
+
+
+@contextlib.contextmanager
+def causal_flags():
+    """Each flash kernel launch's ``causal`` flag, in order."""
+    seen, inner = [], fa_k.flash_attention_gqa
+
+    def spy(q, k, v, *, causal=True, window=None):
+        seen.append(bool(causal))
+        return inner(q, k, v, causal=causal, window=window)
+    fa_k.flash_attention_gqa = spy
+    try:
+        yield seen
+    finally:
+        fa_k.flash_attention_gqa = inner
+
+
+def _span_ms(prof, span: str):
+    """Device ms of the kernels launched inside a profiler span (the
+    span's device total), or None when the trace has none."""
+    for e in prof.key_averages():
+        if e.key == span:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            return us / 1e3 if us > 0 else None
+    return None
+
+
+def _last_fp32(cfg, params, batch: dict) -> torch.Tensor:
+    """The last position's logits of an fp32 prefill of the same weights
+    on the card (no TF32; attention through the flash kernel's plain
+    version), on the host."""
+    v = cfg.vocab_size
+    with uncounted(), plain_attention():
+        f32, _ = lm_api.prefill(tree_map(lambda t: t.float(), params),
+                                cfg.replace(dtype="float32"),
+                                {k: t.float() if t.is_floating_point()
+                                 else t for k, t in batch.items()},
+                                batch["tokens"].shape[1])
+    out = f32[0, :v].float().cpu()
+    del f32
+    _free()
+    return out
+
+
+def _decode_after(cfg, params, batch: dict, max_len: int) -> torch.Tensor:
+    """decode_step's logits (V,) on the host after a prefill of all but
+    the last token."""
+    s = batch["tokens"].shape[1]
+    head = dict(batch, tokens=batch["tokens"][:, :-1])
+    with uncounted():
+        _, cache = lm_api.prefill(params, cfg, head, max_len)
+        dec, _ = lm_api.decode_step(params, cfg, cache,
+                                    batch["tokens"][:, -1], s - 1)
+    del cache
+    return dec[0, :cfg.vocab_size].float().cpu()
+
+
+def rec_laws(cfg, params, s: int, max_len: int) -> dict:
+    """The reference's laws on the card at full width and ``s`` tokens:
+    prefill against the forward's last position (LAW_PREFILL), and
+    decode after a prefill of all but the last token against the fp32
+    logits of the same weights within LM_FLOOR_FACTOR x the bf16
+    forward's own distance from them (10(c)'s bar)."""
+    v = cfg.vocab_size
+    batch = rec_batch(cfg, s, seed=5)
+    with uncounted():
+        pre, _ = lm_api.prefill(params, cfg, batch, max_len)
+        full, _ = lm_api.forward(params, cfg, batch)
+    full_last = full[0, -1, :v].float().cpu()
+    del full
+    _free()
+    out = {"prefill_vs_forward": _law(
+        f"S = {s}, prefill vs forward", pre[0, :v].float().cpu(), full_last,
+        LAW_PREFILL)}
+    dec = _decode_after(cfg, params, batch, max_len)
+    f32 = _last_fp32(cfg, params, batch)
+    floor = float((full_last - f32).abs().max())
+    print(f"  S = {s}: the bf16 forward against the fp32 prefill on the "
+          f"card (floor) {floor:.3e}")
+    out["decode_vs_forward"] = _against_fp32(
+        f"S = {s}, decode after prefill of S - 1 (max_len {max_len}) vs "
+        "the fp32 logits", dec, f32, floor)
+    out["decode_vs_forward"]["fp32_floor"] = floor
+    out["decode_vs_bf16_forward_max_abs_err"] = float(
+        (dec - full_last).abs().max())
+    return out
+
+
+def rec_card_vs_cpu(cfg, params, s: int) -> dict:
+    """A cut at full width, card against the CPU path's fp32 last-position
+    logits of the same weights (a prefill of ``s`` tokens): the card's
+    prefill of ``s`` tokens and its decode after a prefill of ``s - 1``,
+    each within LM_FLOOR_FACTOR x the CPU bf16 path's own distance from
+    those fp32 logits at that position (the bf16 decode path's: one bf16
+    pass on the CPU, not two, to keep the phase within its time)."""
+    batch = rec_batch(cfg, s, seed=6)
+    with uncounted():
+        pre, _ = lm_api.prefill(params, cfg, batch, s)
+    card_p = pre[0, :cfg.vocab_size].float().cpu()
+    card_d = _decode_after(cfg, params, batch, s)
+    t0 = time.perf_counter()
+    cpu = tree_map(lambda t: t.cpu(), params)
+    cbatch = {k: t.cpu() for k, t in batch.items()}
+    c32, _ = lm_api.prefill(tree_map(lambda t: t.float(), cpu),
+                            cfg.replace(dtype="float32"),
+                            {k: t.float() if t.is_floating_point() else t
+                             for k, t in cbatch.items()}, s)
+    c32 = c32[0, :cfg.vocab_size]
+    head = dict(cbatch, tokens=cbatch["tokens"][:, :-1])
+    _, cache = lm_api.prefill(cpu, cfg, head, s)
+    c16d, _ = lm_api.decode_step(cpu, cfg, cache, cbatch["tokens"][:, -1],
+                                 s - 1)
+    c16d = c16d[0, :cfg.vocab_size].float()
+    secs = time.perf_counter() - t0
+    del cpu, cache
+    floor = float((c16d - c32).abs().max())
+    print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's fp32 prefill "
+          f"and bf16 prefill-and-decode took {secs:.1f} s; CPU bf16 vs "
+          f"fp32 (floor) {floor:.3e}")
+    out = {"cpu_s": secs, "floor": floor, "prefill": _against_fp32(
+        f"prefill, {cfg.n_layers} layers", card_p, c32, floor),
+        "decode": _against_fp32(
+            f"decode after prefill of S - 1, {cfg.n_layers} layers", card_d,
+            c32, floor)}
+    return out
+
+
+def rec_model(arch: str, prefill_s, law_s: int, law_max_len: int,
+              cpu_layers: int, span=None, seed: int = 0) -> tuple:
+    """18(b)-(e): a model at full width and depth: prefill at each length,
+    the laws, the DecodeEngine, then its cut against the CPU path.
+    Returns (record, flash launches of the counted prefills)."""
+    clock = time.perf_counter()
+    cfg = registry.get_arch(arch)
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg, device="cuda")
+    _describe(cfg, params)
+    out = {"depth": cfg.n_layers, "prefill": {}, "parts_s": {}}
+
+    def took(part: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        out["parts_s"][part], clock = now - clock, now
+
+    took("init")
+    launches = 0
+    for s in prefill_s:
+        r = fam_prefill(cfg, params, rec_batch(cfg, s, seed=s), span)
+        out["prefill"][str(s)] = r
+        launches += r["launches"]["flash_attention"]
+    took("prefill")
+    out["laws"] = rec_laws(cfg, params, law_s, law_max_len)
+    took("laws")
+    out["serve"] = lm_engine(cfg, params, profile_steps=REC_PROFILE_STEPS)
+    took("engine")
+    shallow, sub = _shallow(cfg, params, cpu_layers)
+    print(f"  the first {cpu_layers} layers"
+          + (" of each stack" if cfg.is_encdec else "")
+          + ", card against the CPU")
+    out["card_vs_cpu"] = rec_card_vs_cpu(shallow, sub, FAM_S)
+    del params, sub
+    _free()
+    took("card_vs_cpu")
+    print(f"  {cfg.name}: seconds by part "
+          f"{ {k: round(v, 1) for k, v in out['parts_s'].items()} }")
+    return out, launches
+
+
+def phase_recurrent(gen) -> tuple:
+    clock = [time.perf_counter()]
+
+    def took(part: str) -> float:
+        now = time.perf_counter()
+        s, clock[0] = now - clock[0], now
+        print(f"   (18({part}) took {s:.1f} s)")
+        return s
+
+    print("  18(a): flash_attention at hd 256 with a window, and at "
+          "seamless's encoder")
+    err, rows = check_flash(gen, REC_FLASH_SHAPES, REC_FLASH_TIMED)
+    report = [r for r in ptxas_report("flash_attention")
+              if r.startswith("depth 256:")]
+    print(f"  flash_attention            ptxas {report}")
+    if len(report) != 1 or "0 bytes spill stores" not in report[0] \
+            or "0 bytes spill loads" not in report[0]:
+        fail(f"flash_attention depth 256: ptxas {report}")
+    seconds = {"a": took("a")}
+    print("  18(b), (c): recurrentgemma-9b")
+    rec, n_rec = rec_model("recurrentgemma-9b", REC_PREFILL_S, REC_RING_S,
+                           REC_RING_S, REC_CPU_LAYERS, lm_rglru.SCAN_SPAN)
+    seconds["bc"] = took("b, c")
+    print("  18(d): rwkv6-7b")
+    rwkv, n_rwkv = rec_model("rwkv6-7b", (FAM_S,), FAM_S, FAM_S,
+                             RWKV_CPU_LAYERS, lm_rwkv6.WKV_SPAN)
+    seconds["d"] = took("d")
+    print("  18(e): seamless-m4t-large-v2")
+    seamless, n_seam = rec_model("seamless-m4t-large-v2", (FAM_S,), FAM_S,
+                                 FAM_S, ENCDEC_CPU_LAYERS)
+    seconds["e"] = took("e")
+    print("  18(f): the serve launcher")
+    launcher = serve_launch(LAUNCH_ARCH)
+    seconds["f"] = took("f")
+    _free()
+    launches = {n: 0 for n in KERNELS}
+    launches["flash_attention"] = n_rec + n_rwkv + n_seam
+    return {"max_abs_err": err, "rows": rows, "ptxas_256": report}, {
+        "recurrentgemma-9b": rec, "rwkv6-7b": rwkv,
+        "seamless-m4t-large-v2": seamless, "launcher": launcher,
+        "launches": launches, "seconds": seconds}
 
 
 def main() -> None:
@@ -7354,7 +7754,13 @@ def main() -> None:
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_112["max_abs_err"])
     kernels["flash_attention"]["hd112_rows"] = flash_112["rows"]
-    phase("phase 18: report")
+    phase("phase 18: the recurrent, RWKV and encoder-decoder LMs at full "
+          "width")
+    flash_256, lm_rec = phase_recurrent(gen)
+    kernels["flash_attention"]["max_abs_err"] = max(
+        kernels["flash_attention"]["max_abs_err"], flash_256["max_abs_err"])
+    kernels["flash_attention"]["hd256_rows"] = flash_256["rows"]
+    phase("phase 19: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -7383,7 +7789,8 @@ def main() -> None:
                        fleet["group_trainer"]["launches"][name],
                    "lm_train": lm_train["launches"][name],
                    "sharded": sharded["launches"][name],
-                   "lm_families": lm_fam["launches"][name]}
+                   "lm_families": lm_fam["launches"][name],
+                   "lm_families_15c": lm_rec["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -7421,14 +7828,17 @@ def main() -> None:
                 for r in kernels[name]["recompute_rows"]]}
                if "recompute_rows" in kernels[name] else {}),
             # flash_attention at kimi-k2's hd 112 (phase 17), padded to
-            # depth 128: its times and the padding copies'
-            **({"hd112": [{k: r.get(k) for k in (
-                "shape", "ms", "device_ms", "single_ms", "cold_l2_ms",
-                "device_tflops", "plain_ms", "library_ms",
+            # depth 128: its times and the padding copies'; at
+            # recurrentgemma-9b's hd 256 and seamless-m4t's encoder (phase
+            # 18)
+            **{key: [{k: r[k] for k in (
+                "what", "shape", "ms", "device_ms", "single_ms",
+                "cold_l2_ms", "device_tflops", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by",
-                "kernel_device_ms", "pad_device_ms")}
-                for r in kernels[name]["hd112_rows"]]}
-               if "hd112_rows" in kernels[name] else {})})
+                "kernel_device_ms", "pad_device_ms") if k in r}
+                for r in kernels[name][f"{key}_rows"]]
+               for key in ("hd112", "hd256")
+               if f"{key}_rows" in kernels[name]}})
     if args.out is not None:
         args.out.write_text(json.dumps(
             {"card": card, "kernels": kernels, "serve": served,
@@ -7437,7 +7847,7 @@ def main() -> None:
              "serve_tiered": tiered, "online_tiered": online_t,
              "graphed": graphed, "lm": lm, "het": het, "plane": plane,
              "fleet": fleet, "lm_train": lm_train, "sharded": sharded,
-             "lm_families": lm_fam},
+             "lm_families": lm_fam, "lm_recurrent": lm_rec},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -6,18 +6,22 @@
 Builds the CUDA kernels and prints ptxas's report for ``flash_attention``
 (registers a thread, shared memory, spills); launches the kernel once at
 a small shape and holds it against its plain version (``kernels/ref.py``)
-before anything larger; then, at nine bf16 shapes (smollm-360m's heads
-at S = 2048 and 4096, causal and, at 2048, not; hd 80 with a window; hd
-128; the smoke configs' hd 16 and 20, the last padded to 32; lengths
-that are no multiple of the kernel's 64- or 128-row q tile and 128-key
-kv tile), prints the largest difference, whether it is within 2^-7 (1 +
-|plain|), and whether two launches give the same bits. Then it times
-the kernel and ``F.scaled_dot_product_attention`` (kv heads repeated
-before the timing) with CUDA events at the first five shapes (the four
-that ``chip_smoke.py`` times and the non-causal one), the
-wrapper's host time a call, and ``api.prefill`` of smollm-360m at full
-width (seeded weights) at 2,048 and 4,096 tokens. ``chip_smoke.py``
-phase 10 runs the full check; this is the quick one for a first build.
+before anything larger, at hd 64 and at hd 256; then, at fourteen bf16
+shapes (smollm-360m's heads at S = 2048 and 4096, causal and, at 2048,
+not; hd 80 with a window; hd 128; recurrentgemma-9b's 16/1 heads of 256
+with its window of 2048 at S = 2048 and 4096; seamless-m4t's encoder, 16
+heads of 64 not causal at S = 3200; the smoke configs' hd 16 and 20, the
+last padded to 32; lengths that are no multiple of the kernel's 64- or
+128-row q tile and its 64- or 128-key kv tile), prints the largest
+difference, whether it is within 2^-7 (1 + |plain|), and whether two
+launches give the same bits. Then it times the kernel and
+``F.scaled_dot_product_attention`` (kv heads repeated before the timing;
+a window as an explicit boolean band mask, except where S <= window and
+the band is the causal triangle) with CUDA events at the first eight
+shapes, the wrapper's host time a call, and ``api.prefill`` of
+smollm-360m at full width (seeded weights) at 2,048 and 4,096 tokens.
+``chip_smoke.py`` phases 10, 17 and 18 run the full check; this is the
+quick one for a first build.
 
 It imports ``repro_torch`` from the ``src`` beside it and calls only the
 wrapper's public entry, so a copy placed in an older checkout times that
@@ -38,12 +42,16 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-# (B, S, H, KH, hd, causal, window); the first five are timed
+# (B, S, H, KH, hd, causal, window); the first TIMED are timed
 CASES = [(1, 2048, 15, 5, 64, True, None), (1, 4096, 15, 5, 64, True, None),
          (1, 4096, 32, 8, 80, True, 512), (1, 2048, 20, 20, 128, True, None),
          (1, 2048, 15, 5, 64, False, None),
+         (1, 2048, 16, 1, 256, True, 2048), (1, 4096, 16, 1, 256, True, 2048),
+         (1, 3200, 16, 16, 64, False, None),
          (2, 100, 3, 1, 20, True, None), (2, 2049, 4, 2, 16, True, 16),
-         (2, 100, 4, 4, 16, True, None), (1, 300, 4, 2, 64, True, 37)]
+         (2, 100, 4, 4, 16, True, None), (1, 300, 4, 2, 64, True, 37),
+         (2, 100, 16, 1, 256, True, 2048), (1, 2049, 16, 1, 256, True, 2048)]
+TIMED = 8
 PREFILL_LENGTHS = (2048, 4096)
 
 
@@ -135,22 +143,29 @@ def main() -> None:
     def rnd(*s):
         return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
 
-    q, k, v = rnd(1, 256, 2, 64), rnd(1, 256, 1, 64), rnd(1, 256, 1, 64)
-    print("first launch", check(q, k, v, True, None), flush=True)
+    for d in (64, 256):
+        q, k, v = rnd(1, 256, 2, d), rnd(1, 256, 1, d), rnd(1, 256, 1, d)
+        print(f"first launch, hd {d}", check(q, k, v, True, None),
+              flush=True)
     for b, s, h, kh, d, causal, w in CASES:
         q, k, v = rnd(b, s, h, d), rnd(b, s, kh, d), rnd(b, s, kh, d)
         print(b, s, h, kh, d, causal, w, check(q, k, v, causal, w),
               flush=True)
-    for b, s, h, kh, d, causal, w in CASES[:5]:
+    for b, s, h, kh, d, causal, w in CASES[:TIMED]:
         q, k, v = rnd(b, s, h, d), rnd(b, s, kh, d), rnd(b, s, kh, d)
         qt = q.transpose(1, 2)
         kt, vt = (t.transpose(1, 2).repeat_interleave(h // kh, 1)
                   for t in (k, v))
+        mask = None
+        if w is not None and s > w:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - w))
         ms = time_ms(lambda: kernel(q, k, v, causal, w))
-        sdpa = (time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal)) if w is None else None)
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None))
         print(b, s, h, kh, d, causal, w, "kernel ms", ms, "sdpa ms", sdpa,
-              flush=True)
+              "(band as a mask)" if mask is not None else "", flush=True)
     q, k = rnd(1, 128, 15, 64), rnd(1, 128, 5, 64)
     us = host_us(q, k, k)
     print(f"wrapper host us a call (S 128, 15/5 x 64): median "

@@ -43,8 +43,7 @@ class AttentionConfig:
 
 
 # ---------------------------------------------------------------------------
-# MoE and recurrent blocks (the recurrent ones schema only: their models
-# are ROADMAP Queue 1, item 15c)
+# MoE and recurrent blocks (RG-LRU / RWKV)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)

@@ -152,10 +152,10 @@ class DLRMSynthetic:
 
 
 class LMSynthetic:
-    """Token batches of a decoder LM, and a ``vlm`` model's patch
-    embeddings before its tokens (the reference's ``LMSynthetic``; the
-    encoder-decoder inputs wait for their model, ROADMAP Queue 1, item
-    15c)."""
+    """Token batches of an LM (the reference's ``LMSynthetic``): a ``vlm``
+    model's patch embeddings before its tokens, an encoder-decoder's
+    frame embeddings (B, enc_memory_len, D) beside its target tokens,
+    each drawn before the tokens, as the reference draws them."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         self.cfg = cfg
@@ -183,9 +183,9 @@ class LMSynthetic:
     def batch(self, batch: int, seq: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.family} inputs are not ported yet "
-                "(ROADMAP Queue 1, item 15c)")
+            return {"frames": self.rng.randn(batch, cfg.enc_memory_len,
+                                             cfg.d_model).astype(np.float32),
+                    "tokens": self.tokens(batch, seq)}
         if cfg.family == "vlm":
             # the patches are drawn first, as the reference draws them
             p = cfg.n_frontend_tokens

@@ -19,23 +19,26 @@
 //   depth: 1 (a 64-row q tile, two blocks an SM, so that one block's
 //   softmax overlaps the other's products) at depths up to 80, 2 (a
 //   128-row tile, one block an SM) at 128; on the H100 each was the
-//   faster of the two at its depths. setmaxnreg hands the
+//   faster of the two at its depths. Depth 256 takes 1 with one block an
+//   SM (see 8.). setmaxnreg hands the
 //   producer's registers to the consumers at run time, but ptxas
 //   allocates the whole kernel within its launch bound (168 registers a
 //   thread for C = 2, 128 for C = 1), so the consumer loop is written to
 //   fit those with no spills: one score tile, its P fragments and O.
 //   Overlapping tile i's QK^T and softmax with tile i - 1's PV (a second
 //   live score tile) spilled at 128 and was slower on the H100.
-// * TMA and a ring. Q is copied once; K and V tiles of 128 keys go into
-//   a ring of two stages, K and V behind separate "full" mbarriers (QK^T
-//   starts before V has landed) and one "empty" mbarrier a stage that
-//   every consumer warp arrives on when its products have read the
-//   stage. The tensor maps describe q, k, v in their own (B, S, H | KH,
-//   d) layout, 4-d, with the kv head as a coordinate.
+// * TMA and a ring. Q is copied once; K and V tiles of 128 keys (64 at
+//   depth 256) go into a ring of two stages, K and V behind separate
+//   "full" mbarriers (QK^T starts before V has landed) and one "empty"
+//   mbarrier a stage that every consumer warp arrives on when its
+//   products have read the stage. The tensor maps describe q, k, v in
+//   their own (B, S, H | KH, d) layout, 4-d, with the kv head as a
+//   coordinate.
 // * Both products on wgmma, fp32 accumulation. S = Q K^T is
-//   m64n128k16 with Q and K from swizzled shared memory, both K-major as
-//   stored. O += P V takes P from registers (the S accumulators, rounded
-//   to bf16, are the A fragments) and V from shared memory as an
+//   m64n128k16 (m64n64k16 at depth 256) with Q and K from swizzled
+//   shared memory, both K-major as stored. O += P V takes P from
+//   registers (the S accumulators, rounded to bf16, are the A
+//   fragments) and V from shared memory as an
 //   MN-major B operand (the transpose flag of 16-bit wgmma): nothing is
 //   transposed in device memory.
 // * Softmax in the exp2 domain with d^-0.5 log2(e) folded into one
@@ -82,9 +85,10 @@
 //    cudaGetDriverEntryPoint(ByVersion), so nothing links -lcuda; the
 //    maps travel as one __grid_constant__ parameter; the C entry
 //    returns the encode error (offset by kEncodeError) or
-//    cudaGetLastError(). The dynamic shared memory (up to 161 KB at hd
-//    128) is raised with cudaFuncSetAttribute once per instantiation
-//    and device, so a launch's host work is the maps and the launch.
+//    cudaGetLastError(). The dynamic shared memory (161 KB at hd 128,
+//    165 KB at 256) is raised with cudaFuncSetAttribute once per
+//    instantiation and device, so a launch's host work is the maps and
+//    the launch.
 // 5. Build time: the PTX is written inline (wgmma, TMA, mbarrier,
 //    setmaxnreg), no CUTLASS or CuTe headers.
 // 6. Hangs: an mbarrier wait that has not completed after 30 seconds
@@ -92,12 +96,24 @@
 //    A trap is a sticky error: it ends the whole CUDA context of the
 //    process, not only this launch, so the bound is far above any wait
 //    of a correct run (a tile's wait is microseconds).
-// 7. Head dims 16, 20 (as 32), 64, 80, 112 (as 128) and 128 are
+// 7. Head dims 16, 20 (as 32), 64, 80, 112 (as 128), 128 and 256 are
 //    instantiated. 112 as itself would take three panels, [64, 32, 16],
-//    one more than the kernel has, so it runs padded at 128: 14% more
-//    MMA work and the wrapper's three copies; 256 needs a 64-key kv tile (with 128 keys two stages of K and
-//    V alone take 256 KB) and an O accumulator of 128 registers a
-//    thread, past C = 2's 168 with the score tile beside it.
+//    of two widths after the first, so it runs padded at 128: 14% more
+//    MMA work and the wrapper's three copies.
+// 8. Depth 256 (recurrentgemma-9b) is four panels of 64, and two limits
+//    shape it. Shared memory: with 128-key tiles two stages of K and V
+//    alone would take 256 KB of the block's 227 KB, so its kv tile is 64
+//    keys (kBK is a function of the depth): Q 32 KB and two stages of K
+//    and V at 32 KB each, 160 KB with the mbarriers. Registers: O is 128
+//    fp32 registers a thread, the 64 x 64 score tile 32 and P's bf16
+//    fragments 16, past what C = 2 (168) or two blocks an SM (128)
+//    leave; so C = 1 and one block of 256 threads an SM, whose launch
+//    bound lets ptxas give every thread up to 255 registers. There is
+//    nothing for setmaxnreg to hand over at that bound, and the depth
+//    runs without it. QK^T is 16 wgmma k-steps (m64n64k16) over the four
+//    panels, PV one m64n64k16 a panel for each 16-key step. kt_lo and
+//    kt_hi count 64-key tiles, so at S = 4096 with a window of 2048 a
+//    64-row q tile walks at most 33 of the 64.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,7 +125,6 @@
 
 namespace {
 
-constexpr int kBK = 128;           // keys per kv tile
 constexpr int kStages = 2;         // K/V ring depth
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 constexpr uint64_t kHangNs = 30000000000ull;  // see the header, 6.
@@ -117,24 +132,36 @@ constexpr int kMaxDevices = 64;
 // the C entry returns kEncodeError + CUresult when a tensor map fails
 constexpr int kEncodeError = 20000;
 
-// The head dim as panels of 64, 32 or 16 columns (see the header, 2.)
+// keys per kv tile (see the header, 8.)
+template <int HD>
+constexpr int kKeys = HD == 256 ? 64 : 128;
+
+// The head dim as panels (see the header, 2. and 8.): panel 0 of kW0
+// columns, then kPanels - 1 panels of kW1 columns each
 template <int HD>
 struct Layout {
   static constexpr int kW0 = HD < 64 ? HD : 64;
-  static constexpr int kW1 = HD - kW0;
+  static constexpr int kW1 = HD == 256 ? 64 : HD - kW0;
+  static constexpr int kPanels = HD == 256 ? 4 : (kW1 > 0 ? 2 : 1);
   static_assert(kW0 == 16 || kW0 == 32 || kW0 == 64, "panel 0");
-  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 64, "panel 1");
+  static_assert(kW1 == 0 || kW1 == 16 || kW1 == 64, "panels 1..");
+  static_assert(kW0 + (kPanels - 1) * kW1 == HD, "panels cover the depth");
 };
 
 // shared memory of one block, in bytes from a 1024-aligned base: Q, then
-// per stage K and V (each panel 0 then panel 1), then the mbarriers
+// per stage K and V (each panel by panel), then the mbarriers
 template <int HD, int C>
 struct Smem {
+  static constexpr int kBK = kKeys<HD>;
   static constexpr int kBQ = 64 * C;
   static constexpr int kQBytes = kBQ * HD * 2;
   static constexpr int kTileBytes = kBK * HD * 2;
   static constexpr int kQ1 = kBQ * Layout<HD>::kW0 * 2;  // panel 1 of Q
   static constexpr int kT1 = kBK * Layout<HD>::kW0 * 2;  // of a K/V tile
+  // panel p >= 1 starts at kQ1 + (p - 1) kQP (of Q), kT1 + (p - 1) kTP
+  // (of a K/V tile)
+  static constexpr int kQP = kBQ * Layout<HD>::kW1 * 2;
+  static constexpr int kTP = kBK * Layout<HD>::kW1 * 2;
   static constexpr int kBars = kQBytes + kStages * 2 * kTileBytes;
   // q_full, k_full[stages], v_full[stages], empty[stages]
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
@@ -146,8 +173,9 @@ struct Smem {
   }
 };
 
+constexpr int kMaxPanels = 4;
 struct Maps {
-  CUtensorMap q[2], k[2], v[2];  // one per panel
+  CUtensorMap q[kMaxPanels], k[kMaxPanels], v[kMaxPanels];  // one a panel
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -283,6 +311,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d(64 x 64) (+)= a(64 x 16, smem) b(16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q K^T over one k-step: N keys (the kv tile) a wgmma
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n64(d, da, db, accumulate);
+  }
+}
+
 // d(64 x 64) += a(64 x 16, registers) b(16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
@@ -348,23 +407,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 }
 
-// consumer warpgroups of 64 query rows a block, per depth (the header)
+// consumer warpgroups of 64 query rows a block, and blocks an SM, per
+// depth (the header)
 template <int HD>
 constexpr int kConsumers = HD == 128 ? 2 : 1;
+template <int HD>
+constexpr int kMinBlocks = HD <= 80 ? 2 : 1;
 
-// HD: the depth of q, k, v (16, 32, 64, 80 or 128); C: consumer
+// HD: the depth of q, k, v (16, 32, 64, 80, 128 or 256); C: consumer
 // warpgroups, 64 query rows each
 template <int HD, int C>
-__global__ void __launch_bounds__((C + 1) * 128, C == 1 ? 2 : 1)
+__global__ void __launch_bounds__((C + 1) * 128, kMinBlocks<HD>)
 flash_attention_kernel(const __grid_constant__ Maps maps,
                        __nv_bfloat16* __restrict__ out, int s_len,
                        int n_heads, int n_kv_heads, int d_out,
                        float scale_log2, int causal, int window) {
   using L = Layout<HD>;
   using M = Smem<HD, C>;
-  constexpr int W0 = L::kW0, W1 = L::kW1;
-  constexpr int kBQ = M::kBQ;
+  constexpr int W0 = L::kW0, W1 = L::kW1, NP = L::kPanels;
+  constexpr int kBQ = M::kBQ, kBK = M::kBK;
   static_assert(M::kQ1 % 1024 == 0 && M::kT1 % 1024 == 0 &&
+                    M::kQP % 1024 == 0 && M::kTP % 1024 == 0 &&
                     M::kQBytes % 1024 == 0 && M::kTileBytes % 1024 == 0,
                 "every panel starts on a 1024-byte swizzle atom");
   extern __shared__ uint8_t smem_raw[];
@@ -405,12 +468,15 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
 
   if (threadIdx.x >= C * 128) {
     // ---------------------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (kMinBlocks<HD> == 2 || C == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == C * 128) {
       mbar_expect_tx(q_full, M::kQBytes);
       tma_load(base, &maps.q[0], q_full, 0, h, q0, b);
-      if constexpr (W1 > 0)
-        tma_load(base + M::kQ1, &maps.q[1], q_full, W0, h, q0, b);
+#pragma unroll
+      for (int p = 1; p < NP; ++p)
+        tma_load(base + M::kQ1 + (p - 1) * M::kQP, &maps.q[p], q_full,
+                 W0 + (p - 1) * W1, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
@@ -418,19 +484,23 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
         const uint32_t kd = base + M::k_off(st), vd = base + M::v_off(st);
         mbar_expect_tx(k_full(st), M::kTileBytes);
         tma_load(kd, &maps.k[0], k_full(st), 0, kvh, k0, b);
-        if constexpr (W1 > 0)
-          tma_load(kd + M::kT1, &maps.k[1], k_full(st), W0, kvh, k0, b);
+#pragma unroll
+        for (int p = 1; p < NP; ++p)
+          tma_load(kd + M::kT1 + (p - 1) * M::kTP, &maps.k[p], k_full(st),
+                   W0 + (p - 1) * W1, kvh, k0, b);
         mbar_expect_tx(v_full(st), M::kTileBytes);
         tma_load(vd, &maps.v[0], v_full(st), 0, kvh, k0, b);
-        if constexpr (W1 > 0)
-          tma_load(vd + M::kT1, &maps.v[1], v_full(st), W0, kvh, k0, b);
+#pragma unroll
+        for (int p = 1; p < NP; ++p)
+          tma_load(vd + M::kT1 + (p - 1) * M::kTP, &maps.v[p], v_full(st),
+                   W0 + (p - 1) * W1, kvh, k0, b);
       }
     }
   } else {
     // --------------------------------------------------------- consumers
     if constexpr (C == 2) {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    } else {
+    } else if constexpr (kMinBlocks<HD> == 2) {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     }
     const int wg = threadIdx.x / 128;
@@ -441,16 +511,22 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
     // this thread's two rows: r0 = row_lo + warp*16 + lane/4, r1 = r0 + 8
     const int r0 = row_lo + warp * 16 + lane / 4;
     const int r1 = r0 + 8;
-    // Q rows of this warpgroup, per panel
+    // Q rows of this warpgroup, per panel (panel p >= 1 at qa1 + (p - 1)
+    // kQP)
     const uint32_t qa0 = base + wg * 64 * (2 * W0);
     const uint32_t qa1 = base + M::kQ1 + wg * 64 * (2 * W1);
 
+    // O's panel 0, and panels 1 .. NP - 1
+    constexpr int kO1 = W1 > 0 ? W1 / 2 : 1;
     float o0[W0 / 2];
-    float o1[W1 > 0 ? W1 / 2 : 1];
+    float o1[NP > 1 ? NP - 1 : 1][kO1];
 #pragma unroll
     for (int i = 0; i < W0 / 2; ++i) o0[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o1[i] = 0.f;
+    for (int p = 0; p < (NP > 1 ? NP - 1 : 1); ++p) {
+#pragma unroll
+      for (int i = 0; i < kO1; ++i) o1[p][i] = 0.f;
+    }
     float m_row[2] = {kNegInf, kNegInf};
     float l_part[2] = {0.f, 0.f};  // this thread's share of the row sum
 
@@ -467,13 +543,16 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < W0 / 16; ++kk)
-        wgmma_ss_n128(s, make_desc<W0>(qa0 + 32 * kk),
+        wgmma_ss<kBK>(s, make_desc<W0>(qa0 + 32 * kk),
                       make_desc<W0>(kb + 32 * kk), kk);
-      if constexpr (W1 > 0) {
+#pragma unroll
+      for (int p = 1; p < NP; ++p) {
 #pragma unroll
         for (int kk = 0; kk < W1 / 16; ++kk)
-          wgmma_ss_n128(s, make_desc<W1>(qa1 + 32 * kk),
-                        make_desc<W1>(kb + M::kT1 + 32 * kk), 1);
+          wgmma_ss<kBK>(s, make_desc<W1>(qa1 + (p - 1) * M::kQP + 32 * kk),
+                        make_desc<W1>(kb + M::kT1 + (p - 1) * M::kTP +
+                                      32 * kk),
+                        1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -554,32 +633,39 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
         o0[4 * j + 2] *= corr[1];
         o0[4 * j + 3] *= corr[1];
       }
-      if constexpr (W1 > 0) {
+#pragma unroll
+      for (int p = 0; p < NP - 1; ++p) {
 #pragma unroll
         for (int j = 0; j < W1 / 8; ++j) {
-          o1[4 * j + 0] *= corr[0];
-          o1[4 * j + 1] *= corr[0];
-          o1[4 * j + 2] *= corr[1];
-          o1[4 * j + 3] *= corr[1];
+          o1[p][4 * j + 0] *= corr[0];
+          o1[p][4 * j + 1] *= corr[0];
+          o1[p][4 * j + 2] *= corr[1];
+          o1[p][4 * j + 3] *= corr[1];
         }
       }
 
       // o += bf16(p) v: one wgmma a panel and k-step of 16 keys
       mbar_wait(v_full(st), parity);
       fence_regs(o0);
-      fence_regs(o1);
+#pragma unroll
+      for (int p = 0; p < (NP > 1 ? NP - 1 : 1); ++p) fence_regs(o1[p]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         wgmma_rs<W0>(o0, pa[kk], make_desc<W0>(vb + kk * 16 * (2 * W0)));
-        if constexpr (W1 > 0)
-          wgmma_rs<W1>(o1, pa[kk],
-                       make_desc<W1>(vb + M::kT1 + kk * 16 * (2 * W1)));
+        if constexpr (NP > 1) {
+#pragma unroll
+          for (int p = 0; p < NP - 1; ++p)
+            wgmma_rs<W1>(o1[p], pa[kk],
+                         make_desc<W1>(vb + M::kT1 + p * M::kTP +
+                                       kk * 16 * (2 * W1)));
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o0);
-      fence_regs(o1);
+#pragma unroll
+      for (int p = 0; p < (NP > 1 ? NP - 1 : 1); ++p) fence_regs(o1[p]);
       // this warp's products have read the stage
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));
@@ -610,11 +696,12 @@ flash_attention_kernel(const __grid_constant__ Maps maps,
     for (int j = 0; j < W0 / 8; ++j)
       store(8 * j + 2 * t, o0[4 * j], o0[4 * j + 1], o0[4 * j + 2],
             o0[4 * j + 3]);
-    if constexpr (W1 > 0) {
+#pragma unroll
+    for (int p = 0; p < NP - 1; ++p) {
 #pragma unroll
       for (int j = 0; j < W1 / 8; ++j)
-        store(W0 + 8 * j + 2 * t, o1[4 * j], o1[4 * j + 1], o1[4 * j + 2],
-              o1[4 * j + 3]);
+        store(W0 + p * W1 + 8 * j + 2 * t, o1[p][4 * j], o1[p][4 * j + 1],
+              o1[p][4 * j + 2], o1[p][4 * j + 3]);
     }
   }
 }
@@ -699,16 +786,16 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (enc == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  const int widths[2] = {L::kW0, L::kW1};
-  for (int p = 0; p < (L::kW1 > 0 ? 2 : 1); ++p) {
+  for (int p = 0; p < L::kPanels; ++p) {
+    const int width = p == 0 ? L::kW0 : L::kW1;
     CUresult r = encode(enc, &maps.q[p], q, HD, n_heads, s_len, batch,
-                        widths[p], M::kBQ);
+                        width, M::kBQ);
     if (r == CUDA_SUCCESS)
-      r = encode(enc, &maps.k[p], k, HD, n_kv_heads, s_len, batch,
-                 widths[p], kBK);
+      r = encode(enc, &maps.k[p], k, HD, n_kv_heads, s_len, batch, width,
+                 M::kBK);
     if (r == CUDA_SUCCESS)
-      r = encode(enc, &maps.v[p], v, HD, n_kv_heads, s_len, batch,
-                 widths[p], kBK);
+      r = encode(enc, &maps.v[p], v, HD, n_kv_heads, s_len, batch, width,
+                 M::kBK);
     if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
   }
   const cudaError_t attr = allow_smem<HD, C>();
@@ -725,7 +812,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // q (batch, s_len, n_heads, depth), k, v (batch, s_len, n_kv_heads,
 // depth): bf16, contiguous, 16-byte aligned; out (batch, s_len, n_heads,
 // d_out), d_out <= depth (hd 20 runs at depth 32 with d_out 20, hd 112
-// at 128 with d_out 112).
+// at 128 with d_out 112); depth one of 16, 32, 64, 80, 128 and 256.
 // scale_log2 = d^-0.5 log2(e) of the true head dim; window <= 0 means no
 // window. Returns cudaGetLastError(), kEncodeError + the CUresult of a
 // tensor map that failed, or cudaErrorInvalidValue for a depth not
@@ -746,6 +833,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     FLASH_DEPTH(64)
     FLASH_DEPTH(80)
     FLASH_DEPTH(128)
+    FLASH_DEPTH(256)
 #undef FLASH_DEPTH
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -13,9 +13,11 @@ prefill lengths (S = 2048..4096) does a few hundred flops per byte of
 q, k, v and out, above the bf16 tensor cores' balance point. The CUDA
 kernel (``csrc/flash_attention.cu``, whose header note has the details)
 is warp-specialised: one producer warpgroup issues TMA copies of a q
-tile and of 128-key K and V tiles into a two-stage ring behind
-mbarriers, and consumer warpgroups of 64 query rows (one a block at hd
-<= 80, two at hd 128) run both products on ``wgmma`` (S = Q K^T from shared memory, O += P V with
+tile and of 128-key K and V tiles (64-key at hd 256, whose two stages
+would not fit the block's shared memory at 128) into a two-stage ring
+behind mbarriers, and consumer warpgroups of 64 query rows (one a block
+at hd <= 80 and at hd 256, two at hd 128) run both products on
+``wgmma`` (S = Q K^T from shared memory, O += P V with
 P from registers and V as an MN-major operand), skipping kv tiles
 wholly outside the causal and window band and the mask arithmetic on
 tiles wholly inside it. Each query head reads its kv head as a TMA
@@ -50,11 +52,11 @@ from repro_torch.kernels import _build
 launches = 0
 
 # head dims the kernel takes: the smoke configs' 16 and 20, smollm-360m's
-# 64, h2o-danube's 80, kimi-k2's 112, and qwen1.5's, arctic's and
-# internvl2's 128
-HEAD_DIMS = (16, 20, 64, 80, 112, 128)
+# and seamless-m4t's 64, h2o-danube's 80, kimi-k2's 112, qwen1.5's,
+# arctic's and internvl2's 128, and recurrentgemma-9b's 256
+HEAD_DIMS = (16, 20, 64, 80, 112, 128, 256)
 # the depths csrc/flash_attention.cu instantiates
-DEPTHS = (16, 32, 64, 80, 128)
+DEPTHS = (16, 32, 64, 80, 128, 256)
 # TMA: the global address and every stride a multiple of 16 bytes
 TMA_ALIGN = 16
 # the C entry adds this to the CUresult of a tensor map that failed
@@ -70,8 +72,7 @@ def _check_head_dim(d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: head dim {d} is not instantiated (the kernel "
-            f"takes {HEAD_DIMS}); 256 (recurrentgemma) comes with its "
-            "model, ROADMAP Queue 1, item 15c")
+            f"takes {HEAD_DIMS})")
 
 
 def tma_strides_ok(depth: int, heads: int) -> bool:

@@ -15,8 +15,11 @@ with ``--pipelined``, the two-stream micro-batch pipeline
 (``hybrid.make_pipelined_serve_step``), and prints p50/p99 of the time
 around each synchronised step, the first (which builds the kernels)
 left out. LM (the registry's ids: the dense GQA decoders, the MoE
-decoders kimi-k2-1t-a32b and arctic-480b, MLA minicpm3-4b and the
-vision-prefix internvl2-2b, which decodes tokens only): seeded random
+decoders kimi-k2-1t-a32b and arctic-480b, MLA minicpm3-4b, the
+vision-prefix internvl2-2b, which decodes tokens only, the RG-LRU hybrid
+recurrentgemma-9b, RWKV-6 rwkv6-7b and the encoder-decoder
+seamless-m4t-large-v2, which decodes against zero cross K/V as the
+reference's engine does): seeded random
 weights, ``--requests`` random prompts of ``--prompt-len`` tokens
 decoded for ``--new-tokens`` tokens by a ``DecodeEngine`` of
 ``--batch-size`` slots and a ``--max-len`` cache, and prints the
@@ -25,8 +28,7 @@ engine's latency stats. Runs on the card unless ``--device cpu``. DLRM
 started over ``--backend`` (``nccl``: a card a rank; ``gloo``: CPU ranks
 or ranks sharing a card; no default), each serving the same batches;
 the ranks' probabilities must agree bit for bit. Not offered yet: a
-``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13b) and the
-recurrent and encoder-decoder LMs (item 15c).
+``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13b).
 """
 from __future__ import annotations
 
@@ -164,9 +166,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
     if args.arch in registry.ARCHS:
         return serve_lm(args)
-    if args.arch in registry.NOT_PORTED:
-        p.error(f"{args.arch!r} is not ported yet (ROADMAP Queue 1, item "
-                f"15c); LMs: {sorted(registry.ARCHS)}")
     if args.arch not in DLRM_CONFIGS:
         p.error(f"unknown arch {args.arch!r}; DLRMs: {sorted(DLRM_CONFIGS)}"
                 f", LMs: {sorted(registry.ARCHS)}")

@@ -27,11 +27,11 @@ rebuilt every ``--cache-refresh`` steps, with ``--quantize-cold`` an
 int8 cold arena kept incrementally), ``--metrics-json`` writes the
 trainer's telemetry snapshot (counters, gauges, histograms and events) at
 exit, and ``--trace`` collects host spans and turns the profiler's stage
-annotations on. LM (the registry's ids; the reference's recurrent and
-encoder-decoder archs are refused, ROADMAP Queue 1, item 15c): seeded
+annotations on. LM (the registry's ids): seeded
 random weights, ``LMSynthetic`` batches of ``--batch-size`` x
 ``--seq-len`` tokens (a ``vlm`` model's patch embeddings cast to bf16,
-as the reference casts them), ``api.make_train_step`` with the default
+as the reference casts them, and an encoder-decoder's frame embeddings
+too, as its encoder casts them), ``api.make_train_step`` with the default
 ``layerwise(adamw)`` and global-norm clipping at 1.0. Either way
 ``--ckpt-dir`` saves (params, optimizer state) every ``--ckpt-every``
 steps with ``CheckpointManager.save_async`` and ``--resume`` restarts
@@ -215,8 +215,9 @@ def train_lm(args) -> Tuple[float, Any]:
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch(args.batch_size,
                                         args.seq_len).items()}
-        if "patches" in batch:
-            batch["patches"] = batch["patches"].to(torch.bfloat16)
+        for k in ("patches", "frames"):
+            if k in batch:
+                batch[k] = batch[k].to(torch.bfloat16)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         _after_step(args, ckpt, mon, step, time.time() - t0,
@@ -292,7 +293,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.arch not in DLRM_CONFIGS:
         try:
             registry.get_arch(args.arch)
-        except (NotImplementedError, KeyError) as e:
+        except KeyError as e:
             p.error(str(e))
         if any(getattr(args, f) for f in DLRM_ONLY):
             p.error("--" + ", --".join(f.replace("_", "-") for f in DLRM_ONLY)

@@ -1,5 +1,7 @@
-"""Model API over the ported LM architectures, the counterpart of the
-reference's ``repro/models/api.py`` on one card:
+"""Model API over the LM architectures, the counterpart of the
+reference's ``repro/models/api.py`` on one card; an encoder-decoder
+config goes to ``models.encdec``, every other one to
+``models.transformer``, as the reference dispatches:
 
     init(generator, cfg, device=None)       -> params
     params_from_numpy(tree, device=None)    -> params
@@ -17,8 +19,7 @@ loss summed over the layers (zero for a dense model), and ``loss``
 adds ``aux_loss_coef`` x aux. Training differentiates ``loss`` with
 autograd: through the flash op, whose backward recomputes through the
 chunked attention. Mesh arguments and the dry-run stand-ins are not
-ported (ROADMAP Queue 1, item 13b); the recurrent and encoder-decoder
-families are item 15c.
+ported (ROADMAP Queue 1, item 13b).
 """
 from __future__ import annotations
 
@@ -31,7 +32,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import optim as optim_lib
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
+
+
+def _impl(cfg: ModelConfig):
+    return encdec if cfg.is_encdec else transformer
 
 
 def _inference(fn):
@@ -47,7 +52,7 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
          device=None) -> Dict:
     """Random params from ``generator`` (on the card unless ``device``
     says otherwise)."""
-    return transformer.init(generator, cfg, device=device)
+    return _impl(cfg).init(generator, cfg, device=device)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -80,24 +85,24 @@ def params_from_numpy(tree: Any, device=None) -> Any:
 
 @_inference
 def forward(params, cfg: ModelConfig, batch):
-    return transformer.forward(params, cfg, batch)
+    return _impl(cfg).forward(params, cfg, batch)
 
 
 @_inference
 def prefill(params, cfg: ModelConfig, batch, max_len: int):
-    return transformer.prefill(params, cfg, batch, max_len)
+    return _impl(cfg).prefill(params, cfg, batch, max_len)
 
 
 @_inference
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """``pos`` an int or a 0-dim tensor (read on the host)."""
-    return transformer.decode_step(params, cfg, cache, tokens, int(pos))
+    return _impl(cfg).decode_step(params, cfg, cache, tokens, int(pos))
 
 
 @_inference
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    return transformer.init_cache(cfg, batch, max_len, dtype, device)
+    return _impl(cfg).init_cache(cfg, batch, max_len, dtype, device)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -117,7 +122,7 @@ def make_decode_fn(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def loss(params, cfg: ModelConfig, batch, remat: bool = True):
-    return transformer.loss_fn(params, cfg, batch, remat=remat)
+    return _impl(cfg).loss_fn(params, cfg, batch, remat=remat)
 
 
 def default_optimizer(cfg: ModelConfig) -> Tuple[str, Any]:

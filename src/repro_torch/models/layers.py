@@ -1,6 +1,6 @@
-"""Transformer building blocks of the dense decoders: norms, RoPE, the
-FFNs and GQA attention, the counterpart of the dense half of the
-reference's ``repro/models/layers.py``.
+"""Transformer building blocks: norms, RoPE, the FFNs, GQA attention and
+cross-attention, the counterpart of the reference's
+``repro/models/layers.py``.
 
 Attention has two full-sequence paths and a decode path:
   * direct: materialises the (S, S) scores, below ``CHUNKED_THRESHOLD``;
@@ -11,7 +11,10 @@ Attention has two full-sequence paths and a decode path:
     through the chunked path, ``_sdpa_chunked``: online softmax over
     (``Q_CHUNK``, ``KV_CHUNK``) blocks, each kv step checkpointed, so the
     gradient is the one ``jax.grad`` takes off the TPU;
-  * decode: one query token against a linear or ring-buffered KV cache.
+  * decode: one query token against a linear or ring-buffered KV cache;
+and the encoder-decoder's cross-attention against the encoder's memory
+(``memory_kv``, ``cross_attention_full``, ``cross_attention_decode``),
+which never takes the kernel.
 
 The reference's sharding constraints (``constrain``, ``head_constrain``)
 are identities on one card and are not carried over (item 13b).
@@ -241,6 +244,69 @@ def attention_full(p, acfg: AttentionConfig, x: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def memory_kv(p, acfg: AttentionConfig, memory: torch.Tensor, d: int):
+    """Cross-attention K/V (B, S_src, KV, hd) from the encoder's output
+    (no RoPE)."""
+    b_, sk, _ = memory.shape
+    hd = acfg.resolved_head_dim(d)
+    kh = acfg.n_kv_heads
+    k = (memory @ p["wk"]).reshape(b_, sk, kh, hd)
+    v = (memory @ p["wv"]).reshape(b_, sk, kh, hd)
+    if acfg.qkv_bias:
+        k = k + p["bk"].reshape(kh, hd)
+        v = v + p["bv"].reshape(kh, hd)
+    return k, v
+
+
+def _cross_q(p, acfg: AttentionConfig, x: torch.Tensor, d: int):
+    """The queries of cross-attention, grouped (B, S, KV, G, hd)."""
+    b_, s, _ = x.shape
+    hd = acfg.resolved_head_dim(d)
+    h, kh = acfg.n_heads, acfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(b_, s, h, hd)
+    if acfg.qkv_bias:
+        q = q + p["bq"].reshape(h, hd)
+    return q.reshape(b_, s, kh, h // kh, hd)
+
+
+def cross_attention_full(p, acfg: AttentionConfig, x: torch.Tensor,
+                         memory_kv, d: int) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) against precomputed memory (K, V),
+    not causal: the chunked path at S >= ``CHUNKED_THRESHOLD`` (its kv
+    blocks a divisor of the memory's length), the direct one below; never
+    the flash kernel, as in the reference (its kernel takes one length
+    for q and k)."""
+    b_, s, _ = x.shape
+    hd = acfg.resolved_head_dim(d)
+    qg = _cross_q(p, acfg, x, d)
+    k, v = memory_kv
+    sk = k.shape[1]
+    qpos = torch.arange(s, device=x.device)
+    kpos = torch.arange(sk, device=x.device)
+    if s >= CHUNKED_THRESHOLD:
+        out = _sdpa_chunked(qg, k, v, qpos, kpos, False, None,
+                            pick_chunk(s, Q_CHUNK), pick_chunk(sk, KV_CHUNK))
+    else:
+        out = _sdpa_direct(qg, k, v, qpos, kpos, False, None)
+    out = out.reshape(b_, s, acfg.n_heads * hd).to(x.dtype)
+    return out @ p["wo"]
+
+
+def cross_attention_decode(p, acfg: AttentionConfig, x: torch.Tensor,
+                           cross_kv, d: int) -> torch.Tensor:
+    """One token's cross-attention against the fixed memory K/V."""
+    b_ = x.shape[0]
+    hd = acfg.resolved_head_dim(d)
+    qg = _cross_q(p, acfg, x, d)
+    k, v = cross_kv
+    out = _sdpa_direct(qg, k, v,
+                       torch.zeros((1,), dtype=torch.int32, device=x.device),
+                       torch.zeros((k.shape[1],), dtype=torch.int32,
+                                   device=x.device), False, None)
+    out = out.reshape(b_, 1, acfg.n_heads * hd).to(x.dtype)
+    return out @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

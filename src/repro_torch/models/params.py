@@ -86,14 +86,21 @@ class Builder:
         return torch.ones(tuple(shape), dtype=dtype or self.dtype,
                           device=self.device)
 
+    def const(self, value: torch.Tensor, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+        """``value`` (computed by the caller, as the reference's
+        ``Builder.const`` takes it) in ``dtype`` on the params' device."""
+        return value.to(dtype=dtype or self.dtype, device=self.device)
+
 
 @dataclass(frozen=True)
 class Leaf:
     """A leaf that ``init_stacked`` has yet to fill."""
     shape: tuple
     dtype: torch.dtype
-    kind: str                          # "normal" | "zeros" | "ones"
+    kind: str                      # "normal" | "zeros" | "ones" | "const"
     scale: Optional[float] = None
+    value: Optional[torch.Tensor] = None   # a "const" leaf's value
 
 
 class _Shapes:
@@ -113,6 +120,10 @@ class _Shapes:
     def ones(self, shape, dtype=None) -> Leaf:
         return Leaf(tuple(shape), dtype or self.dtype, "ones")
 
+    def const(self, value, dtype=None) -> Leaf:
+        return Leaf(tuple(value.shape), dtype or self.dtype, "const",
+                    value=value)
+
 
 def init_stacked(b: Builder, make_block: Callable, n: int):
     """``stack_layers([make_block(b) for _ in range(n)])`` with the same
@@ -127,6 +138,8 @@ def init_stacked(b: Builder, make_block: Callable, n: int):
         for leaf, dst in pairs:
             if leaf.kind == "normal":
                 b.normal_(dst[i], leaf.scale)
+            elif leaf.kind == "const":
+                dst[i].copy_(leaf.value)
             else:
                 dst[i].fill_(1 if leaf.kind == "ones" else 0)
     return out

@@ -1,26 +1,31 @@
-"""Decoder-only model assembly for the attention-family decoders, the
-``decoder`` and ``vlm`` families of the reference's
-``repro/models/transformer.py``: GQA or multi-head latent attention
-(MLA), a dense FFN or a fixed-capacity MoE (with arctic's dense residual
-branch beside it), and the vision prefix (precomputed patch embeddings
-prepended to the tokens).
+"""Decoder-only model assembly for the reference's four decoder
+families (``repro/models/transformer.py``): ``decoder`` and ``vlm`` (GQA
+or multi-head latent attention (MLA), a dense FFN or a fixed-capacity
+MoE with arctic's dense residual branch beside it, and the vision
+prefix: precomputed patch embeddings before the tokens), ``ssm`` (RWKV-6
+time-mix and channel-mix blocks, attention-free) and ``hybrid``
+(RecurrentGemma's RG-LRU recurrent blocks and local attention blocks in
+the config's ``block_pattern``).
 
 Parameters keep the reference's tree: ``"embed"`` (padded vocab, D),
-``"layers"`` with every leaf stacked over the layers (L, ...),
-``"ln_f"`` and, untied, ``"unembed"``; the decode cache is
-``{"layers": {"k", "v", "slot_pos"}}`` (MLA: ``{"c_kv", "k_rope",
-"slot_pos"}``), stacked the same way. The reference scans the stacked
-layers with ``lax.scan``; here a Python loop indexes them. Training
-(``loss_fn``) runs ``forward`` with each layer under
-``torch.utils.checkpoint`` when ``remat``, as the reference's
-``jax.checkpoint`` of the scan body: a layer's activations are
-recomputed in the backward, so its attention forward runs twice. The
-recurrent, hybrid and encoder-decoder families are ROADMAP Queue 1, item
-15c.
+``"layers"`` with every leaf stacked over the layers (L, ...) (the
+hybrid: ``"groups"`` stacked over the pattern's whole groups, each group
+``{"b0", "b1", ...}`` one block a pattern entry, and ``"tail"`` a list of
+the blocks left over), ``"ln_f"`` and, untied, ``"unembed"``. The decode
+cache has the same shape: ``{"layers": {"k", "v", "slot_pos"}}`` (MLA:
+``{"c_kv", "k_rope", "slot_pos"}``; RWKV: ``{"tm": {"x_prev", "S"},
+"cm": {"x_prev"}}``), the hybrid's ``{"groups", "tail"}`` with a
+recurrent block's ``{"h", "conv"}`` beside the attention caches (a ring
+of ``window`` slots when the cache is longer). The reference scans the
+stacked layers with ``lax.scan``; here a Python loop indexes them.
+Training (``loss_fn``) runs ``forward`` with each layer (a hybrid's
+group) under ``torch.utils.checkpoint`` when ``remat``, as the
+reference's ``jax.checkpoint`` of the scan body. The encoder-decoder
+family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,19 +33,23 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import embedding as emb
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mla, moe, rglru, rwkv6
 from repro_torch.models.params import Builder, init_stacked, stack_layers
+
+# the reference's decoder families (encdec is models/encdec.py)
+FAMILIES = ("decoder", "vlm", "ssm", "hybrid")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not have yet."""
-    if (cfg.family not in ("decoder", "vlm")
-            or cfg.attention.kind not in ("gqa", "mla")):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}, attention "
-            f"{cfg.attention.kind!r} is not ported yet; the port has the "
-            "decoder and vlm families with GQA or MLA, dense or MoE "
-            "(ROADMAP Queue 1, item 15c)")
+    """Refuse what the reference's transformer refuses: a family other
+    than its four, and an attention block without GQA or MLA."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} is not a decoder family "
+            f"{FAMILIES}; the encoder-decoder goes through models.encdec")
+    if cfg.family != "ssm" and cfg.attention.kind not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.name}: attention {cfg.attention.kind!r} in "
+                         f"a {cfg.family} model; it takes gqa or mla")
 
 
 def _layer(tree, i: int):
@@ -64,6 +73,19 @@ def n_layers(params) -> int:
     return params["layers"]["ln1"]["w"].shape[0]
 
 
+def n_groups(params) -> int:
+    return params["groups"]["b0"]["ln1"]["w"].shape[0]
+
+
+def _write(dst, src) -> None:
+    """Copy a state tree into the cache's tensors in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -85,19 +107,59 @@ def _init_attn_block(b: Builder, cfg: ModelConfig):
     return p
 
 
+def _init_rwkv_block(b: Builder, cfg: ModelConfig):
+    return {"ln1": layers.init_norm(b, cfg.d_model, cfg.norm),
+            "tm": rwkv6.init_time_mix(b, cfg.rwkv, cfg.d_model),
+            "ln2": layers.init_norm(b, cfg.d_model, cfg.norm),
+            "cm": rwkv6.init_channel_mix(b, cfg.d_model, cfg.d_ff)}
+
+
+def _init_rec_block(b: Builder, cfg: ModelConfig):
+    return {"ln1": layers.init_norm(b, cfg.d_model, cfg.norm),
+            "rec": rglru.init_rec(b, cfg.rglru, cfg.d_model),
+            "ln2": layers.init_norm(b, cfg.d_model, cfg.norm),
+            "mlp": layers.init_mlp(b, cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+def _init_block(b: Builder, cfg: ModelConfig, kind: str):
+    return (_init_rec_block(b, cfg) if kind == "rec"
+            else _init_attn_block(b, cfg))
+
+
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(whole groups, the tail's kinds) of the block pattern over
+    n_layers: recurrentgemma-9b's 38 layers are 12 (rec, rec, attn)
+    groups and a tail of (rec, rec)."""
+    pat = cfg.rglru.block_pattern
+    groups = cfg.n_layers // len(pat)
+    return groups, tuple(pat[i] for i in range(cfg.n_layers
+                                               - groups * len(pat)))
+
+
 def init(generator: torch.Generator, cfg: ModelConfig, *,
          device=None) -> Dict:
     """Random params from ``generator`` on the card unless ``device`` says
-    otherwise; norm weights and the MoE router fp32, every other leaf
-    ``cfg.dtype``. Each stacked leaf is allocated once and filled layer
-    by layer (``params.init_stacked``)."""
+    otherwise; norm weights, the MoE router and the recurrent blocks'
+    Lambda and decay base fp32, every other leaf ``cfg.dtype``. Each
+    stacked leaf is allocated once and filled layer (group) by layer
+    (``params.init_stacked``); a hybrid's tail blocks follow its
+    groups, as the reference draws them."""
     check_ported(cfg)
     b = Builder(generator, dtype=getattr(torch, cfg.dtype),
                 device=resolve_device(device))
-    tree = {"embed": emb.init_table(b, cfg.vocab_size, cfg.d_model),
-            "layers": init_stacked(b, lambda bb: _init_attn_block(bb, cfg),
-                                   cfg.n_layers),
-            "ln_f": layers.init_norm(b, cfg.d_model, cfg.norm)}
+    tree = {"embed": emb.init_table(b, cfg.vocab_size, cfg.d_model)}
+    if cfg.family == "hybrid":
+        groups, tail = _hybrid_layout(cfg)
+        pat = cfg.rglru.block_pattern
+        tree["groups"] = init_stacked(
+            b, lambda bb: {f"b{j}": _init_block(bb, cfg, kind)
+                           for j, kind in enumerate(pat)}, groups)
+        tree["tail"] = [_init_block(b, cfg, kind) for kind in tail]
+    else:
+        make = _init_rwkv_block if cfg.family == "ssm" else _init_attn_block
+        tree["layers"] = init_stacked(b, lambda bb: make(bb, cfg),
+                                      cfg.n_layers)
+    tree["ln_f"] = layers.init_norm(b, cfg.d_model, cfg.norm)
     if not cfg.tie_embeddings:
         tree["unembed"] = emb.init_unembed(b, cfg.vocab_size, cfg.d_model)
     return tree
@@ -146,24 +208,75 @@ def _head(params, cfg: ModelConfig, x):
     return emb.lm_head_untied(x, params["unembed"], cfg.vocab_size)
 
 
+def _rwkv_block_full(p, cfg: ModelConfig, x, state=None,
+                     chunked: bool = False):
+    """One RWKV block from ``state`` (None: zeros) -> (x, its new
+    state)."""
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    a, tm = rwkv6.time_mix_full(p["tm"], cfg.rwkv, h,
+                                None if state is None else state["tm"],
+                                chunked=chunked)
+    x = x + a
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    y, cm = rwkv6.channel_mix_full(p["cm"], h,
+                                   None if state is None else state["cm"])
+    return x + y, {"tm": tm, "cm": cm}
+
+
+def _rec_block_full(p, cfg: ModelConfig, x):
+    """One RG-LRU block from a zero state -> (x, its final state)."""
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    a, state = rglru.rec_full(p["rec"], cfg.rglru, h)
+    x = x + a
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act), state
+
+
+def _block_full(p, cfg: ModelConfig, kind: str, x, positions):
+    """A hybrid model's block of ``kind`` ("rec" or "attn") -> x."""
+    if kind == "rec":
+        return _rec_block_full(p, cfg, x)[0]
+    return _attn_block_full(p, cfg, x, positions)[0]
+
+
+def _group_full(p_g, cfg: ModelConfig, x, positions):
+    for j, kind in enumerate(cfg.rglru.block_pattern):
+        x = _block_full(p_g[f"b{j}"], cfg, kind, x, positions)
+    return x
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            remat: bool = True):
+            remat: bool = True, rwkv_chunked: bool = True):
     """Teacher-forced forward -> (logits (B, S, Vpad) f32, aux: the MoE
     load-balance losses summed over the layers, a 0-dim fp32 tensor,
-    zero for a dense model). With ``remat`` and autograd recording, each
-    layer runs under ``torch.utils.checkpoint``."""
+    zero for a model without a MoE). With ``remat`` and autograd
+    recording, each layer (a hybrid's group) runs under
+    ``torch.utils.checkpoint``; a hybrid's tail blocks run as they are,
+    as the reference unrolls them. An RWKV model takes the chunked WKV
+    where its chunk divides S, unless ``rwkv_chunked`` is False."""
     check_ported(cfg)
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p_l in _unstack(params["layers"], n_layers(params)):
+
+    def run(fn, *args):
         if remat:
-            x, a = checkpoint(_attn_block_full, p_l, cfg, x, positions,
-                              use_reentrant=False)
-        else:
-            x, a = _attn_block_full(p_l, cfg, x, positions)
-        aux = aux + a
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for p_l in _unstack(params["layers"], n_layers(params)):
+            x, _ = run(_rwkv_block_full, p_l, cfg, x, None, rwkv_chunked)
+    elif cfg.family == "hybrid":
+        for p_g in _unstack(params["groups"], n_groups(params)):
+            x = run(_group_full, p_g, cfg, x, positions)
+        for p_t, kind in zip(params["tail"], _hybrid_layout(cfg)[1]):
+            x = _block_full(p_t, cfg, kind, x, positions)
+    else:
+        for p_l in _unstack(params["layers"], n_layers(params)):
+            x, a = run(_attn_block_full, p_l, cfg, x, positions)
+            aux = aux + a
     return _head(params, cfg, x), aux
 
 
@@ -214,40 +327,98 @@ def _attn_block_prefill(p, cfg: ModelConfig, x, positions, max_len,
     return x + y, entry
 
 
+def _block_prefill(p, cfg: ModelConfig, kind: str, x, positions, max_len,
+                   dtype):
+    """A hybrid model's block -> (x, its cache entry)."""
+    if kind == "rec":
+        return _rec_block_full(p, cfg, x)
+    return _attn_block_prefill(p, cfg, x, positions, max_len, dtype)
+
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_len: int, dtype=torch.bfloat16):
     """Run the prompt (a ``vlm`` model's patches, then its tokens)
-    through the model, building the decode cache.
+    through the model, building the decode cache: each attention layer's
+    K/V, each recurrent block's final state (an RWKV model's through the
+    chunked WKV where its chunk divides S).
 
     Returns (last-position logits (B, Vpad) f32, cache tree)."""
     check_ported(cfg)
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    entries = []
-    for i in range(n_layers(params)):
-        x, entry = _attn_block_prefill(_layer(params["layers"], i), cfg, x,
-                                       positions, max_len, dtype)
-        entries.append(entry)
+    if cfg.family == "hybrid":
+        pat = cfg.rglru.block_pattern
+        groups = []
+        for g in range(n_groups(params)):
+            p_g, entry = _layer(params["groups"], g), {}
+            for j, kind in enumerate(pat):
+                x, entry[f"b{j}"] = _block_prefill(
+                    p_g[f"b{j}"], cfg, kind, x, positions, max_len, dtype)
+            groups.append(entry)
+        tail = []
+        for p_t, kind in zip(params["tail"], _hybrid_layout(cfg)[1]):
+            x, entry = _block_prefill(p_t, cfg, kind, x, positions, max_len,
+                                      dtype)
+            tail.append(entry)
+        cache = {"groups": stack_layers(groups), "tail": tail}
+    else:
+        entries = []
+        for i in range(n_layers(params)):
+            p_l = _layer(params["layers"], i)
+            if cfg.family == "ssm":
+                x, entry = _rwkv_block_full(p_l, cfg, x, chunked=True)
+            else:
+                x, entry = _attn_block_prefill(p_l, cfg, x, positions,
+                                               max_len, dtype)
+            entries.append(entry)
+        cache = {"layers": stack_layers(entries)}
     logits = _head(params, cfg, x[:, -1:])
-    return logits[:, 0], {"layers": stack_layers(entries)}
+    return logits[:, 0], cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Stacked per-layer cache tree sized for ``max_len`` positions (GQA:
     a ring of ``window`` slots when the window is shorter; MLA: the
-    latent cache)."""
+    latent cache; a recurrent block: its zero state). Attention caches
+    are ``dtype``. A recurrent state is fp32 (RG-LRU's h, RWKV's S) or
+    ``cfg.dtype`` (the token-shift carries, the conv history), the
+    dtypes the reference's decode step gives them; the reference's own
+    init gives the latter ``dtype`` and its first step replaces them,
+    where the port's steps write every state in place."""
     check_ported(cfg)
     device = resolve_device(device)
+    sdtype = getattr(torch, cfg.dtype)
 
-    def one():
+    def one_attn():
         if cfg.attention.kind == "mla":
             return mla.init_mla_cache(cfg.attention, batch, max_len, dtype,
                                       device=device)
         return layers.init_kv_cache(cfg.attention, cfg.d_model, batch,
                                     max_len, dtype, ring=_ring(cfg, max_len),
                                     device=device)
-    return {"layers": stack_layers([one() for _ in range(cfg.n_layers)])}
+
+    def one(kind):
+        if kind == "rec":
+            return rglru.init_rec_state(cfg.rglru, cfg.d_model, batch,
+                                        sdtype, device)
+        if kind == "rwkv":
+            return {"tm": rwkv6.init_tm_state(cfg.rwkv, cfg.d_model, batch,
+                                              sdtype, device),
+                    "cm": rwkv6.init_cm_state(cfg.d_model, batch, sdtype,
+                                              device)}
+        return one_attn()
+
+    if cfg.family == "hybrid":
+        groups, tail = _hybrid_layout(cfg)
+        pat = cfg.rglru.block_pattern
+        return {"groups": stack_layers([
+                    {f"b{j}": one(kind) for j, kind in enumerate(pat)}
+                    for _ in range(groups)]),
+                "tail": [one(kind) for kind in tail]}
+    kind = "rwkv" if cfg.family == "ssm" else "attn"
+    return {"layers": stack_layers([one(kind)
+                                    for _ in range(cfg.n_layers)])}
 
 
 def _attn_block_decode(p, cfg: ModelConfig, x, pos: int, cache):
@@ -260,7 +431,28 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos: int, cache):
                                            cache, cfg.d_model)
     x = x + a
     y, _ = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
-    return x + y, cache
+    return x + y
+
+
+def _rwkv_block_decode(p, cfg: ModelConfig, x, state):
+    x, new = _rwkv_block_full(p, cfg, x, state)
+    _write(state, new)
+    return x
+
+
+def _rec_block_decode(p, cfg: ModelConfig, x, state):
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    a, new = rglru.rec_step(p["rec"], cfg.rglru, h, state)
+    _write(state, new)
+    x = x + a
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act)
+
+
+def _block_decode(p, cfg: ModelConfig, kind: str, x, pos: int, cache):
+    if kind == "rec":
+        return _rec_block_decode(p, cfg, x, cache)
+    return _attn_block_decode(p, cfg, x, pos, cache)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
@@ -269,12 +461,27 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     ``vlm`` model decodes tokens only, as the reference's engine feeds
     them.
 
-    Returns (logits (B, Vpad) f32, cache). The new token's entries go
-    into ``cache``'s tensors in place (the reference returns a new
-    cache); the returned cache is the same tree."""
+    Returns (logits (B, Vpad) f32, cache). The step's attention entries
+    and recurrent states go into ``cache``'s tensors in place (the
+    reference returns a new cache); the returned cache is the same
+    tree."""
     check_ported(cfg)
     x = emb.embed_tokens(params["embed"], tokens[:, None])
-    for i in range(n_layers(params)):
-        x, _ = _attn_block_decode(_layer(params["layers"], i), cfg, x, pos,
-                                  _layer(cache["layers"], i))
+    if cfg.family == "hybrid":
+        pat = cfg.rglru.block_pattern
+        for g in range(n_groups(params)):
+            p_g, c_g = _layer(params["groups"], g), _layer(cache["groups"], g)
+            for j, kind in enumerate(pat):
+                x = _block_decode(p_g[f"b{j}"], cfg, kind, x, pos,
+                                  c_g[f"b{j}"])
+        for p_t, c_t, kind in zip(params["tail"], cache["tail"],
+                                  _hybrid_layout(cfg)[1]):
+            x = _block_decode(p_t, cfg, kind, x, pos, c_t)
+    else:
+        for i in range(n_layers(params)):
+            p_l, c_l = _layer(params["layers"], i), _layer(cache["layers"], i)
+            if cfg.family == "ssm":
+                x = _rwkv_block_decode(p_l, cfg, x, c_l)
+            else:
+                x = _attn_block_decode(p_l, cfg, x, pos, c_l)
     return _head(params, cfg, x)[:, 0], cache

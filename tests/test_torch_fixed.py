@@ -601,8 +601,8 @@ def test_serve_launcher_on_cpu(pipelined):
 
 
 @pytest.mark.parametrize("argv,item", [(["--mesh", "pod"], "item 13"),
-                                       (["--arch", "rwkv6-7b"],
-                                        "item 15")])
+                                       (["--arch", "gpt-2"],
+                                        "unknown arch")])
 def test_serve_launcher_refuses_what_is_not_ported(argv, item, capsys):
     with pytest.raises(SystemExit):
         t_serve.main(["--smoke", "--device", "cpu", *argv])

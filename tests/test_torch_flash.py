@@ -40,7 +40,8 @@ def _close(got: torch.Tensor, want, tol: float):
 
 # the JAX test's grid (tests/test_kernels.py), plus a window that masks
 # whole kv blocks (window 16 with blocks of 32: a q block's earliest kv
-# blocks hold no key of its band)
+# blocks hold no key of its band), and kimi-k2's hd 112 and
+# recurrentgemma-9b's hd 256, with and without a window
 @pytest.mark.parametrize("s,d,causal,window,bq,bk",
                          [(128, 64, True, None, 64, 64),
                           (96, 32, False, None, 32, 32),
@@ -48,7 +49,9 @@ def _close(got: torch.Tensor, want, tol: float):
                           (100, 16, True, None, 64, 64),
                           (128, 16, True, 16, 32, 32),
                           (128, 112, True, None, 64, 64),
-                          (100, 112, True, 32, 64, 32)])
+                          (100, 112, True, 32, 64, 32),
+                          (128, 256, True, 48, 64, 32),
+                          (100, 256, True, None, 64, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas_kernel(s, d, causal, window, bq, bk,
                                                dtype):
@@ -148,7 +151,7 @@ def test_op_refuses_devices_other_than_cpu_and_cuda(op):
     ("int64", "bfloat16"),
     ("float32", "bfloat16"),
     ("d112", "CUDA device"),
-    ("d256", "item 15c"),
+    ("d96", "not instantiated"),
     ("d32", "not instantiated"),
     ("heads", "evenly"),
     ("window", "window"),
@@ -177,12 +180,13 @@ def test_wrapper_guards(case, match):
 
 def test_wrapper_instantiates_every_head_dim_the_configs_reach():
     """Every GQA config's head dim (MLA attends through the chunked path,
-    never the kernel): kimi-k2's 112 with the MoE decoders."""
+    never the kernel; RWKV has no attention): kimi-k2's 112 with the MoE
+    decoders, recurrentgemma-9b's 256 and seamless-m4t's 64."""
     from repro_torch.configs import registry
     dims = {c.attention.resolved_head_dim(c.d_model)
             for table in (registry.ARCHS, registry.SMOKE_ARCHS)
             for c in table.values() if c.attention.kind == "gqa"}
-    assert dims == {16, 20, 64, 80, 112, 128} == set(t_fa.HEAD_DIMS)
+    assert dims == {16, 20, 64, 80, 112, 128, 256} == set(t_fa.HEAD_DIMS)
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +207,7 @@ def _registry_heads():
 
 @pytest.mark.parametrize("d,route,depth", [
     (16, "tma", 16), (20, "pad", 32), (64, "tma", 64), (80, "tma", 80),
-    (112, "pad", 128), (128, "tma", 128)])
+    (112, "pad", 128), (128, "tma", 128), (256, "tma", 256)])
 def test_route_and_depth_per_head_dim(d, route, depth):
     """hd 20 is padded to 32 (its 40-byte head stride breaks TMA's rule)
     and hd 112 to 128 (as itself it would take a third panel): the
@@ -223,7 +227,7 @@ def test_tma_stride_rule_holds_for_every_registry_config(hd, h, kh):
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 512)])
-@pytest.mark.parametrize("d", [16, 20, 64, 80, 112, 128])
+@pytest.mark.parametrize("d", [16, 20, 64, 80, 112, 128, 256])
 def test_c_entry_scalars_per_head_dim(d, causal, window):
     """The C entry runs at the padded depth, stores the true head dim's
     columns and scales by the true head dim (hd 20: 20**-0.5, not
@@ -240,7 +244,7 @@ def test_launch_error_names_the_failing_call():
     assert "failed to launch" in t_fa.launch_error(1)
 
 
-@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_wrapper_refuses_inputs_off_tma_alignment(which, d):
     """TMA reads 16-byte aligned addresses: a view two bytes into its

@@ -458,9 +458,16 @@ def test_lm_synthetic_equals_reference(arch, smoke):
 
 
 def test_lm_synthetic_refuses_unported_inputs():
+    """No input is unported any more: the family alone decides a
+    batch's form, so a config made an encoder-decoder gets frames of
+    ``enc_memory_len`` before its tokens, equal to the reference's."""
     cfg = registry.get_smoke("smollm-360m").replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        LMSynthetic(cfg).batch(1, 8)
+    j_cfg = j_registry.get_smoke("smollm-360m").replace(family="encdec")
+    got, want = LMSynthetic(cfg).batch(1, 8), JLMSynthetic(j_cfg).batch(1, 8)
+    assert got.keys() == want.keys() == {"frames", "tokens"}
+    assert got["frames"].shape == (1, cfg.enc_memory_len, cfg.d_model)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 def _gen(n):
@@ -562,7 +569,7 @@ def test_launcher_main_runs_an_lm_and_refuses_the_rest():
                              "--seq-len", "16"])
     assert np.isfinite(loss)
     assert out.getvalue().splitlines()[-1] == f"final loss {loss:.4f}"
-    for argv in (["--arch", "rwkv6-7b"], ["--arch", "gpt-2"],
+    for argv in (["--arch", "rwkv6-7b", "--ragged"], ["--arch", "gpt-2"],
                  ["--arch", "smollm-360m", "--ragged"]):
         with pytest.raises(SystemExit):
             t_train.main(argv + ["--smoke", "--device", "cpu"])
