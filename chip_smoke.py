@@ -288,15 +288,15 @@ forward. Each serving phase zeroes the counts just before its engine's
    (bf16 and fp32) from copies of the card's params: loss, grad norm and
    every leaf's clipped gradient and update within twice the CPU bf16
    step's own error against the fp32 step (budgets printed). (c) The main
-   path: the model at full width, 16 of its 32 layers (the depth cut
+   path: the model at full width, 4 of its 32 layers (the depth cut
    keeps the whole script within its time limit),
    ``layerwise(adamw(3e-4))``, grad clip 1.0, fed by a ``Prefetcher`` of
    ``LMSynthetic`` batches placed on the card by ``make_placer``: 3 timed
    steps and a profiled one at 2,048 x 4 and at 4,096 x 2 in two
-   micro-batches, each step launching the flash kernel 2 x 16 times a
+   micro-batches, each step launching the flash kernel 2 x 4 times a
    micro-batch (forward and remat) and nothing else of the port, losses
    finite, every param moved; a gradient pass with remat off launches it
-   16 times and gives the first step's loss bit for bit; step ms (CUDA events), tokens/s, peak memory, kernels, device ms
+   4 times and gives the first step's loss bit for bit; step ms (CUDA events), tokens/s, peak memory, kernels, device ms
    by group (flash forward, the backward's recompute, matmul, other) and
    the idle share. (d) The training launcher at full width (``--arch
    smollm-360m --seq-len 2048``): 3 steps uninterrupted against 2 steps
@@ -344,8 +344,9 @@ forward. Each serving phase zeroes the counts just before its engine's
    4096 (timed as in 10(a), with the three padding copies' device time
    beside the kernel's) and at S = 100 and 2049, within 10(a)'s bound;
    (b) kimi-k2-1t-a32b (d 7168, 384 experts of 2048, top-8, vocab
-   163,840 untied; seeded weights) at the most layers whose params and
-   prefill fit the card (2, else 1; printed): ``api.prefill`` at 2,048
+   163,840 untied; seeded weights) at 1 layer (the depth cuts of 17
+   keep the whole script within its time limit):
+   ``api.prefill`` at 2,048
    launches the kernel once a layer and nothing else, gives finite
    logits, and its tokens/s, peak memory, device time by group (flash,
    matmul, the indexing of the MoE's dispatch and combine, other), the
@@ -356,18 +357,20 @@ forward. Each serving phase zeroes the counts just before its engine's
    where it cannot), each with its routing flips and drops counted; a
    ``DecodeEngine`` serves 8 requests (10(d)'s waves), with the expert
    bytes a decode step reads against the HBM rate; (c) 16 of kimi's
-   experts (top-8 kept), 2 layers: a 2,048-token prefill and a decode
+   experts (top-8 kept), 1 layer (the depth cut keeps the whole script
+   within its time limit): a 2,048-token prefill and a decode
    after 2,047 on the card (the hd-112 kernel) against the CPU path's
    fp32 logits within twice the CPU bf16 path's own error, and the
    card's routing flips against the CPU fp32 path's at most twice the
    CPU bf16 path's plus 1% of the (token, layer) pairs; (d) arctic-480b
-   (128 experts of 4864, top-2, beside its dense residual FFN), 2
-   layers: (b)'s prefill, laws and engine; (e) minicpm3-4b at 24 of
+   (128 experts of 4864, top-2, beside its dense residual FFN), 1
+   layer: (b)'s prefill, laws and engine, and (c)'s check on 16 of its
+   experts; (e) minicpm3-4b at 6 of
    its 62 layers (MLA, which runs no kernel: the chunked path at 2,048;
    the depth cut keeps the whole script within its time limit):
    (b)'s prefill, laws and engine, layer 0's absorbed decode against
    naive in fp32 at full width (1e-3, the reference's test), and (c)'s
-   check at 2 layers; (f) internvl2-2b whole (24 layers): 256 patch
+   check at 2 layers; (f) internvl2-2b at 12 of 24 layers: 256 patch
    embeddings and 1,792 tokens (the flash kernel at hd 128 once a
    layer), (b)'s checks and (c)'s at 2 layers; (g) the serve launcher
    with ``--arch minicpm3-4b`` at full width. The launch counts are
@@ -380,9 +383,11 @@ forward. Each serving phase zeroes the counts just before its engine's
    100 and 2049, and at seamless-m4t's encoder, 16/16 heads of 64 not
    causal at its 3,200 frames (timed), each within 10(a)'s bound with
    two launches equal; ptxas's report for depth 256, which must show no
-   spills; (b) recurrentgemma-9b whole (38 layers: 12 (rec, rec, attn)
-   groups and a tail of (rec, rec); seeded weights): ``api.prefill`` at
-   2,048 and 4,096 launches the kernel once an attention layer (12) and
+   spills; (b) recurrentgemma-9b at 14 of its 38 layers (4 (rec, rec,
+   attn) groups and the tail of (rec, rec), the whole model's shape; the
+   depth cuts of (b), (d) and (e) keep the whole script within its time
+   limit; seeded weights): ``api.prefill`` at 2,048 and 4,096 launches
+   the kernel once an attention layer (4) and
    nothing else, gives finite logits, and its tokens/s, peak memory,
    device time by group (flash, matmul, the RG-LRU scan's span, other)
    and the idle share are printed; prefill against the forward at 4,096
@@ -393,19 +398,54 @@ forward. Each serving phase zeroes the counts just before its engine's
    waves), ms and launches a step printed; (c) its first group (3
    layers), a 2,048-token prefill and decode after 2,047 on the card
    against the CPU path's fp32 logits within twice the CPU bf16 path's
-   own error; (d) rwkv6-7b whole (32 layers): (b)'s checks at 2,048
+   own error; (d) rwkv6-7b at 8 of its 32 layers: (b)'s checks at 2,048
    (the prefill through the chunked WKV, whose span is its own group;
    decode after 2,047 tokens, whose prefill takes the sequential form)
-   and (c)'s at 2 layers; (e) seamless-m4t-large-v2 whole (24 + 24
-   layers, 3,200 frames): the prefill at 2,048 tokens launches the
-   kernel 24 times not causal (the encoder) and 24 times causal (the
+   and (c)'s at 2 layers; (e) seamless-m4t-large-v2 at 12 + 12 of its
+   24 + 24 layers (3,200 frames): the prefill at 2,048 tokens launches
+   the kernel 12 times not causal (the encoder) and 12 times causal (the
    decoder's self-attention), cross-attention taking the chunked path;
    (b)'s laws with the real memory, its engine (zero cross K/V, as the
    reference's engine serves), and (c)'s check at 2 + 2 layers; (f) the
    serve launcher with ``--arch seamless-m4t-large-v2`` at full width.
    The launch counts are zeroed before and read after each counted
    prefill of (b), (d) and (e).
-19. Report: one JSON line of the kernels, then the device line, which is
+19. LM training of the seven families at full width, in the order (a),
+   (c), then (b) beside (d): (a) the flash op's backward (the recompute
+   through ``_sdpa_chunked``) at kimi-k2's 64/8 heads of 112, arctic's
+   56/8 and internvl2's 16/8 of 128, recurrentgemma's 16/1 of 256 with
+   its window of 2,048 at 2,048 and 4,096, seamless's encoder not causal
+   at 3,200 and its decoder causal at 2,048: gradients equal bit for bit
+   to autograd through ``_sdpa_chunked``, two passes equal, the forward
+   within 10(a)'s bound, times beside SDPA's forward + backward and the
+   bound; (c) timed steps at 2,048 tokens, through a ``Prefetcher`` of
+   ``LMSynthetic`` batches, cfg's default optimizer (Adafactor for
+   kimi-k2 and arctic, AdamW for the rest), clip 1.0: kimi-k2 and arctic
+   at one layer with the largest power-of-two expert count whose
+   reckoned peak leaves 10 GB free (``moe_fit``), minicpm3-4b at 6
+   layers, internvl2-2b at 12 (256 patches + 1,792 tokens),
+   recurrentgemma-9b at 12, rwkv6-7b at 4, seamless at 4 + 4 (3,200
+   frames), and arctic at one layer and 16 experts, batch 2 in two
+   micro-batches: step ms (a warm step), tokens/s, peak memory (a MoE's
+   beside its reckoning), flash launches a step (2 an attention layer a
+   micro-batch) against the counter and the trace's records, device ms
+   by group (the recurrence's span its own) and the idle share, every
+   leaf moved (but one that bf16 rounding provably freezes); kimi's
+   remat-off gradient pass equal to its first step's loss and grad norm
+   bit for bit; the scan's and the WKV's backward timed alone; (b) one
+   train step a family at full width and one layer (recurrentgemma's
+   first group, seamless 1 + 1; kimi's and arctic's experts cut to 16),
+   256 tokens of the loss, batch 1, on the card in bf16, on the CPU path
+   in bf16 (in a thread beside (d)) and in fp32 on the card (the floor's
+   reference): loss, grad norm and each leaf's gradient and update within
+   twice the CPU bf16 step's own error (``update_floor``), the bf16
+   paths' experts pinned to the fp32 path's layer by layer through the
+   checkpoint's recompute (``layer_routes``), their own flips within
+   17's budget; (d) the training launcher with ``--arch
+   seamless-m4t-large-v2`` at full width: 2 steps against 1 with a
+   checkpoint and a ``--resume`` of the last, bit for bit. The launch
+   counts are zeroed before each run of (c) and (d).
+20. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -422,6 +462,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -5706,10 +5747,11 @@ LM_TRAIN_RUNS = ((2048, 4, 1), (4096, 2, 2))   # 15(c): (S, batch, micro-
 LM_TRAIN_STEPS = 3                 # batches); timed steps of each, then one
                                    # profiled step
 LM_TRAIN_CLIP = 1.0
-# 15(c) trains smollm-360m at 16 of its 32 layers (full width): whole,
+# 15(c) trains smollm-360m at 4 of its 32 layers (full width): whole,
 # 15(c) took 137 s of "final29b"'s 878 (the 4,096 x 2 steps host-bound
-# by ~120k launches a step), and the script grows with phase 18
-LM_TRAIN_LAYERS = 16
+# by ~120k launches a step); at 16 layers 53 s of "final30"'s 762, and
+# the script grows with phases 18 and 19
+LM_TRAIN_LAYERS = 4
 LM_LAUNCH_S = 2048                 # 15(d): the launcher's sequences, batch 1
 LM_LAUNCH_STEPS = 3
 # 15(b): card against the CPU path, one train step of 2 layers at full
@@ -5739,70 +5781,89 @@ def flash_backward_bound(b, s, h, kh, d, causal, window):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_flash_backward(gen) -> tuple:
-    """15(a): the op's backward (the recompute through the chunked path)
-    at smollm-360m's heads, causal, at each of LM_BWD_S: equal bit for
-    bit to autograd through ``layers._sdpa_chunked`` on the same inputs
-    and upstream gradient, two backward passes equal, the forward within
+LM_BWD_SHAPES = tuple(("smollm-360m", 1, s, 15, 5, 64, True, None)
+                      for s in LM_BWD_S)
+
+
+def check_flash_backward(gen, shapes=LM_BWD_SHAPES, trials: int = 5) -> tuple:
+    """15(a), 19(a): the op's backward (the recompute through the chunked
+    path) at each of ``shapes`` ((what, B, S, H, KH, hd, causal,
+    window), phase 10's form): equal bit for bit to autograd through
+    ``layers._sdpa_chunked`` at the op's chunks on the same inputs and
+    upstream gradient, two backward passes equal, the forward within
     phase 10's tolerance of the plain version; times of the backward, of
     the op's forward + backward, and of F.scaled_dot_product_attention's
-    forward + backward (a yardstick the port never calls)."""
+    forward + backward (a yardstick the port never calls, on kv heads
+    repeated before the timing; with a window shorter than S it takes an
+    explicit band mask)."""
     name = "flash_attention"
     errs, rows = [], []
-    b, h, kh, d = 1, 15, 5, 64
-    for s in LM_BWD_S:
+    for what, b, s, h, kh, d, causal, window in shapes:
         q = torch.randn((b, s, h, d), generator=gen,
                         device="cuda").bfloat16().requires_grad_()
         k, v = (torch.randn((b, s, kh, d), generator=gen,
                             device="cuda").bfloat16().requires_grad_()
                 for _ in range(2))
         g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        blk = 512 if any(s % c == 0 for c in range(64, 513)) else s
+
+        def op():
+            return ops.flash_attention_gqa(q, k, v, causal=causal,
+                                           window=window)
         with uncounted():
-            out = ops.flash_attention_gqa(q, k, v)
+            out = op()
             errs.append(compare(name, out.detach(), ref.flash_attention_gqa(
-                q.detach(), k.detach(), v.detach(), bq=512, bk=512),
-                f"forward before backward, S = {s}"))
+                q.detach(), k.detach(), v.detach(), causal=causal,
+                window=window, bq=blk, bk=blk),
+                f"forward before backward, {what}, S = {s}"))
             got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
-            again = torch.autograd.grad(ops.flash_attention_gqa(q, k, v),
-                                        (q, k, v), g)
+            again = torch.autograd.grad(op(), (q, k, v), g)
         pos = torch.arange(s, device="cuda")
-        c = lm_layers.pick_chunk(s, lm_layers.Q_CHUNK)
-        chunked = lm_layers._sdpa_chunked(q.reshape(b, s, kh, h // kh, d), k,
-                                          v, pos, pos, True, None, c, c)
+        chunked = lm_layers._sdpa_chunked(
+            q.reshape(b, s, kh, h // kh, d), k, v, pos, pos, causal, window,
+            lm_layers.pick_chunk(s, lm_layers.Q_CHUNK),
+            lm_layers.pick_chunk(s, lm_layers.KV_CHUNK))
         want = torch.autograd.grad(chunked.reshape(b, s, h, d), (q, k, v), g)
         torch.cuda.synchronize()
-        for what, x, y, z in zip("qkv", got, again, want):
+        for which, x, y, z in zip("qkv", got, again, want):
             if not torch.equal(x, z):
-                fail(f"{name} backward S = {s}: d{what} differs from "
-                     f"autograd through _sdpa_chunked by "
+                fail(f"{name} backward {what}, S = {s}: d{which} differs "
+                     f"from autograd through _sdpa_chunked by "
                      f"{float((x.float() - z.float()).abs().max())}")
             if not torch.equal(x, y):
-                fail(f"{name} backward S = {s}: two backward passes differ "
-                     f"in d{what}")
+                fail(f"{name} backward {what}, S = {s}: two backward passes "
+                     f"differ in d{which}")
+        del got, again, want, chunked
         qt = q.detach().transpose(1, 2).requires_grad_()
         kt, vt = (t.detach().transpose(1, 2).repeat_interleave(h // kh, 1)
                   .requires_grad_() for t in (k, v))
         gt = g.transpose(1, 2)
+        mask = None
+        if causal and window is not None and s > window:
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
 
         def backward():
             return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
 
         def forward_backward():
-            return torch.autograd.grad(ops.flash_attention_gqa(q, k, v),
-                                       (q, k, v), g)
+            return torch.autograd.grad(op(), (q, k, v), g)
 
         def library():
             return torch.autograd.grad(F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), (qt, kt, vt), gt)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None), (qt, kt, vt), gt)
 
         with uncounted():
-            bound_ms, by = flash_backward_bound(b, s, h, kh, d, True, None)
-            fwd_ms, _ = flash_bound(b, s, h, kh, d, True, None)
-            row = {"shape": [b, s, h, kh, d], "causal": True,
-                   "ms": time_ms(backward, reps=2, trials=5),
+            bound_ms, by = flash_backward_bound(b, s, h, kh, d, causal,
+                                                window)
+            fwd_ms, _ = flash_bound(b, s, h, kh, d, causal, window)
+            row = {"what": what, "shape": [b, s, h, kh, d], "causal": causal,
+                   "window": window,
+                   "ms": time_ms(backward, reps=2, trials=trials),
                    "device_ms": device_ms(backward, reps=2),
                    "forward_backward_ms": time_ms(forward_backward, reps=2,
-                                                  trials=5),
+                                                  trials=trials),
                    "forward_backward_device_ms": device_ms(forward_backward,
                                                            reps=2),
                    "library_ms": time_ms(library, reps=10, trials=10),
@@ -5812,15 +5873,16 @@ def check_flash_backward(gen) -> tuple:
                    "bit_equal_to_chunked_autograd": True,
                    "deterministic": True}
         rows.append(row)
-        print(f"  {name} backward (recompute) S = {s}, {b}x{s}x{h}/{kh}x{d}: "
-              f"{row['ms']:.3f} ms ({_fmt(row['device_ms'])} device); "
-              f"forward + backward {row['forward_backward_ms']:.3f} "
+        print(f"  {name} backward (recompute) {what}, S = {s}, "
+              f"{b}x{s}x{h}/{kh}x{d}: {row['ms']:.3f} ms "
+              f"({_fmt(row['device_ms'])} device); forward + backward "
+              f"{row['forward_backward_ms']:.3f} "
               f"({_fmt(row['forward_backward_device_ms'])}); library "
               f"forward + backward {row['library_ms']:.3f} "
               f"({_fmt(row['library_device_ms'])}); bound {bound_ms:.5f} "
               f"({by}), forward + backward {row['forward_backward_bound_ms']:.5f}"
               f"; equal to autograd through _sdpa_chunked, two passes equal")
-        del out, got, again, want, chunked
+        del out, q, k, v, qt, kt, vt
     return max(errs), rows
 
 
@@ -5933,88 +5995,165 @@ def lm_train_card_vs_cpu(cfg) -> dict:
     return out
 
 
-def _train_groups(prof) -> tuple:
+# the kernels a profiled step's trace opens with, under their own span:
+# the profiler can lose a trace's first records ("p19a": 2 flash
+# kernels traced as 1), and
+# these are the ones to lose
+LEAD_IN_SPAN = "trace_lead_in"
+LEAD_IN_KERNELS = 256
+
+
+def _lead_in() -> None:
+    with torch.profiler.record_function(LEAD_IN_SPAN):
+        x = torch.empty(256, device="cuda")
+        for i in range(LEAD_IN_KERNELS):
+            x.fill_(i)
+    torch.cuda.synchronize()
+
+
+def _train_groups(prof, spans=(), group=_lm_group) -> tuple:
     """(device ms by group, kernels) of a profiled train step: the flash
     kernel, the backward's recompute (every kernel launched under
-    ``ops.RECOMPUTE_SPAN``), matmul, copies, other; kernels that the
-    profiler linked to no op are "unlinked"."""
-    groups, inside = {}, {}
-    n = 0
+    ``ops.RECOMPUTE_SPAN``), each of ``spans`` (the kernels launched
+    under that profiler span), then by ``group``'s name: matmul, copies,
+    other. The device's own records give each kernel name's time; the
+    kernels linked to host ops split it among the groups in proportion
+    (a trace can link one launch to more than one op: "p19c" summed
+    1,100 linked ms in a 588 ms step); a name that no op links is
+    "unlinked". The lead-in's kernels (``_lead_in``) are left out."""
+    names = (ops.RECOMPUTE_SPAN, LEAD_IN_SPAN) + tuple(spans)
+    inside, linked = {}, {}
 
-    def recompute(e):
+    def span_of(e):
+        """The outermost of ``names`` that ``e`` runs under, or None."""
         if id(e) not in inside:
             p = e.cpu_parent
-            inside[id(e)] = (e.name == ops.RECOMPUTE_SPAN
-                             or (p is not None and recompute(p)))
+            up = None if p is None else span_of(p)
+            inside[id(e)] = up or (e.name if e.name in names else None)
         return inside[id(e)]
     events = prof.events()
+    lead = 0
     for e in events:
         for k in e.kernels:
-            g = "recompute" if recompute(e) else _lm_group(k.name)
-            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
-            n += g != "copies"
-    # the device's kernels and copies; a span's device-side annotation
-    # covers its kernels and the gaps between them
-    total = sum(e.device_time_total for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation
-                and e.name != ops.RECOMPUTE_SPAN) / 1e3
-    if total > sum(groups.values()):
-        groups["unlinked"] = total - sum(groups.values())
-    return groups, n
+            sp = span_of(e)
+            g = ("recompute" if sp == ops.RECOMPUTE_SPAN
+                 else sp or group(k.name))
+            by = linked.setdefault(k.name, {})
+            by[g] = by.get(g, 0.0) + k.duration / 1e3
+            lead += g == LEAD_IN_SPAN
+    device, n = {}, 0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation and e.name not in names:
+            device[e.name] = device.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
+            n += group(e.name) != "copies"
+    groups = {}
+    for name, ms in device.items():
+        parts = linked.get(name) or {"unlinked": 1.0}
+        total = sum(parts.values())
+        for g, v in parts.items():
+            groups[g] = groups.get(g, 0.0) + ms * v / total
+    groups.pop(LEAD_IN_SPAN, None)
+    return groups, n - lead
+
+
+def _top_kernels(prof, n: int = 6) -> list:
+    """The ``n`` kernel names of most device time in a trace of the card
+    (its device-side records), with their ms."""
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3
+    return [[k[:90], v] for k, v in
+            sorted(by.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def _flash_kernels(prof) -> int:
+    """The flash kernel's records in a trace of the card."""
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "flash_attention_kernel" in e.name)
 
 
 def lm_train_run(cfg, params, opt_state, s: int, b: int, mb: int,
-                 seed: int) -> dict:
-    """LM_TRAIN_STEPS timed steps and one profiled step of ``b`` x ``s``
+                 seed: int, attn_layers=None, spans=(), group=_lm_group,
+                 steps: int = LM_TRAIN_STEPS, takes: int = 1,
+                 warm: int = 0) -> tuple:
+    """``steps`` timed steps and one profiled step of ``b`` x ``s``
     tokens in ``mb`` micro-batches through a Prefetcher of LMSynthetic
-    batches placed on the card: the flash wrapper's launches a step (2 x
-    n_layers a micro-batch under remat, nothing else of the port), the
-    loss finite, step ms (CUDA events), tokens/s, peak memory, kernels and
-    device ms by group a step (profiler), the idle share."""
+    batches placed on the card, cfg's default optimizer, clip 1.0: the
+    flash wrapper's launches a step (2 x ``attn_layers``, the layers that
+    attend through it, a micro-batch under remat, nothing else of the
+    port), the loss finite, step ms (CUDA events), tokens/s, peak memory,
+    kernels and device ms by group a step (profiler; ``spans`` and
+    ``group`` as ``_train_groups`` takes them), the idle share. With
+    ``takes`` > 1 the profiled step is taken again, up to ``takes``
+    times, until the trace holds as many flash kernels as the counter
+    counted (the profiler can lose a trace's records). Step ms is the
+    median of the timed steps after the first ``warm`` (which grow the
+    allocator's pool)."""
     _, _, step = lm_api.make_train_step(cfg, grad_clip=LM_TRAIN_CLIP,
                                         microbatches=mb)
     data = LMSynthetic(cfg, seed=seed)
-    pf = Prefetcher((data.batch(b, s) for _ in range(LM_TRAIN_STEPS + 1)),
+    pf = Prefetcher((data.batch(b, s) for _ in range(steps + takes)),
                     place=make_placer("cuda"))
-    want = 2 * cfg.n_layers * mb
+    want = 2 * (cfg.n_layers if attn_layers is None else attn_layers) * mb
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, losses, norms = [], [], []
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    times, losses, norms, traced = [], [], [], []
+    prof = None
     for i, batch in enumerate(pf):
         before = launch_counts()
-        profiled = i == LM_TRAIN_STEPS
+        profiled = i >= steps
+        if profiled:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with prof if profiled else contextlib.nullcontext():
+            if profiled:
+                _lead_in()
             start.record()
             params, opt_state, m = step(params, opt_state, batch)
             end.record()
             end.synchronize()
         if not profiled:
             times.append(start.elapsed_time(end))
+        else:
+            profiled_ms = start.elapsed_time(end)
         after = launch_counts()
         delta = {n: after[n] - before[n] for n in after}
         if delta["flash_attention"] != want or any(
                 c for n, c in delta.items() if n != "flash_attention"):
-            fail(f"lm train S = {s} x {b}, {mb} micro-batches, step {i}: "
-                 f"launches {delta}, expected flash_attention x {want} only")
+            fail(f"{cfg.name} train S = {s} x {b}, {mb} micro-batches, step "
+                 f"{i}: launches {delta}, expected flash_attention x {want} "
+                 "only")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         if not np.isfinite(losses[-1]) or not np.isfinite(norms[-1]):
-            fail(f"lm train S = {s}: step {i} loss {losses[-1]}, grad norm "
-                 f"{norms[-1]}")
+            fail(f"{cfg.name} train S = {s}: step {i} loss {losses[-1]}, "
+                 f"grad norm {norms[-1]}")
+        if profiled:
+            traced.append(_flash_kernels(prof))
+            if takes > 1 and traced[-1] == want:
+                break
     pf.close()
+    if takes > 1 and traced[-1] != want:
+        fail(f"{cfg.name} train: the profiled steps' traces hold {traced} "
+             f"flash kernels, the counter {want} a step")
     peak = torch.cuda.max_memory_allocated()
-    groups, kernels = _train_groups(prof)
+    groups, kernels = _train_groups(prof, spans, group)
+    top = _top_kernels(prof)
     busy = sum(groups.values()) or None
-    ms = float(np.median(times))
+    ms = float(np.median(times[warm:]))
     out = {"seq_len": s, "batch": b, "microbatches": mb,
            "step_ms": ms, "steps_ms": times, "tokens_per_s": b * s / ms * 1e3,
            "peak_memory_bytes": peak, "launches_per_step": want,
+           "traced_flash_kernels": traced, "profiled_step_ms": profiled_ms,
+           "top_kernels_ms": top,
            "kernels_per_step": kernels, "device_ms": groups,
            "device_busy_ms": busy,
            "device_idle_share": None if busy is None else 1.0 - busy / ms,
@@ -6024,14 +6163,39 @@ def lm_train_run(cfg, params, opt_state, s: int, b: int, mb: int,
     print(f"  train S = {s} x batch {b}, {mb} micro-batch(es): step "
           f"{ms:.1f} ms (steps {[round(t, 1) for t in times]}), "
           f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB, flash_attention x {want} a step, "
-          f"{kernels} kernels in the profiled step; device "
-          f"{_fmt(busy)} ms { {k: round(v, 2) for k, v in groups.items()} }, "
+          f"{peak / 2 ** 30:.2f} GiB, flash_attention x {want} a step "
+          f"(traced {traced}), {kernels} kernels in the profiled step; "
+          f"device {_fmt(busy)} ms "
+          f"{ {k: round(v, 2) for k, v in groups.items()} }, "
           f"idle share {out['device_idle_share']}, recompute share "
           f"{out['recompute_share_of_busy']} of device time; losses "
           f"{[round(x, 4) for x in losses]}, grad norms "
-          f"{[round(x, 4) for x in norms]}")
+          f"{[round(x, 4) for x in norms]}; the profiled step "
+          f"{profiled_ms:.1f} ms")
+    for kname, t in top:
+        print(f"    {t:9.3f} ms  {kname}")
     return out, params, opt_state
+
+
+def remat_off_pass(cfg, params, batch: dict, attn_layers: int) -> tuple:
+    """A gradient pass with remat off over ``batch`` (numpy, placed as the
+    train step's Prefetcher places it): (loss, the train step's grad
+    norm: the same leaves summed in the same order, the flash launches:
+    ``attn_layers``, one a layer that attends through it)."""
+    batch = make_placer("cuda")(batch)
+    reset_counts()
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss_nr = lm_api.loss(leaves, cfg, batch, remat=False)
+    it = iter(torch.autograd.grad(loss_nr, tree_leaves(leaves)))
+    loss_nr = loss_nr.detach()
+    norm_nr = global_norm(tree_map(lambda _: next(it), leaves))
+    del leaves, it
+    torch.cuda.synchronize()
+    n_nr = launch_counts()["flash_attention"]
+    if n_nr != attn_layers:
+        fail(f"{cfg.name} gradient pass with remat off: {n_nr} flash "
+             f"launches, expected {attn_layers}")
+    return loss_nr, norm_nr, n_nr
 
 
 def lm_train_main(cfg) -> dict:
@@ -6042,22 +6206,9 @@ def lm_train_main(cfg) -> dict:
     LM_TRAIN_RUNS through a Prefetcher, every param moved."""
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(16),
                          cfg, device="cuda")
-    first = torch.from_numpy(LMSynthetic(cfg, seed=LM_TRAIN_RUNS[0][0])
-                             .batch(LM_TRAIN_RUNS[0][1],
-                                    LM_TRAIN_RUNS[0][0])["tokens"]).cuda()
-    reset_counts()
-    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss_nr = lm_api.loss(leaves, cfg, {"tokens": first}, remat=False)
-    it = iter(torch.autograd.grad(loss_nr, tree_leaves(leaves)))
-    loss_nr = loss_nr.detach()
-    # the train step's norm: the same leaves summed in the same order
-    norm_nr = global_norm(tree_map(lambda _: next(it), leaves))
-    del leaves, it
-    torch.cuda.synchronize()
-    n_nr = launch_counts()["flash_attention"]
-    if n_nr != cfg.n_layers:
-        fail(f"lm gradient pass with remat off: {n_nr} flash launches, "
-             f"expected {cfg.n_layers}")
+    s0, b0, _ = LM_TRAIN_RUNS[0]
+    loss_nr, norm_nr, n_nr = remat_off_pass(
+        cfg, params, LMSynthetic(cfg, seed=s0).batch(b0, s0), cfg.n_layers)
     start = {p: t.clone() for p, t in tree_paths(params)}
     opt_state = lm_api.default_optimizer(cfg)[1].init(params)
     reset_counts()
@@ -6085,14 +6236,13 @@ def lm_train_main(cfg) -> dict:
                           "grad_norm": float(norm_nr)}}
 
 
-def lm_launcher() -> dict:
-    """15(d): the training launcher at full width, LM_LAUNCH_STEPS steps
+def lm_launcher(arch: str = LM_ARCH, n: int = LM_LAUNCH_STEPS) -> dict:
+    """15(d), 19(d): the training launcher at full width, ``n`` steps
     uninterrupted against a run of all but the last step that saves a
     checkpoint after the step before, and a ``--resume`` run of the last:
     the same final params and optimizer state, bit for bit."""
-    base = ["--arch", LM_ARCH, "--seq-len", str(LM_LAUNCH_S),
+    base = ["--arch", arch, "--seq-len", str(LM_LAUNCH_S),
             "--batch-size", "1", "--log-every", "1"]
-    n = LM_LAUNCH_STEPS
     reset_counts()
     t0 = time.perf_counter()
     loss, want = train_launcher.train_lm(train_launcher.parse_args(
@@ -6109,16 +6259,17 @@ def lm_launcher() -> dict:
             base + ck + ["--steps", str(n), "--resume"]))
         resumed_s = time.perf_counter() - t0
     launches = launch_counts()
-    # 2n steps of one micro-batch, each 2 launches a layer under remat
-    n_layers = registry.get_arch(LM_ARCH).n_layers
-    if launches["flash_attention"] != 2 * n * 2 * n_layers or any(
+    # 2n steps of one micro-batch, each 2 launches an attention layer
+    # under remat
+    n_attn = attention_launches(registry.get_arch(arch), LM_LAUNCH_S)
+    if launches["flash_attention"] != 2 * n * 2 * n_attn or any(
             c for k, c in launches.items() if k != "flash_attention"):
-        fail(f"lm launcher: launches {launches}, expected flash_attention "
-             f"x {2 * n * 2 * n_layers} only")
+        fail(f"{arch} launcher: launches {launches}, expected "
+             f"flash_attention x {2 * n * 2 * n_attn} only")
     same = [torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
             for a, b in zip(tree_leaves(got), tree_leaves(want))]
     if loss2 != loss or not all(same):
-        fail(f"lm launcher: the resumed run's loss {loss2!r} against "
+        fail(f"{arch} launcher: the resumed run's loss {loss2!r} against "
              f"{loss!r}, {same.count(False)} of {len(same)} leaves differ")
     print(f"  launcher {' '.join(base)}: {n} steps in {plain_s:.1f} s; "
           f"{n - 1} steps and a checkpoint in {saved_s:.1f} s; resumed for "
@@ -6705,17 +6856,23 @@ FAM_FLASH_SHAPES = (
 )
 FAM_FLASH_TIMED = 2
 FAM_S = 2048                       # positions of every prefill of phase 17
-FAM_HEADROOM = 8 << 30             # bytes kimi's prefill and forward need
-                                   # beside its params (its fp32 unembed
-                                   # copy alone is 4.7 GB)
 CPU_EXPERTS = 16                   # 17(c), (d): the one cut of kimi-k2's
                                    # and arctic's copies on the CPU
 FAM_CPU_LAYERS = 2                 # depth of every card-against-CPU check
-ARCTIC_LAYERS = 2
-# minicpm3-4b at 24 of its 62 layers: whole, its 17(e) took 113 s of the
+# but kimi's and arctic's cuts, at 1 layer: at 2, their CPU forwards and
+# decodes in two precisions took 109 and 88 s of "final30"'s 762, and
+# phase 19 trains every family beside them
+MOE_CPU_LAYERS = 1
+# kimi-k2 and arctic serve at 1 layer (at 2, 72.8 and 55.4 GB of
+# params, 17(b)-(d) took 140 s of "full31"'s 1,083)
+KIMI_LAYERS = 1
+ARCTIC_LAYERS = 1
+# minicpm3-4b at 12 of its 62 layers: whole, its 17(e) took 113 s of the
 # script's 1,200 ("final29b"), most of it the chunked MLA's host-bound
-# laws and decode steps, which phase 18's three models now need
-MINICPM_LAYERS = 24
+# laws and decode steps; at 24 layers 49 s of "final30"'s 762
+MINICPM_LAYERS = 6
+# internvl2-2b at 12 of its 24 layers (whole: 40.5 s of "full31")
+INTERNVL_LAYERS = 12
 # routing. A token's top-k is decided by the ordering of its router
 # probabilities, and two paths that round differently (the card and the
 # CPU, decode and the forward) can order a near-tie either way. A flip
@@ -6866,15 +7023,22 @@ def fam_batch(cfg, s: int, seed: int, b: int = 1) -> dict:
     return batch
 
 
+def _meta_leaves(cfg) -> list:
+    """cfg's param leaves (shapes, dtypes) from the port's own init on the
+    meta device, nothing drawn."""
+    class _Meta:
+        device = torch.device("meta")
+    inner = lm_params.Builder.normal_
+    lm_params.Builder.normal_ = lambda self, out, scale: out
+    try:
+        return tree_leaves(lm_api.init(_Meta(), cfg, device="meta"))
+    finally:
+        lm_params.Builder.normal_ = inner
+
+
 def _param_bytes(cfg) -> int:
-    """Bytes of cfg's params, from the init's own leaf shapes."""
-    dtype = getattr(torch, cfg.dtype)
-    n = 0
-    for leaf in tree_leaves(lm_transformer._init_attn_block(
-            lm_params._Shapes(dtype), cfg)):
-        n += int(np.prod(leaf.shape)) * leaf.dtype.itemsize * cfg.n_layers
-    v = lm_emb.padded_vocab(cfg.vocab_size) * cfg.d_model
-    return n + v * dtype.itemsize * (1 if cfg.tie_embeddings else 2)
+    """Bytes of cfg's params."""
+    return sum(t.numel() * t.element_size() for t in _meta_leaves(cfg))
 
 
 def _describe(cfg, params) -> None:
@@ -7253,13 +7417,13 @@ def fam_engine(cfg, params) -> dict:
 
 def fam_cut_vs_cpu(arch: str) -> dict:
     """17(c), (d): a MoE model at full width cut to CPU_EXPERTS experts
-    (top-k kept) and FAM_CPU_LAYERS layers, card against the CPU."""
+    (top-k kept) and MOE_CPU_LAYERS layers, card against the CPU."""
     full = registry.get_arch(arch)
     m = full.moe
-    cut = full.replace(n_layers=FAM_CPU_LAYERS, moe=dataclasses.replace(
+    cut = full.replace(n_layers=MOE_CPU_LAYERS, moe=dataclasses.replace(
         m, n_experts=CPU_EXPERTS))
     print(f"  {arch}: {CPU_EXPERTS} of {m.n_experts} experts (top-"
-          f"{m.top_k} kept), {FAM_CPU_LAYERS} layers, against the CPU")
+          f"{m.top_k} kept), {MOE_CPU_LAYERS} layer(s), against the CPU")
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(1), cut,
                          device="cuda")
     out = fam_card_vs_cpu(cut, params, fam_batch(cut, FAM_S, seed=6))
@@ -7269,17 +7433,13 @@ def fam_cut_vs_cpu(arch: str) -> dict:
 
 
 def fam_kimi() -> dict:
-    """17(b) and (c): kimi-k2-1t-a32b at full width, as many layers as
-    its prefill fits (2, else 1); then its cut, card against the CPU."""
+    """17(b) and (c): kimi-k2-1t-a32b at full width and KIMI_LAYERS
+    layers; then its cut, card against the CPU."""
     full = registry.get_arch("kimi-k2-1t-a32b")
-    _free()
-    free, _ = torch.cuda.mem_get_info()
-    depth = 2 if _param_bytes(full.replace(n_layers=2)) + FAM_HEADROOM \
-        <= free else 1
+    depth = KIMI_LAYERS
     cfg = full.replace(n_layers=depth)
     print(f"  depth cut to {depth} of {full.n_layers} layers "
-          f"({_param_bytes(cfg) / 1e9:.1f} GB of params, "
-          f"{free / 1e9:.1f} GB free)")
+          f"({_param_bytes(cfg) / 1e9:.1f} GB of params)")
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
                          device="cuda")
     _describe(cfg, params)
@@ -7378,8 +7538,8 @@ def phase_lm_families(gen) -> tuple:
     print(f"  17(e): minicpm3-4b, {MINICPM_LAYERS} layers")
     minicpm = fam_model("minicpm3-4b", layers=MINICPM_LAYERS)
     seconds["e"] = took("e")
-    print("  17(f): internvl2-2b")
-    internvl = fam_model("internvl2-2b")
+    print(f"  17(f): internvl2-2b, {INTERNVL_LAYERS} layers")
+    internvl = fam_model("internvl2-2b", layers=INTERNVL_LAYERS)
     seconds["f"] = took("f")
     print("  17(g): the serve launcher")
     launcher = serve_launch("minicpm3-4b")
@@ -7422,6 +7582,14 @@ REC_RING_S = 4096                  # 18(b): decode after 4,095 tokens, past
 REC_PROFILE_STEPS = 4              # 18(b, d, e): decode steps profiled
 REC_CPU_LAYERS = 3                 # 18(c): one (rec, rec, attn) group
 RWKV_CPU_LAYERS = 2                # 18(d)
+# 18(b), (d), (e) at cut depths (full width), phase 19 training every
+# family after them: recurrentgemma-9b at 14 of 38 layers (4 groups and
+# the (rec, rec) tail, as whole), rwkv6-7b at 8 of 32, seamless at 12 +
+# 12 of 24 + 24; whole they took 51.3, 52.9 and 21.4 s of "final30"'s
+# 762 (rwkv6-7b's host-bound prefills and sequential-WKV decode)
+REC_LAYERS = 14
+RWKV_LAYERS = 8
+ENCDEC_LAYERS = 12
 ENCDEC_CPU_LAYERS = 2              # 18(e): 2 encoder and 2 decoder layers
 LAUNCH_ARCH = "seamless-m4t-large-v2"  # 18(f)
 
@@ -7593,12 +7761,19 @@ def rec_card_vs_cpu(cfg, params, s: int) -> dict:
 
 
 def rec_model(arch: str, prefill_s, law_s: int, law_max_len: int,
-              cpu_layers: int, span=None, seed: int = 0) -> tuple:
-    """18(b)-(e): a model at full width and depth: prefill at each length,
-    the laws, the DecodeEngine, then its cut against the CPU path.
-    Returns (record, flash launches of the counted prefills)."""
+              cpu_layers: int, span=None, seed: int = 0,
+              layers=None) -> tuple:
+    """18(b)-(e): a model at full width and its depth (or ``layers``):
+    prefill at each length, the laws, the DecodeEngine, then its cut
+    against the CPU path. Returns (record, flash launches of the counted
+    prefills)."""
     clock = time.perf_counter()
     cfg = registry.get_arch(arch)
+    if layers is not None and cfg.is_encdec:
+        cfg = cfg.replace(n_layers=2 * layers, enc_layers=layers,
+                          dec_layers=layers)
+    elif layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(seed),
                          cfg, device="cuda")
     _describe(cfg, params)
@@ -7654,15 +7829,18 @@ def phase_recurrent(gen) -> tuple:
     seconds = {"a": took("a")}
     print("  18(b), (c): recurrentgemma-9b")
     rec, n_rec = rec_model("recurrentgemma-9b", REC_PREFILL_S, REC_RING_S,
-                           REC_RING_S, REC_CPU_LAYERS, lm_rglru.SCAN_SPAN)
+                           REC_RING_S, REC_CPU_LAYERS, lm_rglru.SCAN_SPAN,
+                           layers=REC_LAYERS)
     seconds["bc"] = took("b, c")
     print("  18(d): rwkv6-7b")
     rwkv, n_rwkv = rec_model("rwkv6-7b", (FAM_S,), FAM_S, FAM_S,
-                             RWKV_CPU_LAYERS, lm_rwkv6.WKV_SPAN)
+                             RWKV_CPU_LAYERS, lm_rwkv6.WKV_SPAN,
+                             layers=RWKV_LAYERS)
     seconds["d"] = took("d")
     print("  18(e): seamless-m4t-large-v2")
     seamless, n_seam = rec_model("seamless-m4t-large-v2", (FAM_S,), FAM_S,
-                                 FAM_S, ENCDEC_CPU_LAYERS)
+                                 FAM_S, ENCDEC_CPU_LAYERS,
+                                 layers=ENCDEC_LAYERS)
     seconds["e"] = took("e")
     print("  18(f): the serve launcher")
     launcher = serve_launch(LAUNCH_ARCH)
@@ -7673,6 +7851,694 @@ def phase_recurrent(gen) -> tuple:
     return {"max_abs_err": err, "rows": rows, "ptxas_256": report}, {
         "recurrentgemma-9b": rec, "rwkv6-7b": rwkv,
         "seamless-m4t-large-v2": seamless, "launcher": launcher,
+        "launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------- phase 19
+
+# 19(a): the flash op's backward at the heads of every family that
+# trains through the kernel, batch 1: kimi-k2's 64/8 of 112 (the pad
+# route's forward; the recompute takes 112 as it is), arctic's 56/8 and
+# internvl2's 16/8 of 128, recurrentgemma's 16/1 of 256 with its window
+# of 2,048 at 2,048 (where it bounds nothing) and at 4,096, seamless's
+# encoder not causal over its 3,200 frames and its decoder causal
+FAM_BWD_SHAPES = (
+    ("kimi-k2 hd 112", 1, 2048, 64, 8, 112, True, None),
+    ("arctic-480b hd 128", 1, 2048, 56, 8, 128, True, None),
+    ("internvl2-2b hd 128", 1, 2048, 16, 8, 128, True, None),
+    ("recurrentgemma-9b hd 256, window 2048", 1, 2048, 16, 1, 256, True,
+     2048),
+    ("recurrentgemma-9b hd 256, window 2048", 1, 4096, 16, 1, 256, True,
+     2048),
+    ("seamless encoder hd 64, not causal", 1, 3200, 16, 16, 64, False,
+     None),
+    ("seamless decoder hd 64", 1, 2048, 16, 16, 64, True, None),
+)
+TRAIN_ARCHS = ("kimi-k2-1t-a32b", "arctic-480b", "minicpm3-4b",
+               "internvl2-2b", "recurrentgemma-9b", "rwkv6-7b",
+               "seamless-m4t-large-v2")
+# 19(b): one train step a family at full width, card against the CPU
+# path, at FAM_TRAIN_CPU_S tokens of the loss (internvl2-2b's 256 patches
+# before them, seamless's 3,200 frames beside them), batch 1. The CPU
+# path's steps at full width dominate the phase (this card's host: 8
+# cores, no bf16 instructions; "p19b": kimi's cut at 2 layers took 46.8
+# s in fp32 and 57.5 in bf16, 19(b) 798 s for the seven families at 2
+# layers in "p19a"), so: S is the least the phase allows; every cut is 1
+# layer deep (recurrentgemma's one group of 3, seamless 1 + 1); and the
+# fp32 step that sets the floor runs on the card (fp32 params, TF32 off,
+# attention through the kernel's plain version), the CPU path taking
+# the bf16 step whose error is the floor. Below S = 2,048 every
+# self-attention but seamless's encoder takes the direct path; 19(a)
+# and (c) hold the kernel's part of training
+FAM_TRAIN_CPU_S = 256
+FAM_TRAIN_CPU_LAYERS = 1
+# the fp32 reference against the CPU bf16 step, loss and grad norm: a
+# guard that the card's fp32 step is the step the floor is measured
+# from (seen: within 5e-3 relative, rwkv6-7b's grad norm the farthest)
+REF_AGREE = 2e-2
+ADAFACTOR_LR = 1e-4                # default_optimizer's Adafactor
+# 19(c): timed steps at full width, S = 2,048: (arch, layers (each stack's
+# for seamless) or None for whole, experts or None, microbatches, batch).
+# recurrentgemma-9b at 4 of its 12 (rec, rec, attn) groups (AdamW's
+# params, gradients and two fp32 moments: ~45 GB reckoned);
+# internvl2-2b at 12 of 24, minicpm3-4b at 6 of 62, rwkv6-7b at 4 of 32
+# and seamless at 4 + 4 of 24 + 24, host-bound and their profiled steps'
+# traces long ("p19b": rwkv6-7b 2.40 s a step at 16 layers, seamless
+# 4.57 s whole, 19(c) 340 s; "final31" 145 s at twice these depths);
+# kimi-k2 and arctic at one layer, their experts cut by ``moe_fit``; the
+# micro-batch
+# check on arctic at one layer and 16 experts, batch 2 in two
+# micro-batches (seamless whole took 7.3 s a step that way in "p19b")
+FAM_TRAIN_S = 2048
+FAM_TRAIN_RUNS = (("kimi-k2-1t-a32b", 1, None, 1, 1),
+                  ("arctic-480b", 1, None, 1, 1),
+                  ("minicpm3-4b", 6, None, 1, 1),
+                  ("internvl2-2b", 12, None, 1, 1),
+                  ("recurrentgemma-9b", 12, None, 1, 1),
+                  ("rwkv6-7b", 4, None, 1, 1),
+                  ("seamless-m4t-large-v2", 4, None, 1, 1),
+                  ("arctic-480b", 1, CPU_EXPERTS, 2, 2))
+FAM_TRAIN_STEPS = 2                # timed steps a run (the first one warms
+                                   # the allocator), then one profiled
+FAM_TRACE_TAKES = 2                # profiled steps until the trace is whole
+FAM_SPARE = 10e9                   # bytes moe_fit leaves free on the card
+REMAT_ARCH = "kimi-k2-1t-a32b"     # 19(c): remat off against on
+# 19(d): seamless's launcher, 2 steps against 1 with a checkpoint and a
+# --resume of the last: its checkpoint (the params in fp32 and AdamW's
+# two moments, 16.4 GB on disk) takes most of the part's time ("p19b":
+# 96 s at 3 steps)
+FAM_LAUNCH_STEPS = 2
+
+
+@contextlib.contextmanager
+def layer_routes(pin=None):
+    """A train step's MoE routing keyed by layer. Under the loss's
+    per-layer checkpoint each MoE layer routes twice: in the forward, and
+    in the backward's recompute (layers in reverse order). Its router
+    weight, a view of layer i of the stacked leaf, is the same tensor
+    both times, so a layer is known by its router's storage, numbered in
+    the order first seen (the forward's). Yields {"routes": the
+    forward's choices (T, k) a layer, "flips": (T,) bool a layer, the
+    tokens whose own top-k differs from the pinned one, "calls": routings
+    a layer}. Without ``pin`` the recompute must choose what the forward
+    chose; with ``pin`` (another path's routes by layer) each routing of
+    layer i takes ``pin[i]``'s experts, weighted by this path's own
+    probabilities there, renormalised, the recompute the same as the
+    forward. It spies every thread: on the card the recompute runs on
+    the autograd engine's device thread, and what runs beside 19(b)'s CPU
+    steps (19(d)'s launcher on seamless) routes nothing."""
+    inner = lm_moe._route
+    layer_of = {}
+    rec = {"routes": [], "flips": [], "calls": []}
+
+    def spy(xf32, wr, mcfg):
+        w, idx, probs = inner(xf32, wr, mcfg)
+        key = wr.data_ptr()
+        first = key not in layer_of
+        if first:
+            layer_of[key] = len(layer_of)
+            rec["calls"].append(0)
+        i = layer_of[key]
+        rec["calls"][i] += 1
+        if pin is None:
+            if first:
+                rec["routes"].append(idx.cpu())
+            elif not torch.equal(idx.cpu(), rec["routes"][i]):
+                fail(f"MoE layer {i}: the recompute routed otherwise than "
+                     "the forward")
+            return w, idx, probs
+        if i >= len(pin):
+            fail(f"more MoE layers than the {len(pin)} pinned")
+        want = pin[i].to(idx.device)
+        if first:
+            rec["flips"].append((torch.sort(idx, -1).values
+                                 != torch.sort(want, -1).values).any(-1)
+                                .cpu())
+        wt = torch.gather(probs, -1, want)
+        return (wt / torch.clamp(wt.sum(-1, keepdim=True), min=1e-9), want,
+                probs)
+    lm_moe._route = spy
+    try:
+        yield rec
+    finally:
+        lm_moe._route = inner
+
+
+@contextlib.contextmanager
+def token_losses():
+    """The loss's cross entropy, spied: its value ("ce") and each
+    next-token loss ("nll", fp32 on the host), from the logits it is
+    handed (a vlm model's text region), in the thread that enters it
+    (the forward's: the loss is no layer's, so no recompute calls it; a
+    launcher beside 19(b)'s CPU steps calls it on its own thread)."""
+    inner = lm_emb.cross_entropy
+    owner = threading.get_ident()
+    seen = {}
+
+    def spy(logits, labels, mask):
+        out = inner(logits, labels, mask)
+        if threading.get_ident() != owner:
+            return out
+        with torch.no_grad():
+            lg = logits.float()
+            m = lg.amax(-1, keepdim=True)
+            logz = m[..., 0] + torch.log(torch.exp(lg - m).sum(-1))
+            seen["nll"] = (logz - torch.gather(
+                lg, -1, labels.long()[..., None])[..., 0]).cpu()
+            seen["ce"] = float(out)
+        return out
+    lm_emb.cross_entropy = spy
+    try:
+        yield seen
+    finally:
+        lm_emb.cross_entropy = inner
+
+
+def _fam_step(cfg, params, batch: dict, pin=None) -> dict:
+    """One train step of cfg's default optimizer, clip LM_TRAIN_CLIP,
+    on ``params`` in place (the caller's copy): the loss, the cross
+    entropy's value and next-token losses, the grad norm, the clipped
+    gradients (the step's own tensors, not copies), the stepped params,
+    the routing by layer (``layer_routes(pin)``), and the seconds of the
+    step and of its optimizer update."""
+    name, opt = lm_api.default_optimizer(cfg)
+    seen = {}
+
+    def update(grads, state, p):
+        seen["grads"] = grads
+        t0 = time.perf_counter()
+        out = opt.update(grads, state, p)
+        if p_dev.type == "cuda":
+            torch.cuda.synchronize()
+        seen["update_s"] = time.perf_counter() - t0
+        return out
+    p_dev = tree_leaves(params)[0].device
+    _, spied, step = lm_api.make_train_step(
+        cfg, optimizer=(name, Optimizer(opt.init, update)),
+        grad_clip=LM_TRAIN_CLIP)
+    t0 = time.perf_counter()
+    with layer_routes(pin) as routes, token_losses() as ce:
+        p, _, m = step(params, spied.init(params), batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+    secs = time.perf_counter() - t0
+    if cfg.moe is not None and routes["calls"] != [2] * len(routes["calls"]):
+        fail(f"{cfg.name}: MoE routings a layer {routes['calls']}, expected "
+             "2 (the forward and the recompute)")
+    return {"opt": name, "loss": loss, "grad_norm": gn, "ce": ce["ce"],
+            "nll": ce["nll"], "grads": seen["grads"], "params": p,
+            "routes": routes, "step_s": secs, "update_s": seen["update_s"]}
+
+
+def _train_cut(arch: str):
+    """19(b)'s cut of ``arch`` at full width: FAM_TRAIN_CPU_LAYERS layers
+    (recurrentgemma's first (rec, rec, attn) group; seamless's as many
+    encoder and decoder layers), a MoE's experts cut to CPU_EXPERTS
+    (top-k kept)."""
+    cfg = registry.get_arch(arch)
+    n = FAM_TRAIN_CPU_LAYERS
+    if cfg.is_encdec:
+        return cfg.replace(n_layers=2 * n, enc_layers=n, dec_layers=n)
+    if cfg.family == "hybrid":
+        return cfg.replace(n_layers=len(cfg.rglru.block_pattern))
+    cfg = cfg.replace(n_layers=n)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  n_experts=CPU_EXPERTS))
+    return cfg
+
+
+def _train_batch(cfg, s: int, b: int, seed: int) -> dict:
+    """An LMSynthetic batch of ``s`` tokens of the loss (a vlm model's
+    patches before them, so ``s`` + P positions), numpy, a vlm model's
+    patches and an encoder-decoder's frames rounded to bf16 as the card
+    takes them: the same values on every path."""
+    p = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    batch = LMSynthetic(cfg, seed=seed).batch(b, s + p)
+    for k in ("patches", "frames"):
+        if k in batch:
+            batch[k] = torch.from_numpy(batch[k]).bfloat16().float().numpy()
+    return batch
+
+
+def _half_ulp(t: torch.Tensor) -> float:
+    """Half a bf16 ulp of a leaf's largest magnitude: the most that
+    rounding an update's result to bf16 moves its largest elements."""
+    m = float(t.abs().max()) if t.numel() else 0.0
+    return 2.0 ** (np.floor(np.log2(m)) - 8) if m > 0 else 0.0
+
+
+def update_floor(opt: str, new16: torch.Tensor, p0: torch.Tensor,
+                 measured: float) -> float:
+    """A leaf's floor for the update of a bf16 step against the fp32
+    one: the CPU bf16 step's own error (``measured``), and at least what
+    the update rule allows either bf16 path to differ by.
+      * AdamW (15(b)'s rule): the first step moves a param by ~lr sign(g)
+        plus lr wd p, so an element whose gradient is within rounding of
+        zero may step the other way: 2 lr (1 + wd max|p|).
+      * Adafactor, step 1: beta = 1 - 1^-0.8 = 0, so the second-moment
+        estimate is this step's own g^2 + eps. A vector leaf's update is
+        lr g / sqrt(g^2 + eps) = lr sign(g) for |g| >> 1e-15, and flips
+        as AdamW's does: 2 lr. A matrix leaf's (factored) is lr g_ij /
+        sqrt(vr_i vc_j / mean(vr)), linear in its gradient with no sign
+        step, then scaled by 1 / max(1, RMS): continuous in the
+        gradients, so the measured error is its floor.
+      * Either way each bf16 path rounds its new param to bf16 once:
+        half an ulp of the leaf's largest magnitude."""
+    floor = measured
+    if opt == "adamw":
+        floor = max(floor, 2 * LM_LR * (1 + 0.01 * float(p0.abs().max())))
+    elif p0.dim() < 2:
+        floor = max(floor, 2 * ADAFACTOR_LR)
+    if new16.dtype == torch.bfloat16:
+        floor = max(floor, _half_ulp(new16.float()))
+    return floor
+
+
+def _on(nb: dict, dev, dt) -> dict:
+    """A numpy batch on ``dev``, its embeddings in ``dt``."""
+    return {k: torch.from_numpy(v).to(dev) if k == "tokens"
+            else torch.from_numpy(v).to(dev, dt) for k, v in nb.items()}
+
+
+def _fp32_step(cfg, params, nb: dict) -> dict:
+    """19(b)'s reference: the train step in fp32 on the card from an fp32
+    copy of ``params`` (TF32 off; attention through the kernel's plain
+    version), its routing recorded by layer."""
+    with uncounted(), plain_attention():
+        return _fam_step(cfg.replace(dtype="float32"),
+                         tree_map(lambda t: t.to(torch.float32, copy=True),
+                                  params), _on(nb, "cuda", torch.float32))
+
+
+def fam_train_job(arch: str, s: int) -> dict:
+    """19(b)'s inputs for ``arch``: its cut (``_train_cut``), a batch of
+    ``s`` tokens of the loss, a MoE's routing from the fp32 step on the
+    card (the pin of both bf16 steps), and a host copy of the seeded
+    params for the CPU path's bf16 step."""
+    cfg = _train_cut(arch)
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(19),
+                         cfg, device="cuda")
+    nb = _train_batch(cfg, s, 1, seed=19)
+    pin = None
+    if cfg.moe is not None:
+        pin = _fp32_step(cfg, params, nb)["routes"]["routes"]
+    t0 = time.perf_counter()
+    cpu16 = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    job = {"arch": arch, "cfg": cfg, "nb": nb, "pin": pin, "cpu16": cpu16,
+           "to_host_s": time.perf_counter() - t0}
+    del params
+    _free()
+    return job
+
+
+def cpu_bf16_steps(jobs: list, out: dict, errors: list) -> None:
+    """Each job's CPU path bf16 step (``_fam_step`` on its host params,
+    pinned to its routes), into ``out`` by arch; a failure into
+    ``errors``. 19(b) runs it in a thread beside 19(d)."""
+    try:
+        for job in jobs:
+            out[job["arch"]] = _fam_step(job["cfg"], job.pop("cpu16"),
+                                         _on(job["nb"], "cpu",
+                                             torch.bfloat16), job["pin"])
+    except BaseException as e:  # re-raised by the caller after the join
+        errors.append(e)
+
+
+def fam_train_check(job: dict, c16: dict) -> dict:
+    """19(b): one train step of a family's cut from one set of seeded
+    params on one batch: on the card in bf16, on the CPU path in bf16
+    (``c16``) and, for the floor's reference, in fp32 on the card (see
+    FAM_TRAIN_CPU_S), each from its own copy of the params. The loss, the
+    grad norm, each leaf's clipped gradient and update on the card within
+    LM_FLOOR_FACTOR x the CPU bf16 step's own error against the fp32 step
+    (15(b)'s bar; updates with ``update_floor``). The loss's floor is the
+    mean |bf16 - fp32| next-token loss plus the bf16 step's error in the
+    MoE aux term. A MoE's bf16 steps route to the fp32 step's experts,
+    layer by layer (``layer_routes``), their own flips under phase 17's
+    budget; the fp32 step, taken again here from the same seeded params,
+    must route as the job's did. The results are compared on the card, a
+    leaf at a time."""
+    cfg, nb, pin, s = job["cfg"], job["nb"], job["pin"], FAM_TRAIN_CPU_S
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(19),
+                         cfg, device="cuda")
+    c32 = _fp32_step(cfg, params, nb)
+    if pin is not None and any(not torch.equal(a, b) for a, b in zip(
+            c32["routes"]["routes"], pin)):
+        fail(f"{cfg.name}: the fp32 step taken again routed otherwise")
+    with uncounted():
+        card = _fam_step(cfg, tree_map(lambda t: t.detach().clone(), params),
+                         _on(nb, "cuda", torch.bfloat16), pin)
+    torch.cuda.synchronize()
+    cpu_s = c16["step_s"]
+    copy_s = job["to_host_s"]
+    for k in ("loss", "grad_norm"):
+        if abs(c16[k] - c32[k]) > REF_AGREE * abs(c32[k]):
+            fail(f"{cfg.name} train step: the CPU bf16 step's {k} {c16[k]} "
+                 f"against the card's fp32 step's {c32[k]}, over "
+                 f"{REF_AGREE} relative")
+    t0 = time.perf_counter()
+    out = {"layers": cfg.n_layers, "seq_len": s, "cpu_s": cpu_s,
+           "optimizer": card["opt"], "steps": {},
+           "seconds": {"to_host": copy_s, "card_fp32_step": c32["step_s"],
+                       "card_fp32_update": c32["update_s"],
+                       "cpu_bf16_step": c16["step_s"],
+                       "cpu_bf16_update": c16["update_s"],
+                       "card_step": card["step_s"]}}
+    if cfg.moe is not None:
+        pairs = sum(f.numel() for f in card["routes"]["flips"])
+        flips, cpu_flips = (sum(int(f.sum()) for f in r["routes"]["flips"])
+                            for r in (card, c16))
+        budget = LM_FLOOR_FACTOR * cpu_flips + FLIP_SHARE * pairs
+        out.update(experts=cfg.moe.n_experts, card_route_flips=flips,
+                   cpu_bf16_route_flips=cpu_flips, route_pairs=pairs,
+                   flip_budget=budget)
+        if flips > budget:
+            fail(f"{cfg.name} train step: {flips} routing flips against the "
+                 f"fp32 path, over {budget}")
+
+    def aux(r):
+        return r["loss"] - r["ce"]
+    s16, s32 = (min(1.0, LM_TRAIN_CLIP / (r["grad_norm"] + 1e-9))
+                for r in (c16, c32))
+    checks = [("loss", abs(card["loss"] - c32["loss"]),
+               float((c16["nll"] - c32["nll"]).abs().mean())
+               + abs(aux(c16) - aux(c32)))]
+    sq, grads = 0.0, []
+    for (path, a), (_, b16), (_, b32) in zip(
+            tree_paths(card["grads"]), tree_paths(c16["grads"]),
+            tree_paths(c32["grads"])):
+        b16 = b16.cuda().float()
+        # the norm of the bf16 step's unclipped gradient's error
+        sq += float(((b16 / s16 - b32 / s32) ** 2).sum())
+        grads.append((f"grads {path}", float((a.float() - b32).abs().max()),
+                      float((b16 - b32).abs().max())))
+    checks.append(("grad_norm", abs(card["grad_norm"] - c32["grad_norm"]),
+                   float(np.sqrt(sq))))
+    checks += grads
+    for (path, a), (_, b16), (_, b32), (_, p0) in zip(
+            tree_paths(card["params"]), tree_paths(c16["params"]),
+            tree_paths(c32["params"]), tree_paths(params)):
+        b16, p0 = b16.cuda(), p0.float()
+        u32 = b32 - p0
+        err = float((a.float() - p0 - u32).abs().max())
+        measured = float((b16.float() - p0 - u32).abs().max())
+        checks.append((f"update {path}", err, update_floor(
+            card["opt"], b16, p0, measured)))
+        del b16, p0, u32
+    out["seconds"]["compare"] = time.perf_counter() - t0
+    worst = 0.0
+    for what, err, floor in checks:
+        bound_ = LM_FLOOR_FACTOR * floor
+        out["steps"][what] = {"err": err, "floor": floor, "bound": bound_}
+        worst = max(worst, err / bound_ if bound_ else
+                    (0.0 if err == 0 else float("inf")))
+        if err > bound_:
+            fail(f"{cfg.name} train step, card against CPU: {what} {err} "
+                 f"from the fp32 step, bound {bound_} (floor {floor})")
+    for k in ("loss", "grad_norm"):
+        out[k] = {"card": card[k], "cpu_bf16": c16[k], "cpu_fp32": c32[k]}
+    out["worst_err_over_bound"] = worst
+    print(f"  {cfg.name}, {cfg.n_layers} layers"
+          + (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
+          + f", {card['opt']}, S = {s}: loss card {card['loss']:.6f} / CPU "
+          f"bf16 {c16['loss']:.6f} / fp32 (card) {c32['loss']:.6f} (|card "
+          f"- fp32| "
+          f"{checks[0][1]:.3e}, bound {LM_FLOOR_FACTOR * checks[0][2]:.3e}); "
+          f"grad norm {card['grad_norm']:.5f} / {c16['grad_norm']:.5f} / "
+          f"{c32['grad_norm']:.5f} (|card - fp32| {checks[1][1]:.3e}, bound "
+          f"{LM_FLOOR_FACTOR * checks[1][2]:.3e}); {len(checks) - 2} leaf "
+          f"gradients and updates each within {LM_FLOOR_FACTOR:g}x the CPU "
+          f"bf16 step's error (worst error / bound {worst:.3f}); "
+          f"{cpu_s:.1f} s on the CPU"
+          + (f"; experts pinned to the fp32 path's, layer by layer, own "
+             f"top-k other than its: card {out['card_route_flips']}, CPU "
+             f"bf16 {out['cpu_bf16_route_flips']} of {out['route_pairs']} "
+             f"(token, layer) pairs, budget {out['flip_budget']:.1f}"
+             if cfg.moe else ""))
+    top = sorted(((r["err"] / r["bound"] if r["bound"] else 0.0, w)
+                  for w, r in out["steps"].items()), reverse=True)[:4]
+    print(f"    closest to their bounds: "
+          f"{[(w, round(x, 3)) for x, w in top]}; seconds "
+          f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }")
+    del params, c32, c16, card
+    _free()
+    return out
+
+
+def moe_reckoning(cfg, s: int) -> dict:
+    """Bytes a MoE train step of cfg (Adafactor, whole stacked leaves,
+    one micro-batch of ``s`` tokens) holds at its peak, from the param
+    leaves: the clip, where params, the step's gradients and their
+    clipped copies are alive with two fp32 temporaries of a leaf
+    ((g.float() * scale)), or the update: params, clipped gradients,
+    Adafactor's factored state and two fp32 temporaries of the largest
+    leaf (its update in place, and ``_write``'s fp32 copy of the param);
+    plus the activations: the fp32 logits and their gradient
+    (2 x 2 S Vpad x 4 bytes), the dispatch buffer and its expert
+    products (E C (d + 3 ff) x 2 x 2) and 16 (S, d) fp32 rows a layer."""
+    leaves = _meta_leaves(cfg)
+    p = sum(t.numel() * t.element_size() for t in leaves)
+    big = max(t.numel() for t in leaves)
+    state = sum(4 * (t.numel() // t.shape[-1] + t.numel() // t.shape[-2])
+                if t.dim() >= 2 else 4 * t.numel() for t in leaves)
+    m = cfg.moe
+    ec = m.n_experts * lm_moe._capacity(s, m)
+    act = (16 * s * lm_emb.padded_vocab(cfg.vocab_size)
+           + 4 * ec * (cfg.d_model + 3 * m.expert_ff)
+           + 64 * s * cfg.d_model * cfg.n_layers)
+    clip = 3 * p + 8 * big
+    update = 2 * p + state + 8 * big
+    return {"params": p, "largest_leaf": big, "adafactor_state": state,
+            "activations": act, "clip": clip, "update": update,
+            "peak": max(clip, update) + act}
+
+
+def moe_fit(arch: str, layers: int, s: int) -> tuple:
+    """The largest power-of-two expert count (top-k kept) whose reckoned
+    peak (``moe_reckoning``) leaves FAM_SPARE bytes of the card's free
+    memory: (cfg, its reckoning)."""
+    full = registry.get_arch(arch).replace(n_layers=layers)
+    _free()
+    free, _ = torch.cuda.mem_get_info()
+    e = 1 << int(np.log2(full.moe.n_experts))
+    while e > full.moe.top_k:
+        cfg = full.replace(moe=dataclasses.replace(full.moe, n_experts=e))
+        r = moe_reckoning(cfg, s)
+        if r["peak"] + FAM_SPARE <= free:
+            break
+        e //= 2
+    print(f"  {arch}: {e} of {full.moe.n_experts} experts (top-"
+          f"{full.moe.top_k} kept), {layers} layer(s): reckoned peak "
+          f"{r['peak'] / 1e9:.1f} GB (params {r['params'] / 1e9:.1f}, the "
+          f"clip {r['clip'] / 1e9:.1f}, the update {r['update'] / 1e9:.1f}, "
+          f"activations {r['activations'] / 1e9:.1f}) + "
+          f"{FAM_SPARE / 1e9:.0f} GB spare of {free / 1e9:.1f} GB free")
+    return cfg, dict(r, free=free)
+
+
+def recurrence_backward_ms(cfg, s: int) -> dict:
+    """The RG-LRU scan's or the chunked WKV's forward + backward at one
+    layer's training shapes (batch 1, ``s`` positions), timed alone: its
+    kernels run under no span of their own in a step's backward, so a
+    step's trace cannot tell them from the rest."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if cfg.family == "hybrid":
+        w = cfg.rglru.lru_width or cfg.d_model
+        a = torch.rand((1, s, w), generator=g, device="cuda").requires_grad_()
+        bt = torch.randn((1, s, w), generator=g,
+                         device="cuda").requires_grad_()
+        ins = (a, bt)
+
+        def fwd():
+            return lm_rglru._scan(a, bt)
+        groups, tail = lm_transformer._hybrid_layout(cfg)
+        what = "RG-LRU scan"
+        n = groups * cfg.rglru.block_pattern.count("rec") + tail.count("rec")
+    else:
+        rc = cfg.rwkv
+        h = cfg.d_model // rc.head_dim
+        r, k, v = (torch.randn((1, s, h, rc.head_dim), generator=g,
+                               device="cuda").bfloat16().requires_grad_()
+                   for _ in range(3))
+        w = (0.5 + 0.5 * torch.rand((1, s, h, rc.head_dim), generator=g,
+                                    device="cuda")).requires_grad_()
+        u = torch.randn((h, rc.head_dim), generator=g,
+                        device="cuda").requires_grad_()
+        s0 = torch.zeros((1, h, rc.head_dim, rc.head_dim), device="cuda")
+        ins = (r, k, v, w, u)
+
+        def fwd():
+            return lm_rwkv6._wkv_chunked(r, k, v, w, u, s0, rc.chunk_size)[0]
+        what, n = "chunked WKV", cfg.n_layers
+    out = fwd()
+    gout = torch.randn(out.shape, generator=g, device="cuda")
+
+    def fb():
+        return torch.autograd.grad(fwd(), ins, gout)
+    row = {"what": what, "layers": n, "forward_ms": time_ms(fwd, 2, 3),
+           "forward_device_ms": device_ms(fwd, 2),
+           "forward_backward_ms": time_ms(fb, 2, 3),
+           "forward_backward_device_ms": device_ms(fb, 2)}
+    row["backward_device_ms"] = (
+        None if None in (row["forward_backward_device_ms"],
+                         row["forward_device_ms"])
+        else row["forward_backward_device_ms"] - row["forward_device_ms"])
+    print(f"    {what} alone, one layer at S = {s}: forward "
+          f"{row['forward_ms']:.2f} ms ({_fmt(row['forward_device_ms'])} "
+          f"device), forward + backward {row['forward_backward_ms']:.2f} "
+          f"({_fmt(row['forward_backward_device_ms'])}); its backward "
+          f"{_fmt(row['backward_device_ms'])} device ms a layer, x {n} "
+          "layers a step")
+    return row
+
+
+def rounding_swallows_adamw(p0: torch.Tensor) -> bool:
+    """Whether no AdamW step (default_optimizer's lr, wd 0.01) can move
+    any element of a bf16 leaf: the bias-corrected ratio |m^ / sqrt(v^)|
+    of betas (0.9, 0.95) is at most (1 - b1) / sqrt((1 - b2)(1 - b1^2 /
+    b2)) = 1.17 at any step (Cauchy-Schwarz over the moments' sums), so a
+    step moves a param by at most 1.17 lr + lr wd |p|; rounded once to
+    bf16, it comes back unless it reaches half an ulp, 2^(e - 9) at |p|
+    in [2^e, 2^(e+1)) towards zero. (recurrentgemma's RG-LRU gate bias
+    ``ba`` starts at -1.0: half an ulp is 2^-9, 5.5x the largest step.)"""
+    if p0.dtype != torch.bfloat16:
+        return False
+    a = p0.float().abs()
+    if not bool((a > 0).all()):
+        return False
+    half = torch.exp2(torch.floor(torch.log2(a)) - 9)
+    return bool((half > 1.17 * LM_LR + LM_LR * 0.01 * a).all())
+
+
+def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
+    """19(c): ``arch`` at full width (``layers`` deep, each stack's for the
+    encoder-decoder, or whole; a MoE's experts ``experts``, or cut by
+    ``moe_fit``), cfg's default optimizer: lm_train_run at
+    FAM_TRAIN_S x ``b`` in ``mb`` micro-batches, device ms by group with
+    the recurrence's span its own, every param leaf moved; for
+    REMAT_ARCH first a gradient pass with remat off against the first
+    step's loss and grad norm, bit for bit; for a recurrent model its
+    scan's or WKV's backward timed alone."""
+    s = FAM_TRAIN_S
+    cfg, reck = registry.get_arch(arch), None
+    if cfg.moe is not None and experts is None:
+        cfg, reck = moe_fit(arch, layers, s)
+    elif cfg.is_encdec and layers is not None:
+        cfg = cfg.replace(n_layers=2 * layers, enc_layers=layers,
+                          dec_layers=layers)
+    elif layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  n_experts=experts))
+    params = lm_api.init(torch.Generator(device="cuda").manual_seed(20),
+                         cfg, device="cuda")
+    _describe(cfg, params)
+    opt_name = lm_api.default_optimizer(cfg)[0]
+    n_attn = attention_launches(cfg, s)
+    out = {"layers": cfg.n_layers, "optimizer": opt_name,
+           "attention_layers": n_attn, "reckoning": reck}
+    if cfg.moe is not None:
+        out["experts"] = cfg.moe.n_experts
+    if arch == REMAT_ARCH and mb == 1:
+        loss_nr, norm_nr, n_nr = remat_off_pass(
+            cfg, params, LMSynthetic(cfg, seed=s).batch(b, s), n_attn)
+        _free()
+    start = {p: t.to("cpu", copy=True) for p, t in tree_paths(params)}
+    opt_state = lm_api.default_optimizer(cfg)[1].init(params)
+    span = {"hybrid": lm_rglru.SCAN_SPAN, "ssm": lm_rwkv6.WKV_SPAN}.get(
+        cfg.family)
+    reset_counts()
+    run, params, opt_state = lm_train_run(
+        cfg, params, opt_state, s, b, mb, seed=s, attn_layers=n_attn,
+        spans=(span,) if span else (), group=_fam_group,
+        steps=FAM_TRAIN_STEPS, takes=FAM_TRACE_TAKES, warm=1)
+    out.update(run, launches=launch_counts())
+    if arch == REMAT_ARCH and mb == 1:
+        got = (run["losses"][0], run["grad_norms"][0])
+        if got != (float(loss_nr), float(norm_nr)):
+            fail(f"{arch} train: the remat step's loss and grad norm {got} "
+                 f"differ from the remat-off pass's {float(loss_nr)!r}, "
+                 f"{float(norm_nr)!r} on the same batch")
+        out["remat_off"] = {"launches": n_nr, "loss": float(loss_nr),
+                            "grad_norm": float(norm_nr)}
+        print(f"  remat off: flash_attention x {n_nr}, loss "
+              f"{float(loss_nr)!r} and grad norm {float(norm_nr)!r} equal "
+              f"to the remat step's bit for bit")
+    still = [p for p, t in tree_paths(params)
+             if torch.equal(t.cpu(), start[p])]
+    frozen = [p for p in still if opt_name == "adamw"
+              and rounding_swallows_adamw(start[p])]
+    if still != frozen:
+        fail(f"{arch} train: params that did not move: "
+             f"{sorted(set(still) - set(frozen))}")
+    out["frozen_by_rounding"] = frozen
+    if frozen:
+        print(f"  leaves that no AdamW step can move in bf16 (each "
+              f"element's half ulp over the largest step): {frozen}")
+    if reck is not None:
+        print(f"  peak {run['peak_memory_bytes'] / 1e9:.1f} GB measured "
+              f"against {reck['peak'] / 1e9:.1f} GB reckoned")
+    print(f"  {opt_name}: {len(start) - len(still)} of {len(start)} param "
+          f"leaves moved")
+    del params, opt_state, start
+    _free()
+    if span and mb == 1:
+        out["recurrence_alone"] = recurrence_backward_ms(cfg, s)
+    return out
+
+
+def phase_lm_train_families(gen) -> tuple:
+    """Phase 19 in the order (a), (c), then (b) and (d) together: the CPU
+    path's bf16 steps of (b) run in a thread while (d)'s launcher drives
+    the card (its times are printed, not measured: (c) is), then (b)'s
+    card steps and comparisons."""
+    clock = [time.perf_counter()]
+
+    def took(what: str) -> float:
+        now = time.perf_counter()
+        t, clock[0] = now - clock[0], now
+        print(f"   ({what} took {t:.1f} s)")
+        return t
+
+    print("  19(a): the flash op's backward at the families' heads")
+    err, rows = check_flash_backward(gen, FAM_BWD_SHAPES, trials=3)
+    seconds = {"a": took("19(a)")}
+    print(f"  19(c): timed steps at full width, S = {FAM_TRAIN_S}")
+    runs, launches = [], {n: 0 for n in KERNELS}
+    for arch, layers, experts, mb, b in FAM_TRAIN_RUNS:
+        print(f"  {arch}, batch {b} in {mb} micro-batch(es)")
+        t0 = time.perf_counter()
+        r = fam_train_timed(arch, layers, experts, mb, b)
+        runs.append(dict(r, arch=arch, seconds=time.perf_counter() - t0))
+        print(f"   ({arch}: {runs[-1]['seconds']:.1f} s)")
+        for n in KERNELS:
+            launches[n] += r["launches"][n]
+    seconds["c"] = took("19(c)")
+    print(f"  19(b): one train step a family, card against the CPU, "
+          f"S = {FAM_TRAIN_CPU_S} tokens, batch 1: the CPU path's bf16 "
+          "steps in a thread beside 19(d)")
+    jobs = [fam_train_job(arch, FAM_TRAIN_CPU_S) for arch in TRAIN_ARCHS]
+    seconds["b_jobs"] = took("19(b), its jobs,")
+    c16, errors = {}, []
+    worker = threading.Thread(target=cpu_bf16_steps,
+                              args=(jobs, c16, errors), daemon=True)
+    worker.start()
+    print(f"  19(d): the training launcher, {LAUNCH_ARCH}")
+    launcher = lm_launcher(LAUNCH_ARCH, FAM_LAUNCH_STEPS)
+    for n in KERNELS:
+        launches[n] += launcher["launches"][n]
+    seconds["d"] = took("19(d), beside the CPU steps,")
+    worker.join()
+    if errors:
+        raise errors[0]
+    seconds["b_wait"] = took("19(b), the CPU steps' rest,")
+    agree = {job["arch"]: fam_train_check(job, c16.pop(job["arch"]))
+             for job in jobs}
+    seconds["b_check"] = took("19(b), the card's steps and checks,")
+    _free()
+    return {"max_abs_err": err, "rows": rows}, {
+        "card_vs_cpu": agree, "runs": runs, "launcher": launcher,
         "launches": launches, "seconds": seconds}
 
 
@@ -7760,7 +8626,12 @@ def main() -> None:
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_256["max_abs_err"])
     kernels["flash_attention"]["hd256_rows"] = flash_256["rows"]
-    phase("phase 19: report")
+    phase("phase 19: LM training of the seven families at full width")
+    flash_bwd19, lm_fam_train = phase_lm_train_families(gen)
+    kernels["flash_attention"]["max_abs_err"] = max(
+        kernels["flash_attention"]["max_abs_err"], flash_bwd19["max_abs_err"])
+    kernels["flash_attention"]["recompute_rows"] += flash_bwd19["rows"]
+    phase("phase 20: report")
 
     line = {"kernels": []}
     for name, k in KERNELS.items():
@@ -7790,7 +8661,8 @@ def main() -> None:
                    "lm_train": lm_train["launches"][name],
                    "sharded": sharded["launches"][name],
                    "lm_families": lm_fam["launches"][name],
-                   "lm_families_15c": lm_rec["launches"][name]}
+                   "lm_families_15c": lm_rec["launches"][name],
+                   "lm_train_families": lm_fam_train["launches"][name]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -7820,8 +8692,10 @@ def main() -> None:
                and r["samples"] == BUCKET},
             # flash_attention: the op's backward, a recompute through the
             # chunked attention (no kernel of its own), at each length
+            # (15(a)) and at each family's heads (19(a))
             **({"backward": [{k: r[k] for k in (
-                "shape", "ms", "device_ms", "forward_backward_ms",
+                "what", "shape", "causal", "window", "ms", "device_ms",
+                "forward_backward_ms",
                 "forward_backward_device_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by",
                 "forward_backward_bound_ms")}
@@ -7847,7 +8721,8 @@ def main() -> None:
              "serve_tiered": tiered, "online_tiered": online_t,
              "graphed": graphed, "lm": lm, "het": het, "plane": plane,
              "fleet": fleet, "lm_train": lm_train, "sharded": sharded,
-             "lm_families": lm_fam, "lm_recurrent": lm_rec},
+             "lm_families": lm_fam, "lm_recurrent": lm_rec,
+             "lm_train_families": lm_fam_train},
             indent=1))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

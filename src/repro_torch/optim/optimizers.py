@@ -181,12 +181,16 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c2 = float(F32(1) - F32(b2) ** t)
 
         def upd(p, g, m, v):
+            # the reference's ops, in place where it keeps no operand:
+            # fewer fp32 copies of a leaf and passes over it, the same
+            # bits
             g32 = g.float()
             m.mul_(b1).add_((1 - b1) * g32)
-            v.mul_(b2).add_((1 - b2) * g32.square())
-            step_ = (m / c1) / (torch.sqrt(v / c2) + eps) \
-                + weight_decay * p.float()
-            return _write(p, lr_t * step_)
+            v.mul_(b2).add_(g32.square().mul_(1 - b2))
+            del g32
+            step_ = (m / c1).div_((v / c2).sqrt_().add_(eps))
+            step_.add_(p.float() * weight_decay)
+            return _write(p, step_.mul_(lr_t))
 
         new_params = tree_map(upd, params, grads, state["m"], state["v"])
         return new_params, {"m": state["m"], "v": state["v"], "step": step}
@@ -222,21 +226,28 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         keep = float(F32(1.0) - beta)
 
         def per_leaf(p, g, st):
-            g32 = g.float()
-            g2 = g32.square() + eps
+            # the reference's ops in place where it keeps no operand, so
+            # at most two fp32 copies of a leaf are alive at once (a
+            # MoE's stacked expert leaf is GBs in fp32); the same bits.
+            # The copy keeps an fp32 gradient as it was handed in
+            g32 = g.to(torch.float32, copy=True)
+            g2 = g32.square().add_(eps)
             if _factored(p.shape):
                 vr = st["vr"].mul_(float(beta)).add_(keep * g2.mean(-1))
                 vc = st["vc"].mul_(float(beta)).add_(keep * g2.mean(-2))
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
-                                       min=eps))
-                upd = g32 / torch.sqrt(denom + eps)
+                del g2
+                denom = (vr[..., None] * vc[..., None, :]).div_(
+                    torch.clamp(vr.mean(-1, keepdim=True)[..., None],
+                                min=eps))
+                upd = g32.div_(denom.add_(eps).sqrt_())
+                del denom
             else:
                 v = st["v"].mul_(float(beta)).add_(keep * g2)
-                upd = g32 / torch.sqrt(v + eps)
+                del g2
+                upd = g32.div_(torch.sqrt(v + eps))
             rms = torch.sqrt(upd.square().mean() + eps)
-            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
-            return _write(p, lr_t * upd)
+            upd.div_(torch.clamp(rms / clip_threshold, min=1.0))
+            return _write(p, upd.mul_(lr_t))
 
         return (tree_map(per_leaf, params, grads, state["fac"]),
                 {"fac": state["fac"], "step": step})
