@@ -328,16 +328,47 @@ forward. Each serving phase zeroes the counts just before its engine's
    others', the sentinels zero; (d) the 4 ranks save their state
    (``CheckpointManager.save(shardings=)``, unsharded on disk) and take a
    5th step; the 2 ranks restore it (rows bit for bit) and take the same
-   step: within (c)'s bounds. (e) ``launch/train.py --ragged --shards 2
+   step: within (c)'s bounds. (e) and (f) run in 4 gloo ranks on a (2,
+   2) (data, model) mesh (``spawn(..., mesh_shape=(2, 2),
+   mesh_axes=("data", "model"))``), the launch counts zeroed first and
+   read after: (e) DLRM(1) at full width, a 64 MB block a rank (500,001
+   rows of 32 fp32, replicated over 'data'): the phase 3 requests through
+   the ragged, sharded and cached-over-sharded plans, within 1e-5 of phase
+   3's, 128 fixed-L requests through the fixed plan (its bags split over
+   'data') within 1e-5 of the sharded ragged plan, 3 dense-gradient
+   fixed-L steps and 3 sparse sharded steps, each step's loss (rtol
+   1e-5), MLP and touched arena rows and accumulators held against the
+   one-rank step on the card from the same start, within 1e-4 after 3
+   steps under phase 4's sign-flip budget (this is what catches a block
+   gradient not summed over 'data'); (f) the MoE layer of kimi-k2-1t-a32b
+   at full width (d_model 7168, expert_ff 2048, top-8) cut to 128 of its
+   384 experts (19(c)'s cut), bf16, on 2 x 2,048 tokens (1,024 a rank):
+   each rank's ("expert", "fsdp", None) block of the expert weights
+   (``lm_moe.shard_moe_params``, a quarter each, the FSDP half gathered
+   over 'data' in the layer), the expert-parallel ``apply_moe`` with the
+   routes pinned to the one-rank run's at capacity factor 4 (no choice
+   dropped, counted on both sides) against the one-rank ``apply_moe``,
+   and at cf 1.25 against the one-rank emulation of the per-shard
+   capacity (``_moe_local`` a rank's block of tokens), within 2e-2 of the
+   reference's largest output; every rank's outputs bit for bit the
+   others' in both. (g) and (h) run beside (e) and (f), started from
+   threads of this process, their ranks processes of their own: (g)
+   ``launch/train.py --ragged --shards 2
    --backend gloo`` for 3 steps, and ``launch/serve.py --shards 2
    --backend gloo`` for 4 batches of 32 (the ranks' probabilities bit
-   for bit, the launcher checks). (f) One rank over nccl: its all-reduce
+   for bit, the launcher checks). (h) One rank over nccl: its all-reduce
    and broadcast, a served batch through a one-shard ``ShardedArena`` and
    the step on a mesh of one, exact against the replicated path; at one
    rank the port's collectives make no call, so this exercises the NCCL
    communicator only, not the port's collectives over it. The
    times (ms a micro-batch and a step, host clock) are gloo collectives
    through host memory: agreement runs, not the sharded path's speed.
+   The checks of 17, 18 and 19(b) against the CPU path: the CPU passes
+   run on one thread of their own (the CPU reference worker, at a lower
+   priority), in the order handed in, beside the card's work; each check
+   is made when they are done, at the end of 19, and fails the run
+   there. 17(c) and (d)'s cuts are made, and their passes handed in,
+   before phase 15, so that those run beside 15 and 16.
 17. The MoE, MLA and vision-prefix decoders at full width: (a)
    ``flash_attention`` at kimi-k2's heads, 64 query and 8 kv heads of
    112 (the wrapper pads them to depth 128), causal, at S = 2048 and
@@ -410,8 +441,10 @@ forward. Each serving phase zeroes the counts just before its engine's
    serve launcher with ``--arch seamless-m4t-large-v2`` at full width.
    The launch counts are zeroed before and read after each counted
    prefill of (b), (d) and (e).
-19. LM training of the seven families at full width, in the order (a),
-   (c), then (b) beside (d): (a) the flash op's backward (the recompute
+19. LM training of the seven families at full width, in the order
+   (b)'s jobs, (d), (a), (c), then the checks against the CPU path: (a)
+   the flash op's
+   backward (the recompute
    through ``_sdpa_chunked``) at kimi-k2's 64/8 heads of 112, arctic's
    56/8 and internvl2's 16/8 of 128, recurrentgemma's 16/1 of 256 with
    its window of 2,048 at 2,048 and 4,096, seamless's encoder not causal
@@ -436,15 +469,18 @@ forward. Each serving phase zeroes the counts just before its engine's
    train step a family at full width and one layer (recurrentgemma's
    first group, seamless 1 + 1; kimi's and arctic's experts cut to 16),
    256 tokens of the loss, batch 1, on the card in bf16, on the CPU path
-   in bf16 (in a thread beside (d)) and in fp32 on the card (the floor's
+   in bf16 (on the worker) and in fp32 on the card (the floor's
    reference): loss, grad norm and each leaf's gradient and update within
    twice the CPU bf16 step's own error (``update_floor``), the bf16
    paths' experts pinned to the fp32 path's layer by layer through the
    checkpoint's recompute (``layer_routes``), their own flips within
    17's budget; (d) the training launcher with ``--arch
-   seamless-m4t-large-v2`` at full width: 2 steps against 1 with a
-   checkpoint and a ``--resume`` of the last, bit for bit. The launch
-   counts are zeroed before each run of (c) and (d).
+   seamless-m4t-large-v2`` at full width and 2 + 2 of its 24 + 24
+   layers: 2 steps against 1 with a checkpoint and a ``--resume`` of
+   the last, bit for bit. The launch counts are zeroed before each run
+   of (c) and (d). The host times of 17 to 19 are taken beside the
+   worker while it runs (19(a) and (c) print whether it did); the
+   card's device times do not see it.
 20. Report: one JSON line of the kernels, then the device line, which is
    always the last line of the output.
 
@@ -454,10 +490,14 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import json
+import os
 import pathlib
+import queue
 import re
 import subprocess
 import sys
@@ -642,10 +682,135 @@ def reset_counts() -> None:
     fd_k.cached_stage_launches = 0
 
 
+# ------------------------------------------- the CPU reference worker
+# Phases 17 to 19 hold the card against the CPU path at full width, and
+# on this card's host (8 cores) those CPU passes took ~440 s of the
+# script ("final32"). They run on one thread of their own, beside the
+# card's work from phase 15 on, and their checks are made once it is
+# done (``settle``). The thread runs CPU tensors only, so it launches no
+# kernel and moves no launch count; it runs at a lower priority
+# (CPU_REFS_NICE) so that the card's own host thread keeps its core.
+# The module functions the script spies on (MoE routing, the cross
+# entropy, the flash op) are patched once, by ``patched``: each thread
+# sees the spies entered on its side only, "cpu" for this thread and
+# "card" for every other (the main thread, and the autograd engine's
+# device threads, where the card's backward runs; a CPU backward runs on
+# the thread that calls it).
+CPU_REFS = "cpu_refs"              # the worker thread's name
+CPU_REFS_NICE = 10
+_PATCHES = {}
+
+
+def _side() -> str:
+    return ("cpu" if threading.current_thread().name == CPU_REFS
+            else "card")
+
+
+@contextlib.contextmanager
+def patched(module, name: str, make):
+    """``module.name`` replaced by ``make(inner)`` for the calls made on
+    this thread's side (``_side``) while inside, ``inner`` being what
+    those calls reached before; the other side's calls do not see it."""
+    slot = _PATCHES.get((module, name))
+    if slot is None:
+        slot = {"inner": getattr(module, name), "card": [], "cpu": []}
+
+        def dispatch(*args, **kw):
+            stack = slot[_side()]
+            return (stack[-1] if stack else slot["inner"])(*args, **kw)
+        _PATCHES[(module, name)] = slot
+        setattr(module, name, dispatch)
+    stack = slot[_side()]
+    fn = make(stack[-1] if stack else slot["inner"])
+    stack.append(fn)
+    try:
+        yield
+    finally:
+        if stack.pop() is not fn:
+            fail(f"{name}: spies left out of order")
+
+
+class CpuRefs:
+    """One daemon thread that runs the CPU reference passes handed to
+    it, in order; ``submit`` returns each one's future."""
+
+    def __init__(self):
+        self.jobs = queue.Queue()
+        self.thread = threading.Thread(target=self._run, name=CPU_REFS,
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(),
+                       CPU_REFS_NICE)
+        while (job := self.jobs.get()) is not None:
+            fut, fn = job
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # raised where the result is read
+                fut.set_exception(e)
+            del job, fut, fn       # a pass's inputs go with it
+
+    def submit(self, fn) -> concurrent.futures.Future:
+        fut = concurrent.futures.Future()
+        self.jobs.put((fut, fn))
+        return fut
+
+    def close(self) -> None:
+        self.jobs.put(None)
+        self.thread.join()
+
+
+_CPU_REFS = []                     # the worker, started at first use
+_PENDING = []                      # checks waiting on it, in order
+
+
+def cpu_refs() -> CpuRefs:
+    if not _CPU_REFS:
+        _CPU_REFS.append(CpuRefs())
+    return _CPU_REFS[0]
+
+
+class Pending:
+    """A card-against-CPU check whose CPU passes run on the worker:
+    ``settle`` calls ``finish(their result)`` and puts what it returns
+    in ``target[key]``."""
+
+    def __init__(self, what: str, target: dict, key: str, cpu_pass,
+                 finish):
+        self.what, self.target, self.key = what, target, key
+        self.finish = finish
+        self.future = cpu_refs().submit(cpu_pass)
+        target[key] = self
+        _PENDING.append(self)
+
+
+def settle() -> dict:
+    """Wait for the worker, make every pending check in the order
+    handed in (each fails the run as it would have in its phase), and
+    stop the worker. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    for p in _PENDING:
+        p.future.result()
+    waited = time.perf_counter() - t0
+    while _PENDING:
+        p = _PENDING.pop(0)
+        print(f"  {p.what}")
+        p.target[p.key] = p.finish(p.future.result())
+    if _CPU_REFS:
+        _CPU_REFS.pop().close()
+    return {"waited_s": waited}
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches made inside (reference forwards that a main path is held
-    against) do not count towards that path."""
+    against) do not count towards that path. On the CPU reference worker
+    it does nothing: that thread launches no kernel, and the counts it
+    would restore are the card's."""
+    if _side() == "cpu":
+        yield
+        return
     saved = launch_counts()
     stage = fd_k.cached_stage_launches
     try:
@@ -2183,14 +2348,14 @@ def _copy(tree, device: str):
 
 
 def _beyond(a: torch.Tensor, b: torch.Tensor, budget: int, limit: float,
-            what: str) -> dict:
+            what: str, atol: float = PARAM_ATOL) -> dict:
     """Rows of a (card) and b (CPU) with an element further apart than
-    PARAM_ATOL: at most `budget` of them, none further than `limit`."""
+    ``atol``: at most `budget` of them, none further than `limit`."""
     d = (a.cpu() - b).abs().reshape(a.shape[0], -1).amax(dim=1)
     out = {"max_abs_err": d.max().item() if d.numel() else 0.0,
-           "beyond": int((d > PARAM_ATOL).sum()), "of": d.numel()}
+           "beyond": int((d > atol).sum()), "of": d.numel()}
     if out["beyond"] > budget or out["max_abs_err"] > limit:
-        fail(f"{what}: {out['beyond']} of {d.numel()} beyond {PARAM_ATOL},"
+        fail(f"{what}: {out['beyond']} of {d.numel()} beyond {atol},"
              f" max {out['max_abs_err']} (limit {limit})")
     return out
 
@@ -6236,11 +6401,32 @@ def lm_train_main(cfg) -> dict:
                           "grad_norm": float(norm_nr)}}
 
 
-def lm_launcher(arch: str = LM_ARCH, n: int = LM_LAUNCH_STEPS) -> dict:
+def at_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (each stack's, for an
+    encoder-decoder)."""
+    if cfg.is_encdec:
+        return cfg.replace(n_layers=2 * layers, enc_layers=layers,
+                           dec_layers=layers)
+    return cfg.replace(n_layers=layers)
+
+
+def lm_launcher(arch: str = LM_ARCH, n: int = LM_LAUNCH_STEPS,
+                layers=None) -> dict:
     """15(d), 19(d): the training launcher at full width, ``n`` steps
     uninterrupted against a run of all but the last step that saves a
     checkpoint after the step before, and a ``--resume`` run of the last:
-    the same final params and optimizer state, bit for bit."""
+    the same final params and optimizer state, bit for bit. With
+    ``layers``, the registry hands the launcher ``arch`` at that depth
+    (``at_depth``)."""
+    def make(inner):
+        return lambda a: at_depth(inner(a), layers) if a == arch \
+            else inner(a)
+    with (patched(registry, "get_arch", make) if layers is not None
+          else contextlib.nullcontext()):
+        return _lm_launcher(arch, n)
+
+
+def _lm_launcher(arch: str, n: int) -> dict:
     base = ["--arch", arch, "--seq-len", str(LM_LAUNCH_S),
             "--batch-size", "1", "--log-every", "1"]
     reset_counts()
@@ -6271,12 +6457,15 @@ def lm_launcher(arch: str = LM_ARCH, n: int = LM_LAUNCH_STEPS) -> dict:
     if loss2 != loss or not all(same):
         fail(f"{arch} launcher: the resumed run's loss {loss2!r} against "
              f"{loss!r}, {same.count(False)} of {len(same)} leaves differ")
-    print(f"  launcher {' '.join(base)}: {n} steps in {plain_s:.1f} s; "
+    depth = registry.get_arch(arch).n_layers
+    print(f"  launcher {' '.join(base)} ({depth} layers): {n} steps in "
+          f"{plain_s:.1f} s; "
           f"{n - 1} steps and a checkpoint in {saved_s:.1f} s; resumed for "
           f"the last in {resumed_s:.1f} s: loss {loss2:.4f} and all "
           f"{len(same)} param and optimizer-state leaves equal to the "
           f"uninterrupted run's bit for bit; launches {launches}")
-    return {"loss": loss, "plain_s": plain_s, "saved_s": saved_s,
+    return {"layers": depth, "loss": loss, "plain_s": plain_s,
+            "saved_s": saved_s,
             "resumed_s": resumed_s, "leaves_equal": len(same),
             "launches": launches}
 
@@ -6632,7 +6821,7 @@ def _shard_rank(mesh, save_dir, restore_dir) -> dict:
 
 
 def _nccl_rank(mesh) -> dict:
-    """16(f): one rank over nccl (the one NCCL run one card allows): the
+    """16(h): one rank over nccl (the one NCCL run one card allows): the
     communicator's all-reduce and broadcast on a card tensor, a served
     batch through a ``ShardedArena`` of one shard and the step on a mesh
     of one, each exact against the replicated path. At one rank the
@@ -6641,7 +6830,7 @@ def _nccl_rank(mesh) -> dict:
     reach NCCL only across cards."""
     cfg = DLRM_CONFIGS["dlrm1"]
     if mesh.backend != "nccl":
-        fail(f"16(f) runs over {mesh.backend}, not nccl")
+        fail(f"16(h) runs over {mesh.backend}, not nccl")
     x = torch.arange(8.0, device="cuda")
     torch.distributed.all_reduce(x)
     torch.distributed.broadcast(x, 0)
@@ -6657,7 +6846,7 @@ def _nccl_rank(mesh) -> dict:
                         max_batch=BUCKET, device="cuda")
         probs[name] = _served(eng, [dataclasses.replace(q) for q in reqs])
     if not np.array_equal(probs["sharded"], probs["replicated"]):
-        fail("16(f): the one-shard source served other bits")
+        fail("16(h): the one-shard source served other bits")
     b = train_batches(cfg, 1, seed=43)[0]
     tb = {k: torch.from_numpy(b[k]).cuda() for k in TRAIN_KEYS}
     losses = {}
@@ -6670,8 +6859,431 @@ def _nccl_rank(mesh) -> dict:
     if losses["sharded"][0] != losses["replicated"][0] or not (
             torch.equal(losses["sharded"][1], losses["replicated"][1])
             and torch.equal(losses["sharded"][2], losses["replicated"][2])):
-        fail("16(f): the step on a mesh of one differs from the replicated")
+        fail("16(h): the step on a mesh of one differs from the replicated")
     return {"loss": losses["sharded"][0], "served": len(reqs)}
+
+
+# 16(e), (f): the (data, model) mesh, 4 gloo ranks sharing the card
+MESH2D = (2, 2)
+MESH2D_AXES = ("data", "model")
+MESH2D_STEPS = 3                   # dense-gradient and sparse steps each
+# after 3 steps, the reference's bound (tests/test_sharded_sparse.py
+# :100-115), under phase 4's sign-flip budget
+MESH2D_STEP_ATOL = 1e-4
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_EXPERTS = 128                  # of 384: 19(c)'s cut (moe_fit)
+MOE_TOKENS = (2, 2048)             # (B, S): 1,024 tokens a rank
+MOE_NODROP_CF = 4.0                # the reference test's: nothing drops
+MOE_BF16_TOL = 2e-2                # of the reference's largest |y|
+MOE_AUX_RTOL = 1e-3                # cf 1.25 against the emulation's mean
+MOE_SEED = 7
+
+
+def moe_layer() -> tuple:
+    """(MoEConfig cut to MOE_EXPERTS experts, d_model) of MOE_ARCH."""
+    cfg = registry.get_arch(MOE_ARCH)
+    return dataclasses.replace(cfg.moe, n_experts=MOE_EXPERTS), cfg.d_model
+
+
+def moe_weight(name: str, mcfg, d: int) -> torch.Tensor:
+    """One leaf of the MoE layer, drawn on the card from its own seed (the
+    same bits in every process), at ``init_moe``'s scale (fan_in =
+    shape[0]): the router fp32, the experts bf16."""
+    e, ff = mcfg.n_experts, mcfg.expert_ff
+    shape, dtype = {"wr": ((d, e), torch.float32),
+                    "wg": ((e, d, ff), torch.bfloat16),
+                    "wu": ((e, d, ff), torch.bfloat16),
+                    "wd": ((e, ff, d), torch.bfloat16)}[name]
+    gen = torch.Generator(device="cuda").manual_seed(
+        MOE_SEED + ("wr", "wg", "wu", "wd").index(name))
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=dtype).mul_(shape[0] ** -0.5)
+
+
+def moe_tokens(d: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 10)
+    return torch.randn(MOE_TOKENS + (d,), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _moe_block(x: torch.Tensor, d_rank: int, m_rank: int) -> torch.Tensor:
+    """Rank (d_rank, m_rank)'s (B/2, S/2) block of the tokens."""
+    b, s = MOE_TOKENS[0] // MESH2D[0], MOE_TOKENS[1] // MESH2D[1]
+    return x[d_rank * b:(d_rank + 1) * b, m_rank * s:(m_rank + 1) * s]
+
+
+def moe_references(path: pathlib.Path) -> dict:
+    """16(f)'s one-rank references on the card, saved to ``path`` for the
+    ranks, then freed: ``apply_moe`` on all 4,096 tokens at cf 4 (its
+    routes and drops recorded), and the per-shard capacity at cf 1.25
+    emulated in one process: ``_moe_local`` over each rank's block of
+    tokens (capacity from its 1,024), its routes recorded."""
+    mcfg, d = moe_layer()
+    t0 = time.perf_counter()
+    p = {k: moe_weight(k, mcfg, d) for k in ("wr", "wg", "wu", "wd")}
+    x = moe_tokens(d)
+    nodrop = dataclasses.replace(mcfg, capacity_factor=MOE_NODROP_CF)
+    out = {"blocks": {}}
+    with torch.inference_mode():
+        with recorded_routes() as seen:
+            y, aux = lm_moe.apply_moe(p, nodrop, x)
+        out.update(y_nodrop=y.cpu(), aux_nodrop=float(aux),
+                   idx_nodrop=seen[0][2],
+                   drops_nodrop=int(dropped(seen).sum()))
+        y125 = torch.empty_like(x)
+        auxes = []
+        for dr in range(MESH2D[0]):
+            for mr in range(MESH2D[1]):
+                xb = _moe_block(x, dr, mr)
+                with recorded_routes() as seen:
+                    yb, ab = lm_moe._moe_local(xb.reshape(-1, d), p, mcfg)
+                _moe_block(y125, dr, mr).copy_(yb.view(xb.shape))
+                auxes.append(float(ab))
+                out["blocks"][(dr, mr)] = {
+                    "idx": seen[0][2], "drops": int(dropped(seen).sum())}
+        out.update(y_125=y125.cpu(), aux_125=float(np.mean(auxes)))
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    torch.save(out, path)
+    del p, x, y, y125
+    _free()
+    if out["drops_nodrop"]:
+        fail(f"16(f): {out['drops_nodrop']} tokens dropped at cf "
+             f"{MOE_NODROP_CF} on one rank")
+    return {k: v for k, v in out.items()
+            if k not in ("y_nodrop", "y_125", "idx_nodrop", "blocks")}
+
+
+def _digest(t) -> str:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+
+
+def _moe_rank(mesh, path: str) -> dict:
+    """16(f), one rank: its blocks of the expert weights (drawn whole a
+    leaf at a time, sharded, the whole freed), the expert-parallel layer
+    at cf 4 and at cf 1.25 with the routes pinned to the references'."""
+    mcfg, d = moe_layer()
+    ref_ = torch.load(path, weights_only=False)
+    dr, mr = mesh.rank("data"), mesh.rank("model")
+    p = {"wr": moe_weight("wr", mcfg, d)}
+    for k in ("wg", "wu", "wd"):
+        full = moe_weight(k, mcfg, d)
+        p.update(lm_moe.shard_moe_params({k: full}, mcfg, mesh))
+        del full
+    torch.cuda.empty_cache()
+    shapes = {k: tuple(p[k].shape) for k in ("wg", "wu", "wd")}
+    x = moe_tokens(d)
+    b_loc, s_loc = MOE_TOKENS[0] // MESH2D[0], MOE_TOKENS[1] // MESH2D[1]
+    rows = ((dr * b_loc + torch.arange(b_loc))[:, None] * MOE_TOKENS[1]
+            + mr * s_loc + torch.arange(s_loc)[None, :]).reshape(-1)
+    out = {"shapes": shapes}
+    with torch.inference_mode():
+        for name, mc, pin, want, aux_want in (
+                ("nodrop",
+                 dataclasses.replace(mcfg, capacity_factor=MOE_NODROP_CF),
+                 ref_["idx_nodrop"][rows], ref_["y_nodrop"],
+                 ref_["aux_nodrop"]),
+                ("cf125", mcfg, ref_["blocks"][(dr, mr)]["idx"],
+                 ref_["y_125"], ref_["aux_125"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with pinned_routes([(None, None, pin)]) as own, \
+                    recorded_routes() as seen:
+                y, aux = lm_moe.apply_moe(p, mc, x, mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if tuple(y.shape) != MOE_TOKENS + (d,) \
+                    or not torch.isfinite(y).all():
+                fail(f"16(f) {name}: output {tuple(y.shape)}, finite "
+                     f"{bool(torch.isfinite(y).all())}")
+            err = (y.float().cpu() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            out[name] = {"max_abs_err": err, "ref_max_abs": scale,
+                         "aux": float(aux), "aux_ref": aux_want,
+                         "drops": int(dropped(seen).sum()),
+                         "own_route_flips": int(own[0].sum()),
+                         "s": secs, "digest": _digest(y)}
+            if err > MOE_BF16_TOL * scale:
+                fail(f"16(f) {name} on rank ({dr}, {mr}): {err} from the "
+                     f"one-rank reference (bound {MOE_BF16_TOL} x {scale})")
+    if out["nodrop"]["drops"]:
+        fail(f"16(f): {out['nodrop']['drops']} tokens dropped at cf "
+             f"{MOE_NODROP_CF} on rank ({dr}, {mr})")
+    if out["cf125"]["drops"] != ref_["blocks"][(dr, mr)]["drops"]:
+        fail(f"16(f) cf 1.25: {out['cf125']['drops']} drops on rank "
+             f"({dr}, {mr}), the emulation "
+             f"{ref_['blocks'][(dr, mr)]['drops']}")
+    del p
+    _free()
+    return out
+
+
+def mesh2d_references(cfg, path: pathlib.Path) -> None:
+    """16(e)'s one-rank references on the card, saved for the ranks: from
+    phase 3's params, MESH2D_STEPS dense-gradient fixed-L steps and as
+    many sparse ragged steps, each step's loss, MLP, and touched rows'
+    arena values and accumulators."""
+    spec = dlrm.arena_spec(cfg)
+    out = {}
+    fixed = [DLRMSynthetic(cfg, seed=53).batch(BUCKET)
+             for _ in range(MESH2D_STEPS)]
+    ragged = train_batches(cfg, MESH2D_STEPS, seed=57)
+    with uncounted():
+        for kind, batches in (("dense", fixed), ("sparse", ragged)):
+            params = dlrm.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+            if kind == "dense":
+                opt, step = dlrm.make_train_step(cfg)
+            else:
+                opt, step = dlrm.make_train_step_ragged(cfg, max_l=MAX_L)
+            state = opt.init(params)
+            recs = []
+            for b in batches:
+                keys = FIXED_KEYS if kind == "dense" else TRAIN_KEYS
+                tb = {k: torch.from_numpy(b[k]).cuda() for k in keys}
+                res = step(params, state, tb)
+                params, state, loss = res[:3]
+                if kind == "dense":
+                    rows = torch.unique(se.flatten_indices(spec,
+                                                           tb["indices"]))
+                else:
+                    rows = res[3][res[3] != spec.null_row]
+                rows = rows.long()
+                recs.append({"loss": float(loss), "rows": rows.cpu(),
+                             "mlp": _mlp_flat(params).cpu(),
+                             "arena": params["arena"][rows].cpu(),
+                             "acc": state["arena"]["acc"][rows].cpu()})
+            out[kind] = {"batches": batches, "steps": recs}
+            del params, state
+    torch.save(out, path)
+    _free()
+
+
+def _mesh2d_dlrm(mesh, path: str, fp_probs) -> dict:
+    """16(e), one rank: the plans served on the mesh, then the dense and
+    sparse steps against the one-rank references."""
+    cfg = DLRM_CONFIGS["dlrm1"]
+    spec = dlrm.arena_spec(cfg)
+    n, r = mesh.size("model"), mesh.rank("model")
+    ref_ = torch.load(path, weights_only=False)
+    params, full = _rank_params(cfg, n, r)
+    del full
+    p_max = max(w.abs().max().item() for w in tree_leaves(
+        {k: params[k] for k in ("bottom", "top")}))
+    out = {"serve": {}, "block_bytes": params["arena"].numel() * 4}
+    served = served_batch(cfg)
+    fixed = fixed_batch(cfg, N_REQUESTS // 4, seed=23)
+    counts = warm_counts(cfg)
+    for name, batch, plan in (
+            ("ragged", served, dict(source="ragged")),
+            ("sharded", served, dict(source="sharded")),
+            ("cached", served, dict(source="cached", cache_k=SHARD_CACHE_K,
+                                    cache_trace=counts)),
+            ("fixed", fixed, dict(source="fixed")),
+            ("fixed_bags_ragged", fixed, dict(source="sharded"))):
+        eng = RecEngine(cfg, params, max_l=MAX_L, max_batch=BUCKET,
+                        mesh=mesh, device="cuda", **plan)
+        reqs = _requests(batch, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = _served(eng, reqs)
+        secs = time.perf_counter() - t0
+        if not np.isfinite(probs).all():
+            fail(f"16(e) {name}: probabilities not finite")
+        out["serve"][name] = {
+            "probs": probs, "graphed": eng.stats()["graphed"],
+            "ms_per_micro_batch": secs * 1e3 / (len(reqs) // BUCKET)}
+    for name in ("ragged", "sharded", "cached"):
+        err = float(np.abs(out["serve"][name]["probs"] - fp_probs).max())
+        out["serve"][name]["err_vs_phase3"] = err
+        if err > PROB_ATOL:
+            fail(f"16(e) {name}: {err} from phase 3's fp probabilities")
+    err = float(np.abs(out["serve"]["fixed"]["probs"]
+                       - out["serve"]["fixed_bags_ragged"]["probs"]).max())
+    out["serve"]["fixed"]["err_vs_fixed_bags_ragged"] = err
+    if err > PROB_ATOL:
+        fail(f"16(e) fixed: {err} from the sharded ragged plan")
+    base = _rank_params(cfg, n, r)[0]
+    for kind in ("dense", "sparse"):
+        params = _copy(base, "cuda")
+        if kind == "dense":
+            opt, step = dlrm.make_train_step(cfg, mesh=mesh)
+        else:
+            opt, step = dlrm.make_train_step_ragged(cfg, max_l=MAX_L,
+                                                    mesh=mesh)
+        state = opt.init(params)
+        recs = []
+        for i, (b, want) in enumerate(zip(ref_[kind]["batches"],
+                                          ref_[kind]["steps"])):
+            keys = FIXED_KEYS if kind == "dense" else TRAIN_KEYS
+            tb = {k: torch.from_numpy(b[k]).cuda() for k in keys}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(params, state, tb)
+            params, state, loss = res[:3]
+            loss = float(loss)
+            ms = (time.perf_counter() - t0) * 1e3
+            rows = want["rows"].cuda()
+            got_rows = collectives.gather_rows(params["arena"], rows, mesh)
+            got_acc = collectives.gather_rows(state["arena"]["acc"], rows,
+                                              mesh)
+            mlp = _mlp_flat(params)
+            what = f"16(e) {kind} step {i}"
+            rel = abs(loss - want["loss"]) / abs(want["loss"])
+            if rel > (LOSS_RTOL if i == 0 else MESH2D_STEP_ATOL):
+                fail(f"{what}: loss {loss}, one rank {want['loss']}")
+            if kind == "sparse" and not torch.equal(
+                    res[3][res[3] != spec.null_row].cpu(), want["rows"]):
+                fail(f"{what}: touched rows differ from the one-rank step's")
+            steps = i + 1
+            m = _beyond(mlp, want["mlp"], int(MLP_SHARE * mlp.numel()),
+                        steps * 2 * LR * (1.01 + 0.01 * p_max),
+                        f"{what} MLP", atol=MESH2D_STEP_ATOL)
+            a = _beyond(got_rows, want["arena"],
+                        ARENA_SAMPLES * cfg.n_tables * MAX_L,
+                        steps * 2 * 10 * LR * spec.dim ** 0.5,
+                        f"{what} arena rows", atol=MESH2D_STEP_ATOL)
+            acc_rel = ((got_acc.cpu() - want["acc"]).abs()
+                       / want["acc"].abs().clamp_min(1e-30)).max().item()
+            # the first step starts from equal params: the accumulators
+            # are each row's mean squared gradient over the whole batch,
+            # which a block gradient not summed over 'data' is not
+            if i == 0 and acc_rel > MESH2D_STEP_ATOL:
+                fail(f"{what}: accumulators {acc_rel} (relative) from the "
+                     f"one-rank step's")
+            if params["arena"][-1].any() or state["arena"]["acc"][-1].any():
+                fail(f"{what}: rank ({mesh.rank('data')}, {r})'s sentinel "
+                     f"moved")
+            recs.append({"loss": loss, "loss_rel_err": rel, "ms": ms,
+                         "mlp": m, "arena": a, "acc_rel_err": acc_rel,
+                         "digest": _digest(mlp) + _digest(got_rows)})
+        out[kind] = recs
+    return out
+
+
+def _mesh2d_rank(mesh, tmp: str, fp_probs) -> dict:
+    """One gloo rank of 16(e) and (f), the launch counts zeroed before
+    the main path and read after it."""
+    tmp = pathlib.Path(tmp)
+    reset_counts()
+    dlrm_out = _mesh2d_dlrm(mesh, str(tmp / "mesh2d_ref.pt"), fp_probs)
+    launches = launch_counts()
+    moe_out = _moe_rank(mesh, str(tmp / "moe_ref.pt"))
+    return {"coords": (mesh.rank("data"), mesh.rank("model")),
+            "dlrm": dlrm_out, "moe": moe_out, "launches": launches}
+
+
+def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
+    """16(e) and (f): the references here, then one start of 4 gloo ranks
+    on the (2, 2) mesh."""
+    t0 = time.perf_counter()
+    mesh2d_references(cfg, tmp / "mesh2d_ref.pt")
+    moe_ref = moe_references(tmp / "moe_ref.pt")
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = spawn(_mesh2d_rank, int(np.prod(MESH2D)), backend="gloo",
+                init_file=str(tmp / "rendezvous_mesh2d"),
+                args=(str(tmp), fp_probs), timeout_s=SHARD_TIMEOUT_S,
+                join_timeout_s=SHARD_TIMEOUT_S, mesh_shape=MESH2D,
+                mesh_axes=MESH2D_AXES)
+    ranks_s = time.perf_counter() - t0
+    if [rr["coords"] for rr in res] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        fail(f"16(e): ranks at {[rr['coords'] for rr in res]}")
+    first = res[0]
+    for rr in res[1:]:
+        for name, s in first["dlrm"]["serve"].items():
+            if not np.array_equal(rr["dlrm"]["serve"][name]["probs"],
+                                  s["probs"]):
+                fail(f"16(e) {name}: the ranks served other bits")
+        for kind in ("dense", "sparse"):
+            for i, (a, b) in enumerate(zip(first["dlrm"][kind],
+                                           rr["dlrm"][kind])):
+                if a["loss"] != b["loss"] or a["digest"] != b["digest"]:
+                    fail(f"16(e) {kind} step {i}: the ranks' losses, MLP "
+                         f"or rows differ")
+        for name in ("nodrop", "cf125"):
+            if rr["moe"][name]["digest"] != first["moe"][name]["digest"] \
+                    or rr["moe"][name]["aux"] != first["moe"][name]["aux"]:
+                fail(f"16(f) {name}: the ranks computed other bits")
+    m = first["moe"]
+    ratio = m["nodrop"]["aux"] / m["nodrop"]["aux_ref"]
+    if not 0.5 < ratio < 2.0:
+        fail(f"16(f) cf 4: aux {m['nodrop']['aux']}, one rank "
+             f"{m['nodrop']['aux_ref']}")
+    aux_rel = abs(m["cf125"]["aux"] - m["cf125"]["aux_ref"]) \
+        / abs(m["cf125"]["aux_ref"])
+    if aux_rel > MOE_AUX_RTOL:
+        fail(f"16(f) cf 1.25: aux {m['cf125']['aux']}, the emulation "
+             f"{m['cf125']['aux_ref']}")
+    counts = {n: sum(rr["launches"][n] for rr in res) for n in KERNELS}
+    missing = [k for k in SHARD_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"16(e)'s path launched no {missing}")
+    d = first["dlrm"]
+    s = d["serve"]
+    print(f"  16(e) (2, 2) mesh, DLRM(1), block {d['block_bytes']} bytes a "
+          f"rank: every rank's probabilities, losses, MLP and rows the same "
+          f"bits; from phase 3's: ragged {s['ragged']['err_vs_phase3']:.2e},"
+          f" sharded {s['sharded']['err_vs_phase3']:.2e}, cached "
+          f"{s['cached']['err_vs_phase3']:.2e}; fixed from its bags ragged "
+          f"{s['fixed']['err_vs_fixed_bags_ragged']:.2e}; ms a micro-batch "
+          f"(host clock, gloo): " + ", ".join(
+              f"{k} {v['ms_per_micro_batch']:.2f}" for k, v in s.items()))
+    for kind in ("dense", "sparse"):
+        for i, rec in enumerate(d[kind]):
+            print(f"  16(e) {kind} step {i}: loss {rec['loss']:.6f} (one "
+                  f"rank rel {rec['loss_rel_err']:.1e}), MLP "
+                  f"{rec['mlp']['beyond']} of {rec['mlp']['of']} beyond "
+                  f"{MESH2D_STEP_ATOL} (max {rec['mlp']['max_abs_err']:.1e}),"
+                  f" touched rows {rec['arena']['beyond']} of "
+                  f"{rec['arena']['of']} (max "
+                  f"{rec['arena']['max_abs_err']:.1e}), accumulators rel "
+                  f"{rec['acc_rel_err']:.1e}; {rec['ms']:.1f} ms")
+    for name in ("nodrop", "cf125"):
+        r = m[name]
+        print(f"  16(f) {MOE_ARCH} MoE layer, {MOE_EXPERTS} experts, "
+              f"{name}: max |y - ref| {r['max_abs_err']:.3e} of "
+              f"{r['ref_max_abs']:.3e} (bound {MOE_BF16_TOL} x), aux "
+              f"{r['aux']:.6f} (ref {r['aux_ref']:.6f}), drops {r['drops']},"
+              f" own top-k differing from the pinned on {r['own_route_flips']}"
+              f" tokens, {r['s']:.2f} s (gloo)")
+    print(f"  16(f) weight blocks a rank {m['shapes']}; one-rank references "
+          f"{ref_s:.1f} s (MoE {moe_ref['s']:.1f} s), ranks "
+          f"{ranks_s:.1f} s with their start; launches {counts}")
+    return {"launches": counts, "references_s": ref_s, "ranks_s": ranks_s,
+            "moe_reference": moe_ref,
+            "dlrm": {k: v for k, v in d.items() if k != "serve"}
+            | {"serve": {k: {kk: vv for kk, vv in v.items()
+                             if kk != "probs"} for k, v in s.items()}},
+            "moe": m}
+
+
+def _beside(fn, *args, **kw):
+    """Start ``fn(*args, **kw)`` in a thread; returns a function that
+    waits for it and gives (its result, its seconds), or raises what it
+    raised."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:  # re-raised by the caller's join
+            box["err"] = e
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"], box["s"]
+    return join
 
 
 def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
@@ -6780,31 +7392,35 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
           f"at 2 in {back['restore_s']:.2f} s, rows bit for bit; the next "
           f"step's loss rel {rel:.1e}, MLP {mlp_d['beyond']} beyond, arena "
           f"rows {arena_d['beyond']} beyond")
-    # 16(e): the launcher
-    t0 = time.perf_counter()
-    loss = train_launcher.main(["--arch", "dlrm1", "--ragged", "--shards",
-                                "2", "--backend", "gloo", "--steps", "3",
-                                "--rendezvous", str(tmp / "launcher"),
-                                "--timeout", str(SHARD_TIMEOUT_S)])
+    # 16(g) and (h) start beside 16(e) and (f): each runs its own ranks,
+    # processes that share the card and the host's cores with the (2, 2)
+    # mesh's; their checks are as they were alone, their times agreement
+    # runs
+    train_s = _beside(train_launcher.main, [
+        "--arch", "dlrm1", "--ragged", "--shards", "2", "--backend", "gloo",
+        "--steps", "3", "--rendezvous", str(tmp / "launcher"), "--timeout",
+        str(SHARD_TIMEOUT_S)])
+    serve_s = _beside(serve_launcher.main, [
+        "--arch", "dlrm1", "--shards", "2", "--backend", "gloo",
+        "--requests", str(4 * BUCKET), "--batch-size", str(BUCKET),
+        "--rendezvous", str(tmp / "serve_launcher"), "--timeout",
+        str(SHARD_TIMEOUT_S)])
+    nccl_s = _beside(spawn, _nccl_rank, 1, backend="nccl",
+                     init_file=str(tmp / "rendezvous_nccl"),
+                     timeout_s=SHARD_TIMEOUT_S,
+                     join_timeout_s=SHARD_TIMEOUT_S)
+    # 16(e), (f): the (data, model) mesh
+    mesh2d = phase_mesh2d(cfg, fp_probs, tmp)
+    # 16(g): the launchers
+    loss, launcher_s = train_s()
     if not np.isfinite(loss):
-        fail(f"16(e): the sharded launcher's loss {loss}")
-    launcher_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    served = serve_launcher.main(["--arch", "dlrm1", "--shards", "2",
-                                  "--backend", "gloo", "--requests",
-                                  str(4 * BUCKET), "--batch-size",
-                                  str(BUCKET), "--rendezvous",
-                                  str(tmp / "serve_launcher"), "--timeout",
-                                  str(SHARD_TIMEOUT_S)])
+        fail(f"16(g): the sharded launcher's loss {loss}")
+    served, serve_launcher_s = serve_s()
     if not np.isfinite(served["last_probs"]).all():
-        fail("16(e): the sharded serve launcher's probabilities are not "
+        fail("16(g): the sharded serve launcher's probabilities are not "
              "finite")
-    serve_launcher_s = time.perf_counter() - t0
-    # 16(f): nccl at world size 1
-    nccl = spawn(_nccl_rank, 1, backend="nccl",
-                 init_file=str(tmp / "rendezvous_nccl"),
-                 timeout_s=SHARD_TIMEOUT_S,
-                 join_timeout_s=SHARD_TIMEOUT_S)[0]
+    # 16(h): nccl at world size 1
+    nccl = nccl_s()[0][0]
     missing = [k for k in SHARD_KERNELS if counts[k] == 0]
     if missing:
         fail(f"phase 16's path launched no {missing}")
@@ -6827,7 +7443,7 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
         "launcher": {"loss": loss, "s": launcher_s,
                      "serve_p50_ms": served["p50_ms"],
                      "serve_s": serve_launcher_s},
-        "nccl": nccl, "s": time.perf_counter() - t_phase})
+        "nccl": nccl, "mesh2d": mesh2d, "s": time.perf_counter() - t_phase})
     print(f"  {card['nvidia_smi']}: the collectives are gloo through host "
           f"memory (ranks sharing one card): agreement, not the sharded "
           f"path's speed; launches by kernel {counts}; launcher 3 steps "
@@ -6916,18 +7532,16 @@ def recorded_routes():
     choices (T, k) sorted, whether a token's choice was dropped (T,),
     the choices in the router's order (T, k))."""
     seen = []
-    inner = lm_moe._slots
 
-    def spy(idx, n_experts, capacity):
-        slot, valid = inner(idx, n_experts, capacity)
-        seen.append((torch.sort(idx, -1).values.cpu(),
-                     (~valid).view(idx.shape).any(-1).cpu(), idx.cpu()))
-        return slot, valid
-    lm_moe._slots = spy
-    try:
+    def make(inner):
+        def spy(idx, n_experts, capacity):
+            slot, valid = inner(idx, n_experts, capacity)
+            seen.append((torch.sort(idx, -1).values.cpu(),
+                         (~valid).view(idx.shape).any(-1).cpu(), idx.cpu()))
+            return slot, valid
+        return spy
+    with patched(lm_moe, "_slots", make):
         yield seen
-    finally:
-        lm_moe._slots = inner
 
 
 @contextlib.contextmanager
@@ -6941,24 +7555,23 @@ def pinned_routes(routes):
     if routes is None:
         yield own
         return
-    inner, calls = lm_moe._route, iter(routes)
+    calls = iter(routes)
 
-    def pin(xf32, wr, mcfg):
-        _, idx, probs = inner(xf32, wr, mcfg)
-        want = next(calls, None)
-        if want is None:
-            fail(f"more MoE calls than the {len(routes)} recorded")
-        want = want[2].to(idx.device)
-        own.append((torch.sort(idx, -1).values
-                    != torch.sort(want, -1).values).any(-1).cpu())
-        w = torch.gather(probs, -1, want)
-        return (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), want,
-                probs)
-    lm_moe._route = pin
-    try:
+    def make(inner):
+        def pin(xf32, wr, mcfg):
+            _, idx, probs = inner(xf32, wr, mcfg)
+            want = next(calls, None)
+            if want is None:
+                fail(f"more MoE calls than the {len(routes)} recorded")
+            want = want[2].to(idx.device)
+            own.append((torch.sort(idx, -1).values
+                        != torch.sort(want, -1).values).any(-1).cpu())
+            w = torch.gather(probs, -1, want)
+            return (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9),
+                    want, probs)
+        return pin
+    with patched(lm_moe, "_route", make):
         yield own
-    finally:
-        lm_moe._route = inner
     if len(own) != len(routes):
         fail(f"{len(own)} MoE calls pinned to {len(routes)} recorded")
 
@@ -6985,12 +7598,9 @@ def plain_attention():
     """The flash op as models.layers calls it routed to the kernel's plain
     version, for the fp32 references on the card (the kernel takes bf16
     only)."""
-    inner = ops.flash_attention_gqa
-    ops.flash_attention_gqa = ref.flash_attention_gqa
-    try:
+    with patched(ops, "flash_attention_gqa",
+                 lambda inner: ref.flash_attention_gqa):
         yield
-    finally:
-        ops.flash_attention_gqa = inner
 
 
 def _fam_group(name: str) -> str:
@@ -7332,49 +7942,67 @@ def _every_position(what: str, card: torch.Tensor, c16: torch.Tensor,
             "tokens_beyond_bound": beyond}
 
 
-def fam_card_vs_cpu(cfg, params, batch: dict) -> dict:
+def fam_card_vs_cpu(cfg, params, batch: dict, what: str, target: dict,
+                    key: str) -> None:
     """The card against the CPU path's fp32 from the same weights: a
     forward of ``batch`` at every position, and decode after a prefill
     of all but its last position, each within LM_FLOOR_FACTOR x the CPU
     bf16 path's own error (phase 10(c)'s bar). Both bf16 paths run with
     their experts pinned to the fp32 path's, so that every position is
     held; their own routing flips are under the budget (see FLIP_SHARE).
-    """
+    The CPU path's passes run on the worker; ``settle`` then takes the
+    card's, from the same weights copied back (the card's own are freed
+    meanwhile), and makes the check into ``target[key]``."""
     s = sum(t.shape[1] for t in batch.values())
     cpu = tree_map(lambda t: t.cpu(), params)
     cbatch = {k: t.cpu() for k, t in batch.items()}
-    t0 = time.perf_counter()
-    c32f, c32d, r32, _ = _forward_and_decode(
-        tree_map(lambda t: t.float(), cpu), cfg.replace(dtype="float32"),
-        cbatch)
-    c16f, c16d, _, own16 = _forward_and_decode(cpu, cfg, cbatch, pin=r32)
-    secs = time.perf_counter() - t0
-    del cpu
-    card_f, card_d, _, own = _forward_and_decode(params, cfg, batch, pin=r32)
-    out = {"cpu_s": secs}
-    print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's forward and "
-          f"decode in fp32 and bf16 took {secs:.1f} s")
-    if cfg.moe is not None:
-        pairs = sum(f.numel() for f in own)
-        flips, cpu_flips = (sum(int(f.sum()) for f in o) for o in (own, own16))
-        budget = LM_FLOOR_FACTOR * cpu_flips + FLIP_SHARE * pairs
-        out.update(card_route_flips=flips, cpu_bf16_route_flips=cpu_flips,
-                   route_pairs=pairs, flip_budget=budget)
-        print(f"  experts pinned to the CPU fp32 path's; own top-k other "
-              f"than its: card {flips}, CPU bf16 {cpu_flips} of {pairs} "
-              f"(token, layer) pairs of the forward and the decode path; "
-              f"budget {budget:.1f}")
-        if flips > budget:
-            fail(f"{cfg.name}: {flips} routing flips against the CPU "
-                 f"path, over {budget}")
-    out["forward"] = _every_position(f"forward, {cfg.n_layers} layers",
-                                     card_f, c16f, c32f)
-    floor = float((c16d - c32d).abs().max())
-    out["decode"] = _against_fp32(
-        f"decode after prefill of S - 1, {cfg.n_layers} layers (CPU bf16 "
-        f"vs fp32 {floor:.3e})", card_d, c32d, floor)
-    out["decode"]["floor"] = floor
-    return out
+
+    def cpu_pass() -> dict:
+        t0 = time.perf_counter()
+        c32f, c32d, r32, _ = _forward_and_decode(
+            tree_map(lambda t: t.float(), cpu), cfg.replace(dtype="float32"),
+            cbatch)
+        c16f, c16d, _, own16 = _forward_and_decode(cpu, cfg, cbatch,
+                                                   pin=r32)
+        return {"c32f": c32f, "c32d": c32d, "r32": r32, "c16f": c16f,
+                "c16d": c16d, "own16": own16,
+                "cpu_s": time.perf_counter() - t0}
+
+    def finish(r: dict) -> dict:
+        card = tree_map(lambda t: t.cuda(), cpu)
+        cpu.clear()
+        card_f, card_d, _, own = _forward_and_decode(card, cfg, batch,
+                                                     pin=r["r32"])
+        del card
+        _free()
+        out = {"cpu_s": r["cpu_s"]}
+        print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's forward "
+              f"and decode in fp32 and bf16 took {r['cpu_s']:.1f} s beside "
+              "the card")
+        if cfg.moe is not None:
+            pairs = sum(f.numel() for f in own)
+            flips, cpu_flips = (sum(int(f.sum()) for f in o)
+                                for o in (own, r["own16"]))
+            budget = LM_FLOOR_FACTOR * cpu_flips + FLIP_SHARE * pairs
+            out.update(card_route_flips=flips,
+                       cpu_bf16_route_flips=cpu_flips, route_pairs=pairs,
+                       flip_budget=budget)
+            print(f"  experts pinned to the CPU fp32 path's; own top-k "
+                  f"other than its: card {flips}, CPU bf16 {cpu_flips} of "
+                  f"{pairs} (token, layer) pairs of the forward and the "
+                  f"decode path; budget {budget:.1f}")
+            if flips > budget:
+                fail(f"{cfg.name}: {flips} routing flips against the CPU "
+                     f"path, over {budget}")
+        out["forward"] = _every_position(
+            f"forward, {cfg.n_layers} layers", card_f, r["c16f"], r["c32f"])
+        floor = float((r["c16d"] - r["c32d"]).abs().max())
+        out["decode"] = _against_fp32(
+            f"decode after prefill of S - 1, {cfg.n_layers} layers (CPU "
+            f"bf16 vs fp32 {floor:.3e})", card_d, r["c32d"], floor)
+        out["decode"]["floor"] = floor
+        return out
+    Pending(what, target, key, cpu_pass, finish)
 
 
 def _shallow(cfg, params, n: int) -> tuple:
@@ -7415,9 +8043,10 @@ def fam_engine(cfg, params) -> dict:
     return out
 
 
-def fam_cut_vs_cpu(arch: str) -> dict:
+def fam_cut_vs_cpu(arch: str, target: dict) -> None:
     """17(c), (d): a MoE model at full width cut to CPU_EXPERTS experts
-    (top-k kept) and MOE_CPU_LAYERS layers, card against the CPU."""
+    (top-k kept) and MOE_CPU_LAYERS layers, card against the CPU, into
+    ``target["card_vs_cpu"]``."""
     full = registry.get_arch(arch)
     m = full.moe
     cut = full.replace(n_layers=MOE_CPU_LAYERS, moe=dataclasses.replace(
@@ -7426,15 +8055,29 @@ def fam_cut_vs_cpu(arch: str) -> dict:
           f"{m.top_k} kept), {MOE_CPU_LAYERS} layer(s), against the CPU")
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(1), cut,
                          device="cuda")
-    out = fam_card_vs_cpu(cut, params, fam_batch(cut, FAM_S, seed=6))
+    fam_card_vs_cpu(cut, params, fam_batch(cut, FAM_S, seed=6),
+                    f"{arch}, {CPU_EXPERTS} experts, {MOE_CPU_LAYERS} "
+                    "layer(s): card against the CPU path", target,
+                    "card_vs_cpu")
     del params
     _free()
-    return out
 
 
-def fam_kimi() -> dict:
-    """17(b) and (c): kimi-k2-1t-a32b at full width and KIMI_LAYERS
-    layers; then its cut, card against the CPU."""
+def fam_cut_checks() -> dict:
+    """17(c) and (d)'s cuts of kimi-k2 and arctic, their CPU passes
+    handed to the worker first (before phase 15, so that they run beside
+    15 and 16): a record for each, which phase 17 fills and ``settle``
+    completes with the check."""
+    print("  17(c), (d): the MoE cuts' CPU passes handed to the worker")
+    cuts = {}
+    for arch in ("kimi-k2-1t-a32b", "arctic-480b"):
+        fam_cut_vs_cpu(arch, cuts.setdefault(arch, {}))
+    return cuts
+
+
+def fam_kimi(out: dict) -> dict:
+    """17(b): kimi-k2-1t-a32b at full width and KIMI_LAYERS layers, into
+    ``out`` (17(c), its cut against the CPU, is ``fam_cut_checks``')."""
     full = registry.get_arch("kimi-k2-1t-a32b")
     depth = KIMI_LAYERS
     cfg = full.replace(n_layers=depth)
@@ -7443,17 +8086,16 @@ def fam_kimi() -> dict:
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
                          device="cuda")
     _describe(cfg, params)
-    out = {"depth": depth, "prefill": fam_prefill(
-        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S))}
+    out.update(depth=depth, prefill=fam_prefill(
+        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S)))
     out["laws"] = fam_laws(cfg, params)
     out["serve"] = fam_engine(cfg, params)
     del params
     _free()
-    out["card_vs_cpu"] = fam_cut_vs_cpu("kimi-k2-1t-a32b")
     return out
 
 
-def fam_model(arch: str, layers=None, seed: int = 0) -> dict:
+def fam_model(arch: str, layers=None, seed: int = 0, out=None) -> dict:
     """17(d)-(f): a model at full width (depth ``layers`` or its own):
     prefill, the laws, the DecodeEngine; without a MoE, card against the
     CPU path at FAM_CPU_LAYERS (a MoE's own cut is ``fam_cut_vs_cpu``);
@@ -7464,16 +8106,18 @@ def fam_model(arch: str, layers=None, seed: int = 0) -> dict:
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(seed),
                          cfg, device="cuda")
     _describe(cfg, params)
-    out = {"depth": cfg.n_layers, "prefill": fam_prefill(
-        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S))}
+    out = {} if out is None else out
+    out.update(depth=cfg.n_layers, prefill=fam_prefill(
+        cfg, params, fam_batch(cfg, FAM_S, seed=FAM_S)))
     out["laws"] = fam_laws(cfg, params)
     out["serve"] = fam_engine(cfg, params)
     if cfg.attention.kind == "mla":
         out["absorbed_vs_naive"] = mla_absorbed_vs_naive(cfg, params)
     if cfg.moe is None:
         shallow, sub = _shallow(cfg, params, FAM_CPU_LAYERS)
-        out["card_vs_cpu"] = fam_card_vs_cpu(shallow, sub,
-                                             fam_batch(cfg, FAM_S, seed=6))
+        fam_card_vs_cpu(shallow, sub, fam_batch(cfg, FAM_S, seed=6),
+                        f"{arch}, {FAM_CPU_LAYERS} layers: card against the "
+                        "CPU path", out, "card_vs_cpu")
         del sub
     del params
     _free()
@@ -7513,7 +8157,7 @@ def mla_absorbed_vs_naive(cfg, params) -> dict:
     return out
 
 
-def phase_lm_families(gen) -> tuple:
+def phase_lm_families(gen, cuts: dict) -> tuple:
     clock = [time.perf_counter()]
 
     def took(part: str) -> float:
@@ -7526,14 +8170,15 @@ def phase_lm_families(gen) -> tuple:
           "internvl2's heads")
     err, rows = check_flash(gen, FAM_FLASH_SHAPES, FAM_FLASH_TIMED)
     seconds = {"a": took("a")}
-    print("  17(b), (c): kimi-k2-1t-a32b")
-    kimi = fam_kimi()
-    seconds["bc"] = took("b, c")
+    print("  17(b): kimi-k2-1t-a32b")
+    kimi = fam_kimi(cuts["kimi-k2-1t-a32b"])
+    seconds["b"] = took("b")
     print("  17(d): arctic-480b")
-    arctic = fam_model("arctic-480b", layers=ARCTIC_LAYERS)
     # two full layers are 55 GB of bf16, too much for a host copy beside
-    # its fp32 one: the CPU check runs on the cut, as kimi's does
-    arctic["card_vs_cpu"] = fam_cut_vs_cpu("arctic-480b")
+    # its fp32 one: the CPU check runs on the cut (``fam_cut_checks``),
+    # as kimi's does
+    arctic = fam_model("arctic-480b", layers=ARCTIC_LAYERS,
+                       out=cuts["arctic-480b"])
     seconds["d"] = took("d")
     print(f"  17(e): minicpm3-4b, {MINICPM_LAYERS} layers")
     minicpm = fam_model("minicpm3-4b", layers=MINICPM_LAYERS)
@@ -7636,16 +8281,15 @@ def attention_launches(cfg, s: int) -> int:
 @contextlib.contextmanager
 def causal_flags():
     """Each flash kernel launch's ``causal`` flag, in order."""
-    seen, inner = [], fa_k.flash_attention_gqa
+    seen = []
 
-    def spy(q, k, v, *, causal=True, window=None):
-        seen.append(bool(causal))
-        return inner(q, k, v, causal=causal, window=window)
-    fa_k.flash_attention_gqa = spy
-    try:
+    def make(inner):
+        def spy(q, k, v, *, causal=True, window=None):
+            seen.append(bool(causal))
+            return inner(q, k, v, causal=causal, window=window)
+        return spy
+    with patched(fa_k, "flash_attention_gqa", make):
         yield seen
-    finally:
-        fa_k.flash_attention_gqa = inner
 
 
 def _span_ms(prof, span: str):
@@ -7721,43 +8365,52 @@ def rec_laws(cfg, params, s: int, max_len: int) -> dict:
     return out
 
 
-def rec_card_vs_cpu(cfg, params, s: int) -> dict:
+def rec_card_vs_cpu(cfg, params, s: int, what: str, target: dict,
+                    key: str) -> None:
     """A cut at full width, card against the CPU path's fp32 last-position
     logits of the same weights (a prefill of ``s`` tokens): the card's
     prefill of ``s`` tokens and its decode after a prefill of ``s - 1``,
     each within LM_FLOOR_FACTOR x the CPU bf16 path's own distance from
     those fp32 logits at that position (the bf16 decode path's: one bf16
-    pass on the CPU, not two, to keep the phase within its time)."""
+    pass on the CPU, not two, to keep the phase within its time). The
+    CPU path's passes run on the worker; ``settle`` makes the check into
+    ``target[key]``."""
     batch = rec_batch(cfg, s, seed=6)
     with uncounted():
         pre, _ = lm_api.prefill(params, cfg, batch, s)
     card_p = pre[0, :cfg.vocab_size].float().cpu()
     card_d = _decode_after(cfg, params, batch, s)
-    t0 = time.perf_counter()
     cpu = tree_map(lambda t: t.cpu(), params)
     cbatch = {k: t.cpu() for k, t in batch.items()}
-    c32, _ = lm_api.prefill(tree_map(lambda t: t.float(), cpu),
-                            cfg.replace(dtype="float32"),
-                            {k: t.float() if t.is_floating_point() else t
-                             for k, t in cbatch.items()}, s)
-    c32 = c32[0, :cfg.vocab_size]
-    head = dict(cbatch, tokens=cbatch["tokens"][:, :-1])
-    _, cache = lm_api.prefill(cpu, cfg, head, s)
-    c16d, _ = lm_api.decode_step(cpu, cfg, cache, cbatch["tokens"][:, -1],
-                                 s - 1)
-    c16d = c16d[0, :cfg.vocab_size].float()
-    secs = time.perf_counter() - t0
-    del cpu, cache
-    floor = float((c16d - c32).abs().max())
-    print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's fp32 prefill "
-          f"and bf16 prefill-and-decode took {secs:.1f} s; CPU bf16 vs "
-          f"fp32 (floor) {floor:.3e}")
-    out = {"cpu_s": secs, "floor": floor, "prefill": _against_fp32(
-        f"prefill, {cfg.n_layers} layers", card_p, c32, floor),
-        "decode": _against_fp32(
-            f"decode after prefill of S - 1, {cfg.n_layers} layers", card_d,
-            c32, floor)}
-    return out
+
+    def cpu_pass() -> dict:
+        t0 = time.perf_counter()
+        c32, _ = lm_api.prefill(tree_map(lambda t: t.float(), cpu),
+                                cfg.replace(dtype="float32"),
+                                {k: t.float() if t.is_floating_point() else t
+                                 for k, t in cbatch.items()}, s)
+        c32 = c32[0, :cfg.vocab_size]
+        head = dict(cbatch, tokens=cbatch["tokens"][:, :-1])
+        _, cache = lm_api.prefill(cpu, cfg, head, s)
+        c16d, _ = lm_api.decode_step(cpu, cfg, cache,
+                                     cbatch["tokens"][:, -1], s - 1)
+        cpu.clear()
+        return {"c32": c32, "c16d": c16d[0, :cfg.vocab_size].float(),
+                "cpu_s": time.perf_counter() - t0}
+
+    def finish(r: dict) -> dict:
+        c32 = r["c32"]
+        floor = float((r["c16d"] - c32).abs().max())
+        print(f"  {cfg.n_layers} layers, S = {s}: the CPU path's fp32 "
+              f"prefill and bf16 prefill-and-decode took {r['cpu_s']:.1f} s "
+              f"beside the card; CPU bf16 vs fp32 (floor) {floor:.3e}")
+        return {"cpu_s": r["cpu_s"], "floor": floor,
+                "prefill": _against_fp32(f"prefill, {cfg.n_layers} layers",
+                                         card_p, c32, floor),
+                "decode": _against_fp32(
+                    f"decode after prefill of S - 1, {cfg.n_layers} layers",
+                    card_d, c32, floor)}
+    Pending(what, target, key, cpu_pass, finish)
 
 
 def rec_model(arch: str, prefill_s, law_s: int, law_max_len: int,
@@ -7769,11 +8422,8 @@ def rec_model(arch: str, prefill_s, law_s: int, law_max_len: int,
     prefills)."""
     clock = time.perf_counter()
     cfg = registry.get_arch(arch)
-    if layers is not None and cfg.is_encdec:
-        cfg = cfg.replace(n_layers=2 * layers, enc_layers=layers,
-                          dec_layers=layers)
-    elif layers is not None:
-        cfg = cfg.replace(n_layers=layers)
+    if layers is not None:
+        cfg = at_depth(cfg, layers)
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(seed),
                          cfg, device="cuda")
     _describe(cfg, params)
@@ -7796,10 +8446,11 @@ def rec_model(arch: str, prefill_s, law_s: int, law_max_len: int,
     out["serve"] = lm_engine(cfg, params, profile_steps=REC_PROFILE_STEPS)
     took("engine")
     shallow, sub = _shallow(cfg, params, cpu_layers)
-    print(f"  the first {cpu_layers} layers"
-          + (" of each stack" if cfg.is_encdec else "")
-          + ", card against the CPU")
-    out["card_vs_cpu"] = rec_card_vs_cpu(shallow, sub, FAM_S)
+    what = (f"{cfg.name}, the first {cpu_layers} layers"
+            + (" of each stack" if cfg.is_encdec else "")
+            + ": card against the CPU path")
+    print(f"  {what}, its CPU passes handed to the worker")
+    rec_card_vs_cpu(shallow, sub, FAM_S, what, out, "card_vs_cpu")
     del params, sub
     _free()
     took("card_vs_cpu")
@@ -7924,10 +8575,13 @@ FAM_TRACE_TAKES = 2                # profiled steps until the trace is whole
 FAM_SPARE = 10e9                   # bytes moe_fit leaves free on the card
 REMAT_ARCH = "kimi-k2-1t-a32b"     # 19(c): remat off against on
 # 19(d): seamless's launcher, 2 steps against 1 with a checkpoint and a
-# --resume of the last: its checkpoint (the params in fp32 and AdamW's
-# two moments, 16.4 GB on disk) takes most of the part's time ("p19b":
-# 96 s at 3 steps)
+# --resume of the last, at LAUNCH_LAYERS of each stack's 24: whole, its
+# checkpoint (the params in fp32 and AdamW's two moments, 16.4 GB on
+# disk) took most of the part's time ("p19b": 96 s at 3 steps; 249 to
+# 269 s beside the CPU steps). The launcher's code path is the same at
+# any depth; 15(d) runs it on a whole model
 FAM_LAUNCH_STEPS = 2
+LAUNCH_LAYERS = 2
 
 
 @contextlib.contextmanager
@@ -7944,44 +8598,41 @@ def layer_routes(pin=None):
     chose; with ``pin`` (another path's routes by layer) each routing of
     layer i takes ``pin[i]``'s experts, weighted by this path's own
     probabilities there, renormalised, the recompute the same as the
-    forward. It spies every thread: on the card the recompute runs on
-    the autograd engine's device thread, and what runs beside 19(b)'s CPU
-    steps (19(d)'s launcher on seamless) routes nothing."""
-    inner = lm_moe._route
+    forward. It spies every thread of its side (``patched``): on the
+    card the recompute runs on the autograd engine's device thread."""
     layer_of = {}
     rec = {"routes": [], "flips": [], "calls": []}
 
-    def spy(xf32, wr, mcfg):
-        w, idx, probs = inner(xf32, wr, mcfg)
-        key = wr.data_ptr()
-        first = key not in layer_of
-        if first:
-            layer_of[key] = len(layer_of)
-            rec["calls"].append(0)
-        i = layer_of[key]
-        rec["calls"][i] += 1
-        if pin is None:
+    def make(inner):
+        def spy(xf32, wr, mcfg):
+            w, idx, probs = inner(xf32, wr, mcfg)
+            key = wr.data_ptr()
+            first = key not in layer_of
             if first:
-                rec["routes"].append(idx.cpu())
-            elif not torch.equal(idx.cpu(), rec["routes"][i]):
-                fail(f"MoE layer {i}: the recompute routed otherwise than "
-                     "the forward")
-            return w, idx, probs
-        if i >= len(pin):
-            fail(f"more MoE layers than the {len(pin)} pinned")
-        want = pin[i].to(idx.device)
-        if first:
-            rec["flips"].append((torch.sort(idx, -1).values
-                                 != torch.sort(want, -1).values).any(-1)
-                                .cpu())
-        wt = torch.gather(probs, -1, want)
-        return (wt / torch.clamp(wt.sum(-1, keepdim=True), min=1e-9), want,
-                probs)
-    lm_moe._route = spy
-    try:
+                layer_of[key] = len(layer_of)
+                rec["calls"].append(0)
+            i = layer_of[key]
+            rec["calls"][i] += 1
+            if pin is None:
+                if first:
+                    rec["routes"].append(idx.cpu())
+                elif not torch.equal(idx.cpu(), rec["routes"][i]):
+                    fail(f"MoE layer {i}: the recompute routed otherwise "
+                         "than the forward")
+                return w, idx, probs
+            if i >= len(pin):
+                fail(f"more MoE layers than the {len(pin)} pinned")
+            want = pin[i].to(idx.device)
+            if first:
+                rec["flips"].append((torch.sort(idx, -1).values
+                                     != torch.sort(want, -1).values).any(-1)
+                                    .cpu())
+            wt = torch.gather(probs, -1, want)
+            return (wt / torch.clamp(wt.sum(-1, keepdim=True), min=1e-9),
+                    want, probs)
+        return spy
+    with patched(lm_moe, "_route", make):
         yield rec
-    finally:
-        lm_moe._route = inner
 
 
 @contextlib.contextmanager
@@ -7990,28 +8641,27 @@ def token_losses():
     next-token loss ("nll", fp32 on the host), from the logits it is
     handed (a vlm model's text region), in the thread that enters it
     (the forward's: the loss is no layer's, so no recompute calls it; a
-    launcher beside 19(b)'s CPU steps calls it on its own thread)."""
-    inner = lm_emb.cross_entropy
+    launcher beside the CPU reference worker calls it on its own
+    thread)."""
     owner = threading.get_ident()
     seen = {}
 
-    def spy(logits, labels, mask):
-        out = inner(logits, labels, mask)
-        if threading.get_ident() != owner:
+    def make(inner):
+        def spy(logits, labels, mask):
+            out = inner(logits, labels, mask)
+            if threading.get_ident() != owner:
+                return out
+            with torch.no_grad():
+                lg = logits.float()
+                m = lg.amax(-1, keepdim=True)
+                logz = m[..., 0] + torch.log(torch.exp(lg - m).sum(-1))
+                seen["nll"] = (logz - torch.gather(
+                    lg, -1, labels.long()[..., None])[..., 0]).cpu()
+                seen["ce"] = float(out)
             return out
-        with torch.no_grad():
-            lg = logits.float()
-            m = lg.amax(-1, keepdim=True)
-            logz = m[..., 0] + torch.log(torch.exp(lg - m).sum(-1))
-            seen["nll"] = (logz - torch.gather(
-                lg, -1, labels.long()[..., None])[..., 0]).cpu()
-            seen["ce"] = float(out)
-        return out
-    lm_emb.cross_entropy = spy
-    try:
+        return spy
+    with patched(lm_emb, "cross_entropy", make):
         yield seen
-    finally:
-        lm_emb.cross_entropy = inner
 
 
 def _fam_step(cfg, params, batch: dict, pin=None) -> dict:
@@ -8151,17 +8801,27 @@ def fam_train_job(arch: str, s: int) -> dict:
     return job
 
 
-def cpu_bf16_steps(jobs: list, out: dict, errors: list) -> None:
-    """Each job's CPU path bf16 step (``_fam_step`` on its host params,
-    pinned to its routes), into ``out`` by arch; a failure into
-    ``errors``. 19(b) runs it in a thread beside 19(d)."""
-    try:
-        for job in jobs:
-            out[job["arch"]] = _fam_step(job["cfg"], job.pop("cpu16"),
-                                         _on(job["nb"], "cpu",
-                                             torch.bfloat16), job["pin"])
-    except BaseException as e:  # re-raised by the caller after the join
-        errors.append(e)
+def fam_train_checks() -> dict:
+    """19(b)'s jobs, made on the card; the CPU path's bf16 steps
+    (``_fam_step`` on each job's host params, pinned to its routes) are
+    handed to the CPU reference worker, after the passes of phases 17
+    and 18, and ``settle`` makes each check (``fam_train_check``) into
+    the dict returned, by arch."""
+    print(f"  19(b)'s jobs (one train step a family at S = "
+          f"{FAM_TRAIN_CPU_S}), their CPU path's bf16 steps handed to the "
+          "worker")
+    out = {}
+    for arch in TRAIN_ARCHS:
+        job = fam_train_job(arch, FAM_TRAIN_CPU_S)
+
+        def cpu_pass(job=job) -> dict:
+            return _fam_step(job["cfg"], job.pop("cpu16"),
+                             _on(job["nb"], "cpu", torch.bfloat16),
+                             job["pin"])
+        Pending(f"19(b) {arch}: one train step, card against the CPU path",
+                out, arch, cpu_pass,
+                lambda c16, job=job: fam_train_check(job, c16))
+    return out
 
 
 def fam_train_check(job: dict, c16: dict) -> dict:
@@ -8410,6 +9070,16 @@ def rounding_swallows_adamw(p0: torch.Tensor) -> bool:
     return bool((half > 1.17 * LM_LR + LM_LR * 0.01 * a).all())
 
 
+def bit_sum(t: torch.Tensor) -> int:
+    """A leaf's fingerprint, taken where it lies: the sum of its
+    elements' bit patterns. A leaf that did not move keeps it; one that
+    moved changes it unless its changes cancel exactly, which would count
+    it as not moved (a failure, not a pass, of 19(c)'s check)."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return int(t.detach().view(ints[t.element_size()])
+               .sum(dtype=torch.int64))
+
+
 def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
     """19(c): ``arch`` at full width (``layers`` deep, each stack's for the
     encoder-decoder, or whole; a MoE's experts ``experts``, or cut by
@@ -8444,7 +9114,7 @@ def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
         loss_nr, norm_nr, n_nr = remat_off_pass(
             cfg, params, LMSynthetic(cfg, seed=s).batch(b, s), n_attn)
         _free()
-    start = {p: t.to("cpu", copy=True) for p, t in tree_paths(params)}
+    start = {p: bit_sum(t) for p, t in tree_paths(params)}
     opt_state = lm_api.default_optimizer(cfg)[1].init(params)
     span = {"hybrid": lm_rglru.SCAN_SPAN, "ssm": lm_rwkv6.WKV_SPAN}.get(
         cfg.family)
@@ -8465,10 +9135,10 @@ def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
         print(f"  remat off: flash_attention x {n_nr}, loss "
               f"{float(loss_nr)!r} and grad norm {float(norm_nr)!r} equal "
               f"to the remat step's bit for bit")
-    still = [p for p, t in tree_paths(params)
-             if torch.equal(t.cpu(), start[p])]
+    leaves = dict(tree_paths(params))
+    still = [p for p, t in leaves.items() if bit_sum(t) == start[p]]
     frozen = [p for p in still if opt_name == "adamw"
-              and rounding_swallows_adamw(start[p])]
+              and rounding_swallows_adamw(leaves[p])]
     if still != frozen:
         fail(f"{arch} train: params that did not move: "
              f"{sorted(set(still) - set(frozen))}")
@@ -8481,7 +9151,7 @@ def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
               f"against {reck['peak'] / 1e9:.1f} GB reckoned")
     print(f"  {opt_name}: {len(start) - len(still)} of {len(start)} param "
           f"leaves moved")
-    del params, opt_state, start
+    del params, opt_state, leaves
     _free()
     if span and mb == 1:
         out["recurrence_alone"] = recurrence_backward_ms(cfg, s)
@@ -8489,10 +9159,12 @@ def fam_train_timed(arch: str, layers, experts, mb: int, b: int) -> dict:
 
 
 def phase_lm_train_families(gen) -> tuple:
-    """Phase 19 in the order (a), (c), then (b) and (d) together: the CPU
-    path's bf16 steps of (b) run in a thread while (d)'s launcher drives
-    the card (its times are printed, not measured: (c) is), then (b)'s
-    card steps and comparisons."""
+    """Phase 19 in the order (b)'s jobs (``fam_train_checks``), (d), (a),
+    (c), then the checks that wait on the CPU reference worker: those of
+    phases 17 and 18 and 19(b)'s. The worker may still run beside (d),
+    whose times are printed, not measured, and beside (a) and (c), which
+    print whether it did: it runs at a lower priority, and the card's
+    device times do not see it."""
     clock = [time.perf_counter()]
 
     def took(what: str) -> float:
@@ -8501,11 +9173,27 @@ def phase_lm_train_families(gen) -> tuple:
         print(f"   ({what} took {t:.1f} s)")
         return t
 
-    print("  19(a): the flash op's backward at the families' heads")
+    def worker_busy() -> bool:
+        return any(not p.future.done() for p in _PENDING)
+
+    agree = fam_train_checks()
+    seconds = {"b_jobs": took("19(b)'s jobs")}
+    launches = {n: 0 for n in KERNELS}
+    print(f"  19(d): the training launcher, {LAUNCH_ARCH} at "
+          f"{LAUNCH_LAYERS} + {LAUNCH_LAYERS} layers")
+    launcher = lm_launcher(LAUNCH_ARCH, FAM_LAUNCH_STEPS, LAUNCH_LAYERS)
+    for n in KERNELS:
+        launches[n] += launcher["launches"][n]
+    seconds["d"] = took("19(d)")
+    busy = {"a": worker_busy()}
+    print("  19(a): the flash op's backward at the families' heads"
+          + (", beside the CPU reference worker" if busy["a"] else ""))
     err, rows = check_flash_backward(gen, FAM_BWD_SHAPES, trials=3)
-    seconds = {"a": took("19(a)")}
-    print(f"  19(c): timed steps at full width, S = {FAM_TRAIN_S}")
-    runs, launches = [], {n: 0 for n in KERNELS}
+    seconds["a"] = took("19(a)")
+    busy["c"] = worker_busy()
+    print(f"  19(c): timed steps at full width, S = {FAM_TRAIN_S}"
+          + (", beside the CPU reference worker" if busy["c"] else ""))
+    runs = []
     for arch, layers, experts, mb, b in FAM_TRAIN_RUNS:
         print(f"  {arch}, batch {b} in {mb} micro-batch(es)")
         t0 = time.perf_counter()
@@ -8515,31 +9203,17 @@ def phase_lm_train_families(gen) -> tuple:
         for n in KERNELS:
             launches[n] += r["launches"][n]
     seconds["c"] = took("19(c)")
-    print(f"  19(b): one train step a family, card against the CPU, "
-          f"S = {FAM_TRAIN_CPU_S} tokens, batch 1: the CPU path's bf16 "
-          "steps in a thread beside 19(d)")
-    jobs = [fam_train_job(arch, FAM_TRAIN_CPU_S) for arch in TRAIN_ARCHS]
-    seconds["b_jobs"] = took("19(b), its jobs,")
-    c16, errors = {}, []
-    worker = threading.Thread(target=cpu_bf16_steps,
-                              args=(jobs, c16, errors), daemon=True)
-    worker.start()
-    print(f"  19(d): the training launcher, {LAUNCH_ARCH}")
-    launcher = lm_launcher(LAUNCH_ARCH, FAM_LAUNCH_STEPS)
-    for n in KERNELS:
-        launches[n] += launcher["launches"][n]
-    seconds["d"] = took("19(d), beside the CPU steps,")
-    worker.join()
-    if errors:
-        raise errors[0]
-    seconds["b_wait"] = took("19(b), the CPU steps' rest,")
-    agree = {job["arch"]: fam_train_check(job, c16.pop(job["arch"]))
-             for job in jobs}
-    seconds["b_check"] = took("19(b), the card's steps and checks,")
+    busy["c_end"] = worker_busy()
+    print("  the card against the CPU path: phases 17, 18 and 19(b), as "
+          "the worker's passes are done")
+    waited = settle()
+    seconds["checks"] = took(f"the checks (of which waiting for the worker "
+                             f"{waited['waited_s']:.1f} s)")
+    seconds["worker_wait"] = waited["waited_s"]
     _free()
     return {"max_abs_err": err, "rows": rows}, {
         "card_vs_cpu": agree, "runs": runs, "launcher": launcher,
-        "launches": launches, "seconds": seconds}
+        "launches": launches, "seconds": seconds, "worker_busy": busy}
 
 
 def main() -> None:
@@ -8605,6 +9279,7 @@ def main() -> None:
     phase("phase 14: the fleet, dlrm_het2 at full width")
     fleet = phase_fleet()
     phase("phase 15: LM training, smollm-360m at full width")
+    cuts = fam_cut_checks()
     flash_bwd, lm_train = phase_lm_train(gen)
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_bwd["max_abs_err"])
@@ -8616,7 +9291,7 @@ def main() -> None:
     for name, err in sharded["kernels"]["max_abs_err"].items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     phase("phase 17: the MoE, MLA and vision-prefix decoders at full width")
-    flash_112, lm_fam = phase_lm_families(gen)
+    flash_112, lm_fam = phase_lm_families(gen, cuts)
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_112["max_abs_err"])
     kernels["flash_attention"]["hd112_rows"] = flash_112["rows"]
@@ -8660,6 +9335,7 @@ def main() -> None:
                        fleet["group_trainer"]["launches"][name],
                    "lm_train": lm_train["launches"][name],
                    "sharded": sharded["launches"][name],
+                   "sharded_mesh2d": sharded["mesh2d"]["launches"][name],
                    "lm_families": lm_fam["launches"][name],
                    "lm_families_15c": lm_rec["launches"][name],
                    "lm_train_families": lm_fam_train["launches"][name]}

@@ -33,6 +33,16 @@ one process a rank) of more than one shard, ``params["arena"]`` (a group's
 the rank's block. Every rank runs the
 same batch. A group serves sharded but trains replicated, as the
 reference's does.
+
+On a (data, model) mesh (``make_mesh((2, 2), ("data", "model"))``) the
+block is replicated over the data axes. The fixed-L path splits its bags
+over them (``ShardedArena.reduce_fixed``) and hands every rank the whole
+result, so the dense-gradient ``make_train_step`` computes the MLP
+gradients of the whole batch on every rank, and sums the block's
+gradient over the data axes before the row-wise Adagrad (each data
+group's backward sees only its own bags). The ragged path is replicated
+over the data axes, as the reference's is: its steps are the 1-D ones,
+run alike by every data replica.
 """
 from __future__ import annotations
 
@@ -405,7 +415,10 @@ def make_train_step(cfg: DLRMConfig, optimizer: Optional[Optimizer] = None,
     whatever must survive the step. With a mesh the arena is this rank's
     block and its gradient the rank's rows of the whole one (the
     sentinel's pinned to zero); the MLP gradients are equal on every
-    rank, the batch being.
+    rank, the batch being. On a (data, model) mesh each data group
+    reduces its own bags and the block's gradient is summed over the
+    data axes inside the backward (``collectives.replicated``), so the
+    data replicas of a block step alike.
     """
     se.mesh_shards(mesh)
     opt = optimizer or make_optimizer(cfg)

@@ -38,8 +38,10 @@ on one rank, and between ranks (one all-reduce hands every rank the same
 bits).
 
 A table group's member may be any of these, a tiered source included.
-Not ported yet, refused naming ROADMAP Queue 1, item 13b: sharded tiered
-sources and a two-dimensional (data, model) mesh.
+A ``ShardedArena`` shards over any named mesh axis; on a mesh with other
+axes too (the (data, model) mesh) the fixed-L bags split over those, as
+the reference's do. A tiered source does not row-shard, in the reference
+either: a sharded tiered plan raises its ``ValueError``.
 """
 from __future__ import annotations
 
@@ -255,16 +257,28 @@ class ShardedArena(EmbeddingSource):
     ``axis`` of ``mesh``: the port's form of the reference's
     ``shard_map``. ``inner`` holds this rank's block (its rows, then the
     zero sentinel; ``se.shard_block``), which is what ``shard_map`` hands
-    the reference's body.
+    the reference's body; the block is replicated over the mesh's other
+    axes (the data axes).
 
     Each reduce runs the inner source's shard-local half over the block
     (ids the rank does not own, and the null row, sit on the sentinel)
-    and sums the ranks' f32 (n_bags, D) partials with one all-reduce
-    (``collectives.psum``, whose backward is the identity): only reduced
-    vectors cross ranks, never raw rows. The sum is rounded through the
-    inner dtype and back to f32, as the reference's is. With one shard
-    the inner source reduces on its own. Every rank calls each reduce
-    with the same batch (the batch is replicated over the row axis).
+    and sums the ranks' f32 (n_bags, D) partials over the row axis with
+    one all-reduce (``collectives.psum``, whose backward is the identity):
+    only reduced vectors cross ranks, never raw rows. The sum is rounded
+    through the inner dtype and back to f32, as the reference's is. With
+    one shard the inner source reduces on its own. Every rank calls each
+    reduce with the same batch.
+
+    The ragged reduces stay replicated over the data axes (a flat
+    stream's offsets are global bag boundaries, so it cannot split);
+    ``reduce_fixed`` splits its (B*T, L) bags over them, as the
+    reference's ``batch_spec`` does: each data group reduces its own
+    rows' partials, ``psum`` sums them over the row axis, and
+    ``all_gather`` over the data axes hands every rank the whole
+    (B*T, D) result, which is the reference's global array. The block's
+    gradient is then summed over the data axes
+    (``collectives.replicated``): each data group's backward sees only
+    its own bags.
     """
     inner: EmbeddingSource
     mesh: object
@@ -281,6 +295,11 @@ class ShardedArena(EmbeddingSource):
     @property
     def shard(self) -> int:
         return self.mesh.rank(self.axis) if self.n_shards > 1 else 0
+
+    def _data_axes(self) -> Tuple[str, ...]:
+        """The non-row mesh axes: the fixed-path batch partitions over
+        them (each data group reduces only its own samples)."""
+        return tuple(a for a in self.mesh.axis_names if a != self.axis)
 
     def _combine(self, part: torch.Tensor) -> torch.Tensor:
         return collectives.psum(part, self.mesh, self.axis) \
@@ -301,10 +320,37 @@ class ShardedArena(EmbeddingSource):
     def reduce_fixed(self, spec, flat):
         if self.n_shards == 1:
             return self.inner.reduce_fixed(spec, flat)
-        # one row axis: the fixed-L batch is replicated over it (the
-        # reference's batch partition over data axes is item 13b)
-        return self._combine(self.inner.shard_reduce_fixed(spec, flat,
-                                                           self.shard))
+        data = self._data_axes()
+        n_data = collectives.axes_size(self.mesh, data)
+        if n_data == 1:
+            return self._combine(self.inner.shard_reduce_fixed(
+                spec, flat, self.shard))
+        n = flat.shape[0]
+        rows = -(-n // n_data)
+        if rows * n_data != n:
+            # bags of null rows (zero, and cut off below) fill the last
+            # group: the reference's shard_map needs B*T to divide
+            flat = torch.cat([flat, flat.new_full(
+                (rows * n_data - n, flat.shape[1]), spec.null_row)])
+        mine = flat.narrow(0, collectives.axes_index(self.mesh, data) * rows,
+                           rows)
+        part = _replicated_over(self.inner, self.mesh, data) \
+            .shard_reduce_fixed(spec, mine, self.shard)
+        return collectives.all_gather(self._combine(part), self.mesh,
+                                      data)[:n]
+
+
+def _replicated_over(source: EmbeddingSource, mesh, axes) -> EmbeddingSource:
+    """``source`` with each tensor field that takes a gradient wrapped in
+    ``collectives.replicated`` over ``axes``: its gradient summed over
+    them (the transpose of a ``shard_map`` input replicated over the
+    data axes). The source itself when no field takes one."""
+    fields = {f.name: collectives.replicated(getattr(source, f.name), mesh,
+                                             axes)
+              for f in dataclasses.fields(source)
+              if isinstance(getattr(source, f.name), torch.Tensor)
+              and getattr(source, f.name).requires_grad}
+    return dataclasses.replace(source, **fields) if fields else source
 
 
 @dataclass(frozen=True)
@@ -918,16 +964,6 @@ class SourceSpec:
                 "step and cannot take a cached/quantized/grouped/tiered "
                 "source; drop cache_k/quantize_cold/tables/tiers or use "
                 "the ragged layout")
-        if self.axis != "model":
-            raise NotImplementedError(
-                f"axis {self.axis!r}: only the 'model' row axis is ported; "
-                "other axes are ROADMAP Queue 1, item 13b")
-        if self.tiers is not None and (self.mesh is not None
-                                       or self.require_mesh):
-            raise NotImplementedError(
-                "a tiered source does not row-shard (its staging and slot "
-                "protocol is replicated); sharded tiered sources are "
-                "ROADMAP Queue 1, item 13b")
         if self.require_mesh and se.mesh_shards(self.mesh, self.axis) < 2:
             raise ValueError(
                 "require_mesh=True (path 'sharded') needs a mesh with a "
@@ -943,6 +979,12 @@ class SourceSpec:
                 "a tiered plan is its own caching and quantization: "
                 "TierPolicy.hot replaces cache_k and the warm/cold tiers "
                 "replace quantize_cold; drop cache_k/quantize_cold")
+        if self.tiers is not None \
+                and se.mesh_shards(self.mesh, self.axis) > 1:
+            raise ValueError(
+                "TieredSource does not row-shard (the staging/slot "
+                "protocol is replicated-only, as the reference's) — drop "
+                "the mesh or the tiers")
 
     @staticmethod
     def from_path(path: Union[str, "SourceSpec"], *, cache_k: int = 0,
@@ -1010,7 +1052,7 @@ class SourceSpec:
         if counts is None:
             counts = np.ones(spec.total_rows)
         hot = se.build_hot_cache(arena, spec, counts, self.cache_k,
-                                 mesh=self.mesh)
+                                 mesh=self.mesh, axis=self.axis)
         # built from the live arena right here, so the plan declares
         # coherence
         return CachedSource(hot=hot, cold=cold, coherent=True)
@@ -1027,10 +1069,9 @@ class SourceSpec:
             sp = tp.arena_spec
             if tp.tiers is not None:
                 if sharded:
-                    raise NotImplementedError(
-                        "a tiered member does not row-shard: drop the "
-                        "mesh or this table's tiers (sharded tiered "
-                        "sources are ROADMAP Queue 1, item 13b)")
+                    raise ValueError(
+                        "TieredSource does not row-shard — drop the mesh "
+                        "or this table's tiers")
                 members.append(tp.tiers.build_source(arena, sp, c))
                 specs.append(sp)
                 continue
@@ -1042,7 +1083,7 @@ class SourceSpec:
                 if c is None:
                     c = np.ones(sp.total_rows)
                 hot = se.build_hot_cache(arena, sp, c, tp.cache_k,
-                                         mesh=self.mesh)
+                                         mesh=self.mesh, axis=self.axis)
                 member = CachedSource(hot=hot, cold=member, coherent=True)
             members.append(member)
             specs.append(sp)

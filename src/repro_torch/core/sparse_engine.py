@@ -172,7 +172,8 @@ def flatten_ragged_indices(spec: ArenaSpec, indices: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The row-sharded arena (a one-dimensional "model" mesh axis of N ranks).
+# The row-sharded arena (a mesh axis of N ranks, "model" by default; on a
+# (data, model) mesh the block is replicated over the data axes).
 # Rank r owns the contiguous rows [r * vlocal, (r + 1) * vlocal) of the
 # arena padded to ``spec.padded_rows(N)`` rows, and holds them as its
 # *block*: those rows, then one always-zero sentinel row (local row
@@ -366,19 +367,19 @@ def trace_row_counts(spec: ArenaSpec, indices, offsets=None,
 
 
 def build_hot_cache(arena: torch.Tensor, spec: ArenaSpec, counts,
-                    k: int, *, mesh=None) -> HotRowCache:
+                    k: int, *, mesh=None, axis: str = "model") -> HotRowCache:
     """Pin the top-k arena rows by trace frequency. The ranking runs on
     the host exactly as the reference's (among equal counts the highest
     row id comes first); the hot copies are gathered on the arena's
-    device. With a mesh of N > 1 shards ``arena`` is this rank's block,
-    the hot copies are brought from their owners by broadcast
-    (``collectives.gather_rows``, bit for bit; every rank calls this with
-    the same counts), and ``slot_of`` covers the N * vlocal global
-    rows."""
+    device. With a mesh of N > 1 shards on ``axis`` ``arena`` is this
+    rank's block, the hot copies are brought from their owners by
+    broadcast (``collectives.gather_rows``, bit for bit; every rank calls
+    this with the same counts), and ``slot_of`` covers the N * vlocal
+    global rows."""
     counts = np.asarray(counts)[:spec.null_row]     # real rows only
     k = int(min(k, counts.size))
     hot_ids = np.argsort(counts, kind="stable")[::-1][:k].astype(np.int32)
-    shards = mesh_shards(mesh)
+    shards = mesh_shards(mesh, axis)
     rows = arena.shape[0] if shards == 1 else shards * (arena.shape[0] - 1)
     slot_of = np.full((rows,), k, np.int32)
     slot_of[hot_ids] = np.arange(k, dtype=np.int32)
@@ -387,7 +388,7 @@ def build_hot_cache(arena: torch.Tensor, spec: ArenaSpec, counts,
         pinned = arena[ids]
     else:
         from repro_torch.distributed import collectives
-        pinned = collectives.gather_rows(arena, ids, mesh)
+        pinned = collectives.gather_rows(arena, ids, mesh, axis)
     hot_rows = torch.cat([pinned, arena.new_zeros((1, arena.shape[1]))])
     return HotRowCache(hot_rows=hot_rows,
                        slot_of=torch.from_numpy(slot_of).to(arena.device),

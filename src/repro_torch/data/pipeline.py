@@ -6,8 +6,11 @@ double-buffered through a bounded queue, and places each one on the
 device, so a step takes an already-resident batch. The reference places
 onto a JAX mesh; here ``make_placer`` copies into pinned host memory and
 then to the card with ``non_blocking`` copies, which the step's kernels
-on the same stream wait for. Placing onto a mesh (``make_placer(mesh)``)
-is not ported yet (ROADMAP Queue 1, item 13b).
+on the same stream wait for. On a mesh (``make_placer(device, mesh,
+batch_specs)``, the specs ``distributed.sharding.resolve``'s tuples, as
+the reference's ``PartitionSpec``s) each rank places its own block of
+every host array (``sharding.local_block``), the block a
+``NamedSharding`` would put on its device.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import Mesh
 
 
 class Prefetcher:
@@ -67,19 +72,29 @@ class Prefetcher:
             pass
 
 
-def make_placer(device=None, mesh=None) -> Callable:
+def make_placer(device=None, mesh=None, batch_specs=None) -> Callable:
     """Returns fn placing a numpy batch on ``device`` (the card unless
     told otherwise): on the card through pinned host tensors and
     ``non_blocking`` copies, on the CPU as tensors that own copies of the
-    arrays."""
+    arrays. With ``mesh`` (a ``launch.mesh.Mesh``), ``batch_specs`` maps
+    every key of a batch to its spec (``sharding.resolve(mesh,
+    logical)``), and the rank places its block of each array."""
     if mesh is not None:
-        raise NotImplementedError(
-            "placing a batch onto a mesh is not ported yet (ROADMAP Queue "
-            "1, item 13b)")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
+        if batch_specs is None:
+            raise ValueError("placing onto a mesh needs batch_specs: a spec "
+                             "(sharding.resolve) for every key")
     device = resolve_device(device)
 
     def place(batch):
-        host = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+        host = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.array(v))
+            if mesh is not None:
+                t = sharding.local_block(t, mesh, batch_specs[k])
+            host[k] = t
         if device.type == "cpu":
             return host
         return {k: v.pin_memory().to(device, non_blocking=True)

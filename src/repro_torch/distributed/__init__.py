@@ -1,8 +1,8 @@
 """The distributed substrate: the straggler monitor and the
 checkpoint/restart trainer (``fault_tolerance``), N ranks of one SPMD
 program over ``torch.distributed`` (``spawn``), the collectives of the
-row-sharded path (``collectives``) and gradient compression
-(``compression``)."""
+sharded paths (``collectives``), the logical axes (``sharding``) and
+gradient compression (``compression``)."""
 from repro_torch.distributed.fault_tolerance import (ResilientTrainer,
                                                      SimulatedFailure,
                                                      StragglerMonitor)

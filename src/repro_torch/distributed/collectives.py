@@ -1,8 +1,9 @@
-"""The collectives of the row-sharded path, over a ``launch.mesh.Mesh``.
+"""The collectives of the sharded paths, over a ``launch.mesh.Mesh``.
 
-The reference runs its sharded path inside ``shard_map`` and combines
-with ``psum``; here every rank is a process and the combines are
-``torch.distributed`` calls on the mesh axis' group:
+The reference runs its sharded paths inside ``shard_map`` and combines
+with ``psum``, ``all_gather`` and ``all_to_all``; here every rank is a
+process and the combines are ``torch.distributed`` calls on the groups of
+the mesh axes named (one name, or a tuple of names):
 
 * ``psum``: the one collective of a sharded lookup, an ``all_reduce(SUM)``
   of the reduced (n_bags, D) partials. Its backward is the identity on
@@ -10,18 +11,30 @@ with ``psum``; here every rank is a process and the combines are
   replicated output under ``shard_map``. (``torch.distributed.nn``'s
   all_reduce all-reduces the cotangent too, which would hand every
   shard N times its gradient.)
+* ``replicated``: the identity whose backward is that all-reduce: a
+  tensor every rank of the axes holds alike (an arena block replicated
+  over the data axes) whose uses on the ranks are each a part of the
+  work, so its gradient is the sum of theirs (the transpose of a
+  ``shard_map`` input replicated over those axes).
 * ``pmean_``: the MLP gradients of the sharded sparse step, all-reduced
   and divided by N in place, as one flat buffer.
-* ``gather_rows`` / ``gather_blocks``: rows that other ranks own, each
-  brought from its owner by ``broadcast`` (one a rank), never by an
-  all-reduce of zero-filled buffers: a sum with +0.0 turns a -0.0
-  element into +0.0, and hot copies must equal their arena rows bit for
-  bit.
+* ``all_gather``: the ranks' equal-shaped blocks concatenated along a
+  dimension, in the order of their index on the axes (the reference's
+  tiled ``all_gather``); its backward hands each rank its own slice of
+  the (replicated) cotangent.
+* ``gather_rows`` / ``gather_blocks`` / ``all_gather``: what other ranks
+  hold, each piece brought from its owner by ``broadcast`` (one a rank),
+  never by an all-reduce of zero-filled buffers: a sum with +0.0 turns a
+  -0.0 element into +0.0, and copies must equal their source bit for bit.
+* ``all_to_all``: the MoE's dispatch and return, chunk j of dim 0 to
+  rank j of the axis (``all_to_all_single``; its backward is the same
+  exchange of the cotangent). Gloo moves CUDA tensors only for
+  ``broadcast`` and ``all_reduce``, so over gloo the exchange runs on an
+  explicit host copy; over nccl on the card. The backend is the one the
+  caller joined with: this is dispatch, nothing is tried after a failure.
 
-Gloo moves CUDA tensors only for ``broadcast`` and ``all_reduce``, so
-these are the only two collectives used: the same code runs over gloo
-(ranks sharing a card, or CPU ranks) and over nccl (a card a rank).
-Each is the identity on an axis of one rank.
+The same code runs over gloo (ranks sharing a card, or CPU ranks) and
+over nccl (a card a rank). Each is the identity on axes of one rank.
 
 A row-sharded arena lives on each rank as its *block*: the rank's
 ``vlocal`` contiguous rows, then one always-zero sentinel row
@@ -29,10 +42,16 @@ A row-sharded arena lives on each rank as its *block*: the rank's
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+Axes = Union[str, Sequence[str]]
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def _group(mesh, axis: str):
@@ -40,16 +59,46 @@ def _group(mesh, axis: str):
         else mesh.group(axis)
 
 
+def _groups(mesh, axes: Axes) -> list:
+    """The process groups of the named axes that have more than one
+    rank, in the order named."""
+    return [g for g in (_group(mesh, a) for a in _axes(axes))
+            if g is not None]
+
+
 def _global_rank(mesh, axis: str, r: int) -> int:
     return dist.get_global_rank(mesh.group(axis), r)
 
 
+def axes_size(mesh, axes: Axes) -> int:
+    """Ranks across the named axes (1 without a mesh)."""
+    n = 1
+    if mesh is not None:
+        for a in _axes(axes):
+            n *= mesh.size(a)
+    return n
+
+
+def axes_index(mesh, axes: Axes) -> int:
+    """This rank's index across the named axes, row-major in the order
+    named (the block a tiled ``all_gather`` over them puts it at)."""
+    i = 0
+    if mesh is not None:
+        for a in _axes(axes):
+            i = i * mesh.size(a) + mesh.rank(a)
+    return i
+
+
+def _all_reduce(x: torch.Tensor, groups: list) -> torch.Tensor:
+    for g in groups:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+    return x
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
+    def forward(ctx, x, groups):
+        return _all_reduce(x.contiguous().clone(), groups)
 
     @staticmethod
     def backward(ctx, g):
@@ -58,30 +107,144 @@ class _PSum(torch.autograd.Function):
         return g, None
 
 
-def psum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
-    """Sum ``x`` over the mesh axis (every rank gets the same bits);
-    differentiable, with the identity as its backward."""
-    group = _group(mesh, axis)
-    if group is None:
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.groups), None
+
+
+def psum(x: torch.Tensor, mesh, axis: Axes = "model") -> torch.Tensor:
+    """Sum ``x`` over the mesh axis or axes (every rank gets the same
+    bits); differentiable, with the identity as its backward."""
+    groups = _groups(mesh, axis)
+    if not groups:
         return x
-    return _PSum.apply(x, group)
+    return _PSum.apply(x, groups)
+
+
+def replicated(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """``x`` as it is, with its gradient summed over the axes: for a
+    tensor every rank of ``axes`` holds alike and each uses for its own
+    part of the work (the transpose of a ``shard_map`` input replicated
+    over them). The identity on axes of one rank."""
+    groups = _groups(mesh, axes)
+    if not groups or not x.requires_grad:
+        return x
+    return _Replicated.apply(x, groups)
 
 
 @torch.no_grad()
-def pmean_(tensors: List[torch.Tensor], mesh, axis: str = "model") -> None:
-    """Replace each tensor by its mean over the mesh axis, in place: one
-    all-reduce of the tensors packed into one flat float32 buffer."""
-    group = _group(mesh, axis)
-    if group is None or not tensors:
+def pmean_(tensors: List[torch.Tensor], mesh, axis: Axes = "model") -> None:
+    """Replace each tensor by its mean over the mesh axis or axes, in
+    place: one all-reduce an axis of the tensors packed into one flat
+    float32 buffer."""
+    groups = _groups(mesh, axis)
+    if not groups or not tensors:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat /= mesh.size(axis)
+    _all_reduce(flat, groups)
+    flat /= axes_size(mesh, axis)
     i = 0
     for t in tensors:
         n = t.numel()
         t.copy_(flat[i:i + n].view(t.shape))
         i += n
+
+
+def pmean(x: torch.Tensor, mesh, axis: Axes = "model") -> torch.Tensor:
+    """The mean of ``x`` over the mesh axis or axes (``psum`` / N)."""
+    return psum(x, mesh, axis) / axes_size(mesh, axis)
+
+
+@torch.no_grad()
+def _gather_one(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = mesh.size(axis)
+    me = mesh.rank(axis)
+    x = x.contiguous()
+    parts = []
+    for r in range(n):
+        buf = x.clone() if r == me else torch.empty_like(x)
+        dist.broadcast(buf, src=_global_rank(mesh, axis, r),
+                       group=mesh.group(axis))
+        parts.append(buf)
+    return torch.cat(parts, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.size = mesh, axes, dim, x.shape[dim]
+        out = x
+        # the last axis named varies fastest: gather over it first
+        for a in reversed(axes):
+            out = _gather_one(out, mesh, a, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        i = axes_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """The ranks' blocks ``x`` (equal shapes) concatenated along ``dim``
+    in the order of their index across ``axes`` (row-major in the order
+    named), on every rank: each block broadcast by its owner, so the bits
+    are the owner's. Differentiable: the backward hands each rank its own
+    slice of the cotangent, which every rank holds whole. Collective over
+    the axes; the identity on axes of one rank."""
+    axes = tuple(a for a in _axes(axes)
+                 if mesh is not None and mesh.size(a) > 1)
+    if not axes:
+        return x
+    dim = dim % x.dim()
+    return _AllGather.apply(x, mesh, axes, dim)
+
+
+def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    group = mesh.group(axis)
+    x = x.contiguous()
+    if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
+        host = x.to("cpu")
+        out = torch.empty_like(host)
+        dist.all_to_all_single(out, host, group=group)
+        return out.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk j went to rank j's chunk me: the cotangent comes back by
+        # the same exchange
+        return _exchange(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """(n, ...) -> (n, ...): chunk j of ``x``'s dim 0 goes to rank j of
+    the axis, and chunk i of the result is what rank i sent this rank
+    (the reference's tiled ``all_to_all`` with split and concat on dim
+    0). Over gloo a CUDA tensor is exchanged through a host copy.
+    Differentiable. The identity on an axis of one rank."""
+    if _group(mesh, axis) is None:
+        return x
+    if x.shape[0] != mesh.size(axis):
+        raise ValueError(f"all_to_all over {mesh.size(axis)} ranks of "
+                         f"{axis!r}: dim 0 is {x.shape[0]}")
+    return _AllToAll.apply(x, mesh, axis)
 
 
 @torch.no_grad()

@@ -4,15 +4,19 @@
 the ``spawn`` start method (the parent may already hold a CUDA context,
 which ``fork`` would copy), joins each to one process group over a file
 rendezvous, and runs ``fn(mesh, *args)`` in each, ``mesh`` being the
-rank's ``make_mesh((n,), ("model",))``. It returns the ranks' results in
-rank order, tensors turned into numpy arrays.
+rank's ``make_mesh(mesh_shape, mesh_axes)``: by default ``(n,)`` over
+``("model",)``, the row-sharded mesh of ``--shards N``; ``mesh_shape=(2,
+2), mesh_axes=("data", "model")`` gives the reference's two-dimensional
+(data, model) mesh, rank r at ``np.unravel_index(r, mesh_shape)``. It
+returns the ranks' results in rank order, tensors turned into numpy
+arrays.
 
 The backend is the caller's, and nothing else is tried when it fails:
 
 * ``"nccl"`` when each rank has its own card: rank r runs on ``cuda:r``;
 * ``"gloo"`` for CPU ranks and for ranks that share one card. Gloo moves
   CUDA tensors only for ``broadcast`` and ``all_reduce`` (through host
-  memory), which are the only collectives the sharded path calls.
+  memory); ``collectives.all_to_all`` exchanges a host copy over gloo.
 
 The rendezvous is a file path that the caller passes and that must not
 exist yet: a fixed TCP port would collide between concurrent runs. Every
@@ -28,8 +32,9 @@ Build the CUDA kernels in the parent first (``kernels._build.build_all``):
 N children that find no build would each run every ``nvcc``.
 
 The launchers' ``--shards N --backend gloo|nccl [--rendezvous FILE]
-[--timeout S]`` options are defined, checked and run here
-(``add_shard_args``, ``check_shard_args``, ``spawn_launcher``).
+[--timeout S]`` and ``--mesh none|pod|multipod`` options are defined,
+checked and run here (``add_shard_args``, ``check_shard_args``,
+``spawn_launcher``, ``launcher_mesh``).
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -64,7 +70,8 @@ def _to_host(x: Any) -> Any:
 
 
 def _child(rank: int, n: int, backend: str, init_file: str,
-           timeout_s: float, fn: Callable, args: tuple, out) -> None:
+           timeout_s: float, mesh_shape: tuple, mesh_axes: tuple,
+           fn: Callable, args: tuple, out) -> None:
     torch.set_num_threads(1)
     try:
         kw = {}
@@ -77,7 +84,7 @@ def _child(rank: int, n: int, backend: str, init_file: str,
             **kw)
         try:
             from repro_torch.launch.mesh import make_mesh
-            result = fn(make_mesh((n,), ("model",)), *args)
+            result = fn(make_mesh(mesh_shape, mesh_axes), *args)
             out.put((rank, True, _to_host(result)))
         finally:
             dist.destroy_process_group()
@@ -87,13 +94,23 @@ def _child(rank: int, n: int, backend: str, init_file: str,
 
 def spawn(fn: Callable, nprocs: int, *, backend: str, init_file: str,
           args: Sequence = (), timeout_s: float = 120.0,
-          join_timeout_s: float = 120.0) -> List[Any]:
+          join_timeout_s: float = 120.0,
+          mesh_shape: Optional[Sequence[int]] = None,
+          mesh_axes: Sequence[str] = ("model",)) -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``nprocs`` ranks joined over
-    ``backend``; returns each rank's result, in rank order."""
+    ``backend``, ``mesh`` the rank's ``make_mesh(mesh_shape, mesh_axes)``
+    (default ``(nprocs,)`` over ``("model",)``; the shape's product must
+    be ``nprocs``); returns each rank's result, in rank order."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: name one of {BACKENDS}")
     if nprocs < 1:
         raise ValueError(f"{nprocs} ranks")
+    mesh_shape = (nprocs,) if mesh_shape is None else tuple(mesh_shape)
+    mesh_axes = tuple(mesh_axes)
+    if int(np.prod(mesh_shape)) != nprocs or len(mesh_shape) != len(
+            mesh_axes):
+        raise ValueError(f"mesh {mesh_shape} over {mesh_axes} for "
+                         f"{nprocs} ranks")
     if os.path.exists(init_file):
         raise ValueError(f"rendezvous file {init_file} exists already; "
                          "pass a fresh path")
@@ -105,8 +122,8 @@ def spawn(fn: Callable, nprocs: int, *, backend: str, init_file: str,
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=_child,
-                         args=(r, nprocs, backend, init_file, timeout_s, fn,
-                               tuple(args), out))
+                         args=(r, nprocs, backend, init_file, timeout_s,
+                               mesh_shape, mesh_axes, fn, tuple(args), out))
              for r in range(nprocs)]
     for p in procs:
         p.start()
@@ -154,8 +171,13 @@ def spawn(fn: Callable, nprocs: int, *, backend: str, init_file: str,
 
 
 def add_shard_args(p: argparse.ArgumentParser, shards_help: str) -> None:
-    """A launcher's ``--shards``, ``--backend``, ``--rendezvous`` and
-    ``--timeout`` options."""
+    """A launcher's ``--mesh``, ``--shards``, ``--backend``,
+    ``--rendezvous`` and ``--timeout`` options."""
+    p.add_argument("--mesh", default="none",
+                   choices=("none", "pod", "multipod"),
+                   help="the production (data, model) mesh of 256 ranks, or "
+                        "the (pod, data, model) mesh of 512, over the ranks "
+                        "this process was started among (not with --shards)")
     p.add_argument("--shards", type=int, default=1, help=shards_help)
     p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="with --shards: nccl (a card a rank) or gloo (CPU "
@@ -181,6 +203,29 @@ def check_shard_args(p: argparse.ArgumentParser, args: argparse.Namespace,
                 "shared card)")
     if args.rendezvous and args.shards == 1:
         p.error("--rendezvous goes with --shards")
+
+
+def launcher_mesh(args: argparse.Namespace):
+    """The mesh ``--mesh`` names, as the reference's launchers' ``_mesh``:
+    None for ``none``; ``--shards`` (which builds its own N-way 'model'
+    mesh) is refused beside it; else ``make_production_mesh``, which
+    raises ``RuntimeError`` unless this process is one of its 256 (512)
+    joined ranks."""
+    if args.mesh == "none":
+        return None
+    if args.shards > 1:
+        raise SystemExit(
+            "--shards builds its own N-way 'model' mesh and cannot be "
+            "combined with --mesh pod/multipod (the production meshes "
+            "fix their own model-axis width); pass one or the other")
+    from repro_torch.launch.mesh import make_production_mesh
+    return make_production_mesh(multi_pod=(args.mesh == "multipod"))
+
+
+def mesh_leader(mesh) -> bool:
+    """Whether this rank prints for the run: rank 0 of every axis (every
+    process without a mesh)."""
+    return mesh is None or all(mesh.rank(a) == 0 for a in mesh.axis_names)
 
 
 def spawn_launcher(fn: Callable, args: argparse.Namespace) -> List[Any]:

@@ -28,7 +28,7 @@ entries), since every swap is copied into the captured tensors.
 With tracing on in the trainer's telemetry, every round records its
 parts as spans there (``FleetRunner.round``). Everything runs on the
 card unless ``device="cpu"``. A mesh, or replicas of more than
-one shard, is ROADMAP Queue 1, item 13b.
+one shard, is ROADMAP Queue 1, item 13c.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ class Replica:
         if mesh is not None or shards != 1:
             raise NotImplementedError(
                 "replicas of a sharded publisher are not ported yet "
-                "(ROADMAP Queue 1, item 13b)")
+                "(ROADMAP Queue 1, item 13c)")
         self.name = name
         self.cfg = cfg
         self.channel = channel

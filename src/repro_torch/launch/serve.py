@@ -27,8 +27,11 @@ engine's latency stats. Runs on the card unless ``--device cpu``. DLRM
 ``--shards N`` serves row-sharded over an N-way "model" mesh of N ranks
 started over ``--backend`` (``nccl``: a card a rank; ``gloo``: CPU ranks
 or ranks sharing a card; no default), each serving the same batches;
-the ranks' probabilities must agree bit for bit. Not offered yet: a
-``--mesh`` other than ``none`` (ROADMAP Queue 1, item 13b).
+the ranks' probabilities must agree bit for bit. ``--mesh pod|multipod``
+serves a DLRM on the reference's production (data, model) mesh
+(``launch.mesh.make_production_mesh``) among the 256 (512) ranks this
+process was started with; with fewer it raises the reference's
+``RuntimeError``, and it cannot go with ``--shards``.
 """
 from __future__ import annotations
 
@@ -43,9 +46,11 @@ from repro_torch import default_device
 from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
+from repro_torch.core import sparse_engine as se
 from repro_torch.core.hybrid import make_pipelined_serve_step
 from repro_torch.data import DLRMSynthetic
 from repro_torch.distributed.spawn import (add_shard_args, check_shard_args,
+                                           launcher_mesh, mesh_leader,
                                            spawn_launcher)
 from repro_torch.models import api
 from repro_torch.serving import Batcher, DecodeEngine, Request
@@ -61,7 +66,7 @@ def serve_dlrm(args, mesh=None) -> Dict[str, float]:
     device = _device(args)
     params = dlrm_mod.shard_params(
         dlrm_mod.init(torch.Generator(device=device).manual_seed(0), cfg,
-                      args.shards, device=device), mesh)
+                      se.mesh_shards(mesh), device=device), mesh)
     serve = (make_pipelined_serve_step(cfg, args.microbatches, mesh)
              if args.pipelined else dlrm_mod.make_serve_step(cfg, mesh))
     data = DLRMSynthetic(cfg, seed=1)
@@ -81,10 +86,10 @@ def serve_dlrm(args, mesh=None) -> Dict[str, float]:
     out = {"p50_ms": float(np.percentile(arr, 50) * 1e3),
            "p99_ms": float(np.percentile(arr, 99) * 1e3),
            "steps": len(lat)}
-    if mesh is None or mesh.rank("model") == 0:
+    if mesh_leader(mesh):
         print(f"dlrm serve: {args.requests} reqs, batch {args.batch_size}"
               f"{f', pipelined x{args.microbatches}' if args.pipelined else ''}"
-              f"{f', {args.shards} shards' if mesh is not None else ''}"
+              f"{f', {se.mesh_shards(mesh)} shards' if mesh else ''}"
               f", p50 {out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms")
     if mesh is not None:
         out["last_probs"] = probs.cpu().numpy()
@@ -144,8 +149,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                    f"{', '.join(registry.ARCH_IDS)}")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced config (CPU-runnable)")
-    p.add_argument("--mesh", default="none",
-                   choices=("none", "pod", "multipod"))
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--pipelined", action="store_true",
@@ -159,11 +162,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     add_shard_args(p, "DLRM: serve row-sharded over an N-way 'model' mesh "
                       "of N ranks")
     args = p.parse_args(argv)
-    if args.mesh != "none":
-        p.error("the production meshes (--mesh) are not ported yet "
-                "(ROADMAP Queue 1, item 13b); --shards N builds an N-way "
-                "'model' mesh")
     check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
+    mesh = launcher_mesh(args)
+    if mesh is not None:
+        if args.arch not in DLRM_CONFIGS:
+            raise NotImplementedError(
+                "an LM on a production mesh (the LM's logical axes under "
+                "tensor-parallel and FSDP layers) is ROADMAP Queue 1, item "
+                "13c")
+        return serve_dlrm(args, mesh)
     if args.arch in registry.ARCHS:
         return serve_lm(args)
     if args.arch not in DLRM_CONFIGS:

@@ -48,8 +48,11 @@ default), joined over the file ``--rendezvous`` (a fresh temporary file
 when not given). Every rank trains on the same batches: ``--ragged``
 with the sharded sparse step, else the fixed-L dense-gradient step
 through the sharded source; checkpoints are collective and unsharded on
-disk. Rank 0 prints; the ranks' losses must agree bit for bit. The
-production (data, model) meshes are ROADMAP Queue 1, item 13b.
+disk. Rank 0 prints; the ranks' losses must agree bit for bit.
+``--mesh pod|multipod`` trains a DLRM on the reference's production
+(data, model) mesh (``launch.mesh.make_production_mesh``) among the 256
+(512) ranks this process was started with; with fewer it raises the
+reference's ``RuntimeError``, and it cannot go with ``--shards``.
 """
 from __future__ import annotations
 
@@ -65,9 +68,11 @@ from repro_torch.checkpoint import CheckpointManager, row_shardings
 from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
+from repro_torch.core import sparse_engine as se
 from repro_torch.data import DLRMSynthetic, LMSynthetic
 from repro_torch.distributed import StragglerMonitor
 from repro_torch.distributed.spawn import (add_shard_args, check_shard_args,
+                                           launcher_mesh, mesh_leader,
                                            spawn_launcher)
 from repro_torch.models import api
 from repro_torch.training import OnlineCacheConfig, OnlineTrainer
@@ -80,7 +85,7 @@ def _device(args) -> torch.device:
 
 def _log(mesh, *text) -> None:
     """Print on rank 0 (every rank of a sharded run trains the same)."""
-    if mesh is None or mesh.rank("model") == 0:
+    if mesh_leader(mesh):
         print(*text)
 
 
@@ -90,7 +95,7 @@ def _setup(args, mesh=None):
     cfg = DLRM_SMOKE if args.smoke else DLRM_CONFIGS[args.arch]
     device = _device(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = dlrm_mod.init(gen, cfg, args.shards, device=device)
+    params = dlrm_mod.init(gen, cfg, se.mesh_shards(mesh), device=device)
     return cfg, device, dlrm_mod.shard_params(params, mesh)
 
 
@@ -98,7 +103,8 @@ def _checkpoints(args, device, state, mesh=None):
     """The run's CheckpointManager (None without ``--ckpt-dir``), the
     state to start from, the first step (after the latest checkpoint with
     ``--resume``, else step 0) and the state's shardings on a mesh."""
-    shardings = (row_shardings(state, mesh) if args.shards > 1 else None)
+    shardings = (row_shardings(state, mesh) if se.mesh_shards(mesh) > 1
+                 else None)
     if not args.ckpt_dir:
         return None, state, 0, shardings
     ckpt = CheckpointManager(args.ckpt_dir, device=device)
@@ -188,7 +194,7 @@ def train_dlrm_ragged(args, mesh=None) -> float:
             _log(mesh, f"step {step:5d} loss {loss:.4f} "
                  f"({time.time() - t0:.3f}s){extra}")
     _finish(ckpt, mon, loss, mesh)
-    if args.metrics_json and (mesh is None or mesh.rank("model") == 0):
+    if args.metrics_json and mesh_leader(mesh):
         with open(args.metrics_json, "w") as f:
             json.dump(telemetry.snapshot(), f, indent=2, default=str)
         print(f"metrics snapshot -> {args.metrics_json}")
@@ -330,6 +336,15 @@ def train_sharded(args) -> float:
 def main(argv: Optional[Sequence[str]] = None) -> float:
     """Train as the arguments say; returns the last step's loss."""
     args = parse_args(argv)
+    mesh = launcher_mesh(args)
+    if mesh is not None:
+        if args.arch not in DLRM_CONFIGS:
+            raise NotImplementedError(
+                "an LM on a production mesh (the LM's logical axes under "
+                "tensor-parallel and FSDP layers) is ROADMAP Queue 1, item "
+                "13c")
+        return (train_dlrm_ragged if args.ragged else train_dlrm)(args,
+                                                                   mesh)
     if args.arch not in DLRM_CONFIGS:
         return train_lm(args)[0]
     if args.shards > 1:

@@ -19,7 +19,7 @@ loss summed over the layers (zero for a dense model), and ``loss``
 adds ``aux_loss_coef`` x aux. Training differentiates ``loss`` with
 autograd: through the flash op, whose backward recomputes through the
 chunked attention. Mesh arguments and the dry-run stand-ins are not
-ported (ROADMAP Queue 1, item 13b).
+ported (ROADMAP Queue 1, item 13c).
 """
 from __future__ import annotations
 

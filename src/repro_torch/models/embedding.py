@@ -1,17 +1,22 @@
 """Token embedding, LM head and the next-token loss, the counterpart of
-the reference's ``repro/models/embedding.py`` on one card.
+the reference's ``repro/models/embedding.py``.
 
 The reference shards the (padded) vocab table's rows over its 'model'
-mesh axis and gathers with a masked local gather and a psum; on one card
-that is a plain gather, and the head a plain product (the LM side's
-sharding is ROADMAP Queue 1, item 13b). Logits are fp32 from bf16
-operands, as the reference's ``preferred_element_type=float32``: both
-operands are widened, so each product is exact and the sum is fp32.
+mesh axis and gathers with a masked local gather and a psum;
+``embed_tokens(table, tokens, mesh)`` does so on a mesh whose 'model'
+axis has more than one rank, ``table`` being the rank's block of rows.
+On one card it is a plain gather, and the head a plain product (the
+head's vocab-sharded logits belong to the LM's tensor-parallel layers,
+ROADMAP Queue 1, item 13c). Logits are fp32 from bf16 operands, as the
+reference's ``preferred_element_type=float32``: both operands are
+widened, so each product is exact and the sum is fp32.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models.params import Builder
 
 VOCAB_PAD = 128
@@ -35,9 +40,40 @@ def init_unembed(b: Builder, vocab: int, d: int) -> torch.Tensor:
     return b.normal((d, padded_vocab(vocab)), scale=0.02)
 
 
-def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, D)."""
-    return table[tokens.long()]
+def _local_gather(block: torch.Tensor, tokens: torch.Tensor,
+                  mesh) -> torch.Tensor:
+    """The rank's rows of the tokens, zero where another rank owns the
+    row, summed over 'model' (the reference's masked gather + psum)."""
+    vloc = block.shape[0]
+    rel = tokens.long() - mesh.rank("model") * vloc
+    ok = (rel >= 0) & (rel < vloc)
+    rows = block[torch.where(ok, rel, 0)]
+    rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    return coll.psum(rows, mesh, "model")
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, D). Under a mesh whose 'model' axis has
+    more than one rank, ``table`` is this rank's block of vocab rows
+    (rows split over 'model', replicated over the data axes) and every
+    rank passes the same tokens: each data group gathers its share of the
+    batch (masked local gather, psum over 'model') and the shares are
+    all-gathered, so every rank gets the whole (B, S, D). When the batch
+    does not divide the data axes (the reference's own condition), the
+    plain gather runs over the table gathered from its blocks."""
+    if mesh is None or "model" not in mesh.axis_names \
+            or mesh.size("model") <= 1:
+        return table[tokens.long()]
+    ba = sharding.batch_axes(mesh)
+    n_b = coll.axes_size(mesh, ba)
+    if tokens.shape[0] % n_b:
+        return coll.all_gather(table, mesh, "model")[tokens.long()]
+    b = tokens.shape[0] // n_b
+    mine = tokens.narrow(0, coll.axes_index(mesh, ba) * b, b)
+    # each data group's gradient reaches only its own tokens' rows
+    rows = _local_gather(coll.replicated(table, mesh, ba), mine, mesh)
+    return coll.all_gather(rows, mesh, ba)
 
 
 def _mask_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -17,7 +17,7 @@ and the encoder-decoder's cross-attention against the encoder's memory
 which never takes the kernel.
 
 The reference's sharding constraints (``constrain``, ``head_constrain``)
-are identities on one card and are not carried over (item 13b).
+are identities on one card and are not carried over (item 13c).
 
 Numerics follow the reference: norms and RoPE compute in fp32 and cast
 back; attention scores are fp32 from the bf16 operands (both widened, so

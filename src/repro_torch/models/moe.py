@@ -1,5 +1,5 @@
-"""Fixed-capacity mixture of experts on one card, the counterpart of the
-reference's ``repro/models/moe.py`` without a mesh.
+"""Fixed-capacity mixture of experts, the counterpart of the reference's
+``repro/models/moe.py``.
 
 Each token picks ``top_k`` experts from an fp32 router softmax; its
 choices are ranked within their expert in token-major order and the
@@ -10,9 +10,20 @@ dispatch buffer, and each token sums its valid choices' rows, weighted
 by its renormalised router probabilities. The shapes are static: every
 step runs all E * C expert rows, whatever the routing.
 
-The reference's expert-parallel path (``_moe_shard``: tokens to the
-experts' owners over an all-to-all under a mesh) is ROADMAP Queue 1,
-item 13b; ``apply_moe`` refuses a mesh of more than one rank.
+Under a mesh whose ``"model"`` axis has more than one rank, and when the
+batch divides the data axes, the sequence the model axis and the experts
+the model axis (the reference's exact condition), ``apply_moe`` runs the
+reference's expert-parallel path (``_moe_shard``): each rank takes its
+(B/dp, S/tp) block of the tokens and flattens it locally, routes in fp32
+with the capacity of its own token count, all-gathers its FSDP slice of
+the expert weights over the data axes, sends each expert's dispatch rows
+to the expert's owner and back by ``all_to_all`` over ``"model"``,
+combines at the source, and all-gathers the (B, S, D) result onto every
+rank; the load-balance loss is the mean of the ranks' own. Each rank
+holds the ``("expert", "fsdp", None)`` block of the expert weights
+(``shard_moe_params``). Otherwise the local path runs, as the
+reference's does. The expert products are torch ops: the reference has
+no Pallas kernel here.
 """
 from __future__ import annotations
 
@@ -23,7 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models.params import Builder
+
+# the logical axes of the expert weights, the reference's init_moe's
+EXPERT_LOGICAL = ("expert", "fsdp", None)
 
 
 def init_moe(b: Builder, mcfg: MoEConfig, d: int):
@@ -110,13 +126,138 @@ def _moe_local(xf: torch.Tensor, p, mcfg: MoEConfig):
     return y_tok.to(xf.dtype), _aux_loss(probs, idx, mcfg)
 
 
+def _plan(mcfg: MoEConfig, shape, mesh):
+    """(data axes, whether the experts' hidden dims FSDP over them) when
+    the reference's expert-parallel condition holds for a (B, S, D)
+    input, else None."""
+    if mesh is None or "model" not in mesh.axis_names \
+            or mesh.size("model") <= 1:
+        return None
+    b, s, d = shape
+    dp = sharding.batch_axes(mesh)
+    n_dp = coll.axes_size(mesh, dp)
+    tp = mesh.size("model")
+    if b % n_dp or s % tp or mcfg.n_experts % tp:
+        return None
+    fsdp = bool(dp) and d % n_dp == 0 and mcfg.expert_ff % n_dp == 0
+    return dp, fsdp
+
+
+def _weight_spec(mcfg: MoEConfig, d: int, mesh) -> tuple:
+    """The resolved spec of ``wg``/``wu``/``wd`` on ``mesh``: experts
+    over ``"model"`` when they divide it, the hidden dim (d, or ff for
+    ``wd``) over the data axes when both divide them, as the reference's
+    expert-parallel path takes them."""
+    expert, fsdp, _ = sharding.resolve(mesh, EXPERT_LOGICAL)
+    tp = mesh.size("model") if "model" in mesh.axis_names else 1
+    n_dp = coll.axes_size(mesh, sharding.batch_axes(mesh))
+    if mcfg.n_experts % tp:
+        expert = None
+    if d % n_dp or mcfg.expert_ff % n_dp:
+        fsdp = None
+    return expert, fsdp, None
+
+
+def shard_moe_params(p, mcfg: MoEConfig, mesh):
+    """This rank's MoE params on ``mesh``: the router replicated, each
+    expert leaf present (``wg``/``wu``/``wd``) its block under the
+    ``("expert", "fsdp", None)`` axes (``sharding.local_block``, a copy).
+    A dict of some of the leaves gives those, so a caller can shard one
+    leaf at a time. The params as they are without a mesh."""
+    if mesh is None:
+        return p
+    d = next(v.shape[2] if k == "wd" else v.shape[1]
+             for k, v in p.items() if k != "wr")
+    spec = _weight_spec(mcfg, d, mesh)
+    return {k: (sharding.local_block(v, mesh, spec) if k != "wr" else v)
+            for k, v in p.items()}
+
+
+def _full_weights(p, mcfg: MoEConfig, d: int, mesh):
+    """The whole expert weights from this rank's blocks (each sharded
+    dim gathered from its owners); the params as they are when they are
+    whole already."""
+    if tuple(p["wg"].shape) == (mcfg.n_experts, d, mcfg.expert_ff):
+        return p
+    expert, fsdp, _ = _weight_spec(mcfg, d, mesh)
+    out = dict(p)
+    for k in ("wg", "wu", "wd"):
+        w = out[k]
+        if fsdp is not None:
+            w = coll.all_gather(w, mesh, fsdp, 1)
+        if expert is not None:
+            w = coll.all_gather(w, mesh, expert, 0)
+        out[k] = w
+    return out
+
+
+def _moe_shard(xl: torch.Tensor, p, mcfg: MoEConfig, mesh, dp, fsdp: bool):
+    """One rank's share of the expert-parallel MoE (the reference's
+    ``_moe_shard``): xl (B/dp, S/tp, d) its tokens -> (its y block, the
+    mean of the ranks' aux losses)."""
+    axes = tuple(mesh.axis_names)
+    ep = mesh.size("model")
+    e, k = mcfg.n_experts, mcfg.top_k
+    e_loc = e // ep
+    b_loc, s_loc, d = xl.shape
+    xl = xl.reshape(b_loc * s_loc, d)
+    t_loc = b_loc * s_loc
+    cap = _capacity(t_loc, mcfg)
+    # the weights are replicated over the data axes (gathered there when
+    # FSDP), and each data group's tokens are its own: their gradients
+    # sum over the data axes; the router's over every axis
+    ws = []
+    for name in ("wg", "wu", "wd"):
+        w = p[name]
+        if fsdp:
+            w = coll.all_gather(w, mesh, dp, 1)
+        ws.append(coll.replicated(w, mesh, dp))
+    wr = coll.replicated(p["wr"], mesh, axes)
+    w, idx, probs = _route(xl.float(), wr, mcfg)
+    slot, valid = _slots(idx, e, cap)
+    disp = xl.new_zeros((e * cap + 1, d))
+    disp[slot] = xl.repeat_interleave(k, dim=0)
+    disp = disp[:-1].reshape(ep, e_loc * cap, d)
+    # stream the dispatch rows to the experts' owners (fixed capacity)
+    recv = coll.all_to_all(disp, mesh, "model")
+    recv = recv.reshape(ep, e_loc, cap, d).transpose(0, 1) \
+        .reshape(e_loc, ep * cap, d)
+    y = _expert_ffn(recv, *ws)
+    # and the results back
+    y = y.reshape(e_loc, ep, cap, d).transpose(0, 1) \
+        .reshape(ep, e_loc * cap, d)
+    back = coll.all_to_all(y, mesh, "model").reshape(e * cap, d)
+    # the combine, a weighted sum at the source
+    rows = back[torch.clamp(slot, max=e * cap - 1)]
+    rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+    y_tok = (rows.view(t_loc, k, d) * w[..., None].to(rows.dtype)).sum(1)
+    aux = coll.pmean(_aux_loss(probs, idx, mcfg), mesh, axes)
+    return y_tok.reshape(b_loc, s_loc, d).to(xl.dtype), aux
+
+
 def apply_moe(p, mcfg: MoEConfig, x: torch.Tensor,
               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (y (B, S, D), aux_loss scalar)."""
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "MoE under a mesh (the expert-parallel all-to-all) is not "
-            "ported yet (ROADMAP Queue 1, item 13b)")
+    """x (B, S, D) -> (y (B, S, D), aux_loss scalar). Under ``mesh``
+    (every rank with the same ``x``) the expert-parallel path runs when
+    the reference's condition holds and the local one otherwise; ``p``
+    may be whole or this rank's blocks (``shard_moe_params``), and each
+    path takes what it needs."""
     b, s, d = x.shape
-    y, aux = _moe_local(x.reshape(b * s, d), p, mcfg)
-    return y.reshape(b, s, d), aux
+    plan = _plan(mcfg, x.shape, mesh)
+    if plan is None:
+        if mesh is not None:
+            p = _full_weights(p, mcfg, d, mesh)
+        y, aux = _moe_local(x.reshape(b * s, d), p, mcfg)
+        return y.reshape(b, s, d), aux
+    dp, fsdp = plan
+    if p["wg"].shape[0] == mcfg.n_experts:
+        p = shard_moe_params(p, mcfg, mesh)
+    tp = mesh.size("model")
+    b_loc, s_loc = b // coll.axes_size(mesh, dp), s // tp
+    # every rank holds all of x: its gradient is the sum of the ranks'
+    xr = coll.replicated(x, mesh, tuple(mesh.axis_names))
+    xl = xr.narrow(0, coll.axes_index(mesh, dp) * b_loc, b_loc) \
+        .narrow(1, mesh.rank("model") * s_loc, s_loc)
+    y, aux = _moe_shard(xl, p, mcfg, mesh, dp, fsdp)
+    y = coll.all_gather(coll.all_gather(y, mesh, dp, 0), mesh, "model", 1)
+    return y, aux

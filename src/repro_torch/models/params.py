@@ -4,7 +4,7 @@
 The reference's init functions build ``Param(value, spec)`` leaves whose
 logical sharding specs feed its mesh; the port runs on one card, so its
 trees are plain nested dicts of tensors (the LM side's sharding is
-ROADMAP Queue 1, item 13b). Values are drawn from an explicit
+ROADMAP Queue 1, item 13c). Values are drawn from an explicit
 ``torch.Generator`` on the params' device: they follow the reference's
 distributions and scales, not ``jax.random``'s bits; parity tests load
 the reference's own values through ``api.params_from_numpy``.

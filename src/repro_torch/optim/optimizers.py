@@ -24,7 +24,7 @@ moments), ``rowwise_adagrad`` (the DLRM embedding tables), ``partitioned``
 (one rule per top-level key), ``layerwise`` (the update one layer of a
 stacked subtree at a time), global-norm clipping, ``warmup_cosine`` and
 ``from_config``. ``state_logical_specs`` is a dry-run sharding helper of
-the reference and is not carried over (ROADMAP Queue 1, item 13b).
+the reference and is not carried over (ROADMAP Queue 1, item 13c).
 """
 from __future__ import annotations
 

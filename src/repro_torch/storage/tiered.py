@@ -21,8 +21,8 @@ rows within their quantization bounds, and gradients reach the hot rows
 through the fused op the fp path trains with.
 
 The port of ``repro/storage/tiered.py``; the walks cover the sources the
-port has, a table group's tiered members included (sharded tiered
-sources are ROADMAP Queue 1, item 13b).
+port has, a table group's tiered members included. A tiered source does
+not row-shard, as the reference's does not.
 """
 from __future__ import annotations
 

@@ -32,8 +32,9 @@ histogram and the touched rows are global and equal on every rank, the
 hot copies of rows other ranks own come from their owners by broadcast
 (``collectives.gather_rows``, bit for bit), the int8 mirror is the
 rank's block, and the published source is the cached one over a
-``ShardedArena`` cold. A tiered trainer does not shard (ROADMAP Queue 1,
-item 13b).
+``ShardedArena`` cold. A tiered trainer does not shard: the reference's
+accepts a mesh but fails at its first ``retier()`` on an arena padded for
+shards (ROADMAP Queue 3, recorded and pinned).
 
 Telemetry is a ``repro_torch.obs.Telemetry`` bundle, as the reference's:
 the gauges ``train_loss``, ``train_cache_version``, ``train_rebuild_hot_k``
@@ -244,8 +245,9 @@ class OnlineTrainer:
         if self.sharded and cache_cfg is not None \
                 and cache_cfg.tiers is not None:
             raise NotImplementedError(
-                "a tiered trainer does not row-shard; sharded tiered "
-                "sources are ROADMAP Queue 1, item 13b")
+                "a tiered trainer does not row-shard: the reference's "
+                "fails at its first retier() on an arena padded for shards "
+                "(ROADMAP Queue 3, recorded and pinned)")
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_l = max_l
         self.cache_cfg = cache_cfg

@@ -387,9 +387,12 @@ def test_source_spec_matches_jax(case, path, kw):
     ({"mesh": object()}, "Queue 1, item 13"),
     ({"require_mesh": True}, "Queue 1, item 13")])
 def test_source_spec_refuses_what_is_not_ported(kw, item):
-    """Sharded plans are ported (item 13); a tiered one, by a mesh or by
-    the 'sharded' path's require_mesh, is item 13b."""
-    with pytest.raises(NotImplementedError, match=item + "b"):
+    """Sharded plans are ported (ROADMAP item 13); a tiered one is
+    refused as the reference refuses it: a mesh must be the port's
+    ``Mesh``, and the 'sharded' path's require_mesh needs one."""
+    want = {"mesh": (TypeError, "Mesh"),
+            "require_mesh": (ValueError, "require_mesh")}[next(iter(kw))]
+    with pytest.raises(want[0], match=want[1]):
         es.SourceSpec(tiers=TierPolicy(hot=2, warm=4), **kw).build(
             torch.zeros(11, 4), es.TablePlan(rows=10, dim=4).arena_spec)
 

@@ -262,10 +262,11 @@ def test_engine_parts_refuse_what_they_cannot_serve(params, source, call,
 
 def test_unported_engine_arguments_name_their_item(params):
     # sharded engines are ported (item 13): a mesh is the port's Mesh,
-    # and a sharded tiered plan is item 13b
+    # and a tiered plan on the 'sharded' path raises the reference's
+    # ValueError (no mesh to shard over; a tiered source does not shard)
     with pytest.raises(TypeError, match="Mesh"):
         _engine(params, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13b"):
+    with pytest.raises(ValueError, match="require_mesh"):
         _engine(params, source=es.SourceSpec(
             tiers=TierPolicy(hot=2, warm=4), require_mesh=True))
     # a table-group plan is ported, and so are its tiered members: the

@@ -127,8 +127,9 @@ def test_feature_interaction_width_is_d_plus_pairs():
 
 def test_heterogeneous_configs_are_refused():
     """Heterogeneous configs are ported; what the port still refuses of
-    them names its ROADMAP item: sharded tiered members (13b). Tiered
-    members are built. The envelope spec is the reference's."""
+    them it refuses as the reference does: a tiered member of a sharded
+    group raises its ValueError. Tiered members are built. The envelope
+    spec is the reference's."""
     het = dataclasses.replace(CFG, table_rows=(10, 20, 30),
                               table_dims=(4, 8, 16))
     j_het = dataclasses.replace(j_cfgs.DLRM_SMOKE, table_rows=(10, 20, 30),
@@ -142,7 +143,7 @@ def test_heterogeneous_configs_are_refused():
     plans = tuple(t_es.TablePlan(rows=tp.rows, dim=tp.dim,
                                  tiers=TierPolicy(hot=1, warm=2))
                   for tp in t_dlrm.table_plans(het))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13b"):
+    with pytest.raises(ValueError, match="does not row-shard"):
         t_es.SourceSpec(tables=plans, mesh=Mesh(
             (("model", None, 0, 2),))).build(arenas, None)
     group = t_es.SourceSpec(tables=plans).build(arenas, None)

@@ -7,7 +7,9 @@ accumulation (``microbatches=2``) on a MoE decoder, recurrentgemma and
 seamless-m4t (frames split with the tokens), remat on against off on
 the MoE decoders and the encoder-decoder, Adafactor's and AdamW's
 in-place updates against their out-of-place formulas, and the card
-script's routing pin keyed by layer. Params come from the
+script's routing pin keyed by layer and its CPU reference worker (its
+spies kept to their own thread, its checks settled in order). Params
+come from the
 reference's ``api.init`` through numpy; every test runs on one CPU
 thread.
 
@@ -27,6 +29,8 @@ Tolerances:
     one side. Adafactor's factored second moments within 1e-4 relative
     of the leaf's largest (means of squared gradients).
 """
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -397,3 +401,127 @@ def test_layer_pin_reuses_each_layers_routes_in_the_recompute():
     half = cs._fam_step(c16, p16, tb, routes)
     assert half["routes"]["calls"] == [2, 2]
     assert [f.shape for f in half["routes"]["flips"]] == [(32,), (32,)]
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's CPU reference worker
+# ---------------------------------------------------------------------------
+
+def test_cpu_reference_worker_sees_only_its_own_spies():
+    """The card script runs the CPU path's reference passes on a thread
+    of their own while the card's work goes on, both spying on the same
+    module functions. A pinned step on the worker, taken while an
+    unpinned spy is entered on the main thread, equals the same step
+    taken alone bit for bit, its recompute on the worker's thread (every
+    layer routed twice there) and none of its routings seen by the main
+    thread's spy; a step on the main thread, taken while the worker sits
+    inside a pin of its own, equals the unpinned step bit for bit."""
+    cs = _chip_smoke()
+    cfg, _ = _cfgs("kimi-k2-1t-a32b")
+    params, _ = _params("kimi-k2-1t-a32b")
+    tb, _ = _batch(cfg, 2, 16, seed=9)
+
+    def step(pin=None):
+        return cs._fam_step(cfg, tree_map(torch.clone, params), tb, pin)
+
+    free = step()
+    other = [(r + 1) % cfg.moe.n_experts for r in free["routes"]["routes"]]
+    pinned = step(other)
+    assert pinned["loss"] != free["loss"]
+    inside, release = threading.Event(), threading.Event()
+    worker = cs.CpuRefs()
+    try:
+        with cs.layer_routes() as seen:
+            got = worker.submit(lambda: step(other)).result(timeout=300)
+        assert seen["calls"] == []
+        assert got["routes"]["calls"] == [2, 2]
+        assert got["loss"] == pinned["loss"]
+        for a, b in zip(tree_leaves(got["params"]),
+                        tree_leaves(pinned["params"])):
+            assert torch.equal(a, b)
+
+        def hold():
+            with cs.layer_routes(other) as rec:
+                inside.set()
+                release.wait(60)
+            return rec
+        held = worker.submit(hold)
+        assert inside.wait(60)
+        again = step()
+        release.set()
+        assert held.result(timeout=60)["calls"] == []
+        assert again["loss"] == free["loss"]
+        for a, b in zip(tree_leaves(again["params"]),
+                        tree_leaves(free["params"])):
+            assert torch.equal(a, b)
+    finally:
+        release.set()
+        worker.close()
+
+
+def test_pending_checks_settle_in_order_and_fail_the_run():
+    """A pending check's CPU pass runs on the worker; ``settle`` makes
+    the checks in the order handed in, each into its slot, and raises a
+    pass's failure there. ``uncounted`` on the worker leaves the card's
+    launch counts as the main thread set them."""
+    cs = _chip_smoke()
+    order, out = [], {}
+    cs.Pending("first", out, "a", lambda: 2, lambda r: order.append(r) or r)
+    cs.Pending("second", out, "b", lambda: 3, lambda r: order.append(r) or r)
+    assert isinstance(out["a"], cs.Pending)
+    assert cs.settle()["waited_s"] >= 0
+    assert out == {"a": 2, "b": 3} and order == [2, 3]
+    assert not cs._CPU_REFS and not cs._PENDING
+
+    def broken():
+        cs.fail("the CPU pass disagrees")
+    cs.Pending("third", out, "c", broken, lambda r: r)
+    with pytest.raises(RuntimeError, match="the CPU pass disagrees"):
+        cs.settle()
+    cs._PENDING.clear()
+    cs._CPU_REFS.pop().close()
+
+    name, k = next(iter(cs.KERNELS.items()))
+    inside, release = threading.Event(), threading.Event()
+
+    def hold():
+        with cs.uncounted():
+            inside.set()
+            release.wait(60)
+    before = getattr(k["module"], k["counter"])
+    worker = cs.CpuRefs()
+    try:
+        held = worker.submit(hold)
+        assert inside.wait(60)
+        setattr(k["module"], k["counter"], before + 5)
+        release.set()
+        held.result(timeout=60)
+        assert cs.launch_counts()[name] == before + 5
+    finally:
+        release.set()
+        setattr(k["module"], k["counter"], before)
+        worker.close()
+
+
+def test_at_depth_cuts_each_stack():
+    """19(d)'s depth cut: each stack of an encoder-decoder, else the
+    decoder's layers."""
+    cs = _chip_smoke()
+    seam = cs.at_depth(registry.get_arch("seamless-m4t-large-v2"), 2)
+    assert (seam.enc_layers, seam.dec_layers, seam.n_layers) == (2, 2, 4)
+    assert cs.at_depth(registry.get_arch("rwkv6-7b"), 3).n_layers == 3
+
+
+def test_bit_sum_sees_a_leaf_move_by_one_ulp():
+    """19(c)'s fingerprint of a leaf: equal for equal bits, other after
+    one element moves by one ulp, in bf16 and in fp32."""
+    cs = _chip_smoke()
+    for dtype, ints in ((torch.bfloat16, torch.int16),
+                        (torch.float32, torch.int32)):
+        t = torch.randn(1000, 7, generator=torch.Generator().manual_seed(5)
+                        ).to(dtype)
+        moved = t.clone()
+        moved.view(ints)[123, 4] += 1
+        assert not torch.equal(moved, t)
+        assert cs.bit_sum(t.clone()) == cs.bit_sum(t)
+        assert cs.bit_sum(moved) != cs.bit_sum(t)

@@ -520,8 +520,13 @@ def test_make_placer_on_the_cpu_and_refuses_a_mesh():
     assert out["tokens"][0, 0].item() == 0
     pf = Prefetcher(_gen(3), place=make_placer("cpu"))
     assert [b["x"][0].item() for b in pf] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="item 13"):
+    from repro_torch.launch.mesh import Mesh
+    # a mesh is the port's Mesh, and placing onto one needs the specs
+    # (the blocks are held in test_torch_mesh2d.py)
+    with pytest.raises(TypeError, match="Mesh"):
         make_placer("cpu", mesh=object())
+    with pytest.raises(ValueError, match="batch_specs"):
+        make_placer("cpu", mesh=Mesh((("model", None, 0, 2),)))
 
 
 # ---------------------------------------------------------------------------

@@ -277,10 +277,12 @@ def test_init_moe_follows_the_reference_shapes_dtypes_and_scales():
 def test_apply_moe_refuses_a_mesh():
     m, _ = _mcfgs("kimi-smoke")
     p, _ = _params("kimi-smoke", "float32")
-    x = torch.zeros(1, 4, 24)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        moe.apply_moe(p, m, x, mesh=Mesh((("model", None, 0, 2),)))
-    # a one-rank mesh is the local path, as the reference's
+    x = torch.randn(1, 3, 24, generator=torch.Generator().manual_seed(0))
+    # a mesh the sequence does not divide takes the local path, as the
+    # reference's does (the expert-parallel path is held across gloo
+    # ranks in test_torch_mesh2d.py); so does a one-rank mesh
+    y, _ = moe.apply_moe(p, m, x, mesh=Mesh((("model", None, 0, 2),)))
+    assert torch.equal(y, moe.apply_moe(p, m, x)[0])
     y, _ = moe.apply_moe(p, m, x, mesh=Mesh((("model", None, 0, 1),)))
     assert torch.equal(y, moe.apply_moe(p, m, x)[0])
 

@@ -157,13 +157,13 @@ def test_latency_ring_is_bounded(params, monkeypatch):
 @pytest.mark.parametrize("plan,item", [("sharded", "item 13")])
 def test_unported_plans_name_their_roadmap_item(params, plan, item):
     """The sharded plan is ported (item 13); without a mesh it refuses to
-    fall back to the replicated arena, and a sharded tiered plan is item
-    13b."""
+    fall back to the replicated arena, a tiered plan on it too, with the
+    reference's ValueError."""
     from repro_torch.core import embedding_source as es
     from repro_torch.storage import TierPolicy
     with pytest.raises(ValueError, match="require_mesh"):
         _engine(params, source=plan)
-    with pytest.raises(NotImplementedError, match=f"Queue 1, {item}b"):
+    with pytest.raises(ValueError, match="require_mesh"):
         es.SourceSpec(tiers=TierPolicy(hot=2, warm=4), require_mesh=True)
 
 

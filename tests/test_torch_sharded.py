@@ -541,12 +541,17 @@ def test_row_shardings_marks_the_arena_leaves():
 # ---------------------------------------------------------------------------
 
 def test_mesh_refusals():
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # any shape over any axes is a mesh once its ranks have joined (the
+    # (data, model) mesh runs across gloo ranks in test_torch_mesh2d.py);
+    # without a process group only a mesh of one rank is
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh((2, 4), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh((2,), ("data",))
     with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh((2,), ("model",))
+    one = make_mesh((1, 1), ("data", "model"))
+    assert one.shape == {"data": 1, "model": 1} and one.group("data") is None
     with pytest.raises(TypeError, match="Mesh"):
         se.mesh_shards(object())
     assert se.mesh_shards(None) == 1
@@ -561,11 +566,17 @@ def test_plan_refusals():
     mesh4 = Mesh((("model", None, 0, 4),))
     plan = es.SourceSpec.from_path("sharded", mesh=mesh4)
     assert plan.path_name() == "sharded" and plan.require_mesh
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # a tiered plan does not row-shard, as the reference's does not
+    with pytest.raises(ValueError, match="does not row-shard"):
         es.SourceSpec(tiers=TierPolicy(hot=4, warm=8, cold="int4"),
                       mesh=mesh4)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # any row axis: 'data' is not an axis of mesh4 (no shards there), and
+    # is one of a (data, model) mesh
+    with pytest.raises(ValueError, match="require_mesh"):
         es.SourceSpec.from_path("sharded", mesh=mesh4, axis="data")
+    mesh2d = Mesh((("data", None, 1, 2), ("model", None, 0, 2)))
+    plan = es.SourceSpec.from_path("sharded", mesh=mesh2d, axis="data")
+    assert plan.require_mesh and se.mesh_shards(mesh2d, "data") == 2
     with pytest.raises(ValueError, match="must be sharded"):
         dlrm.make_train_step_ragged(DLRM_SMOKE, max_l=4, mesh=mesh4,
                                     sharded=False)

@@ -499,7 +499,7 @@ def test_plan_and_config_conflicts_raise_as_in_the_reference():
                {"layout": "fixed"}):
         with pytest.raises(ValueError):
             es.SourceSpec(tiers=pol, **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         es.SourceSpec(tiers=pol, mesh=object())
     with pytest.raises(ValueError):
         t_st.TierPolicy(hot=4, warm=4, cold="float8")
