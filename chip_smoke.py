@@ -167,7 +167,9 @@ forward. Each serving phase zeroes the counts just before its engine's
    device time by group, idle share and the kernel's device time a
    launch (beside its time alone) are measured; (c) on one prompt
    of 2,048 tokens, the card's prefill, forward and decode after a
-   prefill of all but the last token, and a 2-layer prefill, each
+   prefill of all but the last token at 16 of the 32 layers (the depth
+   cut keeps the whole script within its time limit), and a 2-layer
+   prefill, each
    within twice the CPU bf16 path's own error of the CPU path's fp32
    logits, with the same greedy token (or a tie within that); (d) a
    ``DecodeEngine`` serves 8 requests in waves of 4 slots (16-token
@@ -360,7 +362,25 @@ forward. Each serving phase zeroes the counts just before its engine's
    and broadcast, a served batch through a one-shard ``ShardedArena`` and
    the step on a mesh of one, exact against the replicated path; at one
    rank the port's collectives make no call, so this exercises the NCCL
-   communicator only, not the port's collectives over it. The
+   communicator only, not the port's collectives over it. (i) In (e)'s
+   ranks after (f), the launch counts zeroed first and read after: the
+   LM's logical axes, tensor- and sequence-parallel over 'model' and
+   data-parallel over 'data', qwen1.5-4b at full width (d 2,560, 20/20
+   heads of 128, ff 6,912, vocab 151,936 untied, qkv bias) and
+   smollm-360m (15/5 heads of 64: 9/6 query heads on 3/2 kv heads a
+   rank), each at 2 layers, one sequence of 2,048 tokens a data rank,
+   from seeded weights: prefill and (qwen) 4 decode steps, their logits
+   gathered over 'model' within the bf16 floor (rtol 2e-2, atol 5e-2) of
+   the one-rank path on the card, and AdamW steps (qwen 2, smollm 1):
+   loss rtol 1e-4, grad norm 2e-3 (1e-2 after a step), each param block
+   within 2 bf16 ulps of its leaf's scale or, where finer, phase 4's
+   sign-flip rule a step; every rank's losses and grad norms the same
+   bits, a data group's logits and the data replicas' blocks the same
+   bits, the flash kernel launched on every rank at its local heads (and
+   timed there beside the whole models' heads); each model's (2, 2)
+   train state saved (unsharded on disk) and restored onto (1, 4)
+   (smollm's heads split 6/3/3/3 there), each rank restoring one
+   coordinate bit for bit against the part of its own blocks. The
    times (ms a micro-batch and a step, host clock) are gloo collectives
    through host memory: agreement runs, not the sharded path's speed.
    The checks of 17, 18 and 19(b) against the CPU path: the CPU passes
@@ -401,9 +421,10 @@ forward. Each serving phase zeroes the counts just before its engine's
    the depth cut keeps the whole script within its time limit):
    (b)'s prefill, laws and engine, layer 0's absorbed decode against
    naive in fp32 at full width (1e-3, the reference's test), and (c)'s
-   check at 2 layers; (f) internvl2-2b at 12 of 24 layers: 256 patch
+   check at 1 layer; (f) internvl2-2b at 12 of 24 layers: 256 patch
    embeddings and 1,792 tokens (the flash kernel at hd 128 once a
-   layer), (b)'s checks and (c)'s at 2 layers; (g) the serve launcher
+   layer), (b)'s checks and (c)'s at 1 layer (the depth cuts of (c)
+   keep the whole script within its time limit); (g) the serve launcher
    with ``--arch minicpm3-4b`` at full width. The launch counts are
    zeroed before and read after each prefill of (b), (d), (e) and (f).
 18. The recurrent, RWKV and encoder-decoder LMs at full width: (a)
@@ -432,12 +453,14 @@ forward. Each serving phase zeroes the counts just before its engine's
    own error; (d) rwkv6-7b at 8 of its 32 layers: (b)'s checks at 2,048
    (the prefill through the chunked WKV, whose span is its own group;
    decode after 2,047 tokens, whose prefill takes the sequential form)
-   and (c)'s at 2 layers; (e) seamless-m4t-large-v2 at 12 + 12 of its
+   and (c)'s at 1 layer; (e) seamless-m4t-large-v2 at 12 + 12 of its
    24 + 24 layers (3,200 frames): the prefill at 2,048 tokens launches
    the kernel 12 times not causal (the encoder) and 12 times causal (the
    decoder's self-attention), cross-attention taking the chunked path;
    (b)'s laws with the real memory, its engine (zero cross K/V, as the
-   reference's engine serves), and (c)'s check at 2 + 2 layers; (f) the
+   reference's engine serves), and (c)'s check at 1 + 1 layers (the
+   depth cuts of (c), (d) and (e)'s checks keep the script within its
+   time limit); (f) the
    serve launcher with ``--arch seamless-m4t-large-v2`` at full width.
    The launch counts are zeroed before and read after each counted
    prefill of (b), (d) and (e).
@@ -531,7 +554,8 @@ from repro_torch.kernels import gemm as gm_k  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     row_shardings)
-from repro_torch.distributed import collectives, spawn  # noqa: E402
+from repro_torch.distributed import collectives, sharding, spawn  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
@@ -4069,6 +4093,11 @@ LM_ARCH = "smollm-360m"
 LM_PREFILL_S = (2048, 4096)        # prompt lengths of the prefill rows
 LM_AGREE_S = 2048                  # decode-after-prefill against forward
 LM_CPU_LAYERS = 2                  # depth of the card-against-CPU check
+# 10(c)'s prefill, forward and decode against the CPU: half the model's
+# depth. Its CPU passes (about 33 s at full depth on the card's host) run
+# on the main thread before the CPU reference worker starts, so they add
+# to the script's time whole
+LM_AGREE_LAYERS = 16
 LM_REQUESTS = 8                    # DecodeEngine: requests, slots, prompt
 LM_SLOTS = 4                       # and new tokens of each request, and
 LM_PROMPT = 16                     # the cache length
@@ -4391,13 +4420,16 @@ def _cpu_logits(params, cfg, batch: dict) -> tuple:
 def lm_agree(cfg, params) -> dict:
     """Card against the CPU path's fp32 logits on one prompt of LM_AGREE_S
     tokens, each within LM_FLOOR_FACTOR x the CPU bf16 path's own error:
-    (1) at full depth, the prefill (the kernel at S = 2048), the forward
-    (the kernel; its last position) and decode_step after prefill of the
-    prompt but its last token (S = 2047, the direct path; decode's einsum
-    over the cache is independent of the kernel); (2) a prefill of the
-    first LM_CPU_LAYERS layers, card against the CPU path."""
+    (1) at the first LM_AGREE_LAYERS layers, the prefill (the kernel at S
+    = 2048), the forward (the kernel; its last position) and decode_step
+    after prefill of the prompt but its last token (S = 2047, the direct
+    path; decode's einsum over the cache is independent of the kernel);
+    (2) a prefill of the first LM_CPU_LAYERS layers, card against the
+    CPU path."""
     v = cfg.vocab_size
     toks = _lm_tokens(cfg, 1, LM_AGREE_S, seed=5)
+    full_cfg, full_params = cfg, params
+    cfg, params = _shallow(cfg, params, LM_AGREE_LAYERS)
     with uncounted():
         pre, _ = lm_api.prefill(params, cfg, {"tokens": toks}, LM_AGREE_S)
         full, _ = lm_api.forward(params, cfg, {"tokens": toks})
@@ -4420,9 +4452,9 @@ def lm_agree(cfg, params) -> dict:
         out[what] = _against_fp32(what, t, c32, floor)
     out["decode_vs_forward_max_abs_err"] = float(
         (card["decode after prefill"] - card["forward"]).abs().max())
-    shallow = cfg.replace(n_layers=LM_CPU_LAYERS)
-    sub = dict(params, layers=tree_map(lambda t: t[:LM_CPU_LAYERS].clone(),
-                                       params["layers"]))
+    shallow = full_cfg.replace(n_layers=LM_CPU_LAYERS)
+    sub = dict(full_params, layers=tree_map(
+        lambda t: t[:LM_CPU_LAYERS].clone(), full_params["layers"]))
     with uncounted():
         card2, _ = lm_api.prefill(sub, shallow, {"tokens": toks}, LM_AGREE_S)
     c16, c32, floor2 = _cpu_logits(sub, shallow, {"tokens": toks})
@@ -6867,6 +6899,7 @@ def _nccl_rank(mesh) -> dict:
 MESH2D = (2, 2)
 MESH2D_AXES = ("data", "model")
 MESH2D_STEPS = 3                   # dense-gradient and sparse steps each
+MESH2D_JOIN_S = 600                # (e), (f) and (i) in one start
 # after 3 steps, the reference's bound (tests/test_sharded_sparse.py
 # :100-115), under phase 4's sign-flip budget
 MESH2D_STEP_ATOL = 1e-4
@@ -7164,6 +7197,343 @@ def _mesh2d_dlrm(mesh, path: str, fp_probs) -> dict:
     return out
 
 
+# 16(i): the LM's logical axes on the (2, 2) mesh, in 16(e)'s ranks:
+# qwen1.5-4b at full width (20/20 heads of 128, 10 a rank) and smollm-360m
+# (15/5 heads of 64: 9/6 query heads on 3/2 kv heads), each at 2 layers,
+# one sequence of 2,048 tokens a data rank
+LM_MESH_ARCHS = (("qwen1.5-4b", 2, 4), ("smollm-360m", 1, 0))  # steps, decodes
+LM_MESH_LAYERS = 2
+LM_MESH_S = 2048
+LM_MESH_B = 2
+LM_MESH_MAX_LEN = LM_MESH_S + 8
+LM_MESH_SEED = 11
+LM_MESH_LR = 3e-4                  # the default layerwise(adamw)'s
+LM_MESH_B1 = 0.9                   # and its first moment's decay
+LM_MESH_STEP_MAX = 1.01            # |m_hat / sqrt(v_hat)| over 2 steps
+# the models whose (2, 2) state is saved and restored on (1, 4): qwen's
+# 11.3 GB, and smollm's uneven 9/6 query heads, 6/3/3/3 there
+LM_MESH_CKPT = ("qwen1.5-4b", "smollm-360m")
+# the mesh path against the one-rank path on the card, both through the
+# kernels: tests/test_torch_lm_mesh.py's tolerances (its docstring). bf16
+# partial sums of the row-parallel products round before they are added,
+# so the loss moves by ~1e-5 of itself; the params the test's rule
+# (``_lm_mesh_leaf_check``)
+LM_MESH_LOSS_RTOL = 1e-4
+LM_MESH_UPDATE_RTOL = 0.75
+LM_MESH_GNORM_RTOL = (2e-3, 1e-2)  # the first step, the steps after it
+LM_MESH_LOGIT_TOL = {"rtol": 2e-2, "atol": 5e-2}
+# the flash kernel at the ranks' heads, S 2,048, one sequence (the whole
+# models' 20/20 x 128 and 15/5 x 64 are phase 10's rows)
+LM_MESH_FLASH_SHAPES = (
+    ("qwen1.5-4b, a rank", 1, LM_MESH_S, 10, 10, 128, True, None),
+    ("smollm-360m, rank 0", 1, LM_MESH_S, 9, 3, 64, True, None),
+    ("smollm-360m, rank 1", 1, LM_MESH_S, 6, 2, 64, True, None),
+)
+
+
+def lm_mesh_cfg(arch: str):
+    return at_depth(registry.get_arch(arch), LM_MESH_LAYERS)
+
+
+def lm_mesh_params(cfg) -> dict:
+    """The whole params on the card, from LM_MESH_SEED (the same bits in
+    every process)."""
+    return lm_api.init(torch.Generator(device="cuda").manual_seed(
+        LM_MESH_SEED), cfg, device="cuda")
+
+
+def lm_mesh_inputs(cfg, steps: int, decodes: int) -> dict:
+    rng = np.random.RandomState(LM_MESH_SEED)
+
+    def toks(*shape):
+        return rng.randint(0, cfg.vocab_size, shape).astype(np.int32)
+    return {"prompt": toks(LM_MESH_B, LM_MESH_S),
+            "decode": [toks(LM_MESH_B) for _ in range(decodes)],
+            "train": [toks(LM_MESH_B, LM_MESH_S) for _ in range(steps)]}
+
+
+def lm_mesh_references(tmp: pathlib.Path) -> dict:
+    """16(i)'s one-rank path on the card (its kernels uncounted): each
+    model's prefill logits, decode logits and train steps (loss, grad
+    norm), the params and each step's gradient (from AdamW's first
+    moments, fp32) saved whole for the ranks after each step (with
+    each leaf's scale), then freed; and the flash kernel at the ranks'
+    local head counts held against its plain version and timed
+    (``check_flash``)."""
+    t0 = time.perf_counter()
+    out = {}
+    with uncounted():
+        for arch, steps, decodes in LM_MESH_ARCHS:
+            cfg = lm_mesh_cfg(arch)
+            params = lm_mesh_params(cfg)
+            inp = lm_mesh_inputs(cfg, steps, decodes)
+            rec = {"inputs": inp, "decode": [], "loss": [], "gnorm": [],
+                   "scales": []}
+            logits, cache = lm_api.prefill(
+                params, cfg, {"tokens": torch.from_numpy(inp["prompt"])
+                              .cuda()}, LM_MESH_MAX_LEN)
+            rec["prefill"] = logits.cpu()
+            for i, t in enumerate(inp["decode"]):
+                logits, cache = lm_api.decode_step(
+                    params, cfg, cache, torch.from_numpy(t).cuda(),
+                    LM_MESH_S + i)
+                rec["decode"].append(logits.cpu())
+            del cache, logits
+            _, opt, step = lm_api.make_train_step(cfg)
+            state = opt.init(params)
+            prev_m = tree_map(torch.zeros_like, state["m"])
+            for s, toks in enumerate(inp["train"]):
+                params, state, m = step(params, state, {
+                    "tokens": torch.from_numpy(toks).cuda()})
+                rec["loss"].append(float(m["loss"]))
+                rec["gnorm"].append(float(m["grad_norm"]))
+                rec["scales"].append({p: float(x.abs().max().float())
+                                      for p, x in tree_paths(params)})
+                torch.save(tree_map(lambda t: t.cpu(), params),
+                           tmp / f"lm_mesh_{arch}_p{s + 1}.pt")
+                torch.save(tree_map(lambda a, b: _step_grad(a, b).cpu(),
+                                    state["m"], prev_m),
+                           tmp / f"lm_mesh_{arch}_g{s + 1}.pt")
+                prev_m = tree_map(torch.clone, state["m"])
+            del prev_m
+            out[arch] = rec
+            del params, state
+            _free()
+        flash_err, flash = check_flash(
+            torch.Generator(device="cuda").manual_seed(LM_MESH_SEED),
+            LM_MESH_FLASH_SHAPES, timed=len(LM_MESH_FLASH_SHAPES))
+    torch.save(out, tmp / "lm_mesh_ref.pt")
+    return {"s": time.perf_counter() - t0, "flash": flash,
+            "flash_max_abs_err": flash_err,
+            **{a: {k: r[k] for k in ("loss", "gnorm")}
+               for a, r in out.items()}}
+
+
+def _step_grad(m, prev_m):
+    """A step's gradient from AdamW's first moments after it and before
+    it (m = b1 m_prev + (1 - b1) g)."""
+    return (m - LM_MESH_B1 * prev_m) / (1 - LM_MESH_B1)
+
+
+def _lm_mesh_leaf_check(what: str, mine: tuple, want: tuple, scale: float,
+                        noise: dict) -> dict:
+    """A rank's block after a step against the one-rank path's:
+    ``mine`` and ``want`` are (the block before the step, after it, the
+    step's gradient), ``noise`` carries an element's gradient noise
+    across the steps. ``tests/test_torch_lm_mesh.py``'s rule: 2 bf16
+    ulps of the leaf's scale plus 2 LM_MESH_STEP_MAX lr min(r, 1) a
+    step (a step's |m_hat / sqrt(v_hat)| at most LM_MESH_STEP_MAX), where
+    r is the largest relative gap between the two sides' gradients of
+    the element up to that step; and the step's update, as a vector, within
+    LM_MESH_UPDATE_RTOL of the one-rank path's (relative L2). The noise
+    is kept in fp16 (r <= 1 and its sum over the steps, to 2^-11 of
+    themselves), a rank's block of qwen1.5-4b being 0.47 B elements."""
+    (p0, p1, ga), (w0, w1, gb) = mine, want
+    if not p1.numel():
+        return {"share": 0.0, "update": 0.0}
+    r = torch.where(ga == gb, 0.0, (ga - gb).abs() / gb.abs()).clamp_(
+        max=1.0).half()
+    noise["r"] = torch.maximum(noise["r"], r) if "r" in noise else r
+    noise["sum"] = noise["sum"] + noise["r"] if "sum" in noise \
+        else noise["r"].clone()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+    tol = noise["sum"].float() * (2 * LM_MESH_STEP_MAX * LM_MESH_LR) \
+        + 2 * ulp
+    err = (p1.float() - w1.float()).abs()
+    share = float((err / tol).max())
+    if share > 1:
+        fail(f"16(i) {what}: {float(err.max())} from the one-rank step, "
+             f"{share:.2f} of the bound at its worst element")
+    dw = w1.float() - w0.float()
+    upd = float((p1.float() - p0.float() - dw).norm()
+                / dw.norm().clamp_min(1e-30))
+    if upd > LM_MESH_UPDATE_RTOL:
+        fail(f"16(i) {what}: the step's update {upd:.3f} (relative) from "
+             f"the one-rank step's")
+    return {"share": share, "update": upd}
+
+
+def _sub_block(block, mesh_a, mesh_b, spec_a, spec_b, shape):
+    """The part of this rank's block under (mesh_a, spec_a) that is the
+    block of (mesh_b, spec_b) at mesh_b's coordinates, where the latter
+    lies inside the former (a finer split of the same dimensions)."""
+    out = block
+    for dim, (ea, eb) in enumerate(zip(spec_a, spec_b)):
+        ca = sharding._cuts(mesh_a, ea, shape[dim], shape)
+        cb = sharding._cuts(mesh_b, eb, shape[dim], shape)
+        oa, sa = ca[sharding._index(mesh_a, ea)] if ca else (0, shape[dim])
+        ob, sb = cb[sharding._index(mesh_b, eb)] if cb else (0, shape[dim])
+        if not (oa <= ob and ob + sb <= oa + sa):
+            fail(f"16(i): block {ob}+{sb} of dimension {dim} outside "
+                 f"{oa}+{sa}")
+        out = out.narrow(dim, ob - oa, sb)
+    return out
+
+
+def _by_path(tree, path: str = "") -> dict:
+    """{keystr path: leaf} of a tree of dicts whose leaves may be tuples
+    (specs, shapes), in ``tree_paths``' naming."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_by_path(tree[k], f"{path}[{k!r}]"))
+        return out
+    return {path: tree}
+
+
+def _lm_mesh_restore(cfg, mesh, state, ckpt: pathlib.Path) -> dict:
+    """The (2, 2) state restored onto (1, 4) at coordinate (0, 2 m + d):
+    each leaf's block the part of this rank's (2, 2) block, bit for
+    bit."""
+    d, m = mesh.rank("data"), mesh.rank("model")
+    fine = Mesh((("data", None, 0, 1), ("model", None, 2 * m + d, 4)))
+    name, opt, _ = lm_api.make_train_step(cfg)
+    _, _, specs = lm_api.train_state_specs(cfg, name, opt, mesh)
+    p14, s14, _ = lm_api.train_state_specs(cfg, name, opt, fine)
+    spec = _by_path(specs)
+    shape = _by_path(tree_map(lambda leaf: leaf.shape, lm_transformer._build(
+        lm_params.SpecRecorder(torch.bfloat16), cfg)))
+    params, st = state
+
+    def part(path, block):
+        return _sub_block(block, mesh, fine,
+                          sharding.resolve(mesh, spec[path]),
+                          sharding.resolve(fine, spec[path]), shape[path])
+
+    def like(tree, dtype=None):
+        flat = dict(tree_paths(tree))
+
+        def build(t, path=""):
+            if isinstance(t, dict):
+                return {k: build(t[k], f"{path}[{k!r}]") for k in t}
+            b = part(path, flat[path])
+            return torch.empty(b.shape, dtype=dtype or b.dtype,
+                               device="cuda")
+        return build(tree)
+    template = (like(params), {"m": like(st["m"]), "v": like(st["v"]),
+                               "step": 0})
+    t0 = time.perf_counter()
+    (rp, rs), _ = CheckpointManager(ckpt, device="cuda").restore(
+        template, shardings=(p14, s14))
+    secs = time.perf_counter() - t0
+    leaves = 0
+    for mine, back in ((params, rp), (st["m"], rs["m"]),
+                       (st["v"], rs["v"])):
+        got = dict(tree_paths(back))
+        for path, block in tree_paths(mine):
+            if not torch.equal(part(path, block), got[path]):
+                fail(f"16(i): {path} restored on (1, 4) at (0, {2 * m + d})"
+                     f" is not the saved block")
+            leaves += 1
+    if rs["step"] != st["step"]:
+        fail(f"16(i): restored step {rs['step']}, saved {st['step']}")
+    return {"restore_s": secs, "leaves": leaves, "at": (0, 2 * m + d)}
+
+
+def _lm_mesh_rank(mesh, tmp: pathlib.Path) -> dict:
+    """16(i), one rank: each model's prefill, decode and train steps on
+    the mesh against the one-rank references; qwen's state saved and
+    restored onto (1, 4)."""
+    ref_ = torch.load(tmp / "lm_mesh_ref.pt", weights_only=False)
+    d = mesh.rank("data")
+    b = LM_MESH_B // mesh.size("data")
+    rows = slice(d * b, (d + 1) * b)
+    out = {}
+    for arch, steps, decodes in LM_MESH_ARCHS:
+        cfg, r = lm_mesh_cfg(arch), ref_[arch]
+        inp = r["inputs"]
+        full = lm_mesh_params(cfg)
+        blocks = lm_api.shard_params(full, cfg, mesh)
+        del full
+        _free()
+        place = make_placer("cuda", mesh, lm_api.batch_specs(cfg, mesh))
+        rec = {"logits_err": [], "loss": [], "gnorm": [], "leaves": {}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm_api.make_prefill_step(
+            cfg, LM_MESH_MAX_LEN, mesh=mesh)(blocks, place(
+                {"tokens": inp["prompt"]}))
+        dec = lm_api.make_decode_fn(cfg, mesh=mesh)
+        digest = ""
+        for i in range(1 + decodes):
+            if i:
+                logits, cache = dec(blocks, cache, {
+                    "tokens": place({"tokens": inp["decode"][i - 1]})[
+                        "tokens"], "pos": LM_MESH_S + i - 1})
+            whole = collectives.all_gather(logits, mesh, "model", dim=-1)
+            want = (r["prefill"] if i == 0 else r["decode"][i - 1])[rows]
+            if whole.shape != want.shape or not torch.isfinite(whole).all():
+                fail(f"16(i) {arch} logits {i}: {tuple(whole.shape)}, "
+                     f"finite {bool(torch.isfinite(whole).all())}")
+            err = float((whole.cpu() - want).abs().max())
+            if not torch.allclose(whole.cpu(), want, **LM_MESH_LOGIT_TOL):
+                fail(f"16(i) {arch} logits {i}: {err} from the one-rank "
+                     f"path's (bound {LM_MESH_LOGIT_TOL})")
+            rec["logits_err"].append(err)
+            digest += _digest(whole)
+        rec["kv_heads"] = cache["layers"]["k"].shape[3]
+        del cache, logits, whole
+        torch.cuda.synchronize()
+        rec["serve_s"] = time.perf_counter() - t0
+        spec = _by_path(lm_api.param_specs(cfg))
+        _, opt, step = lm_api.make_train_step(cfg, mesh=mesh)
+        state = opt.init(blocks)
+        # each leaf's block before the step on both sides (the same bits
+        # before the first), the first moments before it, and the
+        # elements' gradient noise across the steps
+        prev = {p: (x.clone(),) * 2 for p, x in tree_paths(blocks)}
+        prev_m = {p: torch.zeros_like(x) for p, x in tree_paths(state["m"])}
+        noise = {p: {} for p in prev}
+        t0 = time.perf_counter()
+        for s, toks in enumerate(inp["train"]):
+            blocks, state, met = step(blocks, state, place({"tokens": toks}))
+            loss, gn = float(met["loss"]), float(met["grad_norm"])
+            if abs(loss - r["loss"][s]) > LM_MESH_LOSS_RTOL * abs(
+                    r["loss"][s]) or abs(gn - r["gnorm"][s]) > \
+                    LM_MESH_GNORM_RTOL[min(s, 1)] * r["gnorm"][s]:
+                fail(f"16(i) {arch} step {s}: loss {loss}, grad norm {gn};"
+                     f" one rank {r['loss'][s]}, {r['gnorm'][s]}")
+            rec["loss"].append(loss)
+            rec["gnorm"].append(gn)
+            want, gwant = (dict(tree_paths(torch.load(
+                tmp / f"lm_mesh_{arch}_{k}{s + 1}.pt", mmap=True,
+                weights_only=True))) for k in "pg")
+            m = dict(tree_paths(state["m"]))
+            for path, blk in tree_paths(blocks):
+                wb, gb = (sharding.local_block(t[path], mesh, sharding.resolve(
+                    mesh, spec[path])).cuda() for t in (want, gwant))
+                ga = _step_grad(m[path], prev_m[path])
+                c = _lm_mesh_leaf_check(
+                    f"{arch} step {s} {path}", (prev[path][0], blk, ga),
+                    (prev[path][1], wb, gb), r["scales"][s][path],
+                    noise[path])
+                old = rec["leaves"].get(path, {"share": 0.0, "update": 0.0})
+                rec["leaves"][path] = {k: max(old[k], c[k]) for k in c}
+                prev[path] = (blk.clone(), wb)
+                prev_m[path] = m[path].clone()
+                del ga, gb
+            del want, gwant, m
+        del prev, prev_m, noise
+        torch.cuda.synchronize()
+        rec["train_s"] = time.perf_counter() - t0
+        rec["digest"] = digest
+        rec["blocks_digest"] = "".join(_digest(x) for x in
+                                       tree_leaves(blocks))
+        if arch in LM_MESH_CKPT:
+            name, opt_, _ = lm_api.make_train_step(cfg)
+            p_sh, s_sh, _ = lm_api.train_state_specs(cfg, name, opt_, mesh)
+            t0 = time.perf_counter()
+            CheckpointManager(tmp / f"lm_ckpt_{arch}", device="cuda").save(
+                steps, (blocks, state), shardings=(p_sh, s_sh))
+            rec["save_s"] = time.perf_counter() - t0
+            rec["state"] = (blocks, state)
+        else:
+            del blocks, state
+        out[arch] = rec
+        _free()
+    return out
+
+
 def _mesh2d_rank(mesh, tmp: str, fp_probs) -> dict:
     """One gloo rank of 16(e) and (f), the launch counts zeroed before
     the main path and read after it."""
@@ -7172,8 +7542,99 @@ def _mesh2d_rank(mesh, tmp: str, fp_probs) -> dict:
     dlrm_out = _mesh2d_dlrm(mesh, str(tmp / "mesh2d_ref.pt"), fp_probs)
     launches = launch_counts()
     moe_out = _moe_rank(mesh, str(tmp / "moe_ref.pt"))
+    # 16(i): the LM main path's counts, zeroed before it and read after
+    reset_counts()
+    lm_out = _lm_mesh_rank(mesh, tmp)
+    lm_launches = launch_counts()
+    lm_out["restore"] = {}
+    for arch in LM_MESH_CKPT:
+        state = lm_out[arch].pop("state")
+        lm_out["restore"][arch] = _lm_mesh_restore(
+            lm_mesh_cfg(arch), mesh, state, tmp / f"lm_ckpt_{arch}")
+        del state
+        _free()
     return {"coords": (mesh.rank("data"), mesh.rank("model")),
-            "dlrm": dlrm_out, "moe": moe_out, "launches": launches}
+            "dlrm": dlrm_out, "moe": moe_out, "launches": launches,
+            "lm": lm_out, "lm_launches": lm_launches}
+
+
+def lm_mesh_report(res: list, lm_ref: dict) -> dict:
+    """16(i)'s checks across the ranks, and its printout: every rank's
+    losses and grad norms the same bits, the logits of the ranks of a
+    data group the same bits, the blocks of the data replicas the same
+    bits, the flash kernel launched on every rank."""
+    first = res[0]["lm"]
+    for arch, _, _ in LM_MESH_ARCHS:
+        for rr in res[1:]:
+            got = rr["lm"][arch]
+            if got["loss"] != first[arch]["loss"] \
+                    or got["gnorm"] != first[arch]["gnorm"]:
+                fail(f"16(i) {arch}: the ranks' losses or grad norms differ")
+        for a in res:
+            for b in res:
+                da, ma = a["coords"]
+                db, mb = b["coords"]
+                if da == db and a["lm"][arch]["digest"] \
+                        != b["lm"][arch]["digest"]:
+                    fail(f"16(i) {arch}: data group {da}'s ranks computed "
+                         "other logits")
+                if ma == mb and a["lm"][arch]["blocks_digest"] \
+                        != b["lm"][arch]["blocks_digest"]:
+                    fail(f"16(i) {arch}: the data replicas of model rank "
+                         f"{ma} hold other blocks")
+    flash = [rr["lm_launches"]["flash_attention"] for rr in res]
+    if min(flash) == 0:
+        fail(f"16(i): the flash kernel's launches by rank {flash}")
+    counts = {n: sum(rr["lm_launches"][n] for rr in res) for n in KERNELS}
+    out = {"launches": counts, "flash_launches_by_rank": flash,
+           "reference": lm_ref}
+    for arch, steps, decodes in LM_MESH_ARCHS:
+        r0 = first[arch]
+        worst = max(rr["lm"][arch]["logits_err"][i] for rr in res
+                    for i in range(1 + decodes))
+        leaves = {p: {k: max(rr["lm"][arch]["leaves"][p][k] for rr in res)
+                      for k in ("share", "update")} for p in r0["leaves"]}
+        worst_leaf = max(leaves, key=lambda p: leaves[p]["share"])
+        share = leaves[worst_leaf]["share"]
+        worst_upd = max(leaves, key=lambda p: leaves[p]["update"])
+        out[arch] = {"loss": r0["loss"], "gnorm": r0["gnorm"],
+                     "ref_loss": lm_ref[arch]["loss"],
+                     "ref_gnorm": lm_ref[arch]["gnorm"],
+                     "logits_max_abs_err": worst, "leaves": leaves,
+                     "worst_leaf": worst_leaf,
+                     "worst_leaf_share_of_bound": share,
+                     "worst_update_leaf": worst_upd,
+                     "kv_heads": [rr["lm"][arch]["kv_heads"] for rr in res],
+                     "serve_s": r0["serve_s"], "train_s": r0["train_s"],
+                     **({"save_s": r0["save_s"]} if "save_s" in r0 else {})}
+        print(f"  16(i) {arch} at {LM_MESH_LAYERS} layers, S {LM_MESH_S}, "
+              f"(2, 2): prefill and {decodes} decode logits within "
+              f"{worst:.3e} of the one-rank path's (bound "
+              f"{LM_MESH_LOGIT_TOL}); kv heads a rank "
+              f"{out[arch]['kv_heads']}; {steps} AdamW step(s): loss "
+              + ", ".join(f"{a:.6f} (one rank {b:.6f})" for a, b in
+                          zip(r0["loss"], lm_ref[arch]["loss"]))
+              + ", grad norm " + ", ".join(
+                  f"{a:.5f} (one rank {b:.5f})" for a, b in
+                  zip(r0["gnorm"], lm_ref[arch]["gnorm"]))
+              + f"; the worst element at {share:.2f} of its bound "
+              f"({worst_leaf}), the worst step's update "
+              f"{leaves[worst_upd]['update']:.3f} from the one-rank "
+              f"step's ({worst_upd}, bound {LM_MESH_UPDATE_RTOL}); serve "
+              f"{r0['serve_s']:.1f} s, train {r0['train_s']:.1f} s (host "
+              "clock, gloo)")
+    out["restore"] = {}
+    for arch in LM_MESH_CKPT:
+        rest = [rr["lm"]["restore"][arch] for rr in res]
+        out["restore"][arch] = rest
+        print(f"  16(i) {arch}'s (2, 2) state saved in "
+              f"{first[arch]['save_s']:.1f} s, restored onto (1, 4) at "
+              f"{[x['at'] for x in rest]}: {rest[0]['leaves']} leaves a "
+              f"rank bit for bit, {max(x['restore_s'] for x in rest):.1f} s")
+    print(f"  16(i) flash launches by rank {flash}; launches {counts}; at "
+          f"the ranks' heads within {lm_ref['flash_max_abs_err']:.3e} of "
+          f"the plain version")
+    return out
 
 
 def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
@@ -7182,12 +7643,13 @@ def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
     t0 = time.perf_counter()
     mesh2d_references(cfg, tmp / "mesh2d_ref.pt")
     moe_ref = moe_references(tmp / "moe_ref.pt")
+    lm_ref = lm_mesh_references(tmp)
     ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = spawn(_mesh2d_rank, int(np.prod(MESH2D)), backend="gloo",
                 init_file=str(tmp / "rendezvous_mesh2d"),
                 args=(str(tmp), fp_probs), timeout_s=SHARD_TIMEOUT_S,
-                join_timeout_s=SHARD_TIMEOUT_S, mesh_shape=MESH2D,
+                join_timeout_s=MESH2D_JOIN_S, mesh_shape=MESH2D,
                 mesh_axes=MESH2D_AXES)
     ranks_s = time.perf_counter() - t0
     if [rr["coords"] for rr in res] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
@@ -7251,10 +7713,11 @@ def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
               f" own top-k differing from the pinned on {r['own_route_flips']}"
               f" tokens, {r['s']:.2f} s (gloo)")
     print(f"  16(f) weight blocks a rank {m['shapes']}; one-rank references "
-          f"{ref_s:.1f} s (MoE {moe_ref['s']:.1f} s), ranks "
-          f"{ranks_s:.1f} s with their start; launches {counts}")
+          f"{ref_s:.1f} s (MoE {moe_ref['s']:.1f} s, LM {lm_ref['s']:.1f} "
+          f"s), ranks {ranks_s:.1f} s with their start; launches {counts}")
+    lm = lm_mesh_report(res, lm_ref)
     return {"launches": counts, "references_s": ref_s, "ranks_s": ranks_s,
-            "moe_reference": moe_ref,
+            "moe_reference": moe_ref, "lm": lm,
             "dlrm": {k: v for k, v in d.items() if k != "serve"}
             | {"serve": {k: {kk: vv for kk, vv in v.items()
                              if kk != "probs"} for k, v in s.items()}},
@@ -7411,6 +7874,9 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
                      join_timeout_s=SHARD_TIMEOUT_S)
     # 16(e), (f): the (data, model) mesh
     mesh2d = phase_mesh2d(cfg, fp_probs, tmp)
+    errs = out["kernels"]["max_abs_err"]
+    errs["flash_attention"] = max(errs.get("flash_attention", 0.0), mesh2d[
+        "lm"]["reference"]["flash_max_abs_err"])
     # 16(g): the launchers
     loss, launcher_s = train_s()
     if not np.isfinite(loss):
@@ -7474,7 +7940,10 @@ FAM_FLASH_TIMED = 2
 FAM_S = 2048                       # positions of every prefill of phase 17
 CPU_EXPERTS = 16                   # 17(c), (d): the one cut of kimi-k2's
                                    # and arctic's copies on the CPU
-FAM_CPU_LAYERS = 2                 # depth of every card-against-CPU check
+# depth of every card-against-CPU check of 17 and of 18's RWKV and
+# encoder-decoder: at 2 (2 + 2) layers their CPU passes took 102 s of the
+# CPU reference worker, which sets the script's time from phase 15 on
+FAM_CPU_LAYERS = 1
 # but kimi's and arctic's cuts, at 1 layer: at 2, their CPU forwards and
 # decodes in two precisions took 109 and 88 s of "final30"'s 762, and
 # phase 19 trains every family beside them
@@ -8226,7 +8695,7 @@ REC_RING_S = 4096                  # 18(b): decode after 4,095 tokens, past
                                    # the window of 2,048 (a ring of 2,048)
 REC_PROFILE_STEPS = 4              # 18(b, d, e): decode steps profiled
 REC_CPU_LAYERS = 3                 # 18(c): one (rec, rec, attn) group
-RWKV_CPU_LAYERS = 2                # 18(d)
+RWKV_CPU_LAYERS = 1                # 18(d)
 # 18(b), (d), (e) at cut depths (full width), phase 19 training every
 # family after them: recurrentgemma-9b at 14 of 38 layers (4 groups and
 # the (rec, rec) tail, as whole), rwkv6-7b at 8 of 32, seamless at 12 +
@@ -8235,7 +8704,7 @@ RWKV_CPU_LAYERS = 2                # 18(d)
 REC_LAYERS = 14
 RWKV_LAYERS = 8
 ENCDEC_LAYERS = 12
-ENCDEC_CPU_LAYERS = 2              # 18(e): 2 encoder and 2 decoder layers
+ENCDEC_CPU_LAYERS = 1              # 18(e): an encoder and a decoder layer
 LAUNCH_ARCH = "seamless-m4t-large-v2"  # 18(f)
 
 
@@ -9226,7 +9695,8 @@ def main() -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         TRACE_DIR = args.out.parent
 
-    clock = [time.perf_counter()]
+    t_start = time.perf_counter()
+    clock = [t_start]
 
     def phase(title: str) -> None:
         """Print how long the phase before took, then the next header."""
@@ -9336,6 +9806,7 @@ def main() -> None:
                    "lm_train": lm_train["launches"][name],
                    "sharded": sharded["launches"][name],
                    "sharded_mesh2d": sharded["mesh2d"]["launches"][name],
+                   "lm_mesh2d": sharded["mesh2d"]["lm"]["launches"][name],
                    "lm_families": lm_fam["launches"][name],
                    "lm_families_15c": lm_rec["launches"][name],
                    "lm_train_families": lm_fam_train["launches"][name]}
@@ -9405,6 +9876,8 @@ def main() -> None:
                     or m.startswith("repro."))
     if leaked:
         fail(f"imported the JAX side: {leaked[:5]}")
+    print(f"== chip_smoke.py took {time.perf_counter() - t_start:.1f} s on "
+          f"{card['nvidia_smi']}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,25 +20,39 @@ The port's train steps update their tensors in place, so ``save_async``
 copies every leaf to host memory before it returns: a step taken while
 the background write runs cannot reach the checkpoint.
 
-Row-sharded state (a ``launch.mesh.Mesh`` of more than one rank, one
-process a rank) stays unsharded on disk, so a checkpoint is readable by
-either package at any shard count. ``shardings`` is a tree of the
-state's structure whose leaves are a ``Mesh`` (the leaf is this rank's
-block of a row-sharded arena, ``se.shard_block``: its rows, then a zero
-sentinel) or ``None`` (replicated); ``row_shardings`` marks a train
-state's arena leaves. ``save(..., shardings=)`` is collective: every
-rank's block is brought to the writer (the axis' rank 0) through host
-memory by per-owner broadcasts, the sentinels left out, and that one
-rank writes. ``restore(..., shardings=)`` slices each rank's block of
-the saved arena for the mesh it is given (``reshard_checkpoint``: an
-elastic rescale, 4 ranks to 2 say): padding rows that the new shard
-count does not need must be zero, and missing ones are zero.
+Sharded state (a ``launch.mesh.Mesh`` of more than one rank, one process
+a rank) stays unsharded on disk, so a checkpoint is readable by either
+package at any shard count and on any mesh. ``shardings`` is a tree of
+the state's structure (or a prefix of it) whose leaves are:
+
+* a ``Mesh``: the leaf is this rank's block of a row-sharded arena
+  (``se.shard_block``: its rows, then a zero sentinel) on the mesh's
+  'model' axis; ``row_shardings`` marks a train state's arena leaves;
+* a ``distributed.sharding.Sharding``: the leaf is this rank's block
+  under the resolved spec on its mesh, of any shape of mesh (an LM's
+  params and optimizer moments, ``models.api.train_state_specs``; the
+  blocks may differ in size, as the heads split);
+* ``None``: replicated, every rank holds it whole.
+
+``save(..., shardings=)`` is collective: the blocks of each sharded leaf
+are brought together through host memory by per-owner broadcasts (the
+sentinels left out), among the ranks at index 0 of every axis the leaf
+is not split over, and one rank writes, the one at index 0 of every
+axis, so no data replica writes a block twice. ``restore(...,
+shardings=)`` reads one leaf at a time and cuts this rank's block of it
+for the mesh it is given, which need only give this rank's coordinates
+and the axes' sizes (``reshard_checkpoint``: an elastic rescale, 4 ranks
+to 2, or (4, 2) to (2, 4)). A saved arena's padding rows that the new
+shard count does not need must be zero, and missing ones are zero.
 """
 from __future__ import annotations
 
 import json
 import shutil
+import struct
 import threading
+import warnings
+import zipfile
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
@@ -69,27 +83,63 @@ class _Mark:
         self.mesh = mesh
 
 
-def _marked(state, shardings):
+def _marked(state, shardings, leaf_type):
     """``state``'s structure with a ``_Mark`` a leaf; ``shardings`` may be
-    a prefix of it (a leaf of it applies to the whole subtree)."""
-    if not isinstance(shardings, (dict, list, tuple)):
+    a prefix of it (a leaf of it, a ``leaf_type`` or no container,
+    applies to the whole subtree)."""
+    if isinstance(shardings, leaf_type) or not isinstance(
+            shardings, (dict, list, tuple)):
         return tree_map(lambda t: None if t is None else _Mark(shardings),
                         state)
     if isinstance(state, dict):
-        return {k: _marked(state[k], shardings[k]) for k in state}
-    return type(state)(_marked(a, b) for a, b in zip(state, shardings))
+        return {k: _marked(state[k], shardings[k], leaf_type) for k in state}
+    return type(state)(_marked(a, b, leaf_type)
+                       for a, b in zip(state, shardings))
 
 
-def _sharding_leaves(state, shardings) -> List[Optional[Mesh]]:
+def _ranks(mesh) -> int:
+    return int(np.prod([mesh.size(a) for a in mesh.axis_names]))
+
+
+def _sharding_leaves(state, shardings) -> List[Any]:
     """One sharding a leaf of ``state``, in ``tree_paths`` order: the
-    ``Mesh`` of a row-sharded leaf of more than one rank, else None."""
-    marks = [x.mesh for _, x in tree_paths(_marked(state, shardings))]
+    ``Mesh`` of a row-sharded leaf of more than one rank, the
+    ``Sharding`` of a leaf on a mesh of more than one rank, else None."""
+    # imported here: repro_torch.distributed imports this module
+    from repro_torch.distributed.sharding import Sharding
+    marks = [x.mesh for _, x in tree_paths(_marked(state, shardings,
+                                                   Sharding))]
+    out = []
     for m in marks:
-        if m is not None and not isinstance(m, Mesh):
+        if isinstance(m, Mesh):
+            out.append(m if m.size("model") > 1 else None)
+        elif isinstance(m, Sharding):
+            out.append(m if _ranks(m.mesh) > 1 else None)
+        elif m is None:
+            out.append(None)
+        else:
             raise TypeError(f"a sharding is a repro_torch Mesh (row-"
-                            f"sharded) or None, got {type(m).__name__}")
-    return [m if m is not None and m.size("model") > 1 else None
-            for m in marks]
+                            f"sharded), a sharding.Sharding or None, got "
+                            f"{type(m).__name__}")
+    return out
+
+
+def _leader(mesh) -> bool:
+    return all(mesh.rank(a) == 0 for a in mesh.axis_names)
+
+
+def _full_shape(block, sh, sharding) -> tuple:
+    """The whole leaf's shape of this rank's block under ``sh`` (the
+    ``sharding`` module passed in: it imports this one)."""
+    shape = list(block.shape)
+    for dim, e in enumerate(sh.spec):
+        if isinstance(e, sharding.Blocks):
+            shape[dim] = sum(e.sizes)
+        else:
+            for a in sharding.entry_axes(e):
+                if a in sh.mesh.axis_names:
+                    shape[dim] *= sh.mesh.size(a)
+    return tuple(shape)
 
 
 def _unflatten(template, leaves: List[Any]):
@@ -174,33 +224,47 @@ class CheckpointManager:
 
     def _host_leaves(self, state, shardings):
         """(host copies of the leaves, their paths, whether this rank
-        writes): a row-sharded leaf whole, gathered from every rank."""
+        writes): a sharded leaf whole, gathered from every rank; on a
+        rank that does not write, None in place of a gathered leaf."""
         # imported here: repro_torch.distributed imports this module
-        from repro_torch.distributed import collectives
+        from repro_torch.distributed import collectives, sharding
         flat = tree_paths(state)
-        host, writer = [], True
-        for (_, x), mesh in zip(flat, _sharding_leaves(state, shardings)):
-            if mesh is None:
+        marks = _sharding_leaves(state, shardings)
+        writer = all(_leader(m if isinstance(m, Mesh) else m.mesh)
+                     for m in marks if m is not None)
+        host = []
+        for (_, x), mark in zip(flat, marks):
+            if mark is None:
                 host.append(_to_host(x))
-                continue
-            writer = mesh.rank("model") == 0
-            host.append(_to_host(collectives.gather_blocks(x, mesh)))
+            elif isinstance(mark, Mesh):
+                host.append(_to_host(collectives.gather_blocks(x, mark)))
+            else:
+                mesh = mark.mesh
+                # the ranks in the writer's line of every axis the leaf
+                # is not split over bring its blocks together
+                split = {a for e in mark.spec
+                         for a in sharding.entry_axes(e)}
+                whole = None
+                if all(mesh.rank(a) == 0 for a in mesh.axis_names
+                       if a not in split):
+                    whole = sharding.gather_full(
+                        x, mesh, mark.spec, _full_shape(x, mark, sharding))
+                host.append(_to_host(whole) if writer else None)
         return host, [p for p, _ in flat], writer
 
     def save(self, step: int, state, meta: Optional[Dict] = None,
              shardings=None) -> Path:
         """Write ``state`` at ``step``. With ``shardings`` (a tree of
-        ``Mesh``/None, see the module docstring) every rank calls this
-        together; the axis' rank 0 writes, and all return once it has."""
+        ``Mesh``/``Sharding``/None, see the module docstring) every rank
+        calls this together; the rank at index 0 of every axis writes,
+        and all return once it has."""
         host, paths, writer = self._host_leaves(state, shardings)
         final = self.dir / f"step_{step}"
         if writer:
             final = self._write(step, host, paths, meta)
-        meshes = [m for m in _sharding_leaves(state, shardings)
-                  if m is not None]
-        if meshes:
+        if any(m is not None for m in _sharding_leaves(state, shardings)):
             # the other ranks return once the writer has published
-            dist.barrier(group=meshes[0].group("model"))
+            dist.barrier()
         return final
 
     def save_async(self, step: int, state, meta: Optional[Dict] = None,
@@ -311,34 +375,70 @@ class CheckpointManager:
                 shardings=None):
         """Restore into the structure of ``template``: new tensors of the
         template's dtypes on the manager's device, ints where it holds
-        ints. With ``shardings`` a leaf marked with a ``Mesh`` is this
-        rank's block: the template gives its shape (vlocal + 1 rows), and
-        the rank's rows are sliced from the saved arena (module
-        docstring). Returns (tree, manifest)."""
+        ints. With ``shardings`` a leaf marked with a ``Mesh`` or a
+        ``Sharding`` is this rank's block, which the template's leaf
+        shapes, cut from the saved leaf (module docstring); no collective.
+        Returns (tree, manifest)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
-        with np.load(d / "arrays.npz") as data:
-            leaves = [data[f"arr_{i}"]
-                      for i in range(len(manifest["paths"]))]
+        n = len(manifest["paths"])
         t_leaves = [x for _, x in tree_paths(template)]
-        if len(t_leaves) != len(leaves):
+        if len(t_leaves) != n:
             raise ValueError(
-                f"checkpoint has {len(leaves)} leaves, template "
+                f"checkpoint has {n} leaves, template "
                 f"{len(t_leaves)}: structure mismatch")
+        # imported here: repro_torch.distributed imports this module
+        from repro_torch.distributed.sharding import local_block
         marks = _sharding_leaves(template, shardings)
-        for i, (a, t, mesh) in enumerate(zip(leaves, t_leaves, marks)):
-            if mesh is not None:
-                leaves[i] = a = _rank_block(a, t, mesh)
-            shape = tuple(t.shape) if hasattr(t, "shape") else ()
-            if tuple(a.shape) != shape:
-                raise ValueError(f"shape mismatch {a.shape} vs {shape}")
         dev = resolve_device(self.device)
-        return _unflatten(template, [_place(a, t, dev)
-                                     for a, t in zip(leaves, t_leaves)]), \
-            manifest
+        out = []
+        with np.load(d / "arrays.npz") as data:
+            # one leaf at a time; of a leaf cut by a Sharding, only the
+            # block is read
+            for i, (t, mark) in enumerate(zip(t_leaves, marks)):
+                if isinstance(mark, Mesh):
+                    a = _rank_block(data[f"arr_{i}"], t, mark)
+                elif mark is not None:
+                    a = _mapped(d / "arrays.npz", f"arr_{i}")
+                    with warnings.catch_warnings():
+                        # read only: the block is copied out
+                        warnings.simplefilter("ignore", UserWarning)
+                        a = local_block(torch.from_numpy(a), mark.mesh,
+                                        mark.spec).numpy()
+                else:
+                    a = data[f"arr_{i}"]
+                shape = tuple(t.shape) if hasattr(t, "shape") else ()
+                if tuple(a.shape) != shape:
+                    raise ValueError(f"shape mismatch {a.shape} vs {shape}")
+                out.append(_place(a, t, dev))
+        return _unflatten(template, out), manifest
+
+
+def _mapped(path: Path, name: str) -> np.ndarray:
+    """Member ``name`` of an npz written by ``np.savez`` (stored, not
+    compressed), mapped read-only, so that a rank reads the pages of its
+    block alone."""
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(name + ".npy")
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        n_name, n_extra = struct.unpack("<HH", f.read(30)[26:30])
+        f.seek(info.header_offset + 30 + n_name + n_extra)
+        version = np.lib.format.read_magic(f)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if info.compress_type != zipfile.ZIP_STORED or read is None:
+            raise ValueError(f"{path}: {name} is not an uncompressed .npy "
+                             f"of version 1.0 or 2.0, as np.savez writes")
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if fortran:
+        raise ValueError(f"{path}: {name} is stored in Fortran order")
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                     shape=shape)
 
 
 def _rank_block(a: np.ndarray, like, mesh: Mesh) -> np.ndarray:

@@ -26,6 +26,17 @@ the mesh axes named (one name, or a tuple of names):
   hold, each piece brought from its owner by ``broadcast`` (one a rank),
   never by an all-reduce of zero-filled buffers: a sum with +0.0 turns a
   -0.0 element into +0.0, and copies must equal their source bit for bit.
+* ``gather_seq`` / ``scatter_seq``: the sequence-parallel pair of the
+  LM's blocks on a mesh. ``gather_seq`` all-gathers the ranks' chunks of
+  S over an axis; its backward is a reduce-scatter, since each rank's
+  cotangent of the whole sequence is a part of the sum (its heads', its
+  FFN columns'). ``scatter_seq`` reduce-scatters partial sums along S
+  (every rank's whole-sequence partial, summed, each rank keeping its
+  chunk); its backward is an all-gather. The reduce-scatter is an
+  all-reduce and a slice: every rank of the axis sums the same bits in
+  the same order, and gloo has no reduce-scatter;
+* ``pmax``: the maximum over an axis (the vocab-parallel loss' shift),
+  no gradient;
 * ``all_to_all``: the MoE's dispatch and return, chunk j of dim 0 to
   rank j of the axis (``all_to_all_single``; its backward is the same
   exchange of the cotangent). Gloo moves CUDA tensors only for
@@ -95,6 +106,13 @@ def _all_reduce(x: torch.Tensor, groups: list) -> torch.Tensor:
     return x
 
 
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of ``x``, added in fp32 and rounded once
+    to ``x``'s dtype (a new tensor)."""
+    out = _all_reduce(x.to(torch.float32, copy=True).contiguous(), [group])
+    return out.to(x.dtype)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups):
@@ -162,13 +180,26 @@ def pmean(x: torch.Tensor, mesh, axis: Axes = "model") -> torch.Tensor:
 
 
 @torch.no_grad()
-def _gather_one(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    n = mesh.size(axis)
+def _gather_one(x: torch.Tensor, mesh, axis: str, dim: int,
+                sizes: Sequence[int] = None) -> torch.Tensor:
+    """The ranks' blocks along ``dim`` concatenated in order of their
+    index on ``axis``, each broadcast by its owner: rank r's block has
+    ``sizes[r]`` along ``dim`` (equal to this rank's by default), and a
+    block of size 0 is skipped."""
     me = mesh.rank(axis)
+    if sizes is None:
+        sizes = [x.shape[dim]] * mesh.size(axis)
     x = x.contiguous()
     parts = []
-    for r in range(n):
-        buf = x.clone() if r == me else torch.empty_like(x)
+    for r, size in enumerate(sizes):
+        if size == 0:
+            continue
+        if r == me:
+            buf = x.clone()
+        else:
+            shape = list(x.shape)
+            shape[dim] = size
+            buf = torch.empty(shape, dtype=x.dtype, device=x.device)
         dist.broadcast(buf, src=_global_rank(mesh, axis, r),
                        group=mesh.group(axis))
         parts.append(buf)
@@ -205,6 +236,73 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
         return x
     dim = dim % x.dim()
     return _AllGather.apply(x, mesh, axes, dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.size = mesh, axis, dim, x.shape[dim]
+        return _gather_one(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's cotangent of the whole sequence is a part: sum
+        # them, each rank keeping its own chunk
+        g = _sum_f32(g, ctx.mesh.group(ctx.axis))
+        i = ctx.mesh.rank(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        n = mesh.size(axis)
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        size = x.shape[dim] // n
+        x = _sum_f32(x, mesh.group(axis))
+        return x.narrow(dim, mesh.rank(axis) * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_one(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
+               ) -> torch.Tensor:
+    """The ranks' equal chunks of a sequence (``dim``) concatenated in
+    order of their index on ``axis``, on every rank (each chunk
+    broadcast by its owner). Its backward sums the ranks' cotangents and
+    hands each rank its chunk (a reduce-scatter). The identity on an axis
+    of one rank."""
+    if _group(mesh, axis) is None:
+        return x
+    return _GatherSeq.apply(x, mesh, axis, dim % x.dim())
+
+
+def scatter_seq(x: torch.Tensor, mesh, axis: str = "model", dim: int = 1
+                ) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x``, of which each
+    rank keeps its chunk along ``dim`` (a reduce-scatter: an all-reduce,
+    so every rank sums in the same order, then a slice), added in fp32
+    and rounded once to ``x``'s dtype. ``dim`` must divide over the
+    axis. Its backward all-gathers the chunks'
+    cotangents. The identity on an axis of one rank."""
+    if _group(mesh, axis) is None:
+        return x
+    dim = dim % x.dim()
+    if x.shape[dim] % mesh.size(axis):
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"divide over {mesh.size(axis)} ranks of {axis!r}")
+    return _ScatterSeq.apply(x, mesh, axis, dim)
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, mesh, axis: Axes = "model") -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the axes (no gradient)."""
+    out = x.detach().contiguous().clone()
+    for g in _groups(mesh, axis):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+    return out
 
 
 def _exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -190,13 +190,15 @@ def add_shard_args(p: argparse.ArgumentParser, shards_help: str) -> None:
 
 
 def check_shard_args(p: argparse.ArgumentParser, args: argparse.Namespace,
-                     *, shardable: bool) -> None:
+                     *, shardable: bool,
+                     what: str = "row-shards a DLRM arena") -> None:
     """Refuse what ``add_shard_args``' options cannot mean together;
-    ``shardable`` says whether the chosen model row-shards (a DLRM)."""
+    ``shardable`` says whether the chosen model takes ``--shards``, and
+    ``what`` what it does (the refusal's text)."""
     if args.shards < 1:
         p.error("--shards must be at least 1")
     if args.shards > 1 and not shardable:
-        p.error("--shards row-shards a DLRM arena")
+        p.error(f"--shards {what}")
     if (args.shards > 1) != (args.backend is not None):
         p.error("--shards N (N > 1) and --backend go together: name the "
                 "backend (nccl: a card a rank; gloo: CPU ranks or one "

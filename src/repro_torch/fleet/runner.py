@@ -27,8 +27,9 @@ entries), since every swap is copied into the captured tensors.
 
 With tracing on in the trainer's telemetry, every round records its
 parts as spans there (``FleetRunner.round``). Everything runs on the
-card unless ``device="cpu"``. A mesh, or replicas of more than
-one shard, is ROADMAP Queue 1, item 13c.
+card unless ``device="cpu"``. A ``Replica`` of a publisher that trains
+on a mesh takes ``shards`` (the publisher's arena padding) and ``mesh``
+(handed to each engine), as the reference's.
 """
 from __future__ import annotations
 
@@ -65,11 +66,13 @@ def _serve_batch(engine: RecEngine, cfg: DLRMConfig,
     return [r.prob for r in reqs]
 
 
-def _init(seed: int, cfg: DLRMConfig, device: torch.device) -> Dict:
-    """``dlrm.init`` from a generator seeded with ``seed`` on ``device``:
-    the integer the reference hands ``jax.random.PRNGKey``."""
+def _init(seed: int, cfg: DLRMConfig, device: torch.device,
+          shards: int = 1) -> Dict:
+    """``dlrm.init`` from a generator seeded with ``seed`` on ``device``
+    (the integer the reference hands ``jax.random.PRNGKey``), the arena
+    padded for ``shards``."""
     return dlrm.init(torch.Generator(device=device).manual_seed(seed), cfg,
-                     device=device)
+                     shards, device=device)
 
 
 class Replica:
@@ -78,19 +81,23 @@ class Replica:
     (reordered past a newer applied version) goes through the engine's
     refusing ``update_source``, so the rejection is counted on both sides:
     ``stale_injected`` here, the ``stale_rejected`` event and
-    ``rec_stale_rejected_total`` counter in the engine."""
+    ``rec_stale_rejected_total`` counter in the engine.
+
+    ``shards`` is the publisher's arena row padding: the placeholder
+    arena of each engine's local init must have the broadcast leaves'
+    shapes, or adopting a head would rebind a differently shaped arena.
+    ``mesh`` goes to each ``RecEngine``; the broadcast source is served
+    as it is (the publisher unwraps it for serving), so the mesh changes
+    no value."""
 
     def __init__(self, name: str, cfg: DLRMConfig,
                  bootstrap: es.VersionedSource, channel: ChaosChannel, *,
                  max_l: int, batch_size: int, heads: Dict[str, Dict],
                  params_seed: int = 0, mesh=None, shards: int = 1,
                  device: Optional[Union[str, torch.device]] = None):
-        if mesh is not None or shards != 1:
-            raise NotImplementedError(
-                "replicas of a sharded publisher are not ported yet "
-                "(ROADMAP Queue 1, item 13c)")
         self.name = name
         self.cfg = cfg
+        self.mesh = mesh
         self.channel = channel
         self.max_l = max_l
         self.device = resolve_device(device)
@@ -105,10 +112,11 @@ class Replica:
             # trainer's tensors), the dense head from the bootstrap
             # artifact or the frozen candidate; the only sparse state
             # ever served is the broadcast source itself
-            base = _init(params_seed * 31 + i + 11, cfg, self.device)
+            base = _init(params_seed * 31 + i + 11, cfg, self.device,
+                         shards)
             eng = RecEngine(cfg, {**base, **head}, source=bootstrap.source,
                             max_l=max_l, max_batch=batch_size,
-                            buckets=(batch_size,),
+                            buckets=(batch_size,), mesh=mesh,
                             telemetry=obs.Telemetry(), device=self.device)
             eng.update_source(bootstrap.source, version=bootstrap.version)
             eng.warmup()

@@ -27,8 +27,11 @@ engine's latency stats. Runs on the card unless ``--device cpu``. DLRM
 ``--shards N`` serves row-sharded over an N-way "model" mesh of N ranks
 started over ``--backend`` (``nccl``: a card a rank; ``gloo``: CPU ranks
 or ranks sharing a card; no default), each serving the same batches;
-the ranks' probabilities must agree bit for bit. ``--mesh pod|multipod``
-serves a DLRM on the reference's production (data, model) mesh
+the ranks' probabilities must agree bit for bit. An LM is served
+unsharded whatever ``--mesh`` says, as the reference's ``serve_lm``
+serves it (``models.api``'s ``mesh=`` steps shard LM serving).
+``--mesh pod|multipod`` serves a DLRM on the reference's production
+(data, model) mesh
 (``launch.mesh.make_production_mesh``) among the 256 (512) ranks this
 process was started with; with fewer it raises the reference's
 ``RuntimeError``, and it cannot go with ``--shards``.
@@ -163,16 +166,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                       "of N ranks")
     args = p.parse_args(argv)
     check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
+    if args.arch in registry.ARCHS:
+        # as the reference's serve_lm: the LM is served unsharded,
+        # whatever --mesh says (no mesh is built)
+        return serve_lm(args)
     mesh = launcher_mesh(args)
     if mesh is not None:
-        if args.arch not in DLRM_CONFIGS:
-            raise NotImplementedError(
-                "an LM on a production mesh (the LM's logical axes under "
-                "tensor-parallel and FSDP layers) is ROADMAP Queue 1, item "
-                "13c")
         return serve_dlrm(args, mesh)
-    if args.arch in registry.ARCHS:
-        return serve_lm(args)
     if args.arch not in DLRM_CONFIGS:
         p.error(f"unknown arch {args.arch!r}; DLRMs: {sorted(DLRM_CONFIGS)}"
                 f", LMs: {sorted(registry.ARCHS)}")

@@ -15,6 +15,8 @@
         --batch-size 4 --steps 50 [--ckpt-dir ckpt --resume]
     python -m repro_torch.launch.train --arch smollm-360m --smoke \
         --device cpu
+    python -m repro_torch.launch.train --arch qwen1.5-4b --smoke \
+        --device cpu --shards 2 --backend gloo [--ckpt-dir ckpt --resume]
 
 Runs on the card unless ``--device cpu``. DLRM: without ``--ragged`` it
 trains the fixed-L layout (``DLRMSynthetic.batch``, every bag
@@ -39,6 +41,14 @@ after the latest checkpoint there (an LM run draws past the batches of
 the steps it skips, so it trains on the batches an uninterrupted run
 would); a ``StragglerMonitor`` times every step and the run prints its
 count of flagged steps.
+
+LM ``--shards N`` (a GQA decoder or the vision-prefix decoder; the other
+families are ROADMAP Queue 1, item 13d) trains tensor- and
+sequence-parallel on the reference's N-way "model" mesh
+(``make_mesh((N,), ("model",))``), every rank on the whole batch, its
+blocks of the params checkpointed unsharded on disk and resumed on the
+mesh; an LM with ``--mesh pod|multipod`` trains on the production mesh,
+data-parallel over its data axes.
 
 DLRM ``--shards N`` row-shards the arena over an N-way "model" mesh: the
 launcher starts N ranks (``distributed.spawn``, one process a rank) over
@@ -69,7 +79,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.dlrm import DLRM_CONFIGS, DLRM_SMOKE
 from repro_torch.core import dlrm as dlrm_mod
 from repro_torch.core import sparse_engine as se
-from repro_torch.data import DLRMSynthetic, LMSynthetic
+from repro_torch.data import DLRMSynthetic, LMSynthetic, make_placer
 from repro_torch.distributed import StragglerMonitor
 from repro_torch.distributed.spawn import (add_shard_args, check_shard_args,
                                            launcher_mesh, mesh_leader,
@@ -99,12 +109,13 @@ def _setup(args, mesh=None):
     return cfg, device, dlrm_mod.shard_params(params, mesh)
 
 
-def _checkpoints(args, device, state, mesh=None):
+def _checkpoints(args, device, state, mesh=None, shardings=None):
     """The run's CheckpointManager (None without ``--ckpt-dir``), the
     state to start from, the first step (after the latest checkpoint with
-    ``--resume``, else step 0) and the state's shardings on a mesh."""
-    shardings = (row_shardings(state, mesh) if se.mesh_shards(mesh) > 1
-                 else None)
+    ``--resume``, else step 0) and the state's shardings on a mesh (a
+    DLRM's row-sharded arena unless ``shardings`` is given)."""
+    if shardings is None and se.mesh_shards(mesh) > 1:
+        shardings = row_shardings(state, mesh)
     if not args.ckpt_dir:
         return None, state, 0, shardings
     ckpt = CheckpointManager(args.ckpt_dir, device=device)
@@ -201,16 +212,24 @@ def train_dlrm_ragged(args, mesh=None) -> float:
     return loss
 
 
-def train_lm(args) -> Tuple[float, Any]:
+def train_lm(args, mesh=None) -> Tuple[float, Any]:
     """LM training with ``api.make_train_step``; returns the last step's
-    loss and the final (params, optimizer state)."""
+    loss and the final (params, optimizer state). On ``mesh`` each rank
+    holds its blocks of the params and trains on its share of each
+    batch (``api.batch_specs``), and the state is this rank's."""
     cfg = (registry.get_smoke if args.smoke else registry.get_arch)(args.arch)
     device = _device(args)
     params = api.init(torch.Generator(device=device).manual_seed(args.seed),
                       cfg, device=device)
-    _, opt, step_fn = api.make_train_step(cfg)
-    ckpt, (params, opt_state), start, _ = _checkpoints(
-        args, device, (params, opt.init(params)))
+    params = api.shard_params(params, cfg, mesh)
+    opt_name, opt, step_fn = api.make_train_step(cfg, mesh=mesh)
+    # on a mesh, the state's shardings (api.train_state_specs)
+    shardings = (api.train_state_specs(cfg, opt_name, opt, mesh)[:2]
+                 if mesh is not None else None)
+    ckpt, (params, opt_state), start, shardings = _checkpoints(
+        args, device, (params, opt.init(params)), mesh, shardings)
+    place = make_placer(device, mesh,
+                        api.batch_specs(cfg, mesh) if mesh else None)
     mon = StragglerMonitor()
     data = LMSynthetic(cfg, seed=args.seed)
     for _ in range(start):
@@ -218,26 +237,24 @@ def train_lm(args) -> Tuple[float, Any]:
     loss = float("nan")
     for step in range(start, args.steps):
         t0 = time.time()
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch(args.batch_size,
-                                        args.seq_len).items()}
+        batch = place(data.batch(args.batch_size, args.seq_len))
         for k in ("patches", "frames"):
             if k in batch:
                 batch[k] = batch[k].to(torch.bfloat16)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         _after_step(args, ckpt, mon, step, time.time() - t0,
-                    (params, opt_state))
+                    (params, opt_state), shardings)
         if step % args.log_every == 0:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({time.time() - t0:.3f}s)")
-    _finish(ckpt, mon, loss)
+            _log(mesh, f"step {step:5d} loss {loss:.4f} "
+                 f"gnorm {float(metrics['grad_norm']):.3f} "
+                 f"({time.time() - t0:.3f}s)")
+    _finish(ckpt, mon, loss, mesh)
     return loss, (params, opt_state)
 
 
 DLRM_ONLY = ("ragged", "dense_grads", "online_cache", "quantize_cold",
-             "metrics_json", "trace", "backend", "rendezvous")
+             "metrics_json", "trace")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -289,9 +306,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "checkpoint")
     add_shard_args(p, "DLRM: row-shard the embedding arena over an N-way "
                       "'model' mesh of N ranks (with --ragged the sparse "
-                      "optimizer applies shard-local row updates)")
+                      "optimizer applies shard-local row updates); a GQA "
+                      "decoder or vision-prefix LM: tensor- and "
+                      "sequence-parallel over it")
     args = p.parse_args(argv)
-    check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS)
+    check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS
+                     or _lm_shards(args.arch), what="row-shards a DLRM arena "
+                     "or shards a GQA decoder LM (the other LM families are "
+                     "ROADMAP Queue 1, item 13d)")
     if args.resume and not args.ckpt_dir:
         p.error("--resume goes with --ckpt-dir")
     if args.ckpt_every < 1:
@@ -317,8 +339,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def _lm_shards(arch: str) -> bool:
+    """Whether the LM ``arch`` runs on a mesh (its family's logical axes
+    are ported; the others are ROADMAP Queue 1, item 13d)."""
+    return arch in registry.ARCHS and api.mesh_ported(registry.get_arch(arch))
+
+
 def _train_rank(mesh, args) -> float:
     """One rank of a ``--shards`` run."""
+    if args.arch not in DLRM_CONFIGS:
+        return train_lm(args, mesh)[0]
     if args.ragged:
         return train_dlrm_ragged(args, mesh)
     return train_dlrm(args, mesh)
@@ -339,16 +369,13 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     mesh = launcher_mesh(args)
     if mesh is not None:
         if args.arch not in DLRM_CONFIGS:
-            raise NotImplementedError(
-                "an LM on a production mesh (the LM's logical axes under "
-                "tensor-parallel and FSDP layers) is ROADMAP Queue 1, item "
-                "13c")
+            return train_lm(args, mesh)[0]
         return (train_dlrm_ragged if args.ragged else train_dlrm)(args,
                                                                    mesh)
-    if args.arch not in DLRM_CONFIGS:
-        return train_lm(args)[0]
     if args.shards > 1:
         return train_sharded(args)
+    if args.arch not in DLRM_CONFIGS:
+        return train_lm(args)[0]
     if args.ragged:
         return train_dlrm_ragged(args)
     return train_dlrm(args)

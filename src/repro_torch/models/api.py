@@ -1,15 +1,21 @@
 """Model API over the LM architectures, the counterpart of the
-reference's ``repro/models/api.py`` on one card; an encoder-decoder
-config goes to ``models.encdec``, every other one to
-``models.transformer``, as the reference dispatches:
+reference's ``repro/models/api.py``; an encoder-decoder config goes to
+``models.encdec``, every other one to ``models.transformer``, as the
+reference dispatches:
 
     init(generator, cfg, device=None)       -> params
     params_from_numpy(tree, device=None)    -> params
+    param_specs(cfg)                        -> logical spec tree
+    shard_params(params, cfg, mesh)         -> this rank's blocks
     forward / prefill / decode_step / init_cache
-    make_prefill_step / make_decode_fn
+    make_prefill_step(cfg, max_len, mesh=None)
+    make_decode_fn(cfg, mesh=None)
     loss(params, cfg, batch, remat=True)    -> scalar
     default_optimizer(cfg)                  -> (name, optimizer)
-    make_train_step(cfg, ...)               -> (name, optimizer, step fn)
+    make_train_step(cfg, optimizer=None, mesh=None, ...)
+                                            -> (name, optimizer, step fn)
+    train_state_specs(cfg, name, opt, mesh) -> shardings of the state
+    cache_specs(cfg, batch, max_len, mesh)  -> shardings of the cache
 
 Params are built under ``torch.no_grad()``, so their leaves can take
 ``requires_grad_()``; serving (forward, prefill, decode, the cache) runs
@@ -18,8 +24,27 @@ returns (logits, aux) as the reference's does, aux the MoE load-balance
 loss summed over the layers (zero for a dense model), and ``loss``
 adds ``aux_loss_coef`` x aux. Training differentiates ``loss`` with
 autograd: through the flash op, whose backward recomputes through the
-chunked attention. Mesh arguments and the dry-run stand-ins are not
-ported (ROADMAP Queue 1, item 13c).
+chunked attention. The dry-run stand-ins (``input_specs``) are not
+ported.
+
+**On a mesh** (``launch.mesh.Mesh``: one process a rank, (data, model)
+or any of ``make_mesh``'s shapes) the ``mesh=`` steps run the GQA
+decoder and vision-prefix families tensor- and sequence-parallel over
+'model' and data-parallel over the other axes (``models.transformer``'s
+docstring). Each rank passes its blocks of the params
+(``shard_params``) and its share of the batch, split on its first dim
+over the data axes (``data.make_placer`` with ``batch_specs(cfg,
+mesh)``); the steps return what that rank holds: prefill and decode the
+rank's vocab shard of the logits (``collectives.all_gather(logits, mesh,
+"model", dim=-1)`` puts them together), the cache the rank's kv heads
+(``init_cache(..., mesh=mesh)``), and the train step updates the rank's
+blocks in place, its loss and grad norm the whole batch's, the same
+bits on every rank. The train step sums each replicated leaf's gradient
+over 'model' (its uses on the ranks' chunks and heads are parts of it),
+averages every gradient over the data axes in fp32, and clips by the
+norm of the whole tree. The MoE, MLA, hybrid, ssm and encoder-decoder
+families, and Adafactor, are refused on a mesh (ROADMAP Queue 1, item
+13d).
 """
 from __future__ import annotations
 
@@ -32,7 +57,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import optim as optim_lib
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
+from repro_torch.models import encdec, params as params_lib, transformer
 
 
 def _impl(cfg: ModelConfig):
@@ -83,6 +110,58 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     return conv(tree)
 
 
+def _sharded_mesh(mesh) -> bool:
+    return mesh is not None and coll.axes_size(mesh, mesh.axis_names) > 1
+
+
+def mesh_ported(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s family runs on a mesh (the GQA decoders and the
+    vision-prefix decoder; the rest are ROADMAP Queue 1, item 13d)."""
+    try:
+        _refuse_on_mesh(cfg)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Refuse a family the port does not shard yet, on a mesh of more
+    than one rank."""
+    if _sharded_mesh(mesh):
+        _refuse_on_mesh(cfg)
+
+
+def _refuse_on_mesh(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder on a mesh (its logical axes) "
+            "is ROADMAP Queue 1, item 13d")
+    transformer.check_mesh_ported(cfg)
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical spec tree of ``init``'s params (the reference's
+    ``init(key, cfg)[1]``), with ``sharding.Heads`` entries where the
+    reference's flat head dims split over 'model'; of the families that
+    run on a mesh."""
+    _refuse_on_mesh(cfg)
+    return transformer.param_specs(cfg)
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's blocks of the full ``params`` on ``mesh`` (copies);
+    ``params`` itself without a mesh."""
+    _check_mesh(cfg, mesh)
+    return params_lib.shard_params(params, cfg, mesh)
+
+
+def batch_specs(cfg: ModelConfig, mesh) -> Dict[str, tuple]:
+    """The resolved specs of an LM batch on ``mesh``: every key split on
+    its first dim over the data axes (``data.make_placer``)."""
+    keys = ["tokens"] + (["patches"] if cfg.family == "vlm" else [])
+    return {k: sharding.resolve(mesh, ("batch",)) for k in keys}
+
+
 @_inference
 def forward(params, cfg: ModelConfig, batch):
     return _impl(cfg).forward(params, cfg, batch)
@@ -101,19 +180,34 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
 
 @_inference
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
-    return _impl(cfg).init_cache(cfg, batch, max_len, dtype, device)
+               dtype=torch.bfloat16, device=None, mesh=None):
+    """The decode cache; on ``mesh`` this rank's: its share of the batch
+    (``batch`` is the rank's) and its kv heads."""
+    _check_mesh(cfg, mesh)
+    with sharding.use_mesh(mesh):
+        return _impl(cfg).init_cache(cfg, batch, max_len, dtype, device)
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None):
+    """prefill_step(params, batch) -> (last-position logits, cache), on
+    ``mesh`` this rank's (module docstring)."""
+    _check_mesh(cfg, mesh)
+
     def prefill_step(params, batch):
-        return prefill(params, cfg, batch, max_len)
+        with sharding.use_mesh(mesh):
+            return prefill(params, cfg, batch, max_len)
     return prefill_step
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, mesh=None):
+    """serve_step(params, cache, {"tokens", "pos"}) -> (logits, cache),
+    on ``mesh`` this rank's (module docstring)."""
+    _check_mesh(cfg, mesh)
+
     def serve_step(params, cache, batch):
-        return decode_step(params, cfg, cache, batch["tokens"], batch["pos"])
+        with sharding.use_mesh(mesh):
+            return decode_step(params, cfg, cache, batch["tokens"],
+                               batch["pos"])
     return serve_step
 
 
@@ -134,8 +228,34 @@ def default_optimizer(cfg: ModelConfig) -> Tuple[str, Any]:
     return "adamw", optim_lib.layerwise(optim_lib.adamw(3e-4))
 
 
-def make_train_step(cfg: ModelConfig, optimizer=None, grad_clip: float = 1.0,
-                    microbatches: int = 1):
+def _mesh_sync(cfg: ModelConfig, mesh):
+    """(the gradient sync, the tree of which leaves are split over
+    'model') of a train step on ``mesh``: each leaf replicated over
+    'model' summed over it, every leaf averaged over the data axes, in
+    fp32, in place."""
+    specs = param_specs(cfg)
+    sharded = sharding.map_specs(lambda sp: sharding.splits_over(mesh, sp),
+                                 specs)
+    data = sharding.batch_axes(mesh)
+    n_data = coll.axes_size(mesh, data)
+    tp = sharding.tp_size(mesh)
+
+    @torch.no_grad()
+    def sync(grads):
+        def one(g, split):
+            axes = (() if split or tp == 1 else ("model",)) + data
+            if coll.axes_size(mesh, axes) == 1:
+                return g
+            g32 = coll.psum(g.float(), mesh, axes)
+            if n_data > 1:
+                g32 /= n_data
+            return g.copy_(g32)
+        return optim_lib.tree_map(one, grads, sharded)
+    return sync, sharded
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
+                    grad_clip: float = 1.0, microbatches: int = 1):
     """Returns (opt_name, optimizer, train_step).
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
@@ -148,19 +268,32 @@ def make_train_step(cfg: ModelConfig, optimizer=None, grad_clip: float = 1.0,
     the batch is split contiguously along its first dim, the gradients are
     added in the params' dtype in micro-batch order starting from zeros,
     then divided by n; the loss is the mean of the micro-batch losses.
+
+    On ``mesh`` the step takes this rank's blocks and batch share (module
+    docstring).
     """
+    _check_mesh(cfg, mesh)
     if optimizer is None:
         opt_name, opt = default_optimizer(cfg)
     else:
         opt_name, opt = optimizer
+    sync = sharded = None
+    if _sharded_mesh(mesh):
+        if opt_name == "adafactor":
+            raise NotImplementedError(
+                "Adafactor on a mesh (its factored statistics across "
+                "shards) is ROADMAP Queue 1, item 13d")
+        sync, sharded = _mesh_sync(cfg, mesh)
 
     def value_and_grad(params, batch):
         # fresh leaves over the params' storage: autograd records on
         # them, and the in-place update below writes the params
         leaves = optim_lib.tree_map(lambda p: p.detach().requires_grad_(),
                                     params)
-        value = loss(leaves, cfg, batch)
-        grads = torch.autograd.grad(value, optim_lib.tree_leaves(leaves))
+        # the backward recomputes checkpointed layers: on the mesh too
+        with sharding.use_mesh(mesh):
+            value = loss(leaves, cfg, batch)
+            grads = torch.autograd.grad(value, optim_lib.tree_leaves(leaves))
         it = iter(grads)
         return value.detach(), optim_lib.tree_map(lambda _: next(it), leaves)
 
@@ -178,8 +311,45 @@ def make_train_step(cfg: ModelConfig, optimizer=None, grad_clip: float = 1.0,
                 losses.append(mb_loss)
             grads = optim_lib.tree_map(lambda g: g / microbatches, grads)
             loss_val = torch.stack(losses).mean()
-        grads, gnorm = optim_lib.clip_by_global_norm(grads, grad_clip)
+        if sync is not None:
+            grads = sync(grads)
+            loss_val = coll.pmean(loss_val, mesh, sharding.batch_axes(mesh))
+        grads, gnorm = optim_lib.clip_by_global_norm(grads, grad_clip,
+                                                     mesh=mesh,
+                                                     sharded=sharded)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss_val, "grad_norm": gnorm}
 
     return opt_name, opt, train_step
+
+
+def train_state_specs(cfg: ModelConfig, opt_name: str, opt, mesh):
+    """(params' shardings, the optimizer state's, the logical spec tree):
+    trees of ``sharding.Sharding`` (None without a mesh), the state's
+    moments sharded as their params and its step count replicated, for
+    ``CheckpointManager.save`` / ``restore``. AdamW's state (the mesh
+    steps' optimizer; Adafactor's factored statistics are item 13d)."""
+    if opt_name != "adamw":
+        raise NotImplementedError(
+            f"{opt_name}'s state specs on a mesh: AdamW's are ported, "
+            "Adafactor's are ROADMAP Queue 1, item 13d")
+    specs = param_specs(cfg)
+    shard = sharding.spec_tree_to_shardings(mesh, specs)
+    return shard, {"m": shard, "v": shard, "step": None}, specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh):
+    """The decode cache's shardings (``sharding.Sharding`` leaves, None
+    without a mesh): k and v split on the batch over the data axes and by
+    kv head over 'model' (``sharding.head_split``; replicated where the kv
+    heads are), slot positions replicated. The reference splits the cache
+    positions over 'model' instead, for its split-KV decode
+    (``repro/models/api.py:211-237``); the port's decode attends with the
+    rank's heads, so its cache is split as they are. Both hold the same
+    values."""
+    _check_mesh(cfg, mesh)
+    a = cfg.attention
+    heads = sharding.Heads(a.n_heads, a.n_kv_heads, 1, "kv")
+    kv = (None, "batch", None, heads, None)
+    return sharding.spec_tree_to_shardings(mesh, {"layers": {
+        "k": kv, "v": kv, "slot_pos": (None, None)}})

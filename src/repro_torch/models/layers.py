@@ -16,8 +16,20 @@ and the encoder-decoder's cross-attention against the encoder's memory
 (``memory_kv``, ``cross_attention_full``, ``cross_attention_decode``),
 which never takes the kernel.
 
-The reference's sharding constraints (``constrain``, ``head_constrain``)
-are identities on one card and are not carried over (item 13c).
+On a mesh (``distributed.sharding.use_mesh`` with a 'model' axis of
+more than one rank) each rank holds its blocks of the params
+(``params.shard_params``): the FFN's ``wi``/``wg``/``wu`` columns and
+``wd`` rows of its share of d_ff, and attention's projections for its
+heads (``sharding.head_split``: ``wq``/``bq`` columns and ``wo`` rows of
+its query heads, ``wk``/``wv``/``bk``/``bv`` columns of its kv heads, or
+the whole kv projections where they are replicated). ``apply_mlp``,
+``attention_full`` and ``attention_decode`` then compute the rank's part
+and return a partial sum over 'model', which the caller reduces
+(``sharding.scatter_seq`` / ``psum_model``); the flash op runs at the
+rank's head counts, and the decode cache holds the rank's kv heads. A
+rank may hold no query head, and then attends to nothing. The
+reference's ``constrain`` / ``head_constrain`` calls here are layouts
+GSPMD acts on; the port's blocks are those layouts.
 
 Numerics follow the reference: norms and RoPE compute in fp32 and cast
 back; attention scores are fp32 from the bf16 operands (both widened, so
@@ -34,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models.params import Builder
 
@@ -85,11 +98,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # MLP blocks
 # ---------------------------------------------------------------------------
 
+COL, ROW = (None, "model"), ("model", None)
+
+
 def init_mlp(b: Builder, d: int, dff: int, act: str):
     if act in ("swiglu", "geglu"):
-        return {"wg": b.normal((d, dff)), "wu": b.normal((d, dff)),
-                "wd": b.normal((dff, d))}
-    return {"wi": b.normal((d, dff)), "wd": b.normal((dff, d))}
+        return {"wg": b.normal((d, dff), spec=COL),
+                "wu": b.normal((d, dff), spec=COL),
+                "wd": b.normal((dff, d), spec=ROW)}
+    return {"wi": b.normal((d, dff), spec=COL),
+            "wd": b.normal((dff, d), spec=ROW)}
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -111,22 +129,48 @@ def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
 def init_attention(b: Builder, acfg: AttentionConfig, d: int):
     hd = acfg.resolved_head_dim(d)
     h, k = acfg.n_heads, acfg.n_kv_heads
-    p = {"wq": b.normal((d, h * hd)), "wk": b.normal((d, k * hd)),
-         "wv": b.normal((d, k * hd)), "wo": b.normal((h * hd, d))}
+    q = sharding.Heads(h, k, hd, "q")
+    kv = sharding.Heads(h, k, hd, "kv")
+    p = {"wq": b.normal((d, h * hd), spec=(None, q)),
+         "wk": b.normal((d, k * hd), spec=(None, kv)),
+         "wv": b.normal((d, k * hd), spec=(None, kv)),
+         "wo": b.normal((h * hd, d), spec=(q, None))}
     if acfg.qkv_bias:
-        p["bq"] = b.zeros((h * hd,))
-        p["bk"] = b.zeros((k * hd,))
-        p["bv"] = b.zeros((k * hd,))
+        p["bq"] = b.zeros((h * hd,), spec=(q,))
+        p["bk"] = b.zeros((k * hd,), spec=(kv,))
+        p["bv"] = b.zeros((k * hd,), spec=(kv,))
     return p
+
+
+def local_heads(acfg: AttentionConfig):
+    """(query heads, kv heads, the kv columns to take or None) of this
+    rank under the active mesh (``sharding.head_split``): all of them
+    without one. Where the kv projections are replicated the rank takes
+    its kv head's columns, ``slice(k0 * hd, k1 * hd)`` in head units."""
+    h, kh = acfg.n_heads, acfg.n_kv_heads
+    tp = sharding.tp_size()
+    if tp == 1:
+        return h, kh, None
+    q0, q1, k0, k1 = sharding.head_split(h, kh, tp)[sharding.tp_rank()]
+    cols = (k0, k1) if sharding.kv_replicated(kh, tp) else None
+    return q1 - q0, k1 - k0, cols
 
 
 def _project_qkv(p, acfg: AttentionConfig, x: torch.Tensor, d: int):
     b_, s, _ = x.shape
     hd = acfg.resolved_head_dim(d)
-    h, k = acfg.n_heads, acfg.n_kv_heads
-    q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    h, k, cols = local_heads(acfg)
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    if cols is not None:
+        # replicated kv projections: this rank's kv head
+        sl = slice(cols[0] * hd, cols[1] * hd)
+        wk, wv = wk[:, sl], wv[:, sl]
+        if acfg.qkv_bias:
+            bk, bv = bk[sl], bv[sl]
+    q, kk, v = x @ p["wq"], x @ wk, x @ wv
     if acfg.qkv_bias:
-        q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
+        q, kk, v = q + p["bq"], kk + bk, v + bv
     return (q.reshape(b_, s, h, hd), kk.reshape(b_, s, k, hd),
             v.reshape(b_, s, k, hd))
 
@@ -230,11 +274,14 @@ def attention_full(p, acfg: AttentionConfig, x: torch.Tensor,
     as every caller passes it."""
     b_, s, _ = x.shape
     hd = acfg.resolved_head_dim(d)
-    h, kh = acfg.n_heads, acfg.n_kv_heads
     q, k, v = _project_qkv(p, acfg, x, d)
+    h, kh = q.shape[2], k.shape[2]
     q = rope(q, positions, acfg.rope_theta)
     k = rope(k, positions, acfg.rope_theta)
-    if s >= CHUNKED_THRESHOLD:
+    if h == 0:
+        # a rank of the mesh that holds no query head
+        out = q
+    elif s >= CHUNKED_THRESHOLD:
         out = ops.flash_attention_gqa(q, k, v, causal=acfg.causal,
                                       window=acfg.window)
     else:
@@ -325,7 +372,7 @@ def init_kv_cache(acfg: AttentionConfig, d: int, batch: int, max_len: int,
     (-1 = empty)."""
     hd = acfg.resolved_head_dim(d)
     size = _cache_size(acfg, max_len, ring)
-    shape = (batch, size, acfg.n_kv_heads, hd)
+    shape = (batch, size, local_heads(acfg)[1], hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "slot_pos": torch.full((size,), -1, dtype=torch.int32,
@@ -364,8 +411,8 @@ def attention_decode(p, acfg: AttentionConfig, x: torch.Tensor, pos: int,
     """
     b_ = x.shape[0]
     hd = acfg.resolved_head_dim(d)
-    h, kh = acfg.n_heads, acfg.n_kv_heads
     q, k_new, v_new = _project_qkv(p, acfg, x, d)
+    h, kh = q.shape[2], k_new.shape[2]
     posb = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posb, acfg.rope_theta)
     k_new = rope(k_new, posb, acfg.rope_theta)

@@ -22,6 +22,22 @@ Training (``loss_fn``) runs ``forward`` with each layer (a hybrid's
 group) under ``torch.utils.checkpoint`` when ``remat``, as the
 reference's ``jax.checkpoint`` of the scan body. The encoder-decoder
 family is ``models/encdec.py``.
+
+**On a mesh** (the active mesh of ``distributed.sharding.use_mesh``, set
+by ``api``'s ``mesh=`` steps; the GQA decoder and vision-prefix families)
+each rank holds its blocks of the params (``params.shard_params``) and
+its share of the batch, and the blocks run Megatron-style, where the
+reference constrains: the residual stream between blocks is this rank's
+chunk of S (``_embed_input`` reduce-scatters the partial token rows, a
+``vlm`` batch's patches ahead of them); a block all-gathers S at the
+entry to attention and to the FFN (``sharding.gather_seq``), computes its
+heads and d_ff columns, and reduce-scatters its partial output back onto
+S (``sharding.scatter_seq``); the head gathers S and gives the rank's
+vocab shard of the logits, and the loss is vocab-parallel. A decode step
+keeps its one-token stream replicated over 'model' and adds the
+row-parallel partials with ``sharding.psum_model``; the cache holds the
+rank's kv heads. S must divide over 'model'. The MoE, MLA, hybrid and
+ssm configs are refused on a mesh (ROADMAP Queue 1, item 13d).
 """
 from __future__ import annotations
 
@@ -32,9 +48,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers, mla, moe, rglru, rwkv6
-from repro_torch.models.params import Builder, init_stacked, stack_layers
+from repro_torch.models.params import (Builder, SpecRecorder, init_stacked,
+                                       spec_tree, stack_layers)
 
 # the reference's decoder families (encdec is models/encdec.py)
 FAMILIES = ("decoder", "vlm", "ssm", "hybrid")
@@ -50,6 +69,23 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family != "ssm" and cfg.attention.kind not in ("gqa", "mla"):
         raise ValueError(f"{cfg.name}: attention {cfg.attention.kind!r} in "
                          f"a {cfg.family} model; it takes gqa or mla")
+    mesh = sharding.active_mesh()
+    if mesh is not None and coll.axes_size(mesh, mesh.axis_names) > 1:
+        check_mesh_ported(cfg)
+
+
+def check_mesh_ported(cfg: ModelConfig) -> None:
+    """Refuse, on a mesh, what the port does not shard yet: the MoE, MLA,
+    hybrid and ssm families (and, in ``models.api``, the
+    encoder-decoder)."""
+    what = ("a MoE" if cfg.moe is not None
+            else "MLA" if cfg.family != "ssm" and cfg.attention.kind == "mla"
+            else f"the {cfg.family} family"
+            if cfg.family in ("hybrid", "ssm") else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a mesh (its logical axes) is ROADMAP "
+            "Queue 1, item 13d")
 
 
 def _layer(tree, i: int):
@@ -145,8 +181,18 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
     (``params.init_stacked``); a hybrid's tail blocks follow its
     groups, as the reference draws them."""
     check_ported(cfg)
-    b = Builder(generator, dtype=getattr(torch, cfg.dtype),
-                device=resolve_device(device))
+    return _build(Builder(generator, dtype=getattr(torch, cfg.dtype),
+                          device=resolve_device(device)), cfg)
+
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The logical spec tree of ``init``'s params (the reference's
+    ``split(tree)[1]``), recorded from the same init code."""
+    check_ported(cfg)
+    return spec_tree(_build(SpecRecorder(getattr(torch, cfg.dtype)), cfg))
+
+
+def _build(b, cfg: ModelConfig) -> Dict:
     tree = {"embed": emb.init_table(b, cfg.vocab_size, cfg.d_model)}
     if cfg.family == "hybrid":
         groups, tail = _hybrid_layout(cfg)
@@ -181,28 +227,46 @@ def _ffn(p, cfg: ModelConfig, h):
 
 
 def _attn_block_full(p, cfg: ModelConfig, x, positions):
-    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    # on a mesh: gather S at the entry (SP all-gather), reduce-scatter the
+    # partial outputs back onto S; identities without one
+    h = sharding.gather_seq(layers.apply_norm(p["ln1"], x, cfg.norm))
     if cfg.attention.kind == "mla":
         a = mla.mla_full(p["mla"], cfg.attention, h, positions, cfg.d_model)
     else:
         a = layers.attention_full(p["attn"], cfg.attention, h, positions,
                                   cfg.d_model)
-    x = x + a
-    y, aux = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
-    return x + y, aux
+    x = x + sharding.scatter_seq(a)
+    y, aux = _ffn(p, cfg, sharding.gather_seq(
+        layers.apply_norm(p["ln2"], x, cfg.norm)))
+    return x + sharding.scatter_seq(y), aux
 
 
 def _embed_input(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Tokens -> (B, S, D); a ``vlm`` batch's patches (B, P, D), cast to
-    the embedding dtype, go before the tokens."""
-    x = emb.embed_tokens(params["embed"], batch["tokens"])
+    the embedding dtype, go before the tokens. On a mesh: this rank's
+    chunk of S, the ranks' token rows reduce-scattered (the patches come
+    in from 'model' rank 0, zeros from the others)."""
+    x = emb.embed_rows(params["embed"], batch["tokens"])
     if cfg.family == "vlm":
-        x = torch.cat([batch["patches"].to(x.dtype), x], 1)
-    return x
+        patches = batch["patches"].to(x.dtype)
+        if sharding.tp_rank() != 0:
+            patches = torch.zeros_like(patches)
+        x = torch.cat([patches, x], 1)
+    return sharding.scatter_seq(x)
 
 
-def _head(params, cfg: ModelConfig, x):
+def _positions(x) -> torch.Tensor:
+    """arange of the whole sequence, of which ``x`` is this rank's chunk
+    on a mesh."""
+    return torch.arange(x.shape[1] * sharding.tp_size(), device=x.device)
+
+
+def _head(params, cfg: ModelConfig, x, seq_sharded: bool = True):
+    """The final norm and the logits (the rank's vocab shard on a mesh),
+    after gathering the S-sharded stream when ``seq_sharded``."""
     x = layers.apply_norm(params["ln_f"], x, cfg.norm)
+    if seq_sharded:
+        x = sharding.gather_seq(x)
     if cfg.tie_embeddings:
         return emb.lm_head(x, params["embed"], cfg.vocab_size)
     return emb.lm_head_untied(x, params["unembed"], cfg.vocab_size)
@@ -256,7 +320,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     where its chunk divides S, unless ``rwkv_chunked`` is False."""
     check_ported(cfg)
     x = _embed_input(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = _positions(x)
     remat = remat and torch.is_grad_enabled()
 
     def run(fn, *args):
@@ -309,7 +373,7 @@ def _ring(cfg: ModelConfig, max_len: int) -> bool:
 
 def _attn_block_prefill(p, cfg: ModelConfig, x, positions, max_len,
                         dtype=torch.bfloat16):
-    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    h = sharding.gather_seq(layers.apply_norm(p["ln1"], x, cfg.norm))
     if cfg.attention.kind == "mla":
         a, (c_kv, k_rope) = mla.mla_full(p["mla"], cfg.attention, h,
                                          positions, cfg.d_model,
@@ -322,9 +386,10 @@ def _attn_block_prefill(p, cfg: ModelConfig, x, positions, max_len,
                                           return_kv=True)
         entry = layers.cache_from_kv(cfg.attention, k, v, max_len, dtype,
                                      ring=_ring(cfg, max_len))
-    x = x + a
-    y, _ = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
-    return x + y, entry
+    x = x + sharding.scatter_seq(a)
+    y, _ = _ffn(p, cfg, sharding.gather_seq(
+        layers.apply_norm(p["ln2"], x, cfg.norm)))
+    return x + sharding.scatter_seq(y), entry
 
 
 def _block_prefill(p, cfg: ModelConfig, kind: str, x, positions, max_len,
@@ -345,7 +410,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     Returns (last-position logits (B, Vpad) f32, cache tree)."""
     check_ported(cfg)
     x = _embed_input(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = _positions(x)
     if cfg.family == "hybrid":
         pat = cfg.rglru.block_pattern
         groups = []
@@ -372,7 +437,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                                max_len, dtype)
             entries.append(entry)
         cache = {"layers": stack_layers(entries)}
-    logits = _head(params, cfg, x[:, -1:])
+    logits = _head(params, cfg, sharding.last_position(x), seq_sharded=False)
     return logits[:, 0], cache
 
 
@@ -422,6 +487,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _attn_block_decode(p, cfg: ModelConfig, x, pos: int, cache):
+    # on a mesh the one-token stream stays replicated over 'model': the
+    # row-parallel partials are summed into it
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     if cfg.attention.kind == "mla":
         a, cache = mla.mla_decode(p["mla"], cfg.attention, h, pos, cache,
@@ -429,9 +496,9 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos: int, cache):
     else:
         a, cache = layers.attention_decode(p["attn"], cfg.attention, h, pos,
                                            cache, cfg.d_model)
-    x = x + a
+    x = x + sharding.psum_model(a)
     y, _ = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
-    return x + y
+    return x + sharding.psum_model(y)
 
 
 def _rwkv_block_decode(p, cfg: ModelConfig, x, state):
@@ -466,7 +533,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     reference returns a new cache); the returned cache is the same
     tree."""
     check_ported(cfg)
-    x = emb.embed_tokens(params["embed"], tokens[:, None])
+    x = sharding.psum_model(emb.embed_rows(params["embed"], tokens[:, None]))
     if cfg.family == "hybrid":
         pat = cfg.rglru.block_pattern
         for g in range(n_groups(params)):
@@ -484,4 +551,4 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 x = _rwkv_block_decode(p_l, cfg, x, c_l)
             else:
                 x = _attn_block_decode(p_l, cfg, x, pos, c_l)
-    return _head(params, cfg, x)[:, 0], cache
+    return _head(params, cfg, x, seq_sharded=False)[:, 0], cache

@@ -23,8 +23,12 @@ Provided: ``sgd`` (momentum), ``adamw``, ``adafactor`` (factored second
 moments), ``rowwise_adagrad`` (the DLRM embedding tables), ``partitioned``
 (one rule per top-level key), ``layerwise`` (the update one layer of a
 stacked subtree at a time), global-norm clipping, ``warmup_cosine`` and
-``from_config``. ``state_logical_specs`` is a dry-run sharding helper of
-the reference and is not carried over (ROADMAP Queue 1, item 13c).
+``from_config``. On a mesh the updates run on each rank's blocks as
+they are (elementwise: AdamW, SGD), and the global norm sums the squares
+of the leaves split over 'model' across it, each replicated leaf once.
+The reference's ``state_logical_specs`` (the dry-run's) is
+``models.api.train_state_specs`` here; Adafactor's factored statistics
+across shards are ROADMAP Queue 1, item 13d.
 """
 from __future__ import annotations
 
@@ -86,18 +90,34 @@ def _write(p: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 # Clipping
 # ---------------------------------------------------------------------------
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32, the leaves
     summed in the reference's leaf order (``tree_paths``). A 0-dim tensor
-    on the leaves' device."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for _, x in tree_paths(tree)))
+    on the leaves' device.
+
+    On ``mesh``, ``sharded`` (a tree of bools of ``tree``'s structure)
+    marks the leaves that are this rank's blocks of a leaf split over
+    'model': their squares are summed over the axis, and every other
+    leaf, which each rank holds whole, is counted once. Every rank of the
+    axis gets the same bits."""
+    if mesh is None or sharded is None:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for _, x in tree_paths(tree)))
+    # imported here: repro_torch.distributed imports this package
+    from repro_torch.distributed import collectives
+    split = [s for _, s in tree_paths(sharded)]
+    sq = [x.float().square().sum() for _, x in tree_paths(tree)]
+    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    part = sum((q for q, s in zip(sq, split) if s), zero)
+    whole = sum((q for q, s in zip(sq, split) if not s), zero)
+    return torch.sqrt(collectives.psum(part, mesh, "model") + whole)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, sharded=None):
     """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm): new
-    tensors of the grads' dtypes. The scale stays on the device."""
-    norm = global_norm(grads)
+    tensors of the grads' dtypes. The scale stays on the device. On a
+    mesh the norm is the whole tree's (``global_norm``)."""
+    norm = global_norm(grads, mesh, sharded)
     scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
                         max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm

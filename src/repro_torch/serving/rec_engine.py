@@ -317,12 +317,12 @@ class RecEngine:
                 self._params["arena" if self.plan.tables is None
                              else "tables"], self.spec, cache_trace)
         elif isinstance(source, es.EmbeddingSource):
-            if cache_k or cache_trace is not None or quantize_cold \
-                    or mesh is not None:
+            # a mesh reaches only a plan's source, as in the reference: a
+            # built source (sharded or not) is served as it is
+            if cache_k or cache_trace is not None or quantize_cold:
                 raise ValueError(
-                    "cache_k/cache_trace/quantize_cold/mesh are SourceSpec "
-                    "plan inputs; a built EmbeddingSource is served as it "
-                    "is")
+                    "cache_k/cache_trace/quantize_cold are SourceSpec plan "
+                    "inputs; a built EmbeddingSource is served as it is")
             for t in es.source_structure(source)[1]:
                 self._check_device(t, "source")
             self.plan = None

@@ -17,8 +17,9 @@ injected == rejected, bit-exact recovery within 3 bumps with no new
 graph capture, attribution only to published versions), the A/B head
 semantics, a restarted replica's exactness, a crashed and resumed
 trainer's params bit for bit against an uninterrupted control trainer,
-the double observation of replayed steps, the per-round spans, and
-the refusals (sharding: item 13).
+the double observation of replayed steps, the per-round spans, the
+refusals, and a ``Replica`` taking a mesh and the publisher's shard
+padding (a sharded publisher's run is ``tests/test_torch_lm_mesh.py``'s).
 
 Tolerances: none; every comparison is exact (integers, versions, hit
 rates computed from integer counts, probabilities and params bit for
@@ -37,6 +38,8 @@ from repro_torch.configs.dlrm import DLRM_SMOKE
 from repro_torch.core import dlrm as t_dlrm
 from repro_torch.fleet import (CLEAN, ChaosChannel, FaultPlan, FleetRunner,
                                Replica, chaos)
+from repro_torch.fleet.runner import _serve_batch
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import tree_leaves
 from repro_torch.training import OnlineGroupTrainer
 from repro_torch.training.online import _dense_head
@@ -387,11 +390,21 @@ def test_fleet_refusals(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="ckpt_dir"):
         fr.run_trainer_with_crash(extra_steps=1, fail_after=0)
     vs = fr.artifact()
-    for kw in ({"mesh": object()}, {"shards": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-            Replica("r", fr.cfg, vs, ChaosChannel(CLEAN), max_l=fr.max_l,
-                    batch_size=fr.batch_size, heads={"a": dict(vs.head)},
-                    device="cpu", **kw)
+    # a mesh and the publisher's shard padding are taken, as the
+    # reference's Replica takes them: the mesh goes to each engine, which
+    # serves the broadcast source as it is, and the placeholder arena is
+    # padded for the shards
+    one = Replica("r", fr.cfg, vs, ChaosChannel(CLEAN), max_l=fr.max_l,
+                  batch_size=fr.batch_size, heads={"a": dict(vs.head)},
+                  device="cpu")
+    mesh = Mesh((("model", None, 0, 1),))
+    rep = Replica("r", fr.cfg, vs, ChaosChannel(CLEAN), max_l=fr.max_l,
+                  batch_size=fr.batch_size, heads={"a": dict(vs.head)},
+                  device="cpu", mesh=mesh, shards=2)
+    assert rep.mesh is mesh
+    probe = fr.batch_fn(0)
+    assert _serve_batch(rep.engines["a"], fr.cfg, probe) \
+        == _serve_batch(one.engines["a"], fr.cfg, probe)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FleetRunner(n_replicas=1)
