@@ -289,7 +289,10 @@ forward. Each serving phase zeroes the counts just before its engine's
    ``LMSynthetic`` batch of 2,048 tokens on the card and on the CPU path
    (bf16 and fp32) from copies of the card's params: loss, grad norm and
    every leaf's clipped gradient and update within twice the CPU bf16
-   step's own error against the fp32 step (budgets printed). (c) The main
+   step's own error against the fp32 step (budgets printed); its CPU
+   passes run on the CPU reference worker (below), handed in after
+   phase 16 so that they run beside 17 to 19 and not beside 16's
+   host-bound gloo ranks, its check at the end of 19. (c) The main
    path: the model at full width, 4 of its 32 layers (the depth cut
    keeps the whole script within its time limit),
    ``layerwise(adamw(3e-4))``, grad clip 1.0, fed by a ``Prefetcher`` of
@@ -380,15 +383,42 @@ forward. Each serving phase zeroes the counts just before its engine's
    timed there beside the whole models' heads); each model's (2, 2)
    train state saved (unsharded on disk) and restored onto (1, 4)
    (smollm's heads split 6/3/3/3 there), each rank restoring one
-   coordinate bit for bit against the part of its own blocks. The
-   times (ms a micro-batch and a step, host clock) are gloo collectives
-   through host memory: agreement runs, not the sharded path's speed.
-   The checks of 17, 18 and 19(b) against the CPU path: the CPU passes
-   run on one thread of their own (the CPU reference worker, at a lower
-   priority), in the order handed in, beside the card's work; each check
-   is made when they are done, at the end of 19, and fails the run
-   there. 17(c) and (d)'s cuts are made, and their passes handed in,
-   before phase 15, so that those run beside 15 and 16.
+   coordinate bit for bit against the part of its own blocks. (j) After
+   (e)'s ranks exit, a model at a time in a start of 4 gloo ranks as
+   (2, 2) of its own (the one-rank params it hands its ranks on the
+   card fit beside one model's ranks, not beside (i)'s), the launch
+   counts zeroed first and read after:
+   the MoE and MLA decoders on the mesh, tensor-parallel attention beside
+   the expert-parallel MoE on the S-sharded stream: kimi-k2-1t-a32b
+   (64/8 heads of 112: 32/4 a rank; vocab 163,840 untied) and
+   arctic-480b (56/8 heads of 128: 28/4 a rank; its dense residual FFN
+   beside the MoE), each at 1 layer with 16 of its experts (top-k kept),
+   and minicpm3-4b (MLA, 40 heads: 20 a rank, the latent cache whole on
+   every 'model' rank) at 2 layers, one sequence of 2,048 tokens a data
+   rank, from seeded weights, the MoE at the capacity factor E / k
+   (an expert's capacity every token of the call: nothing drops, counted
+   on both sides) with its routes pinned to the one-rank run's and its
+   load-balance loss left out (on the mesh it is the mean of the ranks'
+   own): prefill and 4 decode steps within the bf16 floor of the
+   one-rank path on the card, 2 steps of each model's default optimizer
+   (Adafactor for the MoEs, its factored statistics across shards; AdamW
+   for minicpm3): (i)'s loss and grad-norm tolerances, each param block
+   within 2 bf16 ulps plus both sides' largest moves of the leaf a step,
+   each leaf's move within 3/4 of the one-rank path's, Adafactor's
+   statistics within 5e-2 of a leaf's largest; (i)'s cross-rank laws,
+   the flash kernel launched on every rank and held against its plain
+   version at the ranks' heads (timed beside SDPA); kimi's (2, 2) layer
+   stack and Adafactor state saved and restored onto (1, 4) bit for bit
+   (the vocab leaves' layout is (i)'s); each
+   rank's peak memory printed. The times (ms a micro-batch and a step,
+   host clock) are gloo collectives through host memory: agreement
+   runs, not the sharded path's speed.
+   The checks of 15(b), 17, 18 and 19(b) against the CPU path: the CPU
+   passes run on one thread of their own (the CPU reference worker, at
+   a lower priority), in the order handed in, beside the card's work;
+   each check is made when they are done, at the end of 19, and fails
+   the run there. 17(c) and (d)'s cuts are made, and their passes
+   handed in, before phase 15, so that those run beside 15 and 16.
 17. The MoE, MLA and vision-prefix decoders at full width: (a)
    ``flash_attention`` at kimi-k2's heads, 64 query and 8 kv heads of
    112 (the wrapper pads them to depth 128), causal, at S = 2048 and
@@ -552,6 +582,8 @@ from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import fused_dispatch as fd_k  # noqa: E402
 from repro_torch.kernels import gemm as gm_k  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.checkpoint.manager import (  # noqa: E402
+    _full_shape as ckpt_full_shape)
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     row_shardings)
 from repro_torch.distributed import collectives, sharding, spawn  # noqa: E402
@@ -567,6 +599,7 @@ from repro_torch.models import params as lm_params  # noqa: E402
 from repro_torch.models import rglru as lm_rglru  # noqa: E402
 from repro_torch.models import rwkv6 as lm_rwkv6  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
+from repro_torch.optim import optimizers as lm_optimizers  # noqa: E402
 from repro_torch.optim import (Optimizer, global_norm,  # noqa: E402
                                tree_leaves, tree_map, tree_paths)
 from repro_torch.serving import (Batcher, DecodeEngine, RecEngine,  # noqa: E402
@@ -707,13 +740,14 @@ def reset_counts() -> None:
 
 
 # ------------------------------------------- the CPU reference worker
-# Phases 17 to 19 hold the card against the CPU path at full width, and
-# on this card's host (8 cores) those CPU passes took ~440 s of the
-# script ("final32"). They run on one thread of their own, beside the
-# card's work from phase 15 on, and their checks are made once it is
-# done (``settle``). The thread runs CPU tensors only, so it launches no
-# kernel and moves no launch count; it runs at a lower priority
-# (CPU_REFS_NICE) so that the card's own host thread keeps its core.
+# Phases 15(b) and 17 to 19 hold the card against the CPU path at full
+# width, and on this card's host (8 cores) those CPU passes took ~440 s
+# of the script ("final32"; 15(b)'s ~70 more). They run on one thread of
+# their own, beside the card's work from phase 15 on, and their checks
+# are made once it is done (``settle``). The thread runs CPU tensors
+# only, so it launches no kernel and moves no launch count; it runs at a
+# lower priority (CPU_REFS_NICE) so that the card's own host thread keeps
+# its core.
 # The module functions the script spies on (MoE routing, the cross
 # entropy, the flash op) are patched once, by ``patched``: each thread
 # sees the spies entered on its side only, "cpu" for this thread and
@@ -6122,11 +6156,16 @@ def _one_step(cfg, params, batch) -> dict:
             "update": tree_map(lambda a, b_: a.float().cpu() - b_, p, before)}
 
 
-def lm_train_card_vs_cpu(cfg) -> dict:
+def lm_train_card_vs_cpu(cfg, target: dict, key: str):
     """15(b): smollm-360m at full width, 2 layers, one train step from one
     set of params on one LMSynthetic batch at S = LM_TRAIN_CPU_S, on the
     card and on the CPU path (bf16 and fp32) from copies of the card's
-    params; loss, grad norm, each leaf's clipped gradient and update."""
+    params; loss, grad norm, each leaf's clipped gradient and update. The
+    card's step runs here; returns the function that hands the CPU
+    passes to the CPU reference worker (main calls it after phase 16, so
+    that they run beside 17 to 19, not beside 16's host-bound gloo
+    ranks); the check is made when they are done (``settle``), its
+    record then in ``target[key]``."""
     shallow = cfg.replace(n_layers=LM_CPU_LAYERS)
     params = lm_api.init(torch.Generator(device="cuda").manual_seed(15),
                          shallow, device="cuda")
@@ -6134,62 +6173,76 @@ def lm_train_card_vs_cpu(cfg) -> dict:
         1, LM_TRAIN_CPU_S)["tokens"])
     with uncounted():
         card = _one_step(shallow, params, {"tokens": toks.cuda()})
-    t0 = time.perf_counter()
     cpu16 = tree_map(lambda t: t.detach().cpu(), params)
-    cpu32 = tree_map(lambda t: t.float(), cpu16)
-    f32 = shallow.replace(dtype="float32")
-    nll16 = _token_nll(lm_api.forward(cpu16, shallow, {"tokens": toks})[0],
-                       toks)
-    nll32 = _token_nll(lm_api.forward(cpu32, f32, {"tokens": toks})[0], toks)
-    c16 = _one_step(shallow, cpu16, {"tokens": toks})
-    c32 = _one_step(f32, cpu32, {"tokens": toks})
-    cpu_s = time.perf_counter() - t0
+    del params
+
+    def cpu_pass():
+        t0 = time.perf_counter()
+        cpu32 = tree_map(lambda t: t.float(), cpu16)
+        f32 = shallow.replace(dtype="float32")
+        nll16 = _token_nll(lm_api.forward(cpu16, shallow,
+                                          {"tokens": toks})[0], toks)
+        nll32 = _token_nll(lm_api.forward(cpu32, f32,
+                                          {"tokens": toks})[0], toks)
+        return {"nll16": nll16, "nll32": nll32,
+                "c16": _one_step(shallow, cpu16, {"tokens": toks}),
+                "c32": _one_step(f32, cpu32, {"tokens": toks}),
+                "cpu_s": time.perf_counter() - t0}
+
+    def finish(r):
+        c16, c32 = r["c16"], r["c32"]
+        out = {"cpu_s": r["cpu_s"], "steps": {}}
+        checks = [("loss", abs(card["loss"] - c32["loss"]),
+                   float((r["nll16"] - r["nll32"]).abs().mean())),
+                  ("grad_norm", abs(card["grad_norm"] - c32["grad_norm"]),
+                   diff_norm(c16["raw"], c32["raw"]))]
+        for what in ("grads", "update"):
+            for (path, a), (_, b16), (_, b32) in zip(
+                    tree_paths(card[what]), tree_paths(c16[what]),
+                    tree_paths(c32[what])):
+                floor = float((b16 - b32).abs().max())
+                if what == "update":
+                    floor = max(floor, 2 * LM_LR * 1.01)
+                checks.append((f"{what} {path}",
+                               float((a - b32).abs().max()), floor))
+        worst = 0.0
+        for what, err, floor in checks:
+            bound = LM_FLOOR_FACTOR * floor
+            out["steps"][what] = {"err": err, "floor": floor,
+                                  "bound": bound}
+            worst = max(worst, err / bound if bound else float("inf"))
+            if err > bound:
+                fail(f"lm train step, card against CPU: {what} {err} from "
+                     f"the fp32 step, bound {bound} (floor {floor})")
+        for k in ("loss", "grad_norm"):
+            out[k] = {"card": card[k], "cpu_bf16": c16[k],
+                      "cpu_fp32": c32[k]}
+        out["worst_err_over_bound"] = worst
+        print(f"  {LM_CPU_LAYERS} layers, S = {LM_TRAIN_CPU_S}: loss card "
+              f"{card['loss']:.6f} / CPU bf16 {c16['loss']:.6f} / fp32 "
+              f"{c32['loss']:.6f} (|card - fp32| {checks[0][1]:.3e}, bound "
+              f"{LM_FLOOR_FACTOR * checks[0][2]:.3e}); grad norm "
+              f"{card['grad_norm']:.5f} / {c16['grad_norm']:.5f} / "
+              f"{c32['grad_norm']:.5f} (|card - fp32| {checks[1][1]:.3e}, "
+              f"bound {LM_FLOOR_FACTOR * checks[1][2]:.3e}); "
+              f"{len(checks) - 2} leaf gradients and updates each within "
+              f"{LM_FLOOR_FACTOR}x the CPU bf16 step's error (worst error / "
+              f"bound {worst:.3f}); {r['cpu_s']:.1f} s on the CPU worker")
+        for what in ("grads", "update"):
+            for path, rec in out["steps"].items():
+                if path.startswith(what):
+                    print(f"    {path:40s} err {rec['err']:.3e} floor "
+                          f"{rec['floor']:.3e}")
+        return out
 
     def diff_norm(a, b_):
         return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(
             tree_leaves(a), tree_leaves(b_)))))
 
-    out = {"cpu_s": cpu_s, "steps": {}}
-    checks = [("loss", abs(card["loss"] - c32["loss"]),
-               float((nll16 - nll32).abs().mean())),
-              ("grad_norm", abs(card["grad_norm"] - c32["grad_norm"]),
-               diff_norm(c16["raw"], c32["raw"]))]
-    for what in ("grads", "update"):
-        for (path, a), (_, b16), (_, b32) in zip(
-                tree_paths(card[what]), tree_paths(c16[what]),
-                tree_paths(c32[what])):
-            floor = float((b16 - b32).abs().max())
-            if what == "update":
-                floor = max(floor, 2 * LM_LR * 1.01)
-            checks.append((f"{what} {path}", float((a - b32).abs().max()),
-                           floor))
-    worst = 0.0
-    for what, err, floor in checks:
-        bound = LM_FLOOR_FACTOR * floor
-        out["steps"][what] = {"err": err, "floor": floor, "bound": bound}
-        worst = max(worst, err / bound if bound else float("inf"))
-        if err > bound:
-            fail(f"lm train step, card against CPU: {what} {err} from the "
-                 f"fp32 step, bound {bound} (floor {floor})")
-    for k in ("loss", "grad_norm"):
-        out[k] = {"card": card[k], "cpu_bf16": c16[k], "cpu_fp32": c32[k]}
-    out["worst_err_over_bound"] = worst
-    print(f"  {LM_CPU_LAYERS} layers, S = {LM_TRAIN_CPU_S}: loss card "
-          f"{card['loss']:.6f} / CPU bf16 {c16['loss']:.6f} / fp32 "
-          f"{c32['loss']:.6f} (|card - fp32| {checks[0][1]:.3e}, bound "
-          f"{LM_FLOOR_FACTOR * checks[0][2]:.3e}); grad norm "
-          f"{card['grad_norm']:.5f} / {c16['grad_norm']:.5f} / "
-          f"{c32['grad_norm']:.5f} (|card - fp32| {checks[1][1]:.3e}, bound "
-          f"{LM_FLOOR_FACTOR * checks[1][2]:.3e}); {len(checks) - 2} "
-          f"leaf gradients and updates each within {LM_FLOOR_FACTOR}x the "
-          f"CPU bf16 step's error (worst error / bound {worst:.3f}); "
-          f"{cpu_s:.1f} s on the CPU")
-    for what in ("grads", "update"):
-        for path, r in out["steps"].items():
-            if path.startswith(what):
-                print(f"    {path:40s} err {r['err']:.3e} floor "
-                      f"{r['floor']:.3e}")
-    return out
+    def hand_in():
+        Pending(f"15(b) {cfg.name}: one train step, card against the CPU "
+                "path", target, key, cpu_pass, finish)
+    return hand_in
 
 
 # the kernels a profiled step's trace opens with, under their own span:
@@ -6514,15 +6567,17 @@ def phase_lm_train(gen) -> tuple:
     err, rows = check_flash_backward(gen)
     seconds = {"a": took("a")}
     cfg = registry.get_arch(LM_ARCH)
-    agree = lm_train_card_vs_cpu(cfg)
+    out = {"seconds": seconds}
+    # 15(b)'s CPU passes go to the CPU reference worker (handed in by
+    # main); its check is made at the end of 19, and its record lands in
+    # out["card_vs_cpu"]
+    hand_in = lm_train_card_vs_cpu(cfg, out, "card_vs_cpu")
     seconds["b"] = took("b")
-    main = lm_train_main(cfg.replace(n_layers=LM_TRAIN_LAYERS))
+    out.update(lm_train_main(cfg.replace(n_layers=LM_TRAIN_LAYERS)))
     seconds["c"] = took("c")
-    launcher = lm_launcher()
+    out["launcher"] = lm_launcher()
     seconds["d"] = took("d")
-    return {"max_abs_err": err, "recompute_rows": rows}, {
-        "card_vs_cpu": agree, **main, "launcher": launcher,
-        "seconds": seconds}
+    return {"max_abs_err": err, "recompute_rows": rows}, out, hand_in
 
 
 # ---------------------------------------------------------------- main
@@ -6899,7 +6954,7 @@ def _nccl_rank(mesh) -> dict:
 MESH2D = (2, 2)
 MESH2D_AXES = ("data", "model")
 MESH2D_STEPS = 3                   # dense-gradient and sparse steps each
-MESH2D_JOIN_S = 600                # (e), (f) and (i) in one start
+MESH2D_JOIN_S = 600                # a start: (e), (f), (i); or a (j) model
 # after 3 steps, the reference's bound (tests/test_sharded_sparse.py
 # :100-115), under phase 4's sign-flip budget
 MESH2D_STEP_ATOL = 1e-4
@@ -7637,6 +7692,640 @@ def lm_mesh_report(res: list, lm_ref: dict) -> dict:
     return out
 
 
+# 16(j): the MoE and MLA decoders on the (2, 2) mesh, a model at a time
+# in 4 gloo ranks of its own after 16(e)'s: kimi-k2 and arctic-480b at
+# full width, 1 layer and 16 of their experts (19(b)'s cut, top-k kept),
+# and minicpm3-4b at 2 layers,
+# one sequence of 2,048 tokens a data rank; the MoE's capacity factor
+# raised to n_experts / top_k, where an expert's capacity is every token
+# of the call and nothing can drop, so that the mesh's per-rank capacity
+# and the one rank's agree, and its routes pinned to the one-rank run's
+# (16(f)'s ``pinned_routes``: a router logit within bf16 rounding of a
+# tie would pick another expert on one side); its load-balance loss left
+# out (coefficient 0): on the mesh it is the mean of the ranks' own, the
+# reference's, not the whole batch's (kimi SMOKE: 2.339 against 2.215),
+# and tests/test_torch_lm_mesh_moe.py holds it against the reference's
+LM_MOE_ARCHS = (("kimi-k2-1t-a32b", 1), ("arctic-480b", 1),
+                ("minicpm3-4b", 2))                 # arch, layers
+LM_MOE_EXPERTS = 16                # 19(b)'s CPU_EXPERTS: of 384, of 128
+LM_MOE_DECODES = 4
+LM_MOE_STEPS = 2
+LM_MOE_SEED = 13
+LM_MOE_CKPT = "kimi-k2-1t-a32b"    # its (2, 2) train state onto (1, 4)
+# the mesh path against the one-rank path on the card, both through the
+# kernels and in bf16:
+# * logits, losses and grad norms: 16(i)'s tolerances;
+# * params after the steps. An Adafactor step moves an element by lr g k,
+#   k = 1 / (sqrt(D) c), D = vr_i vc_j / mean(vr) the factored second
+#   moment and c = max(1, rms(g sqrt(1/D))) the leaf's clip: its second
+#   moments are a row's and a column's, not the element's, and its clip
+#   bounds the leaf's RMS, not an element, so no constant bounds a step
+#   as AdamW's 1.0004 lr does (16(i)'s rule): an element moves by up to
+#   lr sqrt(N) of a leaf of N. Two steps of one element, on two sides
+#   whose gradients of it may differ in sign, lie at most M_a + M_b apart,
+#   M the side's largest move of the leaf in that step before its bf16
+#   rounding (measured on each side at the update's write: the one
+#   rank's over the leaf, the rank's over its block; ``moves``). So each
+#   element within 2 bf16 ulps of its leaf's scale (each side's rounding
+#   a step, half an ulp) plus that sum over the steps (the same holds of
+#   AdamW's steps, minicpm3's);
+# * each leaf's whole move over the steps, as a vector, within 3/4 of the
+#   one-rank path's (relative L2; 16(i)'s): a missing or doubled update
+#   is 1 away, a reversed one 2;
+# * Adafactor's factored statistics after the steps, vr and vc (a vector
+#   leaf's v), within LM_MOE_STAT_TOL of the leaf's largest: each is a
+#   mean of squared gradients, whose gradients the two sides compute in
+#   bf16 with partial sums rounded in other places (16(i): grad norms
+#   within 6e-5 relative); one reduced over a rank's block only is off by
+#   the half of the leaf outside it.
+LM_MOE_STAT_TOL = 5e-2
+# the logits: 16(i)'s rtol, and an atol of 1e-1 where 16(i) took 5e-2.
+# kimi's and arctic's heads are wider (d 7,168: a logit's std about
+# 0.02 sqrt(7168) = 1.7, their largest ~8, against qwen's ~1 and ~10),
+# and the mesh's decode departs from the one rank's by bf16 noise at
+# every one of a row's 163,840 (32,000) logits: "p16j2" saw at most 7 of
+# a row past 16(i)'s bound, the worst 0.0665 at a logit of 0.31, near
+# the largest of a row's draws of a noise of sigma ~0.014; 1e-1 is 7
+# sigma. Prefill and the first decode step stayed within 5e-2
+LM_MOE_LOGIT_TOL = {"rtol": 2e-2, "atol": 1e-1}
+# the flash kernel at the ranks' heads, S 2,048, one sequence
+LM_MOE_FLASH_SHAPES = (
+    ("kimi-k2-1t-a32b, a rank", 1, LM_MESH_S, 32, 4, 112, True, None),
+    ("arctic-480b, a rank", 1, LM_MESH_S, 28, 4, 128, True, None),
+)
+
+
+def lm_moe_cfg(arch: str):
+    layers = dict(LM_MOE_ARCHS)[arch]
+    cfg = registry.get_arch(arch).replace(n_layers=layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, n_experts=LM_MOE_EXPERTS,
+            capacity_factor=LM_MOE_EXPERTS / cfg.moe.top_k,
+            aux_loss_coef=0.0))
+    return cfg
+
+
+def _drops(seen: list) -> int:
+    """Choices dropped in the recorded calls."""
+    return sum(int(x[1].sum()) for x in seen)
+
+
+def lm_moe_params(cfg) -> dict:
+    """The whole params on the card, from LM_MOE_SEED (the same bits in
+    every process)."""
+    return lm_api.init(torch.Generator(device="cuda").manual_seed(
+        LM_MOE_SEED), cfg, device="cuda")
+
+
+def lm_moe_inputs(cfg) -> dict:
+    rng = np.random.RandomState(LM_MOE_SEED)
+
+    def toks(*shape):
+        return rng.randint(0, cfg.vocab_size, shape).astype(np.int32)
+    return {"prompt": toks(LM_MESH_B, LM_MESH_S),
+            "decode": [toks(LM_MESH_B) for _ in range(LM_MOE_DECODES)],
+            "train": [toks(LM_MESH_B, LM_MESH_S)
+                      for _ in range(LM_MOE_STEPS)]}
+
+
+def _idx(seen: list) -> list:
+    """The recorded routes' expert choices in the router's order."""
+    return [x[2] for x in seen]
+
+
+@contextlib.contextmanager
+def moves(tree):
+    """Each leaf's largest move in the optimizer step taken inside, read
+    at the update's write (``optimizers._write(p, delta)``, p <- p -
+    delta in fp32, rounded once to p's dtype) as the largest |delta|,
+    the move before that rounding (half a bf16 ulp of the leaf's scale
+    at most on each side; the element bound's 2 ulps hold it): yields
+    {path: max |delta|} (0 for an empty block). Every leaf must be
+    written whole, once (a layer stack of fewer than 8 layers is:
+    ``layerwise``); nothing is copied."""
+    where = {x.data_ptr(): p for p, x in tree_paths(tree) if x.numel()}
+    out = {p: 0.0 for p, _ in tree_paths(tree)}
+    seen = []
+
+    def make(inner):
+        def spy(p, delta):
+            path = where.get(p.data_ptr()) if p.numel() else None
+            if path is not None:
+                out[path] = max(abs(float(torch.amax(delta))),
+                                abs(float(torch.amin(delta))))
+                seen.append(path)
+            return inner(p, delta)
+        return spy
+    with patched(lm_optimizers, "_write", make):
+        yield out
+    if sorted(seen) != sorted(where.values()):
+        fail(f"16(j): the step wrote {len(seen)} leaves, "
+             f"{len(set(seen))} of the {len(where)} whole")
+
+
+def lm_moe_reference(arch: str, tmp: pathlib.Path) -> tuple:
+    """16(j)'s one-rank path of ``arch`` on the card (its kernels
+    uncounted): its prefill and decode logits, its MoE routes recorded
+    (the pins of the ranks' calls), its train steps with the default
+    optimizer (loss, grad norm, routes, each leaf's largest move a
+    step) and Adafactor's statistics, saved for the ranks -> (a summary,
+    the params after the steps, whole on the card, for the ranks:
+    handed to them with their start by CUDA IPC, neither through the
+    machine's disk (its writes are capped, and 16(i) and the other
+    phases take most) nor its host memory (the CPU reference
+    worker's))."""
+    cfg = lm_moe_cfg(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with uncounted():
+        params = lm_moe_params(cfg)
+        inp = lm_moe_inputs(cfg)
+        rec = {"inputs": inp, "decode": [], "loss": [], "gnorm": [],
+               "moved": [], "routes": {"decode": [], "train": []},
+               "drops": 0, "opt": lm_api.default_optimizer(cfg)[0]}
+        with recorded_routes() as seen:
+            logits, cache = lm_api.prefill(
+                params, cfg, {"tokens": torch.from_numpy(inp["prompt"])
+                              .cuda()}, LM_MESH_MAX_LEN)
+        rec["prefill"] = logits.cpu()
+        rec["routes"]["prefill"] = _idx(seen)
+        rec["drops"] += _drops(seen)
+        for i, t in enumerate(inp["decode"]):
+            with recorded_routes() as seen:
+                logits, cache = lm_api.decode_step(
+                    params, cfg, cache, torch.from_numpy(t).cuda(),
+                    LM_MESH_S + i)
+            rec["decode"].append(logits.cpu())
+            rec["routes"]["decode"].append(_idx(seen))
+            rec["drops"] += _drops(seen)
+        del cache, logits
+        torch.cuda.synchronize()
+        rec["serve_s"] = time.perf_counter() - t0
+        _, opt, step = lm_api.make_train_step(cfg)
+        state = opt.init(params)
+        for toks in inp["train"]:
+            with recorded_routes() as seen, moves(params) as moved:
+                params, state, m = step(params, state, {
+                    "tokens": torch.from_numpy(toks).cuda()})
+            rec["loss"].append(float(m["loss"]))
+            rec["gnorm"].append(float(m["grad_norm"]))
+            rec["moved"].append(moved)
+            rec["routes"]["train"].append(_idx(seen))
+            rec["drops"] += _drops(seen)
+        torch.cuda.synchronize()
+    rec["train_s"] = time.perf_counter() - t0 - rec["serve_s"]
+    rec["scales"] = {p: float(x.abs().max().float())
+                     for p, x in tree_paths(params)}
+    if rec["opt"] == "adafactor":
+        rec["fac"] = tree_map(lambda t: t.cpu(), state["fac"])
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    _free()
+    if rec["drops"]:
+        fail(f"16(j) {arch}: {rec['drops']} tokens dropped a choice on one "
+             f"rank")
+    torch.save(rec, tmp / f"lm_moe_ref_{arch}.pt")
+    return ({k: rec[k] for k in ("loss", "gnorm", "peak_gb", "opt",
+                                 "serve_s", "train_s")},
+            dict(tree_paths(params)))
+
+
+def _chunk_rows(mesh, s: int) -> torch.Tensor:
+    """The one-rank path's token rows (b-major, B x S) of this rank's
+    (B/dp, S/tp) chunk."""
+    b_loc = LM_MESH_B // mesh.size("data")
+    s_loc = s // mesh.size("model")
+    d, m = mesh.rank("data"), mesh.rank("model")
+    return ((d * b_loc + torch.arange(b_loc))[:, None] * s
+            + m * s_loc + torch.arange(s_loc)[None, :]).reshape(-1)
+
+
+def _pins(calls: list, rows=None) -> list:
+    """``pinned_routes``' form of recorded calls, each cut to ``rows``."""
+    return [(None, None, c if rows is None else c[rows]) for c in calls]
+
+
+def _lm_moe_restore(cfg, mesh, state, ckpt: pathlib.Path) -> dict:
+    """16(j): the (2, 2) train state (the params of ``state``'s top-level
+    keys, Adafactor's state) restored onto (1, 4) at coordinate (0, 2 m
+    + d): each leaf's block the part of this rank's (2, 2) block
+    (gathered along the dims where it does not hold the (1, 4) block),
+    bit for bit."""
+    d, m = mesh.rank("data"), mesh.rank("model")
+    fine = Mesh((("data", None, 0, 1), ("model", None, 2 * m + d, 4)))
+    name, opt, _ = lm_api.make_train_step(cfg)
+    params, st = state
+    sh, fine_sh = {}, {}
+    for mesh_, out in ((mesh, sh), (fine, fine_sh)):
+        p_sh, out["s"], _ = lm_api.train_state_specs(cfg, name, opt, mesh_)
+        out["p"] = {k: p_sh[k] for k in params}
+    coarse, finer = _by_path(sh), _by_path(fine_sh)
+    mine = _by_path({"p": params, "s": st})
+
+    def whole_shape(path):
+        a = coarse[path]
+        return ckpt_full_shape(mine[path], a, sharding)
+
+    def cut(mesh_, entry, n, shape):
+        cuts = sharding._cuts(mesh_, entry, n, shape)
+        return cuts[sharding._index(mesh_, entry)] if cuts else (0, n)
+
+    def nested(path, dim, shape) -> bool:
+        """Whether along ``dim`` every (2, 2) rank's block holds the
+        (1, 4) block it is held against (fake meshes at every
+        coordinate: the same answer on every rank)."""
+        a, b = coarse[path].spec[dim], finer[path].spec[dim]
+        for dd in range(mesh.size("data")):
+            for mm in range(mesh.size("model")):
+                ca = Mesh((("data", None, dd, mesh.size("data")),
+                           ("model", None, mm, mesh.size("model"))))
+                cb = Mesh((("data", None, 0, 1),
+                           ("model", None, 2 * mm + dd, 4)))
+                oa, sa = cut(ca, a, shape[dim], shape)
+                ob, sb = cut(cb, b, shape[dim], shape)
+                if not (oa <= ob and ob + sb <= oa + sa):
+                    return False
+        return True
+
+    def part(path, block):
+        """The part of this rank's (2, 2) block that is the (1, 4) block
+        at ``fine``'s coordinate; a dim along which the (1, 4) block
+        reaches past a (2, 2) rank's (the experts' hidden dims, split
+        over 'data' there; kv heads replicated at TP 4) gathered first."""
+        shape = whole_shape(path)
+        spec_a = list(coarse[path].spec)
+        for dim in range(len(spec_a)):
+            if spec_a[dim] is None or nested(path, dim, shape):
+                continue
+            over = [None] * len(spec_a)
+            over[dim] = spec_a[dim]
+            whole_dim = list(block.shape)
+            whole_dim[dim] = shape[dim]
+            block = sharding.gather_full(block, mesh, tuple(over),
+                                         tuple(whole_dim))
+            spec_a[dim] = None
+        return _sub_block(block, mesh, fine, tuple(spec_a),
+                          finer[path].spec, shape)
+
+    def like(path):
+        shape = whole_shape(path)
+        dims = []
+        for dim, e in enumerate(finer[path].spec):
+            cuts = sharding._cuts(fine, e, shape[dim], shape)
+            dims.append(cuts[sharding._index(fine, e)][1] if cuts
+                        else shape[dim])
+        dims += shape[len(dims):]
+        return torch.empty(dims, dtype=mine[path].dtype, device="cuda")
+
+    def build(t, path):
+        if isinstance(t, dict):
+            return {k: build(t[k], f"{path}[{k!r}]") for k in t}
+        return t if not torch.is_tensor(t) else like(path)
+    template = (build(params, "['p']"), build(st, "['s']"))
+    t0 = time.perf_counter()
+    (rp, rs), _ = CheckpointManager(ckpt, device="cuda").restore(
+        template, shardings=(fine_sh["p"], fine_sh["s"]))
+    secs = time.perf_counter() - t0
+    back = _by_path({"p": rp, "s": rs})
+    leaves = 0
+    for path, block in mine.items():
+        if not torch.is_tensor(block):
+            continue
+        if not torch.equal(part(path, block), back[path]):
+            fail(f"16(j): {path} restored on (1, 4) at (0, {2 * m + d}) is "
+                 f"not the saved block")
+        leaves += 1
+    if rs["step"] != st["step"]:
+        fail(f"16(j): restored step {rs['step']}, saved {st['step']}")
+    return {"restore_s": secs, "leaves": leaves, "at": (0, 2 * m + d)}
+
+
+def _lm_moe_rank(mesh, tmp: pathlib.Path, arch: str,
+                 params_after: dict) -> dict:
+    """16(j), one rank: the model's prefill, decode and train steps on the
+    mesh, its MoE routes pinned to the one-rank path's, against the
+    one-rank references (``params_after``: {path: the one-rank leaf
+    after the steps}); kimi's (2, 2) layer stack and Adafactor state
+    saved and restored onto (1, 4)."""
+    r = torch.load(tmp / f"lm_moe_ref_{arch}.pt", weights_only=False)
+    d = mesh.rank("data")
+    b = LM_MESH_B // mesh.size("data")
+    rows = slice(d * b, (d + 1) * b)
+    chunk = _chunk_rows(mesh, LM_MESH_S)
+    cfg = lm_moe_cfg(arch)
+    inp = r["inputs"]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    full = lm_moe_params(cfg)
+    blocks = lm_api.shard_params(full, cfg, mesh)
+    del full
+    _free()
+    place = make_placer("cuda", mesh, lm_api.batch_specs(cfg, mesh))
+    rec = {"logits_err": [], "loss": [], "gnorm": [], "leaves": {},
+           "drops": 0, "own_route_flips": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pins = _pins(r["routes"]["prefill"], chunk)
+    for calls in r["routes"]["decode"]:
+        pins += _pins(calls)
+    digest = ""
+    with pinned_routes(pins if cfg.moe is not None else None) as own, \
+            recorded_routes() as seen:
+        logits, cache = lm_api.make_prefill_step(
+            cfg, LM_MESH_MAX_LEN, mesh=mesh)(blocks, place(
+                {"tokens": inp["prompt"]}))
+        dec = lm_api.make_decode_fn(cfg, mesh=mesh)
+        for i in range(1 + LM_MOE_DECODES):
+            if i:
+                logits, cache = dec(blocks, cache, {
+                    "tokens": place({"tokens": inp["decode"][i - 1]})[
+                        "tokens"], "pos": LM_MESH_S + i - 1})
+            whole = collectives.all_gather(logits, mesh, "model", dim=-1)
+            want = (r["prefill"] if i == 0 else r["decode"][i - 1])[rows]
+            if whole.shape != want.shape \
+                    or not torch.isfinite(whole).all():
+                fail(f"16(j) {arch} logits {i}: {tuple(whole.shape)}, "
+                     f"finite {bool(torch.isfinite(whole).all())}")
+            gap = (whole.cpu() - want).abs()
+            err = float(gap.max())
+            over = gap - (LM_MOE_LOGIT_TOL["atol"]
+                          + LM_MOE_LOGIT_TOL["rtol"] * want.abs())
+            if float(over.max()) > 0:
+                at = int(over.argmax())
+                fail(f"16(j) {arch} logits {i}: {err} from the one-rank "
+                     f"path's (bound {LM_MOE_LOGIT_TOL}); "
+                     f"{int((over > 0).sum())} past it, the worst "
+                     f"{float(gap.view(-1)[at]):.4f} at a logit of "
+                     f"{float(want.view(-1)[at]):.4f} (largest "
+                     f"{float(want.abs().max()):.3f})")
+            rec["logits_err"].append(err)
+            digest += _digest(whole)
+    rec["drops"] += _drops(seen)
+    rec["own_route_flips"] += int(sum(int(o.sum()) for o in own))
+    rec["cache"] = {k: tuple(v.shape) for k, v in cache["layers"].items()}
+    del cache, logits, whole
+    torch.cuda.synchronize()
+    rec["serve_s"] = time.perf_counter() - t0
+    name, opt, step = lm_api.make_train_step(cfg, mesh=mesh)
+    rec["opt"] = name
+    state = opt.init(blocks)
+    moved = []
+    t0 = time.perf_counter()
+    for s, toks in enumerate(inp["train"]):
+        pins = _pins(r["routes"]["train"][s], chunk) \
+            if cfg.moe is not None else None
+        with pinned_routes(pins) as own, recorded_routes() as seen, \
+                moves(blocks) as moved_s:
+            blocks, state, met = step(blocks, state,
+                                      place({"tokens": toks}))
+        rec["drops"] += _drops(seen)
+        rec["own_route_flips"] += int(sum(int(o.sum()) for o in own))
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        if abs(loss - r["loss"][s]) > LM_MESH_LOSS_RTOL * abs(
+                r["loss"][s]) or abs(gn - r["gnorm"][s]) > \
+                LM_MESH_GNORM_RTOL[min(s, 1)] * r["gnorm"][s]:
+            fail(f"16(j) {arch} step {s}: loss {loss}, grad norm {gn};"
+                 f" one rank {r['loss'][s]}, {r['gnorm'][s]}")
+        rec["loss"].append(loss)
+        rec["gnorm"].append(gn)
+        moved.append(moved_s)
+    torch.cuda.synchronize()
+    rec["train_s"] = time.perf_counter() - t0
+    if rec["drops"]:
+        fail(f"16(j) {arch}: {rec['drops']} tokens dropped a choice "
+             f"on rank {tuple(mesh.rank(a) for a in MESH2D_AXES)}")
+    spec = _by_path(lm_api.param_specs(cfg))
+    want = params_after
+    # the blocks before the steps, drawn again (no copy was kept)
+    full = lm_moe_params(cfg)
+    p0 = dict(tree_paths(lm_api.shard_params(full, cfg, mesh)))
+    del full
+    for path, blk in tree_paths(blocks):
+        res = sharding.resolve(mesh, spec[path])
+        wb = sharding.local_block(want[path], mesh, res)
+        scale = r["scales"][path]
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+        tol = 2 * ulp + sum(m_a[path] + m_b[path]
+                            for m_a, m_b in zip(moved, r["moved"]))
+        err = float((blk.float() - wb.float()).abs().max()) \
+            if blk.numel() else 0.0
+        share = err / tol if tol > 0 else float(err > 0)
+        if share > 1:
+            fail(f"16(j) {arch} {path}: {err} from the one-rank step, "
+                 f"past its bound {tol}")
+        start = p0[path].float()
+        da, db = blk.float() - start, wb.float() - start
+        del start
+        upd = float((da - db).norm() / db.norm().clamp_min(1e-30)) \
+            if blk.numel() else 0.0
+        if upd > LM_MESH_UPDATE_RTOL:
+            fail(f"16(j) {arch} {path}: the steps' move {upd:.3f} "
+                 f"(relative) from the one-rank path's")
+        rec["leaves"][path] = {"share": share, "update": upd}
+        del wb, da, db
+    del want, p0
+    if name == "adafactor":
+        _, st_sh, _ = lm_api.train_state_specs(cfg, name, opt, mesh)
+        st_spec = _by_path(st_sh["fac"])
+        ref_fac = dict(tree_paths(r["fac"]))
+        worst = 0.0
+        for path, x in tree_paths(state["fac"]):
+            w = sharding.local_block(ref_fac[path], mesh,
+                                     st_spec[path].spec).cuda()
+            top = float(ref_fac[path].abs().max())
+            gap = float((x - w).abs().max()) / top if top > 0 else 0.0
+            if gap > LM_MOE_STAT_TOL:
+                fail(f"16(j) {arch} Adafactor {path}: {gap:.3e} of the "
+                     f"leaf's largest from the one-rank path's (bound "
+                     f"{LM_MOE_STAT_TOL})")
+            worst = max(worst, gap)
+        rec["stat_gap"] = worst
+    rec["digest"] = digest
+    rec["blocks_digest"] = "".join(_digest(x) for x in
+                                   tree_leaves(blocks))
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if arch == LM_MOE_CKPT:
+        # the layer stack's params (the experts' ("expert", "fsdp")
+        # blocks, the attention's heads) and the whole Adafactor state;
+        # the vocab leaves' layout is 16(i)'s, restored there, and saved
+        # here they would write 9.4 GB more (bf16 is saved as fp32) to a
+        # disk whose writes are capped
+        p_sh, s_sh, _ = lm_api.train_state_specs(cfg, name, opt, mesh)
+        part = ({"layers": blocks["layers"]}, state)
+        t0 = time.perf_counter()
+        CheckpointManager(tmp / f"lm_moe_ckpt_{arch}",
+                          device="cuda").save(
+            LM_MOE_STEPS, part, shardings=({"layers": p_sh["layers"]},
+                                           s_sh))
+        rec["save_s"] = time.perf_counter() - t0
+        rec["restore"] = _lm_moe_restore(cfg, mesh, part,
+                                         tmp / f"lm_moe_ckpt_{arch}")
+    del blocks, state
+    _free()
+    return rec
+
+
+def lm_moe_report(res: list, ref16j: dict) -> dict:
+    """16(j)'s checks across the ranks, and its printout: every rank's
+    losses and grad norms the same bits, a data group's logits the same
+    bits, the data replicas' blocks the same bits where the leaf is not
+    split over 'data' (the experts' are), the flash kernel launched on
+    every rank."""
+    first = res[0]["lm_moe"]
+    for arch, _ in LM_MOE_ARCHS:
+        for rr in res[1:]:
+            got = rr["lm_moe"][arch]
+            if got["loss"] != first[arch]["loss"] \
+                    or got["gnorm"] != first[arch]["gnorm"]:
+                fail(f"16(j) {arch}: the ranks' losses or grad norms differ")
+        for a in res:
+            for b in res:
+                (da, ma), (db, mb) = a["coords"], b["coords"]
+                if da == db and a["lm_moe"][arch]["digest"] \
+                        != b["lm_moe"][arch]["digest"]:
+                    fail(f"16(j) {arch}: data group {da}'s ranks computed "
+                         "other logits")
+    flash = [rr["lm_moe_launches"]["flash_attention"] for rr in res]
+    if min(flash) == 0:
+        fail(f"16(j): the flash kernel's launches by rank {flash}")
+    counts = {n: sum(rr["lm_moe_launches"][n] for rr in res)
+              for n in KERNELS}
+    out = {"launches": counts, "flash_launches_by_rank": flash,
+           "reference": ref16j}
+    for arch, layers in LM_MOE_ARCHS:
+        r0 = first[arch]
+        worst = max(rr["lm_moe"][arch]["logits_err"][i] for rr in res
+                    for i in range(1 + LM_MOE_DECODES))
+        leaves = {p: {k: max(rr["lm_moe"][arch]["leaves"][p][k]
+                             for rr in res) for k in ("share", "update")}
+                  for p in r0["leaves"]}
+        worst_leaf = max(leaves, key=lambda p: leaves[p]["share"])
+        worst_upd = max(leaves, key=lambda p: leaves[p]["update"])
+        peak = [rr["lm_moe"][arch]["peak_gb"] for rr in res]
+        out[arch] = {"loss": r0["loss"], "gnorm": r0["gnorm"],
+                     "opt": r0["opt"],
+                     "ref_loss": ref16j[arch]["loss"],
+                     "ref_gnorm": ref16j[arch]["gnorm"],
+                     "logits_max_abs_err": worst, "leaves": leaves,
+                     "worst_leaf": worst_leaf,
+                     "worst_leaf_share_of_bound": leaves[worst_leaf]["share"],
+                     "worst_update_leaf": worst_upd,
+                     "worst_update": leaves[worst_upd]["update"],
+                     "stat_gap": max(rr["lm_moe"][arch].get("stat_gap", 0.0)
+                                     for rr in res),
+                     "own_route_flips": [rr["lm_moe"][arch]["own_route_flips"]
+                                         for rr in res],
+                     "cache": r0["cache"], "peak_gb_by_rank": peak,
+                     "ref_peak_gb": ref16j[arch]["peak_gb"],
+                     "serve_s": r0["serve_s"], "train_s": r0["train_s"]}
+        if "restore" in r0:
+            out[arch]["save_s"] = r0["save_s"]
+            out[arch]["restore"] = [rr["lm_moe"][arch]["restore"]
+                                    for rr in res]
+        o = out[arch]
+        print(f"  16(j) {arch} at {layers} layer(s), S {LM_MESH_S}, (2, 2): "
+              f"prefill and {LM_MOE_DECODES} decode logits within "
+              f"{worst:.3e} of the one-rank path's (bound "
+              f"{LM_MOE_LOGIT_TOL}); {LM_MOE_STEPS} {o['opt']} steps: loss "
+              + ", ".join(f"{a:.6f} (one rank {b:.6f})" for a, b in
+                          zip(o["loss"], o["ref_loss"]))
+              + ", grad norm " + ", ".join(
+                  f"{a:.5f} (one rank {b:.5f})" for a, b in
+                  zip(o["gnorm"], o["ref_gnorm"]))
+              + f"; the worst element at {o['worst_leaf_share_of_bound']:.2f}"
+              f" of its bound ({worst_leaf}), the worst move "
+              f"{o['worst_update']:.3f} from the one-rank path's "
+              f"({worst_upd}, bound {LM_MESH_UPDATE_RTOL}); Adafactor's "
+              f"statistics within {o['stat_gap']:.2e} of a leaf's largest; "
+              f"own top-k off the pin on {o['own_route_flips']} tokens by "
+              f"rank; cache {o['cache']}; peak memory a rank "
+              + ", ".join(f"{g:.1f}" for g in peak)
+              + f" GB (one rank {o['ref_peak_gb']:.1f} GB); serve "
+              f"{o['serve_s']:.1f} s, train {o['train_s']:.1f} s (host "
+              "clock, gloo)")
+        if "restore" in o:
+            rest = o["restore"]
+            print(f"  16(j) {arch}'s (2, 2) layer stack and Adafactor "
+                  f"state saved in {o['save_s']:.1f} s, restored onto (1, 4)"
+                  f" at "
+                  f"{[x['at'] for x in rest]}: {rest[0]['leaves']} leaves a "
+                  f"rank bit for bit, "
+                  f"{max(x['restore_s'] for x in rest):.1f} s")
+    print(f"  16(j) flash launches by rank {flash}; launches {counts}; at "
+          f"the ranks' heads within {ref16j['flash_max_abs_err']:.3e} of "
+          f"the plain version; one-rank references "
+          + ", ".join(f"{a} {ref16j[a]['serve_s'] + ref16j[a]['train_s']:.1f}"
+                      for a, _ in LM_MOE_ARCHS) + " s")
+    return out
+
+
+def _lm_moe_main(mesh, tmp: str, archs: tuple, params_after: dict) -> dict:
+    """One gloo rank of 16(j) for ``archs``, one after the other, the
+    launch counts zeroed before their main path and read after it. The
+    one-rank params, mapped from the parent by CUDA IPC, are let go
+    before the rank returns: a rank that exits holding them never
+    releases them, and the parent keeps their memory."""
+    reset_counts()
+    out = {}
+    for arch in archs:
+        out[arch] = _lm_moe_rank(mesh, pathlib.Path(tmp), arch,
+                                 params_after.pop(arch))
+        _free()
+    return {"coords": (mesh.rank("data"), mesh.rank("model")),
+            "lm_moe": out, "lm_moe_launches": launch_counts()}
+
+
+# 16(j)'s starts: the models whose one-rank params fit beside their ranks
+# on the card (kimi's 6.3 GB beside its ranks' 4 x 16 GB; arctic's and
+# minicpm3's 5.9 beside 4 x 8)
+LM_MOE_STARTS = (("kimi-k2-1t-a32b",), ("arctic-480b", "minicpm3-4b"))
+
+
+def phase_lm_moe_mesh(tmp: pathlib.Path) -> dict:
+    """16(j): the flash kernel at the ranks' heads, then for each of
+    LM_MOE_STARTS its models' one-rank references here and a start of 4
+    gloo ranks as (2, 2) of its own, after (e)'s ranks have exited: the
+    one-rank params handed to the ranks on the card fit beside a start's
+    ranks, not beside 16(i)'s nor all three models' (runs ran out of
+    the card's memory there). The launch counts are the starts' sums."""
+    t0 = time.perf_counter()
+    with uncounted():
+        flash_err, flash = check_flash(
+            torch.Generator(device="cuda").manual_seed(LM_MOE_SEED),
+            LM_MOE_FLASH_SHAPES, timed=len(LM_MOE_FLASH_SHAPES))
+    ref16j = {"flash": flash, "flash_max_abs_err": flash_err}
+    res = None
+    for archs in LM_MOE_STARTS:
+        params_after = {}
+        for arch in archs:
+            ref16j[arch], params_after[arch] = lm_moe_reference(arch, tmp)
+        got = spawn(_lm_moe_main, int(np.prod(MESH2D)), backend="gloo",
+                    init_file=str(tmp / f"rendezvous_lm_moe_{archs[0]}"),
+                    args=(str(tmp), archs, params_after),
+                    timeout_s=SHARD_TIMEOUT_S,
+                    join_timeout_s=MESH2D_JOIN_S, mesh_shape=MESH2D,
+                    mesh_axes=MESH2D_AXES)
+        del params_after
+        # the card memory the ranks held by IPC goes back once they exit
+        torch.cuda.ipc_collect()
+        _free()
+        if [rr["coords"] for rr in got] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            fail(f"16(j) {archs}: ranks at {[rr['coords'] for rr in got]}")
+        if res is None:
+            res = got
+            continue
+        for rr, g in zip(res, got):
+            rr["lm_moe"].update(g["lm_moe"])
+            rr["lm_moe_launches"] = {
+                n: rr["lm_moe_launches"][n] + g["lm_moe_launches"][n]
+                for n in KERNELS}
+    ref16j["s"] = time.perf_counter() - t0
+    out = lm_moe_report(res, ref16j)
+    print(f"  16(j) {ref16j['s']:.1f} s with its starts")
+    return out
+
+
 def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
     """16(e) and (f): the references here, then one start of 4 gloo ranks
     on the (2, 2) mesh."""
@@ -7716,8 +8405,9 @@ def phase_mesh2d(cfg, fp_probs, tmp: pathlib.Path) -> dict:
           f"{ref_s:.1f} s (MoE {moe_ref['s']:.1f} s, LM {lm_ref['s']:.1f} "
           f"s), ranks {ranks_s:.1f} s with their start; launches {counts}")
     lm = lm_mesh_report(res, lm_ref)
+    lm_moe = phase_lm_moe_mesh(tmp)
     return {"launches": counts, "references_s": ref_s, "ranks_s": ranks_s,
-            "moe_reference": moe_ref, "lm": lm,
+            "moe_reference": moe_ref, "lm": lm, "lm_moe": lm_moe,
             "dlrm": {k: v for k, v in d.items() if k != "serve"}
             | {"serve": {k: {kk: vv for kk, vv in v.items()
                              if kk != "probs"} for k, v in s.items()}},
@@ -7875,8 +8565,10 @@ def phase_sharded(cfg, fp_probs, gen, card, tmp: pathlib.Path) -> dict:
     # 16(e), (f): the (data, model) mesh
     mesh2d = phase_mesh2d(cfg, fp_probs, tmp)
     errs = out["kernels"]["max_abs_err"]
-    errs["flash_attention"] = max(errs.get("flash_attention", 0.0), mesh2d[
-        "lm"]["reference"]["flash_max_abs_err"])
+    errs["flash_attention"] = max(
+        errs.get("flash_attention", 0.0),
+        mesh2d["lm"]["reference"]["flash_max_abs_err"],
+        mesh2d["lm_moe"]["reference"]["flash_max_abs_err"])
     # 16(g): the launchers
     loss, launcher_s = train_s()
     if not np.isfinite(loss):
@@ -9750,7 +10442,7 @@ def main() -> None:
     fleet = phase_fleet()
     phase("phase 15: LM training, smollm-360m at full width")
     cuts = fam_cut_checks()
-    flash_bwd, lm_train = phase_lm_train(gen)
+    flash_bwd, lm_train, hand_in_15b = phase_lm_train(gen)
     kernels["flash_attention"]["max_abs_err"] = max(
         kernels["flash_attention"]["max_abs_err"], flash_bwd["max_abs_err"])
     kernels["flash_attention"]["recompute_rows"] = flash_bwd["recompute_rows"]
@@ -9760,6 +10452,7 @@ def main() -> None:
         sharded = phase_sharded(cfg, fp_probs, gen, card, pathlib.Path(tmp))
     for name, err in sharded["kernels"]["max_abs_err"].items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    hand_in_15b()
     phase("phase 17: the MoE, MLA and vision-prefix decoders at full width")
     flash_112, lm_fam = phase_lm_families(gen, cuts)
     kernels["flash_attention"]["max_abs_err"] = max(
@@ -9807,6 +10500,8 @@ def main() -> None:
                    "sharded": sharded["launches"][name],
                    "sharded_mesh2d": sharded["mesh2d"]["launches"][name],
                    "lm_mesh2d": sharded["mesh2d"]["lm"]["launches"][name],
+                   "lm_moe_mesh2d":
+                       sharded["mesh2d"]["lm_moe"]["launches"][name],
                    "lm_families": lm_fam["launches"][name],
                    "lm_families_15c": lm_rec["launches"][name],
                    "lm_train_families": lm_fam_train["launches"][name]}

@@ -311,14 +311,6 @@ def map_specs(fn, tree):
     return fn(tree)
 
 
-def splits_over(mesh, logical, axis: str = "model") -> bool:
-    """Whether a leaf of the logical spec is split over ``axis`` of
-    ``mesh`` (an axis of more than one rank)."""
-    if mesh is None or axis not in mesh.axis_names or mesh.size(axis) == 1:
-        return False
-    return any(axis in entry_axes(e) for e in resolve(mesh, logical))
-
-
 def spec_tree_to_shardings(mesh, spec_tree):
     """Map a tree of logical tuples to ``Sharding``s (``None`` each
     without a mesh)."""

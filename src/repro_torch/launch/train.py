@@ -42,9 +42,10 @@ the steps it skips, so it trains on the batches an uninterrupted run
 would); a ``StragglerMonitor`` times every step and the run prints its
 count of flagged steps.
 
-LM ``--shards N`` (a GQA decoder or the vision-prefix decoder; the other
-families are ROADMAP Queue 1, item 13d) trains tensor- and
-sequence-parallel on the reference's N-way "model" mesh
+LM ``--shards N`` (a decoder, GQA or MLA, dense or MoE, or the
+vision-prefix decoder; the other families are ROADMAP Queue 1, item
+13e) trains tensor- and sequence-parallel (a MoE expert-parallel) on
+the reference's N-way "model" mesh
 (``make_mesh((N,), ("model",))``), every rank on the whole batch, its
 blocks of the params checkpointed unsharded on disk and resumed on the
 mesh; an LM with ``--mesh pod|multipod`` trains on the production mesh,
@@ -306,14 +307,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "checkpoint")
     add_shard_args(p, "DLRM: row-shard the embedding arena over an N-way "
                       "'model' mesh of N ranks (with --ragged the sparse "
-                      "optimizer applies shard-local row updates); a GQA "
+                      "optimizer applies shard-local row updates); a "
                       "decoder or vision-prefix LM: tensor- and "
                       "sequence-parallel over it")
     args = p.parse_args(argv)
     check_shard_args(p, args, shardable=args.arch in DLRM_CONFIGS
                      or _lm_shards(args.arch), what="row-shards a DLRM arena "
-                     "or shards a GQA decoder LM (the other LM families are "
-                     "ROADMAP Queue 1, item 13d)")
+                     "or shards a decoder LM (the other LM families are "
+                     "ROADMAP Queue 1, item 13e)")
     if args.resume and not args.ckpt_dir:
         p.error("--resume goes with --ckpt-dir")
     if args.ckpt_every < 1:
@@ -341,7 +342,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def _lm_shards(arch: str) -> bool:
     """Whether the LM ``arch`` runs on a mesh (its family's logical axes
-    are ported; the others are ROADMAP Queue 1, item 13d)."""
+    are ported; the others are ROADMAP Queue 1, item 13e)."""
     return arch in registry.ARCHS and api.mesh_ported(registry.get_arch(arch))
 
 

@@ -28,23 +28,26 @@ chunked attention. The dry-run stand-ins (``input_specs``) are not
 ported.
 
 **On a mesh** (``launch.mesh.Mesh``: one process a rank, (data, model)
-or any of ``make_mesh``'s shapes) the ``mesh=`` steps run the GQA
-decoder and vision-prefix families tensor- and sequence-parallel over
-'model' and data-parallel over the other axes (``models.transformer``'s
-docstring). Each rank passes its blocks of the params
+or any of ``make_mesh``'s shapes) the ``mesh=`` steps run the decoder
+and vision-prefix families (GQA or MLA attention, a dense FFN or a
+MoE) tensor- and sequence-parallel over 'model', expert-parallel there
+for a MoE, and data-parallel over the other axes
+(``models.transformer``'s docstring). Each rank passes its blocks of the params
 (``shard_params``) and its share of the batch, split on its first dim
 over the data axes (``data.make_placer`` with ``batch_specs(cfg,
 mesh)``); the steps return what that rank holds: prefill and decode the
 rank's vocab shard of the logits (``collectives.all_gather(logits, mesh,
 "model", dim=-1)`` puts them together), the cache the rank's kv heads
-(``init_cache(..., mesh=mesh)``), and the train step updates the rank's
-blocks in place, its loss and grad norm the whole batch's, the same
-bits on every rank. The train step sums each replicated leaf's gradient
-over 'model' (its uses on the ranks' chunks and heads are parts of it),
-averages every gradient over the data axes in fp32, and clips by the
-norm of the whole tree. The MoE, MLA, hybrid, ssm and encoder-decoder
-families, and Adafactor, are refused on a mesh (ROADMAP Queue 1, item
-13d).
+(``init_cache(..., mesh=mesh)``; MLA's latent cache whole over
+'model'), and the train step updates the rank's blocks in place, its
+loss and grad norm the whole batch's, the same bits on every rank. The
+train step sums each leaf's gradient over the axes that do not split it
+(its uses on the ranks' chunks and heads are parts of it), averages
+every gradient over the data axes in fp32, clips by the norm of the
+whole tree, and updates with AdamW, SGD or Adafactor (whose row, column
+and whole-leaf means span the whole leaf, ``optim.Layout``). The
+hybrid, ssm and encoder-decoder families are refused on a mesh (ROADMAP
+Queue 1, item 13e).
 """
 from __future__ import annotations
 
@@ -115,8 +118,9 @@ def _sharded_mesh(mesh) -> bool:
 
 
 def mesh_ported(cfg: ModelConfig) -> bool:
-    """Whether ``cfg``'s family runs on a mesh (the GQA decoders and the
-    vision-prefix decoder; the rest are ROADMAP Queue 1, item 13d)."""
+    """Whether ``cfg``'s family runs on a mesh (the decoders, GQA or MLA,
+    dense or MoE, and the vision-prefix decoder; the rest are ROADMAP
+    Queue 1, item 13e)."""
     try:
         _refuse_on_mesh(cfg)
     except NotImplementedError:
@@ -135,7 +139,7 @@ def _refuse_on_mesh(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder on a mesh (its logical axes) "
-            "is ROADMAP Queue 1, item 13d")
+            "is ROADMAP Queue 1, item 13e")
     transformer.check_mesh_ported(cfg)
 
 
@@ -228,30 +232,53 @@ def default_optimizer(cfg: ModelConfig) -> Tuple[str, Any]:
     return "adamw", optim_lib.layerwise(optim_lib.adamw(3e-4))
 
 
+def leaf_layout(mesh, logical, shape) -> optim_lib.Layout:
+    """The ``optim.Layout`` of a leaf of the whole ``shape`` and the
+    ``logical`` spec on ``mesh``: the axes that split each dim of its
+    block."""
+    spec = sharding.resolve(mesh, logical)
+    dims = tuple(tuple(a for a in sharding.entry_axes(e)
+                       if a in mesh.axis_names and mesh.size(a) > 1)
+                 for e in spec)
+    return optim_lib.Layout(mesh, dims, tuple(shape))
+
+
+def _layouts(cfg: ModelConfig, mesh):
+    """An ``optim.Layout`` a leaf of the params on ``mesh``."""
+    return optim_lib.tree_map(
+        lambda leaf: leaf_layout(mesh, leaf.logical, leaf.shape),
+        transformer.param_leaves(cfg))
+
+
 def _mesh_sync(cfg: ModelConfig, mesh):
-    """(the gradient sync, the tree of which leaves are split over
-    'model') of a train step on ``mesh``: each leaf replicated over
-    'model' summed over it, every leaf averaged over the data axes, in
-    fp32, in place."""
-    specs = param_specs(cfg)
-    sharded = sharding.map_specs(lambda sp: sharding.splits_over(mesh, sp),
-                                 specs)
+    """(the gradient sync, the params' ``optim.Layout``s) of a train
+    step on ``mesh``: each leaf's gradient summed over the axes that do
+    not split it ('model' first, then the data axes; the rank's
+    gradient of a block split over a data axis already holds every data
+    rank's part, ``moe.apply_moe_chunk``), then divided by the data
+    ranks, in fp32, in place."""
+    layouts = _layouts(cfg, mesh)
     data = sharding.batch_axes(mesh)
     n_data = coll.axes_size(mesh, data)
-    tp = sharding.tp_size(mesh)
 
     @torch.no_grad()
     def sync(grads):
-        def one(g, split):
-            axes = (() if split or tp == 1 else ("model",)) + data
-            if coll.axes_size(mesh, axes) == 1:
+        def one(g, lay):
+            axes = tuple(a for a in ("model",) + data
+                         if a in mesh.axis_names and a not in lay.axes)
+            if coll.axes_size(mesh, axes) == 1 and n_data == 1:
                 return g
             g32 = coll.psum(g.float(), mesh, axes)
             if n_data > 1:
                 g32 /= n_data
             return g.copy_(g32)
-        return optim_lib.tree_map(one, grads, sharded)
-    return sync, sharded
+        return optim_lib.tree_map(one, grads, layouts)
+    return sync, layouts
+
+
+# the optimizers a mesh step takes: elementwise ones, and Adafactor with
+# the params' layouts
+MESH_OPTIMIZERS = ("adamw", "sgd", "adafactor")
 
 
 def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
@@ -277,13 +304,15 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
         opt_name, opt = default_optimizer(cfg)
     else:
         opt_name, opt = optimizer
-    sync = sharded = None
+    sync = layouts = None
     if _sharded_mesh(mesh):
-        if opt_name == "adafactor":
-            raise NotImplementedError(
-                "Adafactor on a mesh (its factored statistics across "
-                "shards) is ROADMAP Queue 1, item 13d")
-        sync, sharded = _mesh_sync(cfg, mesh)
+        if opt_name not in MESH_OPTIMIZERS:
+            raise ValueError(f"{opt_name} on a mesh: the mesh steps take "
+                             f"{MESH_OPTIMIZERS}")
+        sync, layouts = _mesh_sync(cfg, mesh)
+    # Adafactor's means over a leaf run over the whole leaf
+    update_kw = ({"layouts": layouts}
+                 if opt_name == "adafactor" and layouts is not None else {})
 
     def value_and_grad(params, batch):
         # fresh leaves over the params' storage: autograd records on
@@ -316,8 +345,9 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
             loss_val = coll.pmean(loss_val, mesh, sharding.batch_axes(mesh))
         grads, gnorm = optim_lib.clip_by_global_norm(grads, grad_clip,
                                                      mesh=mesh,
-                                                     sharded=sharded)
-        params, opt_state = opt.update(grads, opt_state, params)
+                                                     layouts=layouts)
+        params, opt_state = opt.update(grads, opt_state, params,
+                                       **update_kw)
         return params, opt_state, {"loss": loss_val, "grad_norm": gnorm}
 
     return opt_name, opt, train_step
@@ -325,30 +355,49 @@ def make_train_step(cfg: ModelConfig, optimizer=None, mesh=None,
 
 def train_state_specs(cfg: ModelConfig, opt_name: str, opt, mesh):
     """(params' shardings, the optimizer state's, the logical spec tree):
-    trees of ``sharding.Sharding`` (None without a mesh), the state's
-    moments sharded as their params and its step count replicated, for
-    ``CheckpointManager.save`` / ``restore``. AdamW's state (the mesh
-    steps' optimizer; Adafactor's factored statistics are item 13d)."""
-    if opt_name != "adamw":
-        raise NotImplementedError(
-            f"{opt_name}'s state specs on a mesh: AdamW's are ported, "
-            "Adafactor's are ROADMAP Queue 1, item 13d")
+    trees of ``sharding.Sharding`` (None without a mesh), for
+    ``CheckpointManager.save`` / ``restore``, by the reference's
+    ``state_logical_specs``: AdamW's (and SGD's) moments sharded as their
+    params; Adafactor's ``vr`` by its param's spec without the last
+    entry, ``vc`` without the second-to-last, ``v`` as it is; the step
+    count replicated."""
     specs = param_specs(cfg)
     shard = sharding.spec_tree_to_shardings(mesh, specs)
-    return shard, {"m": shard, "v": shard, "step": None}, specs
+    if opt_name == "adamw":
+        return shard, {"m": shard, "v": shard, "step": None}, specs
+    if opt_name == "sgd":
+        return shard, {"mu": shard, "step": None}, specs
+    if opt_name != "adafactor":
+        raise ValueError(f"{opt_name}'s state specs: the mesh steps take "
+                         f"{MESH_OPTIMIZERS}")
+
+    def fac(leaf):
+        s = leaf.logical
+        if len(leaf.shape) >= 2:
+            return {"vr": s[:-1], "vc": s[:-2] + s[-1:]}
+        return {"v": s}
+    fac_specs = optim_lib.tree_map(fac, transformer.param_leaves(cfg))
+    return shard, {"fac": sharding.spec_tree_to_shardings(mesh, fac_specs),
+                   "step": None}, specs
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh):
     """The decode cache's shardings (``sharding.Sharding`` leaves, None
-    without a mesh): k and v split on the batch over the data axes and by
-    kv head over 'model' (``sharding.head_split``; replicated where the kv
-    heads are), slot positions replicated. The reference splits the cache
-    positions over 'model' instead, for its split-KV decode
-    (``repro/models/api.py:211-237``); the port's decode attends with the
-    rank's heads, so its cache is split as they are. Both hold the same
-    values."""
+    without a mesh). GQA: k and v split on the batch over the data axes
+    and by kv head over 'model' (``sharding.head_split``; replicated
+    where the kv heads are), slot positions replicated. MLA: the latent
+    ``c_kv`` and ``k_rope``, which have no head dim, split on the batch
+    and replicated over 'model', each rank reading them whole for its
+    heads. The reference splits the cache positions over 'model' instead,
+    for its split-KV decode (``repro/models/api.py:211-237``); the port's
+    decode attends with the rank's heads, so its cache is split as they
+    are. Both hold the same values."""
     _check_mesh(cfg, mesh)
     a = cfg.attention
+    if a.kind == "mla":
+        lat = (None, "batch", None, None)
+        return sharding.spec_tree_to_shardings(mesh, {"layers": {
+            "c_kv": lat, "k_rope": lat, "slot_pos": (None, None)}})
     heads = sharding.Heads(a.n_heads, a.n_kv_heads, 1, "kv")
     kv = (None, "batch", None, heads, None)
     return sharding.spec_tree_to_shardings(mesh, {"layers": {

@@ -18,30 +18,56 @@ Two decode paths, the same function:
 As ``layers.attention_decode``, ``mla_decode`` writes the new token's
 latent and position into the cache's tensors in place and returns the
 same tree (the reference returns a new cache).
+
+On a mesh (the reference's specs, ``repro/models/mla.py:27-44``) the
+low-rank projections ``wq_a`` and ``wkv_a`` and the two norms are
+replicated, and so the latent ``c_kv`` and the shared RoPE key head
+``k_rope`` are computed whole on every rank; ``wq_b``, ``wk_b`` and
+``wv_b`` are column blocks of whole heads and ``wo`` a row block
+(``sharding.head_split`` with as many kv heads as heads: MLA is MHA).
+Each rank attends with its heads, whose count the blocks' widths give,
+and returns a partial sum over 'model' for the caller to reduce. The
+decode cache holds the latent, which has no head dim: it is split on
+the batch and replicated over 'model' (``api.cache_specs``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.params import Builder
+
+
+def _heads(h: int, head_dim: int) -> sharding.Heads:
+    """A dimension of ``h`` heads of ``head_dim``, split by whole heads
+    over 'model'."""
+    return sharding.Heads(h, h, head_dim, "q")
 
 
 def init_mla(b: Builder, acfg: AttentionConfig, d: int):
     m = acfg.mla
     h = acfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    v = _heads(h, m.v_head_dim)
     return {
         "wq_a": b.normal((d, m.q_lora_rank)),
         "q_norm": layers.init_norm(b, m.q_lora_rank, "rmsnorm"),
-        "wq_b": b.normal((m.q_lora_rank, h * qk)),
+        "wq_b": b.normal((m.q_lora_rank, h * qk), spec=(None, _heads(h, qk))),
         "wkv_a": b.normal((d, m.kv_lora_rank + m.qk_rope_head_dim)),
         "kv_norm": layers.init_norm(b, m.kv_lora_rank, "rmsnorm"),
-        "wk_b": b.normal((m.kv_lora_rank, h * m.qk_nope_head_dim)),
-        "wv_b": b.normal((m.kv_lora_rank, h * m.v_head_dim)),
-        "wo": b.normal((h * m.v_head_dim, d)),
+        "wk_b": b.normal((m.kv_lora_rank, h * m.qk_nope_head_dim),
+                         spec=(None, _heads(h, m.qk_nope_head_dim))),
+        "wv_b": b.normal((m.kv_lora_rank, h * m.v_head_dim), spec=(None, v)),
+        "wo": b.normal((h * m.v_head_dim, d), spec=(v, None)),
     }
+
+
+def local_heads(p, acfg: AttentionConfig) -> int:
+    """The heads whose blocks ``p`` holds: all of them without a mesh,
+    the rank's on one."""
+    return p["wv_b"].shape[-1] // acfg.mla.v_head_dim
 
 
 def _latent(p, acfg: AttentionConfig, x: torch.Tensor):
@@ -57,7 +83,7 @@ def _queries(p, acfg: AttentionConfig, x: torch.Tensor, positions):
     m = acfg.mla
     b_, s, _ = x.shape
     q = layers.apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
-    q = q.reshape(b_, s, acfg.n_heads,
+    q = q.reshape(b_, s, local_heads(p, acfg),
                   m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = (q[..., :m.qk_nope_head_dim],
                       q[..., m.qk_nope_head_dim:])
@@ -71,7 +97,7 @@ def mla_full(p, acfg: AttentionConfig, x: torch.Tensor,
     ``return_latent``, also (c_kv (B, S, r), k_rope (B, S, rope)) for the
     decode cache."""
     m = acfg.mla
-    h = acfg.n_heads
+    h = local_heads(p, acfg)
     b_, s, _ = x.shape
     q_nope, q_rope = _queries(p, acfg, x, positions)
     c_kv, k_rope = _latent(p, acfg, x)
@@ -128,7 +154,7 @@ def mla_decode(p, acfg: AttentionConfig, x: torch.Tensor, pos: int, cache,
     """One-token step against the compressed cache. x (B, 1, D) ->
     (out (B, 1, D), cache)."""
     m = acfg.mla
-    h = acfg.n_heads
+    h = local_heads(p, acfg)
     b_ = x.shape[0]
     posb = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _queries(p, acfg, x, posb)     # (B, 1, H, .)

@@ -22,8 +22,12 @@ combines at the source, and all-gathers the (B, S, D) result onto every
 rank; the load-balance loss is the mean of the ranks' own. Each rank
 holds the ``("expert", "fsdp", None)`` block of the expert weights
 (``shard_moe_params``). Otherwise the local path runs, as the
-reference's does. The expert products are torch ops: the reference has
-no Pallas kernel here.
+reference's does. The LM on a mesh takes two entries of its own:
+``apply_moe_chunk``, the same expert-parallel path on a rank's chunk of
+the S-sharded stream (the reference hands its shard_map that chunk), and
+``apply_moe_decode``, a decode step's tokens routed as one batch over
+the data ranks, each rank running its own experts' slots. The expert products are torch ops: the reference has no
+Pallas kernel here.
 """
 from __future__ import annotations
 
@@ -48,9 +52,9 @@ def init_moe(b: Builder, mcfg: MoEConfig, d: int):
     reference's rule, fan_in = shape[0], which is E for the experts."""
     e, ff = mcfg.n_experts, mcfg.expert_ff
     return {"wr": b.normal((d, e), dtype=torch.float32),
-            "wg": b.normal((e, d, ff)),
-            "wu": b.normal((e, d, ff)),
-            "wd": b.normal((e, ff, d))}
+            "wg": b.normal((e, d, ff), spec=EXPERT_LOGICAL),
+            "wu": b.normal((e, d, ff), spec=EXPERT_LOGICAL),
+            "wd": b.normal((e, ff, d), spec=EXPERT_LOGICAL)}
 
 
 def _capacity(t_local: int, mcfg: MoEConfig) -> int:
@@ -191,11 +195,12 @@ def _full_weights(p, mcfg: MoEConfig, d: int, mesh):
     return out
 
 
-def _moe_shard(xl: torch.Tensor, p, mcfg: MoEConfig, mesh, dp, fsdp: bool):
+def _moe_shard(xl: torch.Tensor, wr: torch.Tensor, ws, mcfg: MoEConfig,
+               mesh):
     """One rank's share of the expert-parallel MoE (the reference's
-    ``_moe_shard``): xl (B/dp, S/tp, d) its tokens -> (its y block, the
-    mean of the ranks' aux losses)."""
-    axes = tuple(mesh.axis_names)
+    ``_moe_shard``): xl (B/dp, S/tp, d) its tokens, ``wr`` the router,
+    ``ws`` its experts' (wg, wu, wd), whole along their hidden dims ->
+    (its y block, its own aux loss)."""
     ep = mesh.size("model")
     e, k = mcfg.n_experts, mcfg.top_k
     e_loc = e // ep
@@ -203,16 +208,6 @@ def _moe_shard(xl: torch.Tensor, p, mcfg: MoEConfig, mesh, dp, fsdp: bool):
     xl = xl.reshape(b_loc * s_loc, d)
     t_loc = b_loc * s_loc
     cap = _capacity(t_loc, mcfg)
-    # the weights are replicated over the data axes (gathered there when
-    # FSDP), and each data group's tokens are its own: their gradients
-    # sum over the data axes; the router's over every axis
-    ws = []
-    for name in ("wg", "wu", "wd"):
-        w = p[name]
-        if fsdp:
-            w = coll.all_gather(w, mesh, dp, 1)
-        ws.append(coll.replicated(w, mesh, dp))
-    wr = coll.replicated(p["wr"], mesh, axes)
     w, idx, probs = _route(xl.float(), wr, mcfg)
     slot, valid = _slots(idx, e, cap)
     disp = xl.new_zeros((e * cap + 1, d))
@@ -231,8 +226,8 @@ def _moe_shard(xl: torch.Tensor, p, mcfg: MoEConfig, mesh, dp, fsdp: bool):
     rows = back[torch.clamp(slot, max=e * cap - 1)]
     rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
     y_tok = (rows.view(t_loc, k, d) * w[..., None].to(rows.dtype)).sum(1)
-    aux = coll.pmean(_aux_loss(probs, idx, mcfg), mesh, axes)
-    return y_tok.reshape(b_loc, s_loc, d).to(xl.dtype), aux
+    return (y_tok.reshape(b_loc, s_loc, d).to(xl.dtype),
+            _aux_loss(probs, idx, mcfg))
 
 
 def apply_moe(p, mcfg: MoEConfig, x: torch.Tensor,
@@ -252,12 +247,116 @@ def apply_moe(p, mcfg: MoEConfig, x: torch.Tensor,
     dp, fsdp = plan
     if p["wg"].shape[0] == mcfg.n_experts:
         p = shard_moe_params(p, mcfg, mesh)
+    axes = tuple(mesh.axis_names)
     tp = mesh.size("model")
     b_loc, s_loc = b // coll.axes_size(mesh, dp), s // tp
     # every rank holds all of x: its gradient is the sum of the ranks'
-    xr = coll.replicated(x, mesh, tuple(mesh.axis_names))
+    xr = coll.replicated(x, mesh, axes)
     xl = xr.narrow(0, coll.axes_index(mesh, dp) * b_loc, b_loc) \
         .narrow(1, mesh.rank("model") * s_loc, s_loc)
-    y, aux = _moe_shard(xl, p, mcfg, mesh, dp, fsdp)
+    # the weights are replicated over the data axes (gathered there when
+    # FSDP), and each data group's tokens are its own: their gradients
+    # sum over the data axes; the router's over every axis
+    ws = []
+    for name in ("wg", "wu", "wd"):
+        w = p[name]
+        if fsdp:
+            w = coll.all_gather(w, mesh, dp, 1)
+        ws.append(coll.replicated(w, mesh, dp))
+    y, aux = _moe_shard(xl, coll.replicated(p["wr"], mesh, axes), ws, mcfg,
+                        mesh)
+    aux = coll.pmean(aux, mesh, axes)
     y = coll.all_gather(coll.all_gather(y, mesh, dp, 0), mesh, "model", 1)
     return y, aux
+
+
+def apply_moe_chunk(p, mcfg: MoEConfig, x: torch.Tensor,
+                    mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE of the LM's S-sharded stream on ``mesh``, as the reference
+    hands it its shard_map (in-spec ``P(batch, "model", None)``, no
+    gather): x (B/dp, S/tp, D) this rank's chunk, ``p`` this rank's
+    blocks (the router whole, the experts' ``("expert", "fsdp", None)``
+    blocks) -> (the chunk's output, complete: no sum over 'model' is
+    owed; the aux loss, the mean of every rank's).
+
+    The rank's tokens route with the capacity of their own count and
+    travel to the experts' owners by ``all_to_all`` over 'model'
+    (``_moe_shard``); each expert leaf is gathered over the data axes it
+    is split over by ``collectives.gather_seq``, whose backward sums the
+    data ranks' gradients of the whole leaf and hands each rank its
+    block's. Nothing else sums inside: the train step sums the router's
+    gradient (it is replicated) over every axis. The aux loss's value is
+    every rank's mean; its gradient is that of the mean over the data
+    group's ranks, as the cross entropy's is its data group's, since
+    the train step averages every gradient over the data axes."""
+    tp = sharding.tp_size(mesh)
+    if tp == 1 or mcfg.n_experts % tp:
+        raise ValueError(
+            f"the MoE on a mesh takes a 'model' axis of more than one rank "
+            f"that divides its {mcfg.n_experts} experts (the reference's "
+            f"expert-parallel path); this mesh has {tp}")
+    d = x.shape[-1]
+    _, fsdp, _ = _weight_spec(mcfg, d, mesh)
+    ws = []
+    for name in ("wg", "wu", "wd"):
+        w = p[name]
+        # row-major over the axes named: the last varies fastest
+        for a in reversed(sharding.entry_axes(fsdp)):
+            w = coll.gather_seq(w, mesh, a, dim=1)
+        ws.append(w)
+    y, aux = _moe_shard(x, p["wr"], ws, mcfg, mesh)
+    aux_m = coll.pmean(aux, mesh, "model")
+    aux_all = coll.pmean(aux_m.detach(), mesh, sharding.batch_axes(mesh))
+    return y, aux_all + (aux_m - aux_m.detach())
+
+
+def apply_moe_decode(p, mcfg: MoEConfig, x: torch.Tensor,
+                     mesh) -> torch.Tensor:
+    """The MoE of a decode step on ``mesh``, whose one-token stream is
+    replicated over 'model': x (B/dp, 1, D) this rank's rows. The
+    reference takes ``_moe_local`` over its program's global batch
+    there (S = 1 does not divide 'model'), so the capacity and the
+    slots' ranking see every data rank's tokens: the rows are gathered
+    over the data axes and every rank routes and ranks them as one
+    batch, the same bits everywhere. The experts stay where they are:
+    each 'model' rank runs its own experts' slots (all of them where the
+    experts are not split), its hidden-dim slice of each where they are
+    split over the data axes (FSDP), whose partial products are summed
+    over those axes in fp32 and rounded once, as one product's are; the
+    experts' outputs are gathered over 'model' (a few rows a slot) and
+    combined -> y (B/dp, 1, D), complete, this rank's rows."""
+    dp = sharding.batch_axes(mesh)
+    b, s, d = x.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    xg = coll.all_gather(x, mesh, dp, 0).reshape(-1, d)
+    t = xg.shape[0]
+    cap = _capacity(t, mcfg)
+    w, idx, _ = _route(xg.float(), p["wr"], mcfg)
+    slot, valid = _slots(idx, e, cap)
+    disp = xg.new_zeros((e * cap + 1, d))
+    disp[slot] = xg.repeat_interleave(k, dim=0)
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    e_loc = wg.shape[0]
+    m = sharding.tp_rank(mesh) if e_loc < e else 0
+    mine = disp[m * e_loc * cap:(m + 1) * e_loc * cap].view(e_loc, cap, d)
+    if wg.shape[1] < d:
+        # this rank's slice of the hidden dims, its blocks' rows
+        i = coll.axes_index(mesh, dp)
+
+        def summed(a, w_):
+            part = torch.bmm(a.float(), w_.float())
+            return coll.psum(part, mesh, dp).to(a.dtype)
+        dl, fl = wg.shape[1], wd.shape[1]
+        xs = mine[..., i * dl:(i + 1) * dl]
+        h = F.silu(summed(xs, wg)) * summed(xs, wu)
+        y = summed(h[..., i * fl:(i + 1) * fl], wd)
+    else:
+        y = _expert_ffn(mine, wg, wu, wd)
+    back = y.reshape(e_loc * cap, d)
+    if e_loc < e:
+        back = coll.all_gather(back, mesh, "model", 0)
+    rows = back[torch.clamp(slot, max=e * cap - 1)]
+    rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+    y_tok = (rows.view(t, k, d) * w[..., None].to(rows.dtype)).sum(1)
+    return y_tok.to(x.dtype).view(-1, s, d).narrow(
+        0, coll.axes_index(mesh, dp) * b, b)

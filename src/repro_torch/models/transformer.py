@@ -24,20 +24,25 @@ reference's ``jax.checkpoint`` of the scan body. The encoder-decoder
 family is ``models/encdec.py``.
 
 **On a mesh** (the active mesh of ``distributed.sharding.use_mesh``, set
-by ``api``'s ``mesh=`` steps; the GQA decoder and vision-prefix families)
+by ``api``'s ``mesh=`` steps; the decoder and vision-prefix families)
 each rank holds its blocks of the params (``params.shard_params``) and
 its share of the batch, and the blocks run Megatron-style, where the
 reference constrains: the residual stream between blocks is this rank's
 chunk of S (``_embed_input`` reduce-scatters the partial token rows, a
 ``vlm`` batch's patches ahead of them); a block all-gathers S at the
-entry to attention and to the FFN (``sharding.gather_seq``), computes its
-heads and d_ff columns, and reduce-scatters its partial output back onto
-S (``sharding.scatter_seq``); the head gathers S and gives the rank's
-vocab shard of the logits, and the loss is vocab-parallel. A decode step
-keeps its one-token stream replicated over 'model' and adds the
-row-parallel partials with ``sharding.psum_model``; the cache holds the
-rank's kv heads. S must divide over 'model'. The MoE, MLA, hybrid and
-ssm configs are refused on a mesh (ROADMAP Queue 1, item 13d).
+entry to attention and to a dense FFN (``sharding.gather_seq``),
+computes its heads (GQA's, or MLA's with the latent whole on every
+rank) and d_ff columns, and reduce-scatters its partial output back
+onto S (``sharding.scatter_seq``). A MoE takes the rank's chunk itself,
+expert-parallel (``moe.apply_moe_chunk``), and its output is whole;
+arctic's dense residual branch beside it runs as a dense FFN. The head
+gathers S and gives the rank's vocab shard of the logits, and the loss
+is vocab-parallel. A decode step keeps its one-token stream replicated
+over 'model' and adds the row-parallel partials with
+``sharding.psum_model``; a MoE there routes the data ranks' tokens as
+one batch (``moe.apply_moe_decode``); the cache holds the rank's kv
+heads (MLA: the whole latent). S must divide over 'model'. The hybrid
+and ssm configs are refused on a mesh (ROADMAP Queue 1, item 13e).
 """
 from __future__ import annotations
 
@@ -75,17 +80,12 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def check_mesh_ported(cfg: ModelConfig) -> None:
-    """Refuse, on a mesh, what the port does not shard yet: the MoE, MLA,
-    hybrid and ssm families (and, in ``models.api``, the
-    encoder-decoder)."""
-    what = ("a MoE" if cfg.moe is not None
-            else "MLA" if cfg.family != "ssm" and cfg.attention.kind == "mla"
-            else f"the {cfg.family} family"
-            if cfg.family in ("hybrid", "ssm") else None)
-    if what is not None:
+    """Refuse, on a mesh, what the port does not shard yet: the hybrid
+    and ssm families (and, in ``models.api``, the encoder-decoder)."""
+    if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh (its logical axes) is ROADMAP "
-            "Queue 1, item 13d")
+            f"{cfg.name}: the {cfg.family} family on a mesh (its logical "
+            "axes) is ROADMAP Queue 1, item 13e")
 
 
 def _layer(tree, i: int):
@@ -185,11 +185,17 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
                           device=resolve_device(device)), cfg)
 
 
+def param_leaves(cfg: ModelConfig) -> Dict:
+    """``init``'s params recorded, not drawn: a ``params.Leaf`` (shape,
+    dtype, logical spec) a leaf."""
+    check_ported(cfg)
+    return _build(SpecRecorder(getattr(torch, cfg.dtype)), cfg)
+
+
 def param_specs(cfg: ModelConfig) -> Dict:
     """The logical spec tree of ``init``'s params (the reference's
     ``split(tree)[1]``), recorded from the same init code."""
-    check_ported(cfg)
-    return spec_tree(_build(SpecRecorder(getattr(torch, cfg.dtype)), cfg))
+    return spec_tree(param_leaves(cfg))
 
 
 def _build(b, cfg: ModelConfig) -> Dict:
@@ -216,14 +222,43 @@ def _build(b, cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _ffn(p, cfg: ModelConfig, h):
-    """The block's FFN -> (y, aux): the MoE (plus arctic's dense residual
-    branch) or the dense MLP, whose aux is 0."""
+    """The block's FFN of the S-sharded stream ``h`` (its rank's chunk on
+    a mesh) -> (y, aux), y complete on the chunk: the dense MLP on the
+    S-gathered stream, its partial output reduce-scattered onto S; or
+    the MoE on the chunk itself, whose output is whole (the reference
+    hands it the S-sharded stream, ``transformer.py:115-121``), plus
+    arctic's dense residual branch, the one partial sum there. A dense
+    FFN's aux is 0."""
     if cfg.moe is None:
-        return layers.apply_mlp(p["mlp"], h, cfg.act), 0.0
-    y, aux = moe.apply_moe(p["moe"], cfg.moe, h)
+        return sharding.scatter_seq(layers.apply_mlp(
+            p["mlp"], sharding.gather_seq(h), cfg.act)), 0.0
+    mesh = sharding.active_mesh()
+    if mesh is not None and coll.axes_size(mesh, mesh.axis_names) > 1:
+        y, aux = moe.apply_moe_chunk(p["moe"], cfg.moe, h, mesh)
+    else:
+        y, aux = moe.apply_moe(p["moe"], cfg.moe, h)
     if cfg.moe.dense_residual_ff:
-        y = y + layers.apply_mlp(p["res_mlp"], h, cfg.act)
+        y = y + sharding.scatter_seq(layers.apply_mlp(
+            p["res_mlp"], sharding.gather_seq(h), cfg.act))
     return y, aux
+
+
+def _ffn_decode(p, cfg: ModelConfig, h):
+    """The block's FFN of a decode step's one-token stream, replicated
+    over 'model' on a mesh -> y: the row-parallel partials summed
+    (``psum_model``); the MoE's output whole (on a mesh the data ranks'
+    tokens routed as one batch, ``moe.apply_moe_decode``)."""
+    if cfg.moe is None:
+        return sharding.psum_model(layers.apply_mlp(p["mlp"], h, cfg.act))
+    mesh = sharding.active_mesh()
+    if mesh is not None and coll.axes_size(mesh, mesh.axis_names) > 1:
+        y = moe.apply_moe_decode(p["moe"], cfg.moe, h, mesh)
+    else:
+        y, _ = moe.apply_moe(p["moe"], cfg.moe, h)
+    if cfg.moe.dense_residual_ff:
+        y = y + sharding.psum_model(layers.apply_mlp(p["res_mlp"], h,
+                                                     cfg.act))
+    return y
 
 
 def _attn_block_full(p, cfg: ModelConfig, x, positions):
@@ -236,9 +271,8 @@ def _attn_block_full(p, cfg: ModelConfig, x, positions):
         a = layers.attention_full(p["attn"], cfg.attention, h, positions,
                                   cfg.d_model)
     x = x + sharding.scatter_seq(a)
-    y, aux = _ffn(p, cfg, sharding.gather_seq(
-        layers.apply_norm(p["ln2"], x, cfg.norm)))
-    return x + sharding.scatter_seq(y), aux
+    y, aux = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
+    return x + y, aux
 
 
 def _embed_input(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -387,9 +421,8 @@ def _attn_block_prefill(p, cfg: ModelConfig, x, positions, max_len,
         entry = layers.cache_from_kv(cfg.attention, k, v, max_len, dtype,
                                      ring=_ring(cfg, max_len))
     x = x + sharding.scatter_seq(a)
-    y, _ = _ffn(p, cfg, sharding.gather_seq(
-        layers.apply_norm(p["ln2"], x, cfg.norm)))
-    return x + sharding.scatter_seq(y), entry
+    y, _ = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
+    return x + y, entry
 
 
 def _block_prefill(p, cfg: ModelConfig, kind: str, x, positions, max_len,
@@ -497,8 +530,7 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos: int, cache):
         a, cache = layers.attention_decode(p["attn"], cfg.attention, h, pos,
                                            cache, cfg.d_model)
     x = x + sharding.psum_model(a)
-    y, _ = _ffn(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
-    return x + sharding.psum_model(y)
+    return x + _ffn_decode(p, cfg, layers.apply_norm(p["ln2"], x, cfg.norm))
 
 
 def _rwkv_block_decode(p, cfg: ModelConfig, x, state):

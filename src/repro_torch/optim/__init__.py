@@ -1,12 +1,13 @@
 """Optimizers, the counterpart of the reference's ``repro.optim``."""
-from repro_torch.optim.optimizers import (Optimizer, adafactor, adamw,
+from repro_torch.optim.optimizers import (Layout, Optimizer, adafactor,
+                                          adamw,
                                           clip_by_global_norm, from_config,
                                           global_norm, layerwise,
                                           partitioned, rowwise_adagrad, sgd,
                                           tree_leaves, tree_map, tree_paths,
                                           warmup_cosine)
 
-__all__ = ["Optimizer", "adafactor", "adamw", "clip_by_global_norm",
+__all__ = ["Layout", "Optimizer", "adafactor", "adamw", "clip_by_global_norm",
            "from_config", "global_norm", "layerwise", "partitioned",
            "rowwise_adagrad", "sgd", "tree_leaves", "tree_map", "tree_paths",
            "warmup_cosine"]

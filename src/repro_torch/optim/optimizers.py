@@ -23,15 +23,20 @@ Provided: ``sgd`` (momentum), ``adamw``, ``adafactor`` (factored second
 moments), ``rowwise_adagrad`` (the DLRM embedding tables), ``partitioned``
 (one rule per top-level key), ``layerwise`` (the update one layer of a
 stacked subtree at a time), global-norm clipping, ``warmup_cosine`` and
-``from_config``. On a mesh the updates run on each rank's blocks as
-they are (elementwise: AdamW, SGD), and the global norm sums the squares
-of the leaves split over 'model' across it, each replicated leaf once.
-The reference's ``state_logical_specs`` (the dry-run's) is
-``models.api.train_state_specs`` here; Adafactor's factored statistics
-across shards are ROADMAP Queue 1, item 13d.
+``from_config``. On a mesh the updates run on each rank's blocks: the
+elementwise ones (AdamW, SGD) as they are; Adafactor, whose statistics
+are means over a leaf's rows, its columns and the whole leaf, with a
+``Layout`` a leaf (``update(..., layouts=)``) that names the mesh axes
+splitting each of its dims: each mean's local sum is summed over the
+axes that split the dims it runs over and divided by the whole leaf's
+extent, so every statistic is the unsharded one. The global norm sums
+the squares of each leaf over the axes that split it, each replicated
+leaf once. The reference's ``state_logical_specs`` (the dry-run's) is
+``models.api.train_state_specs`` here.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -90,34 +95,69 @@ def _write(p: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 # Clipping
 # ---------------------------------------------------------------------------
 
-def global_norm(tree, mesh=None, sharded=None) -> torch.Tensor:
+@dataclass(frozen=True)
+class Layout:
+    """How a rank's block of a leaf lies on a mesh: ``dims`` names, for
+    each dim of the leaf, the mesh axes (of more than one rank) that
+    split it, ``()`` where the rank holds the dim whole; ``shape`` is the
+    whole leaf's. ``models.api`` builds them from the params' specs."""
+    mesh: Any
+    dims: Tuple[Tuple[str, ...], ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every axis that splits the leaf, in the mesh's order."""
+        named = {a for d in self.dims for a in d}
+        return tuple(a for a in self.mesh.axis_names if a in named)
+
+    def layer(self) -> "Layout":
+        """The layout of one slice along the leading dim (a layer of a
+        stacked leaf, whose layer dim is never split)."""
+        return Layout(self.mesh, self.dims[1:], self.shape[1:])
+
+    def sum(self, x: torch.Tensor, *dims: int) -> torch.Tensor:
+        """``x``, a sum over the rank's part of ``dims`` of the leaf,
+        summed over the axes that split them: the whole leaf's sum, on
+        every rank (``x`` itself where no axis splits them)."""
+        # imported here: repro_torch.distributed imports this package
+        from repro_torch.distributed import collectives
+        named = {a for d in dims for a in self.dims[d]}
+        axes = tuple(a for a in self.mesh.axis_names if a in named)
+        return collectives.psum(x, self.mesh, axes) if axes else x
+
+
+def global_norm(tree, mesh=None, layouts=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32, the leaves
     summed in the reference's leaf order (``tree_paths``). A 0-dim tensor
     on the leaves' device.
 
-    On ``mesh``, ``sharded`` (a tree of bools of ``tree``'s structure)
-    marks the leaves that are this rank's blocks of a leaf split over
-    'model': their squares are summed over the axis, and every other
-    leaf, which each rank holds whole, is counted once. Every rank of the
-    axis gets the same bits."""
-    if mesh is None or sharded is None:
+    On ``mesh``, ``layouts`` (a tree of ``Layout``s of ``tree``'s
+    structure) says which leaves are this rank's blocks of a split
+    leaf: the squares of the leaves split over the same axes are summed,
+    then over those axes, and every leaf held whole is counted once.
+    Every rank gets the same bits."""
+    if mesh is None or layouts is None:
         return torch.sqrt(sum(x.float().square().sum()
                               for _, x in tree_paths(tree)))
     # imported here: repro_torch.distributed imports this package
     from repro_torch.distributed import collectives
-    split = [s for _, s in tree_paths(sharded)]
+    axes = [lay.axes for _, lay in tree_paths(layouts)]
     sq = [x.float().square().sum() for _, x in tree_paths(tree)]
     zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-    part = sum((q for q, s in zip(sq, split) if s), zero)
-    whole = sum((q for q, s in zip(sq, split) if not s), zero)
-    return torch.sqrt(collectives.psum(part, mesh, "model") + whole)
+    total = zero
+    for group in sorted({a for a in axes if a}):
+        part = sum((q for q, a in zip(sq, axes) if a == group), zero)
+        total = total + collectives.psum(part, mesh, group)
+    whole = sum((q for q, a in zip(sq, axes) if not a), zero)
+    return torch.sqrt(total + whole)
 
 
-def clip_by_global_norm(grads, max_norm: float, mesh=None, sharded=None):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, layouts=None):
     """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm): new
     tensors of the grads' dtypes. The scale stays on the device. On a
     mesh the norm is the whole tree's (``global_norm``)."""
-    norm = global_norm(grads, mesh, sharded)
+    norm = global_norm(grads, mesh, layouts)
     scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
                         max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
@@ -222,8 +262,33 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # Adafactor (factored second moments; state ~ O(P/D) for matrices)
 # ---------------------------------------------------------------------------
 
+def _mean(x: torch.Tensor, dim: int, layout: Optional[Layout] = None,
+          of: Optional[int] = None, keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole leaf: where ``layout`` splits the
+    leaf's dim ``of`` (``dim`` by default), the rank's sum summed over
+    the axes that split it and divided by the dim's whole extent."""
+    of = dim if of is None else of
+    if layout is None or not layout.dims[of]:
+        return x.mean(dim, keepdim=keepdim)
+    return layout.sum(x.sum(dim, keepdim=keepdim), of) / layout.shape[of]
+
+
+def _mean_all(x: torch.Tensor, layout: Optional[Layout] = None
+              ) -> torch.Tensor:
+    """``x.mean()`` of the whole leaf of which ``x`` is the rank's
+    block."""
+    if layout is None or not layout.axes:
+        return x.mean()
+    return layout.sum(x.sum(), *range(x.dim())) / float(
+        np.prod(layout.shape))
+
+
 def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
+    """The reference's Adafactor. ``update(grads, state, params,
+    layouts=None)``: on a mesh, ``layouts`` (a tree of ``Layout``s of the
+    params' structure) makes every row and column mean, the normaliser
+    and the update's RMS those of the whole leaf (module docstring)."""
     sched = _as_schedule(lr)
 
     def _factored(shape):
@@ -239,13 +304,13 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         return {"fac": tree_map(per_leaf, params), "step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, layouts=None):
         step = state["step"] + 1
         lr_t = _lr(sched, step)
         beta = F32(1.0) - F32(step) ** F32(-decay)
         keep = float(F32(1.0) - beta)
 
-        def per_leaf(p, g, st):
+        def per_leaf(p, g, st, lay=None):
             # the reference's ops in place where it keeps no operand, so
             # at most two fp32 copies of a leaf are alive at once (a
             # MoE's stacked expert leaf is GBs in fp32); the same bits.
@@ -253,23 +318,28 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
             g32 = g.to(torch.float32, copy=True)
             g2 = g32.square().add_(eps)
             if _factored(p.shape):
-                vr = st["vr"].mul_(float(beta)).add_(keep * g2.mean(-1))
-                vc = st["vc"].mul_(float(beta)).add_(keep * g2.mean(-2))
+                vr = st["vr"].mul_(float(beta)).add_(
+                    keep * _mean(g2, -1, lay))
+                vc = st["vc"].mul_(float(beta)).add_(
+                    keep * _mean(g2, -2, lay))
                 del g2
+                # vr's last dim is the leaf's second-to-last
+                norm = _mean(vr, -1, lay, of=-2, keepdim=True)
                 denom = (vr[..., None] * vc[..., None, :]).div_(
-                    torch.clamp(vr.mean(-1, keepdim=True)[..., None],
-                                min=eps))
+                    torch.clamp(norm[..., None], min=eps))
                 upd = g32.div_(denom.add_(eps).sqrt_())
                 del denom
             else:
                 v = st["v"].mul_(float(beta)).add_(keep * g2)
                 del g2
                 upd = g32.div_(torch.sqrt(v + eps))
-            rms = torch.sqrt(upd.square().mean() + eps)
+            rms = torch.sqrt(_mean_all(upd.square(), lay) + eps)
             upd.div_(torch.clamp(rms / clip_threshold, min=1.0))
             return _write(p, upd.mul_(lr_t))
 
-        return (tree_map(per_leaf, params, grads, state["fac"]),
+        trees = (params, grads, state["fac"]) + (
+            () if layouts is None else (layouts,))
+        return (tree_map(per_leaf, *trees),
                 {"fac": state["fac"], "step": step})
 
     return Optimizer(init, update)
@@ -354,28 +424,34 @@ def layerwise(opt: Optimizer, min_layers: int = 8) -> Optimizer:
     def init(params):
         return opt.init(params)
 
-    def update(grads, state, params):
+    def update(grads, state, params, layouts=None):
+        # ``layouts`` (a mesh's, for Adafactor) go to ``opt`` sliced as
+        # the params are
+        kw = {} if layouts is None else {"layouts": layouts}
         if not isinstance(params, dict):
-            return opt.update(grads, state, params)
+            return opt.update(grads, state, params, **kw)
         step = state.get("step")
         # state trees mirror params one level down inside each state field
         fields = [k for k in state if k != "step"]
         for key, p_sub in params.items():
             g_sub = grads[key]
             s_sub = {f: state[f][key] for f in fields}
+            l_kw = {} if layouts is None else {"layouts": layouts[key]}
             n = _stacked_dim(p_sub, min_layers)
             if n is not None and _stacked_dim(g_sub, min_layers) == n and all(
                     _stacked_dim(s_sub[f], min_layers) == n for f in fields):
+                if l_kw:
+                    l_kw["layouts"] = tree_map(Layout.layer, l_kw["layouts"])
                 for i in range(n):
                     def layer(tree, i=i):
                         return tree_map(lambda t: t[i], tree)
                     st_l = {f: layer(s_sub[f]) for f in fields}
                     st_l["step"] = step
-                    opt.update(layer(g_sub), st_l, layer(p_sub))
+                    opt.update(layer(g_sub), st_l, layer(p_sub), **l_kw)
             else:
                 st = dict(s_sub)
                 st["step"] = step
-                opt.update(g_sub, st, p_sub)
+                opt.update(g_sub, st, p_sub, **l_kw)
         new_s = {f: state[f] for f in fields}
         new_s["step"] = step + 1
         return params, new_s

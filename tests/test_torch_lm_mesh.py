@@ -23,7 +23,7 @@ coordinates; a sharded DLRM
 publisher's broadcast served by ``Replica(mesh=, shards=)``; the LM
 launcher's ``--shards 2`` (its loss against the one-rank launcher's, and
 its resume bit for bit); the serve launcher's LM under ``--mesh``; and
-every refusal that names ROADMAP item 13d.
+every refusal, which names ROADMAP item 13e.
 
 Tolerances, from the reference's own gap between its mesh and one-device
 steps (qwen 5.552182 / 5.552210, max |dparam| 9.8e-4, one bf16 ulp at
@@ -740,7 +740,7 @@ def test_lm_launcher_trains_and_resumes_on_shards(tmp_path):
 
 @pytest.mark.parametrize("arch,ok", (("qwen1.5-4b", True),
                                      ("internvl2-2b", True),
-                                     ("minicpm3-4b", False),
+                                     ("minicpm3-4b", True),
                                      ("rwkv6-7b", False)))
 def test_lm_launcher_takes_shards_for_ported_families(arch, ok):
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--shards", "2",
@@ -751,7 +751,7 @@ def test_lm_launcher_takes_shards_for_ported_families(arch, ok):
     err = io.StringIO()
     with pytest.raises(SystemExit), redirect_stderr(err):
         t_train.parse_args(argv)
-    assert "item 13d" in err.getvalue()
+    assert "item 13e" in err.getvalue()
 
 
 def test_serve_launcher_serves_an_lm_unsharded_under_a_mesh():
@@ -777,27 +777,46 @@ MESH2 = Mesh((("data", None, 0, 1), ("model", None, 0, 2)))
                                   "minicpm3-4b", "recurrentgemma-9b",
                                   "rwkv6-7b", "seamless-m4t-large-v2"))
 def test_unported_families_refuse_a_mesh(arch):
+    """The hybrid, ssm and encoder-decoder families refuse a mesh, naming
+    ROADMAP item 13e; the MoE and MLA decoders (item 13d) take one
+    (``tests/test_torch_lm_mesh_moe.py``, ``test_torch_lm_mesh_mla.py``
+    run them)."""
     cfg = _cfg(arch)
-    for make in (lambda: api.make_train_step(cfg, mesh=MESH2),
-                 lambda: api.make_prefill_step(cfg, 16, mesh=MESH2),
-                 lambda: api.make_decode_fn(cfg, mesh=MESH2)):
-        with pytest.raises(NotImplementedError, match="item 13d"):
+    makes = (lambda: api.make_train_step(cfg, mesh=MESH2),
+             lambda: api.make_prefill_step(cfg, 16, mesh=MESH2),
+             lambda: api.make_decode_fn(cfg, mesh=MESH2),
+             lambda: api.init_cache(cfg, 1, 8, device="cpu", mesh=MESH2))
+    if cfg.moe is not None or cfg.attention.kind == "mla":
+        for make in makes:
             make()
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        api.init_cache(cfg, 1, 8, device="cpu", mesh=MESH2)
+        with sharding.use_mesh(MESH2):
+            transformer.init_cache(cfg, 1, 8, device="cpu")
+        assert api.mesh_ported(cfg)
+        return
+    for make in makes:
+        with pytest.raises(NotImplementedError, match="item 13e"):
+            make()
     if not cfg.is_encdec:
         # the model code itself, under the active mesh
         with sharding.use_mesh(MESH2), \
-                pytest.raises(NotImplementedError, match="item 13d"):
+                pytest.raises(NotImplementedError, match="item 13e"):
             transformer.init_cache(cfg, 1, 8, device="cpu")
     assert not api.mesh_ported(cfg)
 
 
 def test_adafactor_refuses_a_mesh():
+    """Adafactor takes a mesh (its statistics across shards: ``tests/
+    test_torch_lm_mesh_mla.py``), and its state has specs there; an
+    optimizer the mesh steps do not take is refused, not run on one
+    rank."""
     cfg = _cfg("qwen1.5-4b")
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        api.make_train_step(cfg, optimizer=("adafactor", adafactor(1e-3)),
-                            mesh=MESH2)
+    name, opt, _ = api.make_train_step(
+        cfg, optimizer=("adafactor", adafactor(1e-3)), mesh=MESH2)
+    _, state_sh, _ = api.train_state_specs(cfg, name, opt, MESH2)
+    assert state_sh["fac"]["layers"]["attn"]["wq"]["vr"].spec == (None, None)
+    other = ("rowwise_adagrad", adafactor(1e-3))
+    with pytest.raises(ValueError, match="mesh steps take"):
+        api.make_train_step(cfg, optimizer=other, mesh=MESH2)
     # one rank is no mesh
-    api.make_train_step(cfg, optimizer=("adafactor", adafactor(1e-3)),
+    api.make_train_step(cfg, optimizer=other,
                         mesh=Mesh((("model", None, 0, 1),)))
